@@ -1,0 +1,168 @@
+"""Loader for the hand-written CUDA kernels in ``csrc/``.
+
+Each ``csrc/<name>.cu`` is compiled at first use by its own ``nvcc`` call
+into a shared library with a plain C interface (no PyTorch headers, so a
+build takes seconds), under ``analytics_zoo_torch/_build/``, and loaded
+with ``ctypes``.  The library's file name carries a hash of its source
+and flags, so an edited source is rebuilt.  ``build_all`` starts every
+build at once.  A missing ``nvcc`` or a failed build raises: there is no
+fallback to the plain versions for CUDA tensors.
+
+Every C entry point launches on the stream it is given, allocates
+nothing, and returns ``cudaGetLastError()``; ``launch`` turns a non-zero
+return into an exception.  ``LAUNCHES`` counts, per kernel, the launches
+the wrappers made through ``launch``, and nothing else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict, List
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(os.path.dirname(_HERE), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
+
+# no --use_fast_math: the tolerances assume IEEE expf/tanhf/sqrtf
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+# kernel name -> (C entry point, argtypes)
+SIGNATURES = {
+    # q, k, v, o, lse, bh, t, d, scale, causal, stream
+    "flash_attention_fwd": ("zoo_flash_attention_fwd",
+                            [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P]),
+    # x, bias, out, rows, d, stream
+    "bias_gelu": ("zoo_bias_gelu", [_P, _P, _P, _I, _I, _P]),
+    # x, gamma, beta, out, rows, d, eps, act (0 none, 1 gelu), stream
+    "layernorm_act": ("zoo_layernorm_act",
+                      [_P, _P, _P, _P, _I, _I, _F, _I, _P]),
+}
+
+LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(LAUNCHES)
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "nvcc")
+    if os.path.isfile(cand):
+        return cand
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin): the CUDA kernels in "
+        f"{CSRC_DIR} are built at first use and need the CUDA toolkit")
+
+
+def source_path(name: str) -> str:
+    return os.path.join(CSRC_DIR, f"{name}.cu")
+
+
+def library_path(name: str) -> str:
+    with open(source_path(name), "rb") as f:
+        digest = hashlib.sha256(
+            f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+
+
+def _start_build(name: str):
+    """Start one nvcc; returns (Popen, tmp path, final path) or None when
+    the library for this source is already built."""
+    out = library_path(name)
+    if os.path.isfile(out):
+        return None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, source_path(name)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish_build(name: str, started) -> None:
+    if started is None:
+        return
+    proc, tmp, out = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise RuntimeError(f"nvcc failed for {name}.cu "
+                           f"(exit {proc.returncode}):\n{log}")
+    os.replace(tmp, out)      # atomic: a concurrent builder sees all or nothing
+
+
+def _load(name: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(library_path(name))
+    entry, argtypes = SIGNATURES[name]
+    fn = getattr(lib, entry)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def build_all(names: List[str] = None) -> None:
+    """Build (one nvcc per source, all started together) and load every
+    kernel library not yet loaded in this process."""
+    names = list(names or SIGNATURES)
+    with _lock:
+        todo = [n for n in names if n not in _libs]
+        started = {}
+        try:
+            for n in todo:
+                started[n] = _start_build(n)
+        finally:
+            # reap whatever was started, even if a later start raised
+            errors = []
+            for n, s in started.items():
+                try:
+                    _finish_build(n, s)
+                except RuntimeError as e:
+                    errors.append(str(e))
+            if errors:
+                raise RuntimeError("\n".join(errors))
+        for n in todo:
+            _libs[n] = _load(n)
+
+
+def entry(name: str):
+    """The C entry point of kernel ``name``, building it at first use."""
+    if name not in _libs:
+        build_all([name])
+    return getattr(_libs[name], SIGNATURES[name][0])
+
+
+def launch(name: str, device, *args) -> None:
+    """Launch kernel ``name`` on the current stream of ``device`` (which
+    must be the current CUDA device), raise if the launch was refused,
+    and count it."""
+    import torch
+    if device.index != torch.cuda.current_device():
+        raise ValueError(
+            f"{name}: tensors on {device} but the current CUDA device is "
+            f"cuda:{torch.cuda.current_device()}")
+    err = entry(name)(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"CUDA kernel {name} failed to launch: cudaError {err}")
+    LAUNCHES[name] += 1

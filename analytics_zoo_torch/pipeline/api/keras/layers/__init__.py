@@ -1,0 +1,18 @@
+from analytics_zoo_torch.pipeline.api.keras.layers.core import (
+    Dense, Dropout, Flatten, Lambda,
+)
+from analytics_zoo_torch.pipeline.api.keras.layers.embedding import Embedding
+from analytics_zoo_torch.pipeline.api.keras.layers.merge import Merge, merge
+from analytics_zoo_torch.pipeline.api.keras.layers.normalization import (
+    LayerNorm,
+)
+from analytics_zoo_torch.pipeline.api.keras.layers.pooling import (
+    GlobalMaxPooling1D,
+)
+from analytics_zoo_torch.pipeline.api.keras.layers.attention import (
+    MultiHeadSelfAttention, PositionwiseFeedForward, transformer_block,
+)
+
+__all__ = ["Dense", "Dropout", "Flatten", "Lambda", "Embedding", "Merge",
+           "merge", "LayerNorm", "GlobalMaxPooling1D", "MultiHeadSelfAttention",
+           "PositionwiseFeedForward", "transformer_block"]

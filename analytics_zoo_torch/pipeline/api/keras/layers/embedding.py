@@ -1,0 +1,47 @@
+"""Embedding layer (port of ``pipeline/api/keras/layers/embedding.py``):
+a gather of rows from a device-resident table."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from analytics_zoo_torch.pipeline.api.keras.engine import Layer, Params
+
+
+class Embedding(Layer):
+    """Integer ids (B, T) -> vectors (B, T, D)."""
+
+    def __init__(self, input_dim: int, output_dim: int, init="uniform",
+                 mask_zero: bool = False,
+                 parallel_mode: Optional[str] = None, **kwargs):
+        super().__init__(**kwargs)
+        if parallel_mode is not None:
+            raise NotImplementedError(
+                "Embedding(parallel_mode=...): tensor parallelism comes "
+                "with the multi-GPU slice of the port (ROADMAP.md)")
+        self.input_dim = int(input_dim)
+        self.output_dim = int(output_dim)
+        self.kernel_init = init
+        self.mask_zero = mask_zero
+
+    def build(self, rng, input_shape) -> Params:
+        params: Params = {}
+        self.add_weight(params, rng, "embeddings",
+                        (self.input_dim, self.output_dim),
+                        init=self.kernel_init)
+        return params
+
+    def call(self, params, x, training=False, rng=None):
+        # the reference casts to int32; ids index in int64 here
+        ids = x.to(torch.int32).long()
+        table = params["embeddings"]
+        out = table.index_select(0, ids.reshape(-1)).reshape(
+            *ids.shape, table.shape[-1])
+        if self.mask_zero:
+            out = out * (ids != 0).unsqueeze(-1).to(out.dtype)
+        return out
+
+    def compute_output_shape(self, input_shape):
+        return tuple(input_shape) + (self.output_dim,)

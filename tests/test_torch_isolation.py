@@ -1,0 +1,109 @@
+"""PyTorch port, isolation: importing the port (and every module of the
+serving slice) pulls in neither ``jax`` nor ``analytics_zoo_tpu``, and
+the context refuses to fall back to the CPU quietly.  Each check runs
+in a fresh interpreter, since this test process has both loaded."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT = REPO / "analytics_zoo_torch"
+
+SLICE_MODULES = [
+    "analytics_zoo_torch",
+    "analytics_zoo_torch.common.config",
+    "analytics_zoo_torch.common.zoo_context",
+    "analytics_zoo_torch.ops.dtypes",
+    "analytics_zoo_torch.ops.initializers",
+    "analytics_zoo_torch.ops.activations",
+    "analytics_zoo_torch.ops.attention",
+    "analytics_zoo_torch.ops.flash_attention",
+    "analytics_zoo_torch.ops.fused",
+    "analytics_zoo_torch.ops.kernels",
+    "analytics_zoo_torch.pipeline.api.keras",
+    "analytics_zoo_torch.pipeline.api.keras.layers",
+    "analytics_zoo_torch.models.textclassification",
+    "analytics_zoo_torch.pipeline.inference",
+    "analytics_zoo_torch.interop",
+]
+
+
+def _run(code: str) -> subprocess.CompletedProcess:
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    return subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+
+
+def test_port_imports_no_jax_and_no_reference_package():
+    code = "\n".join(
+        [f"import {m}" for m in SLICE_MODULES] +
+        ["import sys",
+         "bad = sorted(m for m in sys.modules if m == 'jax' or "
+         "m.startswith(('jax.', 'jaxlib', 'analytics_zoo_tpu')))",
+         "print('LOADED', bad)",
+         "sys.exit(1 if bad else 0)"])
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_port_sources_import_neither():
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax|jaxlib|analytics_zoo_tpu)\b", re.M)
+    offenders = [str(p.relative_to(REPO)) for p in PORT.rglob("*.py")
+                 if pattern.search(p.read_text())]
+    assert offenders == []
+
+
+def test_context_without_a_gpu_raises_unless_cpu_is_asked_for():
+    code = "\n".join([
+        "import torch",
+        "torch.cuda.is_available = lambda: False",
+        "from analytics_zoo_torch import init_zoo_context, reset_zoo_context",
+        "try:",
+        "    init_zoo_context()",
+        "except RuntimeError as e:",
+        "    assert \"device='cpu'\" in str(e), e",
+        "else:",
+        "    raise SystemExit('no error without a GPU')",
+        "ctx = init_zoo_context(device='cpu')",
+        "assert ctx.device.type == 'cpu'",
+        "assert torch.backends.cuda.matmul.allow_tf32 is False",
+        "assert torch.backends.cudnn.allow_tf32 is False",
+        "print('OK')",
+    ])
+    proc = _run(code)
+    assert proc.returncode == 0 and "OK" in proc.stdout, \
+        proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("device", ["cuda", "cuda:0"])
+def test_model_init_without_a_gpu_raises(device):
+    code = "\n".join([
+        "import torch",
+        "torch.cuda.is_available = lambda: False",
+        "from analytics_zoo_torch import init_zoo_context",
+        "from analytics_zoo_torch.pipeline.api.keras.layers import Dense",
+        "from analytics_zoo_torch.pipeline.api.keras import Input, Model",
+        "x = Input(shape=(4,))",
+        "m = Model(x, Dense(2)(x))",
+        "try:",
+        f"    init_zoo_context(device={device!r})",
+        "except RuntimeError:",
+        "    pass",
+        "else:",
+        "    raise SystemExit('no error without a GPU')",
+        "try:",
+        "    m.init()",
+        "except RuntimeError:",
+        "    print('OK')",
+    ])
+    proc = _run(code)
+    assert proc.returncode == 0 and "OK" in proc.stdout, \
+        proc.stdout + proc.stderr

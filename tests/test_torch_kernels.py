@@ -1,0 +1,224 @@
+"""PyTorch port, kernel modules: each plain version against the JAX
+package's Pallas kernel run in interpret mode on the CPU, the CPU routing
+of the kernel wrappers, and the kernel loader's build step.
+
+The CUDA kernels themselves run only on a card:
+tests/test_torch_kernels_cuda.py and chip_smoke.py hold them against
+these plain versions there."""
+
+import os
+import stat
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from analytics_zoo_tpu.ops import activations as jacts
+from analytics_zoo_tpu.ops import fused as jfused
+from analytics_zoo_tpu.ops.attention import (
+    scaled_dot_product_attention as j_sdpa,
+)
+from analytics_zoo_tpu.ops.pallas_attention import (
+    _flash_fwd_impl, flash_attention as j_flash,
+)
+
+from analytics_zoo_torch.common import config as tconfig
+from analytics_zoo_torch.ops import activations as tacts
+from analytics_zoo_torch.ops import flash_attention as tfa
+from analytics_zoo_torch.ops import fused as tfused
+from analytics_zoo_torch.ops import kernels
+from analytics_zoo_torch.ops.attention import (
+    scaled_dot_product_attention as t_sdpa,
+)
+
+
+@pytest.fixture(autouse=True)
+def _port_config():
+    tconfig.reset_config()
+    kernels.reset_launch_counts()
+    yield
+    tconfig.reset_config()
+
+
+def _qkv(seed, shape=(2, 2, 128, 64)):
+    rs = np.random.RandomState(seed)
+    return [rs.randn(*shape).astype(np.float32) for _ in range(3)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_ref_matches_pallas_interpret(causal):
+    q, k, v = _qkv(0)
+    scale = 64 ** -0.5
+    jo, jl = _flash_fwd_impl(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             (causal, scale, 64, 64, True))
+    to, tl = tfa.flash_attention_ref(torch.from_numpy(q), torch.from_numpy(k),
+                                     torch.from_numpy(v), causal=causal,
+                                     scale=scale)
+    assert tl.shape == jl.shape == (4, 128, 1)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo),
+                               atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl),
+                               atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_public_entry_matches_reference(causal):
+    q, k, v = _qkv(1)
+    want = j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                   causal=causal, block_q=64, block_k=64, interpret=True)
+    got = tfa.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("causal,masked", [(False, False), (True, False),
+                                           (False, True)])
+def test_dense_attention_matches_reference(causal, masked):
+    q, k, v = _qkv(2, (2, 3, 40, 16))
+    mask = None
+    if masked:
+        mask = (np.random.RandomState(3).rand(2, 1, 1, 40) > 0.3)
+        mask = mask.astype(np.float32)
+    want = j_sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                  mask=None if mask is None else jnp.asarray(mask),
+                  causal=causal)
+    got = t_sdpa(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                 mask=None if mask is None else torch.from_numpy(mask),
+                 causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=1e-5, rtol=1e-5)
+
+
+def test_bias_gelu_ref_matches_pallas_interpret():
+    rs = np.random.RandomState(4)
+    x = rs.randn(64, 256).astype(np.float32)
+    b = rs.randn(256).astype(np.float32)
+    want = jfused.bias_gelu(jnp.asarray(x), jnp.asarray(b), interpret=True)
+    got = tfused.bias_gelu_ref(torch.from_numpy(x), torch.from_numpy(b))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("act", ["gelu", None])
+def test_layernorm_act_ref_matches_pallas_interpret(act):
+    rs = np.random.RandomState(5)
+    x = rs.randn(64, 256).astype(np.float32)
+    g = (rs.rand(256) + 0.5).astype(np.float32)
+    b = rs.randn(256).astype(np.float32)
+    want = jfused.layernorm_act(jnp.asarray(x), jnp.asarray(g),
+                                jnp.asarray(b), eps=1e-5,
+                                activation=jacts.get(act), interpret=True)
+    got = tfused.layernorm_act_ref(torch.from_numpy(x), torch.from_numpy(g),
+                                   torch.from_numpy(b), eps=1e-5,
+                                   activation=tacts.get(act))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["gelu", "gelu_erf", "relu", "tanh"])
+def test_activations_match_reference(name):
+    x = np.linspace(-6, 6, 1001, dtype=np.float32)
+    want = jacts.get(name)(jnp.asarray(x))
+    got = tacts.get(name)(torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("mode", ["auto", "torch"])
+def test_cpu_tensors_take_the_plain_version_and_launch_nothing(
+        monkeypatch, mode):
+    def no_kernel(name):
+        raise AssertionError(f"kernel {name} reached for a CPU tensor")
+    monkeypatch.setattr(kernels, "entry", no_kernel)
+    tconfig.get_config().set("ops.fused", mode)
+    q, k, v = (torch.from_numpy(a) for a in _qkv(6))
+    x = torch.randn(16, 64, generator=torch.Generator().manual_seed(0))
+    bias, gamma = torch.zeros(64), torch.ones(64)
+    assert torch.equal(tfa.flash_attention(q, k, v),
+                       tfa.flash_attention_ref(q, k, v)[0])
+    assert torch.equal(tfused.bias_gelu(x, bias),
+                       tfused.bias_gelu_ref(x, bias))
+    assert torch.equal(
+        tfused.layernorm_act(x, gamma, bias, activation=tacts.gelu),
+        tfused.layernorm_act_ref(x, gamma, bias, activation=tacts.gelu))
+    assert kernels.launch_counts() == {name: 0 for name in kernels.SIGNATURES}
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(7))
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention_fwd(q, k, v)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfused.bias_gelu_kernel(torch.zeros(4, 8), torch.zeros(8))
+    with pytest.raises(ValueError, match="CUDA"):
+        tfused.layernorm_act_kernel(torch.zeros(4, 8), torch.ones(8),
+                                    torch.zeros(8))
+    assert sum(kernels.launch_counts().values()) == 0
+
+
+def test_unknown_fused_mode_raises():
+    tconfig.get_config().set("ops.fused", "lax")
+    with pytest.raises(ValueError, match="ops.fused"):
+        tfused.fused_enabled()
+
+
+def test_missing_nvcc_is_an_error(monkeypatch, tmp_path):
+    monkeypatch.setattr(kernels.shutil, "which", lambda _: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(kernels, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(kernels, "_libs", {})
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kernels.build_all()
+
+
+def _fake_nvcc(tmp_path, body):
+    path = tmp_path / "nvcc"
+    path.write_text("#!/bin/sh\n" + body)
+    path.chmod(path.stat().st_mode | stat.S_IEXEC)
+    return str(path)
+
+
+def test_build_runs_one_nvcc_per_source_with_the_stated_flags(
+        monkeypatch, tmp_path):
+    log = tmp_path / "calls"
+    # records its arguments and writes the -o target, like nvcc
+    nvcc = _fake_nvcc(tmp_path, f'echo "$@" >> {log}\n'
+                      'while [ $# -gt 0 ]; do [ "$1" = -o ] && : > "$2"; '
+                      'shift; done\n')
+    monkeypatch.setattr(kernels, "nvcc_path", lambda: nvcc)
+    monkeypatch.setattr(kernels, "BUILD_DIR", str(tmp_path / "build"))
+    started = {n: kernels._start_build(n) for n in kernels.SIGNATURES}
+    for n, s in started.items():
+        kernels._finish_build(n, s)
+    calls = log.read_text().splitlines()
+    assert len(calls) == len(kernels.SIGNATURES)
+    for n in kernels.SIGNATURES:
+        call = next(c for c in calls if c.endswith(f"csrc/{n}.cu"))
+        assert "arch=compute_90a,code=sm_90a" in call
+        assert "-shared" in call and "fast_math" not in call
+        assert os.path.isfile(kernels.library_path(n))
+    # a built library is reused: no second nvcc run
+    assert all(kernels._start_build(n) is None for n in kernels.SIGNATURES)
+
+
+def test_failed_build_raises_with_the_compiler_log(monkeypatch, tmp_path):
+    nvcc = _fake_nvcc(tmp_path, 'echo "error: no sm_90a here"; exit 2\n')
+    monkeypatch.setattr(kernels, "nvcc_path", lambda: nvcc)
+    monkeypatch.setattr(kernels, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(kernels, "_libs", {})
+    with pytest.raises(RuntimeError, match="no sm_90a here"):
+        kernels.build_all(["bias_gelu"])
+    assert not os.listdir(tmp_path / "build")
+
+
+def test_library_name_follows_the_source(monkeypatch, tmp_path):
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "bias_gelu.cu").write_text("// one")
+    monkeypatch.setattr(kernels, "CSRC_DIR", str(src))
+    first = kernels.library_path("bias_gelu")
+    (src / "bias_gelu.cu").write_text("// two")
+    assert kernels.library_path("bias_gelu") != first

@@ -1,0 +1,169 @@
+"""PyTorch port, the whole serving slice: a transformer TextClassifier
+built in both packages, the JAX weights carried over with
+``load_jax_variables``, and ``InferenceModel.predict`` compared on one
+integer batch, with a batch size that divides it and one that pads."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from analytics_zoo_tpu.models.textclassification.text_classifier import (
+    TextClassifier as JTextClassifier,
+)
+from analytics_zoo_tpu.ops import dtypes as jdtypes
+from analytics_zoo_tpu.pipeline.api.keras.engine import Layer as JLayer
+from analytics_zoo_tpu.pipeline.inference.inference_model import (
+    InferenceModel as JInferenceModel,
+)
+
+from analytics_zoo_torch.common import config as tconfig
+from analytics_zoo_torch.common import zoo_context as tctx
+from analytics_zoo_torch.interop import load_jax_variables
+from analytics_zoo_torch.models.textclassification import TextClassifier
+from analytics_zoo_torch.ops import dtypes as tdtypes
+from analytics_zoo_torch.ops import kernels
+from analytics_zoo_torch.pipeline.api.keras.engine import Layer as TLayer
+from analytics_zoo_torch.pipeline.inference import InferenceModel
+
+CONFIG = dict(class_num=5, token_length=128, sequence_length=256,
+              encoder="transformer", n_head=2, n_block=2, max_words_num=100)
+
+# Under the default policy both packages round every product's operands
+# to bf16.  The roundings are the same operations, but their inputs come
+# out of f32 sums taken in different orders (XLA vs PyTorch); where two
+# such sums straddle a bf16 rounding boundary, one operand moves by one
+# bf16 step (2^-8 relative) and carries through the following layers.
+# Seen on the CPU: 2.9e-3 on logits of magnitude 0.77; bound 1e-2.
+BF16_ATOL = 1e-2
+
+
+@pytest.fixture(autouse=True)
+def _port_cpu():
+    tctx.reset_zoo_context()
+    tconfig.reset_config()
+    tdtypes.restore_policy(None)
+    tctx.init_zoo_context(device="cpu")
+    kernels.reset_launch_counts()
+    yield
+    tdtypes.restore_policy(None)
+    tctx.reset_zoo_context()
+    tconfig.reset_config()
+
+
+def _key_paths(tree, prefix=()):
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in
+                _key_paths(tree[k], prefix + (k,))]
+    return [(prefix, tuple(tree.shape))]
+
+
+def _both_models():
+    JLayer.reset_name_counters()
+    jmodel = JTextClassifier(**CONFIG)
+    jvars = jax.tree_util.tree_map(np.asarray, jmodel.get_variables())
+    TLayer.reset_name_counters()
+    tmodel = TextClassifier(**CONFIG)
+    load_jax_variables(tmodel, jvars)
+    return jmodel, tmodel
+
+
+def _tokens():
+    return np.random.RandomState(0).randint(0, 101, size=(4, 256))
+
+
+def _predict_both(batch_size):
+    jmodel, tmodel = _both_models()
+    assert _key_paths(jmodel.get_variables()["params"]) == \
+        _key_paths(tmodel.get_variables()["params"])
+    x = _tokens()
+    want = JInferenceModel().load_zoo(jmodel).predict(x, batch_size=batch_size)
+    got = InferenceModel().load_zoo(tmodel).predict(x, batch_size=batch_size)
+    assert got.shape == want.shape == (4, 5)
+    assert np.isfinite(got).all()
+    assert sum(kernels.launch_counts().values()) == 0
+    return got, np.asarray(want)
+
+
+@pytest.mark.parametrize("batch_size", [4, 3])
+def test_slice_matches_reference_f32(f32_policy, batch_size):
+    tdtypes.set_policy(param_dtype="float32", compute_dtype="float32")
+    got, want = _predict_both(batch_size)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("batch_size", [4, 3])
+def test_slice_matches_reference_bf16_compute(batch_size):
+    assert jdtypes.get_policy().compute_dtype == jax.numpy.bfloat16
+    assert tdtypes.get_policy().compute_dtype == torch.bfloat16
+    got, want = _predict_both(batch_size)
+    np.testing.assert_allclose(got, want, atol=BF16_ATOL, rtol=0)
+
+
+def test_key_paths_and_shapes_match_reference():
+    jmodel, tmodel = _both_models()
+    jparams = jmodel.get_variables()["params"]
+    tparams = tmodel.get_variables()["params"]
+    assert _key_paths(jparams) == _key_paths(tparams)
+    assert "multiheadselfattention_1" in tparams
+    assert tuple(tparams["multiheadselfattention_1"]["qkv_kernel"].shape) \
+        == (128, 384)
+    for layer, params in tparams.items():
+        for name, t in params.items():
+            np.testing.assert_array_equal(t.numpy(),
+                                          np.asarray(jparams[layer][name]))
+
+
+def test_carry_over_rejects_a_different_tree():
+    _, tmodel = _both_models()
+    good = {"params": {k: {p: t.numpy() for p, t in v.items()}
+                       for k, v in tmodel.get_variables()["params"].items()},
+            "state": {k: {} for k in tmodel.get_variables()["state"]}}
+    bad = {**good, "params": dict(good["params"])}
+    del bad["params"]["dense_1"]
+    with pytest.raises(ValueError, match="missing keys"):
+        load_jax_variables(tmodel, bad)
+    bad["params"] = {**good["params"], "extra_1": {}}
+    with pytest.raises(ValueError, match="extra keys"):
+        load_jax_variables(tmodel, bad)
+    bad["params"] = {**good["params"],
+                     "dense_1": {**good["params"]["dense_1"],
+                                 "kernel": np.zeros((3, 3), np.float32)}}
+    with pytest.raises(ValueError, match="shape"):
+        load_jax_variables(tmodel, bad)
+    bad["params"]["dense_1"]["kernel"] = \
+        good["params"]["dense_1"]["kernel"].astype(np.float64)
+    with pytest.raises(ValueError, match="dtype"):
+        load_jax_variables(tmodel, bad)
+    load_jax_variables(tmodel, good)
+
+
+def test_get_and_set_weights_round_trip():
+    jmodel, tmodel = _both_models()
+    weights = tmodel.get_weights()
+    ref = jmodel.model.get_weights()
+    assert [w.shape for w in weights] == [w.shape for w in ref]
+    for a, b in zip(weights, ref):
+        np.testing.assert_array_equal(a, b)
+    tmodel.set_weights([w * 2 for w in weights])
+    for a, b in zip(tmodel.get_weights(), ref):
+        np.testing.assert_array_equal(a, b * 2)
+    with pytest.raises(ValueError, match="arrays"):
+        tmodel.set_weights(weights[:-1])
+
+
+@pytest.mark.parametrize("encoder", ["cnn", "lstm", "gru"])
+def test_other_encoders_wait_for_their_layers(encoder):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TextClassifier(**{**CONFIG, "encoder": encoder})
+
+
+def test_inference_paths_not_ported_raise():
+    _, tmodel = _both_models()
+    with pytest.raises(NotImplementedError):
+        InferenceModel().load_zoo(tmodel, quantize=True)
+    with pytest.raises(NotImplementedError):
+        InferenceModel().load_torch(None, (3,))
+    with pytest.raises(NotImplementedError):
+        InferenceModel().load_tf("model_dir")
