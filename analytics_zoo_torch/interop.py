@@ -1,4 +1,4 @@
-"""Weight carry-over from the JAX package.
+"""Weight and optimizer-state carry-over from the JAX package.
 
 ``load_jax_variables(model, variables)`` takes the JAX model's
 ``get_variables()`` tree — ``{"params": {layer: {param: array}},
@@ -6,8 +6,17 @@
 into the port's model under the same key paths.  Both models must be
 built the same way (same layer order after ``reset_name_counters()``),
 so that their auto-names agree.  Shapes and dtypes are checked, and a
-missing or extra key raises.  This module never imports JAX: the caller
-turns the tree into numpy first.
+missing or extra key raises.
+
+``load_jax_opt_state(optim, opt_state)`` takes an optax state of the JAX
+package's optimizer (``ScaleByAdamState``/``TraceState``/
+``ScaleByScheduleState``/``EmptyState`` nested in tuples, every leaf a
+numpy array) and returns the port optimizer's state with the same
+layout and key paths, on the zoo context's device, so a run resumes
+where the JAX one stopped.
+
+This module never imports JAX or optax: the caller turns the trees into
+numpy first, and optax's state classes are recognised by name.
 """
 
 from __future__ import annotations
@@ -63,3 +72,72 @@ def load_jax_variables(model, variables: Dict[str, Any]) -> Dict[str, Any]:
                          "\n  ".join(errors))
     model.set_variables(new)
     return new
+
+
+def _to_port_state(node, device, path: str, errors: List[str]):
+    from analytics_zoo_torch.pipeline.api.keras import optimizers as opt
+    kinds = {cls.__name__: cls for cls in opt.STATE_TYPES}
+    name = type(node).__name__
+    if name in kinds and hasattr(node, "_fields"):
+        cls = kinds[name]
+        if tuple(node._fields) != tuple(cls._fields):
+            errors.append(f"{path}: {name} fields {node._fields} != "
+                          f"{cls._fields}")
+            return cls(*[None] * len(cls._fields))
+        return cls(*(_to_port_tree(getattr(node, f), device,
+                                   f"{path}/{name}.{f}", errors)
+                     for f in cls._fields))
+    if isinstance(node, tuple):
+        return tuple(_to_port_state(c, device, f"{path}/{i}", errors)
+                     for i, c in enumerate(node))
+    errors.append(f"{path}: unknown optimizer state {name}")
+    return node
+
+
+def _to_port_tree(node, device, path: str, errors: List[str]):
+    if isinstance(node, dict):
+        return {k: _to_port_tree(v, device, f"{path}/{k}", errors)
+                for k, v in node.items()}
+    arr = np.asarray(node)
+    if arr.dtype not in _NP_TO_TORCH:
+        errors.append(f"{path}: unsupported dtype {arr.dtype}")
+        return None
+    return torch.from_numpy(np.array(arr, copy=True)).to(device)
+
+
+def _layout(node, path=""):
+    """(key path, class name or (shape, dtype)) of every node, in order."""
+    if hasattr(node, "_fields"):
+        out = [(path, type(node).__name__)]
+        for f in node._fields:
+            out += _layout(getattr(node, f), f"{path}.{f}")
+        return out
+    if isinstance(node, tuple):
+        return [e for i, c in enumerate(node) for e in _layout(c, f"{path}/{i}")]
+    if isinstance(node, dict):
+        return [e for k in sorted(node) for e in _layout(node[k],
+                                                         f"{path}/{k}")]
+    return [(path, (tuple(node.shape), node.dtype))]
+
+
+def load_jax_opt_state(optim, opt_state):
+    """The port optimizer ``optim``'s state carried from ``opt_state``, an
+    optax state of the same optimizer exported from the JAX package (its
+    leaves numpy arrays).  Raises when the layouts differ."""
+    from analytics_zoo_torch.common.zoo_context import get_zoo_context
+    from analytics_zoo_torch.pipeline.api.keras import optimizers as opt
+    errors: List[str] = []
+    state = _to_port_state(opt_state, get_zoo_context().device, "", errors)
+    if not errors:
+        # the moments' trees stand in for the params the state belongs to
+        trees = [getattr(s, f) for s in opt.collect_states(state)
+                 for f in ("mu", "trace") if hasattr(s, f)]
+        want = _layout(optim.init(trees[0] if trees else {}))
+        got = _layout(state)
+        if want != got:
+            errors.append(f"layout {got} does not match the optimizer's "
+                          f"{want}")
+    if errors:
+        raise ValueError("load_jax_opt_state: the states differ:\n  " +
+                         "\n  ".join(errors))
+    return state

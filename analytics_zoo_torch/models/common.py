@@ -1,8 +1,8 @@
 """Model-zoo base class (port of ``models/common.py``).
 
 A ZooModel is a thin facade over an inner KerasNet graph built by
-``build_model``.  This slice serves, so only the variables surface
-delegates; compile/fit/evaluate come with the training slice.
+``build_model``; compile/fit/evaluate/predict and the variables surface
+delegate to it.
 """
 
 from __future__ import annotations
@@ -16,6 +16,19 @@ class ZooModel:
 
     def build_model(self):
         raise NotImplementedError
+
+    def compile(self, *args, **kwargs):
+        self.model.compile(*args, **kwargs)
+        return self
+
+    def fit(self, *args, **kwargs):
+        return self.model.fit(*args, **kwargs)
+
+    def evaluate(self, *args, **kwargs):
+        return self.model.evaluate(*args, **kwargs)
+
+    def predict(self, *args, **kwargs):
+        return self.model.predict(*args, **kwargs)
 
     def get_variables(self):
         return self.model.get_variables()

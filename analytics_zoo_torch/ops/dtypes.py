@@ -54,6 +54,30 @@ def restore_policy(policy: Policy) -> None:
     _policy = policy
 
 
+class _MatmulF32Out(torch.autograd.Function):
+    """``a @ b`` of two low-precision CUDA matrices with a float32 result
+    (``torch.mm(..., out_dtype=float32)``, which has no derivative of its
+    own).  The backward rounds the float32 cotangent to the operands'
+    dtype and takes the same tensor-core products, as mixed-precision
+    training does; each gradient is returned in the operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, b = ctx.saved_tensors
+        g = grad.to(a.dtype)
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.mm(g, b.t(), out_dtype=torch.float32).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.mm(a.t(), g, out_dtype=torch.float32).to(b.dtype)
+        return ga, gb
+
+
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` over the last dim of ``x`` with both operands rounded to
     the compute dtype and a float32 result — the reference's
@@ -62,14 +86,19 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     On the CPU the rounded operands are widened back to float32 before
     the product: a product of two bf16 values is exact in float32, so
     only the summation order can differ from the reference.  On the card
-    a bf16 product with a float32 output runs on the tensor cores."""
+    a bf16 product with a float32 output runs on the tensor cores; when a
+    gradient is wanted it goes through ``_MatmulF32Out``."""
     cd = get_policy().compute_dtype
     if cd == torch.float32:
         return x.float() @ w.float()
     xc, wc = x.to(cd), w.to(cd)
     if x.is_cuda:
         lead = x.shape[:-1]
-        out = torch.mm(xc.reshape(-1, x.shape[-1]), wc,
-                       out_dtype=torch.float32)
+        x2 = xc.reshape(-1, x.shape[-1])
+        if torch.is_grad_enabled() and (xc.requires_grad or
+                                        wc.requires_grad):
+            out = _MatmulF32Out.apply(x2, wc)
+        else:
+            out = torch.mm(x2, wc, out_dtype=torch.float32)
         return out.reshape(*lead, w.shape[-1])
     return xc.float() @ wc.float()

@@ -1,14 +1,16 @@
-"""Flash-attention forward: the CUDA kernel and its plain version (port of
-``ops/pallas_attention.py``).
+"""Flash attention, forward and backward: the CUDA kernels and their plain
+versions (port of ``ops/pallas_attention.py``).
 
 ``flash_attention(q, k, v, causal, scale)`` returns O for (B, H, T, D)
-inputs.  For a CUDA tensor it launches ``csrc/flash_attention_fwd.cu``
-(float32, head_dim 64 or 128), which also writes the per-row log-sum-exp
-that the backward kernels of the training slice will read.  For a CPU
-tensor, or under ``ops.fused=torch``, it takes ``flash_attention_ref``.
-
-Forward only: serving needs no gradient.  A CUDA input that requires a
-gradient raises rather than return a tensor with no gradient path.
+inputs and is differentiable.  For a CUDA tensor under ``ops.fused=auto``
+it launches ``csrc/flash_attention_fwd.cu`` (float32, head_dim 64 or
+128), which also writes the per-row log-sum-exp; the backward recomputes
+the probabilities from it in ``csrc/flash_attention_bwd.cu``: one kernel
+for dQ, one for dK/dV, as the reference's ``custom_vjp`` runs two Pallas
+kernels.  ``delta = rowsum(dO * O)`` is a PyTorch op between them, as
+the reference leaves it to XLA.  For a CPU tensor, or under
+``ops.fused=torch``, the forward and the backward take their plain
+versions, ``flash_attention_ref`` and ``flash_attention_bwd_ref``.
 """
 
 from __future__ import annotations
@@ -23,6 +25,10 @@ KERNEL = "flash_attention_fwd"
 HEAD_DIMS = (64, 128)
 
 
+def _causal_keep(t: int, device) -> torch.Tensor:
+    return torch.ones(t, t, dtype=torch.bool, device=device).tril_()
+
+
 def flash_attention_ref(q, k, v, causal: bool = False,
                         scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -35,8 +41,7 @@ def flash_attention_ref(q, k, v, causal: bool = False,
         scale = d ** -0.5
     s = torch.matmul(q * scale, k.transpose(-1, -2)).float()
     if causal:
-        keep = torch.ones(t, t, dtype=torch.bool, device=q.device).tril_()
-        s = torch.where(keep, s, s.new_tensor(-1e30))
+        s = torch.where(_causal_keep(t, q.device), s, s.new_tensor(-1e30))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l_safe = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
@@ -45,34 +50,97 @@ def flash_attention_ref(q, k, v, causal: bool = False,
     return o.to(q.dtype), lse
 
 
+def flash_attention_delta(o, do) -> torch.Tensor:
+    """``rowsum(dO * O)`` in float32, (B*H, T, 1)."""
+    b, h, t, d = o.shape
+    return (do.float() * o.float()).sum(dim=-1, keepdim=True).reshape(
+        b * h, t, 1)
+
+
+def _recompute_p_ds(q, k, v, lse, do, delta, causal, scale):
+    """The backward kernels' shared recompute: ``s = (q*scale) k^T``
+    (the forward's same-dtype scaling, causal cells at -1e30),
+    ``p = exp(s - lse)``, ``ds = p * (dO v^T - delta)``; float32."""
+    b, h, t, d = q.shape
+    qs = q * scale
+    s = torch.matmul(qs, k.transpose(-1, -2)).float()
+    if causal:
+        s = torch.where(_causal_keep(t, q.device), s, s.new_tensor(-1e30))
+    p = torch.exp(s - lse.reshape(b, h, t, 1))
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    return qs, p, p * (dp - delta.reshape(b, h, t, 1))
+
+
+def flash_attention_dq_ref(q, k, v, do, lse, delta, causal: bool = False,
+                           scale: Optional[float] = None):
+    """Plain version of the dQ kernel: ``dq = scale * ds k``."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    _, _, ds = _recompute_p_ds(q, k, v, lse, do, delta, causal, scale)
+    return (torch.matmul(ds, k.float()) * scale).to(q.dtype)
+
+
+def flash_attention_dkv_ref(q, k, v, do, lse, delta, causal: bool = False,
+                            scale: Optional[float] = None):
+    """Plain version of the dK/dV kernel: ``dk = ds^T (scale*q)``,
+    ``dv = p^T dO``."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    qs, p, ds = _recompute_p_ds(q, k, v, lse, do, delta, causal, scale)
+    dk = torch.matmul(ds.transpose(-1, -2), qs.float())
+    dv = torch.matmul(p.transpose(-1, -2), do.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, causal: bool = False,
+                            scale: Optional[float] = None):
+    """Plain version of the backward, in the kernels' order of operations:
+    ``delta = rowsum(dO * O)``, then the dQ and the dK/dV computations,
+    all in float32 and cast to the input dtype.  Returns (dq, dk, dv),
+    each (B, H, T, D)."""
+    delta = flash_attention_delta(o, do)
+    dq = flash_attention_dq_ref(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = flash_attention_dkv_ref(q, k, v, do, lse, delta, causal, scale)
+    return dq, dk, dv
+
+
 def kernel_supports(q: torch.Tensor) -> bool:
-    """Whether the CUDA kernel takes this q (and same-shaped k, v)."""
+    """Whether the CUDA kernels take this q (and same-shaped k, v)."""
     return (q.dtype == torch.float32 and q.dim() == 4 and
             q.shape[-1] in HEAD_DIMS)
+
+
+def _check(name: str, **tensors) -> None:
+    q = next(iter(tensors.values()))
+    for key, x in tensors.items():
+        if not x.is_cuda:
+            raise ValueError(f"{name}: {key} must be a CUDA tensor")
+        if x.dtype != torch.float32:
+            raise ValueError(f"{name}: the kernel takes float32, "
+                             f"{key} is {x.dtype}")
+        if x.shape != q.shape:
+            raise ValueError(f"{name}: all inputs must share one (B, H, T, D) "
+                             f"shape, got {tuple(q.shape)} and {key} "
+                             f"{tuple(x.shape)}")
+        if x.device != q.device:
+            raise ValueError(f"{name}: inputs on different devices")
+    if q.dim() != 4:
+        raise ValueError(f"{name}: inputs must be (B, H, T, D), got "
+                         f"{tuple(q.shape)}")
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {q.shape[-1]} not in {HEAD_DIMS}")
+    if torch.is_grad_enabled() and any(x.requires_grad
+                                       for x in tensors.values()):
+        raise RuntimeError(
+            f"{name} is forward-only: its output has no gradient path; call "
+            "flash_attention for a differentiable result")
 
 
 def flash_attention_fwd(q, k, v, causal: bool = False,
                         scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(O, LSE) from the CUDA kernel; raises on inputs it does not take."""
-    if not (q.is_cuda and k.is_cuda and v.is_cuda):
-        raise ValueError("flash_attention_fwd: q, k, v must be CUDA tensors")
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise RuntimeError(
-            "flash_attention: the CUDA kernel is forward-only (no backward "
-            "yet); call it under torch.no_grad() or inference_mode()")
-    if not (q.shape == k.shape == v.shape) or q.dim() != 4:
-        raise ValueError(f"flash_attention_fwd: q, k, v must share one "
-                         f"(B, H, T, D) shape, got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
-    if not (q.dtype == k.dtype == v.dtype == torch.float32):
-        raise ValueError("flash_attention_fwd: the kernel takes float32, "
-                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_fwd: head_dim {q.shape[-1]} "
-                         f"not in {HEAD_DIMS}")
-    if not (q.device == k.device == v.device):
-        raise ValueError("flash_attention_fwd: q, k, v on different devices")
+    _check("flash_attention_fwd", q=q, k=k, v=v)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     b, h, t, d = q.shape
     if scale is None:
@@ -85,10 +153,91 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
     return o, lse
 
 
+def _check_bwd(name, q, k, v, do, lse, delta) -> None:
+    _check(name, q=q, k=k, v=v, do=do)
+    b, h, t, _ = q.shape
+    for key, x in (("lse", lse), ("delta", delta)):
+        if x.shape != (b * h, t, 1) or x.dtype != torch.float32 or \
+                x.device != q.device:
+            raise ValueError(f"{name}: {key} must be float32 ({b * h}, {t}, "
+                             f"1) on {q.device}, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+
+
+def _bwd_args(q, k, v, do, lse, delta):
+    return [x.contiguous() for x in (q, k, v, do, lse, delta)]
+
+
+def flash_attention_dq(q, k, v, do, lse, delta, causal: bool = False,
+                       scale: Optional[float] = None):
+    """dq from the dQ kernel; ``lse`` is the forward kernel's (B*H, T, 1)
+    output and ``delta`` the (B*H, T, 1) ``rowsum(dO * O)``."""
+    _check_bwd("flash_attention_dq", q, k, v, do, lse, delta)
+    b, h, t, d = q.shape
+    if scale is None:
+        scale = d ** -0.5
+    args = _bwd_args(q, k, v, do, lse, delta)
+    dq = torch.empty_like(args[0])
+    kernels.launch("flash_attention_dq", q.device,
+                   *(x.data_ptr() for x in args), dq.data_ptr(),
+                   b * h, t, d, float(scale), int(causal))
+    return dq
+
+
+def flash_attention_dkv(q, k, v, do, lse, delta, causal: bool = False,
+                        scale: Optional[float] = None):
+    """(dk, dv) from the dK/dV kernel; arguments as ``flash_attention_dq``."""
+    _check_bwd("flash_attention_dkv", q, k, v, do, lse, delta)
+    b, h, t, d = q.shape
+    if scale is None:
+        scale = d ** -0.5
+    args = _bwd_args(q, k, v, do, lse, delta)
+    dk, dv = torch.empty_like(args[1]), torch.empty_like(args[2])
+    kernels.launch("flash_attention_dkv", q.device,
+                   *(x.data_ptr() for x in args), dk.data_ptr(),
+                   dv.data_ptr(), b * h, t, d, float(scale), int(causal))
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
+                        scale: Optional[float] = None):
+    """(dq, dk, dv) from the two CUDA backward kernels, with ``delta``
+    computed between them as a PyTorch op."""
+    delta = flash_attention_delta(o, do)
+    dq = flash_attention_dq(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = flash_attention_dkv(q, k, v, do, lse, delta, causal, scale)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The reference's ``custom_vjp``: the forward saves (q, k, v, O, LSE);
+    the backward recomputes P from LSE."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, kernel):
+        fwd = flash_attention_fwd if kernel else flash_attention_ref
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o, lse = fwd(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale, ctx.kernel = causal, scale, kernel
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        bwd = flash_attention_bwd if ctx.kernel else flash_attention_bwd_ref
+        dq, dk, dv = bwd(*ctx.saved_tensors, do, causal=ctx.causal,
+                         scale=ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, causal: bool = False,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """q,k,v: (B, H, T, D) -> O (B, H, T, D)."""
+    """q,k,v: (B, H, T, D) -> O (B, H, T, D); differentiable."""
     from analytics_zoo_torch.ops.fused import use_kernel
-    if use_kernel(q):
+    kernel = use_kernel(q)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
+                                    v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, scale, kernel)
+    if kernel:
         return flash_attention_fwd(q, k, v, causal=causal, scale=scale)[0]
     return flash_attention_ref(q, k, v, causal=causal, scale=scale)[0]

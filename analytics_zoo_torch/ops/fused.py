@@ -1,22 +1,36 @@
-"""Epilogue kernels: bias-add→GeLU and LayerNorm→activation (port of the
-epilogue half of ``ops/fused.py``), and the suite's mode key.
+"""The fused kernel suite (port of ``ops/fused.py``): the fused optimizer
+update and the bias-add→GeLU and LayerNorm→activation epilogues, and the
+suite's mode key.
 
-Each function has a CUDA kernel (``csrc/bias_gelu.cu``,
-``csrc/layernorm_act.cu``) and a plain PyTorch version beside it.  The
-fused optimizer half of the reference module comes with the training
-slice.
+Each function has a CUDA kernel (``csrc/fused_adam.cu``,
+``csrc/fused_sgd.cu``, ``csrc/bias_gelu.cu``, ``csrc/layernorm_act.cu``)
+and a plain PyTorch version beside it, in the kernel's order of
+operations.
+
+* **Fused optimizer update** (``build_fused_update``): clip → moments →
+  bias correction → apply in one pass over each float32 leaf, in place
+  on the parameter and its moments (the reference aliases them in its
+  Pallas call; here the update writes them where they lie).  The optimizer
+  state keeps optax's layout, so a state carried from the JAX package
+  fits one to one.  The step's scalars ``[clip_scale, step_size, bc1,
+  bc2]`` are computed once per step on the device and read by every
+  leaf's kernel from a 4-float buffer: the step never syncs the host.
+* **Epilogues** (``bias_gelu``, ``layernorm_act``): forward by the
+  kernel; the gradient is autograd of the plain version (the reference
+  defines no backward kernel for them: XLA differentiates its lax form).
 
 Mode selection (``ops.fused`` config key):
 
 * ``auto`` (default) — the CUDA kernel for CUDA tensors, the plain
   version for CPU tensors.
 * ``torch`` — the plain versions everywhere (the reference's ``lax``).
-* ``off`` — the suite is off; call sites take their unfused forms.
+* ``off`` — the suite is off; call sites take their unfused forms (the
+  trainer runs the optimizer's own ``update``).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -52,12 +66,253 @@ def _check_cuda_f32(kernel: str, **tensors) -> None:
         if t.dtype != torch.float32:
             raise ValueError(f"{kernel}: the kernel takes float32, "
                              f"{name} is {t.dtype}")
-        if t.requires_grad:
-            raise RuntimeError(f"{kernel}: the CUDA kernel is forward-only; "
-                               "call it under torch.no_grad()")
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1:
         raise ValueError(f"{kernel}: inputs on different devices {devices}")
+
+
+def _check_no_grad_path(kernel: str, entry: str, *tensors) -> None:
+    """A kernel wrapper's output has no gradient path: refuse to drop one
+    silently (the differentiable entry goes through autograd)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{kernel} is forward-only: its output has no "
+                           f"gradient path; call {entry} for a "
+                           "differentiable result")
+
+
+# ===================================================== optimizer kernels
+CLIP_SCALE, CLIP_CONST, WEIGHT_DECAY, NESTEROV, TRACE = 1, 2, 4, 8, 16
+
+
+def step_scalars(clip_scale, step_size, bias_corr1=0.0, bias_corr2=0.0,
+                 device=None) -> torch.Tensor:
+    """The 4-float buffer ``[clip_scale, step_size, bc1, bc2]`` the
+    optimizer kernels read (the reference's SMEM scalars).  Each entry is
+    a Python number or a 0-dim tensor already on ``device``; numbers are
+    filled on the device, so building it never syncs the host."""
+    def scalar(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(device=device, dtype=torch.float32).reshape(())
+        return torch.full((), float(x), dtype=torch.float32, device=device)
+    return torch.stack([scalar(1.0 if clip_scale is None else clip_scale),
+                        scalar(step_size), scalar(bias_corr1),
+                        scalar(bias_corr2)])
+
+
+def _prologue(p, g, scal, weight_decay, clip_const, use_clip_scale):
+    if use_clip_scale:
+        g = g * scal[0]
+    if clip_const is not None:
+        g = torch.clamp(g, clip_const[0], clip_const[1])
+    if weight_decay:
+        g = g + weight_decay * p
+    return g
+
+
+def _flags(weight_decay, clip_const, use_clip_scale) -> int:
+    return ((CLIP_SCALE if use_clip_scale else 0) |
+            (CLIP_CONST if clip_const is not None else 0) |
+            (WEIGHT_DECAY if weight_decay else 0))
+
+
+def _check_leaf(kernel: str, scal, **leaf) -> None:
+    """The leaf tensors (param, grad, moments) share one shape and are
+    contiguous float32 CUDA tensors on one device, as is ``scal``."""
+    _check_cuda_f32(kernel, scal=scal, **leaf)
+    if scal.shape != (4,):
+        raise ValueError(f"{kernel}: scal must hold 4 floats, got "
+                         f"{tuple(scal.shape)}")
+    shape = leaf["p"].shape
+    for name, t in leaf.items():
+        if t.shape != shape:
+            raise ValueError(f"{kernel}: {name} shape {tuple(t.shape)} != "
+                             f"p shape {tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be contiguous (the "
+                             "kernel updates in place)")
+
+
+def adam_leaf_update(p, g, mu, nu, scal, *, b1: float, b2: float,
+                     eps: float, weight_decay: float = 0.0,
+                     clip_const: Optional[Tuple[float, float]] = None,
+                     use_clip_scale: bool = False):
+    """One-leaf fused Adam step, in place on ``p``, ``mu`` and ``nu``
+    (returned).  Reproduces ``scale_by_adam → scale_by_learning_rate →
+    apply_updates`` op for op; ``scal`` is ``step_scalars(clip_scale,
+    step_size, 1 - b1**count, 1 - b2**count)`` with the NEGATIVE
+    learning rate as ``step_size``."""
+    if use_kernel(p):
+        name = "fused_adam"
+        _check_leaf(name, scal, p=p, g=g, mu=mu, nu=nu)
+        lo, hi = clip_const if clip_const is not None else (0.0, 0.0)
+        kernels.launch(name, p.device, p.data_ptr(), g.data_ptr(),
+                       mu.data_ptr(), nu.data_ptr(), scal.data_ptr(),
+                       p.numel(), b1, 1.0 - b1, b2, 1.0 - b2, eps,
+                       float(weight_decay), float(lo), float(hi),
+                       _flags(weight_decay, clip_const, use_clip_scale))
+        return p, mu, nu
+    g = _prologue(p, g, scal, weight_decay, clip_const, use_clip_scale)
+    # optax.tree_update_moment order: (1-decay)*(g**order) + decay*t
+    mu_n = (1.0 - b1) * g + b1 * mu
+    nu_n = (1.0 - b2) * (g * g) + b2 * nu
+    mh = mu_n / scal[2]
+    vh = nu_n / scal[3]
+    u = mh / (torch.sqrt(vh) + eps)
+    p_n = p + scal[1] * u
+    p.copy_(p_n)
+    mu.copy_(mu_n)
+    nu.copy_(nu_n)
+    return p, mu, nu
+
+
+def sgd_leaf_update(p, g, trace, scal, *, momentum: float, nesterov: bool,
+                    weight_decay: float = 0.0,
+                    clip_const: Optional[Tuple[float, float]] = None,
+                    use_clip_scale: bool = False):
+    """One-leaf fused SGD(+momentum) step mirroring ``trace → scale`` +
+    ``apply_updates``, in place on ``p`` and ``trace`` (returned; ``trace``
+    is None without momentum).  ``scal`` is ``step_scalars(clip_scale,
+    step_size)``."""
+    if use_kernel(p):
+        name = "fused_sgd"
+        moments = {} if trace is None else {"trace": trace}
+        _check_leaf(name, scal, p=p, g=g, **moments)
+        lo, hi = clip_const if clip_const is not None else (0.0, 0.0)
+        flags = (_flags(weight_decay, clip_const, use_clip_scale) |
+                 (NESTEROV if nesterov else 0) |
+                 (TRACE if trace is not None else 0))
+        kernels.launch(name, p.device, p.data_ptr(), g.data_ptr(),
+                       None if trace is None else trace.data_ptr(),
+                       scal.data_ptr(), p.numel(), float(momentum),
+                       float(weight_decay), float(lo), float(hi), flags)
+        return p, trace
+    g = _prologue(p, g, scal, weight_decay, clip_const, use_clip_scale)
+    if trace is not None:
+        tr = g + momentum * trace           # optax.trace: f(g, t)
+        u = g + momentum * tr if nesterov else tr
+        trace.copy_(tr)
+    else:
+        u = g
+    p.copy_(p + scal[1] * u)
+    return p, trace
+
+
+def build_fused_update(optim, clip=None) -> Optional[Callable]:
+    """Return ``update(grads, opt_state, params) -> (params, opt_state)``
+    fusing clip+moments+apply into one pass per leaf, in place, or None
+    when the (optimizer, clip) combination isn't supported — the trainer
+    then runs the optimizer's own ``update``.
+
+    Supported: ``SGD`` (momentum/nesterov/weight_decay, float or schedule
+    lr, dampening 0) and ``Adam`` (float or schedule lr incl. the Keras
+    ``decay`` form) from ``pipeline/api/keras/optimizers.py``; ``clip`` is
+    a trainer ``ClipSpec`` (const or l2norm) or None.  The state keeps
+    its layout: the moments are updated where they lie and the counts
+    are replaced."""
+    from analytics_zoo_torch.pipeline.api.keras import optimizers as opt
+    if optim is None or not fused_enabled():
+        return None
+    kind = type(optim).__name__
+    kw = getattr(optim, "_init_kwargs", None)
+    if kind not in ("SGD", "Adam") or kw is None:
+        return None
+    if kind == "SGD" and kw.get("dampening"):
+        return None
+    if clip is not None and clip.kind not in ("const", "l2norm"):
+        return None
+    lr = optim.learning_rate
+    has_sched = callable(lr)
+
+    # validate the state layout once on a tiny tree: anything beyond
+    # {Trace|ScaleByAdam} + optional ScaleBySchedule + empties means a
+    # transformation this update does not reproduce — decline
+    probe = opt.collect_states(optim.init({"w": torch.zeros(8)}))
+    traces = [s for s in probe if isinstance(s, opt.TraceState)]
+    adams = [s for s in probe if isinstance(s, opt.ScaleByAdamState)]
+    scheds = [s for s in probe if isinstance(s, opt.ScaleByScheduleState)]
+    if kind == "Adam" and (len(adams) != 1 or traces):
+        return None
+    if kind == "SGD" and (adams or len(traces) > 1):
+        return None
+    if len(scheds) > (1 if has_sched else 0):
+        return None
+
+    weight_decay = float(kw.get("weight_decay") or 0.0) \
+        if kind == "SGD" else 0.0
+    momentum = float(kw.get("momentum") or 0.0) if kind == "SGD" else 0.0
+    nesterov = bool(kw.get("nesterov")) if kind == "SGD" else False
+    b1 = float(kw.get("beta_1", 0.9)) if kind == "Adam" else 0.0
+    b2 = float(kw.get("beta_2", 0.999)) if kind == "Adam" else 0.0
+    eps = float(kw.get("epsilon", 1e-8)) if kind == "Adam" else 0.0
+    clip_const = (float(clip.a), float(clip.b)) \
+        if (clip is not None and clip.kind == "const") else None
+    use_clip_scale = clip is not None and clip.kind == "l2norm"
+
+    def update(grads, opt_state, params):
+        from analytics_zoo_torch.pipeline.api.keras.topology import (
+            tree_leaves)
+        flat_p, flat_g = tree_leaves(params), tree_leaves(grads)
+        device = flat_p[0].device
+        # one read sweep for the global norm — the only pre-pass left
+        clip_scale = None
+        if use_clip_scale:
+            gnorm = opt.global_norm(flat_g)
+            clip_scale = torch.clamp(clip.a / (gnorm + 1e-12), max=1.0)
+
+        states = opt.collect_states(opt_state)
+        sched_state = next((s for s in states if isinstance(
+            s, opt.ScaleByScheduleState)), None)
+        if has_sched:
+            if sched_state is None:
+                raise ValueError("schedule lr without schedule state")
+            # scale_by_schedule: step_size = fn(count) PRE-increment
+            step_size = -1 * lr(sched_state.count)
+        else:
+            step_size = -1 * float(lr)
+
+        if kind == "Adam":
+            st = next(s for s in states
+                      if isinstance(s, opt.ScaleByAdamState))
+            count_inc = opt.safe_increment(st.count)
+            # float32 on the device, as optax with its int32 count
+            bc1 = 1 - b1 ** count_inc
+            bc2 = 1 - b2 ** count_inc
+            scal = step_scalars(clip_scale, step_size, bc1, bc2, device)
+            for p, g, m, v in zip(flat_p, flat_g, tree_leaves(st.mu),
+                                  tree_leaves(st.nu)):
+                adam_leaf_update(p, g, m, v, scal, b1=b1, b2=b2, eps=eps,
+                                 clip_const=clip_const,
+                                 use_clip_scale=use_clip_scale)
+
+            def rebuild(s):
+                if isinstance(s, opt.ScaleByAdamState):
+                    return opt.ScaleByAdamState(count=count_inc, mu=s.mu,
+                                                nu=s.nu)
+                if isinstance(s, opt.ScaleByScheduleState):
+                    return opt.ScaleByScheduleState(
+                        count=opt.safe_increment(s.count))
+                return s
+            return params, opt.map_states(opt_state, rebuild)
+
+        trace_state = next((s for s in states
+                            if isinstance(s, opt.TraceState)), None)
+        flat_t = (tree_leaves(trace_state.trace) if trace_state is not None
+                  else [None] * len(flat_p))
+        scal = step_scalars(clip_scale, step_size, device=device)
+        for p, g, t in zip(flat_p, flat_g, flat_t):
+            sgd_leaf_update(p, g, t, scal, momentum=momentum,
+                            nesterov=nesterov, weight_decay=weight_decay,
+                            clip_const=clip_const,
+                            use_clip_scale=use_clip_scale)
+
+        def rebuild(s):
+            if isinstance(s, opt.ScaleByScheduleState):
+                return opt.ScaleByScheduleState(
+                    count=opt.safe_increment(s.count))
+            return s
+        return params, opt.map_states(opt_state, rebuild)
+
+    return update
 
 
 # ------------------------------------------------------------- bias→GeLU
@@ -67,9 +322,11 @@ def bias_gelu_ref(x, bias):
 
 
 def bias_gelu_kernel(x, bias):
-    """``gelu_tanh(x + bias)`` by the CUDA kernel; x (..., d), bias (d,)."""
+    """``gelu_tanh(x + bias)`` by the CUDA kernel; x (..., d), bias (d,).
+    Forward only: ``bias_gelu`` is the differentiable entry."""
     name = "bias_gelu"
     _check_cuda_f32(name, x=x, bias=bias)
+    _check_no_grad_path(name, "bias_gelu", x, bias)
     d = x.shape[-1]
     if bias.shape != (d,):
         raise ValueError(f"{name}: bias shape {tuple(bias.shape)} != ({d},)")
@@ -81,10 +338,34 @@ def bias_gelu_kernel(x, bias):
     return out
 
 
-def bias_gelu(x, bias):
-    """Fused bias-add→GeLU epilogue (the dense/FFN tail)."""
-    if use_kernel(x):
+def _grad_of_plain(plain, inputs, needs, dout):
+    """Gradients of ``plain(*inputs)`` by autograd, for the inputs marked
+    in ``needs`` (None for the others): the backward of a kernel whose
+    reference has no backward kernel."""
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_(n) for x, n in zip(inputs, needs)]
+        out = plain(*leaves)
+        wanted = [x for x, n in zip(leaves, needs) if n]
+        grads = iter(torch.autograd.grad(out, wanted, dout))
+    return tuple(next(grads) if n else None for n in needs)
+
+
+class _BiasGelu(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, bias):
+        ctx.save_for_backward(x, bias)
         return bias_gelu_kernel(x, bias)
+
+    @staticmethod
+    def backward(ctx, dout):
+        return _grad_of_plain(bias_gelu_ref, ctx.saved_tensors,
+                              ctx.needs_input_grad, dout)
+
+
+def bias_gelu(x, bias):
+    """Fused bias-add→GeLU epilogue (the dense/FFN tail); differentiable."""
+    if use_kernel(x):
+        return _BiasGelu.apply(x, bias)
     return bias_gelu_ref(x, bias)
 
 
@@ -107,9 +388,11 @@ def layernorm_act_ref(x, gamma, beta, eps: float = 1e-5,
 
 def layernorm_act_kernel(x, gamma, beta, eps: float = 1e-5,
                          activation: Optional[Callable] = None):
-    """LayerNorm→activation by the CUDA kernel; activation None or gelu."""
+    """LayerNorm→activation by the CUDA kernel; activation None or gelu.
+    Forward only: ``layernorm_act`` is the differentiable entry."""
     name = "layernorm_act"
     _check_cuda_f32(name, x=x, gamma=gamma, beta=beta)
+    _check_no_grad_path(name, "layernorm_act", x, gamma, beta)
     if activation not in KERNEL_ACTIVATIONS:
         raise ValueError(f"{name}: the kernel applies no activation or "
                          f"tanh-GeLU, not {activation}")
@@ -126,10 +409,24 @@ def layernorm_act_kernel(x, gamma, beta, eps: float = 1e-5,
     return out
 
 
+class _LayerNormAct(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps, activation):
+        ctx.save_for_backward(x, gamma, beta)
+        ctx.eps, ctx.activation = eps, activation
+        return layernorm_act_kernel(x, gamma, beta, eps, activation)
+
+    @staticmethod
+    def backward(ctx, dout):
+        def plain(x, gamma, beta):
+            return layernorm_act_ref(x, gamma, beta, ctx.eps, ctx.activation)
+        return _grad_of_plain(plain, ctx.saved_tensors,
+                              ctx.needs_input_grad[:3], dout) + (None, None)
+
+
 def layernorm_act(x, gamma, beta, eps: float = 1e-5,
                   activation: Optional[Callable] = None):
-    """Fused LayerNorm→activation."""
+    """Fused LayerNorm→activation; differentiable."""
     if use_kernel(x):
-        return layernorm_act_kernel(x, gamma, beta, eps=eps,
-                                    activation=activation)
+        return _LayerNormAct.apply(x, gamma, beta, eps, activation)
     return layernorm_act_ref(x, gamma, beta, eps=eps, activation=activation)

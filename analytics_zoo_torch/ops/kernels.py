@@ -1,12 +1,14 @@
 """Loader for the hand-written CUDA kernels in ``csrc/``.
 
-Each ``csrc/<name>.cu`` is compiled at first use by its own ``nvcc`` call
-into a shared library with a plain C interface (no PyTorch headers, so a
-build takes seconds), under ``analytics_zoo_torch/_build/``, and loaded
-with ``ctypes``.  The library's file name carries a hash of its source
-and flags, so an edited source is rebuilt.  ``build_all`` starts every
-build at once.  A missing ``nvcc`` or a failed build raises: there is no
-fallback to the plain versions for CUDA tensors.
+Each source ``csrc/<source>.cu`` is compiled at first use by its own
+``nvcc`` call into a shared library with a plain C interface (no PyTorch
+headers, so a build takes seconds), under ``analytics_zoo_torch/_build/``,
+and loaded with ``ctypes``.  A source may hold more than one kernel (the
+flash backward's dQ and dK/dV share ``flash_attention_bwd.cu``).  The
+library's file name carries a hash of its source and flags, so an edited
+source is rebuilt.  ``build_all`` starts every build at once.  A missing
+``nvcc`` or a failed build raises: there is no fallback to the plain
+versions for CUDA tensors.
 
 Every C entry point launches on the stream it is given, allocates
 nothing, and returns ``cudaGetLastError()``; ``launch`` turns a non-zero
@@ -33,18 +35,34 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 
-# kernel name -> (C entry point, argtypes)
+# kernel name -> (source in csrc/, C entry point, argtypes)
 SIGNATURES = {
     # q, k, v, o, lse, bh, t, d, scale, causal, stream
-    "flash_attention_fwd": ("zoo_flash_attention_fwd",
+    "flash_attention_fwd": ("flash_attention_fwd", "zoo_flash_attention_fwd",
                             [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P]),
+    # q, k, v, do, lse, delta, dq, bh, t, d, scale, causal, stream
+    "flash_attention_dq": ("flash_attention_bwd", "zoo_flash_attention_dq",
+                           [_P] * 7 + [_I, _I, _I, _F, _I, _P]),
+    # q, k, v, do, lse, delta, dk, dv, bh, t, d, scale, causal, stream
+    "flash_attention_dkv": ("flash_attention_bwd", "zoo_flash_attention_dkv",
+                            [_P] * 8 + [_I, _I, _I, _F, _I, _P]),
     # x, bias, out, rows, d, stream
-    "bias_gelu": ("zoo_bias_gelu", [_P, _P, _P, _I, _I, _P]),
+    "bias_gelu": ("bias_gelu", "zoo_bias_gelu", [_P, _P, _P, _I, _I, _P]),
     # x, gamma, beta, out, rows, d, eps, act (0 none, 1 gelu), stream
-    "layernorm_act": ("zoo_layernorm_act",
+    "layernorm_act": ("layernorm_act", "zoo_layernorm_act",
                       [_P, _P, _P, _P, _I, _I, _F, _I, _P]),
+    # p, g, m, v, scal, n, b1, 1-b1, b2, 1-b2, eps, wd, lo, hi, flags, stream
+    "fused_adam": ("fused_adam", "zoo_fused_adam",
+                   [_P] * 5 + [_L] + [_F] * 8 + [_I, _P]),
+    # p, g, trace, scal, n, momentum, wd, lo, hi, flags, stream
+    "fused_sgd": ("fused_sgd", "zoo_fused_sgd",
+                  [_P] * 4 + [_L] + [_F] * 4 + [_I, _P]),
 }
+
+# every source, each built by one nvcc call
+SOURCES = sorted({src for src, _, _ in SIGNATURES.values()})
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
 
@@ -74,32 +92,32 @@ def nvcc_path() -> str:
         f"{CSRC_DIR} are built at first use and need the CUDA toolkit")
 
 
-def source_path(name: str) -> str:
-    return os.path.join(CSRC_DIR, f"{name}.cu")
+def source_path(source: str) -> str:
+    return os.path.join(CSRC_DIR, f"{source}.cu")
 
 
-def library_path(name: str) -> str:
-    with open(source_path(name), "rb") as f:
+def library_path(source: str) -> str:
+    with open(source_path(source), "rb") as f:
         digest = hashlib.sha256(
             f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    return os.path.join(BUILD_DIR, f"lib{source}_{digest}.so")
 
 
-def _start_build(name: str):
+def _start_build(source: str):
     """Start one nvcc; returns (Popen, tmp path, final path) or None when
     the library for this source is already built."""
-    out = library_path(name)
+    out = library_path(source)
     if os.path.isfile(out):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, source_path(name)]
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, source_path(source)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
 
 
-def _finish_build(name: str, started) -> None:
+def _finish_build(source: str, started) -> None:
     if started is None:
         return
     proc, tmp, out = started
@@ -107,49 +125,52 @@ def _finish_build(name: str, started) -> None:
     if proc.returncode != 0:
         if os.path.exists(tmp):
             os.remove(tmp)
-        raise RuntimeError(f"nvcc failed for {name}.cu "
+        raise RuntimeError(f"nvcc failed for {source}.cu "
                            f"(exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)      # atomic: a concurrent builder sees all or nothing
 
 
-def _load(name: str) -> ctypes.CDLL:
-    lib = ctypes.CDLL(library_path(name))
-    entry, argtypes = SIGNATURES[name]
-    fn = getattr(lib, entry)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+def _load(source: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(library_path(source))
+    for src, entry_point, argtypes in SIGNATURES.values():
+        if src == source:
+            fn = getattr(lib, entry_point)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
 
 
 def build_all(names: List[str] = None) -> None:
-    """Build (one nvcc per source, all started together) and load every
-    kernel library not yet loaded in this process."""
-    names = list(names or SIGNATURES)
+    """Build (one nvcc per source, all started together) and load the
+    libraries of the named kernels (default: all) not yet loaded in this
+    process."""
+    sources = sorted({SIGNATURES[n][0] for n in (names or SIGNATURES)})
     with _lock:
-        todo = [n for n in names if n not in _libs]
+        todo = [src for src in sources if src not in _libs]
         started = {}
         try:
-            for n in todo:
-                started[n] = _start_build(n)
+            for src in todo:
+                started[src] = _start_build(src)
         finally:
             # reap whatever was started, even if a later start raised
             errors = []
-            for n, s in started.items():
+            for src, proc in started.items():
                 try:
-                    _finish_build(n, s)
+                    _finish_build(src, proc)
                 except RuntimeError as e:
                     errors.append(str(e))
             if errors:
                 raise RuntimeError("\n".join(errors))
-        for n in todo:
-            _libs[n] = _load(n)
+        for src in todo:
+            _libs[src] = _load(src)
 
 
 def entry(name: str):
     """The C entry point of kernel ``name``, building it at first use."""
-    if name not in _libs:
+    source, entry_point, _ = SIGNATURES[name]
+    if source not in _libs:
         build_all([name])
-    return getattr(_libs[name], SIGNATURES[name][0])
+    return getattr(_libs[source], entry_point)
 
 
 def launch(name: str, device, *args) -> None:

@@ -1,0 +1,211 @@
+"""The training engine, single device (port of ``parallel/trainer.py``).
+
+The reference compiles one step — forward, backward, optimizer update —
+into one XLA program over a device mesh and donates the old parameters
+to it.  The port runs the same step eagerly on one device: autograd over
+the plain ``{layer: {param: tensor}}`` tree gives the gradients, and the
+update writes the parameters and the optimizer state in place (the
+counterpart of donation).  By default the update is the fused one-pass
+update of ``ops/fused.py`` (the CUDA kernels on the card); with
+``train.fused_optimizer=false`` or ``ops.fused=off`` it is the
+optimizer's own unfused ``update`` (gradient clipping first).
+
+A step never reads a value back to the host: the loss stays a device
+tensor until the caller reports it.  Each step's dropout generators come
+from ``step_generator(seed, step, device)``, so a run is reproducible on
+the CPU and on the card alike.
+
+Not ported: the mesh and sharding, the whole-epoch and chunked scans,
+prefetch threads, the observability hooks and ``train.remat`` (which
+raises).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from analytics_zoo_torch.common.config import get_config
+from analytics_zoo_torch.pipeline.api.keras.topology import (
+    tree_leaves, tree_map, tree_replace,
+)
+
+_SEED_MOD = 2 ** 63
+
+
+@dataclasses.dataclass
+class ClipSpec:
+    kind: str          # "const" | "l2norm"
+    a: float = 0.0
+    b: float = 0.0
+
+
+def _apply_clipping(grads, clip: Optional[ClipSpec]):
+    if clip is None:
+        return grads
+    if clip.kind == "const":
+        return tree_map(lambda g: torch.clamp(g, clip.a, clip.b), grads)
+    if clip.kind == "l2norm":
+        from analytics_zoo_torch.pipeline.api.keras.optimizers import (
+            global_norm)
+        gnorm = global_norm(tree_leaves(grads))
+        scale = torch.clamp(clip.a / (gnorm + 1e-12), max=1.0)
+        return tree_map(lambda g: g * scale, grads)
+    raise ValueError(clip.kind)
+
+
+def mask_frozen_params(model, params, update: Callable):
+    """Run ``update()``, which writes ``params`` in place, and keep the
+    frozen layers' params bit-identical through it (restoring them also
+    undoes weight decay, which zeroing their gradients would not)."""
+    frozen = (model.frozen_layer_names()
+              if hasattr(model, "frozen_layer_names") else set())
+    saved = {k: tree_map(torch.clone, params[k]) for k in frozen
+             if k in params}
+    out = update()
+    for k, tree in saved.items():
+        tree_map(lambda dst, src: dst.copy_(src), params[k], tree)
+    return out
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator training step ``step`` of a run seeded ``seed`` draws
+    its dropout masks from, on ``device`` (the layers fold their names
+    into it)."""
+    mixed = (int(seed) * 0x9E3779B97F4A7C15 +
+             int(step) * 0xBF58476D1CE4E5B9 + 1) % _SEED_MOD
+    return torch.Generator(device=device).manual_seed(mixed)
+
+
+class DistributedTrainer:
+    """Runs the train, eval and predict steps of one model on the zoo
+    context's device."""
+
+    def __init__(self, model, loss_fn: Optional[Callable],
+                 optim_method=None, clip: Optional[ClipSpec] = None):
+        from analytics_zoo_torch.common.zoo_context import get_zoo_context
+        self.model = model
+        self.loss_fn = loss_fn
+        self.optim = optim_method
+        self.clip = clip
+        self.device = get_zoo_context().device
+        cfg = get_config()
+        if optim_method is not None and bool(cfg.get("train.remat")):
+            raise NotImplementedError(
+                "train.remat=True (recompute activations in the backward) is "
+                "not ported to the PyTorch package yet (ROADMAP.md)")
+        self.grad_sync_dtype = str(cfg.get("train.grad_sync_dtype"))
+        # fused optimizer update (ops/fused.py): clip + moment update +
+        # param apply in ONE pass per leaf.  None = unsupported
+        # (an optimizer or clip it does not reproduce, or
+        # train.fused_optimizer off): the optimizer's own update runs.
+        self._fused_update = None
+        if bool(cfg.get("train.fused_optimizer", True)) and \
+                self.optim is not None:
+            from analytics_zoo_torch.ops.fused import build_fused_update
+            self._fused_update = build_fused_update(self.optim, self.clip)
+
+    # ------------------------------------------------------------ placement
+    def place_params(self, params):
+        """A copy of ``params`` on the device, for the steps to update in
+        place (the caller's tensors are never written)."""
+        return tree_map(lambda a: a.detach().to(self.device, copy=True),
+                        params)
+
+    def replicate(self, tree):
+        return tree_map(lambda a: a.to(self.device), tree)
+
+    def put_batch(self, batch):
+        """Host arrays (a tree, None leaves allowed) onto the device.  On
+        the card the copy goes through pinned memory, so it does not wait
+        for the steps already queued."""
+        def put(a):
+            if a is None:
+                return None
+            t = torch.as_tensor(np.ascontiguousarray(a))
+            if self.device.type == "cuda":
+                return t.pin_memory().to(self.device, non_blocking=True)
+            return t.to(self.device)
+        return tree_map(put, batch)
+
+    # ----------------------------------------------------------- optimizer
+    def init_opt_state(self, params):
+        return self.optim.init(params)
+
+    @property
+    def fused_optimizer_active(self) -> bool:
+        """Whether steps run the single-pass fused update (ops/fused.py)
+        instead of the optimizer's own update."""
+        return self._fused_update is not None
+
+    def _optimizer_update(self, grads, opt_state, params):
+        updates, new_state = self.optim.update(grads, opt_state, params)
+        tree_map(lambda p, u: p.add_(u), params, updates)
+        return params, new_state
+
+    # ---------------------------------------------------------- train step
+    def loss_and_grads(self, params, state, batch, rng):
+        """Forward and backward of one batch: ``(loss, grads, new_state)``,
+        ``grads`` a tree like ``params``; nothing is updated."""
+        x, y = batch
+        live = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        with torch.enable_grad():
+            out, new_state = self.model.apply(
+                tree_replace(params, live), x, state=state, training=True,
+                rng=rng)
+            loss = self.loss_fn(y, out)
+        grads = torch.autograd.grad(loss, live, allow_unused=True,
+                                    materialize_grads=True)
+        return loss.detach(), tree_replace(params, grads), new_state
+
+    def _step_core(self, params, opt_state, state, batch, rng):
+        loss, grads, new_state = self.loss_and_grads(params, state, batch,
+                                                     rng)
+        if self.grad_sync_dtype == "bfloat16":
+            grads = tree_map(lambda g: g.to(torch.bfloat16).float(), grads)
+
+        def update():
+            if self._fused_update is not None:
+                return self._fused_update(grads, opt_state, params)
+            return self._optimizer_update(_apply_clipping(grads, self.clip),
+                                          opt_state, params)
+        with torch.no_grad():
+            params, opt_state = mask_frozen_params(self.model, params,
+                                                   update)
+        return params, opt_state, new_state, loss
+
+    def train_step(self, params, opt_state, state, batch, rng):
+        """One step on a device-placed ``batch`` (``put_batch``), with the
+        dropout generator ``rng``; returns ``(params, opt_state, state,
+        loss)``, ``params`` and the moments updated in place."""
+        return self._step_core(params, opt_state, state, batch, rng)
+
+    # ----------------------------------------------------------- eval step
+    def make_eval_runner(self, metrics):
+        from analytics_zoo_torch.pipeline.api.keras.metrics import accumulate
+        model = self.model
+
+        def step(params, state, batch):
+            x, y, mask = batch
+            with torch.no_grad():
+                out, _ = model.apply(params, x, state=state, training=False)
+                return tuple(m.batch_update(y, out, mask) for m in metrics)
+
+        def run(params, state, batches):
+            return accumulate(metrics, (step(params, state,
+                                             self.put_batch(b))
+                                        for b in batches))
+        return run
+
+    # -------------------------------------------------------- predict step
+    def predict_fn(self):
+        model = self.model
+
+        def step(params, state, x):
+            with torch.no_grad():
+                out, _ = model.apply(params, x, state=state, training=False)
+            return out
+        return step

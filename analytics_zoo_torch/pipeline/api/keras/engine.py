@@ -49,11 +49,12 @@ def to_batch_shape(shape) -> Shape:
 
 
 def fold_name(rng: torch.Generator, name: str) -> torch.Generator:
-    """Deterministic per-layer generator (stable across runs): a fresh CPU
-    generator seeded from ``rng``'s seed and the CRC of ``name``."""
+    """Deterministic per-layer generator (stable across runs): a fresh
+    generator on ``rng``'s device, seeded from ``rng``'s seed and the CRC
+    of ``name``."""
     crc = zlib.crc32(name.encode()) & 0x7FFFFFFF
     seed = (rng.initial_seed() * 0x9E3779B97F4A7C15 + crc) % _SEED_MOD
-    return torch.Generator().manual_seed(seed)
+    return torch.Generator(device=rng.device).manual_seed(seed)
 
 
 def _is_shape(x) -> bool:

@@ -96,7 +96,8 @@ class MultiHeadSelfAttention(Layer):
             if rng is None:
                 raise ValueError(f"{self.name} needs rng when training")
             keep = 1.0 - self.attn_dropout
-            m = torch.rand(tuple(ctx.shape), generator=rng).to(ctx.device)
+            m = torch.rand(tuple(ctx.shape), generator=rng,
+                           device=ctx.device)
             ctx = ctx * (m < keep).to(ctx.dtype) / keep
 
         ctx = ctx.transpose(1, 2).reshape(b, t, self.hidden_size)

@@ -63,7 +63,8 @@ class Dense(Layer):
 
 
 class Dropout(Layer):
-    """Inverted dropout; identity at inference."""
+    """Inverted dropout; identity at inference.  The mask is drawn on the
+    input's device, from ``rng``, which must live there too."""
 
     def __init__(self, p: float, **kwargs):
         super().__init__(**kwargs)
@@ -76,7 +77,8 @@ class Dropout(Layer):
             raise ValueError(
                 f"dropout layer {self.name} needs an rng when training")
         keep = 1.0 - self.p
-        mask = torch.rand(tuple(x.shape), generator=rng).to(x.device) < keep
+        mask = torch.rand(tuple(x.shape), generator=rng,
+                          device=x.device) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
 
 

@@ -1,9 +1,12 @@
-"""Graph ``Model`` container and the KerasNet variables surface (port of
+"""Graph ``Model`` container and the KerasNet surface (port of
 ``pipeline/api/keras/topology.py``).
 
-This slice serves: ``init``/``get_variables``/``set_variables``/
-``get_weights``/``set_weights`` and the graph ``Model.apply``.
-``compile``/``fit``/``evaluate`` come with the training slice.
+Ported: ``init``/``get_variables``/``set_variables``/``get_weights``/
+``set_weights``, the graph ``Model.apply``, and the training surface
+``compile``/``fit`` (on ndarrays or a FeatureSet)/``evaluate``/``predict``
+with the gradient-clipping setters, which run the single-device
+``Estimator``.  Checkpoints, TensorBoard, validation during ``fit``,
+freezing and ``Sequential`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,13 +21,16 @@ from analytics_zoo_torch.pipeline.api.keras.engine import (
 )
 
 
-def tree_map(fn: Callable, tree):
-    """Map ``fn`` over the leaves of a nest of dicts/lists/tuples."""
+def tree_map(fn: Callable, tree, *rest):
+    """Map ``fn`` over the leaves of a nest of dicts/lists/tuples (and over
+    the matching leaves of ``rest``, trees of the same structure)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> List[Any]:
@@ -37,12 +43,18 @@ def tree_leaves(tree) -> List[Any]:
     return [tree]
 
 
-def _tree_replace(tree, leaves_iter):
-    if isinstance(tree, dict):
-        return {k: _tree_replace(tree[k], leaves_iter) for k in sorted(tree)}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_replace(v, leaves_iter) for v in tree)
-    return next(leaves_iter)
+def tree_replace(tree, leaves):
+    """``tree`` with its leaves replaced, in ``tree_leaves`` order, by
+    ``leaves``."""
+    it = iter(leaves)
+
+    def rebuild(node):
+        if isinstance(node, dict):
+            return {k: rebuild(node[k]) for k in sorted(node)}
+        if isinstance(node, (list, tuple)):
+            return type(node)(rebuild(v) for v in node)
+        return next(it)
+    return rebuild(tree)
 
 
 def to_device(tree, device):
@@ -55,6 +67,10 @@ class KerasNet(Container):
 
     def __init__(self, **kwargs):
         super().__init__(**kwargs)
+        self.optim_method = None
+        self.loss = None
+        self.metrics = None
+        self._gradient_clipping = None   # ("const", min, max) | ("l2norm", v)
         self._variables = None           # {"params":..., "state":...}
         self._rng = torch.Generator().manual_seed(0)
 
@@ -86,11 +102,81 @@ class KerasNet(Container):
         if len(leaves) != len(weights):
             raise ValueError(
                 f"expected {len(leaves)} arrays, got {len(weights)}")
-        new = iter([torch.as_tensor(np.asarray(w)).reshape(l.shape)
-                    .to(device=l.device, dtype=l.dtype)
-                    for l, w in zip(leaves, weights)])
-        variables["params"] = _tree_replace(variables["params"], new)
+        new = [torch.as_tensor(np.asarray(w)).reshape(l.shape)
+               .to(device=l.device, dtype=l.dtype)
+               for l, w in zip(leaves, weights)]
+        variables["params"] = tree_replace(variables["params"], new)
         self._variables = variables
+
+
+    # -------------------------------------------------------------- compile
+    def compile(self, optimizer, loss, metrics=None):
+        """Configure training: ``optimizer`` a name ("sgd"/"adam") or an
+        ``optimizers.OptimMethod``; ``loss`` a name, ``Objective`` or
+        callable; ``metrics`` a list of names or ``metrics.Metric``."""
+        from analytics_zoo_torch.pipeline.api.keras import metrics as met
+        from analytics_zoo_torch.pipeline.api.keras import objectives
+        from analytics_zoo_torch.pipeline.api.keras import optimizers
+        self.optim_method = optimizers.get(optimizer)
+        self.loss = objectives.get(loss)
+        self.metrics = [met.get(m) for m in (metrics or [])]
+        return self
+
+    def set_constant_gradient_clipping(self, min_value: float,
+                                       max_value: float):
+        self._gradient_clipping = ("const", float(min_value),
+                                   float(max_value))
+
+    def set_gradient_clipping_by_l2_norm(self, clip_norm: float):
+        self._gradient_clipping = ("l2norm", float(clip_norm))
+
+    def clear_gradient_clipping(self):
+        self._gradient_clipping = None
+
+    # ------------------------------------------------------------------ fit
+    def fit(self, x, y=None, batch_size: int = 32, nb_epoch: int = 10,
+            validation_data=None, validation_split: float = 0.0,
+            shuffle: bool = True, rng: Optional[int] = None):
+        """Train on ndarrays or a FeatureSet; returns the per-epoch history
+        ``[{"epoch", "loss", "throughput", "wall_s"}, ...]``.  ``rng`` is
+        the integer seed the dropout generators derive from (default:
+        ``data.shuffle_seed``)."""
+        from analytics_zoo_torch.common.triggers import MaxEpoch
+        from analytics_zoo_torch.feature.feature_set import FeatureSet
+        from analytics_zoo_torch.pipeline.estimator import Estimator
+        if validation_data is not None or validation_split:
+            raise NotImplementedError(
+                "validation during fit is not ported to the PyTorch package "
+                "yet (ROADMAP.md); call evaluate after fit")
+        train_set = x if isinstance(x, FeatureSet) else \
+            FeatureSet.from_ndarrays(x, y, shuffle=shuffle)
+        estimator = Estimator(self, optim_method=self.optim_method)
+        if self._gradient_clipping is not None:
+            kind, *args = self._gradient_clipping
+            if kind == "const":
+                estimator.set_constant_gradient_clipping(*args)
+            else:
+                estimator.set_l2_norm_gradient_clipping(*args)
+        estimator.train(train_set, self.loss,
+                        end_trigger=MaxEpoch(nb_epoch),
+                        batch_size=batch_size, rng=rng)
+        self._variables = estimator.variables
+        return estimator.history
+
+    def evaluate(self, x, y=None, batch_size: int = 32):
+        """Loss and metrics over a dataset: ``{"loss": ..., metric: ...}``."""
+        from analytics_zoo_torch.feature.feature_set import FeatureSet
+        from analytics_zoo_torch.pipeline.estimator import Estimator
+        data = x if isinstance(x, FeatureSet) else \
+            FeatureSet.from_ndarrays(x, y, shuffle=False)
+        return Estimator(self).evaluate(
+            data, self.loss, validation_method=self.metrics or [],
+            batch_size=batch_size)
+
+    def predict(self, x, batch_size: int = 256):
+        """Batched inference on the zoo context's device; host numpy out."""
+        from analytics_zoo_torch.pipeline.estimator import Estimator
+        return Estimator(self).predict(x, batch_size=batch_size)
 
 
 class Model(KerasNet):

@@ -1,0 +1,184 @@
+"""Estimator — the training loop, single device (port of
+``pipeline/estimator/estimator.py``).
+
+``train`` runs the reference's plain per-step loop: each epoch walks the
+FeatureSet's deterministic batches, one ``DistributedTrainer.train_step``
+each, until the end trigger fires; an epoch appends ``{"epoch", "loss",
+"throughput", "wall_s"}`` to ``history``, its loss the mean of the
+epoch's step losses (what the reference's whole-epoch scan reports for an
+in-memory FeatureSet).  The step losses stay on the device; the epoch's
+mean is the one value read back per epoch.  ``evaluate`` and ``predict``
+run the eval and predict steps over ordered batches with a padded tail.
+
+Not ported: checkpoints (``model_dir``), validation during training,
+TensorBoard summaries, the retry/recovery policy, the chunked and
+whole-epoch dispatch engines, and multiple optimizer groups.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from analytics_zoo_torch.common.config import get_config
+from analytics_zoo_torch.common.triggers import (
+    MaxEpoch, Trigger, TrainingState,
+)
+from analytics_zoo_torch.parallel.trainer import (
+    ClipSpec, DistributedTrainer, step_generator,
+)
+from analytics_zoo_torch.pipeline.api.keras.topology import (
+    to_device, tree_leaves, tree_map,
+)
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"Estimator {what} is not ported to the PyTorch package yet "
+        "(ROADMAP.md, port queue)")
+
+
+def predict_in_batches(run_batch, x, batch_size: int) -> np.ndarray:
+    """Fixed-shape batched prediction: zero-pad the tail batch, slice the
+    padding back off, concatenate on the host.  ``run_batch`` takes a host
+    batch and returns a device tensor; ``window`` batches stay in flight
+    on the device while older results stream to the host."""
+    n = len(tree_leaves(x)[0])
+    if n == 0:
+        raise ValueError("predict called with an empty input")
+    window = 8
+    outs, in_flight = [], []
+    for b in range(math.ceil(n / batch_size)):
+        lo, hi = b * batch_size, min((b + 1) * batch_size, n)
+        xb = tree_map(lambda a: np.asarray(a)[lo:hi], x)
+        real = hi - lo
+        if real < batch_size:   # keep one batch shape
+            xb = tree_map(
+                lambda a: np.concatenate(
+                    [a, np.zeros((batch_size - real,) + a.shape[1:],
+                                 a.dtype)]), xb)
+        in_flight.append(run_batch(xb)[:real])
+        if len(in_flight) >= window:
+            outs.append(in_flight.pop(0).cpu().numpy())
+    outs.extend(o.cpu().numpy() for o in in_flight)
+    return np.concatenate(outs)
+
+
+class Estimator:
+    def __init__(self, model, optim_method=None,
+                 model_dir: Optional[str] = None):
+        from analytics_zoo_torch.pipeline.api.keras import optimizers
+        if model_dir is not None:
+            raise _not_ported("model_dir (checkpoints and recovery)")
+        self.model = model
+        self.optim_method = optimizers.get(optim_method)
+        self._clip: Optional[ClipSpec] = None
+        self.variables = None
+        self.history: List[Dict] = []
+        self.train_state = TrainingState()
+
+    # ------------------------------------------------------------- settings
+    def set_constant_gradient_clipping(self, min_value, max_value):
+        self._clip = ClipSpec("const", float(min_value), float(max_value))
+
+    def set_l2_norm_gradient_clipping(self, clip_norm):
+        self._clip = ClipSpec("l2norm", float(clip_norm))
+
+    def clear_gradient_clipping(self):
+        self._clip = None
+
+    def set_tensorboard(self, log_dir: str, app_name: str):
+        raise _not_ported("set_tensorboard")
+
+    # ------------------------------------------------------------- training
+    def train(self, train_set, criterion,
+              end_trigger: Optional[Trigger] = None,
+              validation_set=None, validation_method=None,
+              batch_size: int = 32, rng: Optional[int] = None):
+        """Train on a FeatureSet until ``end_trigger`` (default one
+        epoch).  ``rng`` is the integer seed of the dropout generators
+        (default ``data.shuffle_seed``)."""
+        from analytics_zoo_torch.pipeline.api.keras import objectives
+        if self.optim_method is None:
+            raise ValueError("Estimator needs an optim_method to train")
+        if validation_set is not None or validation_method:
+            raise _not_ported("validation during training")
+        criterion = objectives.get(criterion)
+        end_trigger = end_trigger or MaxEpoch(1)
+        seed = int(rng if rng is not None
+                   else get_config().get("data.shuffle_seed"))
+        trainer = DistributedTrainer(self.model, criterion,
+                                     optim_method=self.optim_method,
+                                     clip=self._clip)
+        if train_set.size < batch_size:
+            raise ValueError(
+                f"batch_size {batch_size} exceeds dataset size "
+                f"{train_set.size}: no full training batch can be formed "
+                "(training drops the remainder batch)")
+
+        if self.variables is None:
+            self.variables = self.model.get_variables()
+        params = trainer.place_params(self.variables["params"])
+        state = trainer.replicate(self.variables["state"])
+        opt_state = trainer.init_opt_state(params)
+
+        ts = self.train_state
+        while not end_trigger(ts):
+            epoch_start = time.perf_counter()
+            seen, steps, loss_sum, stop = 0, 0, None, False
+            for batch in train_set.epoch_batches(ts.epoch, batch_size,
+                                                 train=True):
+                params, opt_state, state, loss = trainer.train_step(
+                    params, opt_state, state, trainer.put_batch(batch),
+                    step_generator(seed, ts.iteration, trainer.device))
+                loss_sum = loss if loss_sum is None else loss_sum + loss
+                steps += 1
+                ts.iteration += 1
+                seen += batch_size
+                # iteration-level triggers (MaxIteration) fire mid-epoch
+                if end_trigger(ts):
+                    stop = True
+                    break
+            if steps:
+                ts.last_loss = float(loss_sum / steps)   # the epoch's sync
+            if stop:
+                break
+            ts.epoch += 1
+            ts.slice_index = 0
+            ts.epoch_finished = True
+            wall = time.perf_counter() - epoch_start
+            self.history.append({"epoch": ts.epoch, "loss": ts.last_loss,
+                                 "throughput": seen / max(wall, 1e-9),
+                                 "wall_s": wall})
+            ts.epoch_finished = False
+
+        self.variables = {"params": params, "state": state}
+        self.model.set_variables(self.variables)
+        return self
+
+    # ------------------------------------------------------------ inference
+    def _placed(self, trainer):
+        variables = to_device(self.model.get_variables(), trainer.device)
+        return variables["params"], variables["state"]
+
+    def evaluate(self, data_set, criterion=None, validation_method=None,
+                 batch_size: int = 32) -> Dict[str, float]:
+        from analytics_zoo_torch.pipeline.api.keras import metrics as met
+        methods = list(validation_method or [])
+        if criterion is not None:
+            methods = [met.Loss(criterion)] + methods
+        trainer = DistributedTrainer(self.model, None)
+        params, state = self._placed(trainer)
+        return trainer.make_eval_runner(methods)(
+            params, state, data_set.epoch_batches(0, batch_size, train=False))
+
+    def predict(self, x, batch_size: int = 256) -> np.ndarray:
+        trainer = DistributedTrainer(self.model, None)
+        params, state = self._placed(trainer)
+        fn = trainer.predict_fn()
+        return predict_in_batches(
+            lambda xb: fn(params, state, trainer.put_batch(xb)), x,
+            batch_size)

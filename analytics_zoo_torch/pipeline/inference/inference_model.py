@@ -13,7 +13,6 @@ ported yet and raise.
 
 from __future__ import annotations
 
-import math
 import threading
 from typing import Optional
 
@@ -82,27 +81,12 @@ class InferenceModel:
         arrays (one per model input) with the batch in dim 0."""
         if self._predict_fn is None:
             raise RuntimeError("no model loaded")
+        from analytics_zoo_torch.pipeline.estimator.estimator import (
+            predict_in_batches)
         with self._sem, torch.inference_mode():
             n = len(tree_leaves(x)[0])
-            bs = batch_size or n
-            # keep `window` batches in flight on the device; older results
-            # stream to the host
-            window = 8
-            outs, in_flight = [], []
-            for b in range(math.ceil(n / bs)):
-                lo, hi = b * bs, min((b + 1) * bs, n)
-                xb = tree_map(lambda a: np.asarray(a)[lo:hi], x)
-                real = hi - lo
-                if real < bs:   # keep one batch shape
-                    xb = tree_map(
-                        lambda a: np.concatenate(
-                            [a, np.zeros((bs - real,) + a.shape[1:],
-                                         a.dtype)]), xb)
-                out = self._predict_fn(
+            return predict_in_batches(
+                lambda xb: self._predict_fn(
                     self._variables["params"], self._variables["state"],
-                    tree_map(self._to_device, xb))
-                in_flight.append(out[:real])
-                if len(in_flight) >= window:
-                    outs.append(in_flight.pop(0).cpu().numpy())
-            outs.extend(o.cpu().numpy() for o in in_flight)
-            return np.concatenate(outs)
+                    tree_map(self._to_device, xb)),
+                x, batch_size or n)

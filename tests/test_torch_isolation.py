@@ -1,5 +1,5 @@
 """PyTorch port, isolation: importing the port (and every module of the
-serving slice) pulls in neither ``jax`` nor ``analytics_zoo_tpu``, and
+serving and training slices) pulls in neither ``jax`` nor ``analytics_zoo_tpu``, and
 the context refuses to fall back to the CPU quietly.  Each check runs
 in a fresh interpreter, since this test process has both loaded."""
 
@@ -30,6 +30,13 @@ SLICE_MODULES = [
     "analytics_zoo_torch.models.textclassification",
     "analytics_zoo_torch.pipeline.inference",
     "analytics_zoo_torch.interop",
+    "analytics_zoo_torch.common.triggers",
+    "analytics_zoo_torch.feature",
+    "analytics_zoo_torch.parallel.trainer",
+    "analytics_zoo_torch.pipeline.estimator",
+    "analytics_zoo_torch.pipeline.api.keras.objectives",
+    "analytics_zoo_torch.pipeline.api.keras.optimizers",
+    "analytics_zoo_torch.pipeline.api.keras.metrics",
 ]
 
 

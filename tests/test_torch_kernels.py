@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from analytics_zoo_tpu.ops import activations as jacts
@@ -72,6 +73,36 @@ def test_flash_attention_public_entry_matches_reference(causal):
                               torch.from_numpy(v), causal=causal)
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_backward_matches_pallas_vjp(causal):
+    """The port's flash autograd on the CPU (plain forward, then
+    flash_attention_bwd_ref) and flash_attention_bwd_ref called directly,
+    against jax.vjp through the Pallas kernels in interpret mode."""
+    q, k, v = _qkv(8, (1, 2, 256, 64))
+    do = np.random.RandomState(9).randn(1, 2, 256, 64).astype(np.float32)
+    out, vjp = jax.vjp(
+        lambda a, b, c: j_flash(a, b, c, causal=causal, interpret=True),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(do))]
+
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    o = tfa.flash_attention(tq, tk, tv, causal=causal)
+    assert o.grad_fn is not None
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(out),
+                               atol=1e-5, rtol=1e-5)
+    got = torch.autograd.grad(o, (tq, tk, tv), torch.from_numpy(do))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w, atol=1e-5, rtol=0)
+
+    qq, kk, vv = (torch.from_numpy(a) for a in (q, k, v))
+    o, lse = tfa.flash_attention_ref(qq, kk, vv, causal=causal)
+    direct = tfa.flash_attention_bwd_ref(qq, kk, vv, o, lse,
+                                         torch.from_numpy(do), causal=causal)
+    for g, w in zip(direct, want):
+        np.testing.assert_allclose(g.numpy(), w, atol=1e-5, rtol=0)
+    assert sum(kernels.launch_counts().values()) == 0
 
 
 @pytest.mark.parametrize("causal,masked", [(False, False), (True, False),
@@ -144,6 +175,12 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing(
     assert torch.equal(
         tfused.layernorm_act(x, gamma, bias, activation=tacts.gelu),
         tfused.layernorm_act_ref(x, gamma, bias, activation=tacts.gelu))
+    p, m, v = x.clone(), torch.zeros_like(x), torch.zeros_like(x)
+    tfused.adam_leaf_update(p, x, m, v, tfused.step_scalars(None, -0.1, 0.1,
+                                                           0.001),
+                            b1=0.9, b2=0.999, eps=1e-8)
+    tfused.sgd_leaf_update(p, x, m, tfused.step_scalars(None, -0.1),
+                           momentum=0.9, nesterov=False)
     assert kernels.launch_counts() == {name: 0 for name in kernels.SIGNATURES}
 
 
@@ -151,6 +188,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     q, k, v = (torch.from_numpy(a) for a in _qkv(7))
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_attention_fwd(q, k, v)
+    o, lse = tfa.flash_attention_ref(q, k, v)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention_bwd(q, k, v, o, lse, o)
     with pytest.raises(ValueError, match="CUDA"):
         tfused.bias_gelu_kernel(torch.zeros(4, 8), torch.zeros(8))
     with pytest.raises(ValueError, match="CUDA"):
@@ -190,18 +230,20 @@ def test_build_runs_one_nvcc_per_source_with_the_stated_flags(
                       'shift; done\n')
     monkeypatch.setattr(kernels, "nvcc_path", lambda: nvcc)
     monkeypatch.setattr(kernels, "BUILD_DIR", str(tmp_path / "build"))
-    started = {n: kernels._start_build(n) for n in kernels.SIGNATURES}
+    started = {n: kernels._start_build(n) for n in kernels.SOURCES}
     for n, s in started.items():
         kernels._finish_build(n, s)
     calls = log.read_text().splitlines()
-    assert len(calls) == len(kernels.SIGNATURES)
-    for n in kernels.SIGNATURES:
+    assert len(calls) == len(kernels.SOURCES)
+    assert set(kernels.SOURCES) == {src for src, _, _ in
+                                    kernels.SIGNATURES.values()}
+    for n in kernels.SOURCES:
         call = next(c for c in calls if c.endswith(f"csrc/{n}.cu"))
         assert "arch=compute_90a,code=sm_90a" in call
         assert "-shared" in call and "fast_math" not in call
         assert os.path.isfile(kernels.library_path(n))
     # a built library is reused: no second nvcc run
-    assert all(kernels._start_build(n) is None for n in kernels.SIGNATURES)
+    assert all(kernels._start_build(n) is None for n in kernels.SOURCES)
 
 
 def test_failed_build_raises_with_the_compiler_log(monkeypatch, tmp_path):

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from analytics_zoo_torch.ops import activations as acts
+from analytics_zoo_torch.ops import dtypes
 from analytics_zoo_torch.ops import flash_attention as fa
 from analytics_zoo_torch.ops import fused, kernels
 
@@ -67,3 +68,126 @@ def test_layernorm_act_kernel_matches_plain(dev, rows, d, act):
     torch.testing.assert_close(
         fused.layernorm_act_kernel(x, g, b, 1e-5, act),
         fused.layernorm_act_ref(x, g, b, 1e-5, act), atol=1e-5, rtol=0)
+
+
+# The backward kernels sum 64-term tile products in another order than
+# the plain version's full-length float32 products: ~1e-6 relative.
+BWD_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("t,d,causal", [(128, 64, False), (128, 64, True),
+                                        (100, 128, False), (100, 128, True),
+                                        (1, 64, False), (257, 64, True)])
+def test_flash_backward_kernels_match_plain(dev, t, d, causal):
+    q, k, v, do = (_randn(dev, 2, 3, t, d, seed=s) for s in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    before = kernels.launch_counts()
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    want = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **BWD_TOL)
+    after = kernels.launch_counts()
+    assert after["flash_attention_dq"] == before["flash_attention_dq"] + 1
+    assert after["flash_attention_dkv"] == before["flash_attention_dkv"] + 1
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_autograd_on_the_card_matches_plain_autograd(dev, causal):
+    q, k, v = (_randn(dev, 2, 2, 192, 64, seed=s).requires_grad_()
+               for s in range(3))
+    do = _randn(dev, 2, 2, 192, 64, seed=3)
+    o = fa.flash_attention(q, k, v, causal=causal)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    o_ref = fa.flash_attention_ref(q, k, v, causal=causal)[0]
+    want = torch.autograd.grad(o_ref, (q, k, v), do)
+    torch.testing.assert_close(o, o_ref, atol=1e-5, rtol=1e-5)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **BWD_TOL)
+
+
+def _leaf(dev, n, seed, offset=0):
+    """A contiguous float32 leaf of n elements; offset 1 misaligns it."""
+    return _randn(dev, n + offset, seed=seed)[offset:]
+
+
+@pytest.mark.parametrize("n,offset", [(4096, 0), (1001, 0), (777, 1),
+                                      (3, 0)])
+@pytest.mark.parametrize("clip", [None, "scale", "const"])
+def test_fused_adam_kernel_is_bit_identical_to_plain(dev, n, offset, clip):
+    p, g, m = (_leaf(dev, n, s, offset) for s in range(3))
+    v = _leaf(dev, n, 3, offset).abs() * 0.01
+    scal = fused.step_scalars(0.5, -1e-3, 0.1, 1e-3, dev)
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8,
+              use_clip_scale=clip == "scale",
+              clip_const=(-0.5, 0.5) if clip == "const" else None)
+    ref = [x.clone() for x in (p, g, m, v)]
+    before = kernels.launch_counts()["fused_adam"]
+    fused.adam_leaf_update(p, g, m, v, scal, **kw)
+    assert kernels.launch_counts()["fused_adam"] == before + 1
+    from analytics_zoo_torch.common.config import get_config
+    get_config().set("ops.fused", "torch")
+    try:
+        fused.adam_leaf_update(*ref, scal, **kw)
+    finally:
+        get_config().set("ops.fused", "auto")
+    for a, b in zip((p, m, v), (ref[0], ref[2], ref[3])):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("n,offset", [(4096, 0), (1001, 0), (777, 1)])
+@pytest.mark.parametrize("momentum,nesterov,wd", [(0.9, False, 0.0),
+                                                  (0.8, True, 1e-4),
+                                                  (0.0, False, 0.0)])
+def test_fused_sgd_kernel_is_bit_identical_to_plain(dev, n, offset, momentum,
+                                                    nesterov, wd):
+    p, g, t = (_leaf(dev, n, s, offset) for s in range(3))
+    t = t if momentum else None
+    scal = fused.step_scalars(0.7, -0.05, device=dev)
+    kw = dict(momentum=momentum, nesterov=nesterov, weight_decay=wd,
+              use_clip_scale=True, clip_const=(-1.0, 1.0))
+    ref = [None if x is None else x.clone() for x in (p, g, t)]
+    before = kernels.launch_counts()["fused_sgd"]
+    fused.sgd_leaf_update(p, g, t, scal, **kw)
+    assert kernels.launch_counts()["fused_sgd"] == before + 1
+    from analytics_zoo_torch.common.config import get_config
+    get_config().set("ops.fused", "torch")
+    try:
+        fused.sgd_leaf_update(*ref, scal, **kw)
+    finally:
+        get_config().set("ops.fused", "auto")
+    torch.testing.assert_close(p, ref[0], atol=0, rtol=0)
+    if t is not None:
+        torch.testing.assert_close(t, ref[2], atol=0, rtol=0)
+
+
+def test_epilogue_gradients_on_the_card_match_plain(dev):
+    x = _randn(dev, 16, 256, seed=6).requires_grad_()
+    b = _randn(dev, 256, seed=7).requires_grad_()
+    got = torch.autograd.grad(fused.bias_gelu(x, b).sum(), (x, b))
+    want = torch.autograd.grad(fused.bias_gelu_ref(x, b).sum(), (x, b))
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, atol=1e-5, rtol=1e-5)
+    g = (_randn(dev, 256, seed=8) * 0.1 + 1).requires_grad_()
+    got = torch.autograd.grad(
+        fused.layernorm_act(x, g, b, 1e-5, acts.gelu).sum(), (x, g, b))
+    want = torch.autograd.grad(
+        fused.layernorm_act_ref(x, g, b, 1e-5, acts.gelu).sum(), (x, g, b))
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, atol=1e-5, rtol=1e-5)
+
+
+def test_bf16_matmul_gradient_on_the_card(dev):
+    x = _randn(dev, 4, 32, 64, seed=9).requires_grad_()
+    w = _randn(dev, 64, 48, seed=10).requires_grad_()
+    out = dtypes.matmul(x, w)
+    assert out.dtype == torch.float32
+    gx, gw = torch.autograd.grad(out.square().sum(), (x, w))
+    xc, wc = x.detach().cpu(), w.detach().cpu()
+    xr, wr = xc.requires_grad_(), wc.requires_grad_()
+    rx, rw = torch.autograd.grad(dtypes.matmul(xr, wr).square().sum(),
+                                 (xr, wr))
+    # the card rounds the float32 cotangent to bf16 for its tensor-core
+    # products (2^-8 relative a value); the CPU path multiplies it in
+    # float32
+    for a, w in ((gx.cpu(), rx), (gw.cpu(), rw)):
+        assert float((a - w).norm() / w.norm()) < 1e-2
