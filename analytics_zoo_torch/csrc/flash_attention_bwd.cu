@@ -1,17 +1,14 @@
-// Flash-attention backward, float32, for Hopper (sm_90a): dQ and dK/dV.
+// Flash-attention backward, float32, for Hopper (sm_90a): dQ and dK/dV,
+// every product on the tensor cores in split TF32.
 //
 // Replaces: analytics_zoo_tpu/ops/pallas_attention.py::_flash_dq_kernel
 //           and ::_flash_dkv_kernel (launched from _flash_vjp_bwd).
 //
 // Both kernels recompute, per (query row i, key row j) of one (batch*head)
 // slice laid out (BH, T, D), the forward's probabilities from its saved
-// log-sum-exp, in the forward kernel's order of operations:
-//   s_ij  = (q_i * scale) . k_j         (q scaled in float32 first; the
-//                                         dot summed over d in the same
-//                                         order as flash_attention_fwd.cu,
-//                                         so s matches the forward's bit
-//                                         for bit; causal: s = -1e30 where
-//                                         j > i, not -inf)
+// log-sum-exp:
+//   s_ij  = (q_i * scale) . k_j         (q scaled in float32 first; causal:
+//                                         s = -1e30 where j > i, not -inf)
 //   p_ij  = exp(s_ij - lse_i)
 //   dp_ij = do_i . v_j
 //   ds_ij = p_ij * (dp_ij - delta_i)     delta_i = rowsum(do_i * o_i), from
@@ -20,312 +17,463 @@
 // and then
 //   dq_i = scale * sum_j ds_ij k_j                       (zoo_flash_attention_dq)
 //   dv_j = sum_i p_ij do_i,  dk_j = sum_i ds_ij (scale*q_i) (zoo_flash_attention_dkv)
-// summed in float32.
+// The forward kernel (flash_attention_fwd.cu) sums s on float32 FMAs and
+// these kernels on the tensor cores, so the recomputed s differs from the
+// forward's by float32 rounding (~1e-7 relative), and p by as much.
 //
-// What bounds them on the H100: at the training shape (8, 12, 512, 64),
-// dQ does 6*B*H*T^2*D = 9.7 GFLOP and dK/dV 8*B*H*T^2*D = 12.9 GFLOP on
-// ~75 MB of operands, so both are bound by arithmetic.  This first version
-// uses float32 FMAs (67 TFLOP/s peak), not the tensor cores, as the
-// forward kernel does.
+// Precision: split TF32 (CUTLASS's OpMultiplyAddFastF32).  Each float32
+// operand x is split into hi = tf32(x) and lo = tf32(x - hi), both rounded
+// as cvt.rna.tf32.f32 rounds (nearest, ties away from zero, 10 mantissa
+// bits), and each tile product a.b is taken by three
+// mma.sync.m16n8k8 TF32 instructions accumulating in float32:
+// lo_a.hi_b + hi_a.lo_b first, then hi_a.hi_b.  The dropped lo_a.lo_b term
+// is ~2^-22 of a product, so the five products (S, dP, dQ, dV, dK) keep
+// about float32's accuracy.  cvt.rna.tf32.f32 itself compiles to ~5 SASS
+// instructions (it screens NaN and Inf); for finite x the same rounding is
+// an integer add of half a TF32 ulp and a mask, which tf32_rna does.
 //
-// Design.  The TPU kernels lean on the sequential grid: dK/dV revisits the
-// same output block across q blocks and accumulates into it.  Blocks of a
-// CUDA grid run in no order, so here no output element is written by two
-// blocks and nothing is accumulated with atomics:
-//   dQ:    one block of 256 threads per (bh, 64-row q tile).  The q tile
-//          (scaled) and its dO tile stay in shared memory; 64-row K and V
-//          tiles stream through; dS goes through a shared tile and dq
-//          accumulates in registers.  Causal rows stop at the diagonal tile.
-//   dK/dV: one block per (bh, 64-row k tile).  The K and V tiles stay in
-//          shared memory; the block loops over the q tiles itself (the
-//          FA2 order), staging each q (scaled) and dO tile, and keeps dk
-//          and dv in registers.  Causal blocks start at the diagonal tile:
-//          q tiles wholly above it are skipped.
-// Each thread owns a 4x4 patch of the 64x64 score tile (rows ty+16i, keys
-// tx+16j) and a 4 x (D/16) patch of its output (rows ty+16i, columns
-// 4tx + 64c + 0..3).  Rows padded by 4 floats in shared memory keep 16-byte
-// reads of neighbouring rows in distinct banks.  Keys and queries past T
-// in a ragged last tile get probability 0; rows past T are not written.
+// What bounds them on the H100: at the training shape (8, 12, 512, 64) dQ
+// does 6*B*H*T^2*D = 9.66 GFLOP and dK/dV 8*B*H*T^2*D = 12.88 GFLOP on
+// ~63 and ~75 MB of operands.  Taken as three TF32 products at 495 TFLOP/s
+// that is 0.0586 and 0.0781 ms, against 0.019 and 0.023 ms to move the
+// bytes: both are bound by operations.  Splitting an operand costs four or
+// five ALU instructions; three mma take one B fragment (two values) and
+// share the A fragment across a row of tiles, so a B operand split by
+// every warp that reads it would cost more issue slots than the mma.  The
+// design therefore splits each streamed tile once, as it lands, and keeps
+// only the A operands' split in registers.
+//
+// Design.  Blocks of a CUDA grid run in no order, so no output element is
+// written by two blocks and nothing is accumulated with atomics: two
+// launches on the same inputs give bit-identical outputs.
+//   dQ:    one block per (bh, BM-row q tile); each of its BM/16 warps owns
+//          16 q rows.  BN-row K and V tiles stream through a two-stage
+//          cp.async ring (the next tile loads while this one is used); a
+//          landed tile is split in place into its hi part and a lo plane.
+//          S = (q*scale) K^T and dP = dO V^T come out as m16n8
+//          accumulators; P and dS are formed in those registers and feed
+//          dQ += dS K as the A operand directly.  Causal blocks stop at the
+//          diagonal tile, and a warp whose rows all lie above a tile's keys
+//          skips it.
+//   dK/dV: one block per (bh, BM-row k tile), looping over the q tiles
+//          itself (FA2 order); each warp owns 16 key rows.  It computes
+//          S^T = K (q*scale)^T and dP^T = V dO^T, so P^T and dS^T come out
+//          in key-row layout and feed dV += P^T dO and dK += dS^T (q*scale)
+//          from registers; lse and delta become per-column values.  q, dO,
+//          lse and delta stream through the two-stage ring.  Causal blocks
+//          start at the diagonal tile, and a warp whose keys all lie past
+//          a tile's queries skips it.
+//   D=64: BM=128 (8 warps), BN=64; D=128: BM=64 (4 warps), BN=32, so that
+//   the dK and dV accumulators (64 registers each at D=128) fit beside P
+//   and dS, and the shared tiles fit in 227 KB.
+// Accumulator to A operand without a shuffle or a shared round trip: an
+// m16n8 accumulator holds columns 2t and 2t+1 of rows g and g+8 (t = lane
+// % 4, g = lane / 4), and the m16n8k8 A fragment wants k-columns t and
+// t+4.  The k order inside an 8-wide step is free as long as A and B agree,
+// so k-slot t is taken as column 2t and k-slot t+4 as column 2t+1, and the
+// B fragment is read from rows 2t and 2t+1 of the shared tile.
+// Shared tiles are float32 with rows padded to D+4 floats: fragment reads
+// by (row g, column t) hit banks 4g+t, and by (row 2t, column g) banks
+// 8t+g, so every 32-bit fragment read is free of bank conflicts.  Keys and
+// queries past T in a ragged last tile are zero-filled by the copy and get
+// probability 0; rows past T are not written.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 64;         // q rows per tile
-constexpr int BK = 64;         // k rows per tile
-constexpr int NTHREADS = 256;  // 16 x 16
-constexpr int SSTRIDE = BK + 4;
-
 template <int D>
-struct Smem {
-    static constexpr int STRIDE = D + 4;
-    // dQ: q, dO, K, V tiles + the dS tile
-    static constexpr int DQ_BYTES =
-        (4 * BQ * STRIDE + BQ * SSTRIDE) * (int)sizeof(float);
-    // dK/dV: K, V, q, dO tiles + P^T and dS^T tiles + lse and delta rows
-    static constexpr int DKV_BYTES =
-        (4 * BQ * STRIDE + 2 * BK * SSTRIDE + 2 * BQ) * (int)sizeof(float);
+struct Cfg {
+    static constexpr int BM = D == 64 ? 128 : 64;  // rows a block owns
+    static constexpr int BN = D == 64 ? 64 : 32;   // rows of each streamed tile
+    static constexpr int NWARPS = BM / 16;
+    static constexpr int NTHREADS = 32 * NWARPS;
+    static constexpr int NJ = BN / 8;              // m16n8 tiles across a streamed tile
+    static constexpr int S = D + 4;                // padded row stride, floats
+    static constexpr int OWN = BM * S;             // floats in the block's own tile
+    static constexpr int TILE = BN * S;            // floats in one streamed tile
+    // own: two tiles (q, dO or K, V); ring: two stages of two streamed
+    // tiles (split in place to their hi parts); their two lo planes; dK/dV
+    // also streams lse and delta (two stages of BN each)
+    static constexpr int DQ_BYTES = (2 * OWN + 6 * TILE) * (int)sizeof(float);
+    static constexpr int DKV_BYTES = (2 * OWN + 6 * TILE + 4 * BN) * (int)sizeof(float);
 };
 
-// Stage rows [r0, r0 + 64) of a (t, D) slice into a padded shared tile,
-// multiplied by `mul` (1 or the softmax scale); rows past t are zeros.
+// ------------------------------------------------------------ cp.async
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes, or 16 zero bytes when !in (src-size 0: nothing is read)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_addr(dst)), "l"(src), "r"(in ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(smem_addr(dst)), "l"(src), "r"(in ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Start copying rows [r0, r0 + ROWS) of a (t, D) slice into a padded tile;
+// rows past t are zero-filled.  Every call gives a thread the same 16-byte
+// chunks, so once its copies have landed it may rewrite its own chunks
+// without a barrier (scale_own, split_own).
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int r0, int t) {
+    constexpr int C = D / 4;                       // 16-byte chunks a row
+#pragma unroll
+    for (int i = 0; i < ROWS * C / Cfg<D>::NTHREADS; ++i) {
+        const int idx = threadIdx.x + i * Cfg<D>::NTHREADS;
+        const int r = idx / C, c = (idx % C) * 4;
+        const bool in = r0 + r < t;
+        cp_async16(dst + r * Cfg<D>::S + c, src + (size_t)(in ? r0 + r : 0) * D + c, in);
+    }
+}
+
+// ---------------------------------------------------------- split TF32
+
+// the nearest TF32 value, ties away from zero (cvt.rna.tf32.f32 for
+// finite x): add half an ulp of the 10-bit mantissa to the magnitude, clear
+// the 13 bits below it
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+    return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo, each a TF32 value; x - hi is exact
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+    hi = tf32_rna(x);
+    lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// Split this thread's own (landed) chunks of a streamed tile, times mul:
+// hi in place, lo into the lo plane.
 template <int D>
-__device__ __forceinline__ void stage_tile(float* dst, const float* src,
-                                           int r0, int t, float mul, bool scaled) {
-    constexpr int STRIDE = D + 4;
-    for (int idx = threadIdx.x; idx < BQ * (D / 4); idx += NTHREADS) {
-        const int r = idx / (D / 4), c = (idx % (D / 4)) * 4;
-        float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (r0 + r < t)
-            val = *reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * D + c);
-        if (scaled) {
-            val.x *= mul; val.y *= mul; val.z *= mul; val.w *= mul;
+__device__ __forceinline__ void split_own(float* hi, float* lo, float mul) {
+    constexpr int C = D / 4;
+#pragma unroll
+    for (int i = 0; i < Cfg<D>::BN * C / Cfg<D>::NTHREADS; ++i) {
+        const int idx = threadIdx.x + i * Cfg<D>::NTHREADS;
+        const int off = (idx / C) * Cfg<D>::S + (idx % C) * 4;
+        const float4 x = *reinterpret_cast<const float4*>(hi + off);
+        uint4 h, l;
+        split(x.x * mul, h.x, l.x);
+        split(x.y * mul, h.y, l.y);
+        split(x.z * mul, h.z, l.z);
+        split(x.w * mul, h.w, l.w);
+        *reinterpret_cast<uint4*>(hi + off) = h;
+        *reinterpret_cast<uint4*>(lo + off) = l;
+    }
+}
+
+// Scale this thread's own (landed) chunks of the block's own tile.
+template <int D>
+__device__ __forceinline__ void scale_own(float* dst, float mul) {
+    constexpr int C = D / 4;
+#pragma unroll
+    for (int i = 0; i < Cfg<D>::BM * C / Cfg<D>::NTHREADS; ++i) {
+        const int idx = threadIdx.x + i * Cfg<D>::NTHREADS;
+        float4* p = reinterpret_cast<float4*>(dst + (idx / C) * Cfg<D>::S + (idx % C) * 4);
+        float4 x = *p;
+        x.x *= mul; x.y *= mul; x.z *= mul; x.w *= mul;
+        *p = x;
+    }
+}
+
+__device__ __forceinline__ void mma(float c[4], const uint32_t a[4], float b0, float b1) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
+          "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)));
+}
+
+// c += a.b in split TF32, the small terms first; b from a tile's hi part
+// and lo plane at the same offsets
+__device__ __forceinline__ void mma3(float c[4], const uint32_t ah[4], const uint32_t al[4],
+                                     const float* bh, const float* bl, int o0, int o1) {
+    const float h0 = bh[o0], h1 = bh[o1];
+    mma(c, al, h0, h1);
+    mma(c, ah, bl[o0], bl[o1]);
+    mma(c, ah, h0, h1);
+}
+
+// acc[j] = a[ra : ra+16, :D] . b[nb + 8j : nb + 8j + 8, :D]^T for j < NJ:
+// a 16 x 8NJ tile of row-by-row dot products over D; a is plain float32, b
+// a split streamed tile.  Lane (g, t) holds rows ra+g, ra+g+8 and columns
+// nb + 8j + 2t, +1.
+template <int D>
+__device__ __forceinline__ void dots(float acc[Cfg<D>::NJ][4], const float* a, int ra,
+                                     const float* bh, const float* bl, int g, int t) {
+    constexpr int S = Cfg<D>::S, NJ = Cfg<D>::NJ;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll
+    for (int d0 = 0; d0 < D; d0 += 8) {
+        const float* ap = a + (ra + g) * S + d0 + t;
+        uint32_t ah[4], al[4];
+        split(ap[0], ah[0], al[0]);
+        split(ap[8 * S], ah[1], al[1]);
+        split(ap[4], ah[2], al[2]);
+        split(ap[8 * S + 4], ah[3], al[3]);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+            const int o = (8 * j + g) * S + d0 + t;
+            mma3(acc[j], ah, al, bh, bl, o, o + 4);
         }
-        *reinterpret_cast<float4*>(dst + r * STRIDE + c) = val;
     }
 }
 
-// out[i][j] = a[ra + 16i] . b[rb + 16j] over D, with the forward kernel's
-// order of fused multiply-adds.
+// acc[n] += w . x[8kk : 8kk + 8, 8n : 8n + 8] summed over kk < NJ, for
+// n < D/8, where w is a 16 x 8NJ tile held as dots() leaves it and x a
+// split streamed tile: w's columns 2t, 2t+1 of each 8-wide step serve as
+// k-slots t, t+4, so x is read at rows 8kk + 2t and + 1.
 template <int D>
-__device__ __forceinline__ void tile_dots(float out[4][4], const float* a, int ra,
-                                          const float* b, int rb) {
-    constexpr int STRIDE = D + 4;
+__device__ __forceinline__ void accumulate(float acc[D / 8][4], const float w[Cfg<D>::NJ][4],
+                                           const float* xh, const float* xl, int g, int t) {
+    constexpr int S = Cfg<D>::S, NJ = Cfg<D>::NJ;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int kk = 0; kk < NJ; ++kk) {
+        uint32_t ah[4], al[4];
+        split(w[kk][0], ah[0], al[0]);   // row g,   k-slot t
+        split(w[kk][2], ah[1], al[1]);   // row g+8, k-slot t
+        split(w[kk][1], ah[2], al[2]);   // row g,   k-slot t+4
+        split(w[kk][3], ah[3], al[3]);   // row g+8, k-slot t+4
+        const int o = (8 * kk + 2 * t) * S + g;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) out[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-        float4 av[4], bv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-            av[i] = *reinterpret_cast<const float4*>(a + (ra + 16 * i) * STRIDE + d);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-            bv[j] = *reinterpret_cast<const float4*>(b + (rb + 16 * j) * STRIDE + d);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                out[i][j] = fmaf(av[i].x, bv[j].x, out[i][j]);
-                out[i][j] = fmaf(av[i].y, bv[j].y, out[i][j]);
-                out[i][j] = fmaf(av[i].z, bv[j].z, out[i][j]);
-                out[i][j] = fmaf(av[i].w, bv[j].w, out[i][j]);
-            }
-    }
-}
-
-// acc[i][cols] += sum_k w[ty + 16i][k] * x[k][cols] over a 64-wide tile
-// w (stride SSTRIDE) and a (64, D) tile x; cols = 4tx + 64c + 0..3.
-template <int D>
-__device__ __forceinline__ void tile_accumulate(float acc[4][(D / 64) * 4],
-                                                const float* w, const float* x,
-                                                int ty, int tx) {
-    constexpr int STRIDE = D + 4;
-    constexpr int C4 = D / 64;
-#pragma unroll 2
-    for (int kk = 0; kk < BK; kk += 4) {
-        float4 wa[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-            wa[i] = *reinterpret_cast<const float4*>(w + (ty + 16 * i) * SSTRIDE + kk);
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-#pragma unroll
-            for (int c = 0; c < C4; ++c) {
-                const float4 xb = *reinterpret_cast<const float4*>(
-                    x + (kk + u) * STRIDE + 4 * tx + 64 * c);
-#pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    const float p = u == 0 ? wa[i].x : u == 1 ? wa[i].y
-                                  : u == 2 ? wa[i].z : wa[i].w;
-                    acc[i][4 * c + 0] = fmaf(p, xb.x, acc[i][4 * c + 0]);
-                    acc[i][4 * c + 1] = fmaf(p, xb.y, acc[i][4 * c + 1]);
-                    acc[i][4 * c + 2] = fmaf(p, xb.z, acc[i][4 * c + 2]);
-                    acc[i][4 * c + 3] = fmaf(p, xb.w, acc[i][4 * c + 3]);
-                }
-            }
-        }
+        for (int n = 0; n < D / 8; ++n) mma3(acc[n], ah, al, xh, xl, o + 8 * n, o + S + 8 * n);
     }
 }
 
 template <int D>
-__device__ __forceinline__ void store_rows(float* dst, const float acc[4][(D / 64) * 4],
-                                           int r0, int t, float mul, int ty, int tx) {
-    constexpr int C4 = D / 64;
+__device__ __forceinline__ void store_rows(float* dst, const float acc[D / 8][4], int row0,
+                                           int t, float mul, int g, int tg) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int row = r0 + ty + 16 * i;
+    for (int h = 0; h < 2; ++h) {
+        const int row = row0 + g + 8 * h;
         if (row >= t) continue;
 #pragma unroll
-        for (int c = 0; c < C4; ++c) {
-            float4 out;
-            out.x = acc[i][4 * c + 0] * mul;
-            out.y = acc[i][4 * c + 1] * mul;
-            out.z = acc[i][4 * c + 2] * mul;
-            out.w = acc[i][4 * c + 3] * mul;
-            *reinterpret_cast<float4*>(dst + (size_t)row * D + 4 * tx + 64 * c) = out;
-        }
+        for (int n = 0; n < D / 8; ++n)
+            *reinterpret_cast<float2*>(dst + (size_t)row * D + 8 * n + 2 * tg) =
+                make_float2(acc[n][2 * h] * mul, acc[n][2 * h + 1] * mul);
     }
 }
 
+// ------------------------------------------------------------------- dQ
+
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(Cfg<D>::NTHREADS, 1)
 flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ delta,
                 float* __restrict__ dq, int t, float scale, int causal) {
-    constexpr int STRIDE = Smem<D>::STRIDE;
-    constexpr int C4 = D / 64;
+    using C = Cfg<D>;
+    constexpr int BM = C::BM, BN = C::BN, NJ = C::NJ;
     extern __shared__ float4 smem4[];
-    float* smem = reinterpret_cast<float*>(smem4);
-    float* qs = smem;
-    float* dos = qs + BQ * STRIDE;
-    float* ks = dos + BQ * STRIDE;
-    float* vs = ks + BK * STRIDE;
-    float* dss = vs + BK * STRIDE;
+    float* qs = reinterpret_cast<float*>(smem4);
+    float* dos = qs + C::OWN;
+    float* ring = dos + C::OWN;                    // stage s: K at 2s, V at 2s+1
+    float* k_lo = ring + 4 * C::TILE;
+    float* v_lo = k_lo + C::TILE;
 
-    const int tid = threadIdx.x;
-    const int tx = tid & 15;
-    const int ty = tid >> 4;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, tg = lane & 3;
+    const int r0 = 16 * warp;
     const int bh = blockIdx.y;
-    const int q0 = blockIdx.x * BQ;
+    const int q0 = blockIdx.x * BM;
+    const int row0 = q0 + r0;                      // this warp's first row
     const size_t base = (size_t)bh * t * D;
 
-    stage_tile<D>(qs, q + base, q0, t, scale, true);
-    stage_tile<D>(dos, dout + base, q0, t, 1.f, false);
-    float lse_r[4], delta_r[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int row = q0 + ty + 16 * i;
-        lse_r[i] = row < t ? lse[(size_t)bh * t + row] : 0.f;
-        delta_r[i] = row < t ? delta[(size_t)bh * t + row] : 0.f;
-    }
-
-    float acc[4][C4 * 4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < C4 * 4; ++c) acc[i][c] = 0.f;
-
-    int n_k = (t + BK - 1) / BK;
+    int n_k = (t + BN - 1) / BN;
     if (causal) {
-        const int last = (q0 + BQ + BK - 1) / BK;   // tiles any row of this block sees
+        const int last = (q0 + BM + BN - 1) / BN;  // tiles any row of this block sees
         n_k = n_k < last ? n_k : last;
     }
 
+    load_tile<D, BM>(qs, q + base, q0, t);
+    load_tile<D, BM>(dos, dout + base, q0, t);
+    load_tile<D, BN>(ring, k + base, 0, t);
+    load_tile<D, BN>(ring + C::TILE, v + base, 0, t);
+    cp_async_commit();
+
+    float lse_r[2], delta_r[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int row = row0 + g + 8 * h;
+        lse_r[h] = row < t ? lse[(size_t)bh * t + row] : 0.f;
+        delta_r[h] = row < t ? delta[(size_t)bh * t + row] : 0.f;
+    }
+
+    float acc[D / 8][4];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
     for (int kt = 0; kt < n_k; ++kt) {
-        const int k0 = kt * BK;
-        __syncthreads();   // previous tile's readers are done with ks/vs/dss
-        stage_tile<D>(ks, k + base, k0, t, 1.f, false);
-        stage_tile<D>(vs, v + base, k0, t, 1.f, false);
+        float* ks = ring + (kt & 1) * 2 * C::TILE;
+        float* vs = ks + C::TILE;
+        if (kt + 1 < n_k) {
+            float* next = ring + ((kt + 1) & 1) * 2 * C::TILE;
+            load_tile<D, BN>(next, k + base, (kt + 1) * BN, t);
+            load_tile<D, BN>(next + C::TILE, v + base, (kt + 1) * BN, t);
+            cp_async_commit();
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        if (kt == 0) scale_own<D>(qs, scale);
+        split_own<D>(ks, k_lo, 1.f);
+        split_own<D>(vs, v_lo, 1.f);
         __syncthreads();
 
-        float s[4][4], dp[4][4];
-        tile_dots<D>(s, qs, ty, ks, tx);
-        tile_dots<D>(dp, dos, ty, vs, tx);
+        const int k0 = kt * BN;
+        // causal: a warp whose rows all lie above this tile's keys skips it
+        if (row0 < t && !(causal && k0 > row0 + 15)) {
+            float p[NJ][4], ds[NJ][4];
+            dots<D>(p, qs, r0, ks, k_lo, g, tg);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const int qrow = q0 + ty + 16 * i;
+            for (int j = 0; j < NJ; ++j)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const int kcol = k0 + tx + 16 * j;
-                float sv = s[i][j];
-                if (causal && kcol > qrow) sv = -1e30f;
-                const float p = (kcol < t && qrow < t) ? expf(sv - lse_r[i]) : 0.f;
-                dss[(ty + 16 * i) * SSTRIDE + tx + 16 * j] = p * (dp[i][j] - delta_r[i]);
-            }
+                for (int e = 0; e < 4; ++e) {
+                    const int row = row0 + g + 8 * (e >> 1);
+                    const int col = k0 + 8 * j + 2 * tg + (e & 1);
+                    float sv = p[j][e];
+                    if (causal && col > row) sv = -1e30f;
+                    p[j][e] = (row < t && col < t) ? expf(sv - lse_r[e >> 1]) : 0.f;
+                }
+            dots<D>(ds, dos, r0, vs, v_lo, g, tg);
+#pragma unroll
+            for (int j = 0; j < NJ; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) ds[j][e] = p[j][e] * (ds[j][e] - delta_r[e >> 1]);
+            accumulate<D>(acc, ds, ks, k_lo, g, tg);
         }
-        __syncthreads();
-        tile_accumulate<D>(acc, dss, ks, ty, tx);
+        __syncthreads();   // every warp is done with this stage before it is refilled
     }
-    store_rows<D>(dq + base, acc, q0, t, scale, ty, tx);
+    store_rows<D>(dq + base, acc, row0, t, scale, g, tg);
 }
 
+// ---------------------------------------------------------------- dK/dV
+
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(Cfg<D>::NTHREADS, 1)
 flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ delta,
                  float* __restrict__ dk, float* __restrict__ dv, int t,
                  float scale, int causal) {
-    constexpr int STRIDE = Smem<D>::STRIDE;
-    constexpr int C4 = D / 64;
+    using C = Cfg<D>;
+    constexpr int BM = C::BM, BN = C::BN, NJ = C::NJ;
     extern __shared__ float4 smem4[];
-    float* smem = reinterpret_cast<float*>(smem4);
-    float* ks = smem;
-    float* vs = ks + BK * STRIDE;
-    float* qs = vs + BK * STRIDE;
-    float* dos = qs + BQ * STRIDE;
-    float* pt = dos + BQ * STRIDE;      // P^T: pt[key][query]
-    float* dst = pt + BK * SSTRIDE;     // dS^T
-    float* ls = dst + BK * SSTRIDE;     // lse of the q tile
-    float* dl = ls + BQ;                // delta of the q tile
+    float* ks = reinterpret_cast<float*>(smem4);
+    float* vs = ks + C::OWN;
+    float* ring = vs + C::OWN;                     // stage s: q at 2s, dO at 2s+1
+    float* q_lo = ring + 4 * C::TILE;
+    float* do_lo = q_lo + C::TILE;
+    float* rows = do_lo + C::TILE;                 // stage s: lse at 2s, delta at 2s+1 (BN each)
 
-    const int tid = threadIdx.x;
-    const int tx = tid & 15;
-    const int ty = tid >> 4;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, tg = lane & 3;
+    const int r0 = 16 * warp;
     const int bh = blockIdx.y;
-    const int k0 = blockIdx.x * BK;
+    const int k0 = blockIdx.x * BM;
+    const int row0 = k0 + r0;                      // this warp's first key row
     const size_t base = (size_t)bh * t * D;
+    const float* lse_bh = lse + (size_t)bh * t;
+    const float* delta_bh = delta + (size_t)bh * t;
 
-    stage_tile<D>(ks, k + base, k0, t, 1.f, false);
-    stage_tile<D>(vs, v + base, k0, t, 1.f, false);
-
-    float dk_acc[4][C4 * 4], dv_acc[4][C4 * 4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < C4 * 4; ++c) {
-            dk_acc[i][c] = 0.f;
-            dv_acc[i][c] = 0.f;
-        }
-
-    const int n_q = (t + BQ - 1) / BQ;
-    // causal: q tiles whose last row lies above this tile's first key see
+    const int n_q = (t + BN - 1) / BN;
+    // causal: q tiles whose last row lies above this block's first key see
     // none of its keys
-    const int qt0 = causal ? k0 / BQ : 0;
+    const int qt0 = causal ? k0 / BN : 0;
+
+    // q, dO, and one thread a value of lse (threads [0, BN)) and delta
+    // ([BN, 2BN)); commits the group
+    auto load_stage = [&](int qt, int stage) {
+        float* st = ring + stage * 2 * C::TILE;
+        load_tile<D, BN>(st, q + base, qt * BN, t);
+        load_tile<D, BN>(st + C::TILE, dout + base, qt * BN, t);
+        if (threadIdx.x < 2 * BN) {
+            const int row = qt * BN + threadIdx.x % BN;
+            const bool in = row < t;
+            const float* src = threadIdx.x < BN ? lse_bh : delta_bh;
+            cp_async4(rows + stage * 2 * BN + threadIdx.x, src + (in ? row : 0), in);
+        }
+        cp_async_commit();
+    };
+
+    load_tile<D, BM>(ks, k + base, k0, t);
+    load_tile<D, BM>(vs, v + base, k0, t);
+    load_stage(qt0, 0);                            // commits K and V with it
+
+    float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
 
     for (int qt = qt0; qt < n_q; ++qt) {
-        const int q0 = qt * BQ;
-        __syncthreads();   // previous tile's readers are done with qs/dos/pt/dst
-        stage_tile<D>(qs, q + base, q0, t, scale, true);
-        stage_tile<D>(dos, dout + base, q0, t, 1.f, false);
-        if (tid < BQ) {
-            const int row = q0 + tid;
-            ls[tid] = row < t ? lse[(size_t)bh * t + row] : 0.f;
-            dl[tid] = row < t ? delta[(size_t)bh * t + row] : 0.f;
+        const int stage = (qt - qt0) & 1;
+        float* qs = ring + stage * 2 * C::TILE;
+        float* dos = qs + C::TILE;
+        const float* ls = rows + stage * 2 * BN;
+        const float* dl = ls + BN;
+        if (qt + 1 < n_q) {
+            load_stage(qt + 1, stage ^ 1);
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
         }
+        split_own<D>(qs, q_lo, scale);
+        split_own<D>(dos, do_lo, 1.f);
         __syncthreads();
 
-        // this thread's patch: query rows ty+16i, key rows tx+16j
-        float s[4][4], dp[4][4];
-        tile_dots<D>(s, qs, ty, ks, tx);
-        tile_dots<D>(dp, dos, ty, vs, tx);
+        const int q0 = qt * BN;
+        // causal: a warp whose keys all lie past this tile's queries skips it
+        if (row0 < t && !(causal && row0 > q0 + BN - 1)) {
+            // this warp's key rows row0 + g (+8) against queries 8j + 2tg (+1)
+            float p[NJ][4], ds[NJ][4];
+            dots<D>(p, ks, r0, qs, q_lo, g, tg);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const int qi = ty + 16 * i;
-            const int qrow = q0 + qi;
+            for (int j = 0; j < NJ; ++j) {
+                const int qc = 8 * j + 2 * tg;
+                const float2 l2 = *reinterpret_cast<const float2*>(ls + qc);
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const int kj = tx + 16 * j;
-                const int kcol = k0 + kj;
-                float sv = s[i][j];
-                if (causal && kcol > qrow) sv = -1e30f;
-                const float p = (kcol < t && qrow < t) ? expf(sv - ls[qi]) : 0.f;
-                pt[kj * SSTRIDE + qi] = p;
-                dst[kj * SSTRIDE + qi] = p * (dp[i][j] - dl[qi]);
+                for (int e = 0; e < 4; ++e) {
+                    const int krow = row0 + g + 8 * (e >> 1);
+                    const int qrow = q0 + qc + (e & 1);
+                    float sv = p[j][e];
+                    if (causal && krow > qrow) sv = -1e30f;
+                    p[j][e] = (krow < t && qrow < t) ? expf(sv - ((e & 1) ? l2.y : l2.x)) : 0.f;
+                }
             }
+            accumulate<D>(dv_acc, p, dos, do_lo, g, tg);
+            dots<D>(ds, vs, r0, dos, do_lo, g, tg);
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) {
+                const float2 d2 = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * tg);
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                    ds[j][e] = p[j][e] * (ds[j][e] - ((e & 1) ? d2.y : d2.x));
+            }
+            accumulate<D>(dk_acc, ds, qs, q_lo, g, tg);
         }
-        __syncthreads();
-        // key rows ty+16i: dv += P^T dO, dk += dS^T (scale*q)
-        tile_accumulate<D>(dv_acc, pt, dos, ty, tx);
-        tile_accumulate<D>(dk_acc, dst, qs, ty, tx);
+        __syncthreads();   // every warp is done with this stage before it is refilled
     }
-    store_rows<D>(dk + base, dk_acc, k0, t, 1.f, ty, tx);
-    store_rows<D>(dv + base, dv_acc, k0, t, 1.f, ty, tx);
+    store_rows<D>(dk + base, dk_acc, row0, t, 1.f, g, tg);
+    store_rows<D>(dv + base, dv_acc, row0, t, 1.f, g, tg);
 }
 
 template <int D>
@@ -333,13 +481,13 @@ cudaError_t launch_dq(const float* q, const float* k, const float* v,
                       const float* dout, const float* lse, const float* delta,
                       float* dq, int bh, int t, float scale, int causal,
                       cudaStream_t stream) {
-    const int bytes = Smem<D>::DQ_BYTES;
+    using C = Cfg<D>;
     cudaError_t err = cudaFuncSetAttribute(
-        flash_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        flash_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::DQ_BYTES);
     if (err != cudaSuccess) return err;
-    dim3 grid((t + BQ - 1) / BQ, bh);
-    flash_dq_kernel<D><<<grid, NTHREADS, bytes, stream>>>(q, k, v, dout, lse, delta,
-                                                         dq, t, scale, causal);
+    dim3 grid((t + C::BM - 1) / C::BM, bh);
+    flash_dq_kernel<D><<<grid, C::NTHREADS, C::DQ_BYTES, stream>>>(
+        q, k, v, dout, lse, delta, dq, t, scale, causal);
     return cudaGetLastError();
 }
 
@@ -348,13 +496,13 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
                        const float* dout, const float* lse, const float* delta,
                        float* dk, float* dv, int bh, int t, float scale,
                        int causal, cudaStream_t stream) {
-    const int bytes = Smem<D>::DKV_BYTES;
+    using C = Cfg<D>;
     cudaError_t err = cudaFuncSetAttribute(
-        flash_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        flash_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::DKV_BYTES);
     if (err != cudaSuccess) return err;
-    dim3 grid((t + BK - 1) / BK, bh);
-    flash_dkv_kernel<D><<<grid, NTHREADS, bytes, stream>>>(q, k, v, dout, lse, delta,
-                                                          dk, dv, t, scale, causal);
+    dim3 grid((t + C::BM - 1) / C::BM, bh);
+    flash_dkv_kernel<D><<<grid, C::NTHREADS, C::DKV_BYTES, stream>>>(
+        q, k, v, dout, lse, delta, dk, dv, t, scale, causal);
     return cudaGetLastError();
 }
 

@@ -18,7 +18,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    PyTorch call computes the same function, and the least time the card
    could take for the same work: flash forward, dQ and dK/dV at
    (8, 12, 512, 64), bias→GeLU, LayerNorm→GeLU, Adam and SGD on the
-   embedding's 23,440,896-element leaf and a small odd one;
+   embedding's 23,440,896-element leaf and a small odd one; dQ and dK/dV
+   are also checked at (2, 4, 200, 64) and (2, 4, 512, 128), causal and
+   not, and each twice to show two launches bit-identical;
 3. ``TextClassifier(encoder="transformer")`` at BERT-base widths
    (hidden 768, 12 heads of 64, FFN 3072, 512 positions, vocabulary
    30522, 12 blocks) with seeded random weights, served through
@@ -52,13 +54,23 @@ import numpy as np
 # Peak rates of one H100 SXM at its full 700 W (NVIDIA data sheet).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12       # dense, tensor cores
 
 WARMUP = 3
 TIMED = 25
 
-# The flash backward kernels sum 64-term tile products in another order
-# than the plain version's full-length float32 products.
+# The flash backward kernels take every product on the tensor cores in
+# split TF32: each operand x = hi + lo, both TF32, and each product as
+# lo.hi + hi.lo + hi.hi with float32 accumulation, which drops ~2^-22 of
+# each product term; they sum in 8-term steps in another order than the
+# plain version's full-length float32 products, and their recomputed s
+# (so p) differs from the forward's by float32 rounding.  Each of these is
+# ~1e-6 relative of a result or less.
 BWD_ATOL, BWD_RTOL = 1e-4, 1e-4
+# where the backward is checked: the training shape, the JAX
+# TextClassifier's default token_length (200, a ragged last tile), and
+# head_dim 128
+BWD_SHAPES = ((8, 12, 512, 64), (2, 4, 200, 64), (2, 4, 512, 128))
 # The optimizer kernels block FMA contraction and repeat the plain
 # version's elementwise ops: bit-identical.
 OPT_ATOL = 0.0
@@ -124,10 +136,18 @@ def time_ms(torch, fn) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def bound_ms(bytes_moved: float, flops: float):
+def bound_ms(bytes_moved: float, flops: float,
+             flops_per_s: float = FP32_FLOPS_PER_S):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_bound_ms(bytes_moved: float, flops: float):
+    """The flash kernels' bound: their float32 products taken as split TF32,
+    three tensor-core products each (the backward does so; the forward is
+    held to the same rule)."""
+    return bound_ms(bytes_moved, 3 * flops, TF32_FLOPS_PER_S)
 
 
 def close(name, got, want, atol, rtol=0.0) -> float:
@@ -197,8 +217,12 @@ def main() -> None:
     plain = time_ms(torch, lambda: fa.flash_attention_ref(q, k, v))
     lib = time_ms(torch, lambda: torch.nn.functional
                   .scaled_dot_product_attention(q, k, v))
-    bnd, by = bound_ms((4 * b * h * t * d + b * h * t) * 4,
-                       4 * b * h * t * t * d)
+    fwd_bytes, fwd_flops = (4 * b * h * t * d + b * h * t) * 4, \
+        4 * b * h * t * t * d
+    bnd, by = flash_bound_ms(fwd_bytes, fwd_flops)
+    print(f"bound flash_attention_fwd {(b, h, t, d)}: {bnd:.6f} ms ({by}, "
+          f"3xTF32); float32 FMA bound "
+          f"{bound_ms(fwd_bytes, fwd_flops)[0]:.6f} ms")
     report["flash_attention_fwd"] = dict(
         route="cuda", source="analytics_zoo_torch/csrc/flash_attention_fwd.cu",
         replaces="analytics_zoo_tpu/ops/pallas_attention.py:51",
@@ -241,26 +265,35 @@ def main() -> None:
         route="cuda", source="analytics_zoo_torch/csrc/layernorm_act.cu",
         replaces="analytics_zoo_tpu/ops/fused.py:550", max_abs_err=err,
         ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None)
-    # flash backward: dQ and dK/dV
+    # flash backward: dQ and dK/dV, against the plain versions, and two
+    # launches against each other
+    for shape in BWD_SHAPES:
+        q, k, v, do = (randn(*shape) for _ in range(4))
+        for causal in (False, True):
+            o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+            delta = fa.flash_attention_delta(o, do)
+            dq = fa.flash_attention_dq(q, k, v, do, lse, delta, causal)
+            dk, dv = fa.flash_attention_dkv(q, k, v, do, lse, delta, causal)
+            dq2 = fa.flash_attention_dq(q, k, v, do, lse, delta, causal)
+            dk2, dv2 = fa.flash_attention_dkv(q, k, v, do, lse, delta, causal)
+            dq_ref = fa.flash_attention_dq_ref(q, k, v, do, lse, delta, causal)
+            dk_ref, dv_ref = fa.flash_attention_dkv_ref(q, k, v, do, lse,
+                                                        delta, causal)
+            torch.cuda.synchronize()
+            tag = f"{shape} causal={causal}"
+            err_q = close(f"dQ {tag}", dq, dq_ref, BWD_ATOL, BWD_RTOL)
+            err_k = close(f"dK {tag}", dk, dk_ref, BWD_ATOL, BWD_RTOL)
+            err_v = close(f"dV {tag}", dv, dv_ref, BWD_ATOL, BWD_RTOL)
+            if not (torch.equal(dq, dq2) and torch.equal(dk, dk2) and
+                    torch.equal(dv, dv2)):
+                fail(f"flash backward {tag}: two launches differ")
+            print(f"check flash backward {tag} f32: dQ max abs err "
+                  f"{err_q:.3e}, dK {err_k:.3e}, dV {err_v:.3e} (|dQ| max "
+                  f"{float(dq_ref.abs().max()):.3e}, atol {BWD_ATOL}, rtol "
+                  f"{BWD_RTOL}); two launches bit-identical")
+            if shape == (b, h, t, d) and not causal:
+                errs = (err_q, max(err_k, err_v))
     q, k, v, do = (randn(b, h, t, d) for _ in range(4))
-    for causal in (False, True):
-        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
-        delta = fa.flash_attention_delta(o, do)
-        dq = fa.flash_attention_dq(q, k, v, do, lse, delta, causal)
-        dk, dv = fa.flash_attention_dkv(q, k, v, do, lse, delta, causal)
-        dq_ref = fa.flash_attention_dq_ref(q, k, v, do, lse, delta, causal)
-        dk_ref, dv_ref = fa.flash_attention_dkv_ref(q, k, v, do, lse, delta,
-                                                    causal)
-        torch.cuda.synchronize()
-        err_q = close(f"dQ causal={causal}", dq, dq_ref, BWD_ATOL, BWD_RTOL)
-        err_k = close(f"dK causal={causal}", dk, dk_ref, BWD_ATOL, BWD_RTOL)
-        err_v = close(f"dV causal={causal}", dv, dv_ref, BWD_ATOL, BWD_RTOL)
-        print(f"check flash backward causal={causal} {(b, h, t, d)} f32: "
-              f"dQ max abs err {err_q:.3e}, dK {err_k:.3e}, dV {err_v:.3e} "
-              f"(|dQ| max {float(dq_ref.abs().max()):.3e}, atol {BWD_ATOL}, "
-              f"rtol {BWD_RTOL})")
-        if not causal:
-            errs = (err_q, max(err_k, err_v))
     o, lse = fa.flash_attention_fwd(q, k, v)
     delta = fa.flash_attention_delta(o, do)
     qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
@@ -279,8 +312,11 @@ def main() -> None:
              4, 2, 8, errs[1])):
         ms = time_ms(torch, fn)
         plain = time_ms(torch, plain_fn)
-        bnd, by = bound_ms(((reads + writes) * n_el + 2 * b * h * t) * 4,
-                           flops * b * h * t * t * d)
+        moved = ((reads + writes) * n_el + 2 * b * h * t) * 4
+        bnd, by = flash_bound_ms(moved, flops * b * h * t * t * d)
+        print(f"bound {name} {(b, h, t, d)}: {bnd:.6f} ms ({by}, 3xTF32); "
+              f"float32 FMA bound "
+              f"{bound_ms(moved, flops * b * h * t * t * d)[0]:.6f} ms")
         report[name] = dict(
             route="cuda", source="analytics_zoo_torch/csrc/flash_attention_bwd.cu",
             replaces=("analytics_zoo_tpu/ops/pallas_attention.py:94"
@@ -288,8 +324,12 @@ def main() -> None:
                       "analytics_zoo_tpu/ops/pallas_attention.py:134"),
             max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
             bound_by=by, library_ms=lib)
+    pair = time_ms(torch, lambda: (
+        fa.flash_attention_dq(q, k, v, do, lse, delta),
+        fa.flash_attention_dkv(q, k, v, do, lse, delta)))
     print(f"library: f32 scaled_dot_product_attention backward (dQ, dK, dV "
-          f"together) {lib:.5f} ms ({card})")
+          f"together) {lib:.5f} ms; the kernels' pair (dQ then dK/dV) "
+          f"{pair:.5f} ms ({card})")
     del q, k, v, do, o, lse, delta, qg, kg, vg, sdpa_out
 
     # fused optimizer updates, in place: a kernel run and a plain run on

@@ -70,14 +70,19 @@ def test_layernorm_act_kernel_matches_plain(dev, rows, d, act):
         fused.layernorm_act_ref(x, g, b, 1e-5, act), atol=1e-5, rtol=0)
 
 
-# The backward kernels sum 64-term tile products in another order than
-# the plain version's full-length float32 products: ~1e-6 relative.
+# The backward kernels take every product on the tensor cores in split
+# TF32 (x = hi + lo, both TF32; lo.hi + hi.lo + hi.hi, float32
+# accumulation: ~2^-22 of each product term dropped) and sum in 8-term
+# steps, in another order than the plain version's float32 products: ~1e-6
+# relative.
 BWD_TOL = dict(atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("t,d,causal", [(128, 64, False), (128, 64, True),
                                         (100, 128, False), (100, 128, True),
-                                        (1, 64, False), (257, 64, True)])
+                                        (1, 64, False), (257, 64, True),
+                                        (512, 64, False), (512, 64, True),
+                                        (200, 64, False), (200, 64, True)])
 def test_flash_backward_kernels_match_plain(dev, t, d, causal):
     q, k, v, do = (_randn(dev, 2, 3, t, d, seed=s) for s in range(4))
     o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
@@ -89,6 +94,22 @@ def test_flash_backward_kernels_match_plain(dev, t, d, causal):
     after = kernels.launch_counts()
     assert after["flash_attention_dq"] == before["flash_attention_dq"] + 1
     assert after["flash_attention_dkv"] == before["flash_attention_dkv"] + 1
+
+
+@pytest.mark.parametrize("t,d,causal", [(512, 64, False), (200, 64, True),
+                                        (257, 128, True)])
+def test_flash_backward_kernels_are_deterministic(dev, t, d, causal):
+    """No output element is written by two blocks and nothing is summed
+    with atomics: two launches on the same inputs agree bit for bit."""
+    q, k, v, do = (_randn(dev, 2, 3, t, d, seed=s) for s in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    delta = fa.flash_attention_delta(o, do)
+    first = (fa.flash_attention_dq(q, k, v, do, lse, delta, causal),
+             *fa.flash_attention_dkv(q, k, v, do, lse, delta, causal))
+    second = (fa.flash_attention_dq(q, k, v, do, lse, delta, causal),
+              *fa.flash_attention_dkv(q, k, v, do, lse, delta, causal))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("causal", [False, True])
