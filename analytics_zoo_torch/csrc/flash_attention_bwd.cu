@@ -17,20 +17,17 @@
 // and then
 //   dq_i = scale * sum_j ds_ij k_j                       (zoo_flash_attention_dq)
 //   dv_j = sum_i p_ij do_i,  dk_j = sum_i ds_ij (scale*q_i) (zoo_flash_attention_dkv)
-// The forward kernel (flash_attention_fwd.cu) sums s on float32 FMAs and
-// these kernels on the tensor cores, so the recomputed s differs from the
-// forward's by float32 rounding (~1e-7 relative), and p by as much.
+// The forward kernel (flash_attention_fwd.cu) takes s with the same code
+// (flash_tile.cuh's dots, q scaled in float32 and split as the A operand,
+// the split K tile as B), so the dQ kernel's recomputed s is the forward's
+// bit for bit, whatever either kernel's tiling: each s is summed over d in
+// the same 8-wide steps in the same order.  dK/dV takes S^T with K as the
+// A operand, so its lo.hi and hi.lo terms come in the other order and its
+// s may differ from the forward's by float32 rounding (~1e-7 relative).
 //
-// Precision: split TF32 (CUTLASS's OpMultiplyAddFastF32).  Each float32
-// operand x is split into hi = tf32(x) and lo = tf32(x - hi), both rounded
-// as cvt.rna.tf32.f32 rounds (nearest, ties away from zero, 10 mantissa
-// bits), and each tile product a.b is taken by three
-// mma.sync.m16n8k8 TF32 instructions accumulating in float32:
-// lo_a.hi_b + hi_a.lo_b first, then hi_a.hi_b.  The dropped lo_a.lo_b term
-// is ~2^-22 of a product, so the five products (S, dP, dQ, dV, dK) keep
-// about float32's accuracy.  cvt.rna.tf32.f32 itself compiles to ~5 SASS
-// instructions (it screens NaN and Inf); for finite x the same rounding is
-// an integer add of half a TF32 ulp and a mask, which tf32_rna does.
+// Precision: split TF32, every product as three mma.sync.m16n8k8 TF32
+// instructions on hi and lo parts (flash_tile.cuh says how); the five
+// products (S, dP, dQ, dV, dK) keep about float32's accuracy.
 //
 // What bounds them on the H100: at the training shape (8, 12, 512, 64) dQ
 // does 6*B*H*T^2*D = 9.66 GFLOP and dK/dV 8*B*H*T^2*D = 12.88 GFLOP on
@@ -66,15 +63,8 @@
 //   D=64: BM=128 (8 warps), BN=64; D=128: BM=64 (4 warps), BN=32, so that
 //   the dK and dV accumulators (64 registers each at D=128) fit beside P
 //   and dS, and the shared tiles fit in 227 KB.
-// Accumulator to A operand without a shuffle or a shared round trip: an
-// m16n8 accumulator holds columns 2t and 2t+1 of rows g and g+8 (t = lane
-// % 4, g = lane / 4), and the m16n8k8 A fragment wants k-columns t and
-// t+4.  The k order inside an 8-wide step is free as long as A and B agree,
-// so k-slot t is taken as column 2t and k-slot t+4 as column 2t+1, and the
-// B fragment is read from rows 2t and 2t+1 of the shared tile.
-// Shared tiles are float32 with rows padded to D+4 floats: fragment reads
-// by (row g, column t) hit banks 4g+t, and by (row 2t, column g) banks
-// 8t+g, so every 32-bit fragment read is free of bank conflicts.  Keys and
+// P and dS feed the next product as A operands from their accumulators,
+// and fragment reads are free of bank conflicts (flash_tile.cuh).  Keys and
 // queries past T in a ragged last tile are zero-filled by the copy and get
 // probability 0; rows past T are not written.
 
@@ -82,10 +72,15 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_tile.cuh"
+
 namespace {
 
-template <int D>
+using namespace flash_tile;
+
+template <int D_>
 struct Cfg {
+    static constexpr int D = D_;
     static constexpr int BM = D == 64 ? 128 : 64;  // rows a block owns
     static constexpr int BN = D == 64 ? 64 : 32;   // rows of each streamed tile
     static constexpr int NWARPS = BM / 16;
@@ -100,163 +95,6 @@ struct Cfg {
     static constexpr int DQ_BYTES = (2 * OWN + 6 * TILE) * (int)sizeof(float);
     static constexpr int DKV_BYTES = (2 * OWN + 6 * TILE + 4 * BN) * (int)sizeof(float);
 };
-
-// ------------------------------------------------------------ cp.async
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes, or 16 zero bytes when !in (src-size 0: nothing is read)
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(smem_addr(dst)), "l"(src), "r"(in ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-                 :: "r"(smem_addr(dst)), "l"(src), "r"(in ? 4 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N of this thread's groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// Start copying rows [r0, r0 + ROWS) of a (t, D) slice into a padded tile;
-// rows past t are zero-filled.  Every call gives a thread the same 16-byte
-// chunks, so once its copies have landed it may rewrite its own chunks
-// without a barrier (scale_own, split_own).
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, int r0, int t) {
-    constexpr int C = D / 4;                       // 16-byte chunks a row
-#pragma unroll
-    for (int i = 0; i < ROWS * C / Cfg<D>::NTHREADS; ++i) {
-        const int idx = threadIdx.x + i * Cfg<D>::NTHREADS;
-        const int r = idx / C, c = (idx % C) * 4;
-        const bool in = r0 + r < t;
-        cp_async16(dst + r * Cfg<D>::S + c, src + (size_t)(in ? r0 + r : 0) * D + c, in);
-    }
-}
-
-// ---------------------------------------------------------- split TF32
-
-// the nearest TF32 value, ties away from zero (cvt.rna.tf32.f32 for
-// finite x): add half an ulp of the 10-bit mantissa to the magnitude, clear
-// the 13 bits below it
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-    return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = hi + lo, each a TF32 value; x - hi is exact
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-    hi = tf32_rna(x);
-    lo = tf32_rna(x - __uint_as_float(hi));
-}
-
-// Split this thread's own (landed) chunks of a streamed tile, times mul:
-// hi in place, lo into the lo plane.
-template <int D>
-__device__ __forceinline__ void split_own(float* hi, float* lo, float mul) {
-    constexpr int C = D / 4;
-#pragma unroll
-    for (int i = 0; i < Cfg<D>::BN * C / Cfg<D>::NTHREADS; ++i) {
-        const int idx = threadIdx.x + i * Cfg<D>::NTHREADS;
-        const int off = (idx / C) * Cfg<D>::S + (idx % C) * 4;
-        const float4 x = *reinterpret_cast<const float4*>(hi + off);
-        uint4 h, l;
-        split(x.x * mul, h.x, l.x);
-        split(x.y * mul, h.y, l.y);
-        split(x.z * mul, h.z, l.z);
-        split(x.w * mul, h.w, l.w);
-        *reinterpret_cast<uint4*>(hi + off) = h;
-        *reinterpret_cast<uint4*>(lo + off) = l;
-    }
-}
-
-// Scale this thread's own (landed) chunks of the block's own tile.
-template <int D>
-__device__ __forceinline__ void scale_own(float* dst, float mul) {
-    constexpr int C = D / 4;
-#pragma unroll
-    for (int i = 0; i < Cfg<D>::BM * C / Cfg<D>::NTHREADS; ++i) {
-        const int idx = threadIdx.x + i * Cfg<D>::NTHREADS;
-        float4* p = reinterpret_cast<float4*>(dst + (idx / C) * Cfg<D>::S + (idx % C) * 4);
-        float4 x = *p;
-        x.x *= mul; x.y *= mul; x.z *= mul; x.w *= mul;
-        *p = x;
-    }
-}
-
-__device__ __forceinline__ void mma(float c[4], const uint32_t a[4], float b0, float b1) {
-    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
-          "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)));
-}
-
-// c += a.b in split TF32, the small terms first; b from a tile's hi part
-// and lo plane at the same offsets
-__device__ __forceinline__ void mma3(float c[4], const uint32_t ah[4], const uint32_t al[4],
-                                     const float* bh, const float* bl, int o0, int o1) {
-    const float h0 = bh[o0], h1 = bh[o1];
-    mma(c, al, h0, h1);
-    mma(c, ah, bl[o0], bl[o1]);
-    mma(c, ah, h0, h1);
-}
-
-// acc[j] = a[ra : ra+16, :D] . b[nb + 8j : nb + 8j + 8, :D]^T for j < NJ:
-// a 16 x 8NJ tile of row-by-row dot products over D; a is plain float32, b
-// a split streamed tile.  Lane (g, t) holds rows ra+g, ra+g+8 and columns
-// nb + 8j + 2t, +1.
-template <int D>
-__device__ __forceinline__ void dots(float acc[Cfg<D>::NJ][4], const float* a, int ra,
-                                     const float* bh, const float* bl, int g, int t) {
-    constexpr int S = Cfg<D>::S, NJ = Cfg<D>::NJ;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll
-    for (int d0 = 0; d0 < D; d0 += 8) {
-        const float* ap = a + (ra + g) * S + d0 + t;
-        uint32_t ah[4], al[4];
-        split(ap[0], ah[0], al[0]);
-        split(ap[8 * S], ah[1], al[1]);
-        split(ap[4], ah[2], al[2]);
-        split(ap[8 * S + 4], ah[3], al[3]);
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-            const int o = (8 * j + g) * S + d0 + t;
-            mma3(acc[j], ah, al, bh, bl, o, o + 4);
-        }
-    }
-}
-
-// acc[n] += w . x[8kk : 8kk + 8, 8n : 8n + 8] summed over kk < NJ, for
-// n < D/8, where w is a 16 x 8NJ tile held as dots() leaves it and x a
-// split streamed tile: w's columns 2t, 2t+1 of each 8-wide step serve as
-// k-slots t, t+4, so x is read at rows 8kk + 2t and + 1.
-template <int D>
-__device__ __forceinline__ void accumulate(float acc[D / 8][4], const float w[Cfg<D>::NJ][4],
-                                           const float* xh, const float* xl, int g, int t) {
-    constexpr int S = Cfg<D>::S, NJ = Cfg<D>::NJ;
-#pragma unroll
-    for (int kk = 0; kk < NJ; ++kk) {
-        uint32_t ah[4], al[4];
-        split(w[kk][0], ah[0], al[0]);   // row g,   k-slot t
-        split(w[kk][2], ah[1], al[1]);   // row g+8, k-slot t
-        split(w[kk][1], ah[2], al[2]);   // row g,   k-slot t+4
-        split(w[kk][3], ah[3], al[3]);   // row g+8, k-slot t+4
-        const int o = (8 * kk + 2 * t) * S + g;
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n) mma3(acc[n], ah, al, xh, xl, o + 8 * n, o + S + 8 * n);
-    }
-}
 
 template <int D>
 __device__ __forceinline__ void store_rows(float* dst, const float acc[D / 8][4], int row0,
@@ -303,10 +141,10 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         n_k = n_k < last ? n_k : last;
     }
 
-    load_tile<D, BM>(qs, q + base, q0, t);
-    load_tile<D, BM>(dos, dout + base, q0, t);
-    load_tile<D, BN>(ring, k + base, 0, t);
-    load_tile<D, BN>(ring + C::TILE, v + base, 0, t);
+    load_tile<C, BM>(qs, q + base, q0, t);
+    load_tile<C, BM>(dos, dout + base, q0, t);
+    load_tile<C, BN>(ring, k + base, 0, t);
+    load_tile<C, BN>(ring + C::TILE, v + base, 0, t);
     cp_async_commit();
 
     float lse_r[2], delta_r[2];
@@ -326,23 +164,23 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         float* vs = ks + C::TILE;
         if (kt + 1 < n_k) {
             float* next = ring + ((kt + 1) & 1) * 2 * C::TILE;
-            load_tile<D, BN>(next, k + base, (kt + 1) * BN, t);
-            load_tile<D, BN>(next + C::TILE, v + base, (kt + 1) * BN, t);
+            load_tile<C, BN>(next, k + base, (kt + 1) * BN, t);
+            load_tile<C, BN>(next + C::TILE, v + base, (kt + 1) * BN, t);
             cp_async_commit();
             cp_async_wait<1>();
         } else {
             cp_async_wait<0>();
         }
-        if (kt == 0) scale_own<D>(qs, scale);
-        split_own<D>(ks, k_lo, 1.f);
-        split_own<D>(vs, v_lo, 1.f);
+        if (kt == 0) scale_own<C>(qs, scale);
+        split_own<C>(ks, k_lo, 1.f);
+        split_own<C>(vs, v_lo, 1.f);
         __syncthreads();
 
         const int k0 = kt * BN;
         // causal: a warp whose rows all lie above this tile's keys skips it
         if (row0 < t && !(causal && k0 > row0 + 15)) {
             float p[NJ][4], ds[NJ][4];
-            dots<D>(p, qs, r0, ks, k_lo, g, tg);
+            dots<C>(p, qs, r0, ks, k_lo, g, tg);
 #pragma unroll
             for (int j = 0; j < NJ; ++j)
 #pragma unroll
@@ -353,12 +191,12 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     if (causal && col > row) sv = -1e30f;
                     p[j][e] = (row < t && col < t) ? expf(sv - lse_r[e >> 1]) : 0.f;
                 }
-            dots<D>(ds, dos, r0, vs, v_lo, g, tg);
+            dots<C>(ds, dos, r0, vs, v_lo, g, tg);
 #pragma unroll
             for (int j = 0; j < NJ; ++j)
 #pragma unroll
                 for (int e = 0; e < 4; ++e) ds[j][e] = p[j][e] * (ds[j][e] - delta_r[e >> 1]);
-            accumulate<D>(acc, ds, ks, k_lo, g, tg);
+            accumulate<C>(acc, ds, ks, k_lo, g, tg);
         }
         __syncthreads();   // every warp is done with this stage before it is refilled
     }
@@ -403,8 +241,8 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // ([BN, 2BN)); commits the group
     auto load_stage = [&](int qt, int stage) {
         float* st = ring + stage * 2 * C::TILE;
-        load_tile<D, BN>(st, q + base, qt * BN, t);
-        load_tile<D, BN>(st + C::TILE, dout + base, qt * BN, t);
+        load_tile<C, BN>(st, q + base, qt * BN, t);
+        load_tile<C, BN>(st + C::TILE, dout + base, qt * BN, t);
         if (threadIdx.x < 2 * BN) {
             const int row = qt * BN + threadIdx.x % BN;
             const bool in = row < t;
@@ -414,8 +252,8 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         cp_async_commit();
     };
 
-    load_tile<D, BM>(ks, k + base, k0, t);
-    load_tile<D, BM>(vs, v + base, k0, t);
+    load_tile<C, BM>(ks, k + base, k0, t);
+    load_tile<C, BM>(vs, v + base, k0, t);
     load_stage(qt0, 0);                            // commits K and V with it
 
     float dk_acc[D / 8][4], dv_acc[D / 8][4];
@@ -436,8 +274,8 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         } else {
             cp_async_wait<0>();
         }
-        split_own<D>(qs, q_lo, scale);
-        split_own<D>(dos, do_lo, 1.f);
+        split_own<C>(qs, q_lo, scale);
+        split_own<C>(dos, do_lo, 1.f);
         __syncthreads();
 
         const int q0 = qt * BN;
@@ -445,7 +283,7 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         if (row0 < t && !(causal && row0 > q0 + BN - 1)) {
             // this warp's key rows row0 + g (+8) against queries 8j + 2tg (+1)
             float p[NJ][4], ds[NJ][4];
-            dots<D>(p, ks, r0, qs, q_lo, g, tg);
+            dots<C>(p, ks, r0, qs, q_lo, g, tg);
 #pragma unroll
             for (int j = 0; j < NJ; ++j) {
                 const int qc = 8 * j + 2 * tg;
@@ -459,8 +297,8 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     p[j][e] = (krow < t && qrow < t) ? expf(sv - ((e & 1) ? l2.y : l2.x)) : 0.f;
                 }
             }
-            accumulate<D>(dv_acc, p, dos, do_lo, g, tg);
-            dots<D>(ds, vs, r0, dos, do_lo, g, tg);
+            accumulate<C>(dv_acc, p, dos, do_lo, g, tg);
+            dots<C>(ds, vs, r0, dos, do_lo, g, tg);
 #pragma unroll
             for (int j = 0; j < NJ; ++j) {
                 const float2 d2 = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * tg);
@@ -468,7 +306,7 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 for (int e = 0; e < 4; ++e)
                     ds[j][e] = p[j][e] * (ds[j][e] - ((e & 1) ? d2.y : d2.x));
             }
-            accumulate<D>(dk_acc, ds, qs, q_lo, g, tg);
+            accumulate<C>(dk_acc, ds, qs, q_lo, g, tg);
         }
         __syncthreads();   // every warp is done with this stage before it is refilled
     }

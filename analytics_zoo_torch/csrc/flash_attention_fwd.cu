@@ -1,213 +1,198 @@
-// Flash-attention forward, float32, for Hopper (sm_90a).
+// Flash-attention forward, float32, for Hopper (sm_90a), both products on
+// the tensor cores in split TF32.
 //
 // Replaces: analytics_zoo_tpu/ops/pallas_attention.py::_flash_kernel
 //           (launched from _flash_fwd_impl).
 //
 // Computes, for each (batch*head) slice of q, k, v laid out (BH, T, D):
 //   O   = softmax(scale * q k^T) v        (causal: keys after the query
-//                                          masked to -1e30)
+//                                          masked to -1e30, not -inf)
 //   LSE = m + log(max(l, 1e-30))          per query row, float32
-// with the reference's order of operations: q is multiplied by `scale`
-// before the dot; an online softmax keeps the running max m and sum l in
-// float32 across K/V tiles; causal rows stop at the last tile they see.
+// with the reference's order of operations: q is multiplied by `scale` in
+// float32 before the dot; an online softmax keeps the running max m
+// (starting at -1e30) and sum l in float32 across K/V tiles, rescaling the
+// O accumulator by exp(m_old - m_new) once a tile; O = acc / max(l, 1e-30);
+// causal blocks stop at the last tile any of their rows sees.
+//
+// Precision: S = (q*scale) K^T and O += P V each as three
+// mma.sync.m16n8k8 TF32 products on hi and lo parts, float32
+// accumulation (flash_tile.cuh), which keeps about float32's accuracy.
+// s is taken by flash_tile.cuh's dots, with q scaled in float32 and split
+// as the A operand and the split K tile as B, exactly as the dQ kernel
+// (flash_attention_bwd.cu) recomputes it: the same 8-wide steps over d in
+// the same order, so the dQ kernel's s is this kernel's bit for bit,
+// whatever the two tilings.
 //
 // What bounds it on the H100: at the serving shape (8, 12, 512, 64) it
-// does 4*B*H*T^2*D = 6.4 GFLOP on 100 MB of q/k/v/o, so it is bound by
-// arithmetic.  This first version uses float32 FMAs (67 TFLOP/s peak),
-// not the tensor cores: the reference here is exact float32.
+// does 4*B*H*T^2*D = 6.44 GFLOP on 50 MB of q, k, v, O and LSE; taken as
+// three TF32 products at 495 TFLOP/s that is 0.039 ms, against 0.015 ms to
+// move the bytes: bound by operations.  As in the backward, a streamed K or
+// V tile is split once, as it lands, and only the A operands (q*scale, P)
+// are split in registers.
 //
-// Design: one block of 256 threads per (bh, 64-row q tile).  The q tile
-// and each 64-row K and V tile are staged in shared memory (rows padded
-// by 4 floats so that 16-byte reads of neighbouring rows fall in distinct
-// banks).  Each thread owns a 4x4 patch of the 64x64 score tile (rows
-// ty+16i, keys tx+16j), reduces row max and row sum across the 16
-// threads of its half-warp with shuffles, writes its probabilities to a
-// shared tile, and then accumulates a 4 x (D/16) patch of O (rows ty+16i,
-// columns 4tx + 64c + 0..3) from that tile and V.  Keys past T in a
-// ragged last tile get probability 0; rows past T are not written.
-// No wgmma/TMA yet: moving to bf16/TF32 tensor cores is a later design.
+// Design: one block per (bh, BM-row q tile); each of its BM/16 warps owns
+// 16 q rows.  BN-row K and V tiles stream through a two-stage cp.async ring
+// (the next tile loads while this one is used); a landed tile is split in
+// place into its hi part and a lo plane.  S comes out as m16n8
+// accumulators; the row max is reduced over the 4 lanes of a row with two
+// shuffles, P = exp(s - m_new) is formed in those registers and feeds
+// O += P V as the A operand directly (flash_tile.cuh's accumulate).  The O
+// accumulator, D/8 m16n8 tiles (32 registers at D=64, 64 at D=128), is
+// rescaled by corr once a tile.  Each lane keeps its part of l, the sum
+// over its own columns, rescaled by the row's corr as the tile goes; the
+// 4 lanes of a row add their parts once, at the end.  A warp whose rows
+// all lie above a tile's keys (causal) or past T skips the tile.  Keys past
+// T in a ragged last tile are zero-filled by the copy and get probability
+// 0; rows past T are not written.  No output element is written by two
+// blocks: two launches give bit-identical O and LSE.
+//   D=64: BM=128 (8 warps), BN=32: 85 KB of shared memory and at most 128
+//   registers a thread, so two blocks (16 warps) share an SM; D=128:
+//   BM=64 (4 warps), BN=32, 132 KB, one block an SM.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "flash_tile.cuh"
 
 namespace {
 
-constexpr int BQ = 64;         // q rows per block
-constexpr int BK = 64;         // keys per K/V tile
-constexpr int NTHREADS = 256;  // 16 x 16
-constexpr int SSTRIDE = BK + 4;
+using namespace flash_tile;
 
-template <int D>
-struct Smem {
-    static constexpr int STRIDE = D + 4;
-    static constexpr int BYTES =
-        (3 * BQ * STRIDE + BQ * SSTRIDE) * (int)sizeof(float);
+template <int D_>
+struct Cfg {
+    static constexpr int D = D_;
+    static constexpr int BM = D == 64 ? 128 : 64;  // q rows a block owns
+    static constexpr int BN = 32;                  // keys of each streamed tile
+    static constexpr int MIN_BLOCKS = D == 64 ? 2 : 1;  // blocks an SM (__launch_bounds__)
+    static constexpr int NTHREADS = 32 * (BM / 16);
+    static constexpr int NJ = BN / 8;              // m16n8 tiles across a streamed tile
+    static constexpr int S = D + 4;                // padded row stride, floats
+    static constexpr int OWN = BM * S;             // floats in the q tile
+    static constexpr int TILE = BN * S;            // floats in one streamed tile
+    // q; ring: two stages of K and V (split in place to their hi parts);
+    // the K and V lo planes
+    static constexpr int BYTES = (OWN + 6 * TILE) * (int)sizeof(float);
 };
 
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
+template <class C>
+__global__ void __launch_bounds__(C::NTHREADS, C::MIN_BLOCKS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int t, float scale, int causal) {
-    constexpr int STRIDE = Smem<D>::STRIDE;
-    constexpr int C4 = D / 64;   // float4 column groups per thread
+    constexpr int D = C::D, BM = C::BM, BN = C::BN, NJ = C::NJ;
     extern __shared__ float4 smem4[];
-    float* smem = reinterpret_cast<float*>(smem4);
-    float* qs = smem;
-    float* ks = qs + BQ * STRIDE;
-    float* vs = ks + BK * STRIDE;
-    float* ps = vs + BK * STRIDE;
+    float* qs = reinterpret_cast<float*>(smem4);
+    float* ring = qs + C::OWN;                     // stage s: K at 2s, V at 2s+1
+    float* k_lo = ring + 4 * C::TILE;
+    float* v_lo = k_lo + C::TILE;
 
-    const int tid = threadIdx.x;
-    const int tx = tid & 15;
-    const int ty = tid >> 4;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, tg = lane & 3;
+    const int r0 = 16 * warp;
     const int bh = blockIdx.y;
-    const int q0 = blockIdx.x * BQ;
+    const int q0 = blockIdx.x * BM;
+    const int row0 = q0 + r0;                      // this warp's first row
     const size_t base = (size_t)bh * t * D;
 
-    // stage q * scale (the reference scales q before the dot)
-    for (int idx = tid; idx < BQ * (D / 4); idx += NTHREADS) {
-        int r = idx / (D / 4), c = (idx % (D / 4)) * 4;
-        float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (q0 + r < t)
-            val = *reinterpret_cast<const float4*>(q + base + (size_t)(q0 + r) * D + c);
-        val.x *= scale; val.y *= scale; val.z *= scale; val.w *= scale;
-        *reinterpret_cast<float4*>(qs + r * STRIDE + c) = val;
-    }
-
-    float m[4], l[4], acc[4][C4 * 4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        m[i] = -1e30f;
-        l[i] = 0.f;
-#pragma unroll
-        for (int c = 0; c < C4 * 4; ++c) acc[i][c] = 0.f;
-    }
-
-    int n_k = (t + BK - 1) / BK;
+    int n_k = (t + BN - 1) / BN;
     if (causal) {
-        int last = (q0 + BQ + BK - 1) / BK;   // tiles any row of this block sees
+        const int last = (q0 + BM + BN - 1) / BN;  // tiles any row of this block sees
         n_k = n_k < last ? n_k : last;
     }
 
+    load_tile<C, BM>(qs, q + base, q0, t);
+    load_tile<C, BN>(ring, k + base, 0, t);
+    load_tile<C, BN>(ring + C::TILE, v + base, 0, t);
+    cp_async_commit();
+
+    // rows g (h = 0) and g + 8 (h = 1) of this warp's 16
+    float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};
+    float acc[D / 8][4];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
     for (int kt = 0; kt < n_k; ++kt) {
-        const int k0 = kt * BK;
-        __syncthreads();   // previous tile's readers are done with ks/vs/ps
-        for (int idx = tid; idx < BK * (D / 4); idx += NTHREADS) {
-            int r = idx / (D / 4), c = (idx % (D / 4)) * 4;
-            float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-            if (k0 + r < t) {
-                size_t off = base + (size_t)(k0 + r) * D + c;
-                kv = *reinterpret_cast<const float4*>(k + off);
-                vv = *reinterpret_cast<const float4*>(v + off);
-            }
-            *reinterpret_cast<float4*>(ks + r * STRIDE + c) = kv;
-            *reinterpret_cast<float4*>(vs + r * STRIDE + c) = vv;
+        float* ks = ring + (kt & 1) * 2 * C::TILE;
+        float* vs = ks + C::TILE;
+        if (kt + 1 < n_k) {
+            float* next = ring + ((kt + 1) & 1) * 2 * C::TILE;
+            load_tile<C, BN>(next, k + base, (kt + 1) * BN, t);
+            load_tile<C, BN>(next + C::TILE, v + base, (kt + 1) * BN, t);
+            cp_async_commit();
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
         }
+        if (kt == 0) scale_own<C>(qs, scale);
+        split_own<C>(ks, k_lo, 1.f);
+        split_own<C>(vs, v_lo, 1.f);
         __syncthreads();
 
-        // scores: s[i][j] = q_scaled[ty+16i] . k[tx+16j]
-        float s[4][4];
+        const int k0 = kt * BN;
+        // causal: a warp whose rows all lie above this tile's keys skips it
+        if (row0 < t && !(causal && k0 > row0 + 15)) {
+            float p[NJ][4];
+            dots<C>(p, qs, r0, ks, k_lo, g, tg);
+            // keys past T get s = -inf: no part in the max, p = exp(-inf) = 0
+            // (m is finite from its start at -1e30)
+            if (k0 + BN > t || (causal && k0 + BN - 1 > row0)) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+                for (int j = 0; j < NJ; ++j)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-        for (int d = 0; d < D; d += 4) {
-            float4 qa[4], kb[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-                qa[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * STRIDE + d);
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-                kb[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * STRIDE + d);
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                    s[i][j] = fmaf(qa[i].x, kb[j].x, s[i][j]);
-                    s[i][j] = fmaf(qa[i].y, kb[j].y, s[i][j]);
-                    s[i][j] = fmaf(qa[i].z, kb[j].z, s[i][j]);
-                    s[i][j] = fmaf(qa[i].w, kb[j].w, s[i][j]);
-                }
-        }
-
-        // online softmax per row
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const int qrow = q0 + ty + 16 * i;
-            float mb = -INFINITY;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const int kcol = k0 + tx + 16 * j;
-                if (causal && kcol > qrow) s[i][j] = -1e30f;
-                if (kcol < t) mb = fmaxf(mb, s[i][j]);
-            }
-#pragma unroll
-            for (int off = 8; off > 0; off >>= 1)
-                mb = fmaxf(mb, __shfl_xor_sync(0xffffffffu, mb, off));
-            const float m_new = fmaxf(m[i], mb);
-            const float corr = expf(m[i] - m_new);
-            float ls = 0.f;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const int kcol = k0 + tx + 16 * j;
-                const float p = kcol < t ? expf(s[i][j] - m_new) : 0.f;
-                ps[(ty + 16 * i) * SSTRIDE + tx + 16 * j] = p;
-                ls += p;
-            }
-#pragma unroll
-            for (int off = 8; off > 0; off >>= 1)
-                ls += __shfl_xor_sync(0xffffffffu, ls, off);
-            l[i] = l[i] * corr + ls;
-            m[i] = m_new;
-#pragma unroll
-            for (int c = 0; c < C4 * 4; ++c) acc[i][c] *= corr;
-        }
-        __syncthreads();
-
-        // acc[row][cols] += sum_k p[row][k] * v[k][cols]
-#pragma unroll 2
-        for (int kk = 0; kk < BK; kk += 4) {
-            float4 pa[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-                pa[i] = *reinterpret_cast<const float4*>(ps + (ty + 16 * i) * SSTRIDE + kk);
-#pragma unroll
-            for (int u = 0; u < 4; ++u) {
-#pragma unroll
-                for (int c = 0; c < C4; ++c) {
-                    const float4 vb = *reinterpret_cast<const float4*>(
-                        vs + (kk + u) * STRIDE + 4 * tx + 64 * c);
-#pragma unroll
-                    for (int i = 0; i < 4; ++i) {
-                        const float p = u == 0 ? pa[i].x : u == 1 ? pa[i].y
-                                      : u == 2 ? pa[i].z : pa[i].w;
-                        acc[i][4 * c + 0] = fmaf(p, vb.x, acc[i][4 * c + 0]);
-                        acc[i][4 * c + 1] = fmaf(p, vb.y, acc[i][4 * c + 1]);
-                        acc[i][4 * c + 2] = fmaf(p, vb.z, acc[i][4 * c + 2]);
-                        acc[i][4 * c + 3] = fmaf(p, vb.w, acc[i][4 * c + 3]);
+                    for (int e = 0; e < 4; ++e) {
+                        const int row = row0 + g + 8 * (e >> 1);
+                        const int col = k0 + 8 * j + 2 * tg + (e & 1);
+                        if (col >= t) p[j][e] = -INFINITY;
+                        else if (causal && col > row) p[j][e] = -1e30f;
                     }
-                }
             }
+            float mb[2] = {-1e30f, -1e30f};
+#pragma unroll
+            for (int j = 0; j < NJ; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) mb[e >> 1] = fmaxf(mb[e >> 1], p[j][e]);
+            float corr[2];
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                mb[h] = fmaxf(mb[h], __shfl_xor_sync(0xffffffffu, mb[h], 1));
+                mb[h] = fmaxf(mb[h], __shfl_xor_sync(0xffffffffu, mb[h], 2));
+                const float m_new = fmaxf(m[h], mb[h]);
+                corr[h] = expf(m[h] - m_new);
+                m[h] = m_new;
+            }
+            float ls[2] = {0.f, 0.f};
+#pragma unroll
+            for (int j = 0; j < NJ; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    p[j][e] = expf(p[j][e] - m[e >> 1]);
+                    ls[e >> 1] += p[j][e];
+                }
+#pragma unroll
+            for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + ls[h];
+#pragma unroll
+            for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
+            accumulate<C>(acc, p, vs, v_lo, g, tg);
         }
+        __syncthreads();   // every warp is done with this stage before it is refilled
     }
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int qrow = q0 + ty + 16 * i;
-        if (qrow >= t) continue;
-        const float l_safe = fmaxf(l[i], 1e-30f);
+    for (int h = 0; h < 2; ++h) {
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+        const int row = row0 + g + 8 * h;
+        if (row >= t) continue;
+        const float l_safe = fmaxf(l[h], 1e-30f);
+        float* orow = o + base + (size_t)row * D + 2 * tg;
 #pragma unroll
-        for (int c = 0; c < C4; ++c) {
-            float4 out;
-            out.x = acc[i][4 * c + 0] / l_safe;
-            out.y = acc[i][4 * c + 1] / l_safe;
-            out.z = acc[i][4 * c + 2] / l_safe;
-            out.w = acc[i][4 * c + 3] / l_safe;
-            *reinterpret_cast<float4*>(o + base + (size_t)qrow * D + 4 * tx + 64 * c) = out;
-        }
-        if (tx == 0) lse[(size_t)bh * t + qrow] = m[i] + logf(l_safe);
+        for (int n = 0; n < D / 8; ++n)
+            *reinterpret_cast<float2*>(orow + 8 * n) =
+                make_float2(acc[n][2 * h] / l_safe, acc[n][2 * h + 1] / l_safe);
+        if (tg == 0) lse[(size_t)bh * t + row] = m[h] + logf(l_safe);
     }
 }
 
@@ -215,13 +200,13 @@ template <int D>
 cudaError_t launch(const float* q, const float* k, const float* v, float* o,
                    float* lse, int bh, int t, float scale, int causal,
                    cudaStream_t stream) {
-    const int bytes = Smem<D>::BYTES;
+    using C = Cfg<D>;
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        flash_fwd_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
     if (err != cudaSuccess) return err;
-    dim3 grid((t + BQ - 1) / BQ, bh);
-    flash_fwd_kernel<D><<<grid, NTHREADS, bytes, stream>>>(q, k, v, o, lse, t,
-                                                          scale, causal);
+    dim3 grid((t + C::BM - 1) / C::BM, bh);
+    flash_fwd_kernel<C><<<grid, C::NTHREADS, C::BYTES, stream>>>(q, k, v, o, lse, t,
+                                                                scale, causal);
     return cudaGetLastError();
 }
 

@@ -10,14 +10,23 @@
 //   result first, then the activation)
 //
 // What bounds it on the H100: one read of x and one write of y (8 bytes
-// an element) against ~20 flops, so device memory bounds it.
+// an element) against ~20 flops, so device memory bounds it at many rows.
+// At the serving shape (8, 768) the kernel is one block on one SM, and its
+// time is dependent latency: the launch, one round trip to device memory,
+// two warp reductions and the stores.
 //
-// Design: one warp per row (8 rows per 256-thread block).  Lanes stride
-// the row with float4 loads where d % 4 == 0, else scalars.  Pass one
-// sums for the mean, pass two sums the squared deviations (two-pass, as
-// the reference), pass three writes; passes two and three re-read the
-// row from L1/L2, so device memory still sees one read.  Warp shuffles
-// reduce.
+// Design: one warp per row (8 rows per 256-thread block).  Where a row
+// fits in registers (d % 4 == 0, 16-byte aligned, d <= 4096), each lane
+// loads its share of the row once, as V float4s (V = ceil(d / 128), a
+// template argument the launch picks at run time), every load issued
+// before the first use, and gamma and beta with them where V <= 8; the
+// mean and then the squared deviations (two-pass, as the reference) are
+// summed from those registers and reduced with warp shuffles, and the row
+// is written.  Wider or unaligned rows take the looped branch of the same
+// kernel: lanes stride the row with float4 loads where d % 4 == 0, else
+// scalars, in three passes (mean, squared deviations, write), passes two
+// and three re-reading the row from L1/L2.  The register path and the
+// looped float4 branch sum in the same order and give the same result.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -51,22 +60,84 @@ __device__ __forceinline__ float finish(float xv, float mean, float denom,
     return act ? gelu_tanh(y) : y;
 }
 
-template <bool VEC>
-__global__ void layernorm_act_kernel(const float* __restrict__ x,
-                                     const float* __restrict__ gamma,
-                                     const float* __restrict__ beta,
-                                     float* __restrict__ out, int rows, int d,
-                                     float eps, int act) {
-    const int lane = threadIdx.x & 31;
-    const int row = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
-    if (row >= rows) return;   // whole warp leaves together
-    const float* xr = x + (size_t)row * d;
-    float* orow = out + (size_t)row * d;
+__device__ __forceinline__ float4 finish4(float4 x, float mean, float denom,
+                                          float4 g, float4 b, int act) {
+    return make_float4(finish(x.x, mean, denom, g.x, b.x, act),
+                       finish(x.y, mean, denom, g.y, b.y, act),
+                       finish(x.z, mean, denom, g.z, b.z, act),
+                       finish(x.w, mean, denom, g.w, b.w, act));
+}
 
+__device__ __forceinline__ float4 load4(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
+}
+
+// One row from registers: lane l holds columns 4l + 128i .. +3, i < V.
+template <int V>
+__device__ __forceinline__ void row_in_registers(const float* __restrict__ xr,
+                                                 const float* __restrict__ gamma,
+                                                 const float* __restrict__ beta,
+                                                 float* __restrict__ orow, int d,
+                                                 float eps, int act, int lane) {
+    constexpr bool EARLY = V <= 8;                 // gamma and beta loaded with x
+    float4 xv[V], gv[EARLY ? V : 1], bv[EARLY ? V : 1];
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+        const int c = lane * 4 + 128 * i;
+        if (c < d) {
+            xv[i] = load4(xr + c);
+            if constexpr (EARLY) {
+                gv[i] = load4(gamma + c);
+                bv[i] = load4(beta + c);
+            }
+        }
+    }
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+        if (lane * 4 + 128 * i < d) s += (xv[i].x + xv[i].y) + (xv[i].z + xv[i].w);
+    const float mean = warp_sum(s) / (float)d;
+
+    float ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+        if (lane * 4 + 128 * i < d) {
+            const float a = xv[i].x - mean, b = xv[i].y - mean;
+            const float e = xv[i].z - mean, f = xv[i].w - mean;
+            ss += (a * a + b * b) + (e * e + f * f);
+        }
+    }
+    const float var = warp_sum(ss) / (float)d;
+    const float denom = sqrtf(var + eps);
+
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+        const int c = lane * 4 + 128 * i;
+        if (c < d) {
+            float4 g, b;
+            if constexpr (EARLY) {
+                g = gv[i];
+                b = bv[i];
+            } else {
+                g = load4(gamma + c);
+                b = load4(beta + c);
+            }
+            *reinterpret_cast<float4*>(orow + c) = finish4(xv[i], mean, denom, g, b, act);
+        }
+    }
+}
+
+// One row in three looped passes: float4 loads (VEC) or scalars.
+template <bool VEC>
+__device__ __forceinline__ void row_looped(const float* __restrict__ xr,
+                                           const float* __restrict__ gamma,
+                                           const float* __restrict__ beta,
+                                           float* __restrict__ orow, int d,
+                                           float eps, int act, int lane) {
     float s = 0.f;
     if (VEC) {
         for (int c = lane * 4; c < d; c += 128) {
-            const float4 v = *reinterpret_cast<const float4*>(xr + c);
+            const float4 v = load4(xr + c);
             s += (v.x + v.y) + (v.z + v.w);
         }
     } else {
@@ -77,7 +148,7 @@ __global__ void layernorm_act_kernel(const float* __restrict__ x,
     float ss = 0.f;
     if (VEC) {
         for (int c = lane * 4; c < d; c += 128) {
-            const float4 v = *reinterpret_cast<const float4*>(xr + c);
+            const float4 v = load4(xr + c);
             const float a = v.x - mean, b = v.y - mean, e = v.z - mean, f = v.w - mean;
             ss += (a * a + b * b) + (e * e + f * f);
         }
@@ -91,21 +162,39 @@ __global__ void layernorm_act_kernel(const float* __restrict__ x,
     const float denom = sqrtf(var + eps);
 
     if (VEC) {
-        for (int c = lane * 4; c < d; c += 128) {
-            const float4 v = *reinterpret_cast<const float4*>(xr + c);
-            const float4 g = *reinterpret_cast<const float4*>(gamma + c);
-            const float4 b = *reinterpret_cast<const float4*>(beta + c);
-            float4 y;
-            y.x = finish(v.x, mean, denom, g.x, b.x, act);
-            y.y = finish(v.y, mean, denom, g.y, b.y, act);
-            y.z = finish(v.z, mean, denom, g.z, b.z, act);
-            y.w = finish(v.w, mean, denom, g.w, b.w, act);
-            *reinterpret_cast<float4*>(orow + c) = y;
-        }
+        for (int c = lane * 4; c < d; c += 128)
+            *reinterpret_cast<float4*>(orow + c) =
+                finish4(load4(xr + c), mean, denom, load4(gamma + c), load4(beta + c), act);
     } else {
         for (int c = lane; c < d; c += 32)
             orow[c] = finish(xr[c], mean, denom, gamma[c], beta[c], act);
     }
+}
+
+// V > 0: the row in registers, V float4s a lane; V == 0: the looped float4
+// branch; V < 0: the looped scalar branch
+template <int V>
+__global__ void layernorm_act_kernel(const float* __restrict__ x,
+                                     const float* __restrict__ gamma,
+                                     const float* __restrict__ beta,
+                                     float* __restrict__ out, int rows, int d,
+                                     float eps, int act) {
+    const int lane = threadIdx.x & 31;
+    const int row = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
+    if (row >= rows) return;   // whole warp leaves together
+    const float* xr = x + (size_t)row * d;
+    float* orow = out + (size_t)row * d;
+    if constexpr (V > 0)
+        row_in_registers<V>(xr, gamma, beta, orow, d, eps, act, lane);
+    else
+        row_looped<V == 0>(xr, gamma, beta, orow, d, eps, act, lane);
+}
+
+template <int V>
+void launch(int blocks, cudaStream_t s, const float* x, const float* gamma,
+            const float* beta, float* out, int rows, int d, float eps, int act) {
+    layernorm_act_kernel<V><<<blocks, NTHREADS, 0, s>>>(x, gamma, beta, out, rows, d,
+                                                        eps, act);
 }
 
 }  // namespace
@@ -120,11 +209,33 @@ extern "C" int zoo_layernorm_act(const float* x, const float* gamma,
                            reinterpret_cast<uintptr_t>(gamma) |
                            reinterpret_cast<uintptr_t>(beta) |
                            reinterpret_cast<uintptr_t>(out)) & 15) == 0;
-    if (d % 4 == 0 && aligned)
-        layernorm_act_kernel<true><<<blocks, NTHREADS, 0, s>>>(
-            x, gamma, beta, out, rows, d, eps, act);
-    else
-        layernorm_act_kernel<false><<<blocks, NTHREADS, 0, s>>>(
-            x, gamma, beta, out, rows, d, eps, act);
+    if (d % 4 != 0 || !aligned) {
+        launch<-1>(blocks, s, x, gamma, beta, out, rows, d, eps, act);
+        return (int)cudaGetLastError();
+    }
+    // the float4s a lane holds: the smallest instantiated count >= d / 128
+    const int v = (d + 127) / 128;
+    if (v <= 8) {
+        switch (v) {
+            case 1: launch<1>(blocks, s, x, gamma, beta, out, rows, d, eps, act); break;
+            case 2: launch<2>(blocks, s, x, gamma, beta, out, rows, d, eps, act); break;
+            case 3: launch<3>(blocks, s, x, gamma, beta, out, rows, d, eps, act); break;
+            case 4: launch<4>(blocks, s, x, gamma, beta, out, rows, d, eps, act); break;
+            case 5: launch<5>(blocks, s, x, gamma, beta, out, rows, d, eps, act); break;
+            case 6: launch<6>(blocks, s, x, gamma, beta, out, rows, d, eps, act); break;
+            case 7: launch<7>(blocks, s, x, gamma, beta, out, rows, d, eps, act); break;
+            default: launch<8>(blocks, s, x, gamma, beta, out, rows, d, eps, act); break;
+        }
+    } else if (v <= 12) {
+        launch<12>(blocks, s, x, gamma, beta, out, rows, d, eps, act);
+    } else if (v <= 16) {
+        launch<16>(blocks, s, x, gamma, beta, out, rows, d, eps, act);
+    } else if (v <= 24) {
+        launch<24>(blocks, s, x, gamma, beta, out, rows, d, eps, act);
+    } else if (v <= 32) {
+        launch<32>(blocks, s, x, gamma, beta, out, rows, d, eps, act);
+    } else {
+        launch<0>(blocks, s, x, gamma, beta, out, rows, d, eps, act);
+    }
     return (int)cudaGetLastError();
 }

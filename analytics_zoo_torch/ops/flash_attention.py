@@ -7,9 +7,9 @@ it launches ``csrc/flash_attention_fwd.cu`` (float32, head_dim 64 or
 128), which also writes the per-row log-sum-exp; the backward recomputes
 the probabilities from it in ``csrc/flash_attention_bwd.cu``: one kernel
 for dQ, one for dK/dV, as the reference's ``custom_vjp`` runs two Pallas
-kernels.  Those take their products on the tensor cores in split TF32
-(about float32's accuracy; the plain versions below stay full float32
-and judge them).  ``delta = rowsum(dO * O)`` is a PyTorch op between
+kernels.  All three take their products on the tensor cores in split
+TF32, on the tile code of ``csrc/flash_tile.cuh`` (about float32's
+accuracy; the plain versions below stay full float32 and judge them).  ``delta = rowsum(dO * O)`` is a PyTorch op between
 them, as the reference leaves it to XLA.  For a CPU tensor, or under
 ``ops.fused=torch``, the forward and the backward take their plain
 versions, ``flash_attention_ref`` and ``flash_attention_bwd_ref``.

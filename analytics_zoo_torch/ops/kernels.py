@@ -5,8 +5,9 @@ Each source ``csrc/<source>.cu`` is compiled at first use by its own
 headers, so a build takes seconds), under ``analytics_zoo_torch/_build/``,
 and loaded with ``ctypes``.  A source may hold more than one kernel (the
 flash backward's dQ and dK/dV share ``flash_attention_bwd.cu``).  The
-library's file name carries a hash of its source and flags, so an edited
-source is rebuilt.  ``build_all`` starts every build at once.  A missing
+library's file name carries a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is
+rebuilt.  ``build_all`` starts every build at once.  A missing
 ``nvcc`` or a failed build raises: there is no fallback to the plain
 versions for CUDA tensors.
 
@@ -19,6 +20,7 @@ the wrappers made through ``launch``, and nothing else.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -97,10 +99,16 @@ def source_path(source: str) -> str:
 
 
 def library_path(source: str) -> str:
-    with open(source_path(source), "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{source}_{digest}.so")
+    """The library built from ``source``: its name carries a hash of the
+    source, every header in ``csrc/`` (in sorted order: a source may
+    include any of them) and the flags."""
+    h = hashlib.sha256()
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+    for path in [source_path(source), *headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{source}_{h.hexdigest()[:16]}.so")
 
 
 def _start_build(source: str):

@@ -17,10 +17,11 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    launches), the plain version's time, a library call's time where one
    PyTorch call computes the same function, and the least time the card
    could take for the same work: flash forward, dQ and dK/dV at
-   (8, 12, 512, 64), bias→GeLU, LayerNorm→GeLU, Adam and SGD on the
-   embedding's 23,440,896-element leaf and a small odd one; dQ and dK/dV
-   are also checked at (2, 4, 200, 64) and (2, 4, 512, 128), causal and
-   not, and each twice to show two launches bit-identical;
+   (8, 12, 512, 64), bias→GeLU, LayerNorm→GeLU (and its fixed cost at
+   (1, 4)), Adam and SGD on the embedding's 23,440,896-element leaf and a
+   small odd one; the flash kernels are also checked at (2, 4, 200, 64)
+   and (2, 4, 512, 128), causal and not, and each twice to show two
+   launches bit-identical;
 3. ``TextClassifier(encoder="transformer")`` at BERT-base widths
    (hidden 768, 12 heads of 64, FFN 3072, 512 positions, vocabulary
    30522, 12 blocks) with seeded random weights, served through
@@ -59,28 +60,33 @@ TF32_FLOPS_PER_S = 495e12       # dense, tensor cores
 WARMUP = 3
 TIMED = 25
 
-# The flash backward kernels take every product on the tensor cores in
-# split TF32: each operand x = hi + lo, both TF32, and each product as
-# lo.hi + hi.lo + hi.hi with float32 accumulation, which drops ~2^-22 of
-# each product term; they sum in 8-term steps in another order than the
-# plain version's full-length float32 products, and their recomputed s
-# (so p) differs from the forward's by float32 rounding.  Each of these is
-# ~1e-6 relative of a result or less.
+# The flash kernels take every product on the tensor cores in split TF32:
+# each operand x = hi + lo, both TF32, and each product as lo.hi + hi.lo +
+# hi.hi with float32 accumulation, which drops ~2^-22 of each product
+# term, and they sum in 8-term steps in another order than the plain
+# versions' full-length float32 products: ~1e-6 relative of a result or
+# less.  The forward's O is a convex combination of rows of V and its LSE
+# a log of a sum of positive terms, so neither cancels: 1e-5 holds them
+# (7.3e-6 at most measured on the H100); the backward's
+# dS = P (dP - delta) cancels, and its results take 1e-4.
+FWD_ATOL, FWD_RTOL = 1e-5, 1e-5
+FWD_LSE_ATOL = 1e-5
 BWD_ATOL, BWD_RTOL = 1e-4, 1e-4
-# where the backward is checked: the training shape, the JAX
+# where the flash kernels are checked: the training shape, the JAX
 # TextClassifier's default token_length (200, a ragged last tile), and
 # head_dim 128
-BWD_SHAPES = ((8, 12, 512, 64), (2, 4, 200, 64), (2, 4, 512, 128))
+FLASH_SHAPES = ((8, 12, 512, 64), (2, 4, 200, 64), (2, 4, 512, 128))
 # The optimizer kernels block FMA contraction and repeat the plain
 # version's elementwise ops: bit-identical.
 OPT_ATOL = 0.0
 # Gradients under ops.fused=auto against ops.fused=torch, relative L2 per
 # leaf, one step, same weights, batch and dropout masks.  With float32
-# products (dtype.compute=float32) the routes differ only by the float32
-# summation order of the flash forward and the LayerNorm kernel (~1e-7
-# relative): GRAD_RTOL_F32.  Under the default policy every product
-# rounds its operands to bf16 on both routes; a value the summation order
-# moves across a bf16 rounding boundary moves by 2^-8, and the global
+# products (dtype.compute=float32) the routes differ by the flash kernels'
+# split-TF32 products and their order of summation, and by the LayerNorm
+# kernel's (~1e-6 relative of a result): GRAD_RTOL_F32.  Under the
+# default policy every product rounds its operands to bf16 on both
+# routes; a value the summation order moves across a bf16 rounding
+# boundary moves by 2^-8, and the global
 # max-pool then routes some channels' gradient to another token, so whole
 # gradient contributions move: measured 6.9e-2 median, 1.1e-1 max on the
 # H100; GRAD_RTOL_BF16 bounds that and still catches a wrong gradient
@@ -93,10 +99,11 @@ SMALL_LEAF = 1001
 # Whole-model tolerance between ops.fused=auto (kernels) and
 # ops.fused=torch (plain versions) logits, same weights and inputs.  The
 # bf16 rounding of each product's operands is the same code on both
-# sides, so only the summation order of attention, LayerNorm and the
-# epilogues differs (~1e-7 relative in f32); where such a difference
-# moves a value across a bf16 rounding boundary, that one operand moves
-# by 2^-8 relative and carries through the following layers.
+# sides; attention differs by the flash forward's split-TF32 products and
+# order of summation, LayerNorm and the epilogues by their order of
+# summation (~1e-6 relative in f32 or less); where such a difference moves
+# a value across a bf16 rounding boundary, that one operand moves by 2^-8
+# relative and carries through the following layers.
 MODEL_ATOL = 2e-2
 
 
@@ -201,22 +208,41 @@ def main() -> None:
     report = {}
 
     # ----------------------------------- 2. kernels against plain versions
-    b, h, t, d = 8, 12, 512, 64
-    q, k, v = randn(b, h, t, d), randn(b, h, t, d), randn(b, h, t, d)
-    for causal in (False, True):
-        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
-        o_ref, lse_ref = fa.flash_attention_ref(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        err_o = close(f"flash causal={causal} O", o, o_ref, 1e-5, 1e-5)
-        err_l = close(f"flash causal={causal} LSE", lse, lse_ref, 1e-5)
-        print(f"check flash_attention_fwd causal={causal} {(b, h, t, d)} "
-              f"f32: O max abs err {err_o:.3e}, LSE {err_l:.3e}")
-        if not causal:
-            flash_err = max(err_o, err_l)
+    # flash forward against the plain version, and two launches against
+    # each other
+    b, h, t, d = FLASH_SHAPES[0]
+    for shape in FLASH_SHAPES:
+        q, k, v = (randn(*shape) for _ in range(3))
+        for causal in (False, True):
+            tag = f"{shape} causal={causal}"
+            o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+            o2, lse2 = fa.flash_attention_fwd(q, k, v, causal=causal)
+            o_ref, lse_ref = fa.flash_attention_ref(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            err_o = close(f"flash forward {tag} O", o, o_ref, FWD_ATOL,
+                          FWD_RTOL)
+            err_l = close(f"flash forward {tag} LSE", lse, lse_ref,
+                          FWD_LSE_ATOL)
+            if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+                fail(f"flash forward {tag}: two launches differ")
+            print(f"check flash_attention_fwd {tag} f32: O max abs err "
+                  f"{err_o:.3e} (|O| max {float(o_ref.abs().max()):.3e}, "
+                  f"atol {FWD_ATOL}, rtol {FWD_RTOL}), LSE {err_l:.3e} (atol "
+                  f"{FWD_LSE_ATOL}); two launches bit-identical")
+            if shape == FLASH_SHAPES[0] and not causal:
+                flash_err = max(err_o, err_l)
+    del o2, lse2
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v = (randn(b, h, t, d) for _ in range(3))
     ms = time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v))
     plain = time_ms(torch, lambda: fa.flash_attention_ref(q, k, v))
-    lib = time_ms(torch, lambda: torch.nn.functional
-                  .scaled_dot_product_attention(q, k, v))
+    lib = time_ms(torch, lambda: sdpa(q, k, v))
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        lib_eff = time_ms(torch, lambda: sdpa(q, k, v))
+    print(f"library: f32 scaled_dot_product_attention forward {lib:.5f} ms "
+          f"(PyTorch's choice of backend), {lib_eff:.5f} ms "
+          f"(EFFICIENT_ATTENTION forced); the kernel {ms:.5f} ms ({card})")
     fwd_bytes, fwd_flops = (4 * b * h * t * d + b * h * t) * 4, \
         4 * b * h * t * t * d
     bnd, by = flash_bound_ms(fwd_bytes, fwd_flops)
@@ -260,6 +286,16 @@ def main() -> None:
         print(f"check layernorm_act {shape} act={name} f32: max abs err "
               f"{err:.3e}; kernel_ms {ms:.5f} plain_ms {plain:.5f} "
               f"bound_ms {bnd:.6f} ({card})")
+    # the kernel's fixed cost: a launch and one round trip, at (1, 4)
+    x1, g1, b1 = randn(1, 4), randn(4) * 0.1 + 1.0, randn(4) * 0.1
+    err1 = close("layernorm_act (1, 4)",
+                 fused.layernorm_act_kernel(x1, g1, b1, 1e-5, gelu),
+                 fused.layernorm_act_ref(x1, g1, b1, 1e-5, gelu), 1e-5)
+    fixed = time_ms(torch, lambda: fused.layernorm_act_kernel(
+        x1, g1, b1, 1e-5, gelu))
+    print(f"check layernorm_act (1, 4) act=gelu f32: max abs err "
+          f"{err1:.3e}; kernel_ms {fixed:.5f}, the kernel's fixed cost "
+          f"(a launch and one round trip) ({card})")
     # the serving path's shape is (8, 768) with gelu: the last one above
     report["layernorm_act"] = dict(
         route="cuda", source="analytics_zoo_torch/csrc/layernorm_act.cu",
@@ -267,7 +303,7 @@ def main() -> None:
         ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None)
     # flash backward: dQ and dK/dV, against the plain versions, and two
     # launches against each other
-    for shape in BWD_SHAPES:
+    for shape in FLASH_SHAPES:
         q, k, v, do = (randn(*shape) for _ in range(4))
         for causal in (False, True):
             o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
@@ -297,7 +333,7 @@ def main() -> None:
     o, lse = fa.flash_attention_fwd(q, k, v)
     delta = fa.flash_attention_delta(o, do)
     qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
-    sdpa_out = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg)
+    sdpa_out = sdpa(qg, kg, vg)
     lib = time_ms(torch, lambda: torch.autograd.grad(
         sdpa_out, (qg, kg, vg), do, retain_graph=True))
     n_el = b * h * t * d

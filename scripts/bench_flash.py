@@ -1,0 +1,429 @@
+#!/usr/bin/env python3
+"""The flash-attention kernels (forward; backward dQ and dK/dV) on one GPU:
+build, inspect, check and time, beside other versions of the same sources.
+
+    python3 scripts/bench_flash.py [--compare PATH.cu ...] [--diagnose]
+                                   [--out PATH]
+
+Builds ``analytics_zoo_torch/csrc/flash_attention_fwd.cu`` and
+``flash_attention_bwd.cu`` and, with ``--compare``, other sources with the
+same C entry points (an earlier commit's copy, taken with ``git show``);
+a compared source is a forward or a backward by the entry points it
+defines, and is named by its file name.  Every build (all started
+together) is ``nvcc`` with the port's flags plus ``-Xptxas -v`` and ``-I``
+the port's ``csrc/`` (so a copy taken elsewhere finds the shared
+``flash_tile.cuh``).  For each build it prints the kernels' registers,
+shared memory and spills, and their SASS instruction mix (``cuobjdump
+-sass``: tensor-core ``HMMA``, ``FFMA``, shared loads, ...).
+
+Checks, at the training shape (8, 12, 512, 64), at (2, 4, 200, 64) and at
+(2, 4, 512, 128), causal and not: each forward's O and LSE against the
+plain version, each backward's dQ, dK and dV against the plain versions
+(the tolerances of ``chip_smoke.py``), and for every build that two
+launches give bit-identical outputs.  It also reports whether the current
+backward's dQ, dK and dV are bit-identical to each compared backward's at
+every shape, and how far the current forward's O is from each compared
+forward's.  Then it times, at the training shape, non-causal (CUDA
+events, as ``chip_smoke.py`` does), in turns: the compared sources,
+current, current, the compared sources in reverse: the forward, beside
+float32 ``scaled_dot_product_attention`` as PyTorch picks its backend and
+with the memory-efficient backend forced; dQ, dK/dV and the pair, beside
+the backward of ``scaled_dot_product_attention``.
+
+With ``--diagnose`` it also builds variants of the current sources that
+each drop one kind of work, and times them in the same turns (they give
+wrong answers by design and are not checked): ``one_mma`` keeps only the
+hi.hi product of each split product (a third of the tensor-core work,
+the same loads), ``no_lo_loads`` reads the B operands' lo parts from their
+hi planes (half the shared loads of B fragments, the same mma), and
+``fast_exp`` uses ``__expf``.  What a variant saves is what that work costs
+on the kernels' critical path: there is no profiler on the card's machine.
+
+Needs a CUDA device and ``nvcc``; with ``--out PATH`` also writes the
+results as JSON.  Exits non-zero if a check failed (after timing).
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import ctypes
+import glob
+import json
+import os
+import re
+import statistics
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+SHAPES = [((8, 12, 512, 64), False), ((8, 12, 512, 64), True),
+          ((2, 4, 200, 64), False), ((2, 4, 200, 64), True),
+          ((2, 4, 512, 128), False), ((2, 4, 512, 128), True)]
+TRAIN_SHAPE = (8, 12, 512, 64)
+FWD, BWD = "flash_attention_fwd", "flash_attention_bwd"
+KINDS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
+
+# --diagnose: variant name -> (text in the current sources, replacement);
+# each must be found in at least one of them
+DIAGNOSE = {
+    "one_mma": ("    mma(c, al, h0, h1);\n    mma(c, ah, bl[o0], bl[o1]);\n", ""),
+    "no_lo_loads": ("mma(c, ah, bl[o0], bl[o1]);", "mma(c, ah, h0, h1);"),
+    "fast_exp": ("expf(", "__expf("),
+}
+
+
+def direction(path: str) -> str:
+    with open(path) as f:
+        text = f.read()
+    if "zoo_flash_attention_fwd" in text:
+        return FWD
+    if "zoo_flash_attention_dq" in text:
+        return BWD
+    sys.exit(f"bench_flash: {path} defines no flash entry point")
+
+
+def diagnose_sources(csrc: str, out_dir: str):
+    """Write the --diagnose variants of the current forward and backward
+    (each with its own copy of the headers); returns {tag: {direction:
+    path}}."""
+    names = [FWD + ".cu", BWD + ".cu"] + sorted(
+        os.path.basename(p) for p in glob.glob(os.path.join(csrc, "*.cuh")))
+    texts = {}
+    for n in names:
+        with open(os.path.join(csrc, n)) as f:
+            texts[n] = f.read()
+    out = {}
+    for name, (old, new) in DIAGNOSE.items():
+        if not any(old in t for t in texts.values()):
+            sys.exit(f"bench_flash: --diagnose: {name}: the sources no "
+                     f"longer hold {old!r}")
+        d = os.path.join(out_dir, f"diag_{name}")
+        os.makedirs(d, exist_ok=True)
+        for n, t in texts.items():
+            with open(os.path.join(d, n), "w") as f:
+                f.write(t.replace(old, new))
+        out[f"diag_{name}"] = {FWD: os.path.join(d, FWD + ".cu"),
+                               BWD: os.path.join(d, BWD + ".cu")}
+    return out
+
+
+def start_build(kernels, src: str, tag: str):
+    """Start nvcc on ``src`` into ``_build/bench_<tag>.so``; returns (Popen,
+    library path)."""
+    out = os.path.join(kernels.BUILD_DIR, f"bench_{tag}.so")
+    os.makedirs(kernels.BUILD_DIR, exist_ok=True)
+    cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-Xptxas", "-v",
+           "-I", kernels.CSRC_DIR, "-o", out, src]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), out
+
+
+def finish_build(kernels, started, src: str, names):
+    """Wait for a build; returns (ctypes lib, path, ptxas lines)."""
+    proc, out = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        sys.exit(f"bench_flash: nvcc failed for {src}:\n{log}")
+    ptxas = [ln.strip() for ln in log.splitlines()
+             if "ptxas info" in ln and ("Used" in ln or "Compiling" in ln
+                                        or "spill" in ln)]
+    lib = ctypes.CDLL(out)
+    for name in names:
+        _, entry, argtypes = kernels.SIGNATURES[name]
+        fn = getattr(lib, entry)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return lib, out, ptxas
+
+
+def sass_mix(path: str, nvcc: str):
+    """Opcode counts of each flash kernel in the library's SASS, from the
+    ``cuobjdump`` beside ``nvcc``."""
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    try:
+        res = subprocess.run([tool, "-sass", path], capture_output=True,
+                             text=True)
+    except OSError as e:
+        return {"error": str(e)}
+    if res.returncode != 0:
+        return {"error": res.stderr.strip()[:500]}
+    mixes, current = {}, None
+    for line in res.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            current = None
+            for kind in KINDS:
+                if kind in m.group(1):
+                    dim = re.search(r"ILi(\d+)E", m.group(1))
+                    current = f"{kind}<{dim.group(1) if dim else '?'}>"
+                    mixes[current] = collections.Counter()
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                     line)
+        if current and m:
+            op = m.group(1)
+            key = op if op.startswith("HMMA") else op.split(".")[0]
+            mixes[current][key] += 1
+    return {k: dict(c.most_common(14)) for k, c in mixes.items()}
+
+
+def in_turns(torch, time_ms, fns, runs):
+    """Time each fn of ``fns`` ({tag: fn}) in turns: the others, current,
+    current, the others in reverse; appends to ``runs[tag]``."""
+    others = [tag for tag in fns if tag != "current"]
+    for tag in others + ["current", "current"] + others[::-1]:
+        runs[tag].append(time_ms(torch, fns[tag]))
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--compare", action="append", default=[])
+    ap.add_argument("--diagnose", action="store_true")
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("bench_flash: needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from chip_smoke import (BWD_ATOL, BWD_RTOL, FWD_ATOL, FWD_LSE_ATOL,
+                            FWD_RTOL, gpu_line, time_ms)
+    from analytics_zoo_torch.ops import flash_attention as fa
+    from analytics_zoo_torch.ops import kernels
+
+    card = gpu_line()
+    print(f"gpu: {card}")
+    # direction -> {tag: source}
+    versions = {FWD: {}, BWD: {}}
+    for p in args.compare:
+        versions[direction(p)][os.path.splitext(os.path.basename(p))[0]] = p
+    for dirn in (FWD, BWD):
+        versions[dirn]["current"] = kernels.source_path(dirn)
+    diagnostic = set()
+    if args.diagnose:
+        for tag, paths in diagnose_sources(kernels.CSRC_DIR,
+                                           kernels.BUILD_DIR).items():
+            for dirn, path in paths.items():
+                versions[dirn][tag] = path
+            diagnostic.add(tag)
+    libs = {FWD: {}, BWD: {}}
+    result = {"card": card, "versions": {}}
+    names = {FWD: [FWD], BWD: ["flash_attention_dq", "flash_attention_dkv"]}
+    started = {(dirn, tag): start_build(kernels, src, f"{dirn}_{tag}")
+               for dirn in (FWD, BWD) for tag, src in versions[dirn].items()}
+    for dirn in (FWD, BWD):
+        for tag, src in versions[dirn].items():
+            lib, path, ptxas = finish_build(kernels, started[dirn, tag], src,
+                                            names[dirn])
+            libs[dirn][tag] = lib
+            mix = sass_mix(path, kernels.nvcc_path())
+            result["versions"][f"{dirn}:{tag}"] = {
+                "source": src, "ptxas": ptxas, "sass": mix}
+            print(f"[{dirn}:{tag}] {src}")
+            for ln in ptxas:
+                print(f"  {ln}")
+            for kern, counts in mix.items():
+                print(f"  sass {kern}: {counts}")
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    failures = []
+
+    def err_over(name, got, want, atol, rtol):
+        """Max abs error; records a failure where |err| > atol + rtol|want|."""
+        err = (got - want).abs()
+        if not float((err - rtol * want.abs()).max()) <= atol:
+            failures.append(f"{name}: max abs err {float(err.max()):.3e} "
+                            f"over tolerance (atol {atol}, rtol {rtol})")
+        return float(err.max())
+
+    def run_fwd(lib, q, k, v, causal):
+        b, h, t, d = q.shape
+        o = torch.empty_like(q)
+        lse = torch.empty((b * h, t, 1), device=dev)
+        err = lib.zoo_flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), b * h, t, d, float(d ** -0.5), int(causal),
+            stream)
+        if err:
+            sys.exit(f"bench_flash: forward launch failed, cudaError {err}")
+        return o, lse
+
+    def run_bwd(lib, q, k, v, do, lse, delta, causal):
+        b, h, t, d = q.shape
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        ptrs = [x.data_ptr() for x in (q, k, v, do, lse, delta)]
+        scale = float(d ** -0.5)
+        err = lib.zoo_flash_attention_dq(*ptrs, dq.data_ptr(), b * h, t, d,
+                                         scale, int(causal), stream)
+        err = err or lib.zoo_flash_attention_dkv(
+            *ptrs, dk.data_ptr(), dv.data_ptr(), b * h, t, d, scale,
+            int(causal), stream)
+        if err:
+            sys.exit(f"bench_flash: backward launch failed, cudaError {err}")
+        return dq, dk, dv
+
+    checks = []
+    for shape, causal in SHAPES:
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
+                       for _ in range(4))
+        o_ref, lse_ref = fa.flash_attention_ref(q, k, v, causal=causal)
+        delta = fa.flash_attention_delta(o_ref, do)
+        want = (fa.flash_attention_dq_ref(q, k, v, do, lse_ref, delta, causal),
+                *fa.flash_attention_dkv_ref(q, k, v, do, lse_ref, delta,
+                                            causal))
+        tag_s = f"{shape} causal={causal}"
+        fwd_out = {}
+        for tag, lib in libs[FWD].items():
+            if tag in diagnostic:
+                continue
+            got, again = run_fwd(lib, q, k, v, causal), \
+                run_fwd(lib, q, k, v, causal)
+            torch.cuda.synchronize()
+            fwd_out[tag] = got
+            e_o = err_over(f"fwd:{tag} O {tag_s}", got[0], o_ref, FWD_ATOL,
+                           FWD_RTOL)
+            e_l = err_over(f"fwd:{tag} LSE {tag_s}", got[1], lse_ref,
+                           FWD_LSE_ATOL, 0.0)
+            same = all(torch.equal(a, b_) for a, b_ in zip(got, again))
+            if not same:
+                failures.append(f"fwd:{tag} {tag_s}: two launches differ")
+            checks.append(dict(version=f"fwd:{tag}", shape=shape,
+                               causal=causal, max_abs_err=dict(o=e_o, lse=e_l),
+                               bit_identical_relaunch=same))
+            print(f"check [fwd:{tag}] {tag_s}: max abs err O {e_o:.3e} LSE "
+                  f"{e_l:.3e} (|O| max {float(o_ref.abs().max()):.3e}); two "
+                  f"launches {'bit-identical' if same else 'DIFFER'}")
+        for tag, got in fwd_out.items():
+            if tag != "current":
+                diff = float((got[0] - fwd_out["current"][0]).abs().max())
+                print(f"compare [fwd:current] against [fwd:{tag}] {tag_s}: O "
+                      f"max abs diff {diff:.3e}")
+        bwd_out = {}
+        for tag, lib in libs[BWD].items():
+            if tag in diagnostic:
+                continue
+            got = run_bwd(lib, q, k, v, do, lse_ref, delta, causal)
+            again = run_bwd(lib, q, k, v, do, lse_ref, delta, causal)
+            torch.cuda.synchronize()
+            bwd_out[tag] = got
+            errs = [err_over(f"bwd:{tag} {n} {tag_s}", x, w, BWD_ATOL,
+                             BWD_RTOL)
+                    for n, x, w in zip(("dQ", "dK", "dV"), got, want)]
+            same = all(torch.equal(a, b_) for a, b_ in zip(got, again))
+            if not same:
+                failures.append(f"bwd:{tag} {tag_s}: two launches differ")
+            checks.append(dict(version=f"bwd:{tag}", shape=shape,
+                               causal=causal,
+                               max_abs_err=dict(zip(("dq", "dk", "dv"), errs)),
+                               bit_identical_relaunch=same))
+            print(f"check [bwd:{tag}] {tag_s}: max abs err dQ {errs[0]:.3e} "
+                  f"dK {errs[1]:.3e} dV {errs[2]:.3e}; two launches "
+                  f"{'bit-identical' if same else 'DIFFER'}")
+        for tag, got in bwd_out.items():
+            if tag != "current":
+                same = [torch.equal(a, b_)
+                        for a, b_ in zip(bwd_out["current"], got)]
+                checks.append(dict(version=f"bwd:current=bwd:{tag}",
+                                   shape=shape, causal=causal,
+                                   bit_identical=dict(zip(("dq", "dk", "dv"),
+                                                          same))))
+                print(f"compare [bwd:current] against [bwd:{tag}] {tag_s}: "
+                      f"dQ, dK, dV bit-identical {same}")
+    result["checks"] = checks
+
+    b, h, t, d = TRAIN_SHAPE
+    q, k, v, do = (torch.randn(TRAIN_SHAPE, generator=gen, device=dev)
+                   for _ in range(4))
+    o_ref, lse = fa.flash_attention_ref(q, k, v)
+    delta = fa.flash_attention_delta(o_ref, do)
+    o, lse_out = torch.empty_like(q), torch.empty_like(lse)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    scale = float(d ** -0.5)
+    qkv = [x.data_ptr() for x in (q, k, v)]
+    ptrs = [x.data_ptr() for x in (q, k, v, do, lse, delta)]
+
+    def fwd_fn(lib):
+        return lambda: lib.zoo_flash_attention_fwd(
+            *qkv, o.data_ptr(), lse_out.data_ptr(), b * h, t, d, scale, 0,
+            stream)
+
+    def dq_fn(lib):
+        return lambda: lib.zoo_flash_attention_dq(
+            *ptrs, dq.data_ptr(), b * h, t, d, scale, 0, stream)
+
+    def dkv_fn(lib):
+        return lambda: lib.zoo_flash_attention_dkv(
+            *ptrs, dk.data_ptr(), dv.data_ptr(), b * h, t, d, scale, 0,
+            stream)
+
+    def pair_fn(lib):
+        f1, f2 = dq_fn(lib), dkv_fn(lib)
+        return lambda: (f1(), f2())
+
+    times = collections.defaultdict(lambda: collections.defaultdict(list))
+    fwd_runs = collections.defaultdict(list)
+    in_turns(torch, time_ms, {tag: fwd_fn(lib)
+                              for tag, lib in libs[FWD].items()}, fwd_runs)
+    for tag, r in fwd_runs.items():
+        times[f"fwd:{tag}"]["fwd"] = r
+    for part, make in (("dq", dq_fn), ("dkv", dkv_fn), ("pair", pair_fn)):
+        runs = collections.defaultdict(list)
+        in_turns(torch, time_ms, {tag: make(lib)
+                                  for tag, lib in libs[BWD].items()}, runs)
+        for tag, r in runs.items():
+            times[f"bwd:{tag}"][part] = r
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    lib_fwd = time_ms(torch, lambda: sdpa(q, k, v))
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        lib_fwd_eff = time_ms(torch, lambda: sdpa(q, k, v))
+        eff_err = float((sdpa(q, k, v) - o_ref).abs().max())
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    out = sdpa(qg, kg, vg)
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        out, (qg, kg, vg), do, retain_graph=True))
+    result["times_ms"] = {tag: {p: dict(runs=r, median=statistics.median(r))
+                                for p, r in parts.items()}
+                          for tag, parts in times.items()}
+    result["library_ms"] = {"fwd_default": lib_fwd,
+                            "fwd_efficient": lib_fwd_eff,
+                            "bwd_default": lib_bwd}
+    result["library_fwd_efficient_max_abs_err"] = eff_err
+    flops = {"fwd": 4 * b * h * t * t * d, "dq": 6 * b * h * t * t * d,
+             "dkv": 8 * b * h * t * t * d}
+    flops["pair"] = flops["dq"] + flops["dkv"]
+    result["bound_ms_3xtf32"] = {p: 3 * f / 495e12 * 1e3
+                                 for p, f in flops.items()}
+    result["bound_ms_fp32_fma"] = {p: f / 67e12 * 1e3
+                                   for p, f in flops.items()}
+    for tag, parts in result["times_ms"].items():
+        print(f"time [{tag}] {TRAIN_SHAPE} f32: " + ", ".join(
+            f"{p} {r['median']:.5f} ms {r['runs']}" for p, r in parts.items())
+            + f" ({card})")
+    print(f"library: f32 scaled_dot_product_attention forward {lib_fwd:.5f} "
+          f"ms (PyTorch's choice of backend), {lib_fwd_eff:.5f} ms "
+          f"(EFFICIENT_ATTENTION forced; O max abs err {eff_err:.3e}); "
+          f"backward {lib_bwd:.5f} ms; bounds 3xTF32 "
+          f"{result['bound_ms_3xtf32']}, f32 FMA "
+          f"{result['bound_ms_fp32_fma']} ({card})")
+    result["failures"] = failures
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+    print(json.dumps({"times_ms": {t_: {p: r["median"] for p, r in x.items()}
+                                   for t_, x in result["times_ms"].items()},
+                      "library_ms": result["library_ms"], "card": card}))
+    if failures:
+        print("bench_flash: FAILED:\n  " + "\n  ".join(failures))
+        sys.exit(1)
+
+
+if __name__ == "__main__":
+    main()

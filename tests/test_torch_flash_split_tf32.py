@@ -1,14 +1,16 @@
-"""The flash backward kernels' product precision, emulated on the CPU.
+"""The flash kernels' product precision, emulated on the CPU.
 
-``csrc/flash_attention_bwd.cu`` takes each of its five products (S, dP,
-dQ, dV, dK) on the tensor cores in split TF32: every float32 operand x is
+``csrc/flash_attention_fwd.cu`` takes its two products (S, P.V) and
+``csrc/flash_attention_bwd.cu`` its five (S, dP, dQ, dV, dK) on the
+tensor cores in split TF32: every float32 operand x is
 split into hi = tf32(x) and lo = tf32(x - hi), rounded as
 ``cvt.rna.tf32.f32`` rounds (nearest, ties away from zero, 10 mantissa
 bits), and a product a.b is taken as lo_a.hi_b + hi_a.lo_b + hi_a.hi_b
 with float32 accumulation.  The kernels cannot run here, so these tests
 emulate that arithmetic in plain PyTorch and hold it against float64
-products and against ``jax.vjp`` through the Pallas kernels in interpret
-mode, within the tolerance the card tests hold the kernels to.
+products and against the Pallas kernels in interpret mode (the forward,
+and ``jax.vjp`` through it for the backward), within the tolerances the
+card tests hold the kernels to.
 """
 
 import numpy as np
@@ -18,11 +20,18 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from analytics_zoo_tpu.ops.pallas_attention import flash_attention as j_flash
+from analytics_zoo_tpu.ops.pallas_attention import (
+    _flash_fwd_impl, _resolve_blocks, flash_attention as j_flash,
+)
 
 from analytics_zoo_torch.ops import flash_attention as tfa
 
-# the card's tolerance for the backward kernels against the plain versions
+# the card's tolerances for the kernels against the plain versions: the
+# forward's products do not cancel (O is a convex combination of rows of
+# V, LSE the log of a sum of positive terms), the backward's dS = P (dP -
+# delta) does
+FWD_TOL = dict(atol=1e-5, rtol=1e-5)
+FWD_LSE_TOL = dict(atol=1e-5, rtol=0)
 BWD_TOL = dict(atol=1e-4, rtol=1e-4)
 
 
@@ -41,6 +50,24 @@ def split_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ah, bh = tf32(a), tf32(b)
     al, bl = tf32(a - ah), tf32(b - bh)
     return (al @ bh + ah @ bl) + ah @ bh
+
+
+def split_forward(q, k, v, causal):
+    """(O, LSE) as the forward kernel computes them, every product in split
+    TF32: s = (q*scale) k^T, causal cells at -1e30, then a whole-row
+    softmax with the kernel's m and l_safe = max(l, 1e-30).  The kernel's
+    online softmax reaches the same m; its l and O differ from these by
+    float32 rounding of the per-tile rescaling."""
+    b, h, t, d = q.shape
+    s = split_mm(q * d ** -0.5, k.transpose(-1, -2))
+    if causal:
+        keep = torch.ones(t, t, dtype=torch.bool).tril_()
+        s = torch.where(keep, s, s.new_tensor(-1e30))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l_safe = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    o = split_mm(p, v) / l_safe
+    return o, (m + torch.log(l_safe)).reshape(b * h, t, 1)
 
 
 def split_backward(q, k, v, do, causal):
@@ -109,3 +136,26 @@ def test_split_tf32_backward_matches_pallas_vjp(shape, causal):
                          causal)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(g.numpy(), w, err_msg=name, **BWD_TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [(2, 2, 128, 64), (1, 2, 200, 64),
+                                   (2, 2, 128, 128)])
+def test_split_tf32_forward_matches_pallas_forward(shape, causal):
+    """O and LSE against the forward ``flash_attention`` runs
+    (``_flash_fwd_impl``, the Pallas kernel in interpret mode)."""
+    rs = np.random.RandomState(sum(shape) + causal + 7)
+    q, k, v = (rs.randn(*shape).astype(np.float32) for _ in range(3))
+    t = shape[2]
+    blocks = _resolve_blocks(t, 256, 256)
+    jo, jl = _flash_fwd_impl(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             (causal, shape[-1] ** -0.5, *blocks, True))
+    o, lse = split_forward(*(torch.from_numpy(x) for x in (q, k, v)), causal)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), err_msg="O",
+                               **FWD_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jl), err_msg="LSE",
+                               **FWD_LSE_TOL)
+    # the public entry gives the same O
+    np.testing.assert_array_equal(
+        np.asarray(j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           causal=causal, interpret=True)), np.asarray(jo))

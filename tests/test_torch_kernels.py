@@ -263,4 +263,14 @@ def test_library_name_follows_the_source(monkeypatch, tmp_path):
     monkeypatch.setattr(kernels, "CSRC_DIR", str(src))
     first = kernels.library_path("bias_gelu")
     (src / "bias_gelu.cu").write_text("// two")
-    assert kernels.library_path("bias_gelu") != first
+    second = kernels.library_path("bias_gelu")
+    assert second != first
+    # a shared header is part of every source's build: editing only the
+    # header must not load a stale library
+    (src / "flash_tile.cuh").write_text("// tile one")
+    third = kernels.library_path("bias_gelu")
+    assert third != second
+    (src / "flash_tile.cuh").write_text("// tile two")
+    assert kernels.library_path("bias_gelu") != third
+    assert kernels.library_path("bias_gelu") == kernels.library_path(
+        "bias_gelu")

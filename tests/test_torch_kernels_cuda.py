@@ -35,6 +35,8 @@ def _randn(dev, *shape, seed=0):
                                         (100, 128, False), (100, 128, True),
                                         (1, 64, False), (257, 64, True)])
 def test_flash_kernel_matches_plain(dev, t, d, causal):
+    # split-TF32 products (~1e-6 relative) that do not cancel: O is a convex
+    # combination of rows of V, LSE the log of a sum of positive terms
     q, k, v = (_randn(dev, 2, 3, t, d, seed=s) for s in range(3))
     before = kernels.launch_counts()["flash_attention_fwd"]
     o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
@@ -42,6 +44,18 @@ def test_flash_kernel_matches_plain(dev, t, d, causal):
     torch.testing.assert_close(o, o_ref, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(lse, lse_ref, atol=1e-5, rtol=0)
     assert kernels.launch_counts()["flash_attention_fwd"] == before + 1
+
+
+@pytest.mark.parametrize("t,d,causal", [(512, 64, False), (200, 64, True),
+                                        (257, 128, True)])
+def test_flash_kernel_is_deterministic(dev, t, d, causal):
+    """Each output row is written by one warp of one block: two launches
+    on the same inputs agree bit for bit."""
+    q, k, v = (_randn(dev, 2, 3, t, d, seed=s) for s in range(3))
+    first = fa.flash_attention_fwd(q, k, v, causal=causal)
+    second = fa.flash_attention_fwd(q, k, v, causal=causal)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_flash_kernel_refuses_what_it_does_not_take(dev):
@@ -60,8 +74,13 @@ def test_bias_gelu_kernel_matches_plain(dev, rows, d):
                                fused.bias_gelu_ref(x, b), atol=1e-6, rtol=0)
 
 
+# register path: d = 768 (6 float4s a lane), 256, 1000 (a lane's last
+# float4 partly past d), 1100 (9 float4s, held as 12), 4096 (32); looped
+# branch: d = 30 (scalars), 5000 (float4s, too wide for registers)
 @pytest.mark.parametrize("rows,d,act", [(8, 768, acts.gelu), (64, 256, None),
-                                        (5, 30, acts.gelu)])
+                                        (5, 30, acts.gelu),
+                                        (3, 1000, acts.gelu), (2, 1100, None),
+                                        (4, 4096, None), (3, 5000, acts.gelu)])
 def test_layernorm_act_kernel_matches_plain(dev, rows, d, act):
     x = _randn(dev, rows, d, seed=3)
     g, b = _randn(dev, d, seed=4) * 0.1 + 1, _randn(dev, d, seed=5) * 0.1
