@@ -66,19 +66,26 @@ SIGNATURES = {
 # every source, each built by one nvcc call
 SOURCES = sorted({src for src, _, _ in SIGNATURES.values()})
 
+# the kernels a forward pass can launch (what InferenceModel.warm builds)
+FORWARD_KERNELS = ("flash_attention_fwd", "bias_gelu", "layernorm_act")
+
 LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
 
 _libs: Dict[str, ctypes.CDLL] = {}
+# guards the builds and LAUNCHES: the serving batcher and several
+# predict threads launch at once, and ``+= 1`` is a read-modify-write
 _lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    return dict(LAUNCHES)
+    with _lock:
+        return dict(LAUNCHES)
 
 
 def nvcc_path() -> str:
@@ -194,4 +201,5 @@ def launch(name: str, device, *args) -> None:
     if err != 0:
         raise RuntimeError(
             f"CUDA kernel {name} failed to launch: cudaError {err}")
-    LAUNCHES[name] += 1
+    with _lock:
+        LAUNCHES[name] += 1

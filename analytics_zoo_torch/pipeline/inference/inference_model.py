@@ -5,7 +5,11 @@ One model serves all threads; a semaphore bounds the requests in
 flight, as the reference bounds its pool of model copies.  ``load_zoo``
 places the weights on the zoo context's device once; ``predict`` splits
 the input into batches, pads the last one to the batch shape, and runs
-the model's pure ``apply`` under ``torch.inference_mode()``.
+the model's pure ``apply`` under ``torch.inference_mode()``, recording
+the reference's ``inference_predict`` span and its three metrics.
+``predict`` and ``warm`` run under ``torch.cuda.device`` of the model's
+device: the current CUDA device is per host thread, and serving calls
+them from its batcher thread.
 
 The int8 path (``quantize=``), ``load_torch`` and ``load_tf`` are not
 ported yet and raise.
@@ -13,7 +17,10 @@ ported yet and raise.
 
 from __future__ import annotations
 
+import contextlib
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -22,6 +29,9 @@ import torch
 from analytics_zoo_torch.pipeline.api.keras.topology import (
     to_device, tree_leaves, tree_map,
 )
+
+#: the ``backend`` label of the metrics (the int8 path is not ported)
+BACKEND = "f32"
 
 
 def _not_ported(what: str):
@@ -34,12 +44,26 @@ class InferenceModel:
     """Concurrency-bounded predictor over a loaded model."""
 
     def __init__(self, supported_concurrent_num: int = 1):
+        from analytics_zoo_torch.observability import get_registry
         self.concurrency = int(supported_concurrent_num)
         self._sem = threading.Semaphore(self.concurrency)
         self._predict_fn = None
         self._variables = None
+        self._warmed = set()
         self.model = None
         self.device = None
+        # metric handles resolved once — predict is the serving hot path
+        reg = get_registry()
+        self._m_latency = reg.histogram(
+            "inference_predict_latency_seconds",
+            "wall time per InferenceModel.predict call",
+            labels=("backend",))
+        self._m_calls = reg.counter(
+            "inference_predict_total", "InferenceModel.predict calls",
+            labels=("backend",))
+        self._m_records = reg.counter(
+            "inference_records_total",
+            "records predicted by InferenceModel", labels=("backend",))
 
     # ------------------------------------------------------------- loaders
     def load_zoo(self, model, quantize: bool = False,
@@ -58,6 +82,7 @@ class InferenceModel:
         self.model = model
         self.device = get_zoo_context().device
         self._variables = to_device(model.get_variables(), self.device)
+        self._warmed = set()
 
         def fn(params, state, x):
             out, _ = model.apply(params, x, state=state, training=False)
@@ -76,17 +101,77 @@ class InferenceModel:
     def _to_device(self, a) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a)).to(self.device)
 
+    def _on_device(self):
+        """Make the model's card the calling thread's current CUDA
+        device (the kernels launch on the current device's stream)."""
+        if self.device is not None and self.device.type == "cuda":
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
+
+    def _forward(self, xb) -> torch.Tensor:
+        return self._predict_fn(self._variables["params"],
+                                self._variables["state"],
+                                tree_map(self._to_device, xb))
+
+    def warm(self, input_shape, batch_size: int,
+             dtype=np.float32) -> bool:
+        """Warm-start the batch shape ``(batch_size,) + input_shape``
+        before the first request arrives, so a serving replica pays its
+        cold start at spawn instead of inside a client's request.
+
+        The reference compiles an XLA program ahead of time and never
+        runs the model; eager PyTorch has no compile step, and a first
+        request here pays the kernel build at first use, CUDA's lazy
+        module loading and the libraries' first-call setup.  So this
+        (1) builds the kernels a forward pass launches (on a CUDA
+        device) and (2) runs one forward on a zero batch of that shape
+        under ``torch.inference_mode()``, discarding the output; it
+        records no metric and counts no record.  The forward runs on a
+        thread of its own that ends before this returns: CUDA's
+        libraries set up state per host thread (a first predict on a new
+        thread paid ~100 ms on an H100) and hand it on when the thread
+        ends, so the serving batcher's thread inherits it instead of
+        paying it inside a client's request.  Returns True when both
+        succeeded; a shape already warmed returns True at once.  A
+        failed build raises (``ClusterServing.warm_start`` logs it per
+        bucket, and the first predict raises it again)."""
+        if self._predict_fn is None:
+            raise RuntimeError("no model loaded")
+        key = ((int(batch_size),) + tuple(int(d) for d in input_shape),
+               np.dtype(dtype).str)
+        if key in self._warmed:
+            return True
+        with self._sem:
+            if self.device.type == "cuda":
+                from analytics_zoo_torch.ops import kernels
+                kernels.build_all(list(kernels.FORWARD_KERNELS))
+            with ThreadPoolExecutor(1, thread_name_prefix="zoo-warm") as ex:
+                ex.submit(self._warm_forward,
+                          np.zeros(key[0], np.dtype(dtype))).result()
+        self._warmed.add(key)
+        return True
+
+    def _warm_forward(self, x) -> None:
+        with self._on_device(), torch.inference_mode():
+            self._forward(x)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
     def predict(self, x, batch_size: Optional[int] = None) -> np.ndarray:
         """Thread-safe batched prediction; ``x`` is an array or a list of
         arrays (one per model input) with the batch in dim 0."""
         if self._predict_fn is None:
             raise RuntimeError("no model loaded")
+        from analytics_zoo_torch.observability import get_tracer
         from analytics_zoo_torch.pipeline.estimator.estimator import (
             predict_in_batches)
-        with self._sem, torch.inference_mode():
+        t0 = time.perf_counter()
+        with self._sem, get_tracer().span("inference_predict",
+                                          backend=BACKEND), \
+                self._on_device(), torch.inference_mode():
             n = len(tree_leaves(x)[0])
-            return predict_in_batches(
-                lambda xb: self._predict_fn(
-                    self._variables["params"], self._variables["state"],
-                    tree_map(self._to_device, xb)),
-                x, batch_size or n)
+            result = predict_in_batches(self._forward, x, batch_size or n)
+        self._m_latency.labels(BACKEND).observe(time.perf_counter() - t0)
+        self._m_calls.labels(BACKEND).inc()
+        self._m_records.labels(BACKEND).inc(n)
+        return result

@@ -28,6 +28,17 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    ``InferenceModel.load_zoo``/``predict``: 4 requests of 8 sequences,
    launch counts checked, one request re-run under ``ops.fused=torch``
    and compared;
+3b. the same ``InferenceModel`` behind Cluster Serving's front end:
+   ``ClusterServing`` reading the Redis stream of a ``BrokerServer``
+   over TCP (batch 8, buckets 1/2/4/8, top 5, a consumer group) with
+   its HTTP fast path; ``warm_start`` warms the 4 buckets, then 64
+   seeded token records enqueued through ``InputQueue`` and 8 singles
+   through ``ServingHttpClient.predict_http`` are served while the loop
+   runs in the background; every record answered once, no dead letter,
+   launches 12/12/1 per served batch (batches counted from the
+   executor's ``serving_execute`` spans), results against
+   ``ops.fused=torch``, records/s, arrival→result p50/p99, batches by
+   bucket and the front end's host time per record;
 4. the same model trained: ``compile(Adam(lr=1e-4),
    "sparse_categorical_crossentropy_with_logits", metrics=["accuracy"])``,
    ``fit`` on 64 seeded sequences (batch 8, one epoch: 8 steps) with the
@@ -49,6 +60,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 
@@ -105,6 +117,10 @@ SMALL_LEAF = 1001
 # a value across a bf16 rounding boundary, that one operand moves by 2^-8
 # relative and carries through the following layers.
 MODEL_ATOL = 2e-2
+# Cluster Serving's top-N probabilities against the plain versions'
+# softmax of the same record: a logit difference of at most MODEL_ATOL
+# moves a softmax probability by at most MODEL_ATOL / 2
+PROB_ATOL = 1e-2
 
 
 def fail(msg: str) -> None:
@@ -169,6 +185,178 @@ def close(name, got, want, atol, rtol=0.0) -> float:
 
 def rel_l2(got, want) -> float:
     return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def serve_front_end(torch, im, fail, broker_url=None, n_singles=8,
+                    queued_first=False):
+    """Serve 64 seeded token records through the Redis stream over TCP
+    and ``n_singles`` through the HTTP fast path with ``ClusterServing``
+    over ``im`` (batch 8, buckets 1/2/4/8, top 5, a consumer group), as
+    ``python -m analytics_zoo_torch.serving.cli start`` serves them.
+    The broker is a ``BrokerServer`` in this process unless
+    ``broker_url`` names a fresh one; with ``queued_first`` the stream
+    records are enqueued before the loop starts, so no producer shares
+    the process while it serves.  Checks that every record was answered
+    once, that no record was dead-lettered, and that each served batch
+    launched 12/12/1 kernels; returns the results and the timings."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from analytics_zoo_torch.observability import get_tracer
+    from analytics_zoo_torch.ops import kernels
+    from analytics_zoo_torch.serving.client import (
+        InputQueue, OutputQueue, ServingHttpClient)
+    from analytics_zoo_torch.serving.redis_client import (
+        BrokerServer, EmbeddedBroker, connect)
+    from analytics_zoo_torch.serving.server import (
+        DEAD_LETTER_STREAM, ClusterServing, ServingConfig)
+
+    broker = None
+    if broker_url is None:
+        broker = BrokerServer(EmbeddedBroker())      # RESP over TCP
+        broker_url = broker.url
+    serving = ClusterServing(im, ServingConfig(
+        redis_url=broker_url, batch_size=8, top_n=5, input_shape=(512,),
+        batch_buckets="1,2,4,8", consumer_group="g", http_port=0,
+        metrics_host="127.0.0.1"))
+    t0 = time.perf_counter()
+    warmed = serving.engine.warm_start()
+    warm_s = time.perf_counter() - t0
+    if warmed != {"default": 4}:
+        fail(f"warm_start warmed {warmed}, want 4 buckets")
+
+    rs = np.random.RandomState(1)
+    records = rs.randint(0, 30522, size=(64, 512)).astype(np.int64)
+    singles = rs.randint(0, 30522, size=(8, 512)).astype(np.int64)
+    singles = singles[:n_singles]
+    tracer = get_tracer()
+    tracer.clear()
+    kernels.reset_launch_counts()
+    inq = InputQueue(broker_url)
+    queued = len(records) if queued_first else 0
+    for i in range(queued):
+        inq.enqueue(f"s{i}", records[i], request_id=f"s{i}")
+    # run() warms again: every bucket is already warm, so it launches
+    # nothing
+    loop = serving.start_background()
+    http = ServingHttpClient(serving.http_transport.url)
+    t_start = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        futs = [pool.submit(http.predict_http, "default", x,
+                            request_id=f"h{i}")
+                for i, x in enumerate(singles)]
+        for i in range(queued, len(records)):
+            inq.enqueue(f"s{i}", records[i], request_id=f"s{i}")
+        http_docs = [f.result(timeout=300) for f in futs]
+        deadline = time.perf_counter() + 300
+        while serving.total_records < len(records) and \
+                time.perf_counter() < deadline:
+            time.sleep(0.005)
+    wall = time.perf_counter() - t_start
+    serving.stop()
+    loop.join(60)
+    if loop.is_alive():
+        fail("ClusterServing.run did not stop")
+    launches = kernels.launch_counts()
+
+    outq = OutputQueue(broker_url)
+    metas = [outq.query_meta(f"s{i}") for i in range(len(records))]
+    dead = connect(broker_url).xlen(DEAD_LETTER_STREAM)
+    if broker is not None:
+        broker.stop()
+    if serving.total_records != len(records) or dead:
+        fail(f"stream records served {serving.total_records} of "
+             f"{len(records)}, dead letters {dead}")
+    results = []
+    for i, meta in enumerate(metas):
+        if meta is None or meta["request_id"] != f"s{i}" or \
+                not isinstance(meta["value"], list):
+            fail(f"stream record s{i}: result {meta}")
+        results.append(meta["value"])
+    for i, doc in enumerate(http_docs):
+        if doc.get("request_id") != f"h{i}" or \
+                not isinstance(doc.get("value"), list):
+            fail(f"HTTP single h{i}: response {doc}")
+        results.append(doc["value"])
+
+    events = tracer.events()
+    spans = [e for e in events if e["name"] == "serving_execute"]
+    batches = len(spans)
+    served = sum(e["args"]["records"] for e in spans)
+    if served != len(records) + len(singles):
+        fail(f"serving_execute spans hold {served} records, want "
+             f"{len(records) + len(singles)} (each exactly once)")
+    want = {name: 0 for name in kernels.SIGNATURES}
+    want.update(flash_attention_fwd=12 * batches, bias_gelu=12 * batches,
+                layernorm_act=batches)
+    if launches != want:
+        fail(f"cluster serving launch counts {launches} != {want} for "
+             f"{batches} batches")
+    lat = sorted(serving.latencies)
+    return dict(
+        inputs=np.concatenate([records, singles]), results=results,
+        warm_s=warm_s, wall_s=wall, launches=launches, batches=batches,
+        buckets=Counter(e["args"]["bucket"] for e in spans),
+        execute_ms=[e["dur"] * 1e-3 for e in spans],
+        batch_records=[e["args"]["records"] for e in spans],
+        predict_ms=sum(e["dur"] for e in events
+                       if e["name"] == "inference_predict") * 1e-3,
+        p50_ms=lat[len(lat) // 2] * 1e3,
+        p99_ms=lat[min(int(0.99 * len(lat)), len(lat) - 1)] * 1e3,
+        n_latencies=len(lat))
+
+
+def front_end(torch, im, card, fail) -> None:
+    """Phase 3b: ``serve_front_end`` at BERT-base width, its results
+    against ``ops.fused=torch``, and its rates and times printed."""
+    from analytics_zoo_torch.common.config import get_config
+    from analytics_zoo_torch.ops import kernels
+
+    run = serve_front_end(torch, im, fail)
+    print(f"cluster serving: warm_start warmed 4 buckets (1/2/4/8 x 512 "
+          f"tokens) in {run['warm_s']:.3f} s ({card})")
+    get_config().set("ops.fused", "torch")
+    plain = im.predict(run["inputs"], batch_size=8)
+    get_config().set("ops.fused", "auto")
+    if kernels.launch_counts() != run["launches"]:
+        fail("ops.fused=torch launched a kernel")
+    e_ = np.exp(plain - plain.max(-1, keepdims=True))
+    probs = e_ / e_.sum(-1, keepdims=True)
+    top2 = np.sort(plain, -1)[:, -2:]
+    decided = compared = 0
+    worst = 0.0
+    for i, res in enumerate(run["results"]):
+        classes = [c for c, _ in res]
+        if len(res) != 5 or len(set(classes)) != 5:
+            fail(f"record {i}: top-5 result {res}")
+        worst = max(worst, max(abs(p - probs[i, c]) for c, p in res))
+        if top2[i, 1] - top2[i, 0] > MODEL_ATOL:
+            compared += 1
+            decided += classes[0] == int(np.argmax(plain[i]))
+    if decided != compared or not worst <= PROB_ATOL:
+        fail(f"cluster serving vs ops.fused=torch: top-1 agrees on "
+             f"{decided} of {compared} decided records, probability max "
+             f"abs diff {worst:.3e} (tolerance {PROB_ATOL})")
+    n = len(run["results"])
+    print(f"cluster serving vs ops.fused=torch: top-1 identical on "
+          f"{compared} of {n} records whose plain top-2 logit gap exceeds "
+          f"{MODEL_ATOL}; probability max abs diff {worst:.3e} (tolerance "
+          f"{PROB_ATOL})")
+    wall = run["wall_s"]
+    execute_s = sum(run["execute_ms"]) * 1e-3
+    print(f"cluster serving: {n} records (64 stream over TCP, 8 HTTP) in "
+          f"{wall:.4f} s, {n / wall:.2f} records/s ({card})")
+    print(f"cluster serving: arrival->result latency p50 "
+          f"{run['p50_ms']:.3f} ms, p99 {run['p99_ms']:.3f} ms over "
+          f"{run['n_latencies']} stream records ({card})")
+    print(f"cluster serving: {run['batches']} batches served, by bucket "
+          f"{dict(sorted(run['buckets'].items()))}, records "
+          f"{run['batch_records']}, serving_execute ms "
+          f"{[round(t, 3) for t in run['execute_ms']]}; launches "
+          f"{run['launches']} ({card})")
+    print(f"cluster serving: front end host time "
+          f"{(wall - execute_s) * 1e3 / n:.4f} ms a record (wall "
+          f"{wall * 1e3:.3f} ms less serving_execute {execute_s * 1e3:.3f} "
+          f"ms, over {n} records) ({card})")
 
 
 def main() -> None:
@@ -485,6 +673,7 @@ def main() -> None:
           f"{lat}, {8 * 1e3 / med:.1f} sequences/s, batch 8 x 512 tokens "
           f"({card})")
     serving_launches = launches
+    front_end(torch, im, card, fail)
 
     # ---------------------------------------- 4. training at full width
     loss_name = "sparse_categorical_crossentropy_with_logits"

@@ -1,7 +1,9 @@
 """PyTorch port, isolation: importing the port (and every module of the
-serving and training slices) pulls in neither ``jax`` nor ``analytics_zoo_tpu``, and
-the context refuses to fall back to the CPU quietly.  Each check runs
-in a fresh interpreter, since this test process has both loaded."""
+serving, training and Cluster Serving slices) pulls in neither ``jax``
+nor ``analytics_zoo_tpu``, no port source loads a file of the JAX
+package by path, and the context refuses to fall back to the CPU
+quietly.  Each import check runs in a fresh interpreter, since this
+test process has both loaded."""
 
 import os
 import pathlib
@@ -37,6 +39,24 @@ SLICE_MODULES = [
     "analytics_zoo_torch.pipeline.api.keras.objectives",
     "analytics_zoo_torch.pipeline.api.keras.optimizers",
     "analytics_zoo_torch.pipeline.api.keras.metrics",
+    "analytics_zoo_torch.common.fsutil",
+    "analytics_zoo_torch.observability",
+    "analytics_zoo_torch.observability.metrics",
+    "analytics_zoo_torch.observability.tracing",
+    "analytics_zoo_torch.observability.reqtrace",
+    "analytics_zoo_torch.observability.flightrec",
+    "analytics_zoo_torch.observability.exporter",
+    "analytics_zoo_torch.observability.telemetry",
+    "analytics_zoo_torch.resilience",
+    "analytics_zoo_torch.data",
+    "analytics_zoo_torch.utils.summary",
+    "analytics_zoo_torch.utils.tb_writer",
+    "analytics_zoo_torch.serving",
+    "analytics_zoo_torch.serving.engine",
+    "analytics_zoo_torch.serving.redis_client",
+    "analytics_zoo_torch.serving.server",
+    "analytics_zoo_torch.serving.client",
+    "analytics_zoo_torch.serving.cli",
 ]
 
 
@@ -63,6 +83,16 @@ def test_port_imports_no_jax_and_no_reference_package():
 def test_port_sources_import_neither():
     pattern = re.compile(
         r"^\s*(import|from)\s+(jax|jaxlib|analytics_zoo_tpu)\b", re.M)
+    offenders = [str(p.relative_to(REPO)) for p in PORT.rglob("*.py")
+                 if pattern.search(p.read_text())]
+    assert offenders == []
+
+
+def test_port_sources_load_no_reference_file_by_path():
+    """The port keeps its own copies: no file-path loader
+    (``scripts/_analysis_loader.py``, ``spec_from_file_location``)."""
+    pattern = re.compile(r"_analysis_loader|spec_from_file_location|"
+                         r"SourceFileLoader|runpy")
     offenders = [str(p.relative_to(REPO)) for p in PORT.rglob("*.py")
                  if pattern.search(p.read_text())]
     assert offenders == []
