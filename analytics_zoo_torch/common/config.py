@@ -114,8 +114,12 @@ _DEFAULTS: Dict[str, Any] = {
     "compile.farm": True,
     # Input pipeline ---------------------------------------------------
     # Device-batch prefetch depth (background thread overlapping host
-    # batch assembly + H2D copy with device compute); 0 disables.
-    "data.prefetch": 2,
+    # batch assembly + H2D copy with device compute); 0 places each batch
+    # inline.  The port defaults to 0: its eager steps hold the interpreter
+    # lock, and on an H100 the thread cost NeuralCF 0.43 ms a step (5.26
+    # against 4.83 ms) and BERT-base training nothing it gained
+    # (scripts/time_prefetch.py).
+    "data.prefetch": 0,
     "data.shuffle_seed": 1,
     # Checkpointing ----------------------------------------------------
     "checkpoint.keep": 5,

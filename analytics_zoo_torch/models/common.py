@@ -1,8 +1,8 @@
 """Model-zoo base class (port of ``models/common.py``).
 
 A ZooModel is a thin facade over an inner KerasNet graph built by
-``build_model``; compile/fit/evaluate/predict and the variables surface
-delegate to it.
+``build_model``; compile/fit/evaluate/predict/predict_classes and the
+variables surface delegate to it.
 """
 
 from __future__ import annotations
@@ -29,6 +29,9 @@ class ZooModel:
 
     def predict(self, *args, **kwargs):
         return self.model.predict(*args, **kwargs)
+
+    def predict_classes(self, *args, **kwargs):
+        return self.model.predict_classes(*args, **kwargs)
 
     def get_variables(self):
         return self.model.get_variables()

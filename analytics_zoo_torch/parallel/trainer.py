@@ -13,15 +13,19 @@ optimizer's own unfused ``update`` (gradient clipping first).
 A step never reads a value back to the host: the loss stays a device
 tensor until the caller reports it.  Each step's dropout generators come
 from ``step_generator(seed, step, device)``, so a run is reproducible on
-the CPU and on the card alike.
+the CPU and on the card alike; ``train_step_at`` makes that generator
+itself from the run's seed and the step's index, as the reference folds
+the step into its key inside the step.  ``prefetch`` places each batch
+inline by default, or ``data.prefetch`` deep on a thread of its own
+while the steps run.
 
 Not ported: the mesh and sharding, the whole-epoch and chunked scans,
-prefetch threads, the observability hooks and ``train.remat`` (which
-raises).
+the observability hooks and ``train.remat`` (which raises).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Optional
 
@@ -131,6 +135,66 @@ class DistributedTrainer:
             return t.to(self.device)
         return tree_map(put, batch)
 
+    def prefetch(self, batches, depth: Optional[int] = None):
+        """Place host batches (``put_batch``) ``depth`` deep ahead of the
+        steps (default ``data.prefetch``): 0 places each batch inline; above
+        0 a daemon thread pulls, places and queues them, overlapping host
+        batch assembly and the host-to-device copy with the steps, at the
+        cost of the interpreter lock it shares with them.  A worker's
+        exception is raised to the consumer; a consumer that stops early
+        (an iteration trigger) stops the worker.
+
+        CUDA's current device is per thread, so the worker places under
+        ``torch.cuda.device(self.device)``.  Its copy is issued on that
+        device's default stream, the stream the steps run on, so a step
+        that uses a batch is ordered after the batch's copy."""
+        import queue
+        import threading
+        if depth is None:
+            depth = int(get_config().get("data.prefetch"))
+        if depth <= 0:
+            for b in batches:
+                yield self.put_batch(b)
+            return
+        q: "queue.Queue" = queue.Queue(maxsize=depth)
+        end = object()
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    pass
+            return False
+
+        def worker():
+            try:
+                with (torch.cuda.device(self.device)
+                      if self.device.type == "cuda"
+                      else contextlib.nullcontext()):
+                    for b in batches:
+                        if not put(self.put_batch(b)):
+                            return
+                put(end)
+            except BaseException as e:   # handed on to the consumer
+                put(e)
+
+        t = threading.Thread(target=worker, daemon=True, name="zoo-prefetch")
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is end:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+            t.join()
+
     # ----------------------------------------------------------- optimizer
     def init_opt_state(self, params):
         return self.optim.init(params)
@@ -182,6 +246,13 @@ class DistributedTrainer:
         dropout generator ``rng``; returns ``(params, opt_state, state,
         loss)``, ``params`` and the moments updated in place."""
         return self._step_core(params, opt_state, state, batch, rng)
+
+    def train_step_at(self, params, opt_state, state, batch, seed: int,
+                      step: int):
+        """``train_step`` with the dropout generator of step ``step`` of a
+        run seeded ``seed``: ``step_generator(seed, step, device)``."""
+        return self._step_core(params, opt_state, state, batch,
+                               step_generator(seed, step, self.device))
 
     # ----------------------------------------------------------- eval step
     def make_eval_runner(self, metrics):

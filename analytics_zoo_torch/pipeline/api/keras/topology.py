@@ -3,10 +3,10 @@
 
 Ported: ``init``/``get_variables``/``set_variables``/``get_weights``/
 ``set_weights``, the graph ``Model.apply``, and the training surface
-``compile``/``fit`` (on ndarrays or a FeatureSet)/``evaluate``/``predict``
-with the gradient-clipping setters, which run the single-device
-``Estimator``.  Checkpoints, TensorBoard, validation during ``fit``,
-freezing and ``Sequential`` are not ported yet.
+``compile``/``fit`` (on ndarrays or a FeatureSet, with validation)/
+``evaluate``/``predict``/``predict_classes`` with the gradient-clipping
+setters, which run the single-device ``Estimator``.  Checkpoints,
+TensorBoard, freezing and ``Sequential`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -138,18 +138,43 @@ class KerasNet(Container):
             validation_data=None, validation_split: float = 0.0,
             shuffle: bool = True, rng: Optional[int] = None):
         """Train on ndarrays or a FeatureSet; returns the per-epoch history
-        ``[{"epoch", "loss", "throughput", "wall_s"}, ...]``.  ``rng`` is
-        the integer seed the dropout generators derive from (default:
-        ``data.shuffle_seed``)."""
+        ``[{"epoch", "loss", "throughput", "wall_s"[, "val"]}, ...]``.
+        ``validation_data`` (``(x, y)`` or a FeatureSet), or the last
+        ``validation_split`` of ndarray data, is scored after each epoch
+        with the compiled metrics (the loss when none was compiled).
+        ``rng`` is the integer seed the dropout generators derive from
+        (default: ``data.shuffle_seed``)."""
         from analytics_zoo_torch.common.triggers import MaxEpoch
         from analytics_zoo_torch.feature.feature_set import FeatureSet
+        from analytics_zoo_torch.pipeline.api.keras.metrics import Loss
         from analytics_zoo_torch.pipeline.estimator import Estimator
-        if validation_data is not None or validation_split:
-            raise NotImplementedError(
-                "validation during fit is not ported to the PyTorch package "
-                "yet (ROADMAP.md); call evaluate after fit")
-        train_set = x if isinstance(x, FeatureSet) else \
-            FeatureSet.from_ndarrays(x, y, shuffle=shuffle)
+        if isinstance(x, FeatureSet):
+            if validation_split:
+                raise ValueError(
+                    "validation_split is not supported when x is a "
+                    "FeatureSet; pass validation_data instead")
+            train_set = x
+        else:
+            if validation_split and validation_data is None:
+                n = len(tree_leaves(x)[0])
+                cut = int(n * (1 - validation_split))
+                validation_data = (
+                    tree_map(lambda a: a[cut:], x),
+                    tree_map(lambda a: a[cut:], y))
+                x = tree_map(lambda a: a[:cut], x)
+                y = tree_map(lambda a: a[:cut], y)
+            train_set = FeatureSet.from_ndarrays(x, y, shuffle=shuffle)
+        val_set = None
+        if validation_data is not None:
+            if isinstance(validation_data, FeatureSet):
+                val_set = validation_data
+            else:
+                vx, vy = validation_data
+                val_set = FeatureSet.from_ndarrays(vx, vy, shuffle=False)
+        # at least the validation loss is reported, Keras-style
+        validation_method = list(self.metrics or [])
+        if val_set is not None and not validation_method:
+            validation_method = [Loss(self.loss)]
         estimator = Estimator(self, optim_method=self.optim_method)
         if self._gradient_clipping is not None:
             kind, *args = self._gradient_clipping
@@ -159,6 +184,8 @@ class KerasNet(Container):
                 estimator.set_l2_norm_gradient_clipping(*args)
         estimator.train(train_set, self.loss,
                         end_trigger=MaxEpoch(nb_epoch),
+                        validation_set=val_set,
+                        validation_method=validation_method,
                         batch_size=batch_size, rng=rng)
         self._variables = estimator.variables
         return estimator.history
@@ -177,6 +204,13 @@ class KerasNet(Container):
         """Batched inference on the zoo context's device; host numpy out."""
         from analytics_zoo_torch.pipeline.estimator import Estimator
         return Estimator(self).predict(x, batch_size=batch_size)
+
+    def predict_classes(self, x, batch_size: int = 256,
+                        zero_based_label: bool = True):
+        """Arg-max class of each prediction (1-based unless
+        ``zero_based_label``)."""
+        classes = np.argmax(self.predict(x, batch_size=batch_size), axis=-1)
+        return classes if zero_based_label else classes + 1
 
 
 class Model(KerasNet):

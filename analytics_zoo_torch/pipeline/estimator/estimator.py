@@ -1,18 +1,22 @@
 """Estimator — the training loop, single device (port of
 ``pipeline/estimator/estimator.py``).
 
-``train`` runs the reference's plain per-step loop: each epoch walks the
-FeatureSet's deterministic batches, one ``DistributedTrainer.train_step``
-each, until the end trigger fires; an epoch appends ``{"epoch", "loss",
-"throughput", "wall_s"}`` to ``history``, its loss the mean of the
-epoch's step losses (what the reference's whole-epoch scan reports for an
-in-memory FeatureSet).  The step losses stay on the device; the epoch's
-mean is the one value read back per epoch.  ``evaluate`` and ``predict``
-run the eval and predict steps over ordered batches with a padded tail.
+``train`` runs the reference's per-step loop: each epoch walks the
+FeatureSet's deterministic batches through ``DistributedTrainer.prefetch``
+(inline, or ``data.prefetch`` deep on a thread), one
+``DistributedTrainer.train_step_at`` each, until the end trigger fires;
+an epoch appends ``{"epoch", "loss", "throughput", "wall_s"}`` to
+``history``, its loss the mean of the epoch's step losses (what the
+reference's whole-epoch scan reports for an in-memory FeatureSet), and
+with a ``validation_set`` and ``validation_method`` also ``"val"``, the
+validation scores after the epoch.  The step losses stay on the device;
+the epoch's mean is the one value read back per epoch.  ``evaluate`` and
+``predict`` run the eval and predict steps over ordered batches with a
+padded tail.
 
-Not ported: checkpoints (``model_dir``), validation during training,
-TensorBoard summaries, the retry/recovery policy, the chunked and
-whole-epoch dispatch engines, and multiple optimizer groups.
+Not ported: checkpoints (``model_dir``), TensorBoard summaries, the
+retry/recovery policy, the chunked and whole-epoch dispatch engines, the
+device-resident validation cache, and multiple optimizer groups.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from analytics_zoo_torch.common.triggers import (
     MaxEpoch, Trigger, TrainingState,
 )
 from analytics_zoo_torch.parallel.trainer import (
-    ClipSpec, DistributedTrainer, step_generator,
+    ClipSpec, DistributedTrainer,
 )
 from analytics_zoo_torch.pipeline.api.keras.topology import (
     to_device, tree_leaves, tree_map,
@@ -99,13 +103,12 @@ class Estimator:
               validation_set=None, validation_method=None,
               batch_size: int = 32, rng: Optional[int] = None):
         """Train on a FeatureSet until ``end_trigger`` (default one
-        epoch).  ``rng`` is the integer seed of the dropout generators
+        epoch), scoring ``validation_method`` on ``validation_set`` after
+        each epoch.  ``rng`` is the integer seed of the dropout generators
         (default ``data.shuffle_seed``)."""
         from analytics_zoo_torch.pipeline.api.keras import objectives
         if self.optim_method is None:
             raise ValueError("Estimator needs an optim_method to train")
-        if validation_set is not None or validation_method:
-            raise _not_ported("validation during training")
         criterion = objectives.get(criterion)
         end_trigger = end_trigger or MaxEpoch(1)
         seed = int(rng if rng is not None
@@ -124,16 +127,18 @@ class Estimator:
         params = trainer.place_params(self.variables["params"])
         state = trainer.replicate(self.variables["state"])
         opt_state = trainer.init_opt_state(params)
+        eval_runner = None
+        if validation_set is not None and validation_method:
+            eval_runner = trainer.make_eval_runner(list(validation_method))
 
         ts = self.train_state
         while not end_trigger(ts):
             epoch_start = time.perf_counter()
             seen, steps, loss_sum, stop = 0, 0, None, False
-            for batch in train_set.epoch_batches(ts.epoch, batch_size,
-                                                 train=True):
-                params, opt_state, state, loss = trainer.train_step(
-                    params, opt_state, state, trainer.put_batch(batch),
-                    step_generator(seed, ts.iteration, trainer.device))
+            for batch in trainer.prefetch(train_set.epoch_batches(
+                    ts.epoch, batch_size, train=True)):
+                params, opt_state, state, loss = trainer.train_step_at(
+                    params, opt_state, state, batch, seed, ts.iteration)
                 loss_sum = loss if loss_sum is None else loss_sum + loss
                 steps += 1
                 ts.iteration += 1
@@ -150,9 +155,15 @@ class Estimator:
             ts.slice_index = 0
             ts.epoch_finished = True
             wall = time.perf_counter() - epoch_start
-            self.history.append({"epoch": ts.epoch, "loss": ts.last_loss,
-                                 "throughput": seen / max(wall, 1e-9),
-                                 "wall_s": wall})
+            record = {"epoch": ts.epoch, "loss": ts.last_loss,
+                      "throughput": seen / max(wall, 1e-9), "wall_s": wall}
+            if eval_runner is not None:
+                scores = eval_runner(params, state,
+                                     validation_set.epoch_batches(
+                                         0, batch_size, train=False))
+                record["val"] = scores
+                ts.last_score = next(iter(scores.values()), None)
+            self.history.append(record)
             ts.epoch_finished = False
 
         self.variables = {"params": params, "state": state}

@@ -48,7 +48,27 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    (``ops.fused=torch``), same weights, same batch, same dropout
    generators, leaf by leaf, with float32 and with bf16 products;
 6. two ``fit`` steps with ``SGD(momentum=0.9)``, launch counts checked;
-7. a ``kernels`` JSON line, then the device line last.
+7. NeuralCF at the JAX bench's ML-1M width (``bench.py`` ``bench_ncf``:
+   6040 users, 3706 items, embeddings 64, hidden 128/64/32, seeded
+   random weights) on ``synthetic_ratings()`` with 4 negatives a
+   positive: ``compile(Adam(lr=1e-3), ..., metrics=[HitRatio(10, 100),
+   NDCG(10, 100)])``, ``fit`` one epoch at batch 16384 (one Adam launch a
+   leaf a step, 12 leaves), the step time of ``train_step_at`` under
+   ``prefetch`` in turns under ``ops.fused=auto`` and ``torch`` and the
+   loss after the same steps under each, ``evaluate`` HitRatio@10/NDCG@10
+   on the 6040 x 101 leave-one-out rows (checked against the same ranks
+   taken on the host), ``predict`` against the same forward on the CPU,
+   ``recommend_for_user``/``recommend_for_item``, the Adam kernel against
+   its plain version on each of the 12 leaves (bit-identical), and the
+   12-leaf update timed beside ``torch.optim.Adam(fused=True)`` and its
+   bound;
+8. Wide & Deep at the census configuration of the JAX package's
+   ``benchmarks/wide_deep.py`` (2^19 seeded rows, hidden 64/32/16):
+   ``fit`` two epochs at batch 8192 with ``validation_split=0.1`` and
+   ``metrics=["accuracy", "auc"]`` (one Adam launch a leaf a step, 11
+   leaves; a ``val`` record each epoch), then ``evaluate`` and the Adam
+   kernel against its plain version on each of the 11 leaves;
+9. a ``kernels`` JSON line, then the device line last.
 
 Exits non-zero, printing no result, when CUDA is not available.
 """
@@ -357,6 +377,371 @@ def front_end(torch, im, card, fail) -> None:
           f"{(wall - execute_s) * 1e3 / n:.4f} ms a record (wall "
           f"{wall * 1e3:.3f} ms less serving_execute {execute_s * 1e3:.3f} "
           f"ms, over {n} records) ({card})")
+
+
+# NeuralCF's loss after the same 43 steps from the same weights, twice a
+# route.  The fused Adam kernel is bit-identical to its plain version
+# (checked leaf by leaf below), so the routes take the same steps; the
+# one order CUDA does not fix is that of the atomicAdds by which the
+# embeddings' backward (index_add_) sums a batch's rows into a table row.
+# Measured on the H100: the same loss to the last bit in all eight runs
+# of two calls, a spread of 0.  Since CUDA does not promise that order,
+# the tolerance leaves 1e-5 (3e-5 of the loss, ~0.35) for it.
+NCF_LOSS_ATOL = 1e-5
+# ranking metrics from evaluate against the same ranks taken on the host
+# from predict's scores (the same forward, so ~1e-7 at most)
+RANK_ATOL = 1e-6
+NCF_BATCH = 16384
+NCF_TIMED_STEPS = 40
+WD_BATCH = 8192
+
+
+def expect_launches(launches, want, what) -> None:
+    """Fail unless the kernels launched exactly ``want`` (others 0)."""
+    from analytics_zoo_torch.ops import kernels
+    full = {name: 0 for name in kernels.SIGNATURES}
+    full.update(want)
+    if launches != full:
+        fail(f"{what}: launch counts {launches} != {full}")
+
+
+def host_ranks(scores, k, neg_num):
+    """HitRatio@k and NDCG@k of the leave-one-out groups, in numpy, from
+    the positive-class scores (one positive first in each group)."""
+    s = scores[:, -1].reshape(-1, neg_num + 1)
+    rank = (s[:, 1:] > s[:, :1]).sum(axis=1)
+    hit = rank < k
+    return (float(hit.mean()),
+            float(np.where(hit, np.log(2.0) / np.log(rank + 2.0), 0.0).mean()))
+
+
+def adam_leaves_check(torch, leaves, what) -> float:
+    """Fused Adam's kernel against its plain version on copies of a
+    model's leaves, each with its own seeded gradient and moments: one
+    update of each copy, then the parameter and both moments compared
+    leaf by leaf at OPT_ATOL.  Returns the largest error."""
+    from analytics_zoo_torch.common.config import get_config
+    from analytics_zoo_torch.ops import fused, kernels
+    dev = leaves[0].device
+    gen = torch.Generator(device=dev).manual_seed(5)
+    scal = fused.step_scalars(None, -1e-3, 1 - 0.9 ** 3, 1 - 0.999 ** 3,
+                              dev)
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8)
+    worst = 0.0
+    kernels.reset_launch_counts()
+    for i, p in enumerate(leaves):
+        g, m = (torch.randn(p.shape, generator=gen, device=dev) * 1e-2
+                for _ in range(2))
+        v = torch.rand(p.shape, generator=gen, device=dev) * 1e-4
+        kern = [t.detach().clone() for t in (p, g, m, v)]
+        plain = [t.detach().clone() for t in (p, g, m, v)]
+        fused.adam_leaf_update(*kern, scal, **kw)
+        get_config().set("ops.fused", "torch")
+        try:
+            fused.adam_leaf_update(*plain, scal, **kw)
+        finally:
+            get_config().set("ops.fused", "auto")
+        for part, j in (("param", 0), ("m", 2), ("v", 3)):
+            worst = max(worst, close(
+                f"{what} fused_adam leaf {i} ({p.numel()} elements) {part}",
+                kern[j], plain[j], OPT_ATOL))
+    if kernels.launch_counts()["fused_adam"] != len(leaves):
+        fail(f"{what} Adam check launches {kernels.launch_counts()}")
+    print(f"check fused_adam on {what}'s {len(leaves)} leaves "
+          f"({sorted({int(p.numel()) for p in leaves}, reverse=True)} "
+          f"elements): param, m and v max abs err {worst:.3e} (tolerance "
+          f"{OPT_ATOL}: bit-identical)")
+    return worst
+
+
+def ncf_phase(torch, card, users=None, items=None, n_ratings=1_000_000,
+              batch=NCF_BATCH, timed_steps=NCF_TIMED_STEPS):
+    """Phase 7: NeuralCF at ``bench_ncf``'s shape, trained, evaluated,
+    ranked and timed; returns the launch counts of its ``fit``."""
+    import itertools
+
+    from analytics_zoo_torch.common.config import get_config
+    from analytics_zoo_torch.common.zoo_context import get_zoo_context
+    from analytics_zoo_torch.feature import FeatureSet
+    from analytics_zoo_torch.feature.datasets import movielens
+    from analytics_zoo_torch.models.recommendation import NeuralCF
+    from analytics_zoo_torch.ops import fused, kernels
+    from analytics_zoo_torch.parallel.trainer import DistributedTrainer
+    from analytics_zoo_torch.pipeline.api.keras import objectives
+    from analytics_zoo_torch.pipeline.api.keras.metrics import HitRatio, NDCG
+    from analytics_zoo_torch.pipeline.api.keras.optimizers import Adam
+    from analytics_zoo_torch.pipeline.api.keras.topology import (
+        tree_leaves, tree_map)
+
+    users = users or movielens.ML1M_USERS
+    items = items or movielens.ML1M_ITEMS
+    dev = get_zoo_context().device
+    loss_name = "sparse_categorical_crossentropy_with_logits"
+    t0 = time.perf_counter()
+    ratings = movielens.synthetic_ratings(users, items, n_ratings)
+    train_x, train_y, eval_x, eval_y = movielens.build_ncf_samples(
+        ratings, users, items, neg_per_pos=4, eval_neg=100)
+    data_s = time.perf_counter() - t0
+    model = NeuralCF(users, items, class_num=2, user_embed=64,
+                     item_embed=64, mf_embed=64, hidden_layers=(128, 64, 32))
+    model.model.init(torch.Generator().manual_seed(0))
+    start = tree_map(torch.clone, model.get_variables()["params"])
+    leaves = tree_leaves(start)
+    n_params = sum(int(p.numel()) for p in leaves)
+    model.compile(Adam(lr=1e-3), loss_name,
+                  metrics=[HitRatio(10, 100), NDCG(10, 100)])
+    steps = len(train_y) // batch
+    print(f"ncf: {len(train_y)} training rows ({steps} steps of {batch}), "
+          f"{len(eval_y)} eval rows, made in {data_s:.2f} s; {n_params} "
+          f"params in {len(leaves)} float32 leaves")
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    history = model.fit(train_x, train_y, batch_size=batch, nb_epoch=1,
+                        rng=0)
+    fit_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    expect_launches(launches, {"fused_adam": len(leaves) * steps},
+                    "ncf fit")
+    loss = history[0]["loss"]
+    if len(history) != 1 or not np.isfinite(loss):
+        fail(f"ncf fit history {history}")
+    print(f"ncf fit: 1 epoch, {steps} steps in {fit_s:.3f} s (first epoch, "
+          f"warm-up included), {history[0]['throughput']:.1f} samples/s, "
+          f"epoch loss {loss:.6f}; launches {launches} ({card})")
+
+    # train_step_at under prefetch, in turns, from the same start weights
+    # over the same batches
+    loss_fn = objectives.get(loss_name)
+    train_set = FeatureSet.from_ndarrays(train_x, train_y)
+    warm = 3
+
+    def timed(mode):
+        get_config().set("ops.fused", mode)
+        tr = DistributedTrainer(model.model, loss_fn,
+                                optim_method=Adam(lr=1e-3))
+        params = tr.place_params(start)
+        opt_state, state = tr.init_opt_state(params), {}
+        kernels.reset_launch_counts()
+        batches = itertools.islice(
+            train_set.epoch_batches(1, batch, train=True),
+            warm + timed_steps)
+        torch.cuda.synchronize()
+        for i, b in enumerate(tr.prefetch(batches)):
+            if i == warm:
+                torch.cuda.synchronize()
+                s0 = time.perf_counter()
+            params, opt_state, state, step_loss = tr.train_step_at(
+                params, opt_state, state, b, 0, i)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - s0) * 1e3 / timed_steps
+        counts = kernels.launch_counts()
+        n = warm + timed_steps
+        expect_launches(counts, {"fused_adam": len(leaves) * n}
+                        if mode == "auto" else {}, f"ncf steps {mode}")
+        return ms, float(step_loss)
+
+    runs = {"torch": [], "auto": []}
+    for mode in ("torch", "auto", "auto", "torch"):
+        runs[mode].append(timed(mode))
+    get_config().set("ops.fused", "auto")
+    for mode in ("auto", "torch"):
+        ms = [r[0] for r in runs[mode]]
+        print(f"ncf step ops.fused={mode} (train_step_at under prefetch, "
+              f"{timed_steps} steps a turn): {ms} ms, median "
+              f"{statistics.median(ms):.4f} ms, "
+              f"{batch * 1e3 / statistics.median(ms):.1f} samples/s ({card})")
+    losses = [r[1] for mode in ("auto", "torch") for r in runs[mode]]
+    spread = max(losses) - min(losses)
+    same = max(abs(runs["auto"][0][1] - runs["auto"][1][1]),
+               abs(runs["torch"][0][1] - runs["torch"][1][1]))
+    print(f"ncf loss after {warm + timed_steps} steps from the same weights: "
+          f"auto {[r[1] for r in runs['auto']]}, torch "
+          f"{[r[1] for r in runs['torch']]}; spread {spread:.3e} (same "
+          f"route twice {same:.3e}; tolerance {NCF_LOSS_ATOL})")
+    if not spread <= NCF_LOSS_ATOL:
+        fail(f"ncf losses under the two routes differ by {spread}")
+
+    # evaluate on the 6040 x 101 leave-one-out rows, whole groups a batch
+    t0 = time.perf_counter()
+    scores = model.evaluate(eval_x, eval_y, batch_size=101 * 40)
+    eval_s = time.perf_counter() - t0
+    if set(scores) != {"loss", "hit_ratio@10", "ndcg@10"} or \
+            not all(np.isfinite(v) and v >= 0 for v in scores.values()) or \
+            not 0.0 < scores["hit_ratio@10"] <= 1.0:
+        fail(f"ncf evaluate scores {scores}")
+    t0 = time.perf_counter()
+    out = model.predict(eval_x, batch_size=101 * 40)
+    predict_s = time.perf_counter() - t0
+    if out.shape != (len(eval_y), 2) or not np.isfinite(out).all():
+        fail(f"ncf predict shape {out.shape}")
+    hr, ndcg = host_ranks(out, 10, 100)
+    err = max(abs(hr - scores["hit_ratio@10"]),
+              abs(ndcg - scores["ndcg@10"]))
+    if not err <= RANK_ATOL:
+        fail(f"ncf HitRatio/NDCG {scores} against host ranks {hr}, {ndcg}")
+    print(f"ncf evaluate ({len(eval_y)} rows, batch {101 * 40}) in "
+          f"{eval_s:.3f} s: HitRatio@10 {scores['hit_ratio@10']:.6f}, "
+          f"NDCG@10 {scores['ndcg@10']:.6f}, loss {scores['loss']:.6f}; "
+          f"host ranks from predict agree within {err:.1e} (tolerance "
+          f"{RANK_ATOL}); predict {predict_s:.3f} s ({card})")
+
+    # the card's forward against the same forward on the CPU
+    cpu_params = tree_map(lambda t: t.cpu(), model.get_variables()["params"])
+    small = [a[:1010] for a in eval_x]
+    with torch.no_grad():
+        ref, _ = model.model.apply(cpu_params,
+                                   [torch.as_tensor(a) for a in small])
+    diff = float(np.abs(out[:1010] - ref.numpy()).max())
+    print(f"ncf predict on the card vs the CPU, 1010 rows: logits max abs "
+          f"diff {diff:.3e} (tolerance {MODEL_ATOL})")
+    if not diff <= MODEL_ATOL:
+        fail(f"ncf card and CPU logits differ by {diff}")
+
+    for method, ids, cands in (("recommend_for_user", [1, 2, 3],
+                                range(1, items + 1)),
+                               ("recommend_for_item", [1, 2, 3],
+                                range(1, users + 1))):
+        t0 = time.perf_counter()
+        recs = getattr(model, method)(ids, cands, 10)
+        rec_s = time.perf_counter() - t0
+        ranked = {}
+        for key in ids:
+            r = recs.get(key, [])
+            sc = [p.probability for p in r]
+            ranked[key] = [p.item_id if method == "recommend_for_user"
+                           else p.user_id for p in r]
+            if len(r) != 10 or sc != sorted(sc, reverse=True) or \
+                    len(set(ranked[key])) != 10 or \
+                    not all(1 <= o <= len(cands) for o in ranked[key]) or \
+                    not all(np.isfinite(sc)):
+                fail(f"ncf {method}({key}): {r}")
+        print(f"ncf {method}({ids}, {len(cands)} candidates, 10): {ranked} "
+              f"in {rec_s * 1e3:.1f} ms")
+
+    # the 12-leaf Adam update alone: the kernels against the plain version
+    # leaf by leaf, then timed beside the step's whole fused update, the
+    # plain version and torch.optim.Adam(fused=True)
+    adam_err = adam_leaves_check(torch, leaves, "NeuralCF")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ps = [p.clone() for p in leaves]
+    gs = [torch.randn(p.shape, generator=gen, device=dev) * 1e-3
+          for p in leaves]
+    ms_ = [torch.zeros_like(p) for p in leaves]
+    vs_ = [torch.zeros_like(p) for p in leaves]
+    scal = fused.step_scalars(None, -1e-3, 1 - 0.9, 1 - 0.999, dev)
+
+    def kernel_sweep():
+        for p, g, m, v in zip(ps, gs, ms_, vs_):
+            fused.adam_leaf_update(p, g, m, v, scal, b1=0.9, b2=0.999,
+                                   eps=1e-8)
+
+    def plain_sweep():
+        get_config().set("ops.fused", "torch")
+        try:
+            kernel_sweep()
+        finally:
+            get_config().set("ops.fused", "auto")
+    update = fused.build_fused_update(Adam(lr=1e-3))
+    tree = {f"l{i:02d}": p for i, p in enumerate(ps)}
+    gtree = {f"l{i:02d}": g for i, g in enumerate(gs)}
+    ustate = [Adam(lr=1e-3).init(tree)]
+
+    def whole_update():
+        _, ustate[0] = update(gtree, ustate[0], tree)
+    kernels.reset_launch_counts()
+    kernel_ms = time_ms(torch, kernel_sweep)
+    if kernels.launch_counts()["fused_adam"] != \
+            len(leaves) * (WARMUP + TIMED):
+        fail(f"ncf Adam sweep launches {kernels.launch_counts()}")
+    update_ms = time_ms(torch, whole_update)
+    plain_ms = time_ms(torch, plain_sweep)
+    lib_params = [p.clone().requires_grad_() for p in leaves]
+    for p, g in zip(lib_params, gs):
+        p.grad = g.clone()
+    lib = torch.optim.Adam(lib_params, lr=1e-3, fused=True)
+    lib_ms = time_ms(torch, lib.step)
+    moved = 7 * 4 * n_params
+    bnd, by = bound_ms(moved, 0)
+    print(f"ncf Adam over its {len(leaves)} leaves ({n_params} elements, "
+          f"{moved} bytes): kernels ({len(leaves)} launches) "
+          f"{kernel_ms:.5f} ms, the step's whole fused update "
+          f"{update_ms:.5f} ms, plain {plain_ms:.5f} ms, "
+          f"torch.optim.Adam(fused=True).step {lib_ms:.5f} ms, bound "
+          f"{bnd:.6f} ms ({by}) ({card})")
+    del ps, gs, ms_, vs_, lib_params, lib, tree, gtree, ustate
+    return launches, adam_err
+
+
+def wide_deep_phase(torch, card, rows=1 << 19, batch=WD_BATCH):
+    """Phase 8: Wide & Deep at the census configuration, trained with
+    validation and evaluated; returns the launch counts of its ``fit``."""
+    from analytics_zoo_torch.models.recommendation import (
+        ColumnFeatureInfo, WideAndDeep)
+    from analytics_zoo_torch.ops import kernels
+    from analytics_zoo_torch.pipeline.api.keras.optimizers import Adam
+    from analytics_zoo_torch.pipeline.api.keras.topology import tree_leaves
+
+    info = ColumnFeatureInfo(
+        wide_base_cols=["gender", "age_bucket", "education"],
+        wide_base_dims=[3, 10, 16],
+        wide_cross_cols=["gender_age", "edu_age"],
+        wide_cross_dims=[30, 160],
+        embed_cols=["occupation", "relationship"],
+        embed_in_dims=[48, 8], embed_out_dims=[16, 8],
+        continuous_cols=["hours_per_week", "capital_gain"])
+    rs = np.random.RandomState(0)
+    gender = rs.randint(0, 3, rows)
+    age = rs.randint(0, 10, rows)
+    edu = rs.randint(0, 16, rows)
+    occ = rs.randint(0, 48, rows)
+    rel = rs.randint(0, 8, rows)
+    hours = rs.rand(rows).astype(np.float32)
+    gain = rs.rand(rows).astype(np.float32)
+    cols = {"gender": gender, "age_bucket": age, "education": edu,
+            "gender_age": gender * 10 + age, "edu_age": edu * 10 + age,
+            "occupation": occ, "relationship": rel,
+            "hours_per_week": hours, "capital_gain": gain}
+    logit = (((gender == 1) & (age >= 5)) * 1.2
+             + np.sin(occ / 48 * np.pi) + hours + gain - 1.8)
+    label = (logit + 0.3 * rs.randn(rows) > 0).astype(np.int64)
+
+    model = WideAndDeep(2, info, model_type="wide_n_deep",
+                        hidden_layers=(64, 32, 16))
+    model.model.init(torch.Generator().manual_seed(0))
+    n_leaves = len(tree_leaves(model.get_variables()["params"]))
+    feats = model.features_from_columns(cols)
+    model.compile(Adam(lr=1e-3),
+                  "sparse_categorical_crossentropy_with_logits",
+                  metrics=["accuracy", "auc"])
+    steps = int(rows * (1 - 0.1)) // batch
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    history = model.fit(feats, label, batch_size=batch, nb_epoch=2,
+                        validation_split=0.1, rng=0)
+    fit_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    expect_launches(launches, {"fused_adam": n_leaves * steps * 2},
+                    "wide & deep fit")
+    if len(history) != 2 or any(
+            set(h.get("val", {})) != {"sparse_categorical_accuracy", "auc"}
+            or not np.isfinite(h["loss"]) for h in history):
+        fail(f"wide & deep fit history {history}")
+    for h in history:
+        print(f"wide & deep epoch {h['epoch']}: {steps} steps of {batch}, "
+              f"{h['wall_s'] * 1e3 / steps:.4f} ms a step, "
+              f"{h['throughput']:.1f} samples/s, loss {h['loss']:.6f}, val "
+              f"{h['val']} ({card})")
+    scores = model.evaluate(feats, label, batch_size=batch)
+    if set(scores) != {"loss", "sparse_categorical_accuracy", "auc"} or \
+            not all(np.isfinite(v) for v in scores.values()) or \
+            not 0.0 <= scores["sparse_categorical_accuracy"] <= 1.0:
+        fail(f"wide & deep evaluate scores {scores}")
+    print(f"wide & deep: fit 2 epochs in {fit_s:.3f} s ({n_leaves} float32 "
+          f"leaves), launches {launches}; evaluate {scores} ({card})")
+    adam_err = adam_leaves_check(
+        torch, tree_leaves(model.get_variables()["params"]), "Wide & Deep")
+    return launches, adam_err
 
 
 def main() -> None:
@@ -787,10 +1172,18 @@ def main() -> None:
     print(f"SGD(momentum=0.9) fit: 2 steps, loss "
           f"{sgd_history[0]['loss']:.5f}, launches {sgd_launches}")
 
-    # ------------------------------------------------------- 4. results
+    # ------------------------------------ 7. NeuralCF at bench_ncf's shape
+    ncf_launches, ncf_adam_err = ncf_phase(torch, card)
+    # ---------------------------------- 8. Wide & Deep, census configuration
+    wd_launches, wd_adam_err = wide_deep_phase(torch, card)
+    report["fused_adam"]["max_abs_err"] = max(
+        report["fused_adam"]["max_abs_err"], ncf_adam_err, wd_adam_err)
+
+    # ------------------------------------------------------- 9. results
     print(f"launches: serving (4 requests) {serving_launches}; training "
           f"(fit, 8 steps) {training_launches}; SGD fit (2 steps) "
-          f"{sgd_launches}")
+          f"{sgd_launches}; NeuralCF fit {ncf_launches}; Wide & Deep fit "
+          f"{wd_launches}")
     for name, r in report.items():
         # the training path runs every kernel but SGD's, which its own fit
         # runs

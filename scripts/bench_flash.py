@@ -3,7 +3,7 @@
 build, inspect, check and time, beside other versions of the same sources.
 
     python3 scripts/bench_flash.py [--compare PATH.cu ...] [--diagnose]
-                                   [--out PATH]
+                                   [--fit] [--out PATH]
 
 Builds ``analytics_zoo_torch/csrc/flash_attention_fwd.cu`` and
 ``flash_attention_bwd.cu`` and, with ``--compare``, other sources with the
@@ -38,6 +38,14 @@ the same loads), ``no_lo_loads`` reads the B operands' lo parts from their
 hi planes (half the shared loads of B fragments, the same mma), and
 ``fast_exp`` uses ``__expf``.  What a variant saves is what that work costs
 on the kernels' critical path: there is no profiler on the card's machine.
+
+With ``--fit``, instead of the checks and times, it runs ``chip_smoke.py``'s
+phase-4 ``fit`` (the transformer TextClassifier at BERT-base widths,
+seeded weights, Adam lr 1e-4, 8 steps of the same 64 seeded sequences,
+dropout seeded 0) from the same weights under each forward, with float32
+products and with the default bf16 products, in the same turns, and
+prints each run's epoch loss: does a compared forward change what
+training learns?
 
 Needs a CUDA device and ``nvcc``; with ``--out PATH`` also writes the
 results as JSON.  Exits non-zero if a check failed (after timing).
@@ -177,10 +185,60 @@ def in_turns(torch, time_ms, fns, runs):
         runs[tag].append(time_ms(torch, fns[tag]))
 
 
+def fit_losses(torch, kernels, fwd_libs, card):
+    """--fit: the epoch loss of chip_smoke.py's phase-4 fit under each
+    forward library of ``fwd_libs`` ({tag: lib}), f32 and bf16 products,
+    in turns; returns {"<compute> <tag>": [loss, ...]}."""
+    import numpy as np
+    from analytics_zoo_torch import init_zoo_context
+    from analytics_zoo_torch.models.textclassification import TextClassifier
+    from analytics_zoo_torch.ops import dtypes
+    from analytics_zoo_torch.pipeline.api.keras.optimizers import Adam
+    from analytics_zoo_torch.pipeline.api.keras.topology import tree_map
+    kernels.build_all()
+    own = kernels._libs[FWD]
+    init_zoo_context(device="cuda:0")
+    model = TextClassifier(class_num=20, token_length=768,
+                           sequence_length=512, encoder="transformer",
+                           n_head=12, n_block=12, max_words_num=30521,
+                           encoder_output_dim=256)
+    model.model.init(torch.Generator().manual_seed(0))
+    start = model.get_variables()
+    rs = np.random.RandomState(0)
+    for _ in range(4):          # phase 4's data comes after phase 3's requests
+        rs.randint(0, 30522, size=(8, 512))
+    x = rs.randint(0, 30522, size=(64, 512)).astype(np.int64)
+    y = rs.randint(0, 20, size=(64,)).astype(np.int64)
+    others = [tag for tag in fwd_libs if tag != "current"]
+    losses = collections.defaultdict(list)
+    for compute in ("float32", "bfloat16"):
+        dtypes.set_policy(compute_dtype=compute)
+        for tag in others + ["current", "current"] + others[::-1]:
+            kernels._libs[FWD] = fwd_libs[tag]
+            model.set_variables({"params": tree_map(torch.clone,
+                                                    start["params"]),
+                                 "state": start["state"]})
+            model.compile(Adam(lr=1e-4),
+                          "sparse_categorical_crossentropy_with_logits")
+            kernels.reset_launch_counts()
+            loss = model.fit(x, y, batch_size=8, nb_epoch=1, rng=0)[0]["loss"]
+            if kernels.launch_counts()[FWD] != 96:
+                sys.exit(f"bench_flash: --fit: {tag} launched the forward "
+                         f"{kernels.launch_counts()[FWD]} times, want 96")
+            losses[f"{compute} {tag}"].append(loss)
+        dtypes.restore_policy(None)
+    kernels._libs[FWD] = own
+    for key, ls in losses.items():
+        print(f"fit dtype.compute={key.replace(' ', ' forward=')}: epoch "
+              f"losses {ls}, spread {max(ls) - min(ls):.3e} ({card})")
+    return dict(losses)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--compare", action="append", default=[])
     ap.add_argument("--diagnose", action="store_true")
+    ap.add_argument("--fit", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
@@ -227,6 +285,15 @@ def main() -> None:
                 print(f"  {ln}")
             for kern, counts in mix.items():
                 print(f"  sass {kern}: {counts}")
+
+    if args.fit:
+        result["fit_losses"] = fit_losses(torch, kernels, libs[FWD], card)
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                        exist_ok=True)
+            with open(args.out, "w") as f:
+                json.dump(result, f, indent=1)
+        return
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)

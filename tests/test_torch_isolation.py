@@ -1,7 +1,7 @@
 """PyTorch port, isolation: importing the port (and every module of the
-serving, training and Cluster Serving slices) pulls in neither ``jax``
-nor ``analytics_zoo_tpu``, no port source loads a file of the JAX
-package by path, and the context refuses to fall back to the CPU
+serving, training, Cluster Serving and recommender slices) pulls in
+neither ``jax`` nor ``analytics_zoo_tpu``, no port source loads a file of
+the JAX package by path, and the context refuses to fall back to the CPU
 quietly.  Each import check runs in a fresh interpreter, since this
 test process has both loaded."""
 
@@ -57,6 +57,8 @@ SLICE_MODULES = [
     "analytics_zoo_torch.serving.server",
     "analytics_zoo_torch.serving.client",
     "analytics_zoo_torch.serving.cli",
+    "analytics_zoo_torch.feature.datasets.movielens",
+    "analytics_zoo_torch.models.recommendation",
 ]
 
 

@@ -174,6 +174,44 @@ def test_fused_adam_kernel_is_bit_identical_to_plain(dev, n, offset, clip):
         torch.testing.assert_close(a, b, atol=0, rtol=0)
 
 
+# NeuralCF at ML-1M width (embeddings 64, hidden 128/64/32, 2 classes):
+# its 12 float32 leaves, in the order the trainer updates them
+NCF_LEAVES = (6041 * 64, 3707 * 64, 6041 * 64, 3707 * 64, 128 * 128, 128,
+              128 * 64, 64, 64 * 32, 32, 96 * 2, 2)
+
+
+def test_fused_adam_at_ncf_leaves_is_bit_identical_to_plain(dev):
+    """The fused update over NeuralCF's 12 leaves (386,624 elements down
+    to 2): one launch a leaf, each leaf bit-identical to the plain
+    update's."""
+    from analytics_zoo_torch.common.config import get_config
+    from analytics_zoo_torch.pipeline.api.keras.optimizers import Adam
+    update = fused.build_fused_update(Adam(lr=1e-3))
+    params = {f"l{i:02d}": {"w": _randn(dev, n, seed=i)}
+              for i, n in enumerate(NCF_LEAVES)}
+    grads = {k: {"w": _randn(dev, v["w"].numel(), seed=100 + i)}
+             for i, (k, v) in enumerate(params.items())}
+    runs = []
+    for mode in ("auto", "torch"):
+        get_config().set("ops.fused", mode)
+        try:
+            p = {k: {"w": v["w"].clone()} for k, v in params.items()}
+            state = Adam(lr=1e-3).init(p)
+            before = kernels.launch_counts()["fused_adam"]
+            for _ in range(3):
+                p, state = update(grads, state, p)
+            launched = kernels.launch_counts()["fused_adam"] - before
+        finally:
+            get_config().set("ops.fused", "auto")
+        runs.append((p, state, launched))
+    assert runs[0][2] == 3 * len(NCF_LEAVES) and runs[1][2] == 0
+    (p_k, s_k, _), (p_t, s_t, _) = runs
+    for k in params:
+        for a, b in ((p_k[k], p_t[k]), (s_k[0].mu[k], s_t[0].mu[k]),
+                     (s_k[0].nu[k], s_t[0].nu[k])):
+            torch.testing.assert_close(a["w"], b["w"], atol=0, rtol=0)
+
+
 @pytest.mark.parametrize("n,offset", [(4096, 0), (1001, 0), (777, 1)])
 @pytest.mark.parametrize("momentum,nesterov,wd", [(0.9, False, 0.0),
                                                   (0.8, True, 1e-4),

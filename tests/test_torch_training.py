@@ -115,8 +115,10 @@ def test_metrics_are_exact_under_the_tail_padding_mask():
         [((torch.tensor(3.0), torch.tensor(4.0)),),
          ((torch.tensor(1.0), torch.tensor(4.0)),)])
     assert scores == {"sparse_categorical_accuracy": 0.5}
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tmetrics.get("auc")
+    # every metric of the reference's registry resolves in the port
+    assert isinstance(tmetrics.get("auc"), tmetrics.AUC)
+    with pytest.raises(ValueError, match="unknown metric"):
+        tmetrics.get("f1")
 
 
 @pytest.mark.parametrize("seed", [1, 7, 12345])
@@ -284,7 +286,8 @@ def test_fit_and_evaluate_match_reference(f32_policy):
 
 def test_fit_is_reproducible_with_dropout_and_sgd_clipping():
     """With dropout on, the same fit seed gives the same run; the unfused
-    and fused updates agree; the Estimator features not ported raise."""
+    and fused updates agree; validation_split needs ndarray data; the
+    Estimator features not ported raise."""
     x, y = _data(16)
 
     def fit(fused, seed):
@@ -307,8 +310,9 @@ def test_fit_is_reproducible_with_dropout_and_sgd_clipping():
 
     model = TextClassifier(**CONFIG)
     model.compile("adam", LOSS)
-    with pytest.raises(NotImplementedError, match="validation"):
-        model.fit(x, y, batch_size=8, nb_epoch=1, validation_split=0.25)
+    with pytest.raises(ValueError, match="validation_split"):
+        model.fit(FeatureSet.from_ndarrays(x, y), batch_size=8, nb_epoch=1,
+                  validation_split=0.25)
     with pytest.raises(ValueError, match="exceeds"):
         model.fit(x, y, batch_size=64, nb_epoch=1)
     from analytics_zoo_torch.pipeline.estimator import Estimator
