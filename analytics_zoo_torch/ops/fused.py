@@ -8,13 +8,17 @@ and a plain PyTorch version beside it, in the kernel's order of
 operations.
 
 * **Fused optimizer update** (``build_fused_update``): clip → moments →
-  bias correction → apply in one pass over each float32 leaf, in place
+  bias correction → apply in one pass over every float32 leaf, in place
   on the parameter and its moments (the reference aliases them in its
   Pallas call; here the update writes them where they lie).  The optimizer
   state keeps optax's layout, so a state carried from the JAX package
-  fits one to one.  The step's scalars ``[clip_scale, step_size, bc1,
-  bc2]`` are computed once per step on the device and read by every
-  leaf's kernel from a 4-float buffer: the step never syncs the host.
+  fits one to one.  On the card a step is one multi-tensor launch
+  (``adam_multi_update``, ``sgd_multi_update``; the leaf table of
+  ``ops/multi_tensor.py``) that computes the step's scalars (count + 1,
+  bias corrections, clip scale) in the kernel from the count, the norm
+  and the step size in device memory: the step never syncs the host.  The
+  one-leaf updates take their scalars from a 4-float buffer
+  (``step_scalars``), through the same kernel.
 * **Epilogues** (``bias_gelu``, ``layernorm_act``): forward by the
   kernel; the gradient is autograd of the plain version (the reference
   defines no backward kernel for them: XLA differentiates its lax form).
@@ -36,6 +40,7 @@ import torch
 
 from analytics_zoo_torch.ops import activations as acts
 from analytics_zoo_torch.ops import kernels
+from analytics_zoo_torch.ops import multi_tensor as mt
 
 MODES = ("auto", "torch", "off")
 
@@ -87,7 +92,7 @@ CLIP_SCALE, CLIP_CONST, WEIGHT_DECAY, NESTEROV, TRACE = 1, 2, 4, 8, 16
 def step_scalars(clip_scale, step_size, bias_corr1=0.0, bias_corr2=0.0,
                  device=None) -> torch.Tensor:
     """The 4-float buffer ``[clip_scale, step_size, bc1, bc2]`` the
-    optimizer kernels read (the reference's SMEM scalars).  Each entry is
+    one-leaf updates read (the reference's SMEM scalars).  Each entry is
     a Python number or a 0-dim tensor already on ``device``; numbers are
     filled on the device, so building it never syncs the host."""
     def scalar(x):
@@ -97,6 +102,28 @@ def step_scalars(clip_scale, step_size, bias_corr1=0.0, bias_corr2=0.0,
     return torch.stack([scalar(1.0 if clip_scale is None else clip_scale),
                         scalar(step_size), scalar(bias_corr1),
                         scalar(bias_corr2)])
+
+
+def clip_scale_of(gnorm: torch.Tensor, clip_norm: float) -> torch.Tensor:
+    """l2-norm clipping's scale ``min(1, a / (gnorm + 1e-12))``, as the
+    trainer computes it (``a / t`` is ``t.reciprocal() * a`` in PyTorch,
+    and the multi-tensor kernels repeat that; a NaN norm gives NaN)."""
+    return torch.clamp(clip_norm / (gnorm + 1e-12), max=1.0)
+
+
+def adam_scalars(count, step_size, b1: float, b2: float, gnorm=None,
+                 clip_norm: float = 1.0):
+    """Plain version of the step's Adam scalars, which the multi-tensor
+    kernel computes in each block: ``(count + 1 saturating,
+    step_scalars(clip_scale, step_size, 1 - b1**count_inc,
+    1 - b2**count_inc))``, in float32 on the device."""
+    from analytics_zoo_torch.pipeline.api.keras.optimizers import (
+        safe_increment)
+    count_inc = safe_increment(count)
+    clip_scale = None if gnorm is None else clip_scale_of(gnorm, clip_norm)
+    return count_inc, step_scalars(clip_scale, step_size,
+                                   1 - b1 ** count_inc, 1 - b2 ** count_inc,
+                                   count.device)
 
 
 def _prologue(p, g, scal, weight_decay, clip_const, use_clip_scale):
@@ -132,25 +159,27 @@ def _check_leaf(kernel: str, scal, **leaf) -> None:
                              "kernel updates in place)")
 
 
-def adam_leaf_update(p, g, mu, nu, scal, *, b1: float, b2: float,
-                     eps: float, weight_decay: float = 0.0,
-                     clip_const: Optional[Tuple[float, float]] = None,
-                     use_clip_scale: bool = False):
-    """One-leaf fused Adam step, in place on ``p``, ``mu`` and ``nu``
-    (returned).  Reproduces ``scale_by_adam → scale_by_learning_rate →
-    apply_updates`` op for op; ``scal`` is ``step_scalars(clip_scale,
-    step_size, 1 - b1**count, 1 - b2**count)`` with the NEGATIVE
-    learning rate as ``step_size``."""
-    if use_kernel(p):
-        name = "fused_adam"
-        _check_leaf(name, scal, p=p, g=g, mu=mu, nu=nu)
-        lo, hi = clip_const if clip_const is not None else (0.0, 0.0)
-        kernels.launch(name, p.device, p.data_ptr(), g.data_ptr(),
-                       mu.data_ptr(), nu.data_ptr(), scal.data_ptr(),
-                       p.numel(), b1, 1.0 - b1, b2, 1.0 - b2, eps,
-                       float(weight_decay), float(lo), float(hi),
-                       _flags(weight_decay, clip_const, use_clip_scale))
-        return p, mu, nu
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _step_sources(kernel: str, device, step_size, gnorm):
+    """The step size as (pointer, value) and the norm's pointer, each
+    tensor checked to be a float32 scalar on ``device``."""
+    for name, t in (("step_size", step_size), ("gnorm", gnorm)):
+        if isinstance(t, torch.Tensor) and (
+                t.device != device or t.dtype != torch.float32 or
+                t.numel() != 1):
+            raise ValueError(f"{kernel}: {name} must be a float32 scalar "
+                             f"tensor on {device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if isinstance(step_size, torch.Tensor):
+        return step_size.data_ptr(), 0.0, _ptr(gnorm)
+    return None, float(step_size), _ptr(gnorm)
+
+
+def _adam_plain(p, g, mu, nu, scal, b1, b2, eps, weight_decay, clip_const,
+                use_clip_scale):
     g = _prologue(p, g, scal, weight_decay, clip_const, use_clip_scale)
     # optax.tree_update_moment order: (1-decay)*(g**order) + decay*t
     mu_n = (1.0 - b1) * g + b1 * mu
@@ -162,6 +191,45 @@ def adam_leaf_update(p, g, mu, nu, scal, *, b1: float, b2: float,
     p.copy_(p_n)
     mu.copy_(mu_n)
     nu.copy_(nu_n)
+
+
+def _sgd_plain(p, g, trace, scal, momentum, nesterov, weight_decay,
+               clip_const, use_clip_scale):
+    g = _prologue(p, g, scal, weight_decay, clip_const, use_clip_scale)
+    if trace is not None:
+        tr = g + momentum * trace           # optax.trace: f(g, t)
+        u = g + momentum * tr if nesterov else tr
+        trace.copy_(tr)
+    else:
+        u = g
+    p.copy_(p + scal[1] * u)
+
+
+def adam_leaf_update(p, g, mu, nu, scal, *, b1: float, b2: float,
+                     eps: float, weight_decay: float = 0.0,
+                     clip_const: Optional[Tuple[float, float]] = None,
+                     use_clip_scale: bool = False):
+    """One-leaf fused Adam step, in place on ``p``, ``mu`` and ``nu``
+    (returned).  Reproduces ``scale_by_adam → scale_by_learning_rate →
+    apply_updates`` op for op; ``scal`` is ``step_scalars(clip_scale,
+    step_size, 1 - b1**count, 1 - b2**count)`` with the NEGATIVE
+    learning rate as ``step_size``.  On the card: the multi-tensor kernel
+    with a one-leaf table, reading its scalars from ``scal``."""
+    if use_kernel(p):
+        name = "fused_adam"
+        _check_leaf(name, scal, p=p, g=g, mu=mu, nu=nu)
+        (rows, _), = mt.leaf_tables(
+            [[p.data_ptr(), g.data_ptr(), mu.data_ptr(), nu.data_ptr()]],
+            [p.numel()])
+        lo, hi = clip_const if clip_const is not None else (0.0, 0.0)
+        kernels.launch(name, p.device, rows.ctypes.data, len(rows),
+                       scal.data_ptr(), None, None, None, None, None, 0.0,
+                       0.0, b1, 1.0 - b1, b2, 1.0 - b2, eps,
+                       float(weight_decay), float(lo), float(hi),
+                       _flags(weight_decay, clip_const, use_clip_scale))
+        return p, mu, nu
+    _adam_plain(p, g, mu, nu, scal, b1, b2, eps, weight_decay, clip_const,
+                use_clip_scale)
     return p, mu, nu
 
 
@@ -172,43 +240,137 @@ def sgd_leaf_update(p, g, trace, scal, *, momentum: float, nesterov: bool,
     """One-leaf fused SGD(+momentum) step mirroring ``trace → scale`` +
     ``apply_updates``, in place on ``p`` and ``trace`` (returned; ``trace``
     is None without momentum).  ``scal`` is ``step_scalars(clip_scale,
-    step_size)``."""
+    step_size)``.  On the card: the multi-tensor kernel with a one-leaf
+    table."""
     if use_kernel(p):
         name = "fused_sgd"
         moments = {} if trace is None else {"trace": trace}
         _check_leaf(name, scal, p=p, g=g, **moments)
-        lo, hi = clip_const if clip_const is not None else (0.0, 0.0)
-        flags = (_flags(weight_decay, clip_const, use_clip_scale) |
-                 (NESTEROV if nesterov else 0) |
-                 (TRACE if trace is not None else 0))
-        kernels.launch(name, p.device, p.data_ptr(), g.data_ptr(),
-                       None if trace is None else trace.data_ptr(),
-                       scal.data_ptr(), p.numel(), float(momentum),
-                       float(weight_decay), float(lo), float(hi), flags)
+        (rows, _), = mt.leaf_tables(
+            [[p.data_ptr(), g.data_ptr(), _ptr(trace) or 0]], [p.numel()])
+        kernels.launch(name, p.device, rows.ctypes.data, len(rows),
+                       scal.data_ptr(), None, None, 0.0, 0.0,
+                       *_sgd_hyper(momentum, nesterov, weight_decay,
+                                   clip_const, use_clip_scale,
+                                   trace is not None))
         return p, trace
-    g = _prologue(p, g, scal, weight_decay, clip_const, use_clip_scale)
-    if trace is not None:
-        tr = g + momentum * trace           # optax.trace: f(g, t)
-        u = g + momentum * tr if nesterov else tr
-        trace.copy_(tr)
-    else:
-        u = g
-    p.copy_(p + scal[1] * u)
+    _sgd_plain(p, g, trace, scal, momentum, nesterov, weight_decay,
+               clip_const, use_clip_scale)
     return p, trace
+
+
+def _sgd_hyper(momentum, nesterov, weight_decay, clip_const, use_clip_scale,
+               has_trace):
+    """zoo_multi_sgd's momentum, wd, lo, hi and flags."""
+    lo, hi = clip_const if clip_const is not None else (0.0, 0.0)
+    flags = (_flags(weight_decay, clip_const, use_clip_scale) |
+             (NESTEROV if nesterov else 0) | (TRACE if has_trace else 0))
+    return float(momentum), float(weight_decay), float(lo), float(hi), flags
+
+
+def adam_multi_update(ps, gs, mus, nus, count, step_size, *, b1: float,
+                      b2: float, eps: float, weight_decay: float = 0.0,
+                      clip_const: Optional[Tuple[float, float]] = None,
+                      gnorm: Optional[torch.Tensor] = None,
+                      clip_norm: float = 1.0,
+                      cache: Optional[mt.TableCache] = None,
+                      scalars_out: Optional[torch.Tensor] = None):
+    """One fused Adam step over every leaf, in place on ``ps``, ``mus`` and
+    ``nus``; returns the new count (a new int32 0-dim tensor).
+
+    ``count`` is ``ScaleByAdamState.count`` before the step, on the
+    leaves' device; ``step_size`` the NEGATIVE learning rate, a number or
+    a float32 0-dim tensor (a schedule's); ``gnorm`` the global gradient
+    norm under l2-norm clipping to ``clip_norm``, else None.  On the card
+    one launch (a leaf set longer than a table: as few as fit) computes
+    the step's scalars and updates every leaf; ``cache`` keeps the leaf
+    table from step to step.  ``scalars_out`` (4 float32s), when given,
+    receives ``[clip_scale, step_size, bc1, bc2]`` as the update computed
+    them.  Elsewhere the plain versions run leaf by leaf."""
+    use_clip_scale = gnorm is not None
+    if use_kernel(count):
+        name = "fused_adam"
+        dev = count.device
+        if count.dtype != torch.int32 or count.numel() != 1:
+            raise ValueError(f"{name}: count must be an int32 scalar, got "
+                             f"{count.dtype} {tuple(count.shape)}")
+        step_ptr, step_value, gnorm_ptr = _step_sources(name, dev,
+                                                        step_size, gnorm)
+        if scalars_out is not None:
+            _check_cuda_f32(name, scalars_out=scalars_out)
+            if scalars_out.shape != (4,) or scalars_out.device != dev:
+                raise ValueError(f"{name}: scalars_out must hold 4 floats "
+                                 f"on {dev}")
+        leaf_set = (cache or mt.TableCache()).get([ps, None, mus, nus])
+        if leaf_set.device != dev:
+            raise ValueError(f"{name}: count on {dev}, leaves on "
+                             f"{leaf_set.device}")
+        count_inc = torch.empty((), dtype=torch.int32, device=dev)
+        lo, hi = clip_const if clip_const is not None else (0.0, 0.0)
+        flags = _flags(weight_decay, clip_const, use_clip_scale)
+        for address, rows in leaf_set.fill(gs):
+            kernels.launch(name, dev, address, rows, None, count.data_ptr(),
+                           count_inc.data_ptr(), gnorm_ptr, step_ptr,
+                           _ptr(scalars_out), step_value, float(clip_norm),
+                           b1, 1.0 - b1, b2, 1.0 - b2, eps,
+                           float(weight_decay), float(lo), float(hi), flags)
+        return count_inc
+    count_inc, scal = adam_scalars(count, step_size, b1, b2, gnorm,
+                                   clip_norm)
+    for p, g, m, v in zip(ps, gs, mus, nus):
+        _adam_plain(p, g, m, v, scal, b1, b2, eps, weight_decay, clip_const,
+                    use_clip_scale)
+    if scalars_out is not None:
+        scalars_out.copy_(scal)
+    return count_inc
+
+
+def sgd_multi_update(ps, gs, traces, step_size, *, momentum: float,
+                     nesterov: bool, weight_decay: float = 0.0,
+                     clip_const: Optional[Tuple[float, float]] = None,
+                     gnorm: Optional[torch.Tensor] = None,
+                     clip_norm: float = 1.0,
+                     cache: Optional[mt.TableCache] = None) -> None:
+    """One fused SGD(+momentum) step over every leaf, in place on ``ps``
+    and ``traces`` (None without momentum).  ``step_size``, ``gnorm``,
+    ``clip_norm`` and ``cache`` as for ``adam_multi_update``: on the card
+    one launch a step; elsewhere the plain versions leaf by leaf."""
+    use_clip_scale = gnorm is not None
+    if ps and use_kernel(ps[0]):
+        name = "fused_sgd"
+        dev = ps[0].device
+        step_ptr, step_value, gnorm_ptr = _step_sources(name, dev,
+                                                        step_size, gnorm)
+        leaf_set = (cache or mt.TableCache()).get([ps, None, traces])
+        hyper = _sgd_hyper(momentum, nesterov, weight_decay, clip_const,
+                           use_clip_scale, traces is not None)
+        for address, rows in leaf_set.fill(gs):
+            kernels.launch(name, dev, address, rows, None, gnorm_ptr,
+                           step_ptr, step_value, float(clip_norm), *hyper)
+        return
+    clip_scale = None if gnorm is None else clip_scale_of(gnorm, clip_norm)
+    scal = step_scalars(clip_scale, step_size,
+                        device=ps[0].device if ps else None)
+    for p, g, t in zip(ps, gs, traces or [None] * len(ps)):
+        _sgd_plain(p, g, t, scal, momentum, nesterov, weight_decay,
+                   clip_const, use_clip_scale)
 
 
 def build_fused_update(optim, clip=None) -> Optional[Callable]:
     """Return ``update(grads, opt_state, params) -> (params, opt_state)``
-    fusing clip+moments+apply into one pass per leaf, in place, or None
-    when the (optimizer, clip) combination isn't supported — the trainer
-    then runs the optimizer's own ``update``.
+    fusing clip+moments+apply into one pass over every leaf, in place, or
+    None when the (optimizer, clip) combination isn't supported — the
+    trainer then runs the optimizer's own ``update``.
 
     Supported: ``SGD`` (momentum/nesterov/weight_decay, float or schedule
     lr, dampening 0) and ``Adam`` (float or schedule lr incl. the Keras
     ``decay`` form) from ``pipeline/api/keras/optimizers.py``; ``clip`` is
     a trainer ``ClipSpec`` (const or l2norm) or None.  The state keeps
     its layout: the moments are updated where they lie and the counts
-    are replaced."""
+    are replaced.  On the card a step is one multi-tensor launch (with an
+    l2-norm clip, the global norm before it; with a schedule, the
+    schedule's ops before it and its count's increment after), the leaf
+    table kept from step to step."""
     from analytics_zoo_torch.pipeline.api.keras import optimizers as opt
     if optim is None or not fused_enabled():
         return None
@@ -246,18 +408,18 @@ def build_fused_update(optim, clip=None) -> Optional[Callable]:
     eps = float(kw.get("epsilon", 1e-8)) if kind == "Adam" else 0.0
     clip_const = (float(clip.a), float(clip.b)) \
         if (clip is not None and clip.kind == "const") else None
-    use_clip_scale = clip is not None and clip.kind == "l2norm"
+    clip_norm = float(clip.a) if (clip is not None and
+                                  clip.kind == "l2norm") else None
+    cache = mt.TableCache()
 
     def update(grads, opt_state, params):
         from analytics_zoo_torch.pipeline.api.keras.topology import (
             tree_leaves)
         flat_p, flat_g = tree_leaves(params), tree_leaves(grads)
-        device = flat_p[0].device
         # one read sweep for the global norm — the only pre-pass left
-        clip_scale = None
-        if use_clip_scale:
-            gnorm = opt.global_norm(flat_g)
-            clip_scale = torch.clamp(clip.a / (gnorm + 1e-12), max=1.0)
+        gnorm = None if clip_norm is None else opt.global_norm(flat_g)
+        common = dict(gnorm=gnorm, clip_norm=clip_norm or 1.0,
+                      clip_const=clip_const, cache=cache)
 
         states = opt.collect_states(opt_state)
         sched_state = next((s for s in states if isinstance(
@@ -266,46 +428,29 @@ def build_fused_update(optim, clip=None) -> Optional[Callable]:
             if sched_state is None:
                 raise ValueError("schedule lr without schedule state")
             # scale_by_schedule: step_size = fn(count) PRE-increment
-            step_size = -1 * lr(sched_state.count)
+            step_size = (-1 * lr(sched_state.count)).to(torch.float32)
         else:
             step_size = -1 * float(lr)
 
         if kind == "Adam":
             st = next(s for s in states
                       if isinstance(s, opt.ScaleByAdamState))
-            count_inc = opt.safe_increment(st.count)
-            # float32 on the device, as optax with its int32 count
-            bc1 = 1 - b1 ** count_inc
-            bc2 = 1 - b2 ** count_inc
-            scal = step_scalars(clip_scale, step_size, bc1, bc2, device)
-            for p, g, m, v in zip(flat_p, flat_g, tree_leaves(st.mu),
-                                  tree_leaves(st.nu)):
-                adam_leaf_update(p, g, m, v, scal, b1=b1, b2=b2, eps=eps,
-                                 clip_const=clip_const,
-                                 use_clip_scale=use_clip_scale)
-
-            def rebuild(s):
-                if isinstance(s, opt.ScaleByAdamState):
-                    return opt.ScaleByAdamState(count=count_inc, mu=s.mu,
-                                                nu=s.nu)
-                if isinstance(s, opt.ScaleByScheduleState):
-                    return opt.ScaleByScheduleState(
-                        count=opt.safe_increment(s.count))
-                return s
-            return params, opt.map_states(opt_state, rebuild)
-
-        trace_state = next((s for s in states
-                            if isinstance(s, opt.TraceState)), None)
-        flat_t = (tree_leaves(trace_state.trace) if trace_state is not None
-                  else [None] * len(flat_p))
-        scal = step_scalars(clip_scale, step_size, device=device)
-        for p, g, t in zip(flat_p, flat_g, flat_t):
-            sgd_leaf_update(p, g, t, scal, momentum=momentum,
-                            nesterov=nesterov, weight_decay=weight_decay,
-                            clip_const=clip_const,
-                            use_clip_scale=use_clip_scale)
+            count_inc = adam_multi_update(
+                flat_p, flat_g, tree_leaves(st.mu), tree_leaves(st.nu),
+                st.count, step_size, b1=b1, b2=b2, eps=eps, **common)
+        else:
+            trace_state = next((s for s in states
+                                if isinstance(s, opt.TraceState)), None)
+            sgd_multi_update(
+                flat_p, flat_g, None if trace_state is None
+                else tree_leaves(trace_state.trace), step_size,
+                momentum=momentum, nesterov=nesterov,
+                weight_decay=weight_decay, **common)
 
         def rebuild(s):
+            if isinstance(s, opt.ScaleByAdamState):
+                return opt.ScaleByAdamState(count=count_inc, mu=s.mu,
+                                            nu=s.nu)
             if isinstance(s, opt.ScaleByScheduleState):
                 return opt.ScaleByScheduleState(
                     count=opt.safe_increment(s.count))

@@ -37,7 +37,6 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_L = ctypes.c_longlong
 
 # kernel name -> (source in csrc/, C entry point, argtypes)
 SIGNATURES = {
@@ -55,12 +54,15 @@ SIGNATURES = {
     # x, gamma, beta, out, rows, d, eps, act (0 none, 1 gelu), stream
     "layernorm_act": ("layernorm_act", "zoo_layernorm_act",
                       [_P, _P, _P, _P, _I, _I, _F, _I, _P]),
-    # p, g, m, v, scal, n, b1, 1-b1, b2, 1-b2, eps, wd, lo, hi, flags, stream
-    "fused_adam": ("fused_adam", "zoo_fused_adam",
-                   [_P] * 5 + [_L] + [_F] * 8 + [_I, _P]),
-    # p, g, trace, scal, n, momentum, wd, lo, hi, flags, stream
-    "fused_sgd": ("fused_sgd", "zoo_fused_sgd",
-                  [_P] * 4 + [_L] + [_F] * 4 + [_I, _P]),
+    # rows, leaves, scal, count, count_out, gnorm, step_ptr, scal_out,
+    # step_value, clip_norm, b1, 1-b1, b2, 1-b2, eps, wd, lo, hi, flags,
+    # stream (rows: ops/multi_tensor.py's table)
+    "fused_adam": ("fused_adam", "zoo_multi_adam",
+                   [_P, _I] + [_P] * 6 + [_F] * 10 + [_I, _P]),
+    # rows, leaves, scal, gnorm, step_ptr, step_value, clip_norm, momentum,
+    # wd, lo, hi, flags, stream
+    "fused_sgd": ("fused_sgd", "zoo_multi_sgd",
+                  [_P, _I] + [_P] * 3 + [_F] * 6 + [_I, _P]),
 }
 
 # every source, each built by one nvcc call

@@ -36,11 +36,32 @@ def tree_map(fn: Callable, tree, *rest):
 def tree_leaves(tree) -> List[Any]:
     """Leaves in the reference's order (dict keys sorted, as jax's
     pytree flattening does)."""
-    if isinstance(tree, dict):
-        return [l for k in sorted(tree) for l in tree_leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [l for v in tree for l in tree_leaves(v)]
-    return [tree]
+    out: List[Any] = []
+    _collect_leaves(tree, out)
+    return out
+
+
+_NESTS = (dict, list, tuple)
+
+
+def _collect_leaves(node, out: List[Any]) -> None:
+    # one list for the whole walk, and no call a leaf: the fused update
+    # flattens its trees every step
+    if isinstance(node, dict):
+        for k in sorted(node):
+            v = node[k]
+            if isinstance(v, _NESTS):
+                _collect_leaves(v, out)
+            else:
+                out.append(v)
+    elif isinstance(node, (list, tuple)):
+        for v in node:
+            if isinstance(v, _NESTS):
+                _collect_leaves(v, out)
+            else:
+                out.append(v)
+    else:
+        out.append(node)
 
 
 def tree_replace(tree, leaves):

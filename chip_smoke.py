@@ -19,7 +19,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    could take for the same work: flash forward, dQ and dK/dV at
    (8, 12, 512, 64), bias→GeLU, LayerNorm→GeLU (and its fixed cost at
    (1, 4)), Adam and SGD on the embedding's 23,440,896-element leaf and a
-   small odd one; the flash kernels are also checked at (2, 4, 200, 64)
+   small odd one (a one-leaf table through the multi-tensor kernels); the
+   flash kernels are also checked at (2, 4, 200, 64)
    and (2, 4, 512, 128), causal and not, and each twice to show two
    launches bit-identical;
 3. ``TextClassifier(encoder="transformer")`` at BERT-base widths
@@ -42,32 +43,39 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 4. the same model trained: ``compile(Adam(lr=1e-4),
    "sparse_categorical_crossentropy_with_logits", metrics=["accuracy"])``,
    ``fit`` on 64 seeded sequences (batch 8, one epoch: 8 steps) with the
-   launch counts checked per step, then ``evaluate``; the step time in
-   turns under ``ops.fused=torch`` and ``auto``;
+   launch counts checked per step (one Adam launch a step for all 154
+   leaves), then ``evaluate``; the multi-tensor Adam and SGD updates on
+   copies of the 154 leaves against their plain versions leaf by leaf
+   (bit-identical) and timed: the kernel, the step's whole fused update
+   and ``torch.optim.Adam``/``SGD(fused=True).step`` in turns, the plain
+   version, the bound, the update's host time, and a ``torch.profiler``
+   count of the device kernels of one whole Adam and one whole SGD
+   update (one each); the step time in turns under
+   ``ops.fused=torch`` and ``auto``;
 5. one step's gradients by the kernels against the plain versions
    (``ops.fused=torch``), same weights, same batch, same dropout
    generators, leaf by leaf, with float32 and with bf16 products;
-6. two ``fit`` steps with ``SGD(momentum=0.9)``, launch counts checked;
+6. two ``fit`` steps with ``SGD(momentum=0.9)``, launch counts checked
+   (one SGD launch a step);
 7. NeuralCF at the JAX bench's ML-1M width (``bench.py`` ``bench_ncf``:
    6040 users, 3706 items, embeddings 64, hidden 128/64/32, seeded
    random weights) on ``synthetic_ratings()`` with 4 negatives a
    positive: ``compile(Adam(lr=1e-3), ..., metrics=[HitRatio(10, 100),
    NDCG(10, 100)])``, ``fit`` one epoch at batch 16384 (one Adam launch a
-   leaf a step, 12 leaves), the step time of ``train_step_at`` under
+   step for its 12 leaves), the step time of ``train_step_at`` under
    ``prefetch`` in turns under ``ops.fused=auto`` and ``torch`` and the
    loss after the same steps under each, ``evaluate`` HitRatio@10/NDCG@10
    on the 6040 x 101 leave-one-out rows (checked against the same ranks
    taken on the host), ``predict`` against the same forward on the CPU,
-   ``recommend_for_user``/``recommend_for_item``, the Adam kernel against
-   its plain version on each of the 12 leaves (bit-identical), and the
-   12-leaf update timed beside ``torch.optim.Adam(fused=True)`` and its
-   bound;
+   ``recommend_for_user``/``recommend_for_item``, the multi-tensor Adam
+   and SGD kernels against their plain versions on each of the 12 leaves
+   (bit-identical), and the 12-leaf updates timed as in phase 4;
 8. Wide & Deep at the census configuration of the JAX package's
    ``benchmarks/wide_deep.py`` (2^19 seeded rows, hidden 64/32/16):
    ``fit`` two epochs at batch 8192 with ``validation_split=0.1`` and
-   ``metrics=["accuracy", "auc"]`` (one Adam launch a leaf a step, 11
+   ``metrics=["accuracy", "auc"]`` (one Adam launch a step for its 11
    leaves; a ``val`` record each epoch), then ``evaluate`` and the Adam
-   kernel against its plain version on each of the 11 leaves;
+   and SGD kernels against their plain versions on each of the 11 leaves;
 9. a ``kernels`` JSON line, then the device line last.
 
 Exits non-zero, printing no result, when CUDA is not available.
@@ -415,43 +423,187 @@ def host_ranks(scores, k, neg_num):
             float(np.where(hit, np.log(2.0) / np.log(rank + 2.0), 0.0).mean()))
 
 
-def adam_leaves_check(torch, leaves, what) -> float:
-    """Fused Adam's kernel against its plain version on copies of a
-    model's leaves, each with its own seeded gradient and moments: one
-    update of each copy, then the parameter and both moments compared
-    leaf by leaf at OPT_ATOL.  Returns the largest error."""
+def plain_route(fn):
+    """``fn()`` under ``ops.fused=torch``: the plain versions."""
     from analytics_zoo_torch.common.config import get_config
+    get_config().set("ops.fused", "torch")
+    try:
+        return fn()
+    finally:
+        get_config().set("ops.fused", "auto")
+
+
+def opt_leaves_check(torch, leaves, what):
+    """The multi-tensor Adam and SGD (momentum 0.9) kernels against their
+    plain versions on copies of a model's leaves, each leaf with its own
+    seeded gradient and moments: one update of every copy (one launch
+    each), then every parameter, moment and trace compared leaf by leaf at
+    OPT_ATOL.  Returns the largest error of Adam and of SGD."""
     from analytics_zoo_torch.ops import fused, kernels
     dev = leaves[0].device
     gen = torch.Generator(device=dev).manual_seed(5)
-    scal = fused.step_scalars(None, -1e-3, 1 - 0.9 ** 3, 1 - 0.999 ** 3,
-                              dev)
-    kw = dict(b1=0.9, b2=0.999, eps=1e-8)
-    worst = 0.0
+    p = [t.detach().clone() for t in leaves]
+    g, m, t = ([torch.randn(x.shape, generator=gen, device=dev) * 1e-2
+                for x in leaves] for _ in range(3))
+    v = [torch.rand(x.shape, generator=gen, device=dev) * 1e-4
+         for x in leaves]
+    count = torch.tensor(2, dtype=torch.int32, device=dev)
+    adam_kw = dict(b1=0.9, b2=0.999, eps=1e-8)
+    sgd_kw = dict(momentum=0.9, nesterov=False)
+    errs = {}
     kernels.reset_launch_counts()
-    for i, p in enumerate(leaves):
-        g, m = (torch.randn(p.shape, generator=gen, device=dev) * 1e-2
-                for _ in range(2))
-        v = torch.rand(p.shape, generator=gen, device=dev) * 1e-4
-        kern = [t.detach().clone() for t in (p, g, m, v)]
-        plain = [t.detach().clone() for t in (p, g, m, v)]
-        fused.adam_leaf_update(*kern, scal, **kw)
-        get_config().set("ops.fused", "torch")
-        try:
-            fused.adam_leaf_update(*plain, scal, **kw)
-        finally:
-            get_config().set("ops.fused", "auto")
-        for part, j in (("param", 0), ("m", 2), ("v", 3)):
-            worst = max(worst, close(
-                f"{what} fused_adam leaf {i} ({p.numel()} elements) {part}",
-                kern[j], plain[j], OPT_ATOL))
-    if kernels.launch_counts()["fused_adam"] != len(leaves):
-        fail(f"{what} Adam check launches {kernels.launch_counts()}")
-    print(f"check fused_adam on {what}'s {len(leaves)} leaves "
-          f"({sorted({int(p.numel()) for p in leaves}, reverse=True)} "
-          f"elements): param, m and v max abs err {worst:.3e} (tolerance "
-          f"{OPT_ATOL}: bit-identical)")
-    return worst
+    for name, base, run, moments in (
+            ("fused_adam", (p, g, m, v), lambda *c: fused.adam_multi_update(
+                *c, count, -1e-3, **adam_kw), (0, 2, 3)),
+            ("fused_sgd", (p, g, t), lambda *c: fused.sgd_multi_update(
+                *c, -1e-3, **sgd_kw), (0, 2))):
+        kern = [[x.clone() for x in col] for col in base]
+        plain = [[x.clone() for x in col] for col in base]
+        run(*kern)
+        plain_route(lambda: run(*plain))
+        worst = 0.0
+        for j in moments:
+            for i, (a, b) in enumerate(zip(kern[j], plain[j])):
+                worst = max(worst, close(
+                    f"{what} {name} leaf {i} ({a.numel()} elements) operand "
+                    f"{j}", a, b, OPT_ATOL))
+        errs[name] = worst
+        del kern, plain
+    expect_launches(kernels.launch_counts(), {"fused_adam": 1,
+                                              "fused_sgd": 1},
+                    f"{what} optimizer check")
+    print(f"check fused_adam and fused_sgd (one multi-tensor launch each) on "
+          f"{what}'s {len(leaves)} leaves ({sum(x.numel() for x in leaves)} "
+          f"elements, {max(x.numel() for x in leaves)} down to "
+          f"{min(x.numel() for x in leaves)}): param, moments and trace max "
+          f"abs err Adam {errs['fused_adam']:.3e}, SGD {errs['fused_sgd']:.3e}"
+          f" (tolerance {OPT_ATOL}: bit-identical)")
+    return errs
+
+
+def device_kernels(torch, fn):
+    """The names of the device kernels ``fn()`` runs (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def host_ms(torch, fn, n=TIMED) -> float:
+    """Host time of one ``fn()`` call: the median over ``n`` calls, each
+    made with nothing queued on the device (a step issues its update once,
+    behind a few hundred launches at most).  Many launches queued at once
+    would time the queue instead: a launch whose parameters exceed 4 KB
+    waits for room in the driver's parameter buffers."""
+    for _ in range(WARMUP):
+        fn()
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(out)
+
+
+def time_updates(torch, leaves, card, what, profile=False):
+    """The multi-tensor Adam and SGD (momentum 0.9) updates over copies of
+    a model's leaves, each timed (``time_ms``) as the kernel alone
+    (``adam_multi_update`` / ``sgd_multi_update`` at a constant learning
+    rate, the table kept), the step's whole fused update
+    (``build_fused_update``) and one ``torch.optim.Adam``/``SGD(fused=True)
+    .step`` over the same leaves, in turns; the plain version
+    (``ops.fused=torch``), the bound and the whole update's host time
+    (``host_ms``).  With ``profile``, a ``torch.profiler`` count of the
+    device kernels of one whole Adam update and one whole SGD update (one
+    profile: a second one in a process recorded no device events on the
+    H100), which must be one each.  Returns {kernel: its numbers}."""
+    from analytics_zoo_torch.ops import fused, kernels
+    from analytics_zoo_torch.ops import multi_tensor as mt
+    from analytics_zoo_torch.pipeline.api.keras.optimizers import Adam, SGD
+    dev = leaves[0].device
+    n_el = sum(int(x.numel()) for x in leaves)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    setups = {}
+    for name, optim, lib_cls, lib_kw in (
+            ("fused_adam", Adam(lr=1e-3), torch.optim.Adam, {}),
+            ("fused_sgd", SGD(1e-3, momentum=0.9), torch.optim.SGD,
+             dict(momentum=0.9))):
+        ps = [x.detach().clone() for x in leaves]
+        gs = [torch.randn(x.shape, generator=gen, device=dev) * 1e-3
+              for x in leaves]
+        tree = {f"l{i:03d}": p for i, p in enumerate(ps)}
+        gtree = {f"l{i:03d}": g for i, g in enumerate(gs)}
+        state = [optim.init(tree)]
+        update = fused.build_fused_update(optim)
+        moments = [[torch.zeros_like(p) for p in ps]
+                   for _ in range(2 if name == "fused_adam" else 1)]
+        cache = mt.TableCache()
+        count = torch.zeros((), dtype=torch.int32, device=dev)
+        if name == "fused_adam":
+            def kernel(ps=ps, gs=gs, moments=moments, cache=cache,
+                       count=count):
+                fused.adam_multi_update(ps, gs, *moments, count, -1e-3,
+                                        b1=0.9, b2=0.999, eps=1e-8,
+                                        cache=cache)
+        else:
+            def kernel(ps=ps, gs=gs, moments=moments, cache=cache):
+                fused.sgd_multi_update(ps, gs, moments[0], -1e-3,
+                                       momentum=0.9, nesterov=False,
+                                       cache=cache)
+
+        def whole(update=update, state=state, tree=tree, gtree=gtree):
+            _, state[0] = update(gtree, state[0], tree)
+        lib_params = [p.clone().requires_grad_() for p in ps]
+        for p, g in zip(lib_params, gs):
+            p.grad = g.clone()
+        lib = lib_cls(lib_params, lr=1e-3, fused=True, **lib_kw)
+        setups[name] = dict(kernel=kernel, update=whole, library=lib.step,
+                            lib_name=lib_cls.__name__, hold=(ps, gs, moments,
+                                                             lib_params))
+    out = {}
+    for name, su in setups.items():
+        runs = {tag: [] for tag in ("kernel", "update", "library")}
+        kernels.reset_launch_counts()
+        for tag in ("kernel", "update", "library", "library", "update",
+                    "kernel"):
+            runs[tag].append(time_ms(torch, su[tag]))
+        if kernels.launch_counts()[name] != 4 * (WARMUP + TIMED):
+            fail(f"{what} {name} timing launches {kernels.launch_counts()}")
+        plain = time_ms(torch, lambda: plain_route(su["kernel"]))
+        host = host_ms(torch, su["update"])
+        per_el = 28 if name == "fused_adam" else 20
+        bnd, by = bound_ms(per_el * n_el, 0)
+        med = {tag: statistics.median(r) for tag, r in runs.items()}
+        out[name] = dict(ms=med["kernel"], update_ms=med["update"],
+                         plain_ms=plain, library_ms=med["library"],
+                         bound_ms=bnd, bound_by=by, host_ms=host,
+                         leaves=len(leaves))
+        print(f"{what} {name} over {len(leaves)} leaves ({n_el} elements, "
+              f"{per_el * n_el} bytes), in turns: kernel (1 launch) "
+              f"{runs['kernel']} ms, the step's whole fused update "
+              f"{runs['update']} ms, {su['lib_name']}(fused=True).step "
+              f"{runs['library']} ms; plain {plain:.5f} ms; bound "
+              f"{bnd:.6f} ms ({by}); the whole update's host time "
+              f"{host:.5f} ms a call ({card})")
+    if profile:
+        launched = device_kernels(torch, lambda: [
+            su["update"]() for su in setups.values()])
+        print(f"{what}: device kernels of one whole Adam update then one "
+              f"whole SGD update (no clip, constant lr; torch.profiler): "
+              f"{launched}")
+        if len(launched) != 2 or "multi_adam" not in launched[0] or \
+                "multi_sgd" not in launched[1]:
+            fail(f"{what}: the whole updates ran device kernels {launched}, "
+                 "want one multi_adam and one multi_sgd")
+    del setups
+    torch.cuda.empty_cache()
+    return out
 
 
 def ncf_phase(torch, card, users=None, items=None, n_ratings=1_000_000,
@@ -461,11 +613,10 @@ def ncf_phase(torch, card, users=None, items=None, n_ratings=1_000_000,
     import itertools
 
     from analytics_zoo_torch.common.config import get_config
-    from analytics_zoo_torch.common.zoo_context import get_zoo_context
     from analytics_zoo_torch.feature import FeatureSet
     from analytics_zoo_torch.feature.datasets import movielens
     from analytics_zoo_torch.models.recommendation import NeuralCF
-    from analytics_zoo_torch.ops import fused, kernels
+    from analytics_zoo_torch.ops import kernels
     from analytics_zoo_torch.parallel.trainer import DistributedTrainer
     from analytics_zoo_torch.pipeline.api.keras import objectives
     from analytics_zoo_torch.pipeline.api.keras.metrics import HitRatio, NDCG
@@ -475,7 +626,6 @@ def ncf_phase(torch, card, users=None, items=None, n_ratings=1_000_000,
 
     users = users or movielens.ML1M_USERS
     items = items or movielens.ML1M_ITEMS
-    dev = get_zoo_context().device
     loss_name = "sparse_categorical_crossentropy_with_logits"
     t0 = time.perf_counter()
     ratings = movielens.synthetic_ratings(users, items, n_ratings)
@@ -501,8 +651,7 @@ def ncf_phase(torch, card, users=None, items=None, n_ratings=1_000_000,
                         rng=0)
     fit_s = time.perf_counter() - t0
     launches = kernels.launch_counts()
-    expect_launches(launches, {"fused_adam": len(leaves) * steps},
-                    "ncf fit")
+    expect_launches(launches, {"fused_adam": steps}, "ncf fit")
     loss = history[0]["loss"]
     if len(history) != 1 or not np.isfinite(loss):
         fail(f"ncf fit history {history}")
@@ -537,8 +686,8 @@ def ncf_phase(torch, card, users=None, items=None, n_ratings=1_000_000,
         ms = (time.perf_counter() - s0) * 1e3 / timed_steps
         counts = kernels.launch_counts()
         n = warm + timed_steps
-        expect_launches(counts, {"fused_adam": len(leaves) * n}
-                        if mode == "auto" else {}, f"ncf steps {mode}")
+        expect_launches(counts, {"fused_adam": n} if mode == "auto" else {},
+                        f"ncf steps {mode}")
         return ms, float(step_loss)
 
     runs = {"torch": [], "auto": []}
@@ -619,58 +768,12 @@ def ncf_phase(torch, card, users=None, items=None, n_ratings=1_000_000,
         print(f"ncf {method}({ids}, {len(cands)} candidates, 10): {ranked} "
               f"in {rec_s * 1e3:.1f} ms")
 
-    # the 12-leaf Adam update alone: the kernels against the plain version
-    # leaf by leaf, then timed beside the step's whole fused update, the
-    # plain version and torch.optim.Adam(fused=True)
-    adam_err = adam_leaves_check(torch, leaves, "NeuralCF")
-    gen = torch.Generator(device=dev).manual_seed(3)
-    ps = [p.clone() for p in leaves]
-    gs = [torch.randn(p.shape, generator=gen, device=dev) * 1e-3
-          for p in leaves]
-    ms_ = [torch.zeros_like(p) for p in leaves]
-    vs_ = [torch.zeros_like(p) for p in leaves]
-    scal = fused.step_scalars(None, -1e-3, 1 - 0.9, 1 - 0.999, dev)
-
-    def kernel_sweep():
-        for p, g, m, v in zip(ps, gs, ms_, vs_):
-            fused.adam_leaf_update(p, g, m, v, scal, b1=0.9, b2=0.999,
-                                   eps=1e-8)
-
-    def plain_sweep():
-        get_config().set("ops.fused", "torch")
-        try:
-            kernel_sweep()
-        finally:
-            get_config().set("ops.fused", "auto")
-    update = fused.build_fused_update(Adam(lr=1e-3))
-    tree = {f"l{i:02d}": p for i, p in enumerate(ps)}
-    gtree = {f"l{i:02d}": g for i, g in enumerate(gs)}
-    ustate = [Adam(lr=1e-3).init(tree)]
-
-    def whole_update():
-        _, ustate[0] = update(gtree, ustate[0], tree)
-    kernels.reset_launch_counts()
-    kernel_ms = time_ms(torch, kernel_sweep)
-    if kernels.launch_counts()["fused_adam"] != \
-            len(leaves) * (WARMUP + TIMED):
-        fail(f"ncf Adam sweep launches {kernels.launch_counts()}")
-    update_ms = time_ms(torch, whole_update)
-    plain_ms = time_ms(torch, plain_sweep)
-    lib_params = [p.clone().requires_grad_() for p in leaves]
-    for p, g in zip(lib_params, gs):
-        p.grad = g.clone()
-    lib = torch.optim.Adam(lib_params, lr=1e-3, fused=True)
-    lib_ms = time_ms(torch, lib.step)
-    moved = 7 * 4 * n_params
-    bnd, by = bound_ms(moved, 0)
-    print(f"ncf Adam over its {len(leaves)} leaves ({n_params} elements, "
-          f"{moved} bytes): kernels ({len(leaves)} launches) "
-          f"{kernel_ms:.5f} ms, the step's whole fused update "
-          f"{update_ms:.5f} ms, plain {plain_ms:.5f} ms, "
-          f"torch.optim.Adam(fused=True).step {lib_ms:.5f} ms, bound "
-          f"{bnd:.6f} ms ({by}) ({card})")
-    del ps, gs, ms_, vs_, lib_params, lib, tree, gtree, ustate
-    return launches, adam_err
+    # the 12-leaf updates alone: the kernels against the plain versions leaf
+    # by leaf, then timed beside the step's whole fused update, the plain
+    # versions and torch.optim's fused Adam and SGD
+    errs = opt_leaves_check(torch, leaves, "NeuralCF")
+    times = time_updates(torch, leaves, card, "ncf")
+    return launches, errs, times
 
 
 def wide_deep_phase(torch, card, rows=1 << 19, batch=WD_BATCH):
@@ -721,7 +824,7 @@ def wide_deep_phase(torch, card, rows=1 << 19, batch=WD_BATCH):
                         validation_split=0.1, rng=0)
     fit_s = time.perf_counter() - t0
     launches = kernels.launch_counts()
-    expect_launches(launches, {"fused_adam": n_leaves * steps * 2},
+    expect_launches(launches, {"fused_adam": steps * 2},
                     "wide & deep fit")
     if len(history) != 2 or any(
             set(h.get("val", {})) != {"sparse_categorical_accuracy", "auc"}
@@ -739,9 +842,9 @@ def wide_deep_phase(torch, card, rows=1 << 19, batch=WD_BATCH):
         fail(f"wide & deep evaluate scores {scores}")
     print(f"wide & deep: fit 2 epochs in {fit_s:.3f} s ({n_leaves} float32 "
           f"leaves), launches {launches}; evaluate {scores} ({card})")
-    adam_err = adam_leaves_check(
+    errs = opt_leaves_check(
         torch, tree_leaves(model.get_variables()["params"]), "Wide & Deep")
-    return launches, adam_err
+    return launches, errs
 
 
 def main() -> None:
@@ -950,13 +1053,6 @@ def main() -> None:
         v_ = torch.rand(n, generator=g2, device=dev) * 0.01
         return p_, g_, m_, v_
 
-    def plain_route(fn):
-        get_config().set("ops.fused", "torch")
-        try:
-            return fn()
-        finally:
-            get_config().set("ops.fused", "auto")
-
     adam_kw = dict(b1=0.9, b2=0.999, eps=1e-8)
     adam_scal = fused.step_scalars(None, -1e-4, 1 - 0.9 ** 3,
                                    1 - 0.999 ** 3, dev)
@@ -1074,7 +1170,7 @@ def main() -> None:
     steps = 8
     want = {"flash_attention_fwd": 12 * steps, "flash_attention_dq": 12 * steps,
             "flash_attention_dkv": 12 * steps, "bias_gelu": 12 * steps,
-            "layernorm_act": steps, "fused_adam": n_leaves * steps,
+            "layernorm_act": steps, "fused_adam": steps,
             "fused_sgd": 0}
     if launches != want:
         fail(f"training launch counts {launches} != {want}")
@@ -1091,6 +1187,17 @@ def main() -> None:
             not 0.0 <= scores["sparse_categorical_accuracy"] <= 1.0:
         fail(f"evaluate scores {scores}")
     print(f"evaluate: {scores}")
+    # the main path's optimizer shape: the model's 154 leaves in one launch,
+    # bit-identical leaf by leaf, then timed; these numbers go to the
+    # kernels line
+    bert_leaves = tree_leaves(model.get_variables()["params"])
+    bert_errs = opt_leaves_check(torch, bert_leaves, "BERT-base")
+    bert_times = time_updates(torch, bert_leaves, card, "BERT-base",
+                              profile=True)
+    for name, r in bert_times.items():
+        report[name].update({key: r[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    del bert_leaves
 
     loss_fn = objectives.get(loss_name)
     batch_np = (x_train[:8], y_train[:8])
@@ -1165,7 +1272,7 @@ def main() -> None:
     sgd_history = model.fit(x_train[:16], y_train[:16], batch_size=8,
                             nb_epoch=1, rng=1)
     sgd_launches = kernels.launch_counts()
-    if sgd_launches["fused_sgd"] != 2 * n_leaves or \
+    if sgd_launches["fused_sgd"] != 2 or \
             sgd_launches["fused_adam"] != 0 or \
             not np.isfinite(sgd_history[0]["loss"]):
         fail(f"SGD fit: launches {sgd_launches}, history {sgd_history}")
@@ -1173,11 +1280,20 @@ def main() -> None:
           f"{sgd_history[0]['loss']:.5f}, launches {sgd_launches}")
 
     # ------------------------------------ 7. NeuralCF at bench_ncf's shape
-    ncf_launches, ncf_adam_err = ncf_phase(torch, card)
+    ncf_launches, ncf_errs, ncf_times = ncf_phase(torch, card)
     # ---------------------------------- 8. Wide & Deep, census configuration
-    wd_launches, wd_adam_err = wide_deep_phase(torch, card)
-    report["fused_adam"]["max_abs_err"] = max(
-        report["fused_adam"]["max_abs_err"], ncf_adam_err, wd_adam_err)
+    wd_launches, wd_errs = wide_deep_phase(torch, card)
+    for name in ("fused_adam", "fused_sgd"):
+        report[name]["max_abs_err"] = max(report[name]["max_abs_err"],
+                                          bert_errs[name], ncf_errs[name],
+                                          wd_errs[name])
+    for what, times in (("BERT-base", bert_times), ("NeuralCF", ncf_times)):
+        for name, r in times.items():
+            print(f"time {name} over {what}'s {r['leaves']} leaves: kernel_ms "
+                  f"{r['ms']:.5f} update_ms {r['update_ms']:.5f} plain_ms "
+                  f"{r['plain_ms']:.5f} library_ms {r['library_ms']:.5f} "
+                  f"bound_ms {r['bound_ms']:.6f} host_ms {r['host_ms']:.5f} "
+                  f"({card})")
 
     # ------------------------------------------------------- 9. results
     print(f"launches: serving (4 requests) {serving_launches}; training "

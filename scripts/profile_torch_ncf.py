@@ -41,7 +41,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 BATCH = 16384
 GROUPS = (
-    ("fused adam", ("fused_adam",)),
+    ("fused adam", ("multi_adam",)),
     ("embedding gather and scatter-add", ("index", "scatter", "gather",
                                           "embedding")),
     ("matrix products", ("gemm", "cutlass", "sm90_xmma", "nvjet", "cublas")),

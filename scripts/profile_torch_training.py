@@ -36,7 +36,7 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 PORT_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
-                "bias_gelu", "layernorm_act", "fused_adam", "fused_sgd")
+                "bias_gelu", "layernorm_act", "multi_adam", "multi_sgd")
 
 
 def _group(name: str) -> str:

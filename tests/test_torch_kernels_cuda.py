@@ -182,8 +182,8 @@ NCF_LEAVES = (6041 * 64, 3707 * 64, 6041 * 64, 3707 * 64, 128 * 128, 128,
 
 def test_fused_adam_at_ncf_leaves_is_bit_identical_to_plain(dev):
     """The fused update over NeuralCF's 12 leaves (386,624 elements down
-    to 2): one launch a leaf, each leaf bit-identical to the plain
-    update's."""
+    to 2): one multi-tensor launch a step, each leaf bit-identical to the
+    plain update's."""
     from analytics_zoo_torch.common.config import get_config
     from analytics_zoo_torch.pipeline.api.keras.optimizers import Adam
     update = fused.build_fused_update(Adam(lr=1e-3))
@@ -204,12 +204,13 @@ def test_fused_adam_at_ncf_leaves_is_bit_identical_to_plain(dev):
         finally:
             get_config().set("ops.fused", "auto")
         runs.append((p, state, launched))
-    assert runs[0][2] == 3 * len(NCF_LEAVES) and runs[1][2] == 0
+    assert runs[0][2] == 3 and runs[1][2] == 0
     (p_k, s_k, _), (p_t, s_t, _) = runs
     for k in params:
         for a, b in ((p_k[k], p_t[k]), (s_k[0].mu[k], s_t[0].mu[k]),
                      (s_k[0].nu[k], s_t[0].nu[k])):
             torch.testing.assert_close(a["w"], b["w"], atol=0, rtol=0)
+    assert int(s_k[0].count) == int(s_t[0].count) == 3
 
 
 @pytest.mark.parametrize("n,offset", [(4096, 0), (1001, 0), (777, 1)])
@@ -269,3 +270,125 @@ def test_bf16_matmul_gradient_on_the_card(dev):
     # float32
     for a, w in ((gx.cpu(), rx), (gw.cpu(), rw)):
         assert float((a - w).norm() / w.norm()) < 1e-2
+
+
+# a mixed leaf set: the 2-element bias class, ragged sizes, leaves that
+# span chunks, and views one float in (not 16-byte aligned)
+MIXED_LEAVES = ((1, 0), (2, 0), (3, 0), (1001, 0), (4097, 1), (2, 1),
+                (9000, 0), (777, 1))
+
+
+def _leaf_columns(dev, which, count):
+    sizes = ([(n, 0) for n in NCF_LEAVES] if which == "ncf"
+             else list(MIXED_LEAVES))
+    return [[_leaf(dev, n, 1000 * k + i, off)
+             for i, (n, off) in enumerate(sizes)] for k in range(count)]
+
+
+def _clip_args(dev, clip, gs):
+    gnorm = (torch.linalg.vector_norm(torch.cat([g.flatten() for g in gs]))
+             if clip == "l2norm" else None)
+    return dict(gnorm=gnorm, clip_norm=0.5,
+                clip_const=(-0.5, 0.5) if clip == "const" else None)
+
+
+def _plain(fn):
+    from analytics_zoo_torch.common.config import get_config
+    get_config().set("ops.fused", "torch")
+    try:
+        return fn()
+    finally:
+        get_config().set("ops.fused", "auto")
+
+
+@pytest.mark.parametrize("which", ["ncf", "mixed"])
+@pytest.mark.parametrize("clip", [None, "const", "l2norm"])
+@pytest.mark.parametrize("weight_decay", [0.0, 1e-2])
+@pytest.mark.parametrize("schedule", [False, True])
+def test_multi_adam_is_bit_identical_to_plain(dev, which, clip, weight_decay,
+                                              schedule):
+    ps, gs, ms, vs = _leaf_columns(dev, which, 4)
+    vs = [v.abs_().mul_(0.01) for v in vs]
+    count = torch.tensor(4, dtype=torch.int32, device=dev)
+    step = torch.tensor(-2e-3, device=dev) if schedule else -2e-3
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=weight_decay,
+              **_clip_args(dev, clip, gs))
+    ref = [[t.clone() for t in col] for col in (ps, gs, ms, vs)]
+    before = kernels.launch_counts()["fused_adam"]
+    got = fused.adam_multi_update(ps, gs, ms, vs, count, step, **kw)
+    assert kernels.launch_counts()["fused_adam"] == before + 1
+    want = _plain(lambda: fused.adam_multi_update(*ref, count, step, **kw))
+    assert got.dtype == torch.int32 and int(got) == int(want) == 5
+    for a, b in zip(ps + ms + vs, ref[0] + ref[2] + ref[3]):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("which", ["ncf", "mixed"])
+@pytest.mark.parametrize("momentum,nesterov,weight_decay",
+                         [(0.9, False, 0.0), (0.8, True, 1e-4),
+                          (0.0, False, 0.0)])
+@pytest.mark.parametrize("clip", [None, "const", "l2norm"])
+@pytest.mark.parametrize("schedule", [False, True])
+def test_multi_sgd_is_bit_identical_to_plain(dev, which, momentum, nesterov,
+                                             weight_decay, clip, schedule):
+    ps, gs, ts = _leaf_columns(dev, which, 3)
+    ts = ts if momentum else None
+    step = torch.tensor(-0.05, device=dev) if schedule else -0.05
+    kw = dict(momentum=momentum, nesterov=nesterov,
+              weight_decay=weight_decay, **_clip_args(dev, clip, gs))
+    ref = [None if col is None else [t.clone() for t in col]
+           for col in (ps, gs, ts)]
+    before = kernels.launch_counts()["fused_sgd"]
+    fused.sgd_multi_update(ps, gs, ts, step, **kw)
+    assert kernels.launch_counts()["fused_sgd"] == before + 1
+    _plain(lambda: fused.sgd_multi_update(*ref, step, **kw))
+    for a, b in zip(ps + (ts or []), ref[0] + (ref[2] or [])):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+def test_multi_adam_split_table_is_bit_identical_to_plain(dev):
+    """A table budget of 5 leaves splits NeuralCF's 12 into 3 launches,
+    with nothing lost or doubled."""
+    from analytics_zoo_torch.ops import multi_tensor as mt
+    ps, gs, ms, vs = _leaf_columns(dev, "ncf", 4)
+    vs = [v.abs_().mul_(0.01) for v in vs]
+    count = torch.tensor(0, dtype=torch.int32, device=dev)
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8)
+    ref = [[t.clone() for t in col] for col in (ps, gs, ms, vs)]
+    before = kernels.launch_counts()["fused_adam"]
+    fused.adam_multi_update(ps, gs, ms, vs, count, -1e-3,
+                            cache=mt.TableCache(max_leaves=5), **kw)
+    assert kernels.launch_counts()["fused_adam"] == before + 3
+    _plain(lambda: fused.adam_multi_update(*ref, count, -1e-3, **kw))
+    for a, b in zip(ps + ms + vs, ref[0] + ref[2] + ref[3]):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+def test_multi_adam_scalars_in_the_kernel_match_torch(dev):
+    """The kernel's count + 1, bc1, bc2 and clip scale against torch's
+    formulas on the card, bit for bit: counts 1 to 10,000 and at
+    saturation, norms that clip, that do not, zero and NaN."""
+    from analytics_zoo_torch.pipeline.api.keras.optimizers import (
+        safe_increment)
+    top = 2 ** 31 - 1
+    counts = torch.cat([
+        torch.arange(0, 10_000, dtype=torch.int32, device=dev),
+        torch.tensor([top - 1, top], dtype=torch.int32, device=dev)])
+    norms = torch.tensor([0.25, 3.0, 0.0, float("nan")], device=dev)
+    norms = norms.repeat(len(counts) // 4 + 1)[:len(counts)].contiguous()
+    out = torch.empty(len(counts), 4, device=dev)
+    leaf = [torch.zeros(1, device=dev) for _ in range(4)]
+    got_counts = []
+    for i in range(len(counts)):
+        got_counts.append(fused.adam_multi_update(
+            *([t] for t in leaf), counts[i], -1e-3, b1=0.9, b2=0.999,
+            eps=1e-8, gnorm=norms[i], clip_norm=0.5, scalars_out=out[i]))
+    # the plain route's formulas, one count at a time as a step takes them
+    plain = [fused.adam_scalars(counts[i], -1e-3, 0.9, 0.999, norms[i], 0.5)
+             for i in range(len(counts))]
+    assert torch.equal(torch.stack(got_counts), safe_increment(counts))
+    assert torch.equal(torch.stack([c for c, _ in plain]),
+                       safe_increment(counts))
+    want = torch.stack([scal for _, scal in plain])
+    torch.testing.assert_close(out, want, atol=0, rtol=0, equal_nan=True)
+    assert torch.isnan(out[3::4, 0]).all()
