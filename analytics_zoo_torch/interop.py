@@ -6,7 +6,11 @@
 into the port's model under the same key paths.  Both models must be
 built the same way (same layer order after ``reset_name_counters()``),
 so that their auto-names agree.  Shapes and dtypes are checked, and a
-missing or extra key raises.
+missing or extra key raises.  A quantized tree (the calibrated int8
+layout of ``ops/quant.py``: a layer with an int8 ``kernel``, a keepdims
+float32 ``kernel_scale`` of shape ``(1, ..., out)`` and a 0-d float32
+``act_scale``) loads into a float32 model of the same graph, which then
+runs quantized.
 
 ``load_jax_opt_state(optim, opt_state)`` takes an optax state of the JAX
 package's optimizer (``ScaleByAdamState``/``TraceState``/
@@ -21,6 +25,7 @@ numpy first, and optax's state classes are recognised by name.
 
 from __future__ import annotations
 
+import types
 from typing import Any, Dict, List
 
 import numpy as np
@@ -36,11 +41,31 @@ _NP_TO_TORCH = {
 }
 
 
+def _leaf_like(shape, dtype, device):
+    return types.SimpleNamespace(shape=tuple(shape), dtype=dtype,
+                                 device=device)
+
+
+def _quantized_like(like: dict) -> dict:
+    """The int8 layout of a float32 layer's params: what a quantized
+    layer of the JAX package holds."""
+    k = like["kernel"]
+    out = dict(like)
+    out["kernel"] = _leaf_like(k.shape, torch.int8, k.device)
+    out["kernel_scale"] = _leaf_like(
+        (1,) * (len(k.shape) - 1) + (k.shape[-1],), torch.float32, k.device)
+    out["act_scale"] = _leaf_like((), torch.float32, k.device)
+    return out
+
+
 def _convert(src, like, path: str, errors: List[str]):
     if isinstance(like, dict):
         if not isinstance(src, dict):
             errors.append(f"{path}: expected a dict, got {type(src).__name__}")
             return like
+        if "kernel_scale" in src and "kernel" in like and \
+                "kernel_scale" not in like:
+            like = _quantized_like(like)
         missing = sorted(set(like) - set(src))
         extra = sorted(set(src) - set(like))
         if missing:

@@ -1,8 +1,8 @@
 """Model-zoo base class (port of ``models/common.py``).
 
 A ZooModel is a thin facade over an inner KerasNet graph built by
-``build_model``; compile/fit/evaluate/predict/predict_classes and the
-variables surface delegate to it.
+``build_model``; compile/fit/evaluate/predict/predict_classes,
+quantize/is_quantized and the variables surface delegate to it.
 """
 
 from __future__ import annotations
@@ -32,6 +32,16 @@ class ZooModel:
 
     def predict_classes(self, *args, **kwargs):
         return self.model.predict_classes(*args, **kwargs)
+
+    def quantize(self, calib_data, **kwargs):
+        """Calibrated int8 conversion (``KerasNet.quantize``): after this,
+        predict, recommend and serving run the int8 products."""
+        self.model.quantize(calib_data, **kwargs)
+        return self
+
+    @property
+    def is_quantized(self) -> bool:
+        return self.model.is_quantized
 
     def get_variables(self):
         return self.model.get_variables()

@@ -1,7 +1,10 @@
-"""Text classifier, transformer encoder (port of
-``models/textclassification/text_classifier.py``): embedding + learned
-positions → ``n_block`` post-LN encoder blocks → max-pool → fused
-LayerNorm→GeLU → dense head.
+"""Text classifier (port of ``models/textclassification/text_classifier.py``):
+embedding (or pretrained ``WordEmbedding``) → encoder → dense head.
+
+Encoders: ``cnn`` (a width-5 ``Convolution1D`` with ReLU, then a global
+max-pool over time) and ``transformer`` (learned positions + ``n_block``
+post-LN encoder blocks → max-pool → fused LayerNorm→GeLU → Dense).  The
+``lstm``/``gru`` encoders wait for the recurrent layers and raise.
 
 At BERT-base widths (``token_length=768``, ``n_head=12``,
 ``sequence_length=512``) each forward runs the flash-attention kernel and
@@ -18,12 +21,11 @@ import torch
 from analytics_zoo_torch.models.common import ZooModel
 from analytics_zoo_torch.pipeline.api.keras import Input, Model
 from analytics_zoo_torch.pipeline.api.keras.layers import (
-    Dense, Dropout, Embedding, GlobalMaxPooling1D, Lambda, LayerNorm, Merge,
-    transformer_block,
+    Convolution1D, Dense, Dropout, Embedding, GlobalMaxPooling1D, Lambda,
+    LayerNorm, Merge, WordEmbedding, transformer_block,
 )
 
 _NOT_PORTED = {
-    "cnn": "Convolution1D",
     "lstm": "LSTM",
     "gru": "GRU",
 }
@@ -36,8 +38,10 @@ def _position_ids(t: torch.Tensor) -> torch.Tensor:
 
 
 class TextClassifier(ZooModel):
-    """encoder: only "transformer" in this slice of the port; its width
-    is ``token_length`` (residual stream), the head keeps
+    """encoder: "cnn" | "transformer" ("lstm" and "gru" raise until the
+    recurrent layers are ported); with optional pretrained embeddings.
+    ``n_head``/``n_block`` apply to the transformer encoder only; its
+    width is ``token_length`` (residual stream), the head keeps
     ``encoder_output_dim``."""
 
     def __init__(self, class_num: int, token_length: int = 200,
@@ -52,22 +56,20 @@ class TextClassifier(ZooModel):
         self.encoder = encoder.lower()
         self.encoder_output_dim = int(encoder_output_dim)
         self.max_words_num = int(max_words_num)
+        self.embedding_matrix = embedding_matrix
         self.n_head = int(n_head)
         self.n_block = int(n_block)
         if self.encoder in _NOT_PORTED:
             raise NotImplementedError(
                 f"TextClassifier(encoder={self.encoder!r}) needs "
                 f"{_NOT_PORTED[self.encoder]}, not yet ported: see "
-                "ROADMAP.md, 'Port queue: TextClassifier cnn/lstm/gru "
-                "encoders'")
-        if self.encoder != "transformer":
+                "ROADMAP.md, queue 1: the recurrent layers, Seq2seq and "
+                "generative serving")
+        if self.encoder not in ("cnn", "transformer"):
             raise ValueError(f"unknown encoder {self.encoder!r}; "
                              "use cnn|lstm|gru|transformer")
-        if embedding_matrix is not None:
-            raise NotImplementedError(
-                "TextClassifier(embedding_matrix=...) needs WordEmbedding, "
-                "not yet ported: see ROADMAP.md")
-        if self.token_length % self.n_head:
+        if self.encoder == "transformer" and \
+                self.token_length % self.n_head:
             raise ValueError(
                 f"token_length {self.token_length} must divide into "
                 f"n_head {self.n_head} heads")
@@ -75,9 +77,17 @@ class TextClassifier(ZooModel):
 
     def build_model(self):
         inp = Input(shape=(self.sequence_length,))
-        x = Embedding(self.max_words_num + 1, self.token_length,
-                      init="uniform")(inp)
-        x = self._transformer_encoder(inp, x)
+        if self.embedding_matrix is not None:
+            x = WordEmbedding(self.embedding_matrix, trainable=False)(inp)
+        else:
+            x = Embedding(self.max_words_num + 1, self.token_length,
+                          init="uniform")(inp)
+        if self.encoder == "cnn":
+            x = Convolution1D(self.encoder_output_dim, 5,
+                              activation="relu")(x)
+            x = GlobalMaxPooling1D()(x)
+        else:
+            x = self._transformer_encoder(inp, x)
         x = Dropout(0.2)(x)
         x = Dense(128, activation="relu")(x)
         out = Dense(self.class_num)(x)

@@ -1,4 +1,6 @@
 from analytics_zoo_torch.pipeline.api.keras.engine import Input, KTensor, Layer
-from analytics_zoo_torch.pipeline.api.keras.topology import KerasNet, Model
+from analytics_zoo_torch.pipeline.api.keras.topology import (
+    KerasNet, Model, Sequential,
+)
 
-__all__ = ["Input", "KTensor", "Layer", "KerasNet", "Model"]
+__all__ = ["Input", "KTensor", "Layer", "KerasNet", "Model", "Sequential"]

@@ -57,6 +57,39 @@ def fold_name(rng: torch.Generator, name: str) -> torch.Generator:
     return torch.Generator(device=rng.device).manual_seed(seed)
 
 
+# ------------------------------------------------------- activation taps
+# Calibration hook (int8 activation quantization, ops/quant.py): inside
+# ``record_activations()`` the containers report each layer's INPUT
+# absmax.  With no recorder active a tap returns at once: no reduction,
+# no host read.
+_ACT_TAP: Optional[Dict[str, float]] = None
+
+
+class record_activations:
+    """``with record_activations() as ranges:`` — run forwards;
+    ``ranges`` maps layer name -> max |input| seen."""
+
+    def __enter__(self) -> Dict[str, float]:
+        global _ACT_TAP
+        self._prev = _ACT_TAP
+        _ACT_TAP = {}
+        return _ACT_TAP
+
+    def __exit__(self, *exc):
+        global _ACT_TAP
+        _ACT_TAP = self._prev
+        return False
+
+
+def tap_activation(name: str, x) -> None:
+    if _ACT_TAP is None:
+        return
+    for leaf in (x if isinstance(x, (list, tuple)) else (x,)):
+        if isinstance(leaf, torch.Tensor) and leaf.is_floating_point():
+            m = float(leaf.abs().max())
+            _ACT_TAP[name] = max(_ACT_TAP.get(name, 0.0), m)
+
+
 def _is_shape(x) -> bool:
     return isinstance(x, (tuple, list)) and all(
         v is None or isinstance(v, (int, np.integer)) for v in x)

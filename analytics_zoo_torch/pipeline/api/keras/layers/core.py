@@ -2,8 +2,11 @@
 ``pipeline/api/keras/layers/core.py``).
 
 Dense rounds its operands to the compute dtype and takes a float32
-result (``ops.dtypes.matmul``); with a bias and the tanh-GeLU activation
-its tail goes through the fused bias→GeLU epilogue.
+result (``ops.dtypes.matmul``), or, when its params carry
+``kernel_scale``/``act_scale``, runs the int8 product
+(``ops.quant.quantized_matmul``); with a bias and the tanh-GeLU
+activation its tail goes through the fused bias→GeLU epilogue either
+way.
 """
 
 from __future__ import annotations
@@ -46,7 +49,13 @@ class Dense(Layer):
         return params
 
     def call(self, params, x, training=False, rng=None):
-        y = _matmul(x, params["kernel"])
+        if "kernel_scale" in params:
+            # calibrated int8 path (ops/quant.py), set by quantization
+            from analytics_zoo_torch.ops.quant import quantized_matmul
+            y = quantized_matmul(x, params["kernel"], params["kernel_scale"],
+                                 params["act_scale"])
+        else:
+            y = _matmul(x, params["kernel"])
         if self.use_bias and self.activation is acts.gelu:
             # fused bias→GeLU epilogue; its plain form is gelu(y + bias)
             from analytics_zoo_torch.ops import fused

@@ -1,13 +1,24 @@
-"""Embedding layer (port of ``pipeline/api/keras/layers/embedding.py``):
-a gather of rows from a device-resident table."""
+"""Embedding layers (port of ``pipeline/api/keras/layers/embedding.py``):
+a gather of rows from a device-resident table; ``WordEmbedding`` takes
+its table from pretrained vectors."""
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
+from analytics_zoo_torch.ops.dtypes import get_policy
 from analytics_zoo_torch.pipeline.api.keras.engine import Layer, Params
+
+
+def _take(table: torch.Tensor, x: torch.Tensor):
+    """(ids, the rows of ``table`` at ``x``): the reference casts to
+    int32; ids index in int64 here."""
+    ids = x.to(torch.int32).long()
+    return ids, table.index_select(0, ids.reshape(-1)).reshape(
+        *ids.shape, table.shape[-1])
 
 
 class Embedding(Layer):
@@ -34,14 +45,29 @@ class Embedding(Layer):
         return params
 
     def call(self, params, x, training=False, rng=None):
-        # the reference casts to int32; ids index in int64 here
-        ids = x.to(torch.int32).long()
-        table = params["embeddings"]
-        out = table.index_select(0, ids.reshape(-1)).reshape(
-            *ids.shape, table.shape[-1])
+        ids, out = _take(params["embeddings"], x)
         if self.mask_zero:
             out = out * (ids != 0).unsqueeze(-1).to(out.dtype)
         return out
 
     def compute_output_shape(self, input_shape):
         return tuple(input_shape) + (self.output_dim,)
+
+
+class WordEmbedding(Embedding):
+    """Embedding initialised from pretrained vectors (GloVe and the
+    like), frozen unless ``trainable``: the table carries no gradient."""
+
+    def __init__(self, embedding_matrix, trainable: bool = False, **kwargs):
+        mat = np.asarray(embedding_matrix)
+        super().__init__(mat.shape[0], mat.shape[1], **kwargs)
+        self._pretrained = mat
+        self.trainable = trainable
+
+    def build(self, rng, input_shape) -> Params:
+        return {"embeddings": torch.as_tensor(
+            np.array(self._pretrained), dtype=get_policy().param_dtype)}
+
+    def call(self, params, x, training=False, rng=None):
+        emb = params["embeddings"]
+        return _take(emb if self.trainable else emb.detach(), x)[1]

@@ -5,8 +5,11 @@ Ported: ``init``/``get_variables``/``set_variables``/``get_weights``/
 ``set_weights``, the graph ``Model.apply``, and the training surface
 ``compile``/``fit`` (on ndarrays or a FeatureSet, with validation)/
 ``evaluate``/``predict``/``predict_classes`` with the gradient-clipping
-setters, which run the single-device ``Estimator``.  Checkpoints,
-TensorBoard, freezing and ``Sequential`` are not ported yet.
+setters, which run the single-device ``Estimator``; ``quantize`` (the
+calibrated int8 conversion, ``ops/quant.py``); and the ``Sequential``
+stack.  Both containers report each layer's input to the calibration
+taps (``engine.tap_activation``).  Checkpoints, TensorBoard and freezing
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ import numpy as np
 import torch
 
 from analytics_zoo_torch.pipeline.api.keras.engine import (
-    Container, KTensor, Node, Params, Shape, State, fold_name,
+    Container, KTensor, Layer, Node, Params, Shape, State, _is_shape,
+    fold_name, tap_activation,
 )
 
 
@@ -233,6 +237,94 @@ class KerasNet(Container):
         classes = np.argmax(self.predict(x, batch_size=batch_size), axis=-1)
         return classes if zero_based_label else classes + 1
 
+    # ------------------------------------------------------- quantization
+    def quantize(self, calib_data, batch_size: int = 32,
+                 max_batches: int = 8, min_size: int = 1024):
+        """Calibrated int8 conversion IN PLACE: record per-layer input
+        ranges over ``calib_data``, rewrite eligible kernels to int8 with
+        per-output-channel scales in the params-driven layout
+        (``ops/quant.py``), and install the quantized variables on this
+        model; every later ``predict`` or serving call runs the int8
+        products.  Training a quantized model is not supported: re-``init``
+        or reload weights to go back to float32.  Returns self."""
+        from analytics_zoo_torch.ops.quant import (
+            calibrate_model, quantize_model)
+        ranges = calibrate_model(self, calib_data, batch_size=batch_size,
+                                 max_batches=max_batches)
+        self.set_variables(quantize_model(
+            self.get_variables(), ranges, min_size=min_size))
+        return self
+
+    @property
+    def is_quantized(self) -> bool:
+        params = (self._variables or {}).get("params", {})
+        return any("kernel_scale" in p for p in params.values()
+                   if isinstance(p, dict))
+
+
+class Sequential(KerasNet):
+    """Layer stack with shape inference on ``add``."""
+
+    def __init__(self, name: Optional[str] = None):
+        super().__init__(name=name)
+        self._running_shape = None
+
+    def add(self, layer: Layer) -> "Sequential":
+        if not self.layers:
+            shape = layer.batch_input_shape
+            if shape is None and isinstance(layer, Sequential):
+                shape = layer.layers[0].batch_input_shape if layer.layers \
+                    else None
+            if shape is None:
+                raise ValueError(
+                    f"first layer {layer.name} needs input_shape")
+            self.batch_input_shape = shape
+            self._running_shape = shape
+        elif layer.batch_input_shape is None:
+            layer.batch_input_shape = (
+                self._running_shape if _is_shape(self._running_shape)
+                else None)
+        self._running_shape = layer.compute_output_shape(
+            layer.batch_input_shape if layer.batch_input_shape is not None
+            else self._running_shape)
+        self.layers.append(layer)
+        self._check_duplicate()
+        self._output_shape = self._running_shape
+        return self
+
+    def compute_output_shape(self, input_shape):
+        shape = input_shape
+        for l in self.layers:
+            shape = l.compute_output_shape(shape)
+        return shape
+
+    def build(self, rng, input_shape) -> Params:
+        params: Params = {}
+        self._sub_state: State = {}
+        shape = input_shape
+        for l in self.layers:
+            sub = l.init(fold_name(rng, l.name), shape)
+            params[l.name] = sub["params"]
+            self._sub_state[l.name] = sub["state"]
+            shape = l.compute_output_shape(shape)
+        return params
+
+    def init_state(self, input_shape) -> State:
+        return getattr(self, "_sub_state", {})
+
+    def apply(self, params, inputs, state=None, training=False, rng=None):
+        state = state or {}
+        new_state = dict(state)
+        x = inputs
+        for l in self.layers:
+            sub_rng = fold_name(rng, l.name) if rng is not None else None
+            tap_activation(l.name, x)
+            x, s = l.apply(params[l.name], x, state=state.get(l.name),
+                           training=training, rng=sub_rng)
+            if s is not None:
+                new_state[l.name] = s
+        return x, new_state
+
 
 class Model(KerasNet):
     """Multi-input/multi-output static graph."""
@@ -323,6 +415,7 @@ class Model(KerasNet):
             args = [values[id(t)] for t in node.inbound]
             x = args[0] if len(args) == 1 else args
             sub_rng = fold_name(rng, l.name) if rng is not None else None
+            tap_activation(l.name, x)
             out, s = l.apply(params[l.name], x, state=state.get(l.name),
                              training=training, rng=sub_rng,
                              **node.call_kwargs)

@@ -11,7 +11,13 @@ the reference's ``inference_predict`` span and its three metrics.
 device: the current CUDA device is per host thread, and serving calls
 them from its batcher thread.
 
-The int8 path (``quantize=``), ``load_torch`` and ``load_tf`` are not
+Two int8 paths, as in the reference: ``quantize=True`` is weight-only
+(every float32 leaf of rank ≥ 2 and ≥ 1024 elements stored int8 on the
+device with per-last-axis scales, dequantized inside each predict call;
+no float32 copy is kept); ``quantize="calibrated"`` records per-layer
+input ranges over ``calib_set`` and runs the Dense/conv products
+int8 x int8 -> int32 (``ops/quant.py``).  Both label the span and the
+metrics ``backend="int8"``.  ``load_torch`` and ``load_tf`` are not
 ported yet and raise.
 """
 
@@ -21,17 +27,65 @@ import contextlib
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from analytics_zoo_torch.ops.quant import (
+    quantize_weight, weight_scale,
+)
 from analytics_zoo_torch.pipeline.api.keras.topology import (
-    to_device, tree_leaves, tree_map,
+    to_device, tree_leaves, tree_map, tree_replace,
 )
 
-#: the ``backend`` label of the metrics (the int8 path is not ported)
-BACKEND = "f32"
+
+def quantize_params(params, min_size: int = 1024):
+    """Per-tensor int8 weight quantization with per-last-axis scales.
+
+    Returns (quantized tree, scales): each float32 leaf of rank ≥ 2 and at
+    least ``min_size`` elements becomes int8 on its device, its keepdims
+    float32 scale in the flat ``scales`` list (in ``tree_leaves`` order);
+    every other leaf is kept as it is, with None in the list.  The scales
+    are computed in numpy on the host, as the reference computes them."""
+    def q(leaf):
+        if leaf.dtype != torch.float32 or leaf.numel() < min_size or \
+                leaf.ndim < 2:
+            return leaf, None
+        arr = leaf.detach().cpu().numpy()
+        scale = weight_scale(arr)
+        return (torch.from_numpy(quantize_weight(arr, scale)).to(leaf.device),
+                torch.from_numpy(scale).to(leaf.device))
+
+    out = [q(leaf) for leaf in tree_leaves(params)]
+    return (tree_replace(params, [o[0] for o in out]),
+            [o[1] for o in out])
+
+
+def dequantize_params(qparams, scales):
+    """``scales`` is the flat list from ``quantize_params``: each int8
+    leaf times its scale, one multiply a leaf (int8 promotes to float32
+    exactly)."""
+    leaves = tree_leaves(qparams)
+    return tree_replace(qparams, [l if s is None else torch.mul(l, s)
+                                  for l, s in zip(leaves, scales)])
+
+
+def calibrate_activations(model, calib_data, batch_size: int = 32,
+                          max_batches: int = 8) -> Dict[str, float]:
+    """``ops.quant.calibrate_model`` under the reference's older name."""
+    from analytics_zoo_torch.ops.quant import calibrate_model
+    return calibrate_model(model, calib_data, batch_size=batch_size,
+                           max_batches=max_batches)
+
+
+def quantize_params_calibrated(model, variables, act_ranges,
+                               min_size: int = 1024):
+    """``ops.quant.quantize_model`` under the reference's older name and
+    signature (``model`` is not read)."""
+    del model
+    from analytics_zoo_torch.ops.quant import quantize_model
+    return quantize_model(variables, act_ranges, min_size=min_size)
 
 
 def _not_ported(what: str):
@@ -49,6 +103,8 @@ class InferenceModel:
         self._sem = threading.Semaphore(self.concurrency)
         self._predict_fn = None
         self._variables = None
+        self._scales = None
+        self._quantized = False
         self._warmed = set()
         self.model = None
         self.device = None
@@ -66,25 +122,55 @@ class InferenceModel:
             "records predicted by InferenceModel", labels=("backend",))
 
     # ------------------------------------------------------------- loaders
-    def load_zoo(self, model, quantize: bool = False,
-                 **calibration) -> "InferenceModel":
-        """Load a native model (KerasNet/ZooModel), f32 weights.
+    def load_zoo(self, model, quantize=False, calib_set=None,
+                 calib_batch_size: int = 32, calib_batches: int = 8,
+                 quant_min_size: int = 1024) -> "InferenceModel":
+        """Load a native model (KerasNet/ZooModel).
+
+        ``quantize=True``: the int8 weight-only path, dequantized inside
+        each predict call (4x less weight memory on the device).
+        ``quantize="calibrated"`` with ``calib_set`` (an array, a list of
+        arrays or a FeatureSet of representative inputs): per-layer input
+        ranges recorded over ``calib_batches`` batches of
+        ``calib_batch_size``, then the Dense/conv kernels of at least
+        ``quant_min_size`` elements run int8 x int8 -> int32 with a
+        float32 rescale.
 
         The weights are snapshotted onto the device at load time; later
         ``set_weights`` calls are not seen until ``load_zoo`` runs again.
         """
-        if quantize or calibration:
-            raise _not_ported("load_zoo(quantize=...)")
         from analytics_zoo_torch.common.zoo_context import get_zoo_context
         from analytics_zoo_torch.models.common import ZooModel
         if isinstance(model, ZooModel):
             model = model.model
         self.model = model
         self.device = get_zoo_context().device
-        self._variables = to_device(model.get_variables(), self.device)
         self._warmed = set()
+        self._scales = None
+        variables = model.get_variables()
+        if quantize == "calibrated":
+            if calib_set is None:
+                raise ValueError(
+                    "quantize='calibrated' needs calib_set= (an array, a "
+                    "list of arrays or a FeatureSet of representative "
+                    "inputs)")
+            ranges = calibrate_activations(
+                model, calib_set, batch_size=calib_batch_size,
+                max_batches=calib_batches)
+            variables = quantize_params_calibrated(
+                model, variables, ranges, min_size=quant_min_size)
+        elif quantize:
+            qp, scales = quantize_params(variables["params"])
+            variables = {"params": qp, "state": variables["state"]}
+            self._scales = [None if s is None else s.to(self.device)
+                            for s in scales]
+        self._quantized = bool(quantize)
+        self._variables = to_device(variables, self.device)
+        scales_of = self._scales
 
         def fn(params, state, x):
+            if scales_of is not None:
+                params = dequantize_params(params, scales_of)
             out, _ = model.apply(params, x, state=state, training=False)
             return out
 
@@ -165,13 +251,18 @@ class InferenceModel:
         from analytics_zoo_torch.observability import get_tracer
         from analytics_zoo_torch.pipeline.estimator.estimator import (
             predict_in_batches)
+        backend = "int8" if self._quantized else "f32"
         t0 = time.perf_counter()
         with self._sem, get_tracer().span("inference_predict",
-                                          backend=BACKEND), \
+                                          backend=backend), \
                 self._on_device(), torch.inference_mode():
             n = len(tree_leaves(x)[0])
             result = predict_in_batches(self._forward, x, batch_size or n)
-        self._m_latency.labels(BACKEND).observe(time.perf_counter() - t0)
-        self._m_calls.labels(BACKEND).inc()
-        self._m_records.labels(BACKEND).inc(n)
+        self._m_latency.labels(backend).observe(time.perf_counter() - t0)
+        self._m_calls.labels(backend).inc()
+        self._m_records.labels(backend).inc(n)
         return result
+
+    @property
+    def is_quantized(self) -> bool:
+        return self._quantized

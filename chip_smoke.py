@@ -76,7 +76,29 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    ``metrics=["accuracy", "auc"]`` (one Adam launch a step for its 11
    leaves; a ``val`` record each epoch), then ``evaluate`` and the Adam
    and SGD kernels against their plain versions on each of the 11 leaves;
-9. a ``kernels`` JSON line, then the device line last.
+9. ``TextClassifier(encoder="cnn")`` at its default widths (tokens 200,
+   sequence 500, 256 filters of width 5, 5000 words; 20 classes),
+   loaded through ``InferenceModel.load_zoo(quantize="calibrated")`` and
+   predicted on 8 x 500 tokens, held to its plain route
+   (``ops.fused=torch``) and timed in turns against float32;
+10. a ``kernels`` JSON line, then the device line last.
+
+The int8 phases besides 9: 2b holds ``quantized_matmul`` and
+``quantized_conv`` (``torch._int_mm``, a convolution as one product over
+its unfolded input) against their plain routes on the card, bit for bit,
+at the int8 paths' shapes (BERT-base's head Dense (8, 768) -> 256,
+NeuralCF's three quantized Denses at 8192 rows, a one-row batch, the cnn
+encoder's Convolution1D, a strided SAME Convolution2D), each timed beside
+its plain route and the bf16 product; 3c serves the phase 3 model
+weight-only int8 (``load_zoo(quantize=True)``): 4 requests with the
+three forward kernels' launches checked, the logits against the same
+int8 model under ``ops.fused=torch`` (≤ 2e-2) and against the float32
+model (reported), the parameters' device memory and the dequantization's
+time, then phase 3b's Cluster Serving traffic on it; 7b calibrates the
+trained NeuralCF as the JAX ``kernels`` bench does (4 x 1024 rows),
+predicts 65536 rows at batch 8192 under float32 and int8 weights in turns
+(rows/s), holds the JAX package's int8 bars (softmax difference < 2e-2,
+class agreement ≥ 0.97) and evaluates HitRatio@10/NDCG@10 of both.
 
 Exits non-zero, printing no result, when CUDA is not available.
 """
@@ -333,14 +355,15 @@ def serve_front_end(torch, im, fail, broker_url=None, n_singles=8,
         n_latencies=len(lat))
 
 
-def front_end(torch, im, card, fail) -> None:
+def front_end(torch, im, card, fail, tag="cluster serving") -> None:
     """Phase 3b: ``serve_front_end`` at BERT-base width, its results
-    against ``ops.fused=torch``, and its rates and times printed."""
+    against ``ops.fused=torch``, and its rates and times printed, each
+    line starting with ``tag``."""
     from analytics_zoo_torch.common.config import get_config
     from analytics_zoo_torch.ops import kernels
 
     run = serve_front_end(torch, im, fail)
-    print(f"cluster serving: warm_start warmed 4 buckets (1/2/4/8 x 512 "
+    print(f"{tag}: warm_start warmed 4 buckets (1/2/4/8 x 512 "
           f"tokens) in {run['warm_s']:.3f} s ({card})")
     get_config().set("ops.fused", "torch")
     plain = im.predict(run["inputs"], batch_size=8)
@@ -361,27 +384,27 @@ def front_end(torch, im, card, fail) -> None:
             compared += 1
             decided += classes[0] == int(np.argmax(plain[i]))
     if decided != compared or not worst <= PROB_ATOL:
-        fail(f"cluster serving vs ops.fused=torch: top-1 agrees on "
+        fail(f"{tag} vs ops.fused=torch: top-1 agrees on "
              f"{decided} of {compared} decided records, probability max "
              f"abs diff {worst:.3e} (tolerance {PROB_ATOL})")
     n = len(run["results"])
-    print(f"cluster serving vs ops.fused=torch: top-1 identical on "
+    print(f"{tag} vs ops.fused=torch: top-1 identical on "
           f"{compared} of {n} records whose plain top-2 logit gap exceeds "
           f"{MODEL_ATOL}; probability max abs diff {worst:.3e} (tolerance "
           f"{PROB_ATOL})")
     wall = run["wall_s"]
     execute_s = sum(run["execute_ms"]) * 1e-3
-    print(f"cluster serving: {n} records (64 stream over TCP, 8 HTTP) in "
+    print(f"{tag}: {n} records (64 stream over TCP, 8 HTTP) in "
           f"{wall:.4f} s, {n / wall:.2f} records/s ({card})")
-    print(f"cluster serving: arrival->result latency p50 "
+    print(f"{tag}: arrival->result latency p50 "
           f"{run['p50_ms']:.3f} ms, p99 {run['p99_ms']:.3f} ms over "
           f"{run['n_latencies']} stream records ({card})")
-    print(f"cluster serving: {run['batches']} batches served, by bucket "
+    print(f"{tag}: {run['batches']} batches served, by bucket "
           f"{dict(sorted(run['buckets'].items()))}, records "
           f"{run['batch_records']}, serving_execute ms "
           f"{[round(t, 3) for t in run['execute_ms']]}; launches "
           f"{run['launches']} ({card})")
-    print(f"cluster serving: front end host time "
+    print(f"{tag}: front end host time "
           f"{(wall - execute_s) * 1e3 / n:.4f} ms a record (wall "
           f"{wall * 1e3:.3f} ms less serving_execute {execute_s * 1e3:.3f} "
           f"ms, over {n} records) ({card})")
@@ -773,6 +796,8 @@ def ncf_phase(torch, card, users=None, items=None, n_ratings=1_000_000,
     # versions and torch.optim's fused Adam and SGD
     errs = opt_leaves_check(torch, leaves, "NeuralCF")
     times = time_updates(torch, leaves, card, "ncf")
+    # 7b: the trained model calibrated to int8
+    ncf_int8(torch, card, model, eval_x, eval_y, users, items)
     return launches, errs, times
 
 
@@ -845,6 +870,289 @@ def wide_deep_phase(torch, card, rows=1 << 19, batch=WD_BATCH):
     errs = opt_leaves_check(
         torch, tree_leaves(model.get_variables()["params"]), "Wide & Deep")
     return launches, errs
+
+
+# The int8 products against their plain routes on the card: both are exact
+# integer arithmetic (int32 sums of int8 products; the plain route's
+# float64 sums stay below 2^53) under the same float32 epilogue, so they
+# agree bit for bit.
+INT8_ATOL = 0.0
+INT8_OPS_PER_S = 1979e12        # dense int8 tensor-core peak
+BF16_FLOPS_PER_S = 989e12       # dense bf16 tensor-core peak
+# the JAX package's int8 bars against float32 (tests/test_quant_int8.py)
+INT8_PROB_ATOL = 2e-2
+INT8_AGREE_MIN = 0.97
+NCF_PREDICT_ROWS = 65536
+NCF_PREDICT_BATCH = 8192
+
+# (name, kind, input shape, kernel shape, conv arguments): the shapes the
+# int8 paths give the products
+INT8_CASES = (
+    ("BERT-base head Dense", "mm", (8, 768), (768, 256), None),
+    ("NCF Dense 128->128", "mm", (8192, 128), (128, 128), None),
+    ("NCF Dense 128->64", "mm", (8192, 128), (128, 64), None),
+    ("NCF Dense 64->32", "mm", (8192, 64), (64, 32), None),
+    ("one-row batch Dense", "mm", (1, 768), (768, 256), None),
+    ("TextClassifier cnn Convolution1D", "conv", (8, 500, 200),
+     (5, 200, 256), dict(strides=(1,), padding="VALID",
+                         rhs_dilation=(1,))),
+    ("strided SAME Convolution2D", "conv", (8, 56, 56, 64), (3, 3, 64, 128),
+     dict(strides=(2, 2), padding="SAME", rhs_dilation=(1, 1))),
+)
+
+
+def int8_products(torch, card, dev):
+    """Phase 2b: ``quantized_matmul`` and ``quantized_conv`` on the card
+    against their plain routes on the card (tolerance 0), each timed beside
+    the plain route and the bf16 product (``ops.dtypes.matmul``,
+    ``conv_nd``) at the same shape; returns the readings."""
+    from analytics_zoo_torch.ops import quant
+    from analytics_zoo_torch.ops.dtypes import matmul
+    from analytics_zoo_torch.pipeline.api.keras.layers.conv import conv_nd
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    rows = []
+    for name, kind, xs, ks, conv in INT8_CASES:
+        x = torch.randn(xs, generator=gen, device=dev)
+        w = torch.randn(ks, generator=gen, device=dev) * 0.05
+        axes = tuple(range(w.ndim - 1))
+        w_scale = (w.abs().amax(dim=axes, keepdim=True) / 127.0
+                   ).clamp_min(1e-12)
+        kq = quant.int8_kernel_layout(
+            torch.clamp(torch.round(w / w_scale), -127, 127).to(torch.int8))
+        act = (x.abs().max() / 127.0).reshape(())
+        if kind == "mm":
+            def run(x=x, kq=kq, w_scale=w_scale, act=act):
+                return quant.quantized_matmul(x, kq, w_scale, act)
+
+            def bf16(x=x, w=w):
+                return matmul(x, w)
+        else:
+            def run(x=x, kq=kq, w_scale=w_scale, act=act, conv=conv):
+                return quant.quantized_conv(x, kq, w_scale, act, **conv)
+
+            def bf16(x=x, w=w, conv=conv):
+                return conv_nd(x, w, conv["strides"], conv["padding"],
+                               conv["rhs_dilation"])
+        got, want = run(), plain_route(run)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.equal(got, want):
+            fail(f"int8 {name} {xs} x {ks}: the card route and the plain "
+                 f"route differ (max abs "
+                 f"{float((got - want).abs().max()):.3e}, tolerance "
+                 f"{INT8_ATOL})")
+        # each output element takes one multiply-add per kernel element of
+        # its output channel
+        ops = 2 * got.numel() * int(np.prod(ks[:-1]))
+        moved = x.numel() * 4 + kq.numel() + w_scale.numel() * 4 + \
+            got.numel() * 4
+        ms = time_ms(torch, run)
+        plain_ms = plain_route(lambda: time_ms(torch, run))
+        bf16_ms = time_ms(torch, bf16)
+        bnd, by = bound_ms(moved, ops, INT8_OPS_PER_S)
+        rows.append(dict(name=name, ms=ms, plain_ms=plain_ms,
+                         bf16_ms=bf16_ms, bound_ms=bnd, bound_by=by))
+        print(f"int8 {name} {xs} x {ks} -> {tuple(got.shape)}: card route "
+              f"== plain route bit for bit (tolerance {INT8_ATOL}); "
+              f"int8_ms {ms:.5f} plain_ms {plain_ms:.5f} bf16_ms "
+              f"{bf16_ms:.5f} bound_ms {bnd:.6f} ({by}, int8 peak) "
+              f"({card})")
+    return rows
+
+
+def _tree_bytes(tree) -> int:
+    from analytics_zoo_torch.pipeline.api.keras.topology import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if t is not None)
+
+
+def int8_serving(torch, card, model, im, requests, outs):
+    """Phase 3c: the BERT-base TextClassifier served weight-only int8
+    through ``InferenceModel.load_zoo(quantize=True)``: 4 requests with
+    the launches checked, the logits against the same int8 model under
+    ``ops.fused=torch`` and against the float32 model, the parameters'
+    device memory and the dequantization's time, then phase 3b's Cluster
+    Serving traffic on it; returns the launch counts of the requests."""
+    from analytics_zoo_torch.ops import kernels
+    from analytics_zoo_torch.pipeline.api.keras.topology import tree_leaves
+    from analytics_zoo_torch.pipeline.inference import InferenceModel
+    from analytics_zoo_torch.pipeline.inference.inference_model import (
+        dequantize_params)
+
+    t0 = time.perf_counter()
+    imq = InferenceModel().load_zoo(model, quantize=True)
+    load_s = time.perf_counter() - t0
+    n_int8 = sum(s is not None for s in imq._scales)
+    f32_bytes = _tree_bytes(im._variables["params"])
+    int8_bytes = _tree_bytes(imq._variables["params"]) + \
+        _tree_bytes(imq._scales)
+    print(f"int8 weight-only: {n_int8} leaves int8 on the device, "
+          f"quantized in {load_s:.2f} s; parameters {int8_bytes} bytes "
+          f"(scales included) against {f32_bytes} float32, "
+          f"{f32_bytes / int8_bytes:.3f}x less ({card})")
+    imq.predict(requests[0], batch_size=8)          # warm-up, not counted
+    kernels.reset_launch_counts()
+    qouts = [imq.predict(req, batch_size=8) for req in requests]
+    launches = kernels.launch_counts()
+    expect_launches(launches, {"flash_attention_fwd": 48, "bias_gelu": 48,
+                               "layernorm_act": 4},
+                    "int8 weight-only serving, 4 requests")
+    for out in qouts:
+        if out.shape != (8, 20) or not np.isfinite(out).all():
+            fail(f"int8 weight-only output shape {out.shape}")
+    plain = plain_route(lambda: imq.predict(requests[0], batch_size=8))
+    if kernels.launch_counts() != launches:
+        fail("ops.fused=torch launched a kernel")
+    diff = float(np.abs(plain - qouts[0]).max())
+    print(f"int8 weight-only: launches over 4 requests {launches}; "
+          f"ops.fused=torch vs kernels, logits max abs diff {diff:.3e} "
+          f"(tolerance {MODEL_ATOL})")
+    if not diff <= MODEL_ATOL:
+        fail(f"int8 weight-only kernel and plain logits differ by {diff}")
+    q, f = np.concatenate(qouts), np.concatenate(outs)
+    agree = float(np.mean(np.argmax(q, -1) == np.argmax(f, -1)))
+    print(f"int8 weight-only vs float32 weights, {len(q)} sequences: top-1 "
+          f"agreement {agree:.4f}, logits max abs diff "
+          f"{float(np.abs(q - f).max()):.4e} (logits max abs "
+          f"{float(np.abs(f).max()):.4e}); not gated")
+    deq_ms = time_ms(torch, lambda: dequantize_params(
+        imq._variables["params"], imq._scales))
+    deq_host = host_ms(torch, lambda: dequantize_params(
+        imq._variables["params"], imq._scales))
+    # each int8 element read once and its float32 written once
+    n_q = sum(t.numel() for t, s in zip(tree_leaves(imq._variables["params"]),
+                                        imq._scales) if s is not None)
+    deq_bnd, _ = bound_ms(5 * n_q + _tree_bytes(imq._scales), 0)
+    print(f"int8 weight-only: the dequantization of every int8 leaf "
+          f"{deq_ms:.5f} ms of device time a request (bound {deq_bnd:.6f} "
+          f"ms, bytes), {deq_host:.5f} ms of host time ({card})")
+    lat = {"f32": [], "int8": []}
+    for mode in ("f32", "int8", "int8", "f32"):
+        m = im if mode == "f32" else imq
+        for req in requests:
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            m.predict(req, batch_size=8)
+            lat[mode].append((time.perf_counter() - s0) * 1e3)
+    for mode, v in lat.items():
+        med = statistics.median(v)
+        print(f"int8 weight-only serving, {mode} weights: per-request "
+              f"latency median {med:.3f} ms over {[round(t, 3) for t in v]} "
+              f"(turns f32/int8/int8/f32), {8 * 1e3 / med:.1f} "
+              f"sequences/s ({card})")
+    front_end(torch, imq, card, fail, tag="int8 weight-only cluster serving")
+    return launches
+
+
+def ncf_int8(torch, card, model, eval_x, eval_y, users, items):
+    """Phase 7b: the NeuralCF phase 7 trained, calibrated as the JAX
+    ``kernels`` bench does (4 x 1024 rows, batch 1024), then
+    ``NCF_PREDICT_ROWS`` rows predicted at batch ``NCF_PREDICT_BATCH``
+    under float32 and int8 weights in turns, held to the JAX package's
+    int8 bars, and HitRatio@10/NDCG@10 of each."""
+    rs = np.random.RandomState(0)
+    feats = model.pair_features(rs.randint(1, users + 1, NCF_PREDICT_ROWS),
+                                rs.randint(1, items + 1, NCF_PREDICT_ROWS))
+    f32_vars = model.get_variables()
+    f32_out = model.predict(feats, batch_size=NCF_PREDICT_BATCH)
+    t0 = time.perf_counter()
+    model.quantize([a[:4 * 1024] for a in feats], batch_size=1024,
+                   max_batches=4)
+    calib_s = time.perf_counter() - t0
+    q_vars = model.get_variables()
+    q_layers = sorted(k for k, p in q_vars["params"].items()
+                      if "kernel_scale" in p)
+    if len(q_layers) != 3:
+        fail(f"ncf int8: quantized layers {q_layers}, want the 3 MLP Denses")
+    int8_out = model.predict(feats, batch_size=NCF_PREDICT_BATCH)
+    e32 = np.exp(f32_out - f32_out.max(-1, keepdims=True))
+    e8 = np.exp(int8_out - int8_out.max(-1, keepdims=True))
+    prob_diff = float(np.abs(e32 / e32.sum(-1, keepdims=True)
+                             - e8 / e8.sum(-1, keepdims=True)).max())
+    agree = float(np.mean(np.argmax(f32_out, -1) == np.argmax(int8_out, -1)))
+    print(f"ncf int8: calibrated in {calib_s:.3f} s, quantized {q_layers}; "
+          f"{NCF_PREDICT_ROWS} rows: softmax max abs diff {prob_diff:.4e} "
+          f"(bar {INT8_PROB_ATOL}), class agreement {agree:.5f} (bar "
+          f"{INT8_AGREE_MIN}), logits max abs diff "
+          f"{float(np.abs(f32_out - int8_out).max()):.4e}")
+    if not (prob_diff < INT8_PROB_ATOL and agree >= INT8_AGREE_MIN):
+        fail("ncf int8 misses the JAX package's bars")
+    rates = {"f32": [], "int8": []}
+    for mode in ("f32", "int8", "int8", "f32"):
+        model.set_variables(f32_vars if mode == "f32" else q_vars)
+        model.predict(feats, batch_size=NCF_PREDICT_BATCH)      # warm
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        model.predict(feats, batch_size=NCF_PREDICT_BATCH)
+        rates[mode].append(NCF_PREDICT_ROWS / (time.perf_counter() - s0))
+    for mode, r in rates.items():
+        print(f"ncf predict {mode}: {[round(v, 1) for v in r]} rows/s "
+              f"({NCF_PREDICT_ROWS} rows at batch {NCF_PREDICT_BATCH}, "
+              f"turns f32/int8/int8/f32) ({card})")
+    scores = {}
+    for mode, v in (("f32", f32_vars), ("int8", q_vars)):
+        model.set_variables(v)
+        scores[mode] = model.evaluate(eval_x, eval_y, batch_size=101 * 40)
+        if not 0.0 < scores[mode]["hit_ratio@10"] <= 1.0:
+            fail(f"ncf {mode} evaluate {scores[mode]}")
+    print(f"ncf evaluate ({len(eval_y)} rows): int8 HitRatio@10 "
+          f"{scores['int8']['hit_ratio@10']:.6f} NDCG@10 "
+          f"{scores['int8']['ndcg@10']:.6f}; float32 HitRatio@10 "
+          f"{scores['f32']['hit_ratio@10']:.6f} NDCG@10 "
+          f"{scores['f32']['ndcg@10']:.6f} ({card})")
+    model.set_variables(f32_vars)
+
+
+def cnn_int8(torch, card):
+    """Phase 9: ``TextClassifier(encoder="cnn")`` at its default widths
+    (tokens 200, sequence 500, 256 filters of width 5, 5000 words; 20
+    classes), seeded weights, loaded calibrated through ``InferenceModel``
+    and predicted on 8 x 500 tokens, held to its plain route
+    (``ops.fused=torch``: the int8 products' plain route)."""
+    from analytics_zoo_torch.models.textclassification import TextClassifier
+    from analytics_zoo_torch.pipeline.inference import InferenceModel
+
+    model = TextClassifier(class_num=20)
+    model.model.init(torch.Generator().manual_seed(0))
+    rs = np.random.RandomState(2)
+    calib = rs.randint(0, 5001, size=(32, 500)).astype(np.int64)
+    x = rs.randint(0, 5001, size=(8, 500)).astype(np.int64)
+    im32 = InferenceModel().load_zoo(model)
+    t0 = time.perf_counter()
+    imq = InferenceModel().load_zoo(model, quantize="calibrated",
+                                    calib_set=calib, calib_batch_size=8,
+                                    calib_batches=4)
+    calib_s = time.perf_counter() - t0
+    q_layers = sorted(k for k, p in imq._variables["params"].items()
+                      if "kernel_scale" in p)
+    if "convolution1d_1" not in q_layers or len(q_layers) != 3:
+        fail(f"cnn int8: quantized layers {q_layers}")
+    f32 = im32.predict(x, batch_size=8)
+    got = imq.predict(x, batch_size=8)
+    plain = plain_route(lambda: imq.predict(x, batch_size=8))
+    if got.shape != (8, 20) or not np.isfinite(got).all():
+        fail(f"cnn int8 output shape {got.shape}")
+    diff = float(np.abs(got - plain).max())
+    print(f"cnn int8: calibrated in {calib_s:.3f} s, quantized {q_layers}; "
+          f"8 x 500 tokens: card route vs plain route logits max abs diff "
+          f"{diff:.3e} (tolerance {MODEL_ATOL}); vs float32 top-1 agreement "
+          f"{float(np.mean(np.argmax(got, -1) == np.argmax(f32, -1))):.3f}, "
+          f"logits max abs diff {float(np.abs(got - f32).max()):.4e}")
+    if not diff <= MODEL_ATOL:
+        fail(f"cnn int8 card and plain routes differ by {diff}")
+    lat = {"f32": [], "int8": []}
+    for mode in ("f32", "int8", "int8", "f32"):
+        im = im32 if mode == "f32" else imq
+        im.predict(x, batch_size=8)
+        torch.cuda.synchronize()
+        for _ in range(5):
+            s0 = time.perf_counter()
+            im.predict(x, batch_size=8)
+            lat[mode].append((time.perf_counter() - s0) * 1e3)
+    for mode, v in lat.items():
+        print(f"cnn predict {mode} (8 x 500 tokens): median "
+              f"{statistics.median(v):.3f} ms over {[round(t, 3) for t in v]}"
+              f" ({card})")
 
 
 def main() -> None:
@@ -1103,6 +1411,9 @@ def main() -> None:
               f"bound_ms {r['bound_ms']:.6f} ({r['bound_by']}) ({card})")
     del o_ref, lse_ref, x, got, want
 
+    # ------------------- 2b. int8 products against their plain routes
+    int8_products(torch, card, dev)
+
     # -------------------------------------- 3. the slice at full width
     t0 = time.perf_counter()
     model = TextClassifier(class_num=20, token_length=768,
@@ -1155,6 +1466,9 @@ def main() -> None:
           f"({card})")
     serving_launches = launches
     front_end(torch, im, card, fail)
+    # ------------------------- 3c. the same model served weight-only int8
+    int8_launches = int8_serving(torch, card, model, im, requests, outs)
+    del im
 
     # ---------------------------------------- 4. training at full width
     loss_name = "sparse_categorical_crossentropy_with_logits"
@@ -1283,6 +1597,8 @@ def main() -> None:
     ncf_launches, ncf_errs, ncf_times = ncf_phase(torch, card)
     # ---------------------------------- 8. Wide & Deep, census configuration
     wd_launches, wd_errs = wide_deep_phase(torch, card)
+    # --------------------- 9. the cnn TextClassifier, calibrated int8
+    cnn_int8(torch, card)
     for name in ("fused_adam", "fused_sgd"):
         report[name]["max_abs_err"] = max(report[name]["max_abs_err"],
                                           bert_errs[name], ncf_errs[name],
@@ -1295,8 +1611,9 @@ def main() -> None:
                   f"bound_ms {r['bound_ms']:.6f} host_ms {r['host_ms']:.5f} "
                   f"({card})")
 
-    # ------------------------------------------------------- 9. results
-    print(f"launches: serving (4 requests) {serving_launches}; training "
+    # ------------------------------------------------------ 10. results
+    print(f"launches: serving (4 requests) {serving_launches}; int8 "
+          f"weight-only serving (4 requests) {int8_launches}; training "
           f"(fit, 8 steps) {training_launches}; SGD fit (2 steps) "
           f"{sgd_launches}; NeuralCF fit {ncf_launches}; Wide & Deep fit "
           f"{wd_launches}")

@@ -392,3 +392,92 @@ def test_multi_adam_scalars_in_the_kernel_match_torch(dev):
     want = torch.stack([scal for _, scal in plain])
     torch.testing.assert_close(out, want, atol=0, rtol=0, equal_nan=True)
     assert torch.isnan(out[3::4, 0]).all()
+
+
+# ------------------------------------------------------- int8 products
+def _plain_route(fn):
+    """``fn()`` under ``ops.fused=torch``: the int8 products' plain
+    route on the card."""
+    from analytics_zoo_torch.common.config import get_config
+    get_config().set("ops.fused", "torch")
+    try:
+        return fn()
+    finally:
+        get_config().set("ops.fused", "auto")
+
+
+# (M, K, N): rows at and below _int_mm's 16, inner and output dims that
+# are not multiples of 8, and the int8 paths' shapes
+INT8_MM_SHAPES = [(1, 768, 256), (16, 13, 2), (17, 768, 256),
+                  (8192, 128, 64), (33, 96, 2), (4096, 200, 7)]
+
+
+@pytest.mark.parametrize("m,k,n", INT8_MM_SHAPES)
+def test_int8_matmul_card_route_equals_plain(dev, m, k, n):
+    """``torch._int_mm`` (zero padded to its shape rules) against the
+    plain float64 route on the card: exact integers, bit for bit, and the
+    whole quantized product with its epilogue."""
+    from analytics_zoo_torch.ops import quant
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    a = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                      dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                      dtype=torch.int8)
+    got = quant.int8_matmul(a, b)
+    assert got.dtype == torch.int32 and got.is_cuda
+    assert torch.equal(got, _plain_route(lambda: quant.int8_matmul(a, b)))
+    assert torch.equal(got.cpu(), quant.int8_matmul(a.cpu(), b.cpu()))
+    x = _randn(dev, m, k, seed=1)
+    scale = torch.rand(1, n, generator=g, device=dev) * 0.01 + 1e-3
+    act = (x.abs().max() / 127).reshape(())
+    assert torch.equal(quant.quantized_matmul(x, b, scale, act), _plain_route(
+        lambda: quant.quantized_matmul(x, b, scale, act)))
+
+
+# (input shape, kernel shape, strides, padding, dilation, groups)
+INT8_CONV_CASES = [
+    ((8, 500, 200), (5, 200, 256), (1,), "VALID", (1,), 1),
+    ((2, 37, 12), (3, 6, 10), (2,), "SAME", (2,), 2),
+    ((8, 56, 56, 64), (3, 3, 64, 128), (2, 2), "SAME", (1, 1), 1),
+    ((1, 9, 8, 3), (3, 3, 3, 5), (1, 1), "SAME", (2, 2), 1),
+    ((2, 5, 6, 7, 4), (2, 3, 2, 2, 8), (2, 1, 2), "SAME", (1, 1, 1), 2),
+]
+
+
+@pytest.mark.parametrize("xs,ks,strides,padding,dilation,groups",
+                         INT8_CONV_CASES)
+def test_int8_conv_card_route_equals_plain(dev, xs, ks, strides, padding,
+                                           dilation, groups):
+    """The convolution as one ``_int_mm`` product a group over its
+    unfolded taps, against the plain float64 ``conv{1,2,3}d`` on the card
+    and on the CPU: bit for bit."""
+    from analytics_zoo_torch.ops import quant
+    g = torch.Generator(device=dev).manual_seed(len(xs))
+    xq = torch.randint(-127, 128, xs, generator=g, device=dev,
+                       dtype=torch.int8)
+    kq = torch.randint(-127, 128, ks, generator=g, device=dev,
+                       dtype=torch.int8)
+    got = quant.int8_conv(xq, kq, strides, padding, dilation, groups)
+    want = _plain_route(lambda: quant.int8_conv(xq, kq, strides, padding,
+                                                dilation, groups))
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), quant.int8_conv(
+        xq.cpu(), kq.cpu(), strides, padding, dilation, groups))
+
+
+def test_int8_matmul_card_route_every_row_count(dev):
+    """cuBLASLt's int8 product fails at most row counts when its second
+    operand is row-major (seen on an H100 at K 64, N 32); the card route
+    passes it column-major, so every row count from 1 to 140 and a
+    4040-row evaluation batch go through."""
+    from analytics_zoo_torch.ops import quant
+    g = torch.Generator(device=dev).manual_seed(5)
+    for k, n in ((64, 32), (128, 64)):
+        b = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                          dtype=torch.int8)
+        for m in list(range(1, 141)) + [4040]:
+            a = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                              dtype=torch.int8)
+            assert torch.equal(quant.int8_matmul(a, b), _plain_route(
+                lambda: quant.int8_matmul(a, b))), (m, k, n)

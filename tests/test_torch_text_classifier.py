@@ -153,16 +153,31 @@ def test_get_and_set_weights_round_trip():
         tmodel.set_weights(weights[:-1])
 
 
-@pytest.mark.parametrize("encoder", ["cnn", "lstm", "gru"])
+@pytest.mark.parametrize("encoder", ["lstm", "gru"])
 def test_other_encoders_wait_for_their_layers(encoder):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TextClassifier(**{**CONFIG, "encoder": encoder})
 
 
+def test_cnn_encoder_matches_reference(f32_policy):
+    """The cnn encoder (Convolution1D → global max-pool) under this file's
+    CONFIG widths, served through ``InferenceModel`` in both packages."""
+    tdtypes.set_policy(param_dtype="float32", compute_dtype="float32")
+    cnn = {**CONFIG, "encoder": "cnn", "encoder_output_dim": 64}
+    JLayer.reset_name_counters()
+    jmodel = JTextClassifier(**cnn)
+    TLayer.reset_name_counters()
+    tmodel = TextClassifier(**cnn)
+    load_jax_variables(tmodel, jax.tree_util.tree_map(
+        np.asarray, jmodel.get_variables()))
+    x = _tokens()
+    want = JInferenceModel().load_zoo(jmodel).predict(x, batch_size=3)
+    got = InferenceModel().load_zoo(tmodel).predict(x, batch_size=3)
+    assert got.shape == (4, 5)
+    np.testing.assert_allclose(got, np.asarray(want), atol=1e-6, rtol=0)
+
+
 def test_inference_paths_not_ported_raise():
-    _, tmodel = _both_models()
-    with pytest.raises(NotImplementedError):
-        InferenceModel().load_zoo(tmodel, quantize=True)
     with pytest.raises(NotImplementedError):
         InferenceModel().load_torch(None, (3,))
     with pytest.raises(NotImplementedError):
