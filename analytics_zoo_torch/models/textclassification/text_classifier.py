@@ -2,9 +2,11 @@
 embedding (or pretrained ``WordEmbedding``) → encoder → dense head.
 
 Encoders: ``cnn`` (a width-5 ``Convolution1D`` with ReLU, then a global
-max-pool over time) and ``transformer`` (learned positions + ``n_block``
-post-LN encoder blocks → max-pool → fused LayerNorm→GeLU → Dense).  The
-``lstm``/``gru`` encoders wait for the recurrent layers and raise.
+max-pool over time), ``lstm`` and ``gru`` (one recurrent layer of
+``encoder_output_dim`` units whose last hidden state is the encoding;
+``layers/recurrent.py``) and ``transformer`` (learned positions +
+``n_block`` post-LN encoder blocks → max-pool → fused LayerNorm→GeLU →
+Dense).
 
 At BERT-base widths (``token_length=768``, ``n_head=12``,
 ``sequence_length=512``) each forward runs the flash-attention kernel and
@@ -21,14 +23,9 @@ import torch
 from analytics_zoo_torch.models.common import ZooModel
 from analytics_zoo_torch.pipeline.api.keras import Input, Model
 from analytics_zoo_torch.pipeline.api.keras.layers import (
-    Convolution1D, Dense, Dropout, Embedding, GlobalMaxPooling1D, Lambda,
-    LayerNorm, Merge, WordEmbedding, transformer_block,
+    GRU, LSTM, Convolution1D, Dense, Dropout, Embedding, GlobalMaxPooling1D,
+    Lambda, LayerNorm, Merge, WordEmbedding, transformer_block,
 )
-
-_NOT_PORTED = {
-    "lstm": "LSTM",
-    "gru": "GRU",
-}
 
 
 def _position_ids(t: torch.Tensor) -> torch.Tensor:
@@ -38,8 +35,8 @@ def _position_ids(t: torch.Tensor) -> torch.Tensor:
 
 
 class TextClassifier(ZooModel):
-    """encoder: "cnn" | "transformer" ("lstm" and "gru" raise until the
-    recurrent layers are ported); with optional pretrained embeddings.
+    """encoder: "cnn" | "lstm" | "gru" (TextClassifier.scala encoder
+    arg) | "transformer"; with optional pretrained embeddings.
     ``n_head``/``n_block`` apply to the transformer encoder only; its
     width is ``token_length`` (residual stream), the head keeps
     ``encoder_output_dim``."""
@@ -59,13 +56,7 @@ class TextClassifier(ZooModel):
         self.embedding_matrix = embedding_matrix
         self.n_head = int(n_head)
         self.n_block = int(n_block)
-        if self.encoder in _NOT_PORTED:
-            raise NotImplementedError(
-                f"TextClassifier(encoder={self.encoder!r}) needs "
-                f"{_NOT_PORTED[self.encoder]}, not yet ported: see "
-                "ROADMAP.md, queue 1: the recurrent layers, Seq2seq and "
-                "generative serving")
-        if self.encoder not in ("cnn", "transformer"):
+        if self.encoder not in ("cnn", "lstm", "gru", "transformer"):
             raise ValueError(f"unknown encoder {self.encoder!r}; "
                              "use cnn|lstm|gru|transformer")
         if self.encoder == "transformer" and \
@@ -86,6 +77,10 @@ class TextClassifier(ZooModel):
             x = Convolution1D(self.encoder_output_dim, 5,
                               activation="relu")(x)
             x = GlobalMaxPooling1D()(x)
+        elif self.encoder == "lstm":
+            x = LSTM(self.encoder_output_dim)(x)
+        elif self.encoder == "gru":
+            x = GRU(self.encoder_output_dim)(x)
         else:
             x = self._transformer_encoder(inp, x)
         x = Dropout(0.2)(x)

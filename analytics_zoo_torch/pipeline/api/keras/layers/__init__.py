@@ -15,6 +15,9 @@ from analytics_zoo_torch.pipeline.api.keras.layers.normalization import (
 from analytics_zoo_torch.pipeline.api.keras.layers.pooling import (
     GlobalMaxPooling1D,
 )
+from analytics_zoo_torch.pipeline.api.keras.layers.recurrent import (
+    GRU, LSTM, Bidirectional, SimpleRNN,
+)
 from analytics_zoo_torch.pipeline.api.keras.layers.attention import (
     MultiHeadSelfAttention, PositionwiseFeedForward, transformer_block,
 )
@@ -23,4 +26,5 @@ __all__ = ["Dense", "Dropout", "Flatten", "Lambda", "AtrousConvolution1D",
            "AtrousConvolution2D", "Convolution1D", "Convolution2D",
            "Convolution3D", "Embedding", "WordEmbedding", "Merge", "merge",
            "LayerNorm", "GlobalMaxPooling1D", "MultiHeadSelfAttention",
-           "PositionwiseFeedForward", "transformer_block"]
+           "PositionwiseFeedForward", "transformer_block", "SimpleRNN", "LSTM",
+           "GRU", "Bidirectional"]

@@ -337,12 +337,75 @@ class ServingHttpClient:
                  timeout_s: Optional[float] = None,
                  retries: Optional[int] = None,
                  trace=None) -> Dict[str, Any]:
-        """Streaming generate against a generative endpoint.  Not
-        ported yet: raises ``NotImplementedError`` (ROADMAP.md, queue 1)
-        — the PyTorch package has no generative serving."""
-        raise NotImplementedError(
-            "ServingHttpClient.generate: generative serving is not ported "
-            "to the PyTorch package yet (ROADMAP.md, queue 1)")
+        """Streaming generate against a generative endpoint
+        (``POST /generate/<endpoint>``, chunked per-token responses):
+        ``token_ids`` is the int input sequence (padded to the
+        endpoint's ``enc_len``).  Each token is surfaced through
+        ``on_token(index, token)`` the moment its chunk arrives;
+        returns the final doc ``{"tokens": [...], "request_id": ...,
+        "endpoint": ...}``.
+
+        Retry contract matches :meth:`predict_http` (they share one
+        ladder): connection-class failures *establishing* the stream
+        are absorbed up to ``retries`` attempts with exponential
+        backoff + jitter (the request was not admitted yet — retrying
+        is safe); an HTTP status error raises
+        :class:`ServingHttpError` immediately.  A connection dropped
+        MID-stream re-raises without retry: tokens were already
+        delivered, and replaying the sequence is the caller's call,
+        not the client's."""
+        from urllib import request as urlrequest
+        if timeout_s is None:
+            timeout_s = self.timeout_s
+        if retries is None:
+            retries = self.retries
+        rid = request_id or uuid.uuid4().hex
+        payload: Dict[str, Any] = {
+            "data": np.asarray(token_ids, np.int64).tolist(),
+            "dtype": "int32",
+            "uri": uri,
+            "request_id": rid,
+        }
+        if max_tokens:
+            payload["max_tokens"] = int(max_tokens)
+        headers = {"Content-Type": "application/json"}
+        ctx = _stamp_trace(rid, trace, transport="http")
+        if ctx is not None:
+            headers[TRACE_HEADER] = ctx.to_wire()
+        req = urlrequest.Request(
+            f"{self.base_url}/generate/{endpoint}",
+            data=json.dumps(payload).encode(),
+            headers=headers)
+        # only ESTABLISHING the stream retries; once chunks flow the
+        # relay below runs exactly once
+        ts: Dict[str, float] = {}
+        r = self._open_with_retries(req, timeout_s, retries, ts=ts)
+        # relay chunks (urllib undoes the chunked framing; each line
+        # is one JSON event)
+        with r:
+            tokens = []
+            for raw in r:
+                line = raw.strip()
+                if not line:
+                    continue
+                doc = json.loads(line.decode())
+                if "token" in doc:
+                    tokens.append(doc["token"])
+                    if on_token is not None:
+                        on_token(doc.get("index", len(tokens) - 1),
+                                 doc["token"])
+                elif doc.get("error"):
+                    raise ServingHttpError(200, doc["error"], doc)
+                elif doc.get("done"):
+                    doc.setdefault("tokens", tokens)
+                    ts["received_monotonic"] = time.monotonic()
+                    doc.setdefault("client_ts", ts)
+                    return doc
+            # stream ended without a final line: the server died
+            # mid-generation
+            raise ServingHttpError(
+                200, "generate stream ended without a final "
+                     "'done' event", {"tokens": tokens})
 
     def endpoints(self) -> Dict[str, Any]:
         """The worker's registered endpoints (``GET /endpoints``)."""

@@ -14,9 +14,10 @@ the JAX package's ``serving/engine/``).
   endpoint name → ``InferenceModel``, per-endpoint queues with weighted
   scheduling, per-bucket warm-up at model load, top-N postprocess.
 
-The generative layer (``decode.py``: ``DecodeSlotPool``,
-``GenerativeEndpoint``) is not ported yet (ROADMAP.md, queue 1):
-``ServingEngine.register_generative`` raises.
+The generative layer (``decode.py``: :class:`DecodeSlotPool`,
+:class:`GenerativeEndpoint`) schedules sequences one decode iteration at
+a time over a device-resident slot pool
+(``ServingEngine.register_generative``).
 
 :class:`ServingEngine` composes the layers for embedders.
 """
@@ -26,10 +27,12 @@ from analytics_zoo_torch.serving.engine.batcher import (
 from analytics_zoo_torch.serving.engine.executor import (
     Endpoint, EndpointRegistry, ModelExecutor, default_buckets)
 from analytics_zoo_torch.serving.engine.core import ServingEngine
+from analytics_zoo_torch.serving.engine.decode import (
+    DecodeSlotPool, GenerativeEndpoint)
 from analytics_zoo_torch.serving.engine.transport import HttpTransport
 
 __all__ = [
     "ContinuousBatcher", "Request", "Endpoint", "EndpointRegistry",
     "ModelExecutor", "ServingEngine", "HttpTransport",
-    "default_buckets",
+    "default_buckets", "DecodeSlotPool", "GenerativeEndpoint",
 ]

@@ -63,10 +63,13 @@ class ServingEngine:
         ``request_deadline_ms`` > 0 sheds sequences still queued past
         the deadline before they burn a slot (the stateless path's
         admission-control contract, applied at the slot-pool gate)."""
-        raise NotImplementedError(
-            "generative serving (the decode-step scheduler, "
-            "serving/engine/decode.py, and models/seq2seq) is not ported "
-            "to the PyTorch package yet (ROADMAP.md, queue 1)")
+        from analytics_zoo_torch.serving.engine.decode import (
+            GenerativeEndpoint)
+        return self.registry.add(GenerativeEndpoint(
+            name, model, enc_len=enc_len, start_sign=start_sign,
+            stop_sign=stop_sign, max_seq_len=max_seq_len, slots=slots,
+            buckets=buckets, weight=weight,
+            request_deadline_ms=request_deadline_ms))
 
     def endpoints(self) -> List[str]:
         return self.registry.names()

@@ -21,9 +21,9 @@ fields and the result JSON are the JAX package's, byte for byte, so a
 client of either package talks to a server of the other.
 
 Not ported yet (ROADMAP.md, queue 1): ``image`` records (JPEG decode,
-``feature/image``) get an error result like any undecodable record;
-``register_generative_endpoint`` raises; the drain-time flush into a
-launcher run dir waits for the observability aggregator.
+``feature/image``) get an error result like any undecodable record; the
+drain-time flush into a launcher run dir waits for the observability
+aggregator.
 """
 
 from __future__ import annotations
@@ -488,12 +488,24 @@ class ClusterServing:
                                      slots: Optional[int] = None,
                                      buckets=None, weight: int = 1):
         """Register a *generative* model (``Seq2seq``'s decode
-        contract).  Not ported yet: raises ``NotImplementedError``
-        (ROADMAP.md, queue 1)."""
+        contract) under ``name``: records routed to it are token
+        SEQUENCES served by the decode-step scheduler — admitted into
+        a device-resident slot pool, decoded one iteration at a time
+        with EOS early-exit and same-iteration backfill, their results
+        written as the emitted token list.  Stream records may carry a
+        ``max_tokens`` field (client ``enqueue(..., max_tokens=)``)
+        to cap their own sequence."""
+        cfg = self.config
+        # the worker's request_deadline_ms covers this endpoint too:
+        # queued (not-yet-admitted) sequences past the deadline are
+        # shed at the slot-pool gate, as the stateless path sheds
         return self.engine.register_generative(
             name, model, enc_len=enc_len, start_sign=start_sign,
-            stop_sign=stop_sign, max_seq_len=max_seq_len, slots=slots,
-            buckets=buckets, weight=weight)
+            stop_sign=stop_sign, max_seq_len=max_seq_len,
+            slots=cfg.batch_size if slots is None else slots,
+            buckets=buckets or cfg.batch_buckets or (),
+            weight=weight,
+            request_deadline_ms=cfg.request_deadline_ms)
 
     # ----------------------------------------------------------- warm-start
     def warm_start(self) -> bool:

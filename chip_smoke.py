@@ -3,7 +3,8 @@
 each against its plain PyTorch version, serve a full-width transformer
 TextClassifier through ``InferenceModel``, train it through
 ``compile``/``fit``/``evaluate``, and show that both paths went through
-the kernels.
+the kernels; then the recommenders, int8, the recurrent TextClassifier,
+Seq2seq's generative serving and the session recommender.
 
     python3 chip_smoke.py
 
@@ -17,8 +18,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    launches), the plain version's time, a library call's time where one
    PyTorch call computes the same function, and the least time the card
    could take for the same work: flash forward, dQ and dK/dV at
-   (8, 12, 512, 64), bias→GeLU, LayerNorm→GeLU (and its fixed cost at
-   (1, 4)), Adam and SGD on the embedding's 23,440,896-element leaf and a
+   (8, 12, 512, 64), bias→GeLU, LayerNorm→GeLU (with
+   ``torch.nn.functional.layer_norm`` beside it at (4096, 768) with no
+   activation, and its fixed cost at (1, 4)), Adam and SGD on the embedding's 23,440,896-element leaf and a
    small odd one (a one-leaf table through the multi-tensor kernels); the
    flash kernels are also checked at (2, 4, 200, 64)
    and (2, 4, 512, 128), causal and not, and each twice to show two
@@ -75,13 +77,35 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    ``fit`` two epochs at batch 8192 with ``validation_split=0.1`` and
    ``metrics=["accuracy", "auc"]`` (one Adam launch a step for its 11
    leaves; a ``val`` record each epoch), then ``evaluate`` and the Adam
-   and SGD kernels against their plain versions on each of the 11 leaves;
+   and SGD kernels against their plain versions on each of the 11 leaves,
+   and the 11-leaf updates timed as in phase 4;
 9. ``TextClassifier(encoder="cnn")`` at its default widths (tokens 200,
    sequence 500, 256 filters of width 5, 5000 words; 20 classes),
    loaded through ``InferenceModel.load_zoo(quantize="calibrated")`` and
    predicted on 8 x 500 tokens, held to its plain route
    (``ops.fused=torch``) and timed in turns against float32;
-10. a ``kernels`` JSON line, then the device line last.
+10. ``TextClassifier(encoder="lstm"|"gru")`` at the same defaults (one
+   recurrent layer of 256 over 500 steps), seeded weights, served through
+   ``InferenceModel``: logits on the card against the same model on the
+   CPU under float32 (1e-4) and bf16 products (2e-2), request latency in
+   turns with the cnn encoder, launches, device busy time and idle share
+   of one request each from ``torch.profiler`` (in a child process,
+   ``--profile-recurrent``, with one decode iteration of a full 16-slot
+   pool), and weight-only int8 on the lstm against float32;
+11. ``Seq2seq`` at ``bench_serving_generative``'s configuration
+   (vocabulary 512, embedding 64, one LSTM of 192, 64 requests of 12
+   tokens, budgets drawn as there, 16 slots, 32 steps, start 1, stop 2):
+   ``infer`` early exit against scan-then-mask, the 64 requests through
+   ``ServingEngine.register_generative`` + ``warm`` held to ``infer``'s
+   rows under float32 products (up to each row's first top-2 logit margin
+   below 1e-3), the scheduler's tokens/s, iterations, inter-token and
+   first-token latency and occupancy beside the naive whole-sequence path,
+   one streamed ``ServingHttpClient.generate`` and one Redis record with
+   ``max_tokens`` through ``ClusterServing``;
+12. ``SessionRecommender`` at its defaults over MovieLens-1M's 3706 items:
+   ``recommend_for_session`` on 1024 sessions, card against CPU (the same
+   top-5 where scores differ by more than 1e-5), ``predict`` timed;
+13. a ``kernels`` JSON line, then the device line last.
 
 The int8 phases besides 9: 2b holds ``quantized_matmul`` and
 ``quantized_conv`` (``torch._int_mm``, a convolution as one product over
@@ -803,7 +827,9 @@ def ncf_phase(torch, card, users=None, items=None, n_ratings=1_000_000,
 
 def wide_deep_phase(torch, card, rows=1 << 19, batch=WD_BATCH):
     """Phase 8: Wide & Deep at the census configuration, trained with
-    validation and evaluated; returns the launch counts of its ``fit``."""
+    validation and evaluated; the Adam and SGD kernels held and timed on
+    its 11 leaves; returns the launch counts of its ``fit``, the kernels'
+    errors and their times."""
     from analytics_zoo_torch.models.recommendation import (
         ColumnFeatureInfo, WideAndDeep)
     from analytics_zoo_torch.ops import kernels
@@ -867,9 +893,9 @@ def wide_deep_phase(torch, card, rows=1 << 19, batch=WD_BATCH):
         fail(f"wide & deep evaluate scores {scores}")
     print(f"wide & deep: fit 2 epochs in {fit_s:.3f} s ({n_leaves} float32 "
           f"leaves), launches {launches}; evaluate {scores} ({card})")
-    errs = opt_leaves_check(
-        torch, tree_leaves(model.get_variables()["params"]), "Wide & Deep")
-    return launches, errs
+    leaves = tree_leaves(model.get_variables()["params"])
+    errs = opt_leaves_check(torch, leaves, "Wide & Deep")
+    return launches, errs, time_updates(torch, leaves, card, "wide & deep")
 
 
 # The int8 products against their plain routes on the card: both are exact
@@ -1155,6 +1181,579 @@ def cnn_int8(torch, card):
               f" ({card})")
 
 
+# ------------------------------------------- phases 10-12: the recurrent slice
+# Phase 10: the lstm/gru TextClassifier at the reference's defaults (JAX
+# and Scala TextClassifier) with news20's 20 classes.
+RNN_CFG = dict(class_num=20, token_length=200, sequence_length=500,
+               encoder_output_dim=256, max_words_num=5000)
+# Card logits against the same model and weights on the CPU.  Under
+# float32 products cuBLAS and the CPU's BLAS sum each product in another
+# order (~1e-7 relative) and the recurrence carries that through 500 steps:
+# RNN_F32_ATOL.  Under bf16 products a value that such a difference moves
+# across a bf16 rounding boundary moves 2^-8 relative and carries on:
+# RNN_BF16_ATOL, the whole-model bound phase 3 holds.
+RNN_F32_ATOL = 1e-4
+RNN_BF16_ATOL = MODEL_ATOL
+# Phase 11: bench_serving_generative's configuration (bench.py:846-857).
+GEN_VOCAB, GEN_START, GEN_STOP = 512, 1, 2
+GEN_REQUESTS, GEN_SLOTS, GEN_MAX_LEN, GEN_ENC_LEN = 64, 16, 32, 12
+GEN_BUDGETS = ([4, 6, 8, 12, 16, 24, 32], [.25, .2, .2, .15, .1, .05, .05])
+# a served token is held to infer's row only while the greedy choice is
+# clear: up to the first step whose top-2 logit margin is below this
+# (float32 products; batches of other sizes sum in other orders)
+GEN_MARGIN = 1e-3
+# Phase 12: SessionRecommender's class defaults over MovieLens-1M's items;
+# top-5 items compared where their scores are further apart than this
+SESSION_ITEMS = 3706
+RANK_GAP = 1e-5
+
+
+def sync_host_ms(torch, fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def cpu_forward(torch, net, x):
+    """``net``'s forward on a CPU copy of its variables: the same model
+    and weights, the CPU's kernels."""
+    from analytics_zoo_torch.pipeline.api.keras.topology import (
+        to_device, tree_map)
+    v = to_device(net.get_variables(), torch.device("cpu"))
+    with torch.inference_mode():
+        out, _ = net.apply(v["params"], tree_map(torch.from_numpy, x),
+                           state=v["state"])
+    return out.numpy()
+
+
+def recurrent_models(torch):
+    from analytics_zoo_torch.models.textclassification import TextClassifier
+    models = {}
+    for enc in ("lstm", "gru", "cnn"):
+        m = TextClassifier(encoder=enc, **RNN_CFG)
+        m.model.init(torch.Generator().manual_seed(0))
+        models[enc] = m
+    x = np.random.RandomState(4).randint(0, 5001, size=(8, 500)).astype(
+        np.int64)
+    return models, x
+
+
+def spread_logits(params, embedding, head):
+    """The initializers' weights with the embedding table x40 and the
+    output layer's kernel x300.  At the initializers' scale the top-2
+    logits of Seq2seq and SessionRecommender lie ~1e-7 apart, so the
+    order of a sum, not the model, would decide the greedy token or the
+    ranking the card is held to; the recurrences keep their initialized
+    weights, which do not amplify such differences over the steps."""
+    params[embedding]["embeddings"].mul_(40.0)
+    params[head]["kernel"].mul_(300.0)
+
+
+def seq2seq_model(torch):
+    from analytics_zoo_torch.models.seq2seq import Seq2seq
+    m = Seq2seq(vocab_size=GEN_VOCAB, embed_dim=64, hidden_sizes=(192,))
+    m.init(torch.Generator().manual_seed(0))
+    spread_logits(m.get_variables()["params"], m.embedding.name,
+                  m.generator.name)
+    rs = np.random.RandomState(0)
+    enc = rs.randint(3, GEN_VOCAB, (GEN_REQUESTS, GEN_ENC_LEN)).astype(
+        np.int32)
+    budgets = rs.choice(GEN_BUDGETS[0], size=GEN_REQUESTS,
+                        p=GEN_BUDGETS[1]).astype(int)
+    return m, enc, budgets
+
+
+# what a device kernel computes, read from its name: the first of these
+# words it holds (cuBLAS's Hopper GEMMs are named nvjet_*)
+KERNEL_KINDS = ("Memcpy", "Memset", "nvjet", "gemm", "sigmoid", "tanh",
+                "Mul", "add", "sub", "bfloat16_copy", "index_copy",
+                "indexSelect", "index_fill", "ArgMax", "CatArray", "where",
+                "fill", "copy", "compare")
+
+
+def kernel_kind(name: str) -> str:
+    return next((k for k in KERNEL_KINDS if k in name), name[:40])
+
+
+def profile_recurrent() -> None:
+    """``--profile-recurrent``: in a process of its own (a second
+    ``torch.profiler`` session in one process recorded no device events on
+    the H100), one session over one lstm request, one gru request (8 x 500
+    tokens through ``InferenceModel.predict``) and one decode iteration of
+    a full 16-slot pool (``DecodeSlotPool.step_once``), each in a
+    ``record_function`` range that ends with a synchronize.  Prints one
+    JSON line: per range the device kernels launched, memory copies,
+    device busy ms, the range's wall ms and the idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from analytics_zoo_torch import init_zoo_context
+    from analytics_zoo_torch.pipeline.inference import InferenceModel
+    from analytics_zoo_torch.serving.engine import Request
+    from analytics_zoo_torch.serving.engine.decode import GenerativeEndpoint
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a GPU")
+    init_zoo_context(device="cuda:0")
+    models, x = recurrent_models(torch)
+    ims = {enc: InferenceModel().load_zoo(models[enc])
+           for enc in ("lstm", "gru")}
+    m, enc, _ = seq2seq_model(torch)
+    ep = GenerativeEndpoint("chat", m, enc_len=GEN_ENC_LEN,
+                            start_sign=GEN_START, stop_sign=None,
+                            max_seq_len=10_000, slots=GEN_SLOTS)
+    ep.warm()
+    reqs = [Request(endpoint="chat", uri=f"p{i}", data=enc[i])
+            for i in range(GEN_SLOTS)]
+    if ep.pool.admit(reqs) != GEN_SLOTS:
+        fail("profile: the pool admitted fewer than 16 sequences")
+    runs = {"lstm_request": lambda: ims["lstm"].predict(x, batch_size=8),
+            "gru_request": lambda: ims["gru"].predict(x, batch_size=8),
+            "decode_iteration_16": ep.pool.step_once}
+    for fn in runs.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for name, fn in runs.items():
+            with record_function(name):
+                fn()
+                torch.cuda.synchronize()
+    events = prof.events()
+    spans = {e.name: e.time_range for e in events if e.name in runs}
+    placed = {name: [] for name in runs}
+    unplaced = 0
+    for e in events:
+        # the ranges themselves show on the device timeline too
+        if e.device_type != torch.autograd.DeviceType.CUDA or \
+                e.name in runs:
+            continue
+        where = [n for n, r in spans.items()
+                 if r.start <= e.time_range.start <= r.end]
+        if len(where) != 1:
+            unplaced += 1
+            continue
+        placed[where[0]].append(e)
+    out = {}
+    for name, evs in placed.items():
+        copies = [e for e in evs if e.name.startswith(("Memcpy", "Memset"))]
+        by_name = Counter()
+        total = Counter()
+        for e in evs:
+            kind = kernel_kind(e.name)
+            by_name[kind] += 1
+            total[kind] += e.time_range.elapsed_us() * 1e-3
+        # device busy: the union of the events' intervals
+        busy, end = 0.0, -np.inf
+        for s0, e0 in sorted((e.time_range.start, e.time_range.end)
+                             for e in evs):
+            if e0 > end:
+                busy += (e0 - max(s0, end)) * 1e-3
+                end = e0
+        wall = spans[name].elapsed_us() * 1e-3
+        out[name] = dict(
+            launches=len(evs) - len(copies), copies=len(copies),
+            busy_ms=busy, sum_ms=sum(total.values()), wall_ms=wall,
+            idle_share=1.0 - busy / wall,
+            top=[(n, by_name[n], round(t, 4))
+                 for n, t in total.most_common(6)])
+    print(json.dumps({"profile": out, "unplaced": unplaced}))
+
+
+def recurrent_phase(torch, card):
+    """Phase 10: the lstm and gru TextClassifier at the reference width,
+    served through ``InferenceModel``: logits on the card against the
+    same model on the CPU (float32 and bf16 products), request latency in
+    turns with the cnn encoder, launches, busy time and idle share from a
+    profile in a child process, and weight-only int8 on the lstm."""
+    from analytics_zoo_torch.ops import dtypes, kernels
+    from analytics_zoo_torch.pipeline.inference import InferenceModel
+    models, x = recurrent_models(torch)
+    ims = {enc: InferenceModel().load_zoo(m) for enc, m in models.items()}
+    default = dtypes.get_policy()
+    kernels.reset_launch_counts()
+    for enc in ("lstm", "gru"):
+        net = models[enc].model
+        for products, atol in (("float32", RNN_F32_ATOL),
+                               ("bfloat16", RNN_BF16_ATOL)):
+            if products == "float32":
+                dtypes.set_policy("float32", "float32")
+            else:
+                dtypes.restore_policy(default)
+            got = ims[enc].predict(x, batch_size=8)
+            want = cpu_forward(torch, net, x)
+            if got.shape != (8, 20) or not np.isfinite(got).all():
+                fail(f"{enc} TextClassifier output shape {got.shape}")
+            diff = float(np.abs(got - want).max())
+            print(f"{enc} TextClassifier (8 x 500 tokens, {products} "
+                  f"products): card vs CPU logits max abs diff {diff:.3e} "
+                  f"(tolerance {atol}), logits max abs "
+                  f"{float(np.abs(want).max()):.3e}, top-1 agreement "
+                  f"{float(np.mean(got.argmax(-1) == want.argmax(-1))):.3f}")
+            if not diff <= atol:
+                fail(f"{enc} TextClassifier card and CPU logits differ by "
+                     f"{diff} > {atol} under {products} products")
+    dtypes.restore_policy(default)
+    if sum(kernels.launch_counts().values()):
+        fail(f"the recurrent TextClassifier launched a kernel "
+             f"{kernels.launch_counts()}: its path has none")
+    for enc in ("lstm", "gru"):
+        layer = next(l for l in models[enc].model.layers
+                     if l.name.startswith(enc))
+        params = models[enc].get_variables()["params"][layer.name]
+        u = params["recurrent_kernel"].to(default.compute_dtype)
+        gen = torch.Generator(device=u.device).manual_seed(0)
+        xt = torch.randn((8, u.shape[1]), generator=gen, device=u.device)
+        carry = layer.initial_carry(8, u.device)
+
+        def one_step(layer=layer, params=params, u=u, carry=carry, xt=xt):
+            with torch.inference_mode():
+                layer.step(params, u, carry, xt)
+        step = time_ms(torch, one_step)
+        print(f"{enc} timestep (8 x 256, bf16 products) on the device, "
+              f"queued behind a spin: {step:.5f} ms, x 500 steps = "
+              f"{500 * step:.3f} ms of device time a request ({card})")
+    lat = {enc: [] for enc in ims}
+    for enc in ("lstm", "gru", "cnn", "cnn", "gru", "lstm"):
+        ims[enc].predict(x, batch_size=8)
+        for _ in range(4):
+            s0 = time.perf_counter()
+            ims[enc].predict(x, batch_size=8)       # returns host numpy
+            lat[enc].append((time.perf_counter() - s0) * 1e3)
+    for enc, v in lat.items():
+        print(f"{enc} TextClassifier predict (8 x 500 tokens, bf16 "
+              f"products), in turns: median {statistics.median(v):.3f} ms "
+              f"over {[round(t, 3) for t in v]} ({card})")
+    q = InferenceModel().load_zoo(models["lstm"], quantize=True)
+    got, f32 = q.predict(x, batch_size=8), ims["lstm"].predict(x, 8)
+    if got.shape != (8, 20) or not np.isfinite(got).all():
+        fail(f"lstm weight-only int8 output shape {got.shape}")
+    print(f"lstm weight-only int8 vs float32 weights (8 x 500 tokens): "
+          f"top-1 agreement "
+          f"{float(np.mean(got.argmax(-1) == f32.argmax(-1))):.3f}, logits "
+          f"max abs diff {float(np.abs(got - f32).max()):.4e} (logits max "
+          f"abs {float(np.abs(f32).max()):.4e})")
+    del ims, models, q
+    torch.cuda.empty_cache()
+    child = subprocess.run([sys.executable, __file__, "--profile-recurrent"],
+                           capture_output=True, text=True, timeout=600)
+    if child.returncode != 0:
+        fail(f"--profile-recurrent exited {child.returncode}: "
+             f"{child.stderr[-2000:]}")
+    prof = json.loads(child.stdout.strip().splitlines()[-1])
+    if prof["unplaced"]:
+        fail(f"profile: {prof['unplaced']} device events outside the ranges")
+    for name, o in prof["profile"].items():
+        print(f"profile {name} (torch.profiler): {o['launches']} device "
+              f"kernels, {o['copies']} copies, device busy "
+              f"{o['busy_ms']:.4f} ms (kernel durations summed "
+              f"{o['sum_ms']:.4f}) of {o['wall_ms']:.4f} ms wall, idle "
+              f"share {o['idle_share']:.4f}; by kind (count, ms) "
+              f"{o['top']} ({card})")
+    for name in ("lstm_request", "gru_request"):
+        if prof["profile"][name]["launches"] < 500:
+            fail(f"profile {name}: {prof['profile'][name]} — fewer device "
+                 "kernels than timesteps")
+    return prof["profile"]
+
+
+def greedy_margins(torch, m, enc, start, steps):
+    """Seq2seq's greedy decode of ``enc`` on its device: the tokens and, per
+    row and step, the top-2 logit margin the choice was made by."""
+    p = m.get_variables()["params"]
+    ids = torch.from_numpy(enc).to(m._device())
+    toks, margins = [], []
+    with torch.inference_mode():
+        carries = m.prefill(p, ids)
+        tok = torch.full((len(enc),), start, dtype=torch.int32,
+                         device=ids.device)
+        for _ in range(steps):
+            x = m.embedding.call(p[m.embedding.name], tok[:, None])
+            new = []
+            for dec, carry in zip(m.decoder_rnns, carries):
+                x, nc = dec.run(p[dec.name], x, initial_carry=carry)
+                new.append(nc)
+            carries = tuple(new)
+            logits = m.generator.call(p[m.generator.name], x[:, 0])
+            top2 = torch.topk(logits, 2, dim=-1).values
+            margins.append(top2[:, 0] - top2[:, 1])
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            toks.append(tok)
+    return (torch.stack(toks, 1).cpu().numpy(),
+            torch.stack(margins, 1).cpu().numpy())
+
+
+def useful(row, budget, stop=GEN_STOP):
+    """Tokens a client wanted: cut at the budget and after the first stop
+    token (bench_serving_generative's accounting)."""
+    row = [int(t) for t in row[:budget]]
+    return row[:row.index(stop) + 1] if stop in row else row
+
+
+def held_to_infer(what, got, row, margins, budget):
+    """``got`` against ``useful(row, budget)`` up to the first step whose
+    margin is below GEN_MARGIN; returns the steps compared."""
+    want = useful(row, budget)
+    clear = next((k for k, mg in enumerate(margins[:len(want)])
+                  if mg < GEN_MARGIN), len(want))
+    if clear == len(want):
+        ok = got == want
+    else:
+        ok = got[:clear] == want[:clear]
+    if not ok:
+        fail(f"{what}: served tokens {got} != infer's {want} (clear steps "
+             f"{clear})")
+    return clear
+
+
+def generative_phase(torch, card):
+    """Phase 11: Seq2seq at ``bench_serving_generative``'s configuration:
+    ``infer`` early exit against scan-then-mask, the 64 requests through
+    ``ServingEngine.register_generative`` held to ``infer`` under float32
+    products, the scheduler's rates and latencies beside the naive
+    whole-sequence path under the default policy, one streamed
+    ``ServingHttpClient.generate`` and one Redis generative record through
+    ``ClusterServing``."""
+    from analytics_zoo_torch.observability import get_registry
+    from analytics_zoo_torch.ops import dtypes, kernels
+    from analytics_zoo_torch.serving.client import (
+        InputQueue, OutputQueue, ServingHttpClient)
+    from analytics_zoo_torch.serving.engine import Request, ServingEngine
+    from analytics_zoo_torch.serving.redis_client import EmbeddedBroker
+    from analytics_zoo_torch.serving.server import (
+        ClusterServing, ServingConfig)
+    m, enc, budgets = seq2seq_model(torch)
+    kw = dict(start_sign=GEN_START, max_seq_len=GEN_MAX_LEN,
+              stop_sign=GEN_STOP)
+    kernels.reset_launch_counts()
+    fast, steps = m.infer(enc, return_steps=True, **kw)
+    naive = m.infer(enc, early_exit=False, **kw)
+    if not np.array_equal(fast, naive) or not 1 <= steps <= GEN_MAX_LEN:
+        fail(f"seq2seq infer early exit ({steps} steps) differs from "
+             "scan-then-mask")
+    print(f"seq2seq infer (64 x 12 -> 32 tokens): early exit identical to "
+          f"scan-then-mask, {steps} steps of {GEN_MAX_LEN}; rows holding "
+          f"the stop token {int((fast == GEN_STOP).any(1).sum())}")
+
+    default = dtypes.get_policy()
+    dtypes.set_policy("float32", "float32")
+    rows, margins = greedy_margins(torch, m, enc, GEN_START, GEN_MAX_LEN)
+    if not np.array_equal(rows, m.infer(enc, start_sign=GEN_START,
+                                        max_seq_len=GEN_MAX_LEN)):
+        fail("seq2seq: the margin walk and infer disagree")
+    eng = ServingEngine()
+    ep = eng.register_generative(
+        "gen", m, enc_len=GEN_ENC_LEN, start_sign=GEN_START,
+        stop_sign=GEN_STOP, max_seq_len=GEN_MAX_LEN, slots=GEN_SLOTS)
+    warmed = ep.warm()
+    if warmed != 2 * len(ep.pool.buckets):
+        fail(f"generative warm ran {warmed} rungs, want "
+             f"{2 * len(ep.pool.buckets)}")
+    reqs = [Request(endpoint="gen", uri=f"g{i}", data=enc[i],
+                    max_tokens=int(budgets[i])) for i in range(GEN_REQUESTS)]
+    eng.wait_all(eng.submit(reqs), timeout_s=600)
+    eng.stop()
+    covered = total = 0
+    for i, r in enumerate(reqs):
+        if r.error is not None:
+            fail(f"generative request g{i}: {r.error!r}")
+        covered += held_to_infer(f"generative request g{i}", r.result,
+                                 rows[i], margins[i], budgets[i])
+        total += len(useful(rows[i], budgets[i]))
+    print(f"generative engine vs infer (float32 products): 64 requests, "
+          f"{covered} of {total} useful tokens compared (up to each row's "
+          f"first top-2 margin below {GEN_MARGIN}), all equal; smallest "
+          f"margin {float(margins.min()):.3e}; warm ran {warmed} rungs")
+
+    broker = EmbeddedBroker()
+    serving = ClusterServing(None, ServingConfig(
+        batch_size=GEN_SLOTS, consumer_group="g", http_port=0,
+        metrics_host="127.0.0.1"), broker=broker)
+    serving.register_generative_endpoint(
+        "chat", m, enc_len=GEN_ENC_LEN, start_sign=GEN_START,
+        stop_sign=GEN_STOP, max_seq_len=GEN_MAX_LEN)
+    loop = serving.start_background()
+    deadline = time.perf_counter() + 120
+    while serving.http_transport.port is None:
+        if time.perf_counter() > deadline:
+            fail("ClusterServing's HTTP transport did not start")
+        time.sleep(0.01)
+    streamed = []
+    doc = ServingHttpClient(serving.http_transport.url).generate(
+        "chat", enc[0], on_token=lambda i, t: streamed.append(t))
+    if doc["tokens"] != streamed:
+        fail(f"/generate streamed {streamed}, final {doc['tokens']}")
+    n_http = held_to_infer("/generate", doc["tokens"], rows[0], margins[0],
+                           GEN_MAX_LEN)
+    InputQueue(broker=broker).enqueue(
+        "gen-redis", enc[1], endpoint="chat", max_tokens=5)
+    res = OutputQueue(broker=broker).query("gen-redis", timeout_s=120)
+    if not isinstance(res, list) or len(res) > 5:
+        fail(f"redis generative record: result {res}")
+    n_redis = held_to_infer("redis generative record", res, rows[1],
+                            margins[1], 5)
+    serving.stop()
+    loop.join(60)
+    if loop.is_alive():
+        fail("ClusterServing.run did not stop")
+    print(f"ClusterServing generative: /generate streamed {len(streamed)} "
+          f"tokens ({n_http} compared with infer), the Redis record "
+          f"(max_tokens 5) got {res} ({n_redis} compared)")
+    dtypes.restore_policy(default)
+
+    # ---- naive whole-sequence decode against the scheduler, as
+    # bench_serving_generative reads them (default policy)
+    m.infer(enc[:GEN_SLOTS], early_exit=False, **kw)
+    naive_gaps, naive_first, naive_tokens = [], [], 0
+    t0 = time.perf_counter()
+    for lo in range(0, GEN_REQUESTS, GEN_SLOTS):
+        out = m.infer(enc[lo:lo + GEN_SLOTS], early_exit=False, **kw)
+        done = time.perf_counter()
+        for row, budget in zip(out, budgets[lo:lo + GEN_SLOTS]):
+            toks = useful(row, budget)
+            naive_tokens += len(toks)
+            # the whole sequence lands when its batch completes
+            naive_first.append(done - t0)
+            naive_gaps.append(done - t0)
+            naive_gaps.extend([0.0] * (len(toks) - 1))
+    naive_wall = time.perf_counter() - t0
+    naive_steps = -(-GEN_REQUESTS // GEN_SLOTS) * GEN_MAX_LEN
+
+    eng = ServingEngine()
+    ep = eng.register_generative(
+        "chat", m, enc_len=GEN_ENC_LEN, start_sign=GEN_START,
+        stop_sign=GEN_STOP, max_seq_len=GEN_MAX_LEN, slots=GEN_SLOTS)
+    ep.warm()
+    eng.start()
+    times = {i: [] for i in range(GEN_REQUESTS)}
+    # host time inside the pool's two calls (admit: the prefill, queued;
+    # step_once: the step and its one read of the tokens)
+    spent = Counter()
+
+    def timed(name, fn):
+        def run(*args):
+            t = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                spent[name] += time.perf_counter() - t
+                spent[name + " calls"] += 1
+        return run
+    ep.pool.admit = timed("admit", ep.pool.admit)
+    ep.pool.step_once = timed("step_once", ep.pool.step_once)
+
+    def on_token(i):
+        return lambda _idx, _tok: times[i].append(time.perf_counter())
+    t0 = time.perf_counter()
+    reqs = [Request(endpoint="chat", uri=f"t{i}", data=enc[i],
+                    max_tokens=int(budgets[i]), on_token=on_token(i))
+            for i in range(GEN_REQUESTS)]
+    eng.wait_all(eng.submit(reqs), timeout_s=600)
+    sched_wall = time.perf_counter() - t0
+    iterations = ep.pool.iterations
+    occupancy = get_registry().gauge(
+        "serving_slot_occupancy", "active decode slots / pool capacity",
+        labels=("endpoint",)).labels("chat").value
+    eng.stop()
+    if any(r.error is not None for r in reqs):
+        fail("generative timing run: a request failed")
+    sched_tokens = sum(len(r.result) for r in reqs)
+    gaps, first = [], []
+    for i in range(GEN_REQUESTS):
+        first.append(times[i][0] - t0)
+        gaps.append(times[i][0] - t0)
+        gaps.extend(np.diff(times[i]).tolist())
+
+    def pct(v, p):
+        return float(np.percentile(v, p) * 1e3)
+    print(f"generative scheduler (64 requests, 16 slots, bf16 products): "
+          f"{sched_tokens} useful tokens in {sched_wall * 1e3:.3f} ms, "
+          f"{sched_tokens / sched_wall:.1f} tokens/s; {iterations} decode "
+          f"iterations against the naive {naive_steps}; mean occupancy "
+          f"{sched_tokens / (iterations * GEN_SLOTS):.4f}, final slot "
+          f"occupancy {occupancy:.4f}; inter-token p50 {pct(gaps, 50):.3f} "
+          f"p99 {pct(gaps, 99):.3f} ms; first token p50 "
+          f"{pct(first, 50):.3f} p99 {pct(first, 99):.3f} ms; host "
+          f"{sched_wall * 1e3 / iterations:.4f} ms an iteration, of which "
+          f"{spent['admit calls']} admit (prefill) calls "
+          f"{spent['admit'] * 1e3:.3f} ms and {spent['step_once calls']} "
+          f"step_once calls {spent['step_once'] * 1e3:.3f} ms ({card})")
+    p = m.get_variables()["params"]
+    ids = torch.from_numpy(enc).to(m._device())
+    with torch.inference_mode():
+        carries = m.prefill(p, ids[:GEN_SLOTS])
+        tok = torch.full((GEN_SLOTS,), GEN_START, dtype=torch.int32,
+                         device=ids.device)
+        parts = {
+            "prefill of 1 row": lambda: m.prefill(p, ids[:1]),
+            "prefill of 16 rows": lambda: m.prefill(p, ids[:GEN_SLOTS]),
+            "decode_step of 16 lanes": lambda: m.decode_step(p, tok,
+                                                             carries)}
+        for what, fn in parts.items():
+            fn()
+            host = statistics.median(sync_host_ms(torch, fn)
+                                     for _ in range(10))
+            print(f"seq2seq {what}: {host:.4f} ms (host clock to a "
+                  f"synchronize, median of 10; {card})")
+    print(f"generative naive whole-sequence infer (4 batches of 16 x 32 "
+          f"steps): {naive_tokens} useful tokens in {naive_wall * 1e3:.3f} "
+          f"ms, {naive_tokens / naive_wall:.1f} tokens/s; {naive_steps} "
+          f"decode iterations; inter-token p50 {pct(naive_gaps, 50):.3f} "
+          f"p99 {pct(naive_gaps, 99):.3f} ms; first token p50 "
+          f"{pct(naive_first, 50):.3f} p99 {pct(naive_first, 99):.3f} ms "
+          f"({card})")
+    if sum(kernels.launch_counts().values()):
+        fail(f"the generative path launched a kernel "
+             f"{kernels.launch_counts()}: its path has none")
+
+
+def session_phase(torch, card):
+    """Phase 12: SessionRecommender at its class defaults over
+    MovieLens-1M's 3706 items: ``predict`` timed and
+    ``recommend_for_session`` on 1024 sessions, card against CPU."""
+    from analytics_zoo_torch.models.recommendation import SessionRecommender
+    from analytics_zoo_torch.pipeline.api.keras.layers import Embedding
+    m = SessionRecommender(item_count=SESSION_ITEMS)
+    m.model.init(torch.Generator().manual_seed(0))
+    spread_logits(m.get_variables()["params"],
+                  next(l.name for l in m.model.layers
+                       if isinstance(l, Embedding)),
+                  m.model.outputs[0].node.layer.name)
+    sessions = np.random.RandomState(5).randint(
+        1, SESSION_ITEMS + 1, (1024, 5))
+    rec = m.recommend_for_session(sessions, max_items=5)
+    logits = cpu_forward(torch, m.model, [sessions.astype(np.int32)])
+    probs = np.exp(logits - logits.max(-1, keepdims=True))
+    probs /= probs.sum(-1, keepdims=True)
+    order = np.argsort(-probs, axis=-1)[:, :6]
+    compared = 0
+    worst = 0.0
+    for s, (row, top) in enumerate(zip(rec, order)):
+        p = probs[s, top]
+        for k, (item, prob) in enumerate(row):
+            worst = max(worst, abs(prob - float(p[k])))
+            apart = all(abs(p[k] - p[j]) > RANK_GAP
+                        for j in range(6) if j != k)
+            if apart:
+                compared += 1
+                if item != int(top[k]):
+                    fail(f"session {s}: card top-5 {row} vs CPU "
+                         f"{list(zip(top[:5].tolist(), p[:5].tolist()))}")
+    lat = []
+    x = [sessions.astype(np.int32)]
+    m.predict(x, batch_size=1024)
+    for _ in range(8):
+        s0 = time.perf_counter()
+        m.predict(x, batch_size=1024)
+        lat.append((time.perf_counter() - s0) * 1e3)
+    print(f"session recommender (3706 items, 1024 sessions of 5): card top-5 "
+          f"equal to the CPU's at {compared} of {5 * len(rec)} ranks (the "
+          f"rest within {RANK_GAP} of a neighbour), probabilities max abs "
+          f"diff {worst:.3e}; predict median {statistics.median(lat):.3f} "
+          f"ms over {[round(t, 3) for t in lat]} ({card})")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1267,8 +1866,13 @@ def main() -> None:
         plain = time_ms(torch, lambda: fused.layernorm_act_ref(
             x, gamma, beta, 1e-5, act))
         bnd, by = bound_ms((2 * shape[0] * dl + 2 * dl) * 4, 0)
+        # with no activation one library call computes the same function
+        lib = "none (no single call)" if act else "{:.5f}".format(
+            time_ms(torch, lambda: torch.nn.functional.layer_norm(
+                x, (dl,), gamma, beta, 1e-5)))
         print(f"check layernorm_act {shape} act={name} f32: max abs err "
               f"{err:.3e}; kernel_ms {ms:.5f} plain_ms {plain:.5f} "
+              f"library_ms {lib} (torch.nn.functional.layer_norm) "
               f"bound_ms {bnd:.6f} ({card})")
     # the kernel's fixed cost: a launch and one round trip, at (1, 4)
     x1, g1, b1 = randn(1, 4), randn(4) * 0.1 + 1.0, randn(4) * 0.1
@@ -1596,14 +2200,21 @@ def main() -> None:
     # ------------------------------------ 7. NeuralCF at bench_ncf's shape
     ncf_launches, ncf_errs, ncf_times = ncf_phase(torch, card)
     # ---------------------------------- 8. Wide & Deep, census configuration
-    wd_launches, wd_errs = wide_deep_phase(torch, card)
+    wd_launches, wd_errs, wd_times = wide_deep_phase(torch, card)
     # --------------------- 9. the cnn TextClassifier, calibrated int8
     cnn_int8(torch, card)
+    # ------------- 10. the lstm/gru TextClassifier at the reference width
+    recurrent_phase(torch, card)
+    # ---------------- 11. Seq2seq and generative serving, bench config
+    generative_phase(torch, card)
+    # ----------------------- 12. SessionRecommender over ML-1M's items
+    session_phase(torch, card)
     for name in ("fused_adam", "fused_sgd"):
         report[name]["max_abs_err"] = max(report[name]["max_abs_err"],
                                           bert_errs[name], ncf_errs[name],
                                           wd_errs[name])
-    for what, times in (("BERT-base", bert_times), ("NeuralCF", ncf_times)):
+    for what, times in (("BERT-base", bert_times), ("NeuralCF", ncf_times),
+                        ("Wide & Deep", wd_times)):
         for name, r in times.items():
             print(f"time {name} over {what}'s {r['leaves']} leaves: kernel_ms "
                   f"{r['ms']:.5f} update_ms {r['update_ms']:.5f} plain_ms "
@@ -1611,7 +2222,7 @@ def main() -> None:
                   f"bound_ms {r['bound_ms']:.6f} host_ms {r['host_ms']:.5f} "
                   f"({card})")
 
-    # ------------------------------------------------------ 10. results
+    # ------------------------------------------------------ 13. results
     print(f"launches: serving (4 requests) {serving_launches}; int8 "
           f"weight-only serving (4 requests) {int8_launches}; training "
           f"(fit, 8 steps) {training_launches}; SGD fit (2 steps) "
@@ -1634,4 +2245,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--profile-recurrent"]:
+        profile_recurrent()
+    else:
+        main()

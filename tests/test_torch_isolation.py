@@ -1,5 +1,6 @@
 """PyTorch port, isolation: importing the port (and every module of the
-serving, training, Cluster Serving and recommender slices) pulls in
+serving, training, Cluster Serving, recommender and recurrent/generative
+slices) pulls in
 neither ``jax`` nor ``analytics_zoo_tpu``, no port source loads a file of
 the JAX package by path, and the context refuses to fall back to the CPU
 quietly.  Each import check runs in a fresh interpreter, since this
@@ -59,6 +60,10 @@ SLICE_MODULES = [
     "analytics_zoo_torch.serving.cli",
     "analytics_zoo_torch.feature.datasets.movielens",
     "analytics_zoo_torch.models.recommendation",
+    "analytics_zoo_torch.pipeline.api.keras.layers.recurrent",
+    "analytics_zoo_torch.models.seq2seq",
+    "analytics_zoo_torch.models.recommendation.session_recommender",
+    "analytics_zoo_torch.serving.engine.decode",
 ]
 
 

@@ -356,8 +356,56 @@ def test_wide_model_needs_wide_columns():
                                wide_cross_cols=(), wide_cross_dims=())
     with pytest.raises(ValueError, match="wide"):
         WideAndDeep(2, info, "wide")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SessionRecommender(item_count=10)
+
+
+# ------------------------------------------------------ SessionRecommender
+SESSION = dict(item_count=60, item_embed=8, rnn_hidden_layers=(12, 6),
+               session_length=5, mlp_hidden_layers=(10, 6),
+               history_length=7)
+
+
+@pytest.mark.parametrize("include_history", [False, True])
+def test_session_recommender_matches_reference(include_history):
+    """GRU stack over the session (and the mean-pooled history through
+    its MLP): predict logits within 1e-6 and ``recommend_for_session``'s
+    order and probabilities against the JAX package's."""
+    from analytics_zoo_tpu.models.recommendation.session_recommender \
+        import SessionRecommender as JSessionRecommender
+    cfg = dict(SESSION, include_history=include_history)
+    jmodel, tmodel = _shared(lambda: JSessionRecommender(**cfg),
+                             lambda: SessionRecommender(**cfg))
+    params = tmodel.get_variables()["params"]
+    assert sorted(params) == sorted(jmodel.get_variables()["params"])
+    assert tuple(params["gru_1"]["recurrent_kernel"].shape) == (12, 36)
+    rs = np.random.RandomState(0)
+    sessions = rs.randint(1, 61, (30, 5))
+    history = rs.randint(1, 61, (30, 7))
+    x = [sessions, history] if include_history else [sessions]
+    got = tmodel.predict(x, batch_size=8)
+    assert got.shape == (30, 61)
+    np.testing.assert_allclose(
+        got, np.asarray(jmodel.predict(x, batch_size=8)),
+        atol=PREDICT_ATOL, rtol=0)
+    hist = history if include_history else None
+    trec = tmodel.recommend_for_session(sessions, max_items=5,
+                                        history=hist, batch_size=16)
+    jrec = jmodel.recommend_for_session(sessions, max_items=5,
+                                        history=hist, batch_size=16)
+    assert len(trec) == len(jrec) == 30
+    for t_row, j_row in zip(trec, jrec):
+        assert len(t_row) == 5
+        np.testing.assert_allclose([p for _, p in t_row],
+                                   [p for _, p in j_row],
+                                   atol=PREDICT_ATOL, rtol=0)
+        probs = [p for _, p in j_row]
+        for k, ((ti, _), (ji, _)) in enumerate(zip(t_row, j_row)):
+            apart = all(abs(probs[k] - probs[m]) > RANK_GAP
+                        for m in range(5) if m != k)
+            if apart:
+                assert ti == ji
+    if include_history:
+        with pytest.raises(ValueError, match="history"):
+            tmodel.recommend_for_session(sessions)
 
 
 # ------------------------------------------------- validation during fit

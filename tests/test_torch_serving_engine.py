@@ -6,8 +6,9 @@ kill, dead-lettering and the circuit breaker, with duck-typed models.
 
 Where a scenario is deterministic, the same script runs through both
 packages' ``ServingEngine`` and the recorded dispatch sequences (padded
-batch lengths, endpoint order) must be equal.  The parts not ported yet
-(generative serving, image records) must fail explicitly."""
+batch lengths, endpoint order) must be equal.  The part not ported yet
+(image records) must fail explicitly; generative serving has its own file,
+``test_torch_generative_serving.py``."""
 
 import json
 import threading
@@ -591,23 +592,6 @@ def test_worker_idles_on_an_open_breaker_and_recovers():
 
 
 # --------------------------------------- what is not ported fails loudly
-def test_generative_serving_raises_naming_roadmap():
-    s = ClusterServing(ArgmaxLastModel(), ServingConfig(batch_size=2),
-                       broker=EmbeddedBroker())
-    try:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            s.register_generative_endpoint("chat", object(), enc_len=4,
-                                           start_sign=1)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            s.engine.register_generative("chat", object(), enc_len=4,
-                                         start_sign=1)
-        assert s.engine.endpoints() == ["default"]
-    finally:
-        s.close()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingHttpClient("http://127.0.0.1:9").generate("chat", [1, 2])
-
-
 def test_image_record_gets_the_undecodable_record_path():
     """An ``image`` record (not ported) and a record whose ``data`` is
     not a .npy both get an explicit error result, count as errors, are

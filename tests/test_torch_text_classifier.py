@@ -153,12 +153,6 @@ def test_get_and_set_weights_round_trip():
         tmodel.set_weights(weights[:-1])
 
 
-@pytest.mark.parametrize("encoder", ["lstm", "gru"])
-def test_other_encoders_wait_for_their_layers(encoder):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TextClassifier(**{**CONFIG, "encoder": encoder})
-
-
 def test_cnn_encoder_matches_reference(f32_policy):
     """The cnn encoder (Convolution1D → global max-pool) under this file's
     CONFIG widths, served through ``InferenceModel`` in both packages."""
@@ -175,6 +169,116 @@ def test_cnn_encoder_matches_reference(f32_policy):
     got = InferenceModel().load_zoo(tmodel).predict(x, batch_size=3)
     assert got.shape == (4, 5)
     np.testing.assert_allclose(got, np.asarray(want), atol=1e-6, rtol=0)
+
+
+RECURRENT = {**CONFIG, "encoder_output_dim": 64}
+
+
+def _recurrent_models(encoder):
+    cfg = {**RECURRENT, "encoder": encoder}
+    JLayer.reset_name_counters()
+    jmodel = JTextClassifier(**cfg)
+    TLayer.reset_name_counters()
+    tmodel = TextClassifier(**cfg)
+    load_jax_variables(tmodel, jax.tree_util.tree_map(
+        np.asarray, jmodel.get_variables()))
+    return jmodel, tmodel
+
+
+@pytest.mark.parametrize("encoder", ["lstm", "gru"])
+def test_recurrent_encoder_matches_reference(f32_policy, encoder):
+    """The lstm/gru encoders (one recurrent layer over the 256 embedded
+    tokens, its last hidden state the encoding) at this file's CONFIG
+    widths, served through ``InferenceModel`` in both packages."""
+    tdtypes.set_policy(param_dtype="float32", compute_dtype="float32")
+    jmodel, tmodel = _recurrent_models(encoder)
+    layer = f"{encoder}_1"
+    gates = {"lstm": 4, "gru": 3}[encoder]
+    assert tuple(tmodel.get_variables()["params"][layer][
+        "recurrent_kernel"].shape) == (64, gates * 64)
+    x = _tokens()
+    want = JInferenceModel().load_zoo(jmodel).predict(x, batch_size=3)
+    got = InferenceModel().load_zoo(tmodel).predict(x, batch_size=3)
+    assert got.shape == (4, 5)
+    np.testing.assert_allclose(got, np.asarray(want), atol=1e-6, rtol=0)
+    assert sum(kernels.launch_counts().values()) == 0
+
+
+def test_lstm_weight_only_int8_matches_reference(f32_policy):
+    """``quantize=True`` on the lstm model: every float32 leaf of rank >= 2
+    and >= 1024 elements (the recurrent kernels among them) int8 with
+    per-column scales, dequantized in each predict, as the reference."""
+    tdtypes.set_policy(param_dtype="float32", compute_dtype="float32")
+    jmodel, tmodel = _recurrent_models("lstm")
+    x = _tokens()
+    want = JInferenceModel().load_zoo(jmodel, quantize=True).predict(
+        x, batch_size=4)
+    im = InferenceModel().load_zoo(tmodel, quantize=True)
+    lstm = im._variables["params"]["lstm_1"]
+    assert lstm["kernel"].dtype == lstm["recurrent_kernel"].dtype == \
+        torch.int8
+    got = im.predict(x, batch_size=4)
+    np.testing.assert_allclose(got, np.asarray(want), atol=1e-6, rtol=0)
+
+
+def test_lstm_calibrated_int8_carries_the_reference_recurrent_quirk(
+        f32_policy):
+    """The reference's ``quantize_model`` turns every tapped layer's
+    ``kernel`` int8, the LSTM's included, but its recurrent product
+    applies no scale: the LSTM multiplies by the raw int8 values.  The
+    port follows the reference on purpose (ROADMAP.md, queue 3): equal
+    int8 params, equal logits, and logits far from float32's."""
+    tdtypes.set_policy(param_dtype="float32", compute_dtype="float32")
+    jmodel, tmodel = _recurrent_models("lstm")
+    x = _tokens()
+    calib = np.random.RandomState(1).randint(0, 101, size=(8, 256))
+    kw = dict(quantize="calibrated", calib_set=calib, calib_batch_size=4,
+              calib_batches=2)
+    jq = JInferenceModel().load_zoo(jmodel, **kw)
+    tq = InferenceModel().load_zoo(tmodel, **kw)
+    jparams = jq._variables["params"]
+    tparams = tq._variables["params"]
+    quantized = sorted(k for k, p in tparams.items() if "kernel_scale" in p)
+    assert quantized == sorted(k for k, p in jparams.items()
+                               if "kernel_scale" in p)
+    assert "lstm_1" in quantized
+    for layer in quantized:
+        for name in ("kernel", "kernel_scale"):
+            np.testing.assert_array_equal(
+                tparams[layer][name].numpy(),
+                np.asarray(jparams[layer][name]), err_msg=(layer, name))
+    # the LSTM's input range is the embedding's rows, exact in both; the
+    # Denses after it see the recurrence's float32 sums, taken in
+    # another order (one ulp seen)
+    np.testing.assert_array_equal(tparams["lstm_1"]["act_scale"].numpy(),
+                                  np.asarray(jparams["lstm_1"]["act_scale"]))
+    for layer in quantized:
+        np.testing.assert_allclose(tparams[layer]["act_scale"].numpy(),
+                                   np.asarray(jparams[layer]["act_scale"]),
+                                   rtol=1e-6, atol=0, err_msg=layer)
+    assert tparams["lstm_1"]["kernel"].dtype == torch.int8
+    assert tparams["lstm_1"]["recurrent_kernel"].dtype == torch.float32
+    got = tq.predict(x, batch_size=4)
+    np.testing.assert_allclose(got, np.asarray(jq.predict(x, batch_size=4)),
+                               atol=1e-6, rtol=0)
+    # the reference's calibrated tree itself, carried by interop into a
+    # float32 port model, runs quantized to the same logits
+    JLayer.reset_name_counters()
+    TLayer.reset_name_counters()
+    carried = TextClassifier(**{**RECURRENT, "encoder": "lstm"})
+    load_jax_variables(carried, jax.tree_util.tree_map(
+        np.asarray, jq._variables))
+    assert carried.get_variables()["params"]["lstm_1"]["kernel"].dtype == \
+        torch.int8
+    np.testing.assert_allclose(
+        InferenceModel().load_zoo(carried).predict(x, batch_size=4), got,
+        atol=1e-6, rtol=0)
+    f32 = InferenceModel().load_zoo(tmodel).predict(x, batch_size=4)
+    # a scaled int8 product stays inside the bar of 0.1 of the float32
+    # logits' scale that test_torch_quant.py holds calibrated models to;
+    # the raw one does not (seen: 1.19)
+    rel = np.abs(got - f32).max() / np.abs(f32).max()
+    assert rel > 0.5, rel
 
 
 def test_inference_paths_not_ported_raise():
