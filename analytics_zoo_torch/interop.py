@@ -3,9 +3,11 @@
 ``load_jax_variables(model, variables)`` takes the JAX model's
 ``get_variables()`` tree — ``{"params": {layer: {param: array}},
 "state": {...}}`` with every leaf already a numpy array — and loads it
-into the port's model under the same key paths.  Both models must be
-built the same way (same layer order after ``reset_name_counters()``),
-so that their auto-names agree.  Shapes and dtypes are checked, and a
+into the port's model under the same key paths, the ``state``
+collection with the params (BatchNormalization's ``moving_mean`` and
+``moving_var`` under each layer's name; a stateless layer's entry is an
+empty dict).  Both models must be built the same way (same layer order
+after ``reset_name_counters()``), so that their auto-names agree.  Shapes and dtypes are checked, and a
 missing or extra key raises.  A quantized tree (the calibrated int8
 layout of ``ops/quant.py``: a layer with an int8 ``kernel``, a keepdims
 float32 ``kernel_scale`` of shape ``(1, ..., out)`` and a 0-d float32

@@ -1,0 +1,10 @@
+from analytics_zoo_torch.models.image.common import ImageConfigure, ImageModel
+from analytics_zoo_torch.models.image.imageclassification.nets import (
+    ImageClassifier, alexnet, densenet, inception_v1, lenet, load_pretrained,
+    mobilenet, pretrained_configure, resnet, squeezenet, vgg,
+)
+
+__all__ = ["ImageClassifier", "ImageConfigure", "ImageModel", "alexnet",
+           "densenet", "inception_v1", "lenet", "load_pretrained",
+           "mobilenet", "pretrained_configure", "resnet", "squeezenet",
+           "vgg"]

@@ -415,7 +415,11 @@ def build_fused_update(optim, clip=None) -> Optional[Callable]:
     def update(grads, opt_state, params):
         from analytics_zoo_torch.pipeline.api.keras.topology import (
             tree_leaves)
-        flat_p, flat_g = tree_leaves(params), tree_leaves(grads)
+        # a convolution's kernel gradient comes back through the permute
+        # from the (*K, Cin, Cout) kernel to the (Cout, Cin, *K) weight the
+        # convolution takes, strided; the kernels read each leaf densely
+        flat_p = tree_leaves(params)
+        flat_g = [g.contiguous() for g in tree_leaves(grads)]
         # one read sweep for the global norm — the only pre-pass left
         gnorm = None if clip_norm is None else opt.global_norm(flat_g)
         common = dict(gnorm=gnorm, clip_norm=clip_norm or 1.0,

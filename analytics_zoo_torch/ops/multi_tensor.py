@@ -144,7 +144,8 @@ class LeafSet:
                 raise ValueError(
                     "multi-tensor update: a gradient must be a contiguous "
                     f"float32 tensor on {dev} shaped {tuple(shape)}, got "
-                    f"{g.dtype} {tuple(g.shape)} on {g.device}")
+                    f"{g.dtype} {tuple(g.shape)} on {g.device}, contiguous "
+                    f"{g.is_contiguous()}")
         ptrs = np.fromiter((g.data_ptr() for g in grads), dtype=np.int64,
                            count=len(grads))
         for (rows, idx), aligned in zip(self.tables, self._aligned):

@@ -10,8 +10,10 @@ update of ``ops/fused.py`` (the CUDA kernels on the card); with
 ``train.fused_optimizer=false`` or ``ops.fused=off`` it is the
 optimizer's own unfused ``update`` (gradient clipping first).
 
-A step never reads a value back to the host: the loss stays a device
-tensor until the caller reports it.  Each step's dropout generators come
+A step returns the model's new ``state`` (BatchNormalization's moving
+statistics, computed without autograd) beside the params, and never reads
+a value back to the host: the loss stays a device tensor until the caller
+reports it.  Each step's dropout generators come
 from ``step_generator(seed, step, device)``, so a run is reproducible on
 the CPU and on the card alike; ``train_step_at`` makes that generator
 itself from the run's seed and the step's index, as the reference folds

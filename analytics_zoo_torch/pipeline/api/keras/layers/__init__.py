@@ -1,19 +1,23 @@
 from analytics_zoo_torch.pipeline.api.keras.layers.core import (
-    Dense, Dropout, Flatten, Lambda,
+    Activation, Dense, Dropout, Flatten, Lambda,
 )
 from analytics_zoo_torch.pipeline.api.keras.layers.conv import (
     AtrousConvolution1D, AtrousConvolution2D, Convolution1D, Convolution2D,
-    Convolution3D,
+    Convolution3D, SpaceToDepth2D, ZeroPadding1D, ZeroPadding2D,
+    ZeroPadding3D,
 )
 from analytics_zoo_torch.pipeline.api.keras.layers.embedding import (
     Embedding, WordEmbedding,
 )
 from analytics_zoo_torch.pipeline.api.keras.layers.merge import Merge, merge
 from analytics_zoo_torch.pipeline.api.keras.layers.normalization import (
-    LayerNorm,
+    BatchNormalization, LayerNorm,
 )
 from analytics_zoo_torch.pipeline.api.keras.layers.pooling import (
-    GlobalMaxPooling1D,
+    AveragePooling1D, AveragePooling2D, AveragePooling3D,
+    GlobalAveragePooling1D, GlobalAveragePooling2D, GlobalAveragePooling3D,
+    GlobalMaxPooling1D, GlobalMaxPooling2D, GlobalMaxPooling3D,
+    MaxPooling1D, MaxPooling2D, MaxPooling3D,
 )
 from analytics_zoo_torch.pipeline.api.keras.layers.recurrent import (
     GRU, LSTM, Bidirectional, SimpleRNN,
@@ -22,9 +26,21 @@ from analytics_zoo_torch.pipeline.api.keras.layers.attention import (
     MultiHeadSelfAttention, PositionwiseFeedForward, transformer_block,
 )
 
-__all__ = ["Dense", "Dropout", "Flatten", "Lambda", "AtrousConvolution1D",
-           "AtrousConvolution2D", "Convolution1D", "Convolution2D",
-           "Convolution3D", "Embedding", "WordEmbedding", "Merge", "merge",
-           "LayerNorm", "GlobalMaxPooling1D", "MultiHeadSelfAttention",
+# Keras-2 style aliases
+Conv1D = Convolution1D
+Conv2D = Convolution2D
+Conv3D = Convolution3D
+
+__all__ = ["Activation", "Dense", "Dropout", "Flatten", "Lambda",
+           "AtrousConvolution1D", "AtrousConvolution2D", "Convolution1D",
+           "Convolution2D", "Convolution3D", "Conv1D", "Conv2D", "Conv3D",
+           "SpaceToDepth2D", "ZeroPadding1D", "ZeroPadding2D",
+           "ZeroPadding3D", "Embedding", "WordEmbedding", "Merge", "merge",
+           "BatchNormalization", "LayerNorm",
+           "AveragePooling1D", "AveragePooling2D", "AveragePooling3D",
+           "GlobalAveragePooling1D", "GlobalAveragePooling2D",
+           "GlobalAveragePooling3D", "GlobalMaxPooling1D",
+           "GlobalMaxPooling2D", "GlobalMaxPooling3D", "MaxPooling1D",
+           "MaxPooling2D", "MaxPooling3D", "MultiHeadSelfAttention",
            "PositionwiseFeedForward", "transformer_block", "SimpleRNN", "LSTM",
            "GRU", "Bidirectional"]

@@ -15,14 +15,17 @@ smaller half (``ops.quant.conv_padding``).  A layer whose params carry
 ``kernel_scale``/``act_scale`` runs the int8 convolution
 (``ops.quant.quantized_conv``).
 
-The other classes of the reference's module (separable, deconvolution,
-cropping, padding, up-sampling, locally connected) are not ported yet.
+``ZeroPadding1D/2D/3D`` and ``SpaceToDepth2D`` reshape the channels-last
+input as the reference does.  The other classes of the reference's
+module (separable, deconvolution, cropping, up-sampling, share) are not
+ported yet.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -198,3 +201,79 @@ class AtrousConvolution1D(_ConvND):
         super().__init__(nb_filter, (filter_length,),
                          strides=(subsample_length,),
                          dilation=(atrous_rate,), **kwargs)
+
+
+# ------------------------------------------------------ shape-change layers
+def _zero_pad(x, pads):
+    """``x`` (N, *S, C) zero-padded by ``pads``, one (low, high) a
+    spatial dim."""
+    return F.pad(x, (0, 0) + pad_arg(pads))
+
+
+class ZeroPadding1D(Layer):
+    def __init__(self, padding=1, **kwargs):
+        super().__init__(**kwargs)
+        self.padding = (padding, padding) if np.isscalar(padding) \
+            else tuple(padding)
+
+    def call(self, params, x, training=False, rng=None):
+        return _zero_pad(x, (self.padding,))
+
+    def compute_output_shape(self, s):
+        n = None if s[1] is None else s[1] + sum(self.padding)
+        return (s[0], n, s[2])
+
+
+class ZeroPadding2D(Layer):
+    def __init__(self, padding=(1, 1), **kwargs):
+        super().__init__(**kwargs)
+        p = padding
+        if len(p) == 2:
+            self.padding = ((p[0], p[0]), (p[1], p[1]))
+        else:
+            self.padding = ((p[0], p[1]), (p[2], p[3]))
+
+    def call(self, params, x, training=False, rng=None):
+        return _zero_pad(x, self.padding)
+
+    def compute_output_shape(self, s):
+        h = None if s[1] is None else s[1] + sum(self.padding[0])
+        w = None if s[2] is None else s[2] + sum(self.padding[1])
+        return (s[0], h, w, s[3])
+
+
+class ZeroPadding3D(Layer):
+    def __init__(self, padding=(1, 1, 1), **kwargs):
+        super().__init__(**kwargs)
+        self.padding = tuple((p, p) for p in padding)
+
+    def call(self, params, x, training=False, rng=None):
+        return _zero_pad(x, self.padding)
+
+    def compute_output_shape(self, s):
+        dims = tuple(None if s[i + 1] is None
+                     else s[i + 1] + sum(self.padding[i]) for i in range(3))
+        return (s[0],) + dims + (s[4],)
+
+
+class SpaceToDepth2D(Layer):
+    """Pack ``block_size x block_size`` spatial blocks into channels:
+    (B, H, W, C) -> (B, H/bs, W/bs, bs*bs*C), each block's pixels in
+    row-major order, channels innermost (the reference's
+    MLPerf-ResNet stem)."""
+
+    def __init__(self, block_size: int = 2, **kwargs):
+        super().__init__(**kwargs)
+        self.block_size = int(block_size)
+
+    def call(self, params, x, training=False, rng=None):
+        b, h, w, c = x.shape
+        s = self.block_size
+        x = x.reshape(b, h // s, s, w // s, s, c)
+        x = x.permute(0, 1, 3, 2, 4, 5)
+        return x.reshape(b, h // s, w // s, s * s * c)
+
+    def compute_output_shape(self, input_shape):
+        b, h, w, c = input_shape
+        s = self.block_size
+        return (b, h // s, w // s, s * s * c)

@@ -1,4 +1,4 @@
-"""Core layers: Dense, Dropout, Flatten, Lambda (port of
+"""Core layers: Dense, Activation, Dropout, Flatten, Lambda (port of
 ``pipeline/api/keras/layers/core.py``).
 
 Dense rounds its operands to the compute dtype and takes a float32
@@ -69,6 +69,17 @@ class Dense(Layer):
 
     def compute_output_shape(self, input_shape):
         return tuple(input_shape[:-1]) + (self.output_dim,)
+
+
+class Activation(Layer):
+    """An activation (``ops.activations.get``) as a layer of its own."""
+
+    def __init__(self, activation, **kwargs):
+        super().__init__(**kwargs)
+        self.activation = acts.get(activation) or (lambda x: x)
+
+    def call(self, params, x, training=False, rng=None):
+        return self.activation(x)
 
 
 class Dropout(Layer):

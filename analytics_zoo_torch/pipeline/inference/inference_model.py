@@ -5,7 +5,9 @@ One model serves all threads; a semaphore bounds the requests in
 flight, as the reference bounds its pool of model copies.  ``load_zoo``
 places the weights on the zoo context's device once; ``predict`` splits
 the input into batches, pads the last one to the batch shape, and runs
-the model's pure ``apply`` under ``torch.inference_mode()``, recording
+the model's pure ``apply`` in eval mode (BatchNormalization reads its
+moving statistics, so a row's answer does not depend on the rows padded
+beside it) under ``torch.inference_mode()``, recording
 the reference's ``inference_predict`` span and its three metrics.
 ``predict`` and ``warm`` run under ``torch.cuda.device`` of the model's
 device: the current CUDA device is per host thread, and serving calls

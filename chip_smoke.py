@@ -4,7 +4,7 @@ each against its plain PyTorch version, serve a full-width transformer
 TextClassifier through ``InferenceModel``, train it through
 ``compile``/``fit``/``evaluate``, and show that both paths went through
 the kernels; then the recommenders, int8, the recurrent TextClassifier,
-Seq2seq's generative serving and the session recommender.
+Seq2seq's generative serving, the session recommender and ResNet-50.
 
     python3 chip_smoke.py
 
@@ -105,7 +105,26 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 12. ``SessionRecommender`` at its defaults over MovieLens-1M's 3706 items:
    ``recommend_for_session`` on 1024 sessions, card against CPU (the same
    top-5 where scores differ by more than 1e-5), ``predict`` timed;
-13. a ``kernels`` JSON line, then the device line last.
+13. image classification at the JAX ResNet bench's configuration
+   (``benchmarks/resnet.py``: ResNet-50, 1000 classes, 224x224x3):
+   13a ``ImageClassifier("resnet-50")`` served through ``InferenceModel``
+   at batch 32, bf16 and float32 products in turns (median latency,
+   images/s), card against CPU logits under float32 (relative L2 1e-4) and
+   ``predict_image_classes`` through an ``ImageSet`` (center crop, channel
+   normalization; top-5 card against CPU); 13b the ``space_to_depth``-stem
+   net trained through ``train_step`` at batch 128, bf16 products, the
+   bench's SGD (momentum 0.9, warmup then poly) on batches made on the
+   card, 3 untimed and 10 timed steps a turn in turns with
+   ``ops.fused=torch`` (median, spread, images/s, the step's FLOP count
+   from the layers' shapes and its share of the bf16 peak, peak memory),
+   one ``fused_sgd`` launch a step, the loss finite and every BN statistic
+   moved; 13c a 2-step ``fit`` on host numpy data (launches, moving
+   statistics); 13d the Adam and SGD kernels on the 161 leaves against
+   their plain versions (bit-identical) and timed as in phase 4; 13e a
+   child ``python3 chip_smoke.py --profile-resnet`` profiles one training
+   step and one predict (device busy, idle share, device ms by group,
+   launches);
+14. a ``kernels`` JSON line, then the device line last.
 
 The int8 phases besides 9: 2b holds ``quantized_matmul`` and
 ``quantized_conv`` (``torch._int_mm``, a convolution as one product over
@@ -1277,6 +1296,60 @@ def kernel_kind(name: str) -> str:
     return next((k for k in KERNEL_KINDS if k in name), name[:40])
 
 
+def profile_ranges(torch, runs, kind):
+    """One ``torch.profiler`` session (a second one in a process recorded
+    no device events on the H100) over ``runs`` (name -> fn), each in a
+    ``record_function`` range that ends with a synchronize.  Returns
+    ({name: summary}, device events placed in no range); a summary holds
+    the device kernels launched, memory copies, device busy ms (the union
+    of the events' intervals), the kernels' summed ms, the range's wall ms,
+    the idle share and (count, ms) by ``kind(kernel name)``."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for name, fn in runs.items():
+            with record_function(name):
+                fn()
+                torch.cuda.synchronize()
+    events = prof.events()
+    spans = {e.name: e.time_range for e in events if e.name in runs}
+    placed = {name: [] for name in runs}
+    unplaced = 0
+    for e in events:
+        # the ranges themselves show on the device timeline too
+        if e.device_type != torch.autograd.DeviceType.CUDA or \
+                e.name in runs:
+            continue
+        where = [n for n, r in spans.items()
+                 if r.start <= e.time_range.start <= r.end]
+        if len(where) != 1:
+            unplaced += 1
+            continue
+        placed[where[0]].append(e)
+    out = {}
+    for name, evs in placed.items():
+        copies = sum(e.name.startswith(("Memcpy", "Memset")) for e in evs)
+        count, total = Counter(), Counter()
+        for e in evs:
+            count[kind(e.name)] += 1
+            total[kind(e.name)] += e.time_range.elapsed_us() * 1e-3
+        busy, end = 0.0, -np.inf
+        for s0, e0 in sorted((e.time_range.start, e.time_range.end)
+                             for e in evs):
+            if e0 > end:
+                busy += (e0 - max(s0, end)) * 1e-3
+                end = e0
+        wall = spans[name].elapsed_us() * 1e-3
+        out[name] = dict(
+            launches=len(evs) - copies, copies=copies, busy_ms=busy,
+            sum_ms=sum(total.values()), wall_ms=wall,
+            idle_share=1.0 - busy / wall,
+            by_kind=[(k, count[k], round(t, 4))
+                     for k, t in total.most_common()])
+    return out, unplaced
+
+
 def profile_recurrent() -> None:
     """``--profile-recurrent``: in a process of its own (a second
     ``torch.profiler`` session in one process recorded no device events on
@@ -1287,7 +1360,6 @@ def profile_recurrent() -> None:
     JSON line: per range the device kernels launched, memory copies,
     device busy ms, the range's wall ms and the idle share."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
 
     from analytics_zoo_torch import init_zoo_context
     from analytics_zoo_torch.pipeline.inference import InferenceModel
@@ -1313,51 +1385,9 @@ def profile_recurrent() -> None:
             "decode_iteration_16": ep.pool.step_once}
     for fn in runs.values():
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for name, fn in runs.items():
-            with record_function(name):
-                fn()
-                torch.cuda.synchronize()
-    events = prof.events()
-    spans = {e.name: e.time_range for e in events if e.name in runs}
-    placed = {name: [] for name in runs}
-    unplaced = 0
-    for e in events:
-        # the ranges themselves show on the device timeline too
-        if e.device_type != torch.autograd.DeviceType.CUDA or \
-                e.name in runs:
-            continue
-        where = [n for n, r in spans.items()
-                 if r.start <= e.time_range.start <= r.end]
-        if len(where) != 1:
-            unplaced += 1
-            continue
-        placed[where[0]].append(e)
-    out = {}
-    for name, evs in placed.items():
-        copies = [e for e in evs if e.name.startswith(("Memcpy", "Memset"))]
-        by_name = Counter()
-        total = Counter()
-        for e in evs:
-            kind = kernel_kind(e.name)
-            by_name[kind] += 1
-            total[kind] += e.time_range.elapsed_us() * 1e-3
-        # device busy: the union of the events' intervals
-        busy, end = 0.0, -np.inf
-        for s0, e0 in sorted((e.time_range.start, e.time_range.end)
-                             for e in evs):
-            if e0 > end:
-                busy += (e0 - max(s0, end)) * 1e-3
-                end = e0
-        wall = spans[name].elapsed_us() * 1e-3
-        out[name] = dict(
-            launches=len(evs) - len(copies), copies=len(copies),
-            busy_ms=busy, sum_ms=sum(total.values()), wall_ms=wall,
-            idle_share=1.0 - busy / wall,
-            top=[(n, by_name[n], round(t, 4))
-                 for n, t in total.most_common(6)])
+    out, unplaced = profile_ranges(torch, runs, kernel_kind)
+    for o in out.values():
+        o["top"] = o.pop("by_kind")[:6]
     print(json.dumps({"profile": out, "unplaced": unplaced}))
 
 
@@ -1752,6 +1782,364 @@ def session_phase(torch, card):
           f"rest within {RANK_GAP} of a neighbour), probabilities max abs "
           f"diff {worst:.3e}; predict median {statistics.median(lat):.3f} "
           f"ms over {[round(t, 3) for t in lat]} ({card})")
+
+
+# --------------------------------------- phase 13: image classification
+# The JAX ResNet bench's configuration (benchmarks/resnet.py:28-56).
+IMG = (224, 224, 3)
+IMG_CLASSES = 1000
+RESNET_BATCH = 128
+RESNET_UNTIMED = 3
+RESNET_TIMED = 10
+SERVE_BATCH = 32
+# Card against CPU logits under float32 (TF32 off, zoo_context.py): cuDNN
+# and the CPU's convolutions sum each window in other orders (~1e-7
+# relative a convolution), carried through 53 convolutions.
+IMG_F32_RTOL = 1e-4
+# top-5 classes compared where a logit lies further than this share of
+# the largest logit from its neighbours (below it the order may flip on
+# that float32 noise)
+TOP5_GAP = 1e-4
+# the dense bf16 tensor-core peak of one H100 SXM at 700 W (NVIDIA data
+# sheet), for the step's FLOP share
+BF16_FLOPS_PER_S = 989e12
+
+
+def bench_sgd():
+    """``benchmarks/resnet.py``'s optimizer."""
+    from analytics_zoo_torch.pipeline.api.keras.optimizers import (
+        SGD, poly, warmup_then)
+    return SGD(learning_rate=0.1, momentum=0.9, schedule=warmup_then(
+        0.1, 5, poly(0.1, 0.5, max_iteration=10_000)))
+
+
+def resnet_model(torch):
+    """``resnet(50, 1000 classes, 224x224x3, stem="space_to_depth")``
+    with seeded random weights: the net ``run_resnet_bench`` trains."""
+    from analytics_zoo_torch.models.image import resnet
+    m = resnet(50, num_classes=IMG_CLASSES, input_shape=IMG,
+               stem="space_to_depth")
+    m.init(torch.Generator().manual_seed(0))
+    return m
+
+
+def step_flops(model, batch) -> float:
+    """FLOPs of one training step, from the layers' shapes: 2 N Ho Wo Kh
+    Kw Cin/groups Cout a convolution and 2 N in out a Dense, x3 for the
+    forward and the backward (the other layers' elementwise work is left
+    out)."""
+    from analytics_zoo_torch.pipeline.api.keras.layers import (
+        Convolution2D, Dense)
+    total = 0
+    for node in model._topo:
+        layer, out = node.layer, node.outputs[0].shape
+        cin = node.inbound[0].shape[-1]
+        if isinstance(layer, Convolution2D):
+            kh, kw = layer.kernel_size
+            total += 2 * batch * out[1] * out[2] * kh * kw * \
+                cin // layer.groups * out[3]
+        elif isinstance(layer, Dense):
+            total += 2 * batch * cin * out[-1]
+    return 3.0 * total
+
+
+def resnet_train_steps(torch, model, batch, mode, n_untimed, n_timed):
+    """``n_untimed`` then ``n_timed`` steps of ``train_step`` under
+    ``ops.fused=mode`` from the model's variables, each ended by
+    ``torch.cuda.synchronize()``: (timed ms, last loss, final state)."""
+    from analytics_zoo_torch.common.config import get_config
+    from analytics_zoo_torch.parallel.trainer import DistributedTrainer
+    from analytics_zoo_torch.pipeline.api.keras import objectives
+    get_config().set("ops.fused", mode)
+    try:
+        tr = DistributedTrainer(model, objectives.get(
+            "sparse_categorical_crossentropy_with_logits"),
+            optim_method=bench_sgd())
+        v = model.get_variables()
+        params = tr.place_params(v["params"])
+        state = tr.replicate(v["state"])
+        opt_state = tr.init_opt_state(params)
+        out = []
+        for i in range(n_untimed + n_timed):
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            params, opt_state, state, loss = tr.train_step(
+                params, opt_state, state, batch, None)
+            torch.cuda.synchronize()
+            if i >= n_untimed:
+                out.append((time.perf_counter() - s0) * 1e3)
+        return out, float(loss), state
+    finally:
+        get_config().set("ops.fused", "auto")
+
+
+def image_serving(torch, card):
+    """13a: ``ImageClassifier("resnet-50")`` served through
+    ``InferenceModel``: latency and images/s at batch 32 under bf16 and
+    float32 products in turns, card against CPU logits under float32,
+    ``predict_image_classes`` through an ``ImageSet``."""
+    from analytics_zoo_torch.feature.image import (
+        ImageCenterCrop, ImageChannelNormalize, ImageSet)
+    from analytics_zoo_torch.models.image import (
+        ImageClassifier, ImageConfigure)
+    from analytics_zoo_torch.ops import dtypes, kernels
+    from analytics_zoo_torch.pipeline.inference import InferenceModel
+    m = ImageClassifier("resnet-50", num_classes=IMG_CLASSES,
+                        input_shape=IMG, config=ImageConfigure(
+                            preprocessor=ImageCenterCrop(*IMG[:2]) >>
+                            ImageChannelNormalize(123.0, 117.0, 104.0,
+                                                  58.4, 57.1, 57.4)))
+    m.model.init(torch.Generator().manual_seed(0))
+    im = InferenceModel().load_zoo(m)
+    x = np.random.RandomState(13).randn(SERVE_BATCH, *IMG).astype(
+        np.float32)
+    shape = "x".join(map(str, IMG))
+    default = dtypes.get_policy()
+    policies = {"bf16": lambda: dtypes.restore_policy(default),
+                "float32": lambda: dtypes.set_policy("float32", "float32")}
+    kernels.reset_launch_counts()
+    lat = {k: [] for k in policies}
+    for name in ("bf16", "float32", "float32", "bf16"):
+        policies[name]()
+        im.predict(x, batch_size=SERVE_BATCH)
+        for _ in range(5):
+            s0 = time.perf_counter()
+            out = im.predict(x, batch_size=SERVE_BATCH)   # host numpy
+            lat[name].append((time.perf_counter() - s0) * 1e3)
+        if out.shape != (SERVE_BATCH, IMG_CLASSES) or \
+                not np.isfinite(out).all():
+            fail(f"resnet-50 predict ({name}) output shape {out.shape}")
+    if sum(kernels.launch_counts().values()):
+        fail(f"ResNet-50 predict launched a kernel "
+             f"{kernels.launch_counts()}: its path has none")
+    for name, v in lat.items():
+        med = statistics.median(v)
+        print(f"resnet-50 predict, batch {SERVE_BATCH} x {shape}, {name} "
+              f"products, in turns: median {med:.3f} ms over "
+              f"{[round(t, 3) for t in v]}, {SERVE_BATCH * 1e3 / med:.1f} "
+              f"images/s ({card})")
+    # card against CPU, float32 products
+    policies["float32"]()
+    got = im.predict(x[:2], batch_size=2)
+    want = cpu_forward(torch, m.model, x[:2])
+    err = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    print(f"resnet-50 card vs CPU logits (2 images, float32 products): "
+          f"relative L2 {err:.3e} (tolerance {IMG_F32_RTOL}), logits max "
+          f"abs {float(np.abs(want).max()):.3e}")
+    if not err <= IMG_F32_RTOL:
+        fail(f"resnet-50 card and CPU logits differ: relative L2 {err}")
+    # predict_image_classes through an ImageSet, card against CPU
+    side = IMG[0] + 32
+    raw = np.random.RandomState(14).randint(0, 256, (8, side, side, 3)).astype(
+        np.uint8)
+    images = ImageSet.from_ndarrays(raw)
+    top = m.predict_image_classes(images, top_k=5)
+    batch = np.stack(images.transform(m.config.preprocessor).images)
+    logits = cpu_forward(torch, m.model, batch.astype(np.float32))
+    order = np.argsort(-logits, axis=-1)[:, :6]
+    compared = 0
+    for r, (row, ref) in enumerate(zip(top, order)):
+        scale = float(np.abs(logits[r]).max())
+        for k in range(5):
+            gaps = [abs(logits[r, ref[k]] - logits[r, ref[j]])
+                    for j in range(6) if j != k]
+            if min(gaps) > TOP5_GAP * scale:
+                compared += 1
+                if int(row[k]) != int(ref[k]):
+                    fail(f"image {r}: card top-5 {list(row)} vs CPU "
+                         f"{list(ref[:5])}")
+    print(f"resnet-50 predict_image_classes (8 images {side}x{side} through "
+          f"ImageCenterCrop + ImageChannelNormalize, float32 products): card "
+          f"top-5 equal to the CPU's at {compared} of 40 ranks compared (the "
+          f"rest within {TOP5_GAP} of the largest logit of a neighbour)")
+    dtypes.restore_policy(default)
+    del im, m
+    torch.cuda.empty_cache()
+
+
+def image_phase(torch, card, dev):
+    """Phase 13: ResNet-50 served (13a), trained at the bench's
+    configuration through ``train_step`` in turns with ``ops.fused=torch``
+    (13b), through ``fit`` (13c), its 161-leaf SGD update held and timed
+    (13d), and profiled in a child process (13e).  Returns the launches of
+    the timed ``auto`` steps, the SGD check's errors and its times."""
+    from analytics_zoo_torch.ops import dtypes, kernels
+    from analytics_zoo_torch.pipeline.api.keras.topology import (
+        tree_leaves, tree_map)
+    image_serving(torch, card)
+    # ---- 13b: training at the bench's configuration
+    dtypes.restore_policy(None)
+    if dtypes.get_policy().compute_dtype != torch.bfloat16:
+        fail("the default policy is not bf16 compute over float32 params")
+    model = resnet_model(torch)
+    start = tree_map(torch.clone, model.get_variables())
+    leaves = tree_leaves(start["params"])
+    n_params = sum(int(p.numel()) for p in leaves)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    batch = (torch.randn((RESNET_BATCH,) + IMG, generator=gen, device=dev),
+             torch.randint(0, IMG_CLASSES, (RESNET_BATCH,), generator=gen,
+                           device=dev))
+    flops = step_flops(model, RESNET_BATCH)
+    shape = "x".join(map(str, IMG))
+    print(f"resnet-50 (space_to_depth stem, 1000 classes): {n_params} params "
+          f"in {len(leaves)} float32 leaves, "
+          f"{len(tree_leaves(start['state']))} BN statistics; a training "
+          f"step of {RESNET_BATCH} x {shape} is {flops:.4e} FLOP "
+          f"(convolutions and the Dense, forward x3)")
+    steps = {"auto": [], "torch": []}
+    torch.cuda.reset_peak_memory_stats()
+    for mode in ("auto", "torch", "torch", "auto"):
+        kernels.reset_launch_counts()
+        ms, loss, state = resnet_train_steps(torch, model, batch, mode,
+                                             RESNET_UNTIMED, RESNET_TIMED)
+        launches = kernels.launch_counts()
+        n = RESNET_UNTIMED + RESNET_TIMED
+        want = {"fused_sgd": n if mode == "auto" else 0}
+        expect_launches(launches, want, f"resnet-50 train_step ({mode})")
+        if not np.isfinite(loss):
+            fail(f"resnet-50 step loss {loss} under ops.fused={mode}")
+        moved = sum(not torch.equal(a, b) for a, b in zip(
+            tree_leaves(state), tree_leaves(start["state"])))
+        if moved != len(tree_leaves(start["state"])):
+            fail(f"resnet-50: {moved} of 106 BN statistics changed")
+        steps[mode] += ms
+        if mode == "auto":
+            train_launches = launches
+    peak = torch.cuda.max_memory_allocated()
+    for mode, v in steps.items():
+        med = statistics.median(v)
+        print(f"resnet-50 training step ops.fused={mode}, batch "
+              f"{RESNET_BATCH} x {shape}, bf16 products, bench SGD: median "
+              f"{med:.3f} ms (min {min(v):.3f}, max {max(v):.3f}) over "
+              f"{[round(t, 3) for t in v]}, {RESNET_BATCH * 1e3 / med:.1f} "
+              f"images/s, {flops / (med * 1e-3) / 1e12:.2f} TFLOP/s = "
+              f"{flops / (med * 1e-3) / BF16_FLOPS_PER_S:.4f} of the dense "
+              f"bf16 peak 989 TFLOP/s ({card})")
+    print(f"resnet-50 training: last loss {loss:.5f}, all 106 BN statistics "
+          f"moved, launches of a turn of {RESNET_UNTIMED + RESNET_TIMED} "
+          f"steps {train_launches}; torch.cuda.max_memory_allocated "
+          f"{peak / 2**30:.3f} GiB")
+    # ---- 13c: the normal entry point, fit on host numpy data
+    model.set_variables(tree_map(torch.clone, start))
+    model.compile(bench_sgd(), "sparse_categorical_crossentropy_with_logits")
+    rs = np.random.RandomState(15)
+    hx = rs.randn(2 * 64, *IMG).astype(np.float32)
+    hy = rs.randint(0, IMG_CLASSES, 2 * 64).astype(np.int64)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    history = model.fit(hx, hy, batch_size=64, nb_epoch=1, rng=0)
+    fit_s = time.perf_counter() - t0
+    fit_launches = kernels.launch_counts()
+    expect_launches(fit_launches, {"fused_sgd": 2}, "resnet-50 fit")
+    after = tree_leaves(model.get_variables()["state"])
+    moved = sum(not torch.equal(a, b) for a, b in zip(
+        after, tree_leaves(start["state"])))
+    if not np.isfinite(history[0]["loss"]) or moved != len(after):
+        fail(f"resnet-50 fit: history {history}, {moved} statistics moved")
+    print(f"resnet-50 fit: 2 steps of 64 on host numpy in {fit_s:.3f} s "
+          f"(first epoch, warm-up included), loss "
+          f"{history[0]['loss']:.5f}, launches {fit_launches}; moving "
+          f"statistics changed by fit: {moved} of {len(after)}")
+    del model, batch, hx
+    torch.cuda.empty_cache()
+    # ---- 13d: the SGD kernel at ResNet-50's 161 leaves
+    errs = opt_leaves_check(torch, leaves, "ResNet-50")
+    times = time_updates(torch, leaves, card, "ResNet-50")
+    del start, leaves
+    torch.cuda.empty_cache()
+    # ---- 13e: one training step and one predict profiled
+    child = subprocess.run([sys.executable, __file__, "--profile-resnet"],
+                           capture_output=True, text=True, timeout=600)
+    if child.returncode != 0:
+        fail(f"--profile-resnet exited {child.returncode}: "
+             f"{child.stderr[-2000:]}")
+    prof = json.loads(child.stdout.strip().splitlines()[-1])
+    if prof["unplaced"]:
+        fail(f"profile: {prof['unplaced']} device events outside the ranges")
+    for name, o in prof["profile"].items():
+        print(f"profile {name} (torch.profiler): {o['launches']} device "
+              f"kernels, {o['copies']} copies, device busy "
+              f"{o['busy_ms']:.4f} ms (kernel durations summed "
+              f"{o['sum_ms']:.4f}) of {o['wall_ms']:.4f} ms wall, idle share "
+              f"{o['idle_share']:.4f}; by group (group, count, ms) "
+              f"{o['by_kind']} ({card})")
+    step = prof["profile"]["resnet50_train_step"]["by_kind"]
+    if [c for g, c, _ in step if g == "sgd"] != [1]:
+        fail(f"profile: the training step ran {step}, want one multi_sgd")
+    return train_launches, errs, times
+
+
+# what a ResNet device kernel is, read from its name: the first group
+# whose words it holds
+RESNET_GROUPS = (
+    ("sgd", ("multi_sgd",)),
+    ("copies", ("Memcpy", "Memset")),
+    ("layout", ("nchwToNhwc", "nhwcToNchw", "Nhwc2Nchw", "Nchw2Nhwc",
+                "convertTensor", "transpose")),
+    ("pooling", ("pool", "Pool")),
+    ("convolution", ("conv", "Conv", "cudnn", "xmma", "implicit", "wgrad",
+                     "dgrad", "fprop", "sm90", "nvjet", "gemm", "Gemm")),
+    ("reductions", ("reduce", "Reduce")),
+    # PyTorch's elementwise kernel for operands it cannot vectorize
+    # (broadcast or strided)
+    ("elementwise, not vectorized", ("native::elementwise_kernel",)),
+    ("elementwise", ("elementwise", "Elementwise", "copy", "fill",
+                     "where", "clamp")),
+)
+
+
+def resnet_group(name: str) -> str:
+    return next((g for g, words in RESNET_GROUPS
+                 if any(w in name for w in words)), "other")
+
+
+def profile_resnet() -> None:
+    """``--profile-resnet``: in a process of its own (one
+    ``torch.profiler`` session a process), one ResNet-50 training step at
+    the bench's configuration (``train_step``, batch 128, bf16 products)
+    and one ``InferenceModel.predict`` of 32 images, each in a
+    ``record_function`` range that ends with a synchronize, after warm-up
+    steps.  Prints one JSON line: per range the device kernels, copies,
+    device busy ms, wall ms, idle share and device ms by group
+    (``RESNET_GROUPS``)."""
+    import torch
+
+    from analytics_zoo_torch import init_zoo_context
+    from analytics_zoo_torch.parallel.trainer import DistributedTrainer
+    from analytics_zoo_torch.pipeline.api.keras import objectives
+    from analytics_zoo_torch.pipeline.inference import InferenceModel
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a GPU")
+    ctx = init_zoo_context(device="cuda:0")
+    dev = ctx.device
+    model = resnet_model(torch)
+    tr = DistributedTrainer(model, objectives.get(
+        "sparse_categorical_crossentropy_with_logits"),
+        optim_method=bench_sgd())
+    v = model.get_variables()
+    params = tr.place_params(v["params"])
+    st = {"state": tr.replicate(v["state"]),
+          "opt": tr.init_opt_state(params)}
+    gen = torch.Generator(device=dev).manual_seed(13)
+    batch = (torch.randn((RESNET_BATCH,) + IMG, generator=gen, device=dev),
+             torch.randint(0, IMG_CLASSES, (RESNET_BATCH,), generator=gen,
+                           device=dev))
+
+    def train_step():
+        _, st["opt"], st["state"], _ = tr.train_step(
+            params, st["opt"], st["state"], batch, None)
+
+    im = InferenceModel().load_zoo(model)
+    x = np.random.RandomState(13).randn(SERVE_BATCH, *IMG).astype(
+        np.float32)
+    runs = {"resnet50_train_step": train_step,
+            "resnet50_predict_32": lambda: im.predict(
+                x, batch_size=SERVE_BATCH)}
+    for fn in runs.values():
+        for _ in range(3):
+            fn()
+    out, unplaced = profile_ranges(torch, runs, resnet_group)
+    print(json.dumps({"profile": out, "unplaced": unplaced}))
 
 
 def main() -> None:
@@ -2209,12 +2597,14 @@ def main() -> None:
     generative_phase(torch, card)
     # ----------------------- 12. SessionRecommender over ML-1M's items
     session_phase(torch, card)
+    # ------------------- 13. image classification: ResNet-50 at the bench
+    img_launches, img_errs, img_times = image_phase(torch, card, dev)
     for name in ("fused_adam", "fused_sgd"):
         report[name]["max_abs_err"] = max(report[name]["max_abs_err"],
                                           bert_errs[name], ncf_errs[name],
-                                          wd_errs[name])
+                                          wd_errs[name], img_errs[name])
     for what, times in (("BERT-base", bert_times), ("NeuralCF", ncf_times),
-                        ("Wide & Deep", wd_times)):
+                        ("Wide & Deep", wd_times), ("ResNet-50", img_times)):
         for name, r in times.items():
             print(f"time {name} over {what}'s {r['leaves']} leaves: kernel_ms "
                   f"{r['ms']:.5f} update_ms {r['update_ms']:.5f} plain_ms "
@@ -2222,16 +2612,17 @@ def main() -> None:
                   f"bound_ms {r['bound_ms']:.6f} host_ms {r['host_ms']:.5f} "
                   f"({card})")
 
-    # ------------------------------------------------------ 13. results
+    # ------------------------------------------------------ 14. results
     print(f"launches: serving (4 requests) {serving_launches}; int8 "
           f"weight-only serving (4 requests) {int8_launches}; training "
           f"(fit, 8 steps) {training_launches}; SGD fit (2 steps) "
           f"{sgd_launches}; NeuralCF fit {ncf_launches}; Wide & Deep fit "
-          f"{wd_launches}")
+          f"{wd_launches}; ResNet-50 train_step (a turn of "
+          f"{RESNET_UNTIMED + RESNET_TIMED} steps) {img_launches}")
     for name, r in report.items():
-        # the training path runs every kernel but SGD's, which its own fit
-        # runs
-        r["launches"] = (sgd_launches if name == "fused_sgd"
+        # the transformer's training path runs every kernel but SGD's, which
+        # the ResNet-50 training steps run
+        r["launches"] = (img_launches if name == "fused_sgd"
                          else training_launches)[name]
     line = {"kernels": [{"name": n, **{key: r[key] for key in (
         "route", "source", "replaces", "launches", "max_abs_err", "ms",
@@ -2247,5 +2638,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--profile-recurrent"]:
         profile_recurrent()
+    elif sys.argv[1:] == ["--profile-resnet"]:
+        profile_resnet()
     else:
         main()

@@ -1,0 +1,365 @@
+"""PyTorch port, the image slice's layers and pipeline: ``Activation``,
+``BatchNormalization`` (training with its new moving statistics, eval,
+float32 and bf16 activations, gradients against ``jax.grad``), every
+pooling class (``valid`` and ``same`` at odd sizes with stride 2),
+``ZeroPadding1D/2D/3D`` and ``SpaceToDepth2D``, each built in both
+packages on the same params and inputs; and the numpy image transforms,
+``ImageSet`` and the preprocessing chain against the JAX package's with
+the same seeds."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from analytics_zoo_tpu.feature import common as jcommon
+from analytics_zoo_tpu.feature import image as jimage
+from analytics_zoo_tpu.pipeline.api.keras import layers as jlayers
+
+from analytics_zoo_torch.common import config as tconfig
+from analytics_zoo_torch.common import zoo_context as tctx
+from analytics_zoo_torch.feature import common as tcommon
+from analytics_zoo_torch.feature import image as timage
+from analytics_zoo_torch.ops import dtypes as tdtypes
+from analytics_zoo_torch.pipeline.api.keras import layers as tlayers
+
+# one float32 layer: the two frameworks sum a reduction in other orders
+# (~1e-7 relative); BN's outputs reach ~8, where a float32 step is 4.8e-7,
+# so they are held to F32_ATOL plus F32_RTOL of the value (seen: 1.9e-6 on
+# a value of 8.1, two steps)
+F32_ATOL = 1e-6
+F32_RTOL = 1e-6
+# bf16 activations: the same bf16 inputs and float32 statistics, each
+# result rounded to bf16 (a step of 2^-8 relative) in other orders
+BF16_ATOL = 2e-2
+# gradients through BN's statistics (float32, other summation orders)
+GRAD_ATOL = 1e-5
+
+
+@pytest.fixture(autouse=True)
+def _port_cpu(f32_policy):
+    tctx.reset_zoo_context()
+    tconfig.reset_config()
+    tdtypes.restore_policy(None)
+    tctx.init_zoo_context(device="cpu")
+    tdtypes.set_policy(param_dtype="float32", compute_dtype="float32")
+    yield
+    tdtypes.restore_policy(None)
+    tctx.reset_zoo_context()
+    tconfig.reset_config()
+
+
+def _np(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _torch(tree):
+    return jax.tree_util.tree_map(lambda a: torch.from_numpy(np.array(a)),
+                                  tree)
+
+
+def _pair(name, *args, shape, **kwargs):
+    jl = getattr(jlayers, name)(*args, **kwargs)
+    tl = getattr(tlayers, name)(*args, **kwargs)
+    jv = _np(jl.init(jax.random.PRNGKey(0), shape))
+    tv = tl.init(torch.Generator().manual_seed(0), shape)
+    assert jax.tree_util.tree_map(lambda a: tuple(a.shape), jv) == \
+        jax.tree_util.tree_map(lambda a: tuple(a.shape), tv)
+    return jl, tl, jv
+
+
+# ------------------------------------------------------------ Activation
+@pytest.mark.parametrize("name", ["relu", "relu6", "tanh", "linear", None])
+def test_activation_matches_reference(name):
+    jl, tl, _ = _pair("Activation", name, shape=(5, 4))
+    x = np.random.RandomState(0).randn(3, 5, 4).astype(np.float32) * 5
+    want, _ = jl.apply({}, jnp.asarray(x))
+    got, _ = tl.apply({}, torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=F32_ATOL,
+                               rtol=0)
+
+
+# ---------------------------------------------------- BatchNormalization
+BN_SHAPE = (5, 7, 3)
+
+
+def _bn_inputs(seed=0):
+    """Params and moving statistics away from their initial values, and a
+    batch away from zero mean and unit variance."""
+    rs = np.random.RandomState(seed)
+    params = {"gamma": rs.randn(3).astype(np.float32),
+              "beta": rs.randn(3).astype(np.float32)}
+    state = {"moving_mean": rs.randn(3).astype(np.float32),
+             "moving_var": rs.rand(3).astype(np.float32) + 0.5}
+    x = (rs.randn(4, *BN_SHAPE) * 3 + 1.5).astype(np.float32)
+    return params, state, x
+
+
+def test_batchnorm_init_state_is_the_reference():
+    _, _, jv = _pair("BatchNormalization", shape=BN_SHAPE)
+    tl = tlayers.BatchNormalization()
+    tv = tl.init(torch.Generator().manual_seed(0), BN_SHAPE)
+    for col in ("params", "state"):
+        for k in jv[col]:
+            np.testing.assert_array_equal(tv[col][k].numpy(), jv[col][k])
+            assert tv[col][k].dtype == torch.float32
+
+
+@pytest.mark.parametrize("training", [True, False])
+@pytest.mark.parametrize("kwargs", [{}, dict(scale=False, center=False),
+                                    dict(epsilon=1e-5, momentum=0.9)],
+                         ids=["default", "no_affine", "eps_momentum"])
+def test_batchnorm_matches_reference_f32(training, kwargs):
+    jl, tl, _ = _pair("BatchNormalization", shape=BN_SHAPE, **kwargs)
+    params, state, x = _bn_inputs()
+    params = {k: v for k, v in params.items()
+              if (k == "gamma" and jl.scale) or (k == "beta" and jl.center)}
+    want, wstate = jl.apply(params, jnp.asarray(x), state=state,
+                            training=training)
+    got, gstate = tl.apply(_torch(params), torch.from_numpy(x),
+                           state=_torch(state), training=training)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=F32_ATOL,
+                               rtol=F32_RTOL)
+    for k in ("moving_mean", "moving_var"):
+        np.testing.assert_allclose(gstate[k].numpy(), np.asarray(wstate[k]),
+                                   atol=F32_ATOL, rtol=0, err_msg=k)
+        assert not gstate[k].requires_grad
+    if not training:
+        assert gstate is not None and all(
+            np.array_equal(gstate[k].numpy(), state[k]) for k in state)
+
+
+@pytest.mark.parametrize("training", [True, False])
+def test_batchnorm_matches_reference_bf16(training):
+    jl, tl, _ = _pair("BatchNormalization", shape=BN_SHAPE)
+    params, state, x = _bn_inputs(1)
+    want, wstate = jl.apply(params, jnp.asarray(x, jnp.bfloat16),
+                            state=state, training=training)
+    got, gstate = tl.apply(_torch(params),
+                           torch.from_numpy(x).to(torch.bfloat16),
+                           state=_torch(state), training=training)
+    assert want.dtype == jnp.bfloat16 and got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=BF16_ATOL,
+                               rtol=0)
+    # the statistics are float32 of the same bf16 values
+    for k in ("moving_mean", "moving_var"):
+        assert gstate[k].dtype == torch.float32
+        np.testing.assert_allclose(gstate[k].numpy(), np.asarray(wstate[k]),
+                                   atol=F32_ATOL, rtol=0, err_msg=k)
+
+
+def test_batchnorm_training_gradients_match_jax_grad():
+    jl, tl, _ = _pair("BatchNormalization", shape=BN_SHAPE)
+    params, state, x = _bn_inputs(2)
+    w = np.random.RandomState(3).randn(4, *BN_SHAPE).astype(np.float32)
+
+    def jloss(p, xx):
+        y, _ = jl.apply(p, xx, state=state, training=True)
+        return jnp.sum(y * w)
+
+    jg_p, jg_x = jax.grad(jloss, argnums=(0, 1))(params, jnp.asarray(x))
+    tp = {k: torch.from_numpy(v.copy()).requires_grad_() for k, v in
+          params.items()}
+    tx = torch.from_numpy(x.copy()).requires_grad_()
+    y, _ = tl.apply(tp, tx, state=_torch(state), training=True)
+    (y * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jg_x),
+                               atol=GRAD_ATOL, rtol=0)
+    for k in params:
+        np.testing.assert_allclose(tp[k].grad.numpy(), np.asarray(jg_p[k]),
+                                   atol=GRAD_ATOL, rtol=0, err_msg=k)
+
+
+# --------------------------------------------------------------- pooling
+# (class, args, kwargs, input shape without the batch): odd sizes, stride
+# 2, both border modes
+POOLS = []
+for _op in ("Max", "Average"):
+    for _mode in ("valid", "same"):
+        POOLS += [
+            (f"{_op}Pooling1D", (3, 2), dict(border_mode=_mode), (11, 3)),
+            (f"{_op}Pooling2D", ((3, 3), (2, 2)), dict(border_mode=_mode),
+             (9, 7, 3)),
+            (f"{_op}Pooling3D", ((3, 2, 3), (2, 2, 2)),
+             dict(border_mode=_mode), (7, 5, 9, 2)),
+        ]
+    POOLS += [(f"{_op}Pooling2D", (), {}, (7, 9, 2)),
+              (f"{_op}Pooling2D", ((3, 3), (1, 1)), dict(border_mode="same"),
+               (5, 6, 2))]
+for _op in ("Max", "Average"):
+    for _d, _shape in ((1, (9, 3)), (2, (5, 7, 3)), (3, (3, 5, 4, 2))):
+        POOLS.append((f"Global{_op}Pooling{_d}D", (), {}, _shape))
+POOL_IDS = [f"{n}-{k.get('border_mode', 'valid')}-{i}"
+            for i, (n, _a, k, _s) in enumerate(POOLS)]
+
+
+@pytest.mark.parametrize("i", range(len(POOLS)), ids=POOL_IDS)
+def test_pooling_matches_reference(i):
+    name, args, kwargs, shape = POOLS[i]
+    jl, tl, _ = _pair(name, *args, shape=shape, **kwargs)
+    x = np.random.RandomState(i).randn(2, *shape).astype(np.float32)
+    want, _ = jl.apply({}, jnp.asarray(x))
+    got, _ = tl.apply({}, torch.from_numpy(x))
+    want = np.asarray(want)
+    assert tuple(got.shape) == want.shape
+    assert tl.compute_output_shape((None,) + shape) == \
+        jl.compute_output_shape((None,) + shape) == (None,) + want.shape[1:]
+    if "Max" in name:
+        np.testing.assert_array_equal(got.numpy(), want)
+    else:
+        np.testing.assert_allclose(got.numpy(), want, atol=F32_ATOL, rtol=0)
+
+
+def test_same_max_pool_pads_with_minus_infinity():
+    """All-negative inputs: a zero pad would win the border windows."""
+    jl, tl, _ = _pair("MaxPooling2D", (3, 3), (2, 2), border_mode="same",
+                      shape=(6, 6, 2))
+    x = -1.0 - np.random.RandomState(0).rand(1, 6, 6, 2).astype(np.float32)
+    want, _ = jl.apply({}, jnp.asarray(x))
+    got, _ = tl.apply({}, torch.from_numpy(x))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (got < 0).all()
+
+
+def test_global_max_pooling_1d_keeps_its_behaviour():
+    tl = tlayers.GlobalMaxPooling1D()
+    x = torch.from_numpy(np.random.RandomState(0).randn(3, 6, 4).astype(
+        np.float32))
+    got, _ = tl.apply({}, x)
+    assert torch.equal(got, x.amax(dim=1))
+    assert tl.compute_output_shape((None, 6, 4)) == (None, 4)
+
+
+# ------------------------------------------------- padding, space-to-depth
+SHAPE_LAYERS = [
+    ("ZeroPadding1D", (2,), (5, 3)),
+    ("ZeroPadding1D", ((1, 3),), (5, 3)),
+    ("ZeroPadding2D", ((1, 2),), (4, 5, 3)),
+    ("ZeroPadding2D", ((0, 1, 2, 3),), (4, 5, 3)),
+    ("ZeroPadding3D", ((1, 0, 2),), (3, 4, 5, 2)),
+    ("SpaceToDepth2D", (2,), (6, 8, 3)),
+    ("SpaceToDepth2D", (3,), (6, 9, 2)),
+]
+
+
+@pytest.mark.parametrize("i", range(len(SHAPE_LAYERS)),
+                         ids=[f"{n}-{i}" for i, (n, *_r) in
+                              enumerate(SHAPE_LAYERS)])
+def test_shape_layers_are_bit_identical(i):
+    name, args, shape = SHAPE_LAYERS[i]
+    jl, tl, _ = _pair(name, *args, shape=shape)
+    x = np.random.RandomState(i).randn(2, *shape).astype(np.float32)
+    want, _ = jl.apply({}, jnp.asarray(x))
+    got, _ = tl.apply({}, torch.from_numpy(x))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert tl.compute_output_shape((2,) + shape) == \
+        jl.compute_output_shape((2,) + shape) == want.shape
+
+
+def test_keras2_conv_aliases():
+    assert tlayers.Conv1D is tlayers.Convolution1D
+    assert tlayers.Conv2D is tlayers.Convolution2D
+    assert tlayers.Conv3D is tlayers.Convolution3D
+
+
+# ------------------------------------------------------- image pipeline
+def _images(n=4, h=12, w=10, seed=0):
+    return np.random.RandomState(seed).randint(
+        0, 256, (n, h, w, 3)).astype(np.uint8)
+
+
+# (transform class, args, kwargs): each built in both packages with the
+# same seed and applied to the same images in turn
+TRANSFORMS = [
+    ("ImageCenterCrop", (8, 6), {}),
+    ("ImageCenterCrop", (20, 20), {}),
+    ("ImageRandomCrop", (7, 5), dict(seed=3)),
+    ("ImageHFlip", (), dict(prob=0.5, seed=1)),
+    ("ImageChannelNormalize", (123.0, 117.0, 104.0, 58.0, 57.0, 57.5), {}),
+    ("ImageBrightness", (32.0,), dict(seed=2)),
+    ("ImageContrast", (0.5, 1.5), dict(seed=4)),
+    ("ImageSaturation", (0.5, 1.5), dict(seed=5)),
+    ("ImageExpand", (2.0,), dict(prob=0.7, seed=6)),
+    ("ImageChannelOrder", (), {}),
+    ("ImageMatToTensor", (), {}),
+    ("ImageMatToTensor", (), dict(format="NCHW")),
+]
+
+
+@pytest.mark.parametrize("i", range(len(TRANSFORMS)),
+                         ids=[f"{n}-{i}" for i, (n, *_r) in
+                              enumerate(TRANSFORMS)])
+def test_image_transform_matches_reference(i):
+    name, args, kwargs = TRANSFORMS[i]
+    jt = getattr(jimage, name)(*args, **kwargs)
+    tt = getattr(timage, name)(*args, **kwargs)
+    for img in _images(6):
+        want, got = jt.apply(img), tt.apply(img)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+    if hasattr(jt, "reseed"):
+        jt.reseed(11)
+        tt.reseed(11)
+        img = _images(1, seed=1)[0]
+        np.testing.assert_array_equal(tt.apply(img), jt.apply(img))
+
+
+def test_expand_canvas_matches_reference():
+    img = _images(1)[0]
+    jc = jimage.expand_canvas(img, np.random.default_rng(2), 3.0,
+                              (1, 2, 3))
+    tc = timage.expand_canvas(img, np.random.default_rng(2), 3.0,
+                              (1, 2, 3))
+    np.testing.assert_array_equal(tc[0], jc[0])
+    assert tc[1:] == jc[1:]
+
+
+def test_image_set_transform_and_feature_set_match_reference():
+    imgs, labels = _images(5), np.arange(5) % 3
+
+    def chain(mod):
+        return (mod.ImageRandomCrop(9, 8, seed=7) >> mod.ImageHFlip(seed=8)
+                >> mod.ImageChannelNormalize(120, 110, 100, 50, 60, 70))
+
+    jset = jimage.ImageSet.from_ndarrays(imgs, labels).transform(chain(jimage))
+    tset = timage.ImageSet.from_ndarrays(imgs, labels) >> chain(timage)
+    assert len(tset) == len(jset) == 5
+    assert isinstance(chain(timage), tcommon.ChainedPreprocessing)
+    assert len(chain(timage).stages) == 3
+    for g, w in zip(tset.images, jset.images):
+        np.testing.assert_array_equal(g, w)
+    jfs, tfs = jset.to_feature_set(shuffle=False), \
+        tset.to_feature_set(shuffle=False)
+    np.testing.assert_array_equal(tfs.x, jfs.x)
+    np.testing.assert_array_equal(tfs.y, jfs.y)
+    assert tfs.x.dtype == np.float32 and tfs.y.shape == (5, 1)
+    assert timage.ImageSet.from_ndarrays(imgs).to_feature_set().y is None
+
+
+def test_preprocessing_helpers_match_reference():
+    m = np.arange(24, dtype=np.float32).reshape(4, 6)
+    for g, w in zip(tcommon.SplitColumns([1, 2, 3]).apply(m),
+                    jcommon.SplitColumns([1, 2, 3]).apply(m)):
+        np.testing.assert_array_equal(g, w)
+    with pytest.raises(ValueError, match="sum to"):
+        tcommon.SplitColumns([1, 2]).apply(m)
+    fn = tcommon.FnPreprocessing(lambda a: a * 2)
+    assert fn.apply_all([1, 2]) == [2, 4]
+    assert (fn >> tcommon.FnPreprocessing(lambda a: a + 1))(3) == 7
+
+
+@pytest.mark.parametrize("call", [
+    lambda: timage.decode_image_bytes(b"\xff\xd8"),
+    lambda: timage.read_image("x.jpg"),
+    lambda: timage.ImageSet.read("/nonexistent"),
+    lambda: timage.ImageResize(8, 8).apply(_images(1)[0]),
+    lambda: timage.ImageHue(seed=0).apply(_images(1)[0]),
+    lambda: timage.ImageColorJitter(seed=0).apply(_images(1)[0]),
+], ids=["decode", "read_image", "ImageSet.read", "ImageResize", "ImageHue",
+        "ImageColorJitter"])
+def test_codec_paths_raise_naming_roadmap(call):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        call()

@@ -64,6 +64,12 @@ SLICE_MODULES = [
     "analytics_zoo_torch.models.seq2seq",
     "analytics_zoo_torch.models.recommendation.session_recommender",
     "analytics_zoo_torch.serving.engine.decode",
+    "analytics_zoo_torch.pipeline.api.keras.layers.normalization",
+    "analytics_zoo_torch.pipeline.api.keras.layers.pooling",
+    "analytics_zoo_torch.feature.common",
+    "analytics_zoo_torch.feature.image",
+    "analytics_zoo_torch.models.image",
+    "analytics_zoo_torch.models.image.imageclassification",
 ]
 
 
