@@ -2,17 +2,23 @@
 versions (port of ``ops/pallas_attention.py``).
 
 ``flash_attention(q, k, v, causal, scale)`` returns O for (B, H, T, D)
-inputs and is differentiable.  For a CUDA tensor under ``ops.fused=auto``
-it launches ``csrc/flash_attention_fwd.cu`` (float32, head_dim 64 or
-128), which also writes the per-row log-sum-exp; the backward recomputes
-the probabilities from it in ``csrc/flash_attention_bwd.cu``: one kernel
-for dQ, one for dK/dV, as the reference's ``custom_vjp`` runs two Pallas
-kernels.  All three take their products on the tensor cores in split
-TF32, on the tile code of ``csrc/flash_tile.cuh`` (about float32's
-accuracy; the plain versions below stay full float32 and judge them).  ``delta = rowsum(dO * O)`` is a PyTorch op between
-them, as the reference leaves it to XLA.  For a CPU tensor, or under
-``ops.fused=torch``, the forward and the backward take their plain
-versions, ``flash_attention_ref`` and ``flash_attention_bwd_ref``.
+inputs and is differentiable.  ``takes_kernels`` routes it: for CUDA
+tensors under ``ops.fused=auto`` whose q, k and v share one dtype the
+kernels take (float32 or bfloat16) and one shape with head_dim 64 or 128,
+it launches ``csrc/flash_attention_fwd.cu``, which also writes the per-row
+log-sum-exp; the backward recomputes the probabilities from it in
+``csrc/flash_attention_bwd.cu``: one kernel for dQ, one for dK/dV, as the
+reference's ``custom_vjp`` runs two Pallas kernels.  Each source holds a
+float32 and a bfloat16 instantiation, each under a launch count of its
+own (``KERNELS``).  The float32 kernels take their products on the tensor
+cores in split TF32, on the tile code of ``csrc/flash_tile.cuh`` (about
+float32's accuracy); the bfloat16 kernels take bf16 products where both
+operands are bf16 values and three bf16 products where one is float32.
+``delta = rowsum(dO * O)`` is a PyTorch op between them, as the reference
+leaves it to XLA.  Every other input (a CPU tensor, ``ops.fused=torch``,
+float16, another head_dim) takes the plain versions,
+``flash_attention_ref`` and ``flash_attention_bwd_ref``, which follow the
+reference's order of operations in every dtype and judge the kernels.
 """
 
 from __future__ import annotations
@@ -23,31 +29,58 @@ import torch
 
 from analytics_zoo_torch.ops import kernels
 
-KERNEL = "flash_attention_fwd"
 HEAD_DIMS = (64, 128)
+# the kernels' names by input dtype: (forward, dQ, dK/dV)
+KERNELS = {
+    torch.float32: ("flash_attention_fwd", "flash_attention_dq",
+                    "flash_attention_dkv"),
+    torch.bfloat16: ("flash_attention_fwd_bf16", "flash_attention_dq_bf16",
+                     "flash_attention_dkv_bf16"),
+}
 
 
 def _causal_keep(t: int, device) -> torch.Tensor:
     return torch.ones(t, t, dtype=torch.bool, device=device).tril_()
 
 
+def q_scale(scale: float, dtype: torch.dtype) -> float:
+    """The scale as the reference multiplies q by it.  A Python float is
+    weakly typed in JAX, so ``q * scale`` is taken in q's dtype: for bf16
+    (or float16) the scale is rounded to that dtype first."""
+    if dtype == torch.float32:
+        return scale
+    return float(torch.tensor(scale, dtype=dtype))
+
+
+def _scaled_q(q, scale):
+    """``q * scale`` in q's dtype, as the reference takes it.  Below
+    float32 the product of two such values is exact in float32 and is
+    rounded once, to nearest even."""
+    if q.dtype == torch.float32:
+        return q * scale
+    return (q.float() * q_scale(scale, q.dtype)).to(q.dtype)
+
+
 def flash_attention_ref(q, k, v, causal: bool = False,
                         scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dense softmax attention in the kernel's order of operations.
+    """Dense softmax attention in the kernel's order of operations: S in
+    float32 from ``q * scale`` (in q's dtype) and K, P rounded to v's
+    dtype before P V, a float32 product, and O rounded to q's dtype from
+    ``acc / max(l, 1e-30)``.
 
     Returns O (B, H, T, D) in the input dtype and LSE (B*H, T, 1) float32,
     the layout of the reference kernel's outputs."""
     b, h, t, d = q.shape
     if scale is None:
         scale = d ** -0.5
-    s = torch.matmul(q * scale, k.transpose(-1, -2)).float()
+    s = torch.matmul(_scaled_q(q, scale).float(), k.float().transpose(-1, -2))
     if causal:
         s = torch.where(_causal_keep(t, q.device), s, s.new_tensor(-1e30))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l_safe = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
-    o = torch.matmul(p.to(v.dtype), v).float() / l_safe
+    o = torch.matmul(p.to(v.dtype).float(), v.float()) / l_safe
     lse = (m + torch.log(l_safe)).reshape(b * h, t, 1)
     return o.to(q.dtype), lse
 
@@ -61,11 +94,12 @@ def flash_attention_delta(o, do) -> torch.Tensor:
 
 def _recompute_p_ds(q, k, v, lse, do, delta, causal, scale):
     """The backward kernels' shared recompute: ``s = (q*scale) k^T``
-    (the forward's same-dtype scaling, causal cells at -1e30),
-    ``p = exp(s - lse)``, ``ds = p * (dO v^T - delta)``; float32."""
+    (the forward's same-dtype scaling and float32 product, causal cells at
+    -1e30), ``p = exp(s - lse)``, ``ds = p * (dO v^T - delta)``; float32,
+    P and dS never rounded.  Returns ``q*scale`` in q's dtype too."""
     b, h, t, d = q.shape
-    qs = q * scale
-    s = torch.matmul(qs, k.transpose(-1, -2)).float()
+    qs = _scaled_q(q, scale)
+    s = torch.matmul(qs.float(), k.float().transpose(-1, -2))
     if causal:
         s = torch.where(_causal_keep(t, q.device), s, s.new_tensor(-1e30))
     p = torch.exp(s - lse.reshape(b, h, t, 1))
@@ -106,10 +140,30 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, causal: bool = False,
     return dq, dk, dv
 
 
-def kernel_supports(q: torch.Tensor) -> bool:
-    """Whether the CUDA kernels take this q (and same-shaped k, v)."""
-    return (q.dtype == torch.float32 and q.dim() == 4 and
-            q.shape[-1] in HEAD_DIMS)
+def _supported(dtypes, shapes) -> bool:
+    dtypes, shapes = set(dtypes), {tuple(x) for x in shapes}
+    if len(dtypes) != 1 or len(shapes) != 1:
+        return False
+    (dtype,), (shape,) = dtypes, shapes
+    return dtype in KERNELS and len(shape) == 4 and shape[-1] in HEAD_DIMS
+
+
+def kernel_supports(q: torch.Tensor, k: Optional[torch.Tensor] = None,
+                    v: Optional[torch.Tensor] = None) -> bool:
+    """Whether the CUDA kernels take this q (and k, v, where given): one
+    dtype of ``KERNELS`` and one (B, H, T, D) shape with D in
+    ``HEAD_DIMS``."""
+    given = [x for x in (q, k, v) if x is not None]
+    return _supported([x.dtype for x in given], [x.shape for x in given])
+
+
+def takes_kernels(dtypes, shapes, device, mode: str) -> bool:
+    """The op's routing, from q/k/v's dtypes and shapes, q's device and
+    the ``ops.fused`` mode: the kernels exactly when the mode is ``auto``,
+    the device is CUDA and ``kernel_supports`` holds; the plain versions
+    for everything else."""
+    return (mode == "auto" and torch.device(device).type == "cuda" and
+            _supported(dtypes, shapes))
 
 
 def _check(name: str, **tensors) -> None:
@@ -117,9 +171,12 @@ def _check(name: str, **tensors) -> None:
     for key, x in tensors.items():
         if not x.is_cuda:
             raise ValueError(f"{name}: {key} must be a CUDA tensor")
-        if x.dtype != torch.float32:
-            raise ValueError(f"{name}: the kernel takes float32, "
+        if x.dtype not in KERNELS:
+            raise ValueError(f"{name}: the kernels take float32 or bfloat16, "
                              f"{key} is {x.dtype}")
+        if x.dtype != q.dtype:
+            raise ValueError(f"{name}: all inputs must share one dtype, got "
+                             f"{q.dtype} and {key} {x.dtype}")
         if x.shape != q.shape:
             raise ValueError(f"{name}: all inputs must share one (B, H, T, D) "
                              f"shape, got {tuple(q.shape)} and {key} "
@@ -141,7 +198,8 @@ def _check(name: str, **tensors) -> None:
 def flash_attention_fwd(q, k, v, causal: bool = False,
                         scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(O, LSE) from the CUDA kernel; raises on inputs it does not take."""
+    """(O, LSE) from the CUDA kernel of q's dtype; raises on inputs no
+    kernel takes."""
     _check("flash_attention_fwd", q=q, k=k, v=v)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     b, h, t, d = q.shape
@@ -149,9 +207,9 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
         scale = d ** -0.5
     o = torch.empty_like(q)
     lse = torch.empty((b * h, t, 1), dtype=torch.float32, device=q.device)
-    kernels.launch(KERNEL, q.device, q.data_ptr(), k.data_ptr(),
+    kernels.launch(KERNELS[q.dtype][0], q.device, q.data_ptr(), k.data_ptr(),
                    v.data_ptr(), o.data_ptr(), lse.data_ptr(), b * h, t, d,
-                   float(scale), int(causal))
+                   q_scale(scale, q.dtype), int(causal))
     return o, lse
 
 
@@ -172,32 +230,38 @@ def _bwd_args(q, k, v, do, lse, delta):
 
 def flash_attention_dq(q, k, v, do, lse, delta, causal: bool = False,
                        scale: Optional[float] = None):
-    """dq from the dQ kernel; ``lse`` is the forward kernel's (B*H, T, 1)
-    output and ``delta`` the (B*H, T, 1) ``rowsum(dO * O)``."""
+    """dq from the dQ kernel of q's dtype; ``lse`` is the forward kernel's
+    (B*H, T, 1) output and ``delta`` the (B*H, T, 1) ``rowsum(dO * O)``.
+    The bf16 kernel takes the scale twice: rounded to bf16 for
+    ``q * scale``, and as it is for ``dq = scale * ds k``."""
     _check_bwd("flash_attention_dq", q, k, v, do, lse, delta)
     b, h, t, d = q.shape
     if scale is None:
         scale = d ** -0.5
     args = _bwd_args(q, k, v, do, lse, delta)
     dq = torch.empty_like(args[0])
-    kernels.launch("flash_attention_dq", q.device,
+    scales = ((float(scale),) if q.dtype == torch.float32 else
+              (float(scale), q_scale(scale, q.dtype)))
+    kernels.launch(KERNELS[q.dtype][1], q.device,
                    *(x.data_ptr() for x in args), dq.data_ptr(),
-                   b * h, t, d, float(scale), int(causal))
+                   b * h, t, d, *scales, int(causal))
     return dq
 
 
 def flash_attention_dkv(q, k, v, do, lse, delta, causal: bool = False,
                         scale: Optional[float] = None):
-    """(dk, dv) from the dK/dV kernel; arguments as ``flash_attention_dq``."""
+    """(dk, dv) from the dK/dV kernel of q's dtype; arguments as
+    ``flash_attention_dq``."""
     _check_bwd("flash_attention_dkv", q, k, v, do, lse, delta)
     b, h, t, d = q.shape
     if scale is None:
         scale = d ** -0.5
     args = _bwd_args(q, k, v, do, lse, delta)
     dk, dv = torch.empty_like(args[1]), torch.empty_like(args[2])
-    kernels.launch("flash_attention_dkv", q.device,
+    kernels.launch(KERNELS[q.dtype][2], q.device,
                    *(x.data_ptr() for x in args), dk.data_ptr(),
-                   dv.data_ptr(), b * h, t, d, float(scale), int(causal))
+                   dv.data_ptr(), b * h, t, d, q_scale(scale, q.dtype),
+                   int(causal))
     return dk, dv
 
 
@@ -213,7 +277,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = False,
 
 class _FlashAttention(torch.autograd.Function):
     """The reference's ``custom_vjp``: the forward saves (q, k, v, O, LSE);
-    the backward recomputes P from LSE."""
+    the backward recomputes P from LSE.  O and the gradients keep the
+    inputs' dtype."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, kernel):
@@ -234,9 +299,12 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, causal: bool = False,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """q,k,v: (B, H, T, D) -> O (B, H, T, D); differentiable."""
-    from analytics_zoo_torch.ops.fused import use_kernel
-    kernel = use_kernel(q)
+    """q,k,v: (B, H, T, D) -> O (B, H, T, D) in their dtype;
+    differentiable.  ``takes_kernels`` picks the kernels or the plain
+    versions."""
+    from analytics_zoo_torch.ops.fused import _mode
+    kernel = takes_kernels((q.dtype, k.dtype, v.dtype),
+                           (q.shape, k.shape, v.shape), q.device, _mode())
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
                                     v.requires_grad):
         return _FlashAttention.apply(q, k, v, causal, scale, kernel)

@@ -49,6 +49,20 @@ SIGNATURES = {
     # q, k, v, do, lse, delta, dk, dv, bh, t, d, scale, causal, stream
     "flash_attention_dkv": ("flash_attention_bwd", "zoo_flash_attention_dkv",
                             [_P] * 8 + [_I, _I, _I, _F, _I, _P]),
+    # the same three on bfloat16 q, k, v, dO and outputs (lse, delta float32);
+    # qscale is the scale rounded to bf16, as the reference's q * scale
+    # takes it.  q, k, v, o, lse, bh, t, d, qscale, causal, stream
+    "flash_attention_fwd_bf16": ("flash_attention_fwd",
+                                 "zoo_flash_attention_fwd_bf16",
+                                 [_P] * 5 + [_I, _I, _I, _F, _I, _P]),
+    # q, k, v, do, lse, delta, dq, bh, t, d, scale, qscale, causal, stream
+    "flash_attention_dq_bf16": ("flash_attention_bwd",
+                                "zoo_flash_attention_dq_bf16",
+                                [_P] * 7 + [_I, _I, _I, _F, _F, _I, _P]),
+    # q, k, v, do, lse, delta, dk, dv, bh, t, d, qscale, causal, stream
+    "flash_attention_dkv_bf16": ("flash_attention_bwd",
+                                 "zoo_flash_attention_dkv_bf16",
+                                 [_P] * 8 + [_I, _I, _I, _F, _I, _P]),
     # x, bias, out, rows, d, stream
     "bias_gelu": ("bias_gelu", "zoo_bias_gelu", [_P, _P, _P, _I, _I, _P]),
     # x, gamma, beta, out, rows, d, eps, act (0 none, 1 gelu), stream
@@ -68,7 +82,8 @@ SIGNATURES = {
 # every source, each built by one nvcc call
 SOURCES = sorted({src for src, _, _ in SIGNATURES.values()})
 
-# the kernels a forward pass can launch (what InferenceModel.warm builds)
+# the kernels a forward pass can launch (what InferenceModel.warm builds;
+# no model hands the flash op bf16 q/k/v, so not its bf16 forward)
 FORWARD_KERNELS = ("flash_attention_fwd", "bias_gelu", "layernorm_act")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}

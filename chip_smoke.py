@@ -4,7 +4,8 @@ each against its plain PyTorch version, serve a full-width transformer
 TextClassifier through ``InferenceModel``, train it through
 ``compile``/``fit``/``evaluate``, and show that both paths went through
 the kernels; then the recommenders, int8, the recurrent TextClassifier,
-Seq2seq's generative serving, the session recommender and ResNet-50.
+Seq2seq's generative serving, the session recommender, ResNet-50, and
+the flash kernels on bfloat16 through the port's ``bench_attention``.
 
     python3 chip_smoke.py
 
@@ -124,7 +125,25 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    child ``python3 chip_smoke.py --profile-resnet`` profiles one training
    step and one predict (device busy, idle share, device ms by group,
    launches);
-14. a ``kernels`` JSON line, then the device line last.
+14. the flash kernels on bfloat16: forward, dQ and dK/dV against their
+   plain versions (which follow the reference's bf16 order of operations)
+   at (2, 4, 200, 64), (2, 4, 512, 128) and ``bench_attention``'s
+   (4, 8, 4096, 128), causal and not, O, LSE, dQ, dK and dV each with its
+   tolerance printed, two launches bit-identical; at the same shapes, on
+   inputs where key 0 leads every row, O equal to the plain version's on
+   all but 5% of its elements, a check that S rounded to bf16 first (the
+   plain version's former order) and an unrounded P both fail; ``flash_attention``
+   through autograd launching only the bf16 kernels on bf16 at head_dim
+   64/128, only the float32 ones on float32, and none (the plain result)
+   at head_dim 32; each kernel timed at (4, 8, 4096, 128) causal beside its
+   bound, its plain version and ``scaled_dot_product_attention`` in bf16
+   (forward, backward, forward + backward; the backend PyTorch picked
+   printed), and at (4, 8, 8192, 128) without the plain versions, where
+   the kernels' outputs on the whole inputs are held against the plain
+   versions on three heads' slices; then
+   ``benchmarks.attention.bench_attention()`` at its defaults, its dict on
+   one line, and its launches, which the ``kernels`` line reports;
+15. a ``kernels`` JSON line, then the device line last.
 
 The int8 phases besides 9: 2b holds ``quantized_matmul`` and
 ``quantized_conv`` (``torch._int_mm``, a convolution as one product over
@@ -1300,7 +1319,8 @@ def profile_ranges(torch, runs, kind):
     """One ``torch.profiler`` session (a second one in a process recorded
     no device events on the H100) over ``runs`` (name -> fn), each in a
     ``record_function`` range that ends with a synchronize.  Returns
-    ({name: summary}, device events placed in no range); a summary holds
+    ({name: summary}, the device events placed in no range as [name,
+    start us from the first range's start, us]); a summary holds
     the device kernels launched, memory copies, device busy ms (the union
     of the events' intervals), the kernels' summed ms, the range's wall ms,
     the idle share and (count, ms) by ``kind(kernel name)``."""
@@ -1315,7 +1335,8 @@ def profile_ranges(torch, runs, kind):
     events = prof.events()
     spans = {e.name: e.time_range for e in events if e.name in runs}
     placed = {name: [] for name in runs}
-    unplaced = 0
+    first = min(r.start for r in spans.values())
+    unplaced = []
     for e in events:
         # the ranges themselves show on the device timeline too
         if e.device_type != torch.autograd.DeviceType.CUDA or \
@@ -1324,7 +1345,8 @@ def profile_ranges(torch, runs, kind):
         where = [n for n, r in spans.items()
                  if r.start <= e.time_range.start <= r.end]
         if len(where) != 1:
-            unplaced += 1
+            unplaced.append([e.name, e.time_range.start - first,
+                             e.time_range.elapsed_us()])
             continue
         placed[where[0]].append(e)
     out = {}
@@ -1473,7 +1495,8 @@ def recurrent_phase(torch, card):
              f"{child.stderr[-2000:]}")
     prof = json.loads(child.stdout.strip().splitlines()[-1])
     if prof["unplaced"]:
-        fail(f"profile: {prof['unplaced']} device events outside the ranges")
+        fail(f"profile: {len(prof['unplaced'])} device events outside the "
+             f"ranges: {prof['unplaced'][:8]}")
     for name, o in prof["profile"].items():
         print(f"profile {name} (torch.profiler): {o['launches']} device "
               f"kernels, {o['copies']} copies, device busy "
@@ -2055,7 +2078,8 @@ def image_phase(torch, card, dev):
              f"{child.stderr[-2000:]}")
     prof = json.loads(child.stdout.strip().splitlines()[-1])
     if prof["unplaced"]:
-        fail(f"profile: {prof['unplaced']} device events outside the ranges")
+        fail(f"profile: {len(prof['unplaced'])} device events outside the "
+             f"ranges: {prof['unplaced'][:8]}")
     for name, o in prof["profile"].items():
         print(f"profile {name} (torch.profiler): {o['launches']} device "
               f"kernels, {o['copies']} copies, device busy "
@@ -2140,6 +2164,398 @@ def profile_resnet() -> None:
             fn()
     out, unplaced = profile_ranges(torch, runs, resnet_group)
     print(json.dumps({"profile": out, "unplaced": unplaced}))
+
+
+# --------------------------- phase 14: the flash kernels on bfloat16
+# where the bf16 kernels are checked: a ragged last tile at head_dim 64,
+# head_dim 128, and bench_attention's shape
+BF16_SHAPES = ((2, 4, 200, 64), (2, 4, 512, 128), (4, 8, 4096, 128))
+BF16_BENCH = (4, 8, 4096, 128)
+# Kernel against plain version, both on the card from the same bf16 inputs.
+# O: the kernel rounds P to bf16 at each 64-key tile's running max, the
+# plain version at the row's max, and both round O to bf16 once.  So an
+# element may land one bf16 ulp apart (at most 2^-7 of it), and the two
+# roundings of P leave a difference that scales with the row's values, not
+# with the element's: 2^-6 of the row's RMS in the plain version's O.
+BF16_O_RTOL, BF16_O_ROW_RMS = 2.0 ** -7, 2.0 ** -6
+# On inputs where key 0 holds every row's largest score, the kernel's
+# running max is the row's max from its first tile on, so both round P
+# alike: O may differ only where float32 sums in other orders tip S, P or
+# O to the next value, on at most this share of its elements, each within
+# the tolerance above.  That share grows with the keys a row sums: 0.07%
+# to 0.12% at 200 keys, 0.28% to 0.44% at 512 and 1.6% at 4096 on the
+# H100.  Rounding S to bf16 before the softmax (the plain version's former
+# order) or not rounding P moves 17% to 60% of the elements there.
+BF16_O_TIPPED_SHARE = 0.05
+# LSE is float32 on both sides from the same exact bf16 products, summed in
+# another order (the tensor core's accumulation against cuBLAS's float32
+# product) over up to 4096 keys: 9.5e-7 at most measured on the H100
+BF16_LSE_ATOL = 1e-5
+# dQ, dK, dV: float32 sums on both sides (the kernels' float32 operands as
+# three bf16 parts, ~2^-24 of each term dropped) in other orders, each
+# rounded to bf16 once: one bf16 ulp apart at most (2^-7 of the value);
+# where dS = P (dP - delta) cancels to near zero, 2^-10 of the tensor's
+# largest element, and 1e-5 where it is zero in exact arithmetic (a row of
+# one key: dP and delta, float32 sums of the same bf16 products in other
+# orders, leave ~1e-7)
+BF16_BWD_RTOL, BF16_BWD_ATOL_SHARE = 2.0 ** -7, 2.0 ** -10
+BF16_BWD_ATOL_FLOOR = 1e-5
+
+
+def o_used(got, want) -> float:
+    """The largest share of its tolerance an element of O uses: one bf16
+    ulp (rtol 2^-7) plus 2^-6 of the row's RMS in the plain version's O."""
+    got, want = got.float(), want.float()
+    row_atol = BF16_O_ROW_RMS * want.pow(2).mean(-1, keepdim=True).sqrt()
+    return float(((got - want).abs() / (
+        row_atol + BF16_O_RTOL * want.abs())).max())
+
+
+def o_close(name, got, want) -> tuple:
+    """O of the bf16 forward against the plain version's: fails past its
+    tolerance (``o_used``); returns the largest abs error and the largest
+    share of its tolerance an element used."""
+    used = o_used(got, want)
+    err = float((got.float() - want.float()).abs().max())
+    if not used <= 1.0:
+        fail(f"{name}: max abs err {err:.3e}, {used:.3f} of its tolerance "
+             f"(rtol {BF16_O_RTOL}, atol {BF16_O_ROW_RMS} x the row's RMS)")
+    return err, used
+
+
+def leading_key_inputs(torch, shape, gen, dev):
+    """bf16 q, k, v of ``shape`` on which key 0 holds every row's largest
+    score by a wide margin (score +2.5 at head_dim 64, +1.8 at 128, against
+    the others' 0 down to -4.3 / -3.0, with noise of 0.1): coordinate 0 of
+    q is 2, of k uniform in [-17, 0] and 10 at key 0; the other
+    coordinates of q are N(0, 0.01), of k and v N(0, 1)."""
+    def randn(*size):
+        return torch.randn(size, generator=gen, device=dev)
+    q = 0.1 * randn(*shape)
+    q[..., 0] = 2.0
+    k = randn(*shape)
+    k[..., 0] = -17.0 * torch.rand(shape[:-1], generator=gen, device=dev)
+    k[..., 0, 0] = 10.0
+    return [x.to(torch.bfloat16) for x in (q, k, randn(*shape))]
+
+
+def o_tipped(got, want) -> tuple:
+    """The share of O's elements on which ``got`` is not ``want``, and the
+    largest share of its tolerance (``o_used``) an element uses."""
+    return float((got != want).float().mean()), o_used(got, want)
+
+
+def o_fault2_order(torch, q, k, v, causal):
+    """Control: O in the plain version's former order, which rounds S, P,
+    P.V and O to bf16 (a product of two bf16 tensors)."""
+    t = q.shape[2]
+    s = torch.matmul(q * q.shape[-1] ** -0.5, k.transpose(-1, -2)).float()
+    if causal:
+        keep = torch.ones(t, t, dtype=torch.bool, device=q.device).tril_()
+        s = torch.where(keep, s, s.new_tensor(-1e30))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l_safe = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    return (torch.matmul(p.to(v.dtype), v).float() / l_safe).to(q.dtype)
+
+
+def o_unrounded_p(torch, q, k, v, causal):
+    """Control: O in the reference's order but with P kept in float32."""
+    from analytics_zoo_torch.ops.flash_attention import q_scale
+    t = q.shape[2]
+    qs = (q.float() * q_scale(q.shape[-1] ** -0.5, q.dtype)).to(q.dtype)
+    s = torch.matmul(qs.float(), k.float().transpose(-1, -2))
+    if causal:
+        keep = torch.ones(t, t, dtype=torch.bool, device=q.device).tril_()
+        s = torch.where(keep, s, s.new_tensor(-1e30))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l_safe = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    return (torch.matmul(p, v.float()) / l_safe).to(q.dtype)
+
+
+def flash_bf16_bound(shape, causal, passes, tensors_moved, rows):
+    """The least time of a bf16 flash kernel: ``passes`` T x T products of
+    depth D over the (causal: T^2/2) query-key pairs at the bf16 peak,
+    against ``tensors_moved`` (B, H, T, D) bf16 tensors and ``rows``
+    float32 values a query (LSE; LSE and delta) at the memory rate, each
+    read or written once.  A product with one float32 operand counts three
+    passes: three bf16 parts (the kernels' way, 3/989 against split TF32's
+    2/495)."""
+    b, h, t, d = shape
+    pairs = t * t / 2 if causal else t * t
+    flops = passes * 2 * b * h * pairs * d
+    moved = tensors_moved * b * h * t * d * 2 + rows * b * h * t * 4
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def sdpa_backend(torch, q, k, v) -> str:
+    """The backend PyTorch picks for scaled_dot_product_attention on these
+    inputs, causal."""
+    from torch.nn.attention import SDPBackend
+    choice = int(torch._fused_sdp_choice(q, k, v, is_causal=True))
+    for name, member in SDPBackend.__members__.items():
+        if int(member) == choice:
+            return name
+    return f"backend {choice}"
+
+
+# the (batch, head) slices checked at twice bench_attention's sequence,
+# where the plain versions' float32 (T, T) tensors of all 32 heads would
+# take 8.6 GB each
+BF16_2X_HEADS = ((0, 0), (1, 5), (3, 7))
+
+
+def check_bf16_heads(torch, fa, q, k, v, do, o, lse, delta, bwd_close):
+    """The three bf16 kernels run on the whole causal (B, H, T, D) inputs,
+    held head by head against the plain versions on the same head's
+    slices (heads are independent) at ``BF16_2X_HEADS``; returns each
+    kernel's largest abs error."""
+    from analytics_zoo_torch.ops.flash_attention import KERNELS
+    names = KERNELS[torch.bfloat16]
+    heads = q.shape[1]
+    dq = fa.flash_attention_dq(q, k, v, do, lse, delta, True)
+    dk, dv = fa.flash_attention_dkv(q, k, v, do, lse, delta, True)
+    errs = dict.fromkeys(names, 0.0)
+    for b, h in BF16_2X_HEADS:
+        tag = f"{tuple(q.shape)} causal=True, head ({b}, {h})"
+        bh = b * heads + h
+        one = [x[b:b + 1, h:h + 1] for x in (q, k, v, do)]
+        lse1, delta1 = lse[bh:bh + 1], delta[bh:bh + 1]
+        o_ref, lse_ref = fa.flash_attention_ref(*one[:3], causal=True)
+        err_o, used_o = o_close(f"bf16 forward {tag} O",
+                                o[b:b + 1, h:h + 1], o_ref)
+        err_l = close(f"bf16 forward {tag} LSE", lse1, lse_ref, BF16_LSE_ATOL)
+        del o_ref, lse_ref
+        want = (fa.flash_attention_dq_ref(*one, lse1, delta1, True),
+                *fa.flash_attention_dkv_ref(*one, lse1, delta1, True))
+        e_q, e_k, e_v = (bwd_close(f"bf16 {n} {tag}", g[b:b + 1, h:h + 1], w)
+                         for n, g, w in zip(("dQ", "dK", "dV"),
+                                            (dq, dk, dv), want))
+        print(f"check bf16 flash {tag}: O max abs err {err_o:.3e}, "
+              f"{used_o:.3f} of its bound, LSE {err_l:.3e}; dQ {e_q:.3e}, dK "
+              f"{e_k:.3e}, dV {e_v:.3e} (the tolerances above)")
+        errs[names[0]] = max(errs[names[0]], err_o, err_l)
+        errs[names[1]] = max(errs[names[1]], e_q)
+        errs[names[2]] = max(errs[names[2]], e_k, e_v)
+        del want
+    return errs
+
+
+def flash_bf16_phase(torch, card, dev):
+    """Phase 14: the three bf16 flash kernels against the plain versions,
+    the op's routing through autograd, their times beside the library's,
+    and ``bench_attention`` at its defaults.  Returns the kernels' report
+    entries, launches from the ``bench_attention`` run."""
+    from analytics_zoo_torch.benchmarks.attention import bench_attention
+    from analytics_zoo_torch.ops import flash_attention as fa
+    from analytics_zoo_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    names = fa.KERNELS[torch.bfloat16]
+    gen = torch.Generator(device=dev).manual_seed(14)
+
+    def randn(shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+
+    def bwd_close(name, got, want):
+        atol = (BF16_BWD_ATOL_SHARE * float(want.abs().max()) +
+                BF16_BWD_ATOL_FLOOR)
+        return close(name, got.float(), want.float(), atol, BF16_BWD_RTOL)
+
+    # ---- 14a. each kernel against its plain version; two launches
+    errs = {name: 0.0 for name in names}
+    for shape in BF16_SHAPES:
+        q, k, v, do = (randn(shape) for _ in range(4))
+        for causal in (False, True):
+            tag = f"{shape} causal={causal}"
+            o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+            o2, lse2 = fa.flash_attention_fwd(q, k, v, causal=causal)
+            o_ref, lse_ref = fa.flash_attention_ref(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            err_o, used_o = o_close(f"bf16 forward {tag} O", o, o_ref)
+            err_l = close(f"bf16 forward {tag} LSE", lse, lse_ref,
+                          BF16_LSE_ATOL)
+            if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+                fail(f"bf16 forward {tag}: two launches differ")
+            # what the same bound reads for the former order
+            control = o_fault2_order(torch, q, k, v, causal).float()
+            used_control = o_used(control, o_ref)
+            del o2, lse2, o_ref, lse_ref, control
+            delta = fa.flash_attention_delta(o, do)
+            got = (fa.flash_attention_dq(q, k, v, do, lse, delta, causal),
+                   *fa.flash_attention_dkv(q, k, v, do, lse, delta, causal))
+            again = (fa.flash_attention_dq(q, k, v, do, lse, delta, causal),
+                     *fa.flash_attention_dkv(q, k, v, do, lse, delta, causal))
+            if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
+                fail(f"bf16 backward {tag}: two launches differ")
+            del again
+            want = (fa.flash_attention_dq_ref(q, k, v, do, lse, delta, causal),
+                    *fa.flash_attention_dkv_ref(q, k, v, do, lse, delta,
+                                                causal))
+            torch.cuda.synchronize()
+            e_q, e_k, e_v = (bwd_close(f"bf16 {n} {tag}", g, w) for n, g, w
+                             in zip(("dQ", "dK", "dV"), got, want))
+            print(f"check bf16 flash {tag}: O max abs err {err_o:.3e}, "
+                  f"{used_o:.3f} of its bound (|O| max "
+                  f"{float(o.float().abs().max()):.3e}; rtol {BF16_O_RTOL}, "
+                  f"atol {BF16_O_ROW_RMS} x the row's RMS; S rounded first "
+                  f"reads {used_control:.3f}), LSE {err_l:.3e} "
+                  f"(atol {BF16_LSE_ATOL}); dQ {e_q:.3e}, dK {e_k:.3e}, dV "
+                  f"{e_v:.3e} (|dQ|,|dK|,|dV| max "
+                  + ", ".join(f"{float(w.float().abs().max()):.3e}"
+                              for w in want)
+                  + f"; rtol {BF16_BWD_RTOL}, atol {BF16_BWD_ATOL_SHARE} x "
+                  f"max + {BF16_BWD_ATOL_FLOOR}); two launches bit-identical")
+            errs[names[0]] = max(errs[names[0]], err_o, err_l)
+            errs[names[1]] = max(errs[names[1]], e_q)
+            errs[names[2]] = max(errs[names[2]], e_k, e_v)
+            del got, want, o, lse, delta
+        del q, k, v, do
+        # P's rounding: where key 0 leads every row, the kernel and the
+        # plain version round P alike, and both controls must fail
+        q, k, v = leading_key_inputs(torch, shape, gen, dev)
+        for causal in (False, True):
+            tag = f"{shape} causal={causal}, key 0 leading"
+            o = fa.flash_attention_fwd(q, k, v, causal=causal)[0]
+            o_ref = fa.flash_attention_ref(q, k, v, causal=causal)[0]
+            tipped, used = o_tipped(o, o_ref)
+            controls = [o_tipped(fn(torch, q, k, v, causal), o_ref)
+                        for fn in (o_fault2_order, o_unrounded_p)]
+            torch.cuda.synchronize()
+            if not (tipped <= BF16_O_TIPPED_SHARE and used <= 1.0):
+                fail(f"bf16 forward {tag}: O differs from the plain "
+                     f"version's on {tipped:.4%} of its elements (at most "
+                     f"{BF16_O_TIPPED_SHARE:.0%}), {used:.3f} of its "
+                     "tolerance")
+            if any(c_share <= BF16_O_TIPPED_SHARE and c_used <= 1.0
+                   for c_share, c_used in controls):
+                fail(f"bf16 forward {tag}: a control passes the check "
+                     f"({controls})")
+            print(f"check bf16 flash {tag}: O differs from the plain "
+                  f"version's on {tipped:.4%} of its elements (at most "
+                  f"{BF16_O_TIPPED_SHARE:.0%}), {used:.3f} of its "
+                  f"tolerance; S rounded first on "
+                  f"{controls[0][0]:.2%} ({controls[0][1]:.3f}), P "
+                  f"unrounded on {controls[1][0]:.2%} ({controls[1][1]:.3f})")
+            del o, o_ref
+        del q, k, v
+    torch.cuda.empty_cache()
+
+    # ---- 14b. the op's routing, forward and backward through autograd
+    f32_names = fa.KERNELS[torch.float32]
+    for dtype, d, fired in ((torch.bfloat16, 64, names),
+                            (torch.bfloat16, 128, names),
+                            (torch.float32, 64, f32_names),
+                            (torch.bfloat16, 32, ()),
+                            (torch.float32, 32, ())):
+        leaves = [randn((2, 4, 256, d), dtype).requires_grad_()
+                  for _ in range(3)]
+        kernels.reset_launch_counts()
+        o = fa.flash_attention(*leaves, causal=True)
+        grads = torch.autograd.grad(o.float().sum(), leaves)
+        counts = kernels.launch_counts()
+        expect_launches(counts, {n: 1 for n in fired},
+                        f"flash_attention {dtype} head_dim {d}")
+        if o.dtype != dtype or any(g_.dtype != dtype or
+                                   not torch.isfinite(g_.float()).all()
+                                   for g_ in grads):
+            fail(f"flash_attention {dtype} head_dim {d}: output or "
+                 "gradients of the wrong dtype or not finite")
+        if not fired:
+            with torch.no_grad():
+                plain = fa.flash_attention_ref(*leaves, causal=True)[0]
+            if not torch.equal(o.detach(), plain):
+                fail(f"flash_attention {dtype} head_dim {d}: not the plain "
+                     "result")
+        print(f"routing: flash_attention {dtype} head_dim {d} causal, "
+              f"forward and backward: launches "
+              f"{ {n: c for n, c in counts.items() if c} or 'none' }")
+
+    # ---- 14c. times at bench_attention's shape, and at twice its sequence
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    report = {}
+    for shape in (BF16_BENCH, BF16_BENCH[:2] + (2 * BF16_BENCH[2],)
+                  + BF16_BENCH[3:]):
+        full = shape == BF16_BENCH
+        q, k, v, do = (randn(shape) for _ in range(4))
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+        delta = fa.flash_attention_delta(o, do)
+        if not full:
+            errs_2x = check_bf16_heads(torch, fa, q, k, v, do, o, lse, delta,
+                                       bwd_close)
+            for name, err in errs_2x.items():
+                errs[name] = max(errs[name], err)
+        qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+        backend = sdpa_backend(torch, q, k, v)
+        lib_fwd = time_ms(torch, lambda: sdpa(q, k, v, is_causal=True))
+        out = sdpa(qg, kg, vg, is_causal=True)
+        lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+            out, (qg, kg, vg), do, retain_graph=True))
+        lib_both = time_ms(torch, lambda: torch.autograd.grad(
+            sdpa(qg, kg, vg, is_causal=True), (qg, kg, vg), do))
+        del out
+        runs = (
+            (names[0], lambda: fa.flash_attention_fwd(q, k, v, causal=True),
+             lambda: fa.flash_attention_ref(q, k, v, causal=True),
+             (2, 4, 1), lib_fwd,
+             "analytics_zoo_torch/csrc/flash_attention_fwd.cu",
+             "analytics_zoo_tpu/ops/pallas_attention.py:51"),
+            (names[1], lambda: fa.flash_attention_dq(q, k, v, do, lse, delta,
+                                                     True),
+             lambda: fa.flash_attention_dq_ref(q, k, v, do, lse, delta, True),
+             (5, 5, 2), lib_bwd,
+             "analytics_zoo_torch/csrc/flash_attention_bwd.cu",
+             "analytics_zoo_tpu/ops/pallas_attention.py:94"),
+            (names[2], lambda: fa.flash_attention_dkv(q, k, v, do, lse, delta,
+                                                      True),
+             lambda: fa.flash_attention_dkv_ref(q, k, v, do, lse, delta,
+                                                True),
+             (8, 6, 2), lib_bwd,
+             "analytics_zoo_torch/csrc/flash_attention_bwd.cu",
+             "analytics_zoo_tpu/ops/pallas_attention.py:134"))
+        for name, fn, plain_fn, work, lib, src, ref in runs:
+            ms = time_ms(torch, fn)
+            plain = time_ms(torch, plain_fn) if full else None
+            passes = work[0]
+            bnd, by = flash_bf16_bound(shape, True, *work)
+            print(f"time {name} {shape} bf16 causal: kernel_ms {ms:.5f} "
+                  f"plain_ms {'not run' if plain is None else f'{plain:.5f}'} "
+                  f"library_ms {lib:.5f} bound_ms {bnd:.6f} ({by}, "
+                  f"{passes} bf16 passes) {bnd / ms:.3f} of the bound "
+                  f"({card})")
+            if full:
+                report[name] = dict(route="cuda", source=src, replaces=ref,
+                                    max_abs_err=errs[name], ms=ms,
+                                    plain_ms=plain, bound_ms=bnd, bound_by=by,
+                                    library_ms=lib)
+        both = time_ms(torch, lambda: fa.flash_attention_bwd(
+            q, k, v, *fa.flash_attention_fwd(q, k, v, causal=True), do,
+            causal=True))
+        print(f"library: bf16 scaled_dot_product_attention {shape} causal "
+              f"({backend}): forward {lib_fwd:.5f} ms, backward {lib_bwd:.5f} "
+              f"ms, forward + backward {lib_both:.5f} ms; the kernels' "
+              f"forward + backward (with delta) {both:.5f} ms ({card})")
+        del q, k, v, do, o, lse, delta, qg, kg, vg
+        torch.cuda.empty_cache()
+
+    # ---- 14d. the entry point: bench_attention at its defaults
+    kernels.reset_launch_counts()
+    result = bench_attention()
+    launches = kernels.launch_counts()
+    runs_ = 16 * (1 + 5) * 2        # ITERS x (untimed + repeats) x 2 lengths
+    expect_launches(launches, {n: runs_ for n in names},
+                    "bench_attention (bf16, causal, 4096 and 8192)")
+    if not all(np.isfinite(result[key]) and result[key] > 0 for key in (
+            "value", "flash_ms", "dense_ms", "flash_2x_seq_ms")):
+        fail(f"bench_attention returned {result}")
+    print(f"bench_attention: {json.dumps(result)} ({card})")
+    print(f"bench_attention launches: {launches} (1 each an iteration, "
+          f"{runs_} iterations)")
+    for name in names:
+        report[name]["launches"] = launches[name]
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+    return report
 
 
 def main() -> None:
@@ -2474,10 +2890,11 @@ def main() -> None:
     fit_s = time.perf_counter() - t0
     launches = kernels.launch_counts()
     steps = 8
-    want = {"flash_attention_fwd": 12 * steps, "flash_attention_dq": 12 * steps,
-            "flash_attention_dkv": 12 * steps, "bias_gelu": 12 * steps,
-            "layernorm_act": steps, "fused_adam": steps,
-            "fused_sgd": 0}
+    want = {name: 0 for name in kernels.SIGNATURES}
+    want.update({"flash_attention_fwd": 12 * steps,
+                 "flash_attention_dq": 12 * steps,
+                 "flash_attention_dkv": 12 * steps, "bias_gelu": 12 * steps,
+                 "layernorm_act": steps, "fused_adam": steps})
     if launches != want:
         fail(f"training launch counts {launches} != {want}")
     loss = history[0]["loss"]
@@ -2612,7 +3029,10 @@ def main() -> None:
                   f"bound_ms {r['bound_ms']:.6f} host_ms {r['host_ms']:.5f} "
                   f"({card})")
 
-    # ------------------------------------------------------ 14. results
+    # --------------------- 14. the flash kernels on bf16, bench_attention
+    report.update(flash_bf16_phase(torch, card, dev))
+
+    # ------------------------------------------------------ 15. results
     print(f"launches: serving (4 requests) {serving_launches}; int8 "
           f"weight-only serving (4 requests) {int8_launches}; training "
           f"(fit, 8 steps) {training_launches}; SGD fit (2 steps) "
@@ -2620,10 +3040,12 @@ def main() -> None:
           f"{wd_launches}; ResNet-50 train_step (a turn of "
           f"{RESNET_UNTIMED + RESNET_TIMED} steps) {img_launches}")
     for name, r in report.items():
-        # the transformer's training path runs every kernel but SGD's, which
-        # the ResNet-50 training steps run
-        r["launches"] = (img_launches if name == "fused_sgd"
-                         else training_launches)[name]
+        # the transformer's training path runs every float32 kernel but
+        # SGD's, which the ResNet-50 training steps run; phase 14's
+        # bench_attention run set the bf16 kernels' launches
+        if "launches" not in r:
+            r["launches"] = (img_launches if name == "fused_sgd"
+                             else training_launches)[name]
     line = {"kernels": [{"name": n, **{key: r[key] for key in (
         "route", "source", "replaces", "launches", "max_abs_err", "ms",
         "plain_ms", "bound_ms", "bound_by", "library_ms")}}

@@ -70,6 +70,8 @@ SLICE_MODULES = [
     "analytics_zoo_torch.feature.image",
     "analytics_zoo_torch.models.image",
     "analytics_zoo_torch.models.image.imageclassification",
+    "analytics_zoo_torch.benchmarks",
+    "analytics_zoo_torch.benchmarks.attention",
 ]
 
 

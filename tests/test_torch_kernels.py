@@ -6,6 +6,7 @@ The CUDA kernels themselves run only on a card:
 tests/test_torch_kernels_cuda.py and chip_smoke.py hold them against
 these plain versions there."""
 
+import contextlib
 import os
 import stat
 
@@ -43,6 +44,21 @@ def _port_config():
     tconfig.reset_config()
 
 
+@contextlib.contextmanager
+def _full_f32_products():
+    """Pin both frameworks' float32 products to full float32 for the
+    comparison: JAX's default matmul precision and torch's float32 matmul
+    precision are process-wide, and a file run earlier on the same test
+    worker may leave either at a cheaper setting."""
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        with jax.default_matmul_precision("float32"):
+            yield
+    finally:
+        torch.set_float32_matmul_precision(before)
+
+
 def _qkv(seed, shape=(2, 2, 128, 64)):
     rs = np.random.RandomState(seed)
     return [rs.randn(*shape).astype(np.float32) for _ in range(3)]
@@ -52,11 +68,12 @@ def _qkv(seed, shape=(2, 2, 128, 64)):
 def test_flash_ref_matches_pallas_interpret(causal):
     q, k, v = _qkv(0)
     scale = 64 ** -0.5
-    jo, jl = _flash_fwd_impl(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                             (causal, scale, 64, 64, True))
-    to, tl = tfa.flash_attention_ref(torch.from_numpy(q), torch.from_numpy(k),
-                                     torch.from_numpy(v), causal=causal,
-                                     scale=scale)
+    with _full_f32_products():
+        jo, jl = _flash_fwd_impl(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), (causal, scale, 64, 64, True))
+        to, tl = tfa.flash_attention_ref(
+            torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+            causal=causal, scale=scale)
     assert tl.shape == jl.shape == (4, 128, 1)
     np.testing.assert_allclose(to.numpy(), np.asarray(jo),
                                atol=1e-5, rtol=1e-5)

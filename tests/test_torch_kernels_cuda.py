@@ -145,6 +145,140 @@ def test_flash_autograd_on_the_card_matches_plain_autograd(dev, causal):
         torch.testing.assert_close(g, w, **BWD_TOL)
 
 
+# bf16 kernels against their plain versions on the same bf16 inputs.  O:
+# the kernel rounds P to bf16 at each 64-key tile's running max, the plain
+# version at the row's max; both round O once: one bf16 ulp (2^-7 of a
+# value at most) plus 2^-6 of the row's RMS, the scale of what the two
+# roundings of P leave.  LSE: float32 from the same exact bf16
+# products summed in other orders (9.5e-7 at most measured on the H100).
+# dQ, dK, dV: float32 sums in other orders rounded to bf16 once: one ulp,
+# 2^-10 of the largest element where dS cancels to near zero, and 1e-5
+# where it is zero in exact arithmetic (T = 1: dP and delta are float32
+# sums of the same bf16 products in other orders).
+BF16_O_RTOL, BF16_O_ROW_RMS = 2.0 ** -7, 2.0 ** -6
+BF16_LSE_TOL = dict(rtol=0, atol=1e-5)
+
+
+def _bf16(dev, *shape, seed=0):
+    return _randn(dev, *shape, seed=seed).to(torch.bfloat16)
+
+
+def _bf16_o_used(got, want):
+    """The largest share of its tolerance an element of O uses."""
+    got, want = got.float(), want.float()
+    bound = (BF16_O_ROW_RMS * want.pow(2).mean(-1, keepdim=True).sqrt()
+             + BF16_O_RTOL * want.abs())
+    return float(((got - want).abs() / bound).max())
+
+
+def _close_bf16_o(got, want):
+    used = _bf16_o_used(got, want)
+    assert used <= 1.0, used
+
+
+def _close_bf16_grad(got, want):
+    atol = 2.0 ** -10 * float(want.float().abs().max()) + 1e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("t,d,causal", [(128, 64, False), (128, 64, True),
+                                        (200, 64, True), (100, 128, False),
+                                        (257, 128, True), (1, 64, False),
+                                        (512, 128, True)])
+def test_flash_bf16_kernels_match_plain(dev, t, d, causal):
+    q, k, v, do = (_bf16(dev, 2, 3, t, d, seed=s) for s in range(4))
+    before = kernels.launch_counts()
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    o_ref, lse_ref = fa.flash_attention_ref(q, k, v, causal=causal)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    _close_bf16_o(o, o_ref)
+    torch.testing.assert_close(lse, lse_ref, **BF16_LSE_TOL)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    want = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        _close_bf16_grad(g, w)
+    after = kernels.launch_counts()
+    for name in fa.KERNELS[torch.bfloat16]:
+        assert after[name] == before[name] + 1
+    for name in fa.KERNELS[torch.float32]:
+        assert after[name] == before[name]
+
+
+@pytest.mark.parametrize("t,d,causal", [(512, 64, False), (200, 64, True),
+                                        (257, 128, True), (1024, 128, False)])
+def test_flash_bf16_forward_rounds_p_as_the_plain_version(dev, t, d, causal):
+    """Where key 0 holds every row's largest score, the kernel's running
+    max is the row's max from its first tile on: its O is the plain
+    version's but on at most 5% of the elements (more with more keys a
+    row: 1.6% at 4096), each within O's tolerance."""
+    gen = torch.Generator(device=dev).manual_seed(t + d)
+    shape = (2, 3, t, d)
+    q = 0.1 * torch.randn(shape, generator=gen, device=dev)
+    q[..., 0] = 2.0
+    k = torch.randn(shape, generator=gen, device=dev)
+    k[..., 0] = -17.0 * torch.rand(shape[:-1], generator=gen, device=dev)
+    k[..., 0, 0] = 10.0
+    v = torch.randn(shape, generator=gen, device=dev)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    o = fa.flash_attention_fwd(q, k, v, causal=causal)[0]
+    want = fa.flash_attention_ref(q, k, v, causal=causal)[0]
+    _close_bf16_o(o, want)
+    assert float((o != want).float().mean()) <= 0.05
+
+
+@pytest.mark.parametrize("t,d,causal", [(512, 64, False), (200, 64, True),
+                                        (257, 128, True)])
+def test_flash_bf16_kernels_are_deterministic(dev, t, d, causal):
+    q, k, v, do = (_bf16(dev, 2, 3, t, d, seed=s) for s in range(4))
+    first = fa.flash_attention_fwd(q, k, v, causal=causal)
+    second = fa.flash_attention_fwd(q, k, v, causal=causal)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    o, lse = first
+    delta = fa.flash_attention_delta(o, do)
+    runs = [(fa.flash_attention_dq(q, k, v, do, lse, delta, causal),
+             *fa.flash_attention_dkv(q, k, v, do, lse, delta, causal))
+            for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,d,fired", [
+    (torch.bfloat16, 64, "bf16"), (torch.bfloat16, 128, "bf16"),
+    (torch.float32, 128, "f32"), (torch.bfloat16, 32, None),
+    (torch.float32, 32, None), (torch.float16, 64, None)])
+def test_flash_op_routes_by_dtype_and_head_dim_on_the_card(dev, dtype, d,
+                                                            fired):
+    """Through the op and autograd: bf16 launches only the bf16 kernels,
+    float32 only the float32 ones, and what no kernel takes launches none
+    and returns the plain result."""
+    leaves = [_randn(dev, 1, 2, 192, d, seed=s).to(dtype).requires_grad_()
+              for s in range(3)]
+    before = kernels.launch_counts()
+    o = fa.flash_attention(*leaves, causal=True)
+    grads = torch.autograd.grad(o.float().sum(), leaves)
+    after = kernels.launch_counts()
+    launched = {n for n in after if after[n] != before[n]}
+    want = set(fa.KERNELS[torch.bfloat16 if fired == "bf16" else
+                          torch.float32]) if fired else set()
+    assert launched == want
+    assert o.dtype == dtype and all(g.dtype == dtype for g in grads)
+    if not fired:
+        with torch.no_grad():
+            assert torch.equal(o, fa.flash_attention_ref(*leaves,
+                                                         causal=True)[0])
+
+
+def test_flash_bf16_wrappers_refuse_mixed_dtypes(dev):
+    q = _bf16(dev, 1, 2, 64, 64)
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_attention_fwd(q, q.float(), q)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa.flash_attention_fwd(q.half(), q.half(), q.half())
+
+
 def _leaf(dev, n, seed, offset=0):
     """A contiguous float32 leaf of n elements; offset 1 misaligns it."""
     return _randn(dev, n + offset, seed=seed)[offset:]
