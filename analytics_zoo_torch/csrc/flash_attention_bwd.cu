@@ -1,7 +1,6 @@
-// Flash-attention backward for Hopper (sm_90a): dQ and dK/dV, in float32
-// with every product on the tensor cores in split TF32, and in bfloat16
-// (zoo_flash_attention_dq_bf16, zoo_flash_attention_dkv_bf16, at the end of
-// this file) on bf16 mma.sync.
+// Flash-attention backward for Hopper (sm_90a): dQ and dK/dV in float32,
+// with every product on the tensor cores in split TF32.  The bfloat16
+// backward is flash_attention_bwd_bf16.cu.
 //
 // Replaces: analytics_zoo_tpu/ops/pallas_attention.py::_flash_dq_kernel
 //           and ::_flash_dkv_kernel (launched from _flash_vjp_bwd).
@@ -69,41 +68,6 @@
 // and fragment reads are free of bank conflicts (flash_tile.cuh).  Keys and
 // queries past T in a ragged last tile are zero-filled by the copy and get
 // probability 0; rows past T are not written.
-
-// bfloat16 (flash_dq_bf16_kernel, flash_dkv_bf16_kernel).  The same
-// reference kernels on bf16 q, k, v, dO, with lse and delta float32 and
-// dq, dk, dv written in bf16 once, at the end:
-//   - S is recomputed exactly as the bf16 forward takes it: q * scale in
-//     bf16 (scale rounded to bf16, the product rounded once), S = (q*scale)
-//     K^T by flash_tile.cuh's dots_bf16 (the dQ kernel's S is the
-//     forward's bit for bit; dK/dV takes S^T = K (q*scale)^T, the same
-//     products in another mma position).  P = exp(S - lse) and
-//     dS = P (dP - delta) stay float32, as the reference keeps them.
-//   - dP = dO V^T: both operands bf16 values, so one bf16 m16n8k16 gives
-//     the reference's float32 product, summation order aside.
-//   - dQ = scale * dS K, dK = dS^T (q*scale) and dV = P^T dO have one
-//     float32 operand, which must not be rounded to bf16.  It is split into
-//     three bf16 parts (flash_tile.cuh's accumulate_bf16<C, 3>): three
-//     m16n8k16 bf16 products a tile at 989 TFLOP/s, against two TF32
-//     m16n8k8 products (hi and lo of the float32 operand; the bf16 one is
-//     exact in TF32) at 495, i.e. 3 against 4 bf16-rate passes, and the
-//     three parts keep about 24 significant bits to the two TF32 parts'
-//     22.  The bf16 operand is a tile stored k-rows by D columns, its B
-//     fragments loaded transposed (ldmatrix.trans).
-//   - dK and dV accumulate in float32 registers over the q tiles (no
-//     atomics, bit-identical relaunches), dQ is multiplied by the float32
-//     scale after its accumulation; each is rounded to bf16 once.
-//   What bounds them on the H100: at bench_attention's (4, 8, 4096, 128),
-// causal, one T^2 product is X = 2 * B*H * T^2/2 * D = 6.87e10 FLOP.  dQ
-// takes S and dP as bf16 products and dQ as three: 5X at 989 TFLOP/s,
-// 0.347 ms; dK/dV takes S, dP, then dK and dV as three each: 8X, 0.556 ms.
-// Their bytes (q, k, v, dO and the outputs, 33.5 MB each) take ~0.05 ms:
-// bound by operations.  On an H100 SXM at 700 W they take 1.45 and 1.98 ms,
-// 0.24 and 0.28 of the bounds (the same suspect as the bf16 forward's).
-//   dQ: D=64 BM=128 (8 warps), D=128 BM=64 (4 warps), BN=64; dK/dV: D=64
-//   BM=128, BN=64, D=128 BM=64, BN=32 (dK and dV take 64 registers each
-//   at D=128).  Tiling, ragged T and causal skipping as the float32
-//   kernels.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -381,247 +345,6 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
     return cudaGetLastError();
 }
 
-// ------------------------------------------------------------ bfloat16
-
-template <int D_, int BN_>
-struct CfgBf16 {
-    static constexpr int D = D_;
-    static constexpr int BM = D == 64 ? 128 : 64;  // rows a block owns
-    static constexpr int BN = BN_;                 // rows of each streamed tile
-    static constexpr int NTHREADS = 32 * (BM / 16);
-    static constexpr int NJ = BN / 8;
-    static constexpr int S = D + 8;                // padded row stride, bf16 values
-    static constexpr int OWN = BM * S;
-    static constexpr int TILE = BN * S;
-    // own: two tiles; ring: two stages of two streamed tiles; dK/dV also
-    // streams lse and delta (two stages of BN floats each)
-    static constexpr int DQ_BYTES = (2 * OWN + 4 * TILE) * (int)sizeof(bf16);
-    static constexpr int DKV_BYTES = (2 * OWN + 4 * TILE) * (int)sizeof(bf16) +
-                                     4 * BN * (int)sizeof(float);
-};
-
-template <int D>
-using DqBf16 = CfgBf16<D, 64>;
-template <int D>
-using DkvBf16 = CfgBf16<D, D == 64 ? 64 : 32>;
-
-template <int D>
-__global__ void __launch_bounds__(DqBf16<D>::NTHREADS, 1)
-flash_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     bf16* __restrict__ dq, int t, float scale, float qscale, int causal) {
-    using C = DqBf16<D>;
-    constexpr int BM = C::BM, BN = C::BN, NJ = C::NJ;
-    extern __shared__ float4 smem4[];
-    bf16* qs = reinterpret_cast<bf16*>(smem4);
-    bf16* dos = qs + C::OWN;
-    bf16* ring = dos + C::OWN;                     // stage s: K at 2s, V at 2s+1
-
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int g = lane >> 2, tg = lane & 3;
-    const int r0 = 16 * warp;
-    const int bh = blockIdx.y;
-    const int q0 = blockIdx.x * BM;
-    const int row0 = q0 + r0;
-    const size_t base = (size_t)bh * t * D;
-
-    int n_k = (t + BN - 1) / BN;
-    if (causal) {
-        const int last = (q0 + BM + BN - 1) / BN;
-        n_k = n_k < last ? n_k : last;
-    }
-
-    load_tile<C, BM>(qs, q + base, q0, t);
-    load_tile<C, BM>(dos, dout + base, q0, t);
-    load_tile<C, BN>(ring, k + base, 0, t);
-    load_tile<C, BN>(ring + C::TILE, v + base, 0, t);
-    cp_async_commit();
-
-    float lse_r[2], delta_r[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-        const int row = row0 + g + 8 * h;
-        lse_r[h] = row < t ? lse[(size_t)bh * t + row] : 0.f;
-        delta_r[h] = row < t ? delta[(size_t)bh * t + row] : 0.f;
-    }
-
-    float acc[D / 8][4];
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-    for (int kt = 0; kt < n_k; ++kt) {
-        bf16* ks = ring + (kt & 1) * 2 * C::TILE;
-        bf16* vs = ks + C::TILE;
-        if (kt + 1 < n_k) {
-            bf16* next = ring + ((kt + 1) & 1) * 2 * C::TILE;
-            load_tile<C, BN>(next, k + base, (kt + 1) * BN, t);
-            load_tile<C, BN>(next + C::TILE, v + base, (kt + 1) * BN, t);
-            cp_async_commit();
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
-        }
-        if (kt == 0) scale_rows<C, BM>(qs, qscale);
-        __syncthreads();
-
-        const int k0 = kt * BN;
-        if (row0 < t && !(causal && k0 > row0 + 15)) {
-            float p[NJ][4], ds[NJ][4];
-            dots_bf16<C>(p, qs, r0, ks, g, tg);
-#pragma unroll
-            for (int j = 0; j < NJ; ++j)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const int row = row0 + g + 8 * (e >> 1);
-                    const int col = k0 + 8 * j + 2 * tg + (e & 1);
-                    float sv = p[j][e];
-                    if (causal && col > row) sv = -1e30f;
-                    p[j][e] = (row < t && col < t) ? expf(sv - lse_r[e >> 1]) : 0.f;
-                }
-            dots_bf16<C>(ds, dos, r0, vs, g, tg);
-#pragma unroll
-            for (int j = 0; j < NJ; ++j)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) ds[j][e] = p[j][e] * (ds[j][e] - delta_r[e >> 1]);
-            accumulate_bf16<C, 3>(acc, ds, ks, lane);
-        }
-        __syncthreads();
-    }
-    store_rows_bf16<D>(dq + base, acc, row0, t, scale, g, tg);
-}
-
-template <int D>
-__global__ void __launch_bounds__(DkvBf16<D>::NTHREADS, 1)
-flash_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                      const float* __restrict__ lse, const float* __restrict__ delta,
-                      bf16* __restrict__ dk, bf16* __restrict__ dv, int t,
-                      float qscale, int causal) {
-    using C = DkvBf16<D>;
-    constexpr int BM = C::BM, BN = C::BN, NJ = C::NJ;
-    extern __shared__ float4 smem4[];
-    bf16* ks = reinterpret_cast<bf16*>(smem4);
-    bf16* vs = ks + C::OWN;
-    bf16* ring = vs + C::OWN;                      // stage s: q at 2s, dO at 2s+1
-    float* rows = reinterpret_cast<float*>(ring + 4 * C::TILE);  // lse at 2s, delta at 2s+1
-
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int g = lane >> 2, tg = lane & 3;
-    const int r0 = 16 * warp;
-    const int bh = blockIdx.y;
-    const int k0 = blockIdx.x * BM;
-    const int row0 = k0 + r0;                      // this warp's first key row
-    const size_t base = (size_t)bh * t * D;
-    const float* lse_bh = lse + (size_t)bh * t;
-    const float* delta_bh = delta + (size_t)bh * t;
-
-    const int n_q = (t + BN - 1) / BN;
-    const int qt0 = causal ? k0 / BN : 0;
-
-    auto load_stage = [&](int qt, int stage) {
-        bf16* st = ring + stage * 2 * C::TILE;
-        load_tile<C, BN>(st, q + base, qt * BN, t);
-        load_tile<C, BN>(st + C::TILE, dout + base, qt * BN, t);
-        if (threadIdx.x < 2 * BN) {
-            const int row = qt * BN + threadIdx.x % BN;
-            const bool in = row < t;
-            const float* src = threadIdx.x < BN ? lse_bh : delta_bh;
-            cp_async4(rows + stage * 2 * BN + threadIdx.x, src + (in ? row : 0), in);
-        }
-        cp_async_commit();
-    };
-
-    load_tile<C, BM>(ks, k + base, k0, t);
-    load_tile<C, BM>(vs, v + base, k0, t);
-    load_stage(qt0, 0);
-
-    float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-
-    for (int qt = qt0; qt < n_q; ++qt) {
-        const int stage = (qt - qt0) & 1;
-        bf16* qs = ring + stage * 2 * C::TILE;
-        bf16* dos = qs + C::TILE;
-        const float* ls = rows + stage * 2 * BN;
-        const float* dl = ls + BN;
-        if (qt + 1 < n_q) {
-            load_stage(qt + 1, stage ^ 1);
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
-        }
-        scale_rows<C, BN>(qs, qscale);
-        __syncthreads();
-
-        const int q0 = qt * BN;
-        if (row0 < t && !(causal && row0 > q0 + BN - 1)) {
-            // this warp's key rows row0 + g (+8) against queries 8j + 2tg (+1)
-            float p[NJ][4], ds[NJ][4];
-            dots_bf16<C>(p, ks, r0, qs, g, tg);
-#pragma unroll
-            for (int j = 0; j < NJ; ++j) {
-                const int qc = 8 * j + 2 * tg;
-                const float2 l2 = *reinterpret_cast<const float2*>(ls + qc);
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const int krow = row0 + g + 8 * (e >> 1);
-                    const int qrow = q0 + qc + (e & 1);
-                    float sv = p[j][e];
-                    if (causal && krow > qrow) sv = -1e30f;
-                    p[j][e] = (krow < t && qrow < t) ? expf(sv - ((e & 1) ? l2.y : l2.x)) : 0.f;
-                }
-            }
-            accumulate_bf16<C, 3>(dv_acc, p, dos, lane);
-            dots_bf16<C>(ds, vs, r0, dos, g, tg);
-#pragma unroll
-            for (int j = 0; j < NJ; ++j) {
-                const float2 d2 = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * tg);
-#pragma unroll
-                for (int e = 0; e < 4; ++e)
-                    ds[j][e] = p[j][e] * (ds[j][e] - ((e & 1) ? d2.y : d2.x));
-            }
-            accumulate_bf16<C, 3>(dk_acc, ds, qs, lane);
-        }
-        __syncthreads();
-    }
-    store_rows_bf16<D>(dk + base, dk_acc, row0, t, 1.f, g, tg);
-    store_rows_bf16<D>(dv + base, dv_acc, row0, t, 1.f, g, tg);
-}
-
-template <int D>
-cudaError_t launch_dq_bf16(const bf16* q, const bf16* k, const bf16* v,
-                           const bf16* dout, const float* lse, const float* delta,
-                           bf16* dq, int bh, int t, float scale, float qscale,
-                           int causal, cudaStream_t stream) {
-    using C = DqBf16<D>;
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_dq_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::DQ_BYTES);
-    if (err != cudaSuccess) return err;
-    dim3 grid((t + C::BM - 1) / C::BM, bh);
-    flash_dq_bf16_kernel<D><<<grid, C::NTHREADS, C::DQ_BYTES, stream>>>(
-        q, k, v, dout, lse, delta, dq, t, scale, qscale, causal);
-    return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_dkv_bf16(const bf16* q, const bf16* k, const bf16* v,
-                            const bf16* dout, const float* lse, const float* delta,
-                            bf16* dk, bf16* dv, int bh, int t, float qscale,
-                            int causal, cudaStream_t stream) {
-    using C = DkvBf16<D>;
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_dkv_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::DKV_BYTES);
-    if (err != cudaSuccess) return err;
-    dim3 grid((t + C::BM - 1) / C::BM, bh);
-    flash_dkv_bf16_kernel<D><<<grid, C::NTHREADS, C::DKV_BYTES, stream>>>(
-        q, k, v, dout, lse, delta, dk, dv, t, qscale, causal);
-    return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" int zoo_flash_attention_dq(const float* q, const float* k,
@@ -658,50 +381,6 @@ extern "C" int zoo_flash_attention_dkv(const float* q, const float* k,
         case 128:
             return (int)launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, bh, t,
                                         scale, causal, s);
-        default:
-            return (int)cudaErrorInvalidValue;
-    }
-}
-
-extern "C" int zoo_flash_attention_dq_bf16(const __nv_bfloat16* q,
-                                           const __nv_bfloat16* k,
-                                           const __nv_bfloat16* v,
-                                           const __nv_bfloat16* dout,
-                                           const float* lse, const float* delta,
-                                           __nv_bfloat16* dq, int bh, int t, int d,
-                                           float scale, float qscale, int causal,
-                                           void* stream) {
-    cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-    if (bh <= 0 || t <= 0) return (int)cudaSuccess;
-    switch (d) {
-        case 64:
-            return (int)launch_dq_bf16<64>(q, k, v, dout, lse, delta, dq, bh, t, scale,
-                                           qscale, causal, s);
-        case 128:
-            return (int)launch_dq_bf16<128>(q, k, v, dout, lse, delta, dq, bh, t, scale,
-                                            qscale, causal, s);
-        default:
-            return (int)cudaErrorInvalidValue;
-    }
-}
-
-extern "C" int zoo_flash_attention_dkv_bf16(const __nv_bfloat16* q,
-                                            const __nv_bfloat16* k,
-                                            const __nv_bfloat16* v,
-                                            const __nv_bfloat16* dout,
-                                            const float* lse, const float* delta,
-                                            __nv_bfloat16* dk, __nv_bfloat16* dv,
-                                            int bh, int t, int d, float qscale,
-                                            int causal, void* stream) {
-    cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-    if (bh <= 0 || t <= 0) return (int)cudaSuccess;
-    switch (d) {
-        case 64:
-            return (int)launch_dkv_bf16<64>(q, k, v, dout, lse, delta, dk, dv, bh, t,
-                                            qscale, causal, s);
-        case 128:
-            return (int)launch_dkv_bf16<128>(q, k, v, dout, lse, delta, dk, dv, bh, t,
-                                             qscale, causal, s);
         default:
             return (int)cudaErrorInvalidValue;
     }

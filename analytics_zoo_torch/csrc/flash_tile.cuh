@@ -2,7 +2,9 @@
 // flash_attention_bwd.cu): the cp.async ring's copies, the split-TF32
 // rounding, and the mma.sync.m16n8k8 TF32 tile products of the float32
 // kernels; then, at the end, the bf16 tiles and mma.sync.m16n8k16 bf16
-// products of the bfloat16 kernels.
+// products of the bfloat16 forward, and the three-part split of a float32
+// operand (bf16_parts) that the bfloat16 backward
+// (flash_attention_bwd_bf16.cu, on wgmma_tile.cuh) also takes.
 //
 // Every template here takes the kernel's tile configuration C, which
 // names:
@@ -223,12 +225,13 @@ __device__ __forceinline__ void accumulate(float acc[C::D / 8][4], const float w
 // the next product from registers.  A product of two bf16 values is exact
 // in float32; only the summation order differs from a float32 product.
 //
-// A float32 operand (P and dS in the backward) is split into three bf16
-// parts, x = hi + mid + lo, each the nearest bf16 of what is left; the
-// residue is below 2^-24 of |x| (each part takes 8 more significant bits
-// and halves the rest), so three bf16 products, smallest part first, take
-// the product to float32's accuracy at the bf16 rate.  One part (nearest
-// even, as astype rounds) is the forward's P rounded to bf16.
+// A float32 operand (P and dS in the bf16 backward, which takes its
+// products with wgmma: wgmma_tile.cuh) is split into three bf16 parts,
+// x = hi + mid + lo, each the nearest bf16 of what is left; the residue is
+// below 2^-24 of |x| (each part takes 8 more significant bits and halves
+// the rest), so three bf16 products, smallest part first, take the product
+// to float32's accuracy at the bf16 rate.  One part (nearest even, as
+// astype rounds) is the forward's P rounded to bf16.
 
 using bf16 = __nv_bfloat16;
 
@@ -296,10 +299,10 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const bf16* p) {
 }
 
 // acc[j] = a[ra : ra+16, :D] . b[8j : 8j + 8, :D]^T for j < NJ, both bf16
-// tiles, float32 accumulation in 16-wide steps of d in order: the forward
-// and the dQ kernel take S with this same code, so the dQ kernel's S is the
-// forward's bit for bit.  Lane (g, t) holds rows ra+g, ra+g+8 and columns
-// 8j + 2t, +1.
+// tiles, float32 accumulation in 16-wide steps of d in order (the bf16
+// forward's S; the bf16 backward takes S with wgmma, whose order of
+// summation may differ, so its S may differ from the forward's by float32
+// rounding).  Lane (g, t) holds rows ra+g, ra+g+8 and columns 8j + 2t, +1.
 template <class C>
 __device__ __forceinline__ void dots_bf16(float acc[C::NJ][4], const bf16* a, int ra,
                                           const bf16* b, int g, int t) {
@@ -337,8 +340,7 @@ __device__ __forceinline__ void bf16_parts(uint32_t a[PARTS][4], int i, float x0
 // acc[n] += w . x[16kk : 16kk + 16, 8n : 8n + 8] summed over kk < NJ/2, for
 // n < D/8, where w is a 16 x 8NJ float32 tile held as dots_bf16 leaves it
 // and x a bf16 tile of 8NJ k-rows by D columns.  PARTS = 1 rounds w to bf16
-// (the forward's P); PARTS = 3 splits it (the backward's P and dS), the
-// smallest part first.
+// (the forward's P); PARTS = 3 would split it, the smallest part first.
 template <class C, int PARTS>
 __device__ __forceinline__ void accumulate_bf16(float acc[C::D / 8][4], const float w[C::NJ][4],
                                                 const bf16* x, int lane) {
@@ -361,22 +363,6 @@ __device__ __forceinline__ void accumulate_bf16(float acc[C::D / 8][4], const fl
                 mma16(acc[2 * n2 + 1], a[p], b[2], b[3]);
             }
         }
-    }
-}
-
-// Write a warp's 16 x D float32 accumulator times mul as bf16 rows (nearest
-// even); rows past t are not written.
-template <int D>
-__device__ __forceinline__ void store_rows_bf16(bf16* dst, const float acc[D / 8][4], int row0,
-                                                int t, float mul, int g, int tg) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-        const int row = row0 + g + 8 * h;
-        if (row >= t) continue;
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n)
-            *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)row * D + 8 * n + 2 * tg) =
-                __floats2bfloat162_rn(acc[n][2 * h] * mul, acc[n][2 * h + 1] * mul);
     }
 }
 

@@ -49,18 +49,19 @@ SIGNATURES = {
     # q, k, v, do, lse, delta, dk, dv, bh, t, d, scale, causal, stream
     "flash_attention_dkv": ("flash_attention_bwd", "zoo_flash_attention_dkv",
                             [_P] * 8 + [_I, _I, _I, _F, _I, _P]),
-    # the same three on bfloat16 q, k, v, dO and outputs (lse, delta float32);
-    # qscale is the scale rounded to bf16, as the reference's q * scale
-    # takes it.  q, k, v, o, lse, bh, t, d, qscale, causal, stream
+    # the same three on bfloat16 q, k, v, dO and outputs (lse, delta float32;
+    # the backward on wgmma in a source of its own); qscale is the scale
+    # rounded to bf16, as the reference's q * scale takes it.
+    # q, k, v, o, lse, bh, t, d, qscale, causal, stream
     "flash_attention_fwd_bf16": ("flash_attention_fwd",
                                  "zoo_flash_attention_fwd_bf16",
                                  [_P] * 5 + [_I, _I, _I, _F, _I, _P]),
     # q, k, v, do, lse, delta, dq, bh, t, d, scale, qscale, causal, stream
-    "flash_attention_dq_bf16": ("flash_attention_bwd",
+    "flash_attention_dq_bf16": ("flash_attention_bwd_bf16",
                                 "zoo_flash_attention_dq_bf16",
                                 [_P] * 7 + [_I, _I, _I, _F, _F, _I, _P]),
     # q, k, v, do, lse, delta, dk, dv, bh, t, d, qscale, causal, stream
-    "flash_attention_dkv_bf16": ("flash_attention_bwd",
+    "flash_attention_dkv_bf16": ("flash_attention_bwd_bf16",
                                  "zoo_flash_attention_dkv_bf16",
                                  [_P] * 8 + [_I, _I, _I, _F, _I, _P]),
     # x, bias, out, rows, d, stream

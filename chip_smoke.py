@@ -2168,8 +2168,10 @@ def profile_resnet() -> None:
 
 # --------------------------- phase 14: the flash kernels on bfloat16
 # where the bf16 kernels are checked: a ragged last tile at head_dim 64,
-# head_dim 128, and bench_attention's shape
-BF16_SHAPES = ((2, 4, 200, 64), (2, 4, 512, 128), (4, 8, 4096, 128))
+# head_dim 128, fewer rows than one 64-row tile, and bench_attention's
+# shape
+BF16_SHAPES = ((2, 4, 200, 64), (2, 4, 512, 128), (1, 2, 17, 128),
+               (4, 8, 4096, 128))
 BF16_BENCH = (4, 8, 4096, 128)
 # Kernel against plain version, both on the card from the same bf16 inputs.
 # O: the kernel rounds P to bf16 at each 64-key tile's running max, the
@@ -2505,14 +2507,14 @@ def flash_bf16_phase(torch, card, dev):
                                                      True),
              lambda: fa.flash_attention_dq_ref(q, k, v, do, lse, delta, True),
              (5, 5, 2), lib_bwd,
-             "analytics_zoo_torch/csrc/flash_attention_bwd.cu",
+             "analytics_zoo_torch/csrc/flash_attention_bwd_bf16.cu",
              "analytics_zoo_tpu/ops/pallas_attention.py:94"),
             (names[2], lambda: fa.flash_attention_dkv(q, k, v, do, lse, delta,
                                                       True),
              lambda: fa.flash_attention_dkv_ref(q, k, v, do, lse, delta,
                                                 True),
              (8, 6, 2), lib_bwd,
-             "analytics_zoo_torch/csrc/flash_attention_bwd.cu",
+             "analytics_zoo_torch/csrc/flash_attention_bwd_bf16.cu",
              "analytics_zoo_tpu/ops/pallas_attention.py:134"))
         for name, fn, plain_fn, work, lib, src, ref in runs:
             ms = time_ms(torch, fn)

@@ -3,7 +3,7 @@
 build, inspect, check and time, beside other versions of the same sources.
 
     python3 scripts/bench_flash.py [--compare PATH.cu ...] [--diagnose]
-                                   [--fit] [--out PATH]
+                                   [--fit | --bf16] [--out PATH]
 
 Builds ``analytics_zoo_torch/csrc/flash_attention_fwd.cu`` and
 ``flash_attention_bwd.cu`` and, with ``--compare``, other sources with the
@@ -47,6 +47,24 @@ products and with the default bf16 products, in the same turns, and
 prints each run's epoch loss: does a compared forward change what
 training learns?
 
+With ``--bf16``, instead of all that, the bf16 backward (dQ and dK/dV,
+``flash_attention_bwd_bf16.cu``) at ``bench_attention``'s shape: it
+builds the current source and every ``--compare`` source that defines the
+bf16 entry points (an earlier ``flash_attention_bwd.cu`` held the
+float32 and bf16 backward in one file; put that commit's ``flash_tile.cuh``
+beside it, which it finds first), prints their registers, spills and
+SASS mix (``HGMMA`` beside ``HMMA``), checks each against the plain
+versions with ``chip_smoke.py``'s tolerances at its phase-14 shapes (two
+launches bit-identical), reports whether the current float32 backward's
+dQ, dK and dV are bit-identical to each compared source's at the
+float32 shapes above, and times dQ, dK/dV and the pair in turns at
+(4, 8, 4096, 128) and (4, 8, 8192, 128), causal, beside the backward of
+bf16 ``scaled_dot_product_attention`` and ``flash_bf16_bound``.  With
+``--diagnose`` it adds variants of the current bf16 source (unchecked,
+timed in the same turns): ``one_part`` takes the float32 operand of dQ,
+dK and dV as one bf16 part in place of three (a third of those
+products' tensor work), ``fast_exp`` uses ``__expf``.
+
 Needs a CUDA device and ``nvcc``; with ``--out PATH`` also writes the
 results as JSON.  Exits non-zero if a check failed (after timing).
 """
@@ -72,7 +90,18 @@ SHAPES = [((8, 12, 512, 64), False), ((8, 12, 512, 64), True),
           ((2, 4, 512, 128), False), ((2, 4, 512, 128), True)]
 TRAIN_SHAPE = (8, 12, 512, 64)
 FWD, BWD = "flash_attention_fwd", "flash_attention_bwd"
-KINDS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
+KINDS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
+         "flash_dq_bf16_kernel", "flash_dkv_bf16_kernel")
+BF16_BWD = "flash_attention_bwd_bf16"
+BF16_NAMES = ["flash_attention_dq_bf16", "flash_attention_dkv_bf16"]
+F32_NAMES = ["flash_attention_dq", "flash_attention_dkv"]
+# bench_attention's shape and twice its sequence, causal
+BF16_TIMED = ((4, 8, 4096, 128), (4, 8, 8192, 128))
+# --diagnose --bf16: variant name -> (text in the bf16 source, replacement)
+DIAGNOSE_BF16 = {
+    "one_part": ("constexpr int PARTS = 3;", "constexpr int PARTS = 1;"),
+    "fast_exp": ("expf(", "__expf("),
+}
 
 # --diagnose: variant name -> (text in the current sources, replacement);
 # each must be found in at least one of them
@@ -136,8 +165,9 @@ def finish_build(kernels, started, src: str, names):
     if proc.returncode != 0:
         sys.exit(f"bench_flash: nvcc failed for {src}:\n{log}")
     ptxas = [ln.strip() for ln in log.splitlines()
-             if "ptxas info" in ln and ("Used" in ln or "Compiling" in ln
-                                        or "spill" in ln)]
+             if ("ptxas info" in ln and ("Used" in ln or "Compiling" in ln
+                                         or "Potential" in ln))
+             or "spill" in ln]
     lib = ctypes.CDLL(out)
     for name in names:
         _, entry, argtypes = kernels.SIGNATURES[name]
@@ -163,18 +193,22 @@ def sass_mix(path: str, nvcc: str):
         if m:
             current = None
             for kind in KINDS:
-                if kind in m.group(1):
+                if kind + "I" in m.group(1):
                     dim = re.search(r"ILi(\d+)E", m.group(1))
                     current = f"{kind}<{dim.group(1) if dim else '?'}>"
                     mixes[current] = collections.Counter()
             continue
-        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Za-z0-9_.]*)",
                      line)
         if current and m:
             op = m.group(1)
-            key = op if op.startswith("HMMA") else op.split(".")[0]
+            key = op if op.startswith(("HMMA", "HGMMA")) else op.split(".")[0]
             mixes[current][key] += 1
-    return {k: dict(c.most_common(14)) for k, c in mixes.items()}
+    # the 14 most common opcodes, and every tensor-core one
+    return {k: {**dict(c.most_common(14)),
+                **{op: n for op, n in c.items()
+                   if op.startswith(("HMMA", "HGMMA"))}}
+            for k, c in mixes.items()}
 
 
 def in_turns(torch, time_ms, fns, runs):
@@ -234,11 +268,240 @@ def fit_losses(torch, kernels, fwd_libs, card):
     return dict(losses)
 
 
+def defines(path: str, entry: str) -> bool:
+    with open(path) as f:
+        return f"{entry}(" in f.read()
+
+
+def diagnose_bf16_sources(csrc: str, out_dir: str):
+    """Write the --diagnose variants of the current bf16 backward (each
+    beside its own copy of the headers); returns {tag: path}."""
+    with open(os.path.join(csrc, BF16_BWD + ".cu")) as f:
+        text = f.read()
+    out = {}
+    for name, (old, new) in DIAGNOSE_BF16.items():
+        if old not in text:
+            sys.exit(f"bench_flash: --diagnose: {name}: the bf16 source no "
+                     f"longer holds {old!r}")
+        d = os.path.join(out_dir, f"diag_bf16_{name}")
+        os.makedirs(d, exist_ok=True)
+        for h in glob.glob(os.path.join(csrc, "*.cuh")):
+            with open(h) as f_in, open(os.path.join(d, os.path.basename(h)),
+                                       "w") as f_out:
+                f_out.write(f_in.read())
+        path = os.path.join(d, BF16_BWD + ".cu")
+        with open(path, "w") as f:
+            f.write(text.replace(old, new))
+        out[f"diag_{name}"] = path
+    return out
+
+
+def bf16_backward(args, torch, kernels, fa, card) -> None:
+    """--bf16: build, inspect, check and time the bf16 backward against
+    the compared sources (see the module's docstring)."""
+    from chip_smoke import (BF16_BWD_ATOL_FLOOR, BF16_BWD_ATOL_SHARE,
+                            BF16_BWD_RTOL, BF16_SHAPES, flash_bf16_bound,
+                            sdpa_backend, time_ms)
+    bf16 = {"current": kernels.source_path(BF16_BWD)}
+    f32 = {"current": kernels.source_path(BWD)}
+    for p in args.compare:
+        tag = os.path.splitext(os.path.basename(p))[0]
+        if defines(p, "zoo_flash_attention_dq_bf16"):
+            bf16[tag] = p
+        if defines(p, "zoo_flash_attention_dq"):
+            f32[tag] = p
+    diagnostic = set()
+    if args.diagnose:
+        for tag, path in diagnose_bf16_sources(kernels.CSRC_DIR,
+                                               kernels.BUILD_DIR).items():
+            bf16[tag] = path
+            diagnostic.add(tag)
+    result = {"card": card, "versions": {}}
+    started = {("bf16", tag): start_build(kernels, src, f"bf16_{tag}")
+               for tag, src in bf16.items()}
+    started.update({("f32", tag): start_build(kernels, src, f"f32bwd_{tag}")
+                    for tag, src in f32.items()})
+    libs = {"bf16": {}, "f32": {}}
+    bad_sass = []
+    for (kind, tag), st in started.items():
+        src = (bf16 if kind == "bf16" else f32)[tag]
+        lib, path, ptxas = finish_build(
+            kernels, st, src, BF16_NAMES if kind == "bf16" else F32_NAMES)
+        libs[kind][tag] = lib
+        if kind == "f32":
+            continue
+        mix = {k: v for k, v in sass_mix(path, kernels.nvcc_path()).items()
+               if "bf16" in k or k == "error"}
+        result["versions"][tag] = {"source": src, "ptxas": ptxas, "sass": mix}
+        print(f"[bf16 backward:{tag}] {src}")
+        for ln in ptxas:
+            print(f"  {ln}")
+        for kern, counts in mix.items():
+            tensor = {op: sum(n for k, n in counts.items() if k.startswith(op))
+                      for op in ("HGMMA", "HMMA")}
+            print(f"  sass {kern}: {counts}; tensor-core instructions "
+                  f"{tensor}")
+            if tag == "current" and (tensor["HMMA"] or not tensor["HGMMA"]):
+                bad_sass.append(f"{kern}: {tensor}")
+    if len(result["versions"]["current"]["sass"]) != 4 or bad_sass:
+        sys.exit("bench_flash: the current bf16 backward's SASS is not "
+                 f"wgmma alone: {bad_sass or result['versions']['current']}")
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    stream = torch.cuda.current_stream().cuda_stream
+    failures = []
+
+    def run(lib, q, k, v, do, lse, delta, causal, parts=("dq", "dkv")):
+        b, h, t, d = q.shape
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        ptrs = [x.data_ptr() for x in (q, k, v, do, lse, delta)]
+        scale = float(d ** -0.5)
+        err = 0
+        if q.dtype == torch.float32:
+            err = lib.zoo_flash_attention_dq(*ptrs, dq.data_ptr(), b * h, t,
+                                             d, scale, int(causal), stream)
+            err = err or lib.zoo_flash_attention_dkv(
+                *ptrs, dk.data_ptr(), dv.data_ptr(), b * h, t, d, scale,
+                int(causal), stream)
+        else:
+            qs = fa.q_scale(scale, q.dtype)
+            if "dq" in parts:
+                err = lib.zoo_flash_attention_dq_bf16(
+                    *ptrs, dq.data_ptr(), b * h, t, d, scale, qs, int(causal),
+                    stream)
+            if "dkv" in parts:
+                err = err or lib.zoo_flash_attention_dkv_bf16(
+                    *ptrs, dk.data_ptr(), dv.data_ptr(), b * h, t, d, qs,
+                    int(causal), stream)
+        if err:
+            sys.exit(f"bench_flash: backward launch failed, cudaError {err}")
+        return dq, dk, dv
+
+    def bwd_err(name, got, want):
+        atol = (BF16_BWD_ATOL_SHARE * float(want.float().abs().max()) +
+                BF16_BWD_ATOL_FLOOR)
+        err = (got.float() - want.float()).abs()
+        if not float((err - BF16_BWD_RTOL * want.float().abs()).max()) <= atol:
+            failures.append(f"{name}: max abs err {float(err.max()):.3e} "
+                            "over tolerance")
+        return float(err.max())
+
+    checks = []
+    for shape in BF16_SHAPES:
+        for causal in (False, True):
+            if shape[2] >= 4096 and not causal:
+                continue
+            q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
+                           .to(torch.bfloat16) for _ in range(4))
+            o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+            delta = fa.flash_attention_delta(o, do)
+            want = (fa.flash_attention_dq_ref(q, k, v, do, lse, delta, causal),
+                    *fa.flash_attention_dkv_ref(q, k, v, do, lse, delta,
+                                                causal))
+            tag_s = f"{shape} causal={causal}"
+            for tag, lib in libs["bf16"].items():
+                if tag in diagnostic:
+                    continue
+                got = run(lib, q, k, v, do, lse, delta, causal)
+                again = run(lib, q, k, v, do, lse, delta, causal)
+                torch.cuda.synchronize()
+                errs = [bwd_err(f"bf16:{tag} {n} {tag_s}", x, w)
+                        for n, x, w in zip(("dQ", "dK", "dV"), got, want)]
+                same = all(torch.equal(a, b_) for a, b_ in zip(got, again))
+                if not same:
+                    failures.append(f"bf16:{tag} {tag_s}: two launches differ")
+                checks.append(dict(version=f"bf16:{tag}", shape=shape,
+                                   causal=causal, bit_identical_relaunch=same,
+                                   max_abs_err=dict(zip(("dq", "dk", "dv"),
+                                                        errs))))
+                print(f"check [bf16:{tag}] {tag_s}: max abs err dQ "
+                      f"{errs[0]:.3e} dK {errs[1]:.3e} dV {errs[2]:.3e}; two "
+                      f"launches {'bit-identical' if same else 'DIFFER'}")
+            del q, k, v, do, o, lse, delta, want
+    for shape, causal in SHAPES:
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
+                       for _ in range(4))
+        o_ref, lse = fa.flash_attention_ref(q, k, v, causal=causal)
+        delta = fa.flash_attention_delta(o_ref, do)
+        cur = run(libs["f32"]["current"], q, k, v, do, lse, delta, causal)
+        for tag, lib in libs["f32"].items():
+            if tag == "current":
+                continue
+            same = [torch.equal(a, b_) for a, b_ in
+                    zip(cur, run(lib, q, k, v, do, lse, delta, causal))]
+            checks.append(dict(version=f"f32:current=f32:{tag}", shape=shape,
+                               causal=causal,
+                               bit_identical=dict(zip(("dq", "dk", "dv"),
+                                                      same))))
+            print(f"compare [f32 backward:current] against [f32 backward:"
+                  f"{tag}] {shape} causal={causal}: dQ, dK, dV bit-identical "
+                  f"{same}")
+    torch.cuda.empty_cache()
+    result["checks"] = checks
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    result["times_ms"], result["library_ms"], result["bound_ms"] = {}, {}, {}
+    for shape in BF16_TIMED:
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
+                       .to(torch.bfloat16) for _ in range(4))
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+        delta = fa.flash_attention_delta(o, do)
+        times = collections.defaultdict(lambda: collections.defaultdict(list))
+        for part, parts in (("dq", ("dq",)), ("dkv", ("dkv",)),
+                            ("pair", ("dq", "dkv"))):
+            runs = collections.defaultdict(list)
+            in_turns(torch, time_ms, {
+                tag: (lambda lib=lib, parts=parts: run(
+                    lib, q, k, v, do, lse, delta, True, parts))
+                for tag, lib in libs["bf16"].items()}, runs)
+            for tag, r in runs.items():
+                times[tag][part] = r
+        qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+        out = sdpa(qg, kg, vg, is_causal=True)
+        lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+            out, (qg, kg, vg), do, retain_graph=True))
+        backend = sdpa_backend(torch, q, k, v)
+        bounds = {"dq": flash_bf16_bound(shape, True, 5, 5, 2)[0],
+                  "dkv": flash_bf16_bound(shape, True, 8, 6, 2)[0]}
+        bounds["pair"] = bounds["dq"] + bounds["dkv"]
+        key = "x".join(map(str, shape))
+        result["times_ms"][key] = {
+            tag: {p: dict(runs=r, median=statistics.median(r))
+                  for p, r in parts.items()} for tag, parts in times.items()}
+        result["library_ms"][key] = lib_bwd
+        result["bound_ms"][key] = bounds
+        for tag, parts in result["times_ms"][key].items():
+            print(f"time [bf16:{tag}] {shape} causal: " + ", ".join(
+                f"{p} {r['median']:.5f} ms {r['runs']} "
+                f"({bounds[p] / r['median']:.3f} of its bound)"
+                for p, r in parts.items()) + f" ({card})")
+        print(f"library: bf16 scaled_dot_product_attention {shape} causal "
+              f"({backend}) backward (dQ, dK, dV together) {lib_bwd:.5f} ms; "
+              f"bounds {bounds} ({card})")
+        del q, k, v, do, o, lse, delta, qg, kg, vg, out
+        torch.cuda.empty_cache()
+    result["failures"] = failures
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+    print(json.dumps({"times_ms": {k_: {t_: {p: r["median"]
+                                             for p, r in x.items()}
+                                        for t_, x in v_.items()}
+                                   for k_, v_ in result["times_ms"].items()},
+                      "library_ms": result["library_ms"], "card": card}))
+    if failures:
+        print("bench_flash: FAILED:\n  " + "\n  ".join(failures))
+        sys.exit(1)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--compare", action="append", default=[])
     ap.add_argument("--diagnose", action="store_true")
     ap.add_argument("--fit", action="store_true")
+    ap.add_argument("--bf16", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
@@ -254,6 +517,8 @@ def main() -> None:
 
     card = gpu_line()
     print(f"gpu: {card}")
+    if args.bf16:
+        return bf16_backward(args, torch, kernels, fa, card)
     # direction -> {tag: source}
     versions = {FWD: {}, BWD: {}}
     for p in args.compare:

@@ -7,7 +7,9 @@ tests/test_torch_kernels_cuda.py and chip_smoke.py hold them against
 these plain versions there."""
 
 import contextlib
+import ctypes
 import os
+import re
 import stat
 
 import numpy as np
@@ -291,3 +293,37 @@ def test_library_name_follows_the_source(monkeypatch, tmp_path):
     assert kernels.library_path("bias_gelu") != third
     assert kernels.library_path("bias_gelu") == kernels.library_path(
         "bias_gelu")
+
+
+def _c_parameters(source: str, entry_point: str):
+    """The parameter declarations of ``extern "C" int entry_point(...)`` in
+    ``source``'s text, or None where no such definition is found."""
+    m = re.search(r'extern\s+"C"\s+int\s+' + re.escape(entry_point) +
+                  r'\s*\(([^)]*)\)\s*\{', source)
+    if m is None:
+        return None
+    return [p.strip() for p in m.group(1).split(",") if p.strip()]
+
+
+@pytest.mark.parametrize("name", sorted(kernels.SIGNATURES))
+def test_signature_matches_the_c_entry_point(name):
+    """ctypes passes what ``argtypes`` says: an int where the C function
+    takes a pointer would cut the pointer to 32 bits, and only on the
+    card.  So every entry point is defined in its source with as many
+    parameters as its argtypes, each pointer as c_void_p, each int as
+    c_int and each float as c_float."""
+    source, entry_point, argtypes = kernels.SIGNATURES[name]
+    with open(kernels.source_path(source)) as f:
+        params = _c_parameters(f.read(), entry_point)
+    assert params is not None, f"{entry_point} is not defined in {source}.cu"
+    assert len(params) == len(argtypes), params
+    for decl, argtype in zip(params, argtypes):
+        if "*" in decl:
+            want = ctypes.c_void_p
+        elif re.match(r"(const\s+)?int\b", decl):
+            want = ctypes.c_int
+        elif re.match(r"(const\s+)?float\b", decl):
+            want = ctypes.c_float
+        else:
+            raise AssertionError(f"{entry_point}: unexpected parameter {decl!r}")
+        assert argtype is want, (entry_point, decl, argtype)

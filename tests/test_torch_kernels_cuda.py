@@ -228,6 +228,34 @@ def test_flash_bf16_forward_rounds_p_as_the_plain_version(dev, t, d, causal):
     assert float((o != want).float().mean()) <= 0.05
 
 
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("t", [17, 200, 512, 4096])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_bf16_backward_kernels_match_plain_and_relaunch(dev, d, t,
+                                                             causal):
+    """The wgmma dQ and dK/dV kernels against their plain versions on the
+    forward kernel's LSE: T below one 64-row tile, a ragged last tile,
+    several tiles, and more tiles than the ring has stages; two launches
+    bit-identical."""
+    shape = (2, 3, t, d) if t < 4096 else (1, 2, t, d)
+    q, k, v, do = (_bf16(dev, *shape, seed=s) for s in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    delta = fa.flash_attention_delta(o, do)
+    before = kernels.launch_counts()
+    runs = [(fa.flash_attention_dq(q, k, v, do, lse, delta, causal),
+             *fa.flash_attention_dkv(q, k, v, do, lse, delta, causal))
+            for _ in range(2)]
+    after = kernels.launch_counts()
+    for name in fa.KERNELS[torch.bfloat16][1:]:
+        assert after[name] == before[name] + 2
+    want = (fa.flash_attention_dq_ref(q, k, v, do, lse, delta, causal),
+            *fa.flash_attention_dkv_ref(q, k, v, do, lse, delta, causal))
+    for got, again, w in zip(*runs, want):
+        assert got.dtype == torch.bfloat16
+        _close_bf16_grad(got, w)
+        assert torch.equal(got, again)
+
+
 @pytest.mark.parametrize("t,d,causal", [(512, 64, False), (200, 64, True),
                                         (257, 128, True)])
 def test_flash_bf16_kernels_are_deterministic(dev, t, d, causal):
