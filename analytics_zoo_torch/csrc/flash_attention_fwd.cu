@@ -1,6 +1,6 @@
-// Flash-attention forward for Hopper (sm_90a): float32, both products on
-// the tensor cores in split TF32; and bfloat16 (zoo_flash_attention_fwd_bf16,
-// at the end of this file), both products as bf16 mma.sync.
+// Flash-attention forward for Hopper (sm_90a) on float32 inputs, both
+// products on the tensor cores in split TF32.  The bfloat16 forward is
+// flash_attention_fwd_bf16.cu (wgmma, TMA and mbarriers).
 //
 // Replaces: analytics_zoo_tpu/ops/pallas_attention.py::_flash_kernel
 //           (launched from _flash_fwd_impl).
@@ -49,26 +49,6 @@
 //   D=64: BM=128 (8 warps), BN=32: 85 KB of shared memory and at most 128
 //   registers a thread, so two blocks (16 warps) share an SM; D=128:
 //   BM=64 (4 warps), BN=32, 132 KB, one block an SM.
-
-// bfloat16 (flash_fwd_bf16_kernel).  Same reference kernel, on bf16 q, k,
-// v: q * scale is taken in bf16 (the scale rounded to bf16, the product
-// rounded once), S = (q*scale) K^T by mma.sync.m16n8k16 bf16 with float32
-// accumulation (flash_tile.cuh's dots_bf16), the online softmax in float32
-// as above, P rounded to bf16 (nearest even, as the reference's astype)
-// before O += P V, another m16n8k16 bf16 product with V's fragments
-// transposed as they load (ldmatrix.trans); l sums the unrounded P, O =
-// acc / max(l, 1e-30) is rounded to bf16 and LSE stays float32.
-//   What bounds it on the H100: at bench_attention's (4, 8, 4096, 128),
-// causal, the two products are 2 * 2 * B*H * T^2/2 * D = 1.37e11 FLOP at
-// 989 TFLOP/s: 0.139 ms, against 0.04 ms to move q, k, v, O and LSE (134
-// MB): bound by operations.  The bf16 tiles are half the float32 ones and
-// need no split, so a block keeps 64 keys a tile and (D=64) 128 or (D=128)
-// 64 query rows.  It takes 0.726 ms there on an H100 SXM at 700 W, 0.19 of
-// the bound; the suspect (not measured) is shared memory: each warp reads
-// its own B fragments for its 16 rows, 256 bytes an m16n8k16.
-//   D=64: BM=128 (8 warps), BN=64: 55 KB; D=128: BM=64 (4 warps), BN=64:
-//   87 KB.  Ragged T, causal skipping and bit-identical relaunches as the
-//   float32 kernel.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -231,149 +211,6 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
     return cudaGetLastError();
 }
 
-// ------------------------------------------------------------ bfloat16
-
-template <int D_>
-struct CfgBf16 {
-    static constexpr int D = D_;
-    static constexpr int BM = D == 64 ? 128 : 64;  // q rows a block owns
-    static constexpr int BN = 64;                  // keys of each streamed tile
-    static constexpr int NTHREADS = 32 * (BM / 16);
-    static constexpr int NJ = BN / 8;
-    static constexpr int S = D + 8;                // padded row stride, bf16 values
-    static constexpr int OWN = BM * S;
-    static constexpr int TILE = BN * S;
-    // q; ring: two stages of K and V
-    static constexpr int BYTES = (OWN + 4 * TILE) * (int)sizeof(bf16);
-};
-
-template <class C>
-__global__ void __launch_bounds__(C::NTHREADS, 1)
-flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ o,
-                      float* __restrict__ lse, int t, float qscale, int causal) {
-    constexpr int D = C::D, BM = C::BM, BN = C::BN, NJ = C::NJ;
-    extern __shared__ float4 smem4[];
-    bf16* qs = reinterpret_cast<bf16*>(smem4);
-    bf16* ring = qs + C::OWN;                      // stage s: K at 2s, V at 2s+1
-
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int g = lane >> 2, tg = lane & 3;
-    const int r0 = 16 * warp;
-    const int bh = blockIdx.y;
-    const int q0 = blockIdx.x * BM;
-    const int row0 = q0 + r0;
-    const size_t base = (size_t)bh * t * D;
-
-    int n_k = (t + BN - 1) / BN;
-    if (causal) {
-        const int last = (q0 + BM + BN - 1) / BN;
-        n_k = n_k < last ? n_k : last;
-    }
-
-    load_tile<C, BM>(qs, q + base, q0, t);
-    load_tile<C, BN>(ring, k + base, 0, t);
-    load_tile<C, BN>(ring + C::TILE, v + base, 0, t);
-    cp_async_commit();
-
-    float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};
-    float acc[D / 8][4];
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-    for (int kt = 0; kt < n_k; ++kt) {
-        bf16* ks = ring + (kt & 1) * 2 * C::TILE;
-        bf16* vs = ks + C::TILE;
-        if (kt + 1 < n_k) {
-            bf16* next = ring + ((kt + 1) & 1) * 2 * C::TILE;
-            load_tile<C, BN>(next, k + base, (kt + 1) * BN, t);
-            load_tile<C, BN>(next + C::TILE, v + base, (kt + 1) * BN, t);
-            cp_async_commit();
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
-        }
-        if (kt == 0) scale_rows<C, BM>(qs, qscale);
-        __syncthreads();
-
-        const int k0 = kt * BN;
-        if (row0 < t && !(causal && k0 > row0 + 15)) {
-            float p[NJ][4];
-            dots_bf16<C>(p, qs, r0, ks, g, tg);
-            if (k0 + BN > t || (causal && k0 + BN - 1 > row0)) {
-#pragma unroll
-                for (int j = 0; j < NJ; ++j)
-#pragma unroll
-                    for (int e = 0; e < 4; ++e) {
-                        const int row = row0 + g + 8 * (e >> 1);
-                        const int col = k0 + 8 * j + 2 * tg + (e & 1);
-                        if (col >= t) p[j][e] = -INFINITY;
-                        else if (causal && col > row) p[j][e] = -1e30f;
-                    }
-            }
-            float mb[2] = {-1e30f, -1e30f};
-#pragma unroll
-            for (int j = 0; j < NJ; ++j)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) mb[e >> 1] = fmaxf(mb[e >> 1], p[j][e]);
-            float corr[2];
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-                mb[h] = fmaxf(mb[h], __shfl_xor_sync(0xffffffffu, mb[h], 1));
-                mb[h] = fmaxf(mb[h], __shfl_xor_sync(0xffffffffu, mb[h], 2));
-                const float m_new = fmaxf(m[h], mb[h]);
-                corr[h] = expf(m[h] - m_new);
-                m[h] = m_new;
-            }
-            float ls[2] = {0.f, 0.f};
-#pragma unroll
-            for (int j = 0; j < NJ; ++j)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    p[j][e] = expf(p[j][e] - m[e >> 1]);
-                    ls[e >> 1] += p[j][e];
-                }
-#pragma unroll
-            for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + ls[h];
-#pragma unroll
-            for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
-            accumulate_bf16<C, 1>(acc, p, vs, lane);
-        }
-        __syncthreads();
-    }
-
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-        const int row = row0 + g + 8 * h;
-        if (row >= t) continue;
-        const float l_safe = fmaxf(l[h], 1e-30f);
-        bf16* orow = o + base + (size_t)row * D + 2 * tg;
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n)
-            *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) =
-                __floats2bfloat162_rn(acc[n][2 * h] / l_safe, acc[n][2 * h + 1] / l_safe);
-        if (tg == 0) lse[(size_t)bh * t + row] = m[h] + logf(l_safe);
-    }
-}
-
-template <int D>
-cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
-                        float* lse, int bh, int t, float qscale, int causal,
-                        cudaStream_t stream) {
-    using C = CfgBf16<D>;
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_bf16_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
-    if (err != cudaSuccess) return err;
-    dim3 grid((t + C::BM - 1) / C::BM, bh);
-    flash_fwd_bf16_kernel<C><<<grid, C::NTHREADS, C::BYTES, stream>>>(q, k, v, o, lse, t,
-                                                                     qscale, causal);
-    return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" int zoo_flash_attention_fwd(const float* q, const float* k,
@@ -387,24 +224,6 @@ extern "C" int zoo_flash_attention_fwd(const float* q, const float* k,
             return (int)launch<64>(q, k, v, o, lse, bh, t, scale, causal, s);
         case 128:
             return (int)launch<128>(q, k, v, o, lse, bh, t, scale, causal, s);
-        default:
-            return (int)cudaErrorInvalidValue;
-    }
-}
-
-extern "C" int zoo_flash_attention_fwd_bf16(const __nv_bfloat16* q,
-                                            const __nv_bfloat16* k,
-                                            const __nv_bfloat16* v,
-                                            __nv_bfloat16* o, float* lse,
-                                            int bh, int t, int d, float qscale,
-                                            int causal, void* stream) {
-    cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-    if (bh <= 0 || t <= 0) return (int)cudaSuccess;
-    switch (d) {
-        case 64:
-            return (int)launch_bf16<64>(q, k, v, o, lse, bh, t, qscale, causal, s);
-        case 128:
-            return (int)launch_bf16<128>(q, k, v, o, lse, bh, t, qscale, causal, s);
         default:
             return (int)cudaErrorInvalidValue;
     }

@@ -1,10 +1,9 @@
-// Tile code shared by the flash-attention kernels (flash_attention_fwd.cu,
-// flash_attention_bwd.cu): the cp.async ring's copies, the split-TF32
-// rounding, and the mma.sync.m16n8k8 TF32 tile products of the float32
-// kernels; then, at the end, the bf16 tiles and mma.sync.m16n8k16 bf16
-// products of the bfloat16 forward, and the three-part split of a float32
+// Tile code shared by the float32 flash-attention kernels
+// (flash_attention_fwd.cu, flash_attention_bwd.cu): the cp.async ring's
+// copies, the split-TF32 rounding, and the mma.sync.m16n8k8 TF32 tile
+// products; then, at the end, the three-part bf16 split of a float32
 // operand (bf16_parts) that the bfloat16 backward
-// (flash_attention_bwd_bf16.cu, on wgmma_tile.cuh) also takes.
+// (flash_attention_bwd_bf16.cu, on wgmma_tile.cuh) takes.
 //
 // Every template here takes the kernel's tile configuration C, which
 // names:
@@ -208,118 +207,17 @@ __device__ __forceinline__ void accumulate(float acc[C::D / 8][4], const float w
 
 // ============================================================== bfloat16
 //
-// The bf16 kernels' tiles hold bf16 rows padded to D + 8 values
-// (C::S = D + 8): a row is (D + 8) / 2 32-bit words, 4 more than a multiple
-// of 32 banks, so the 32-bit fragment reads by (row g, word t) hit banks
-// 4g + t, and each 8-row phase of an ldmatrix (8 rows of 16 bytes) hits
-// all 32 banks once: both are free of bank conflicts.  Rows are 16-byte
-// aligned (D + 8 values are a multiple of 8), as cp.async and ldmatrix
-// need.
-//
-// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, lane (g, t) =
-// (lane / 4, lane % 4): A (16 x 16) in 4 registers of 2 bf16 each, rows
-// g, g+8 by k-columns 2t, 2t+1 and 2t+8, 2t+9; B (16 x 8) in 2, k-rows 2t,
-// 2t+1 and 2t+8, 2t+9 of column g; the float32 accumulator as in the TF32
-// m16n8k8 (rows g, g+8, columns 2t, 2t+1).  The accumulators of two m16n8
-// tiles side by side are one A operand of 16 k-columns, so P and dS feed
-// the next product from registers.  A product of two bf16 values is exact
-// in float32; only the summation order differs from a float32 product.
-//
 // A float32 operand (P and dS in the bf16 backward, which takes its
 // products with wgmma: wgmma_tile.cuh) is split into three bf16 parts,
 // x = hi + mid + lo, each the nearest bf16 of what is left; the residue is
 // below 2^-24 of |x| (each part takes 8 more significant bits and halves
 // the rest), so three bf16 products, smallest part first, take the product
-// to float32's accuracy at the bf16 rate.  One part (nearest even, as
-// astype rounds) is the forward's P rounded to bf16.
+// to float32's accuracy at the bf16 rate.  The parts fill the registers of
+// a 16 x 16 bf16 A operand, two values a register (the lower k in the
+// lower half), as the accumulator of two 8-column blocks side by side
+// holds them.
 
 using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, bool in) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(smem_addr(dst)), "l"(src), "r"(in ? 16 : 0) : "memory");
-}
-
-// Start copying rows [r0, r0 + ROWS) of a bf16 (t, D) slice into a padded
-// tile, 8 values a chunk; rows past t are zero-filled.  As the float32
-// load_tile, every call gives a thread the same chunks (scale_rows).
-template <class C, int ROWS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int r0, int t) {
-    constexpr int CH = C::D / 8;                   // 16-byte chunks a row
-    static_assert(ROWS * CH % C::NTHREADS == 0, "a tile is whole chunks a thread");
-#pragma unroll
-    for (int i = 0; i < ROWS * CH / C::NTHREADS; ++i) {
-        const int idx = threadIdx.x + i * C::NTHREADS;
-        const int r = idx / CH, c = (idx % CH) * 8;
-        const bool in = r0 + r < t;
-        cp_async16(dst + r * C::S + c, src + (size_t)(in ? r0 + r : 0) * C::D + c, in);
-    }
-}
-
-// Multiply this thread's own (landed) chunks of a ROWS-row tile by mul and
-// round each product to bf16 (nearest even): q * scale as the reference
-// takes it in bf16, mul being the scale rounded to bf16, so the product is
-// exact in float32 before its one rounding.
-template <class C, int ROWS>
-__device__ __forceinline__ void scale_rows(bf16* dst, float mul) {
-    constexpr int CH = C::D / 8;
-#pragma unroll
-    for (int i = 0; i < ROWS * CH / C::NTHREADS; ++i) {
-        const int idx = threadIdx.x + i * C::NTHREADS;
-        uint4* p = reinterpret_cast<uint4*>(dst + (idx / CH) * C::S + (idx % CH) * 8);
-        uint4 x = *p;
-        __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&x);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-            const float2 f = __bfloat1622float2(h[e]);
-            h[e] = __floats2bfloat162_rn(f.x * mul, f.y * mul);
-        }
-        *p = x;
-    }
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-    return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma16(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8 x 8 bf16 matrices transposed as they load: lanes 8i .. 8i + 7 give
-// the rows of matrix i, and r[i] holds, for lane (g, t), matrix i's rows
-// 2t, 2t+1 of column g: B fragments of a tile stored k-rows by n-columns.
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const bf16* p) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(smem_addr(p)) : "memory");
-}
-
-// acc[j] = a[ra : ra+16, :D] . b[8j : 8j + 8, :D]^T for j < NJ, both bf16
-// tiles, float32 accumulation in 16-wide steps of d in order (the bf16
-// forward's S; the bf16 backward takes S with wgmma, whose order of
-// summation may differ, so its S may differ from the forward's by float32
-// rounding).  Lane (g, t) holds rows ra+g, ra+g+8 and columns 8j + 2t, +1.
-template <class C>
-__device__ __forceinline__ void dots_bf16(float acc[C::NJ][4], const bf16* a, int ra,
-                                          const bf16* b, int g, int t) {
-    constexpr int S = C::S, NJ = C::NJ;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll
-    for (int d0 = 0; d0 < C::D; d0 += 16) {
-        const bf16* ap = a + (ra + g) * S + d0 + 2 * t;
-        const uint32_t af[4] = {ld32(ap), ld32(ap + 8 * S), ld32(ap + 8), ld32(ap + 8 * S + 8)};
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-            const bf16* bp = b + (8 * j + g) * S + d0 + 2 * t;
-            mma16(acc[j], af, ld32(bp), ld32(bp + 8));
-        }
-    }
-}
 
 // The nearest bf16 of x0 and x1, then of what each leaves, PARTS times:
 // register i of each part's A fragment.
@@ -333,35 +231,6 @@ __device__ __forceinline__ void bf16_parts(uint32_t a[PARTS][4], int i, float x0
             const float2 f = __bfloat1622float2(h);
             x0 -= f.x;                             // exact: f is x rounded
             x1 -= f.y;
-        }
-    }
-}
-
-// acc[n] += w . x[16kk : 16kk + 16, 8n : 8n + 8] summed over kk < NJ/2, for
-// n < D/8, where w is a 16 x 8NJ float32 tile held as dots_bf16 leaves it
-// and x a bf16 tile of 8NJ k-rows by D columns.  PARTS = 1 rounds w to bf16
-// (the forward's P); PARTS = 3 would split it, the smallest part first.
-template <class C, int PARTS>
-__device__ __forceinline__ void accumulate_bf16(float acc[C::D / 8][4], const float w[C::NJ][4],
-                                                const bf16* x, int lane) {
-    constexpr int S = C::S;
-    const bf16* xl = x + (lane & 15) * S + 8 * (lane >> 4);
-#pragma unroll
-    for (int kk = 0; kk < C::NJ / 2; ++kk) {
-        uint32_t a[PARTS][4];
-        bf16_parts<PARTS>(a, 0, w[2 * kk][0], w[2 * kk][1]);          // row g,   k 2t, 2t+1
-        bf16_parts<PARTS>(a, 1, w[2 * kk][2], w[2 * kk][3]);          // row g+8, k 2t, 2t+1
-        bf16_parts<PARTS>(a, 2, w[2 * kk + 1][0], w[2 * kk + 1][1]);  // row g,   k 2t+8, +9
-        bf16_parts<PARTS>(a, 3, w[2 * kk + 1][2], w[2 * kk + 1][3]);  // row g+8, k 2t+8, +9
-#pragma unroll
-        for (int n2 = 0; n2 < C::D / 16; ++n2) {
-            uint32_t b[4];
-            ldsm_x4_trans(b, xl + 16 * kk * S + 16 * n2);
-#pragma unroll
-            for (int p = PARTS - 1; p >= 0; --p) {
-                mma16(acc[2 * n2], a[p], b[0], b[1]);
-                mma16(acc[2 * n2 + 1], a[p], b[2], b[3]);
-            }
         }
     }
 }

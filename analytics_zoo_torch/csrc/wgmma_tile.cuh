@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks of the bf16 flash backward
-// (flash_attention_bwd_bf16.cu): shared tiles in the 128-byte swizzled
-// layout that TMA writes and wgmma reads, their matrix descriptors, TMA
-// tile loads completed on mbarriers, and the warpgroup products
-// wgmma.mma_async m64nNk16 (bf16 operands, float32 accumulation).
+// Hopper (sm_90a) building blocks of the bf16 flash kernels (the forward,
+// flash_attention_fwd_bf16.cu; the backward, flash_attention_bwd_bf16.cu):
+// shared tiles in the 128-byte swizzled layout that TMA writes and wgmma
+// reads, their matrix descriptors, TMA tile loads completed on mbarriers,
+// and the warpgroup products wgmma.mma_async m64nNk16 (bf16 operands,
+// float32 accumulation).
 //
 // Tiles.  A tile of R rows by D bf16 values is stored as D / 64 column
 // blocks of R rows x 128 bytes (64 values a row), block c at c * R * 128
@@ -20,7 +21,7 @@
 //   A and B operands of S = A B^T): reduction step kk starts at column
 //   block kk / 4, byte (kk % 4) * 32 of the row; 8-row groups lie SBO =
 //   1024 bytes apart; LBO is unused.
-//   MN-major (B read transposed, the bf16 operand of dQ = dS K,
+//   MN-major (B read transposed, the bf16 operand of O += P V, dQ = dS K,
 //   dV = P^T dO, dK = dS^T (q*scale): the sum runs over the tile's rows):
 //   step kk starts 16 rows down, at kk * 2048 bytes; 8-row groups lie
 //   SBO = 1024 bytes apart, the next 64 output columns LBO = R * 128 bytes
@@ -109,6 +110,12 @@ __device__ __forceinline__ void named_bar_sync(int id, int threads) {
     asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
+// count this warp's threads at barrier `id` without waiting for it: the
+// other side of a named_bar_sync of `threads` threads
+__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
+    asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
 template <int N>
 __device__ __forceinline__ void setmaxnreg_dec() {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
@@ -186,6 +193,14 @@ __device__ __forceinline__ void keep(float (&a)[J][4]) {
         for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(a[j][e]) :: "memory");
 }
 
+template <int K>
+__device__ __forceinline__ void keep(uint32_t (&a)[K][4]) {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[k][e]) :: "memory");
+}
+
 template <int K, int P>
 __device__ __forceinline__ void keep(uint32_t (&a)[K][P][4]) {
 #pragma unroll
@@ -203,6 +218,12 @@ __device__ __forceinline__ void keep(uint32_t (&a)[K][P][4]) {
 #define WG_ACC64(d)                                                                     \
     WG_ACC32(d), WG_ACC4(d, 8), WG_ACC4(d, 9), WG_ACC4(d, 10), WG_ACC4(d, 11),           \
         WG_ACC4(d, 12), WG_ACC4(d, 13), WG_ACC4(d, 14), WG_ACC4(d, 15)
+#define WG_OUT4(d, j) "=f"(d[j][0]), "=f"(d[j][1]), "=f"(d[j][2]), "=f"(d[j][3])
+#define WG_OUT64(d)                                                                     \
+    WG_OUT4(d, 0), WG_OUT4(d, 1), WG_OUT4(d, 2), WG_OUT4(d, 3), WG_OUT4(d, 4),          \
+        WG_OUT4(d, 5), WG_OUT4(d, 6), WG_OUT4(d, 7), WG_OUT4(d, 8), WG_OUT4(d, 9),      \
+        WG_OUT4(d, 10), WG_OUT4(d, 11), WG_OUT4(d, 12), WG_OUT4(d, 13), WG_OUT4(d, 14), \
+        WG_OUT4(d, 15)
 #define WG_REGS32                                                                       \
     "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "  \
     "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
@@ -221,6 +242,26 @@ __device__ __forceinline__ void wgmma_ss64(float (&d)[8][4], uint64_t a, uint64_
                  ", %32, %33, p, 1, 1, 0, 0;\n}\n"
                  : WG_ACC32(d)
                  : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 128) = A . B^T over the first 16-value step, both operands
+// K-major in shared memory (B: 128 rows of a tile), then d += A . B^T over
+// each later step (wgmma_ss128).  The first step does not read d, and says
+// so ("=f"): the registers' old values need not live until it.
+__device__ __forceinline__ void wgmma_ss128_first(float (&d)[16][4], uint64_t a, uint64_t b) {
+    asm volatile("{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %66, 0;\n\t"
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_REGS64
+                 ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+                 : WG_OUT64(d)
+                 : "l"(a), "l"(b), "r"(0));
+}
+
+__device__ __forceinline__ void wgmma_ss128(float (&d)[16][4], uint64_t a, uint64_t b) {
+    asm volatile("{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %66, 0;\n\t"
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_REGS64
+                 ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+                 : WG_ACC64(d)
+                 : "l"(a), "l"(b), "r"(1));
 }
 
 // d (64 x N) += A . B over one 16-value step: A (64 x 16 bf16) from
@@ -247,6 +288,8 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4], const uint32_t (&
 #undef WG_ACC4
 #undef WG_ACC32
 #undef WG_ACC64
+#undef WG_OUT4
+#undef WG_OUT64
 #undef WG_REGS32
 #undef WG_REGS64
 

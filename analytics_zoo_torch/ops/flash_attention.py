@@ -5,17 +5,17 @@ versions (port of ``ops/pallas_attention.py``).
 inputs and is differentiable.  ``takes_kernels`` routes it: for CUDA
 tensors under ``ops.fused=auto`` whose q, k and v share one dtype the
 kernels take (float32 or bfloat16) and one shape with head_dim 64 or 128,
-it launches ``csrc/flash_attention_fwd.cu``, which also writes the per-row
-log-sum-exp; the backward recomputes the probabilities from it: one
-kernel for dQ, one for dK/dV, as the reference's ``custom_vjp`` runs two
-Pallas kernels, in ``csrc/flash_attention_bwd.cu`` for float32 and
+it launches the forward (``csrc/flash_attention_fwd.cu`` for float32,
+``csrc/flash_attention_fwd_bf16.cu`` for bfloat16), which also writes the
+per-row log-sum-exp; the backward recomputes the probabilities from it:
+one kernel for dQ, one for dK/dV, as the reference's ``custom_vjp`` runs
+two Pallas kernels, in ``csrc/flash_attention_bwd.cu`` for float32 and
 ``csrc/flash_attention_bwd_bf16.cu`` for bfloat16.  Each kernel has a
 launch count of its own (``KERNELS``).  The float32 kernels take their
 products on the tensor cores in split TF32, on the tile code of
 ``csrc/flash_tile.cuh`` (about float32's accuracy); the bfloat16 kernels
 take bf16 products where both operands are bf16 values and three bf16
-products where one is float32 (the backward on ``wgmma``,
-``csrc/wgmma_tile.cuh``).
+products where one is float32, on ``wgmma`` (``csrc/wgmma_tile.cuh``).
 ``delta = rowsum(dO * O)`` is a PyTorch op between them, as the reference
 leaves it to XLA.  Every other input (a CPU tensor, ``ops.fused=torch``,
 float16, another head_dim) takes the plain versions,

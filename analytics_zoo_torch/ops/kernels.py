@@ -50,10 +50,10 @@ SIGNATURES = {
     "flash_attention_dkv": ("flash_attention_bwd", "zoo_flash_attention_dkv",
                             [_P] * 8 + [_I, _I, _I, _F, _I, _P]),
     # the same three on bfloat16 q, k, v, dO and outputs (lse, delta float32;
-    # the backward on wgmma in a source of its own); qscale is the scale
-    # rounded to bf16, as the reference's q * scale takes it.
+    # forward and backward on wgmma, each in a source of its own); qscale
+    # is the scale rounded to bf16, as the reference's q * scale takes it.
     # q, k, v, o, lse, bh, t, d, qscale, causal, stream
-    "flash_attention_fwd_bf16": ("flash_attention_fwd",
+    "flash_attention_fwd_bf16": ("flash_attention_fwd_bf16",
                                  "zoo_flash_attention_fwd_bf16",
                                  [_P] * 5 + [_I, _I, _I, _F, _I, _P]),
     # q, k, v, do, lse, delta, dq, bh, t, d, scale, qscale, causal, stream

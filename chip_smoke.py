@@ -127,9 +127,11 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    launches);
 14. the flash kernels on bfloat16: forward, dQ and dK/dV against their
    plain versions (which follow the reference's bf16 order of operations)
-   at (2, 4, 200, 64), (2, 4, 512, 128) and ``bench_attention``'s
-   (4, 8, 4096, 128), causal and not, O, LSE, dQ, dK and dV each with its
-   tolerance printed, two launches bit-identical; at the same shapes, on
+   at (2, 4, 200, 64), (2, 4, 512, 128), (1, 2, 17, 128) and
+   ``bench_attention``'s (4, 8, 4096, 128), causal and not, O, LSE, dQ,
+   dK and dV each with its tolerance printed, two launches bit-identical,
+   and the forward alone at T = 1, 127, 129 and (1, 2, 4096, 64)
+   (``BF16_FWD_SHAPES``), with the check below; at the same shapes, on
    inputs where key 0 leads every row, O equal to the plain version's on
    all but 5% of its elements, a check that S rounded to bf16 first (the
    plain version's former order) and an unrounded P both fail; ``flash_attention``
@@ -2172,13 +2174,17 @@ def profile_resnet() -> None:
 # shape
 BF16_SHAPES = ((2, 4, 200, 64), (2, 4, 512, 128), (1, 2, 17, 128),
                (4, 8, 4096, 128))
+# and the forward alone where T is 1, one row either side of its 128-row
+# query block and 128-key tile, and long at head_dim 64
+BF16_FWD_SHAPES = ((1, 2, 1, 64), (1, 2, 1, 128), (2, 3, 127, 128),
+                   (2, 3, 129, 64), (2, 3, 129, 128), (1, 2, 4096, 64))
 BF16_BENCH = (4, 8, 4096, 128)
 # Kernel against plain version, both on the card from the same bf16 inputs.
-# O: the kernel rounds P to bf16 at each 64-key tile's running max, the
-# plain version at the row's max, and both round O to bf16 once.  So an
-# element may land one bf16 ulp apart (at most 2^-7 of it), and the two
-# roundings of P leave a difference that scales with the row's values, not
-# with the element's: 2^-6 of the row's RMS in the plain version's O.
+# O: the forward kernel rounds P to bf16 at each 128-key tile's running
+# max, the plain version at the row's max, and both round O to bf16 once.
+# So an element may land one bf16 ulp apart (at most 2^-7 of it), and the
+# two roundings of P leave a difference that scales with the row's values,
+# not with the element's: 2^-6 of the row's RMS in the plain version's O.
 BF16_O_RTOL, BF16_O_ROW_RMS = 2.0 ** -7, 2.0 ** -6
 # On inputs where key 0 holds every row's largest score, the kernel's
 # running max is the row's max from its first tile on, so both round P
@@ -2442,6 +2448,46 @@ def flash_bf16_phase(torch, card, dev):
                   f"unrounded on {controls[1][0]:.2%} ({controls[1][1]:.3f})")
             del o, o_ref
         del q, k, v
+    for shape in BF16_FWD_SHAPES:
+        q, k, v = (randn(shape) for _ in range(3))
+        for causal in (False, True):
+            tag = f"{shape} causal={causal}"
+            o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+            o2, lse2 = fa.flash_attention_fwd(q, k, v, causal=causal)
+            o_ref, lse_ref = fa.flash_attention_ref(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            err_o, used_o = o_close(f"bf16 forward {tag} O", o, o_ref)
+            err_l = close(f"bf16 forward {tag} LSE", lse, lse_ref,
+                          BF16_LSE_ATOL)
+            if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+                fail(f"bf16 forward {tag}: two launches differ")
+            errs[names[0]] = max(errs[names[0]], err_o, err_l)
+            del o2, lse2
+            # key 0 leading: with one key (T = 1) O is V's row in every
+            # order, so the controls cannot fail there
+            ql, kl, vl = leading_key_inputs(torch, shape, gen, dev)
+            o_lead = fa.flash_attention_fwd(ql, kl, vl, causal=causal)[0]
+            want = fa.flash_attention_ref(ql, kl, vl, causal=causal)[0]
+            tipped, used = o_tipped(o_lead, want)
+            controls = [o_tipped(fn(torch, ql, kl, vl, causal), want)
+                        for fn in (o_fault2_order, o_unrounded_p)]
+            if not (tipped <= BF16_O_TIPPED_SHARE and used <= 1.0):
+                fail(f"bf16 forward {tag}, key 0 leading: O differs from the "
+                     f"plain version's on {tipped:.4%} of its elements, "
+                     f"{used:.3f} of its tolerance")
+            if shape[2] > 1 and any(c_share <= BF16_O_TIPPED_SHARE and
+                                    c_used <= 1.0
+                                    for c_share, c_used in controls):
+                fail(f"bf16 forward {tag}, key 0 leading: a control passes "
+                     f"the check ({controls})")
+            print(f"check bf16 forward {tag}: O max abs err {err_o:.3e}, "
+                  f"{used_o:.3f} of its bound, LSE {err_l:.3e}, two launches "
+                  f"bit-identical; key 0 leading: O differs on "
+                  f"{tipped:.4%} ({used:.3f}), S rounded first on "
+                  f"{controls[0][0]:.2%}, P unrounded on "
+                  f"{controls[1][0]:.2%}")
+            del o, lse, o_ref, lse_ref, o_lead, want, ql, kl, vl
+        del q, k, v
     torch.cuda.empty_cache()
 
     # ---- 14b. the op's routing, forward and backward through autograd
@@ -2501,7 +2547,7 @@ def flash_bf16_phase(torch, card, dev):
             (names[0], lambda: fa.flash_attention_fwd(q, k, v, causal=True),
              lambda: fa.flash_attention_ref(q, k, v, causal=True),
              (2, 4, 1), lib_fwd,
-             "analytics_zoo_torch/csrc/flash_attention_fwd.cu",
+             "analytics_zoo_torch/csrc/flash_attention_fwd_bf16.cu",
              "analytics_zoo_tpu/ops/pallas_attention.py:51"),
             (names[1], lambda: fa.flash_attention_dq(q, k, v, do, lse, delta,
                                                      True),

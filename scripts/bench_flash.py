@@ -47,23 +47,32 @@ products and with the default bf16 products, in the same turns, and
 prints each run's epoch loss: does a compared forward change what
 training learns?
 
-With ``--bf16``, instead of all that, the bf16 backward (dQ and dK/dV,
-``flash_attention_bwd_bf16.cu``) at ``bench_attention``'s shape: it
-builds the current source and every ``--compare`` source that defines the
-bf16 entry points (an earlier ``flash_attention_bwd.cu`` held the
-float32 and bf16 backward in one file; put that commit's ``flash_tile.cuh``
-beside it, which it finds first), prints their registers, spills and
-SASS mix (``HGMMA`` beside ``HMMA``), checks each against the plain
-versions with ``chip_smoke.py``'s tolerances at its phase-14 shapes (two
-launches bit-identical), reports whether the current float32 backward's
-dQ, dK and dV are bit-identical to each compared source's at the
-float32 shapes above, and times dQ, dK/dV and the pair in turns at
-(4, 8, 4096, 128) and (4, 8, 8192, 128), causal, beside the backward of
-bf16 ``scaled_dot_product_attention`` and ``flash_bf16_bound``.  With
-``--diagnose`` it adds variants of the current bf16 source (unchecked,
-timed in the same turns): ``one_part`` takes the float32 operand of dQ,
-dK and dV as one bf16 part in place of three (a third of those
-products' tensor work), ``fast_exp`` uses ``__expf``.
+With ``--bf16``, instead of all that, the bf16 kernels at
+``bench_attention``'s shape: the forward (``flash_attention_fwd_bf16.cu``)
+and the backward (dQ and dK/dV, ``flash_attention_bwd_bf16.cu``).  It
+builds the current sources and every ``--compare`` source that defines a
+bf16 entry point (an earlier ``flash_attention_fwd.cu`` held the float32
+and bf16 forward in one file, an earlier ``flash_attention_bwd.cu`` both
+backwards; put that commit's headers beside it, which it finds first),
+prints their registers, spills and SASS mix (``HGMMA`` beside ``HMMA``;
+the current kernels must be ``HGMMA`` alone, the current forward free of
+spills and of ptxas's warnings that it serialized the ``wgmma``s), checks
+each against the plain versions with ``chip_smoke.py``'s tolerances at its
+phase-14 shapes and, for the forwards, at its ragged ``BF16_FWD_SHAPES``
+and on inputs where key 0 leads every row (two launches bit-identical),
+reports whether the current float32 forward and backward are
+bit-identical to each compared source's at the float32 shapes above, and
+times in turns at (4, 8, 4096, 128) and (4, 8, 8192, 128), causal: the
+forward beside bf16 ``scaled_dot_product_attention``'s forward, and dQ,
+dK/dV and the pair beside its backward, each beside ``flash_bf16_bound``.
+With ``--diagnose`` it adds variants of the current bf16 sources
+(unchecked, timed in the same turns): of the backward ``one_part`` (the
+float32 operand of dQ, dK and dV as one bf16 part in place of three: a
+third of those products' tensor work) and ``fast_exp`` (``__expf``); of
+the forward ``no_pingpong`` (the consumers issue their products without
+taking turns), ``fast_exp``, ``bn64`` (64-key tiles in place of 128) and
+``grid_by_head`` (the query block on x, reversed, and the head on y: a
+head's blocks run together, heaviest first).
 
 Needs a CUDA device and ``nvcc``; with ``--out PATH`` also writes the
 results as JSON.  Exits non-zero if a check failed (after timing).
@@ -91,16 +100,29 @@ SHAPES = [((8, 12, 512, 64), False), ((8, 12, 512, 64), True),
 TRAIN_SHAPE = (8, 12, 512, 64)
 FWD, BWD = "flash_attention_fwd", "flash_attention_bwd"
 KINDS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
-         "flash_dq_bf16_kernel", "flash_dkv_bf16_kernel")
+         "flash_fwd_bf16_kernel", "flash_dq_bf16_kernel",
+         "flash_dkv_bf16_kernel")
+BF16_FWD = "flash_attention_fwd_bf16"
 BF16_BWD = "flash_attention_bwd_bf16"
 BF16_NAMES = ["flash_attention_dq_bf16", "flash_attention_dkv_bf16"]
 F32_NAMES = ["flash_attention_dq", "flash_attention_dkv"]
 # bench_attention's shape and twice its sequence, causal
 BF16_TIMED = ((4, 8, 4096, 128), (4, 8, 8192, 128))
-# --diagnose --bf16: variant name -> (text in the bf16 source, replacement)
+# --diagnose --bf16: variant name -> [(text in the bf16 source, replacement)]
 DIAGNOSE_BF16 = {
-    "one_part": ("constexpr int PARTS = 3;", "constexpr int PARTS = 1;"),
-    "fast_exp": ("expf(", "__expf("),
+    "one_part": [("constexpr int PARTS = 3;", "constexpr int PARTS = 1;")],
+    "fast_exp": [("expf(", "__expf(")],
+}
+DIAGNOSE_BF16_FWD = {
+    "no_pingpong": [("constexpr bool PINGPONG = true;",
+                     "constexpr bool PINGPONG = false;")],
+    "fast_exp": [("expf(", "__expf(")],
+    "bn64": [("static constexpr int BN = 128;", "static constexpr int BN = 64;")],
+    "grid_by_head": [
+        ("const int bh = blockIdx.x;", "const int bh = blockIdx.y;"),
+        ("(gridDim.y - 1 - blockIdx.y) * BM", "(gridDim.x - 1 - blockIdx.x) * BM"),
+        ("dim3 grid(bh, (t + C::BM - 1) / C::BM);",
+         "dim3 grid((t + C::BM - 1) / C::BM, bh);")],
 }
 
 # --diagnose: variant name -> (text in the current sources, replacement);
@@ -273,67 +295,85 @@ def defines(path: str, entry: str) -> bool:
         return f"{entry}(" in f.read()
 
 
-def diagnose_bf16_sources(csrc: str, out_dir: str):
-    """Write the --diagnose variants of the current bf16 backward (each
-    beside its own copy of the headers); returns {tag: path}."""
-    with open(os.path.join(csrc, BF16_BWD + ".cu")) as f:
+def diagnose_bf16_sources(csrc: str, out_dir: str, source: str, variants):
+    """Write the --diagnose variants (``variants``: {name: [(old, new)]})
+    of the current bf16 ``source`` (each beside its own copy of the
+    headers); returns {tag: path}."""
+    with open(os.path.join(csrc, source + ".cu")) as f:
         text = f.read()
     out = {}
-    for name, (old, new) in DIAGNOSE_BF16.items():
-        if old not in text:
-            sys.exit(f"bench_flash: --diagnose: {name}: the bf16 source no "
-                     f"longer holds {old!r}")
-        d = os.path.join(out_dir, f"diag_bf16_{name}")
+    for name, edits in variants.items():
+        variant = text
+        for old, new in edits:
+            if old not in variant:
+                sys.exit(f"bench_flash: --diagnose: {name}: {source}.cu no "
+                         f"longer holds {old!r}")
+            variant = variant.replace(old, new)
+        d = os.path.join(out_dir, f"diag_{source}_{name}")
         os.makedirs(d, exist_ok=True)
         for h in glob.glob(os.path.join(csrc, "*.cuh")):
             with open(h) as f_in, open(os.path.join(d, os.path.basename(h)),
                                        "w") as f_out:
                 f_out.write(f_in.read())
-        path = os.path.join(d, BF16_BWD + ".cu")
+        path = os.path.join(d, source + ".cu")
         with open(path, "w") as f:
-            f.write(text.replace(old, new))
+            f.write(variant)
         out[f"diag_{name}"] = path
     return out
 
 
-def bf16_backward(args, torch, kernels, fa, card) -> None:
-    """--bf16: build, inspect, check and time the bf16 backward against
-    the compared sources (see the module's docstring)."""
+def bf16_flash(args, torch, kernels, fa, card) -> None:
+    """--bf16: build, inspect, check and time the bf16 forward and
+    backward against the compared sources (see the module's docstring)."""
     from chip_smoke import (BF16_BWD_ATOL_FLOOR, BF16_BWD_ATOL_SHARE,
-                            BF16_BWD_RTOL, BF16_SHAPES, flash_bf16_bound,
+                            BF16_BWD_RTOL, BF16_FWD_SHAPES, BF16_LSE_ATOL,
+                            BF16_O_TIPPED_SHARE, BF16_SHAPES,
+                            flash_bf16_bound, leading_key_inputs,
+                            o_fault2_order, o_tipped, o_unrounded_p, o_used,
                             sdpa_backend, time_ms)
-    bf16 = {"current": kernels.source_path(BF16_BWD)}
-    f32 = {"current": kernels.source_path(BWD)}
+    # kind -> {tag: source}: the bf16 forward and backward, and the float32
+    # forward and backward, held bit-identical to the compared ones
+    srcs = {"fwd": {"current": kernels.source_path(BF16_FWD)},
+            "bwd": {"current": kernels.source_path(BF16_BWD)},
+            "f32fwd": {"current": kernels.source_path(FWD)},
+            "f32bwd": {"current": kernels.source_path(BWD)}}
+    entries = {"fwd": "zoo_flash_attention_fwd_bf16",
+               "bwd": "zoo_flash_attention_dq_bf16",
+               "f32fwd": "zoo_flash_attention_fwd",
+               "f32bwd": "zoo_flash_attention_dq"}
+    names = {"fwd": [BF16_FWD], "bwd": BF16_NAMES, "f32fwd": [FWD],
+             "f32bwd": F32_NAMES}
     for p in args.compare:
         tag = os.path.splitext(os.path.basename(p))[0]
-        if defines(p, "zoo_flash_attention_dq_bf16"):
-            bf16[tag] = p
-        if defines(p, "zoo_flash_attention_dq"):
-            f32[tag] = p
+        for kind, entry in entries.items():
+            if defines(p, entry):
+                srcs[kind][tag] = p
     diagnostic = set()
     if args.diagnose:
-        for tag, path in diagnose_bf16_sources(kernels.CSRC_DIR,
-                                               kernels.BUILD_DIR).items():
-            bf16[tag] = path
-            diagnostic.add(tag)
+        for kind, source, variants in (("bwd", BF16_BWD, DIAGNOSE_BF16),
+                                       ("fwd", BF16_FWD, DIAGNOSE_BF16_FWD)):
+            for tag, path in diagnose_bf16_sources(
+                    kernels.CSRC_DIR, kernels.BUILD_DIR, source,
+                    variants).items():
+                srcs[kind][tag] = path
+                diagnostic.add(tag)
     result = {"card": card, "versions": {}}
-    started = {("bf16", tag): start_build(kernels, src, f"bf16_{tag}")
-               for tag, src in bf16.items()}
-    started.update({("f32", tag): start_build(kernels, src, f"f32bwd_{tag}")
-                    for tag, src in f32.items()})
-    libs = {"bf16": {}, "f32": {}}
-    bad_sass = []
+    started = {(kind, tag): start_build(kernels, src, f"{kind}_{tag}")
+               for kind, versions in srcs.items()
+               for tag, src in versions.items()}
+    libs = {kind: {} for kind in srcs}
+    bad_builds = []
     for (kind, tag), st in started.items():
-        src = (bf16 if kind == "bf16" else f32)[tag]
-        lib, path, ptxas = finish_build(
-            kernels, st, src, BF16_NAMES if kind == "bf16" else F32_NAMES)
+        src = srcs[kind][tag]
+        lib, path, ptxas = finish_build(kernels, st, src, names[kind])
         libs[kind][tag] = lib
-        if kind == "f32":
+        if kind.startswith("f32"):
             continue
         mix = {k: v for k, v in sass_mix(path, kernels.nvcc_path()).items()
                if "bf16" in k or k == "error"}
-        result["versions"][tag] = {"source": src, "ptxas": ptxas, "sass": mix}
-        print(f"[bf16 backward:{tag}] {src}")
+        result["versions"][f"{kind}:{tag}"] = {"source": src, "ptxas": ptxas,
+                                               "sass": mix}
+        print(f"[bf16 {kind}:{tag}] {src}")
         for ln in ptxas:
             print(f"  {ln}")
         for kern, counts in mix.items():
@@ -342,15 +382,37 @@ def bf16_backward(args, torch, kernels, fa, card) -> None:
             print(f"  sass {kern}: {counts}; tensor-core instructions "
                   f"{tensor}")
             if tag == "current" and (tensor["HMMA"] or not tensor["HGMMA"]):
-                bad_sass.append(f"{kern}: {tensor}")
-    if len(result["versions"]["current"]["sass"]) != 4 or bad_sass:
-        sys.exit("bench_flash: the current bf16 backward's SASS is not "
-                 f"wgmma alone: {bad_sass or result['versions']['current']}")
+                bad_builds.append(f"{kern}: {tensor}")
+        if tag == "current":
+            if len(mix) != len(names[kind]) * 2:      # head_dim 64 and 128
+                bad_builds.append(f"{kind}: kernels {sorted(mix)}")
+            if kind == "fwd":
+                bad_builds += [ln for ln in ptxas if "Potential" in ln or
+                               re.search(r"[1-9]\d* bytes spill", ln)]
+    if bad_builds:
+        sys.exit("bench_flash: a current bf16 kernel is not wgmma alone, or "
+                 f"the forward spills or serializes: {bad_builds}")
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(12)
     stream = torch.cuda.current_stream().cuda_stream
     failures = []
+
+    def run_fwd(lib, q, k, v, causal):
+        b, h, t, d = q.shape
+        o = torch.empty_like(q)
+        lse = torch.empty((b * h, t, 1), device=dev)
+        args_ = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 lse.data_ptr(), b * h, t, d)
+        if q.dtype == torch.float32:
+            err = lib.zoo_flash_attention_fwd(*args_, float(d ** -0.5),
+                                              int(causal), stream)
+        else:
+            err = lib.zoo_flash_attention_fwd_bf16(
+                *args_, fa.q_scale(d ** -0.5, q.dtype), int(causal), stream)
+        if err:
+            sys.exit(f"bench_flash: forward launch failed, cudaError {err}")
+        return o, lse
 
     def run(lib, q, k, v, do, lse, delta, causal, parts=("dq", "dkv")):
         b, h, t, d = q.shape
@@ -387,35 +449,97 @@ def bf16_backward(args, torch, kernels, fa, card) -> None:
                             "over tolerance")
         return float(err.max())
 
+    def bf16_inputs(shape, n):
+        return [torch.randn(shape, generator=gen, device=dev)
+                .to(torch.bfloat16) for _ in range(n)]
+
     checks = []
+    fwds = {tag: lib for tag, lib in libs["fwd"].items()
+            if tag not in diagnostic}
+    for shape in BF16_SHAPES + BF16_FWD_SHAPES:
+        q, k, v = bf16_inputs(shape, 3)
+        for causal in (False, True):
+            tag_s = f"{shape} causal={causal}"
+            o_ref, lse_ref = fa.flash_attention_ref(q, k, v, causal=causal)
+            for tag, lib in fwds.items():
+                got, again = (run_fwd(lib, q, k, v, causal) for _ in range(2))
+                torch.cuda.synchronize()
+                used = o_used(got[0], o_ref)
+                e_o = float((got[0].float() - o_ref.float()).abs().max())
+                e_l = float((got[1] - lse_ref).abs().max())
+                same = all(torch.equal(a, b_) for a, b_ in zip(got, again))
+                if not used <= 1.0:
+                    failures.append(f"bf16 fwd:{tag} O {tag_s}: {used:.3f} "
+                                    "of its tolerance")
+                if not e_l <= BF16_LSE_ATOL:
+                    failures.append(f"bf16 fwd:{tag} LSE {tag_s}: {e_l:.3e}")
+                if not same:
+                    failures.append(f"bf16 fwd:{tag} {tag_s}: two launches "
+                                    "differ")
+                checks.append(dict(version=f"fwd:{tag}", shape=shape,
+                                   causal=causal, o_used=used,
+                                   max_abs_err=dict(o=e_o, lse=e_l),
+                                   bit_identical_relaunch=same))
+                print(f"check [bf16 fwd:{tag}] {tag_s}: O max abs err "
+                      f"{e_o:.3e}, {used:.3f} of its tolerance, LSE "
+                      f"{e_l:.3e}; two launches "
+                      f"{'bit-identical' if same else 'DIFFER'}")
+            del o_ref, lse_ref
+        # P's rounding: where key 0 leads every row, each kernel rounds P as
+        # the plain version does; at phase 14's shapes both controls fail
+        q, k, v = leading_key_inputs(torch, shape, gen, dev)
+        for causal in (False, True):
+            tag_s = f"{shape} causal={causal}, key 0 leading"
+            o_ref = fa.flash_attention_ref(q, k, v, causal=causal)[0]
+            controls = [o_tipped(fn(torch, q, k, v, causal), o_ref)
+                        for fn in (o_fault2_order, o_unrounded_p)]
+            if shape in BF16_SHAPES and any(
+                    c_share <= BF16_O_TIPPED_SHARE and c_used <= 1.0
+                    for c_share, c_used in controls):
+                failures.append(f"bf16 fwd {tag_s}: a control passes "
+                                f"({controls})")
+            for tag, lib in fwds.items():
+                tipped, used = o_tipped(run_fwd(lib, q, k, v, causal)[0],
+                                        o_ref)
+                if not (tipped <= BF16_O_TIPPED_SHARE and used <= 1.0):
+                    failures.append(f"bf16 fwd:{tag} {tag_s}: O differs on "
+                                    f"{tipped:.4%}, {used:.3f} of its "
+                                    "tolerance")
+                checks.append(dict(version=f"fwd:{tag}", shape=shape,
+                                   causal=causal, key0_tipped_share=tipped,
+                                   o_used=used, controls=controls))
+                print(f"check [bf16 fwd:{tag}] {tag_s}: O differs from the "
+                      f"plain version's on {tipped:.4%} of its elements, "
+                      f"{used:.3f} of its tolerance; controls {controls}")
+        del q, k, v
     for shape in BF16_SHAPES:
         for causal in (False, True):
             if shape[2] >= 4096 and not causal:
                 continue
-            q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
-                           .to(torch.bfloat16) for _ in range(4))
+            q, k, v, do = bf16_inputs(shape, 4)
             o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
             delta = fa.flash_attention_delta(o, do)
             want = (fa.flash_attention_dq_ref(q, k, v, do, lse, delta, causal),
                     *fa.flash_attention_dkv_ref(q, k, v, do, lse, delta,
                                                 causal))
             tag_s = f"{shape} causal={causal}"
-            for tag, lib in libs["bf16"].items():
+            for tag, lib in libs["bwd"].items():
                 if tag in diagnostic:
                     continue
                 got = run(lib, q, k, v, do, lse, delta, causal)
                 again = run(lib, q, k, v, do, lse, delta, causal)
                 torch.cuda.synchronize()
-                errs = [bwd_err(f"bf16:{tag} {n} {tag_s}", x, w)
+                errs = [bwd_err(f"bf16 bwd:{tag} {n} {tag_s}", x, w)
                         for n, x, w in zip(("dQ", "dK", "dV"), got, want)]
                 same = all(torch.equal(a, b_) for a, b_ in zip(got, again))
                 if not same:
-                    failures.append(f"bf16:{tag} {tag_s}: two launches differ")
-                checks.append(dict(version=f"bf16:{tag}", shape=shape,
+                    failures.append(f"bf16 bwd:{tag} {tag_s}: two launches "
+                                    "differ")
+                checks.append(dict(version=f"bwd:{tag}", shape=shape,
                                    causal=causal, bit_identical_relaunch=same,
                                    max_abs_err=dict(zip(("dq", "dk", "dv"),
                                                         errs))))
-                print(f"check [bf16:{tag}] {tag_s}: max abs err dQ "
+                print(f"check [bf16 bwd:{tag}] {tag_s}: max abs err dQ "
                       f"{errs[0]:.3e} dK {errs[1]:.3e} dV {errs[2]:.3e}; two "
                       f"launches {'bit-identical' if same else 'DIFFER'}")
             del q, k, v, do, o, lse, delta, want
@@ -424,27 +548,54 @@ def bf16_backward(args, torch, kernels, fa, card) -> None:
                        for _ in range(4))
         o_ref, lse = fa.flash_attention_ref(q, k, v, causal=causal)
         delta = fa.flash_attention_delta(o_ref, do)
-        cur = run(libs["f32"]["current"], q, k, v, do, lse, delta, causal)
-        for tag, lib in libs["f32"].items():
-            if tag == "current":
-                continue
-            same = [torch.equal(a, b_) for a, b_ in
-                    zip(cur, run(lib, q, k, v, do, lse, delta, causal))]
-            checks.append(dict(version=f"f32:current=f32:{tag}", shape=shape,
-                               causal=causal,
-                               bit_identical=dict(zip(("dq", "dk", "dv"),
-                                                      same))))
-            print(f"compare [f32 backward:current] against [f32 backward:"
-                  f"{tag}] {shape} causal={causal}: dQ, dK, dV bit-identical "
-                  f"{same}")
+        cur = (*run_fwd(libs["f32fwd"]["current"], q, k, v, causal),
+               *run(libs["f32bwd"]["current"], q, k, v, do, lse, delta,
+                    causal))
+        for kind, outs in (("f32fwd", ("o", "lse")),
+                           ("f32bwd", ("dq", "dk", "dv"))):
+            mine = cur[:2] if kind == "f32fwd" else cur[2:]
+            for tag, lib in libs[kind].items():
+                if tag == "current":
+                    continue
+                theirs = (run_fwd(lib, q, k, v, causal) if kind == "f32fwd"
+                          else run(lib, q, k, v, do, lse, delta, causal))
+                same = [torch.equal(a, b_) for a, b_ in zip(mine, theirs)]
+                if not all(same):
+                    failures.append(f"{kind}:current and {kind}:{tag} "
+                                    f"{shape} causal={causal}: not "
+                                    f"bit-identical {dict(zip(outs, same))}")
+                checks.append(dict(version=f"{kind}:current={kind}:{tag}",
+                                   shape=shape, causal=causal,
+                                   bit_identical=dict(zip(outs, same))))
+                print(f"compare [{kind}:current] against [{kind}:{tag}] "
+                      f"{shape} causal={causal}: {', '.join(outs)} "
+                      f"bit-identical {same}")
     torch.cuda.empty_cache()
     result["checks"] = checks
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    result["times_ms"], result["library_ms"], result["bound_ms"] = {}, {}, {}
+    for key in ("fwd_times_ms", "times_ms", "library_ms", "bound_ms"):
+        result[key] = {}
     for shape in BF16_TIMED:
-        q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
-                       .to(torch.bfloat16) for _ in range(4))
+        key = "x".join(map(str, shape))
+        q, k, v, do = bf16_inputs(shape, 4)
+        backend = sdpa_backend(torch, q, k, v)
+        runs = collections.defaultdict(list)
+        in_turns(torch, time_ms, {
+            tag: (lambda lib=lib: run_fwd(lib, q, k, v, True))
+            for tag, lib in libs["fwd"].items()}, runs)
+        lib_fwd = time_ms(torch, lambda: sdpa(q, k, v, is_causal=True))
+        bound_fwd = flash_bf16_bound(shape, True, 2, 4, 1)[0]
+        result["fwd_times_ms"][key] = {
+            tag: dict(runs=r, median=statistics.median(r))
+            for tag, r in runs.items()}
+        for tag, r in result["fwd_times_ms"][key].items():
+            print(f"time [bf16 fwd:{tag}] {shape} causal: "
+                  f"{r['median']:.5f} ms {r['runs']} "
+                  f"({bound_fwd / r['median']:.3f} of its bound) ({card})")
+        print(f"library: bf16 scaled_dot_product_attention {shape} causal "
+              f"({backend}) forward {lib_fwd:.5f} ms; bound "
+              f"{bound_fwd:.6f} ms ({card})")
         o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
         delta = fa.flash_attention_delta(o, do)
         times = collections.defaultdict(lambda: collections.defaultdict(list))
@@ -454,25 +605,24 @@ def bf16_backward(args, torch, kernels, fa, card) -> None:
             in_turns(torch, time_ms, {
                 tag: (lambda lib=lib, parts=parts: run(
                     lib, q, k, v, do, lse, delta, True, parts))
-                for tag, lib in libs["bf16"].items()}, runs)
+                for tag, lib in libs["bwd"].items()}, runs)
             for tag, r in runs.items():
                 times[tag][part] = r
         qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
         out = sdpa(qg, kg, vg, is_causal=True)
         lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
             out, (qg, kg, vg), do, retain_graph=True))
-        backend = sdpa_backend(torch, q, k, v)
-        bounds = {"dq": flash_bf16_bound(shape, True, 5, 5, 2)[0],
+        bounds = {"fwd": bound_fwd,
+                  "dq": flash_bf16_bound(shape, True, 5, 5, 2)[0],
                   "dkv": flash_bf16_bound(shape, True, 8, 6, 2)[0]}
         bounds["pair"] = bounds["dq"] + bounds["dkv"]
-        key = "x".join(map(str, shape))
         result["times_ms"][key] = {
             tag: {p: dict(runs=r, median=statistics.median(r))
                   for p, r in parts.items()} for tag, parts in times.items()}
-        result["library_ms"][key] = lib_bwd
+        result["library_ms"][key] = {"fwd": lib_fwd, "bwd": lib_bwd}
         result["bound_ms"][key] = bounds
         for tag, parts in result["times_ms"][key].items():
-            print(f"time [bf16:{tag}] {shape} causal: " + ", ".join(
+            print(f"time [bf16 bwd:{tag}] {shape} causal: " + ", ".join(
                 f"{p} {r['median']:.5f} ms {r['runs']} "
                 f"({bounds[p] / r['median']:.3f} of its bound)"
                 for p, r in parts.items()) + f" ({card})")
@@ -486,11 +636,13 @@ def bf16_backward(args, torch, kernels, fa, card) -> None:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)
-    print(json.dumps({"times_ms": {k_: {t_: {p: r["median"]
-                                             for p, r in x.items()}
-                                        for t_, x in v_.items()}
-                                   for k_, v_ in result["times_ms"].items()},
-                      "library_ms": result["library_ms"], "card": card}))
+    print(json.dumps({
+        "fwd_times_ms": {k_: {t_: r["median"] for t_, r in v_.items()}
+                         for k_, v_ in result["fwd_times_ms"].items()},
+        "times_ms": {k_: {t_: {p: r["median"] for p, r in x.items()}
+                          for t_, x in v_.items()}
+                     for k_, v_ in result["times_ms"].items()},
+        "library_ms": result["library_ms"], "card": card}))
     if failures:
         print("bench_flash: FAILED:\n  " + "\n  ".join(failures))
         sys.exit(1)
@@ -518,7 +670,7 @@ def main() -> None:
     card = gpu_line()
     print(f"gpu: {card}")
     if args.bf16:
-        return bf16_backward(args, torch, kernels, fa, card)
+        return bf16_flash(args, torch, kernels, fa, card)
     # direction -> {tag: source}
     versions = {FWD: {}, BWD: {}}
     for p in args.compare:

@@ -1,8 +1,9 @@
 """PyTorch port, the flash op on bfloat16: its plain versions and its
 autograd on the CPU against the JAX package's Pallas kernels in interpret
-mode, the float32 plain versions against their pre-bf16 formulas bit for
-bit, the op's routing, dense attention in bf16, and the port's
-``bench_attention`` at a small size.
+mode, the bf16 forward kernel's order of arithmetic (128-key tiles)
+emulated in PyTorch against both, the float32 plain versions against
+their pre-bf16 formulas bit for bit, the op's routing, dense attention in
+bf16, and the port's ``bench_attention`` at a small size.
 
 The bf16 kernels themselves run only on a card:
 tests/test_torch_kernels_cuda.py and chip_smoke.py hold them against the
@@ -279,6 +280,82 @@ def test_q_scale_rounds_as_jax_weak_types(d):
     assert got.dtype == torch.bfloat16
     assert np.array_equal(got.float().numpy(), want)
     assert tfa.q_scale(d ** -0.5, torch.float32) == d ** -0.5
+
+
+# ---- the bf16 forward kernel's order of arithmetic, emulated on the CPU
+
+# keys a tile of the bf16 forward kernel (csrc/flash_attention_fwd_bf16.cu)
+KERNEL_TILE = 128
+
+
+def _tiled_forward(q, k, v, causal, block=KERNEL_TILE):
+    """The bf16 forward kernel's order in PyTorch: ``q * scale`` rounded to
+    bf16, S in float32 from bf16 values (causal cells at -1e30), an online
+    softmax over ``block``-key tiles (the running max from -1e30, l the
+    sum of the unrounded p, O rescaled by exp(m_old - m_new) before a
+    tile's P V is added), P rounded to bf16 at the tile's running max, O
+    divided once and rounded to bf16, LSE float32.  The kernel also skips
+    the tiles past a block's diagonal: here they add p = 0 at corr = 1,
+    which changes nothing."""
+    b, h, t, d = q.shape
+    qs = tfa._scaled_q(q, d ** -0.5).float()
+    kf, vf = k.float(), v.float()
+    m = torch.full((b, h, t, 1), -1e30)
+    l = torch.zeros(b, h, t, 1)
+    acc = torch.zeros(b, h, t, d)
+    rows = torch.arange(t).reshape(t, 1)
+    for k0 in range(0, t, block):
+        s = torch.matmul(qs, kf[:, :, k0:k0 + block].transpose(-1, -2))
+        if causal:
+            cols = torch.arange(k0, min(k0 + block, t)).reshape(1, -1)
+            s = torch.where(cols <= rows, s, s.new_tensor(-1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + torch.matmul(p.to(torch.bfloat16).float(),
+                                        vf[:, :, k0:k0 + block])
+        m = m_new
+    l_safe = l.clamp_min(1e-30)
+    return (acc / l_safe).to(q.dtype), (m + torch.log(l_safe)).reshape(
+        b * h, t, 1)
+
+
+@pytest.mark.parametrize("d,causal", CASES)
+def test_bf16_kernel_order_matches_the_plain_version(d, causal):
+    """The kernel's order against the plain version by the bounds that
+    hold the kernel to it on the card (chip_smoke.py, phase 14): O within
+    one ulp plus 2^-6 of its row's RMS, LSE 1e-5, and where key 0 leads
+    every row O equal to the plain version's on all but 5% of elements."""
+    q, k, v, _ = (_bf16(x) for x in _inputs(d, seed=4))
+    o, lse = _tiled_forward(q, k, v, causal)
+    o_ref, lse_ref = tfa.flash_attention_ref(q, k, v, causal=causal)
+    assert o.dtype == torch.bfloat16
+    _assert_o_close(o.float().numpy(), o_ref.float().numpy())
+    np.testing.assert_allclose(lse.numpy(), lse_ref.numpy(), atol=LSE_ATOL,
+                               rtol=0)
+    q, k, v, _ = (_bf16(x) for x in _leading_key_inputs(d))
+    tipped, used = _o_tipped(_tiled_forward(q, k, v, causal)[0].float().numpy(),
+                             tfa.flash_attention_ref(q, k, v, causal=causal)[0]
+                             .float().numpy())
+    assert tipped <= O_TIPPED_SHARE and used <= 1.0, (tipped, used)
+
+
+@pytest.mark.parametrize("d,causal", CASES)
+def test_bf16_kernel_order_matches_pallas_interpret(reference,
+                                                    leading_reference, d,
+                                                    causal):
+    """The kernel's order (128-key tiles) against the Pallas kernel in
+    interpret mode (64-key blocks) within the bounds that hold the plain
+    version to it above."""
+    tag = f"{d}{int(causal)}"
+    q, k, v, _ = (_bf16(x) for x in _inputs(d))
+    _assert_o_close(_tiled_forward(q, k, v, causal)[0].float().numpy(),
+                    reference[f"o{tag}"])
+    q, k, v, _ = (_bf16(x) for x in _leading_key_inputs(d))
+    tipped, used = _o_tipped(_tiled_forward(q, k, v, causal)[0].float().numpy(),
+                             leading_reference[f"o{tag}"])
+    assert tipped <= O_TIPPED_SHARE and used <= 1.0, (tipped, used)
 
 
 # ---- float32: bit-identical to the formulas before the bf16 repair

@@ -228,6 +228,76 @@ def test_flash_bf16_forward_rounds_p_as_the_plain_version(dev, t, d, causal):
     assert float((o != want).float().mean()) <= 0.05
 
 
+def _leading_key_bf16(dev, shape, seed):
+    """bf16 q, k, v on which key 0 holds every row's largest score by a
+    wide margin (chip_smoke.py's leading_key_inputs)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = 0.1 * torch.randn(shape, generator=gen, device=dev)
+    q[..., 0] = 2.0
+    k = torch.randn(shape, generator=gen, device=dev)
+    k[..., 0] = -17.0 * torch.rand(shape[:-1], generator=gen, device=dev)
+    k[..., 0, 0] = 10.0
+    v = torch.randn(shape, generator=gen, device=dev)
+    return [x.to(torch.bfloat16) for x in (q, k, v)]
+
+
+def _o_wrong_orders(q, k, v, causal):
+    """O in two wrong orders: S rounded to bf16 before the softmax (a
+    product of two bf16 tensors, the plain version's former order), and
+    the reference's order with P kept in float32."""
+    t, d = q.shape[2], q.shape[3]
+    keep = torch.ones(t, t, dtype=torch.bool, device=q.device).tril_()
+    outs = []
+    for s, round_p in ((torch.matmul(q * d ** -0.5, k.transpose(-1, -2))
+                        .float(), True),
+                       (torch.matmul(fa._scaled_q(q, d ** -0.5).float(),
+                                     k.float().transpose(-1, -2)), False)):
+        if causal:
+            s = torch.where(keep, s, s.new_tensor(-1e30))
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        l_safe = p.sum(-1, keepdim=True).clamp_min(1e-30)
+        pv = (torch.matmul(p.to(v.dtype), v).float() if round_p
+              else torch.matmul(p, v.float()))
+        outs.append((pv / l_safe).to(q.dtype))
+    return outs
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("t", [1, 17, 127, 129, 200, 4096])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_bf16_forward_kernel_at_ragged_lengths(dev, d, t, causal):
+    """The wgmma forward (128 query rows a block, 128-key tiles) against
+    its plain version where T is one key, below one block, one row either
+    side of a block, not a multiple of a tile, and long: O within its
+    tolerance, LSE, two launches bit-identical.  Where key 0 leads every
+    row, O is the plain version's but on at most 5% of its elements; from
+    127 keys on, both wrong orders of rounding fail that check (with 17
+    keys, causal, at head_dim 64 an unrounded P moved only 4.9% of the
+    elements on the H100; with one key O is V's row in every order)."""
+    shape = (2, 3, t, d) if t < 4096 else (1, 2, t, d)
+    q, k, v = (_bf16(dev, *shape, seed=s) for s in range(3))
+    name = fa.KERNELS[torch.bfloat16][0]
+    before = kernels.launch_counts()[name]
+    first = fa.flash_attention_fwd(q, k, v, causal=causal)
+    second = fa.flash_attention_fwd(q, k, v, causal=causal)
+    assert kernels.launch_counts()[name] == before + 2
+    o_ref, lse_ref = fa.flash_attention_ref(q, k, v, causal=causal)
+    assert first[0].dtype == torch.bfloat16
+    _close_bf16_o(first[0], o_ref)
+    torch.testing.assert_close(first[1], lse_ref, **BF16_LSE_TOL)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    q, k, v = _leading_key_bf16(dev, shape, seed=t + d)
+    o = fa.flash_attention_fwd(q, k, v, causal=causal)[0]
+    want = fa.flash_attention_ref(q, k, v, causal=causal)[0]
+    _close_bf16_o(o, want)
+    assert float((o != want).float().mean()) <= 0.05
+    if t >= 127:
+        for wrong in _o_wrong_orders(q, k, v, causal):
+            assert not (float((wrong != want).float().mean()) <= 0.05 and
+                        _bf16_o_used(wrong, want) <= 1.0)
+
+
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("t", [17, 200, 512, 4096])
 @pytest.mark.parametrize("d", [64, 128])
