@@ -2,7 +2,8 @@
 
 A ZooModel is a thin facade over an inner KerasNet graph built by
 ``build_model``; compile/fit/evaluate/predict/predict_classes,
-quantize/is_quantized and the variables surface delegate to it.
+quantize/is_quantized, the variables surface and save_model/load_weights
+delegate to it.
 """
 
 from __future__ import annotations
@@ -54,3 +55,10 @@ class ZooModel:
 
     def set_weights(self, weights):
         self.model.set_weights(weights)
+
+    def save_model(self, path: str, over_write: bool = True):
+        self.model.save_model(path, over_write=over_write)
+
+    def load_weights(self, path: str):
+        self.model.load_weights(path)
+        return self

@@ -19,7 +19,10 @@ the CPU and on the card alike; ``train_step_at`` makes that generator
 itself from the run's seed and the step's index, as the reference folds
 the step into its key inside the step.  ``prefetch`` places each batch
 inline by default, or ``data.prefetch`` deep on a thread of its own
-while the steps run.
+while the steps run.  Each step first trips the ``trainer.dispatch``
+fault-injection site (``resilience/chaos.py``) at the trainer's 0-based
+step count, before anything is computed, so a fault at step k leaves
+exactly k steps committed.
 
 Not ported: the mesh and sharding, the whole-epoch and chunked scans,
 the observability hooks and ``train.remat`` (which raises).
@@ -37,6 +40,9 @@ import torch
 from analytics_zoo_torch.common.config import get_config
 from analytics_zoo_torch.pipeline.api.keras.topology import (
     tree_leaves, tree_map, tree_replace,
+)
+from analytics_zoo_torch.resilience.chaos import (
+    SITE_TRAINER_DISPATCH, active_chaos,
 )
 
 _SEED_MOD = 2 ** 63
@@ -98,6 +104,7 @@ class DistributedTrainer:
         self.optim = optim_method
         self.clip = clip
         self.device = get_zoo_context().device
+        self._dispatch_count = 0
         cfg = get_config()
         if optim_method is not None and bool(cfg.get("train.remat")):
             raise NotImplementedError(
@@ -228,6 +235,10 @@ class DistributedTrainer:
         return loss.detach(), tree_replace(params, grads), new_state
 
     def _step_core(self, params, opt_state, state, batch, rng):
+        chaos = active_chaos()
+        if chaos is not None:
+            chaos.trip(SITE_TRAINER_DISPATCH, self._dispatch_count)
+        self._dispatch_count += 1
         loss, grads, new_state = self.loss_and_grads(params, state, batch,
                                                      rng)
         if self.grad_sync_dtype == "bfloat16":

@@ -5,11 +5,14 @@ Ported: ``init``/``get_variables``/``set_variables``/``get_weights``/
 ``set_weights``, the graph ``Model.apply``, and the training surface
 ``compile``/``fit`` (on ndarrays or a FeatureSet, with validation)/
 ``evaluate``/``predict``/``predict_classes`` with the gradient-clipping
-setters, which run the single-device ``Estimator``; ``quantize`` (the
-calibrated int8 conversion, ``ops/quant.py``); and the ``Sequential``
-stack.  Both containers report each layer's input to the calibration
-taps (``engine.tap_activation``).  Checkpoints, TensorBoard and freezing
-are not ported yet.
+setters, which run the single-device ``Estimator``; ``set_checkpoint``
+(``fit`` then snapshots into that directory every epoch, or on the given
+trigger, and resumes from its latest snapshot); ``save_model``/
+``load_weights`` (the JAX package's file layout, ``utils/
+serialization.py``); ``quantize`` (the calibrated int8 conversion,
+``ops/quant.py``); and the ``Sequential`` stack.  Both containers report
+each layer's input to the calibration taps (``engine.tap_activation``).
+TensorBoard and freezing are not ported yet.
 """
 
 from __future__ import annotations
@@ -95,6 +98,9 @@ class KerasNet(Container):
         self.optim_method = None
         self.loss = None
         self.metrics = None
+        self._checkpoint_path = None
+        self._checkpoint_trigger = None
+        self._overwrite_checkpoint = True
         self._gradient_clipping = None   # ("const", min, max) | ("l2norm", v)
         self._variables = None           # {"params":..., "state":...}
         self._rng = torch.Generator().manual_seed(0)
@@ -147,6 +153,15 @@ class KerasNet(Container):
         self.metrics = [met.get(m) for m in (metrics or [])]
         return self
 
+    def set_checkpoint(self, path: str, over_write: bool = True,
+                       trigger=None):
+        """Snapshot ``fit`` into the directory ``path`` when ``trigger``
+        fires (default ``EveryEpoch()``); a later ``fit`` resumes from
+        the latest snapshot there."""
+        self._checkpoint_path = path
+        self._overwrite_checkpoint = over_write
+        self._checkpoint_trigger = trigger
+
     def set_constant_gradient_clipping(self, min_value: float,
                                        max_value: float):
         self._gradient_clipping = ("const", float(min_value),
@@ -169,7 +184,7 @@ class KerasNet(Container):
         with the compiled metrics (the loss when none was compiled).
         ``rng`` is the integer seed the dropout generators derive from
         (default: ``data.shuffle_seed``)."""
-        from analytics_zoo_torch.common.triggers import MaxEpoch
+        from analytics_zoo_torch.common.triggers import EveryEpoch, MaxEpoch
         from analytics_zoo_torch.feature.feature_set import FeatureSet
         from analytics_zoo_torch.pipeline.api.keras.metrics import Loss
         from analytics_zoo_torch.pipeline.estimator import Estimator
@@ -200,7 +215,8 @@ class KerasNet(Container):
         validation_method = list(self.metrics or [])
         if val_set is not None and not validation_method:
             validation_method = [Loss(self.loss)]
-        estimator = Estimator(self, optim_method=self.optim_method)
+        estimator = Estimator(self, optim_method=self.optim_method,
+                              model_dir=self._checkpoint_path)
         if self._gradient_clipping is not None:
             kind, *args = self._gradient_clipping
             if kind == "const":
@@ -209,6 +225,8 @@ class KerasNet(Container):
                 estimator.set_l2_norm_gradient_clipping(*args)
         estimator.train(train_set, self.loss,
                         end_trigger=MaxEpoch(nb_epoch),
+                        checkpoint_trigger=(self._checkpoint_trigger or
+                                            EveryEpoch()),
                         validation_set=val_set,
                         validation_method=validation_method,
                         batch_size=batch_size, rng=rng)
@@ -260,6 +278,21 @@ class KerasNet(Container):
         params = (self._variables or {}).get("params", {})
         return any("kernel_scale" in p for p in params.values()
                    if isinstance(p, dict))
+
+    # ------------------------------------------------------------ save/load
+    def save_model(self, path: str, over_write: bool = True):
+        """The variables to ``path`` in the JAX package's layout (atomic;
+        ``over_write=False`` refuses an existing file)."""
+        from analytics_zoo_torch.utils.serialization import save_variables
+        save_variables(path, self.get_variables(), over_write=over_write)
+
+    def load_weights(self, path: str):
+        """The variables from a file either package's ``save_model``
+        wrote, onto this model's device; a missing, unreadable or
+        mismatched file raises."""
+        from analytics_zoo_torch.utils.serialization import load_variables
+        self._variables = load_variables(path, like=self.get_variables())
+        return self
 
 
 class Sequential(KerasNet):

@@ -179,6 +179,14 @@ class InferenceModel:
         self._predict_fn = fn
         return self
 
+    def load_zoo_file(self, model, path: str,
+                      quantize=False) -> "InferenceModel":
+        """Weights from a saved checkpoint (either package's
+        ``save_model``) into a built architecture, then ``load_zoo``; a
+        missing or mismatched file raises."""
+        model.load_weights(path)
+        return self.load_zoo(model, quantize=quantize)
+
     def load_torch(self, *args, **kwargs):
         raise _not_ported("load_torch")
 

@@ -4,10 +4,10 @@ serving/ClusterServing.scala:44).
 
 ``start`` reads config.yaml, builds the model from ``model: builder:``
 (a "pkg.module:function" returning a model of this package: a KerasNet
-or a ZooModel), draws its weights, and runs the serving loop against
-Redis (``python -m analytics_zoo_torch.serving.cli start --config
-config.yaml``).  ``stop`` sets the cross-process stop key.  ``model:
-weights:`` (a checkpoint) is not ported yet and raises.
+or a ZooModel), loads ``model: weights:`` (a ``save_model`` file of
+either package) or, without it, draws its weights, and runs the serving
+loop against Redis (``python -m analytics_zoo_torch.serving.cli start
+--config config.yaml``).  ``stop`` sets the cross-process stop key.
 """
 
 from __future__ import annotations
@@ -18,20 +18,20 @@ import sys
 
 
 def _build_model(spec: str, weights: str = None):
-    """Build the port's model named by ``spec`` and draw its weights.
-    Checkpoint loading (``model: weights:``) is not ported yet."""
+    """Build the port's model named by ``spec``, then load ``weights`` (a
+    ``save_model`` file; missing or mismatched raises, never random
+    weights) or, without it, draw its weights."""
     mod_name, _, fn_name = spec.partition(":")
     if not fn_name:
         raise SystemExit(
             f"model builder {spec!r} must look like pkg.module:function")
-    if weights:
-        raise NotImplementedError(
-            "model weights: checkpoint loading is not ported to the "
-            "PyTorch package yet (ROADMAP.md, queue 1)")
     from analytics_zoo_torch.models.common import ZooModel
     fn = getattr(importlib.import_module(mod_name), fn_name)
     model = fn()
-    (model.model if isinstance(model, ZooModel) else model).init()
+    if weights:
+        model.load_weights(weights)
+    else:
+        (model.model if isinstance(model, ZooModel) else model).init()
     return model
 
 

@@ -4,8 +4,10 @@ each against its plain PyTorch version, serve a full-width transformer
 TextClassifier through ``InferenceModel``, train it through
 ``compile``/``fit``/``evaluate``, and show that both paths went through
 the kernels; then the recommenders, int8, the recurrent TextClassifier,
-Seq2seq's generative serving, the session recommender, ResNet-50, and
-the flash kernels on bfloat16 through the port's ``bench_attention``.
+Seq2seq's generative serving, the session recommender, ResNet-50, the
+flash kernels on bfloat16 through the port's ``bench_attention``, and
+model persistence: checkpointed training resumed and retried,
+``save_model`` files loaded and served.
 
     python3 chip_smoke.py
 
@@ -145,7 +147,33 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    versions on three heads' slices; then
    ``benchmarks.attention.bench_attention()`` at its defaults, its dict on
    one line, and its launches, which the ``kernels`` line reports;
-15. a ``kernels`` JSON line, then the device line last.
+15. model persistence at full width, each snapshot's bytes, save and
+   restore seconds and MB/s printed: 15a the phase 3/4 model trained with
+   ``set_checkpoint`` (64 seeded sequences, batch 8, Adam, 2 epochs),
+   then a fresh model's ``fit`` to 3 epochs on the same directory resumes
+   at epoch 2, iteration 16, with the launches of phase 4 a step (these
+   are the launches the ``kernels`` line reports for the float32
+   kernels), held against an uninterrupted 3-epoch run and that run again
+   (the control): losses and the 154 leaves bit-identical if the control
+   is, else within twice the control's largest difference (these runs
+   under ``torch.use_deterministic_algorithms``: the embeddings' backward
+   sums with atomics otherwise, see ``deterministic``); 15b one
+   ``TransientFault`` (``ChaosPlan`` at the ``trainer.dispatch`` site,
+   step 10) in a ``model_dir`` run: one retry, one restore, the end state
+   held as in 15a; 15c ``save_model`` of the resumed model, a fresh model
+   loaded through ``InferenceModel.load_zoo_file`` serving 4 requests of
+   8 x 512 bit-identical to ``load_zoo`` of the model in memory with
+   12/12/1 launches a request, float32 and ``quantize=True``; 15d the
+   serving CLI's builder (``chip_smoke:bert_base``) with ``weights=`` the
+   file, 8 records through phase 3b's ``BrokerServer``/``ClusterServing``
+   harness at bucket 8, top-5 classes equal to 15c's; 15e ``Seq2seq`` at
+   ``examples/chatbot/seq2seq_example.py``'s configuration (vocabulary 40,
+   8 tokens, 4096 dialogues, embedding 48, one LSTM of 96, batch 128,
+   Adam(0.01)) resumed and held as in 15a, its ``train_step_at`` median
+   and spread, and one step profiled in a child (``--profile-seq2seq-
+   train``) beside phase 10's inference profile; 15f the temporary
+   directories removed and the phase's seconds printed;
+16. a ``kernels`` JSON line, then the device line last.
 
 The int8 phases besides 9: 2b holds ``quantized_matmul`` and
 ``quantized_conv`` (``torch._int_mm``, a convolution as one product over
@@ -169,7 +197,9 @@ Exits non-zero, printing no result, when CUDA is not available.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -302,10 +332,11 @@ def rel_l2(got, want) -> float:
 
 
 def serve_front_end(torch, im, fail, broker_url=None, n_singles=8,
-                    queued_first=False):
-    """Serve 64 seeded token records through the Redis stream over TCP
-    and ``n_singles`` through the HTTP fast path with ``ClusterServing``
-    over ``im`` (batch 8, buckets 1/2/4/8, top 5, a consumer group), as
+                    queued_first=False, n_stream=64, buckets=(1, 2, 4, 8)):
+    """Serve ``n_stream`` seeded token records (the first of the same 64)
+    through the Redis stream over TCP and ``n_singles`` through the HTTP
+    fast path with ``ClusterServing`` over ``im`` (batch 8, ``buckets``,
+    top 5, a consumer group), as
     ``python -m analytics_zoo_torch.serving.cli start`` serves them.
     The broker is a ``BrokerServer`` in this process unless
     ``broker_url`` names a fresh one; with ``queued_first`` the stream
@@ -330,18 +361,18 @@ def serve_front_end(torch, im, fail, broker_url=None, n_singles=8,
         broker_url = broker.url
     serving = ClusterServing(im, ServingConfig(
         redis_url=broker_url, batch_size=8, top_n=5, input_shape=(512,),
-        batch_buckets="1,2,4,8", consumer_group="g", http_port=0,
-        metrics_host="127.0.0.1"))
+        batch_buckets=",".join(map(str, buckets)), consumer_group="g",
+        http_port=0, metrics_host="127.0.0.1"))
     t0 = time.perf_counter()
     warmed = serving.engine.warm_start()
     warm_s = time.perf_counter() - t0
-    if warmed != {"default": 4}:
-        fail(f"warm_start warmed {warmed}, want 4 buckets")
+    if warmed != {"default": len(buckets)}:
+        fail(f"warm_start warmed {warmed}, want {len(buckets)} buckets")
 
     rs = np.random.RandomState(1)
     records = rs.randint(0, 30522, size=(64, 512)).astype(np.int64)
     singles = rs.randint(0, 30522, size=(8, 512)).astype(np.int64)
-    singles = singles[:n_singles]
+    records, singles = records[:n_stream], singles[:n_singles]
     tracer = get_tracer()
     tracer.clear()
     kernels.reset_launch_counts()
@@ -1322,10 +1353,12 @@ def profile_ranges(torch, runs, kind):
     no device events on the H100) over ``runs`` (name -> fn), each in a
     ``record_function`` range that ends with a synchronize.  Returns
     ({name: summary}, the device events placed in no range as [name,
-    start us from the first range's start, us]); a summary holds
+    start us from the first range's start, us, its launching call's
+    start or None]); a summary holds
     the device kernels launched, memory copies, device busy ms (the union
     of the events' intervals), the kernels' summed ms, the range's wall ms,
-    the idle share and (count, ms) by ``kind(kernel name)``."""
+    the idle share, the events placed by time for want of a launching
+    call, and (count, ms) by ``kind(kernel name)``."""
     from torch.profiler import ProfilerActivity, profile, record_function
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1335,22 +1368,60 @@ def profile_ranges(torch, runs, kind):
                 fn()
                 torch.cuda.synchronize()
     events = prof.events()
-    spans = {e.name: e.time_range for e in events if e.name in runs}
+    cuda = torch.autograd.DeviceType.CUDA
+    # each range shows twice: its CPU interval, and on the device timeline
+    # the interval of the work launched in it.  A device event is placed
+    # by the runtime call that launched it: in the range whose CPU
+    # interval holds that call's start.  An event with no such call is
+    # placed in the range whose CPU or device interval holds it.  Device
+    # times alone misplace events at a range's edge: in one phase-10
+    # profile on an H100 the first 127 device events of a request lay
+    # outside every device interval, and in another a request's first
+    # input copy lay before its range's CPU start.  The wall is the
+    # device interval, where there is one
+    pieces = {}
+    for e in events:
+        if e.name in runs:
+            key = (e.name, e.device_type == cuda)
+            lo, hi = pieces.get(key, (e.time_range.start, e.time_range.end))
+            pieces[key] = (min(lo, e.time_range.start),
+                           max(hi, e.time_range.end))
+    spans, walls = {}, {}
+    for name in runs:
+        held = [pieces[k] for k in ((name, False), (name, True))
+                if k in pieces]
+        spans[name] = (min(lo for lo, _ in held), max(hi for _, hi in held))
+        lo, hi = pieces.get((name, True), held[0])
+        walls[name] = (hi - lo) * 1e-3
+    # a device event's id is the correlation id of the CUDA runtime or
+    # driver call that launched it (cudaLaunchKernel, cudaMemcpyAsync,
+    # cuLaunchKernel, ...); op and range ids come from another counter
+    launched_at = {e.id: e.time_range.start for e in events
+                   if e.device_type != cuda and e.name.startswith("cu")}
+    cpu_spans = {name: pieces[(name, False)] for name in runs
+                 if (name, False) in pieces}
     placed = {name: [] for name in runs}
-    first = min(r.start for r in spans.values())
+    by_time = Counter()
+    first = min(lo for lo, _ in spans.values())
     unplaced = []
     for e in events:
         # the ranges themselves show on the device timeline too
-        if e.device_type != torch.autograd.DeviceType.CUDA or \
-                e.name in runs:
+        if e.device_type != cuda or e.name in runs:
             continue
-        where = [n for n, r in spans.items()
-                 if r.start <= e.time_range.start <= r.end]
+        at = launched_at.get(e.id)
+        if at is not None:
+            where = [n for n, (lo, hi) in cpu_spans.items()
+                     if lo <= at <= hi]
+        else:
+            where = [n for n, (lo, hi) in spans.items()
+                     if lo <= e.time_range.start <= hi]
         if len(where) != 1:
             unplaced.append([e.name, e.time_range.start - first,
-                             e.time_range.elapsed_us()])
+                             e.time_range.elapsed_us(),
+                             None if at is None else at - first])
             continue
         placed[where[0]].append(e)
+        by_time[where[0]] += at is None
     out = {}
     for name, evs in placed.items():
         copies = sum(e.name.startswith(("Memcpy", "Memset")) for e in evs)
@@ -1364,11 +1435,11 @@ def profile_ranges(torch, runs, kind):
             if e0 > end:
                 busy += (e0 - max(s0, end)) * 1e-3
                 end = e0
-        wall = spans[name].elapsed_us() * 1e-3
+        wall = walls[name]
         out[name] = dict(
             launches=len(evs) - copies, copies=copies, busy_ms=busy,
             sum_ms=sum(total.values()), wall_ms=wall,
-            idle_share=1.0 - busy / wall,
+            idle_share=1.0 - busy / wall, placed_by_time=by_time[name],
             by_kind=[(k, count[k], round(t, 4))
                      for k, t in total.most_common()])
     return out, unplaced
@@ -2606,6 +2677,405 @@ def flash_bf16_phase(torch, card, dev):
     return report
 
 
+# ------------------------------------------- phase 15: model persistence
+# the phase 3/4 model's training data and schedule: 64 seeded sequences,
+# batch 8 (8 steps an epoch), Adam(lr=1e-4), dropout seed 0
+PERSIST_ROWS, PERSIST_BATCH = 64, 8
+# the fault of 15b: before the 11th step, in the second epoch, after the
+# snapshot at iteration 8
+FAULT_STEP = 10
+# examples/chatbot/seq2seq_example.py:34-52: vocabulary 40, 8 tokens,
+# 4096 dialogues, embedding 48, one LSTM of 96, bridge "pass", batch 128,
+# Adam(lr=0.01)
+CHAT_VOCAB, CHAT_LEN, CHAT_ROWS, CHAT_BATCH = 40, 8, 4096, 128
+CHAT_STEPS_TIMED = 20
+
+
+def bert_base():
+    """The phase 3/4 ``TextClassifier`` at BERT-base widths, not yet
+    built (phase 15d's serving-CLI builder: ``chip_smoke:bert_base``)."""
+    from analytics_zoo_torch.models.textclassification import TextClassifier
+    return TextClassifier(class_num=20, token_length=768,
+                          sequence_length=512, encoder="transformer",
+                          n_head=12, n_block=12, max_words_num=30521,
+                          encoder_output_dim=256)
+
+
+def chat_seq2seq():
+    from analytics_zoo_torch.models.seq2seq import Seq2seq
+    return Seq2seq(vocab_size=CHAT_VOCAB, embed_dim=48, hidden_sizes=(96,),
+                   bridge="pass")
+
+
+def chat_data():
+    """The chatbot example's reversal dialogue (``_dialogue_data``)."""
+    rs = np.random.RandomState(0)
+    src = rs.randint(3, CHAT_VOCAB, (CHAT_ROWS, CHAT_LEN)).astype(np.int32)
+    tgt = src[:, ::-1].copy()
+    dec_in = np.concatenate(
+        [np.full((CHAT_ROWS, 1), GEN_START, np.int32), tgt[:, :-1]], axis=1)
+    return [src, dec_in], tgt[..., None]
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """``torch.use_deterministic_algorithms(True, warn_only=True)`` for the
+    block.  The embeddings' backward (``index_add_``) sums a batch's rows
+    into the table with atomics, in no fixed order on the card: ~1e-9 of a
+    leaf, which the bf16 rounding of each product's operands and the
+    max-pool's choice of token can amplify into a different step (phase
+    15a on the H100 without this mode: the same uninterrupted run twice
+    agreed but for 3.7e-9 on one leaf, while a run resumed from a
+    bit-exact snapshot took another branch at its third step and moved the
+    last epoch's loss by 4.6e-4).  Under this mode ``index_add_`` takes
+    PyTorch's deterministic path, so a run and its replay can be held bit
+    for bit."""
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+
+
+def fit_run(torch, build, x, y, epochs, batch, optim, model_dir=None):
+    """A fresh model from ``build`` (names reset, weights seeded 0) trained
+    through ``compile``/``fit`` for ``epochs`` (dropout seed 0), with
+    ``set_checkpoint(model_dir)`` when one is given; (model, history)."""
+    from analytics_zoo_torch.pipeline.api.keras.engine import Layer
+    Layer.reset_name_counters()
+    model = build()
+    net = getattr(model, "model", model)
+    net.init(torch.Generator().manual_seed(0))
+    model.compile(optim(), "sparse_categorical_crossentropy_with_logits")
+    if model_dir is not None:
+        net.set_checkpoint(model_dir)
+    return model, model.fit(x, y, batch_size=batch, nb_epoch=epochs, rng=0)
+
+
+def leaf_diffs(a, b):
+    from analytics_zoo_torch.pipeline.api.keras.topology import tree_leaves
+    return [float((p - q).abs().max()) for p, q in zip(
+        tree_leaves(a.get_variables()["params"]),
+        tree_leaves(b.get_variables()["params"]))]
+
+
+def hold_resumed(what, losses, model, whole, control, card):
+    """15a's standard: ``model`` and its epoch ``losses`` against the
+    uninterrupted run ``whole``; bit-identical if ``control`` (the same
+    uninterrupted run again) is bit-identical to ``whole``, else every
+    leaf within twice the largest leaf difference of the control (and the
+    losses within twice the control's)."""
+    w_losses, c_losses = ([h["loss"] for h in r[1]] for r in (whole,
+                                                              control))
+    if len(losses) != len(w_losses):
+        fail(f"{what}: {len(losses)} epoch losses, want {len(w_losses)}")
+    d_ctl = leaf_diffs(whole[0], control[0])
+    d_got = leaf_diffs(model, whole[0])
+    loss_ctl = max(abs(a - b) for a, b in zip(w_losses, c_losses))
+    loss_got = max(abs(a - b) for a, b in zip(losses, w_losses))
+    if max(d_ctl) == 0.0 and loss_ctl == 0.0:
+        rule = "bit-identical (the control is)"
+        ok = max(d_got) == 0.0 and loss_got == 0.0
+    else:
+        rule = (f"within twice the control's largest leaf difference "
+                f"{max(d_ctl):.3e} and loss difference {loss_ctl:.3e}")
+        ok = max(d_got) <= 2 * max(d_ctl) and loss_got <= 2 * loss_ctl
+    print(f"{what}: {len(d_got)} leaves, max abs diff against the "
+          f"uninterrupted run {max(d_got):.3e} ({sum(d > 0 for d in d_got)} "
+          f"leaves differ), epoch losses {losses} vs {w_losses} (max diff "
+          f"{loss_got:.3e}); control: {sum(d > 0 for d in d_ctl)} leaves "
+          f"differ, max {max(d_ctl):.3e}, losses max diff {loss_ctl:.3e}; "
+          f"standard: {rule} ({card})")
+    if not ok:
+        fail(f"{what}: not {rule}")
+
+
+def snapshot_lines(what, card) -> None:
+    """Print the checkpoint spans the tracer holds (bytes, seconds, MB/s)
+    and clear it."""
+    from analytics_zoo_torch.observability import get_tracer
+    tracer = get_tracer()
+    spans = [e for e in tracer.events()
+             if e["name"] in ("checkpoint_save", "checkpoint_restore")]
+    for e in spans:
+        n, sec = e["args"]["bytes"], e["dur"] * 1e-6
+        print(f"{what} {e['name']} at iteration {e['args']['iteration']}: "
+              f"{n} bytes in {sec:.4f} s, {n / sec / 1e6:.1f} MB/s ({card})")
+    tracer.clear()
+
+
+def counter(name):
+    from analytics_zoo_torch.observability import get_registry
+    return get_registry().counter(name).value
+
+
+def profile_seq2seq_train() -> None:
+    """``--profile-seq2seq-train``: in a process of its own, one
+    ``torch.profiler`` session over one ``train_step_at`` of the chatbot
+    ``Seq2seq`` (batch 128 x 8 tokens, Adam), after two untimed steps.
+    Prints one JSON line as ``--profile-recurrent`` does."""
+    import torch
+
+    from analytics_zoo_torch import init_zoo_context
+    from analytics_zoo_torch.parallel.trainer import DistributedTrainer
+    from analytics_zoo_torch.pipeline.api.keras import objectives
+    from analytics_zoo_torch.pipeline.api.keras.optimizers import Adam
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a GPU")
+    init_zoo_context(device="cuda:0")
+    m = chat_seq2seq()
+    m.init(torch.Generator().manual_seed(0))
+    tr = DistributedTrainer(m, objectives.get(
+        "sparse_categorical_crossentropy_with_logits"),
+        optim_method=Adam(lr=0.01))
+    params = tr.place_params(m.get_variables()["params"])
+    opt_state, state = tr.init_opt_state(params), {}
+    x, y = chat_data()
+    batch = tr.put_batch(([a[:CHAT_BATCH] for a in x], y[:CHAT_BATCH]))
+    step = [0]
+
+    def one():
+        nonlocal params, opt_state, state
+        params, opt_state, state, _ = tr.train_step_at(
+            params, opt_state, state, batch, 0, step[0])
+        step[0] += 1
+    one()
+    one()
+    out, unplaced = profile_ranges(torch, {"seq2seq_train_step": one},
+                                   kernel_kind)
+    for o in out.values():
+        o["top"] = o.pop("by_kind")[:6]
+    print(json.dumps({"profile": out, "unplaced": unplaced}))
+
+
+def persistence_phase(torch, card, dev, rec_profile):
+    """Phase 15: model persistence on the main path.  15a a BERT-base
+    ``fit`` with ``set_checkpoint`` resumed by a fresh model, held to the
+    uninterrupted run and its control; 15b one injected transient fault,
+    one restore; 15c ``save_model`` → ``InferenceModel.load_zoo_file``
+    against ``load_zoo`` (float32 and weight-only int8); 15d the serving
+    CLI's ``weights:`` behind Cluster Serving; 15e the chatbot
+    ``Seq2seq`` resumed likewise, its step ms and a profiled step beside
+    phase 10's inference profile; 15f the snapshots removed.  Returns the
+    launches of 15a's resumed training (16 + 8 steps)."""
+    import shutil
+    import tempfile
+
+    from analytics_zoo_torch.observability import get_tracer
+    from analytics_zoo_torch.ops import kernels
+    from analytics_zoo_torch.parallel.trainer import DistributedTrainer
+    from analytics_zoo_torch.pipeline.api.keras import objectives
+    from analytics_zoo_torch.pipeline.api.keras.engine import Layer
+    from analytics_zoo_torch.pipeline.api.keras.optimizers import Adam
+    from analytics_zoo_torch.pipeline.inference import InferenceModel
+    from analytics_zoo_torch.resilience.chaos import (
+        ChaosPlan, FaultSpec, clear_chaos, install_chaos)
+    from analytics_zoo_torch.serving import cli
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="zoo_persistence_")
+    get_tracer().clear()
+    try:
+        # ---- 15a. resume at BERT-base width
+        rs = np.random.RandomState(15)
+        x = rs.randint(0, 30522, size=(PERSIST_ROWS, 512)).astype(np.int64)
+        y = rs.randint(0, 20, size=(PERSIST_ROWS,)).astype(np.int64)
+
+        def bert_fit(epochs, model_dir=None):
+            with deterministic(torch):
+                return fit_run(torch, bert_base, x, y, epochs,
+                               PERSIST_BATCH, lambda: Adam(lr=1e-4),
+                               model_dir)
+        steps = PERSIST_ROWS // PERSIST_BATCH
+        ckpt_a = os.path.join(root, "bert")
+        kernels.reset_launch_counts()
+        _, first = bert_fit(2, ckpt_a)
+        restores = counter("checkpoint_restore_total")
+        resumed, rest = bert_fit(3, ckpt_a)
+        launches = kernels.launch_counts()
+        if counter("checkpoint_restore_total") != restores + 1 or \
+                [h["epoch"] for h in rest] != [3]:
+            fail(f"resume: restores {counter('checkpoint_restore_total')}"
+                 f" (was {restores}), history {rest}")
+        want = {name: 0 for name in kernels.SIGNATURES}
+        n = 3 * steps
+        want.update(flash_attention_fwd=12 * n, flash_attention_dq=12 * n,
+                    flash_attention_dkv=12 * n, bias_gelu=12 * n,
+                    layernorm_act=n, fused_adam=n)
+        if launches != want:
+            fail(f"15a launch counts {launches} != {want}")
+        print(f"15a fit 2 epochs with set_checkpoint, then a fresh model's "
+              f"fit to 3 epochs resumed at epoch 2, iteration {2 * steps}: "
+              f"launches {launches} over {n} steps")
+        snapshot_lines("15a", card)
+        whole = bert_fit(3)
+        control = bert_fit(3)
+        hold_resumed("15a resumed BERT-base",
+                     [h["loss"] for h in first + rest], resumed, whole,
+                     control, card)
+
+        # ---- 15b. one transient fault, one restore
+        restores = counter("checkpoint_restore_total")
+        retries = counter("train_retry_total")
+        install_chaos(ChaosPlan([FaultSpec("trainer.dispatch",
+                                           at_step=FAULT_STEP)]))
+        try:
+            faulted, fh = bert_fit(3, os.path.join(root, "fault"))
+        finally:
+            clear_chaos()
+        restores = counter("checkpoint_restore_total") - restores
+        retries = counter("train_retry_total") - retries
+        if restores != 1 or retries != 1:
+            fail(f"15b: {restores} restores, {retries} retries, want 1 "
+                 "each")
+        print(f"15b TransientFault before step {FAULT_STEP}: 1 retry, 1 "
+              f"restore (the snapshot at iteration {steps}), "
+              f"{len(fh)} epochs")
+        snapshot_lines("15b", card)
+        hold_resumed("15b faulted BERT-base", [h["loss"] for h in fh],
+                     faulted, whole, control, card)
+        del faulted, control
+        torch.cuda.empty_cache()
+
+        # ---- 15c. save_model -> load_zoo_file against load_zoo
+        path = os.path.join(root, "bert_base.model")
+        t0 = time.perf_counter()
+        resumed.save_model(path)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        Layer.reset_name_counters()
+        fresh = bert_base()
+        t0 = time.perf_counter()
+        im_file = InferenceModel().load_zoo_file(fresh, path)
+        load_s = time.perf_counter() - t0
+        print(f"15c save_model: {size} bytes in {save_s:.4f} s "
+              f"({size / save_s / 1e6:.1f} MB/s); a fresh model's "
+              f"load_zoo_file (build, weights drawn, file read and placed) "
+              f"{load_s:.4f} s ({card})")
+        reqs = [np.random.RandomState(16 + i).randint(
+            0, 30522, size=(8, 512)).astype(np.int64) for i in range(4)]
+        per_request = {name: 0 for name in kernels.SIGNATURES}
+        per_request.update(flash_attention_fwd=12, bias_gelu=12,
+                           layernorm_act=1)
+        for quantize in (False, True):
+            im_f = im_file if not quantize else InferenceModel(
+                ).load_zoo_file(fresh, path, quantize=True)
+            im_m = InferenceModel().load_zoo(resumed, quantize=quantize)
+            kernels.reset_launch_counts()
+            outs = [im_f.predict(r, batch_size=8) for r in reqs]
+            counts = kernels.launch_counts()
+            if counts != {k: 4 * v for k, v in per_request.items()}:
+                fail(f"15c load_zoo_file quantize={quantize}: launches "
+                     f"{counts} over 4 requests")
+            ref = [im_m.predict(r, batch_size=8) for r in reqs]
+            for a, b in zip(outs, ref):
+                if a.shape != (8, 20) or not np.isfinite(a).all() or \
+                        not np.array_equal(a, b):
+                    fail(f"15c quantize={quantize}: load_zoo_file logits "
+                         f"differ from load_zoo's by "
+                         f"{float(np.abs(a - b).max())}")
+            print(f"15c load_zoo_file(quantize={quantize}) vs load_zoo("
+                  f"quantize={quantize}) of the model in memory: 4 requests "
+                  f"of 8 x 512, logits bit-identical; launches {counts}")
+            del im_m
+
+        # ---- 15d. the serving CLI's weights:
+        Layer.reset_name_counters()
+        t0 = time.perf_counter()
+        served_model = cli._build_model("chip_smoke:bert_base",
+                                        weights=path)
+        im_cli = InferenceModel().load_zoo(served_model)
+        build_s = time.perf_counter() - t0
+        run = serve_front_end(torch, im_cli, fail, n_singles=0,
+                              queued_first=True, n_stream=8, buckets=(8,))
+        ref = im_file.predict(run["inputs"], batch_size=8)
+        want_top5 = np.argsort(-ref, axis=-1)[:, :5].tolist()
+        got_top5 = [[c for c, _ in res] for res in run["results"]]
+        if got_top5 != want_top5:
+            fail(f"15d: CLI-served top-5 {got_top5} != 15c's {want_top5}")
+        print(f"15d cli._build_model('chip_smoke:bert_base', weights=...) "
+              f"and load_zoo in {build_s:.3f} s; 8 records through "
+              f"ClusterServing (BrokerServer, bucket 8) in "
+              f"{run['batches']} batch(es): top-5 classes equal 15c's; "
+              f"launches {run['launches']} ({card})")
+        del im_file, im_cli, served_model, fresh, resumed, whole
+        torch.cuda.empty_cache()
+
+        # ---- 15e. the chatbot Seq2seq: resume, step ms, a profiled step
+        cx, cy = chat_data()
+
+        def chat_fit(epochs, model_dir=None):
+            with deterministic(torch):
+                return fit_run(torch, chat_seq2seq, cx, cy, epochs,
+                               CHAT_BATCH, lambda: Adam(lr=0.01), model_dir)
+        ckpt_e = os.path.join(root, "seq2seq")
+        t0 = time.perf_counter()
+        _, cfirst = chat_fit(2, ckpt_e)
+        fit_s = time.perf_counter() - t0
+        cresumed, crest = chat_fit(3, ckpt_e)
+        snapshot_lines("15e", card)
+        cwhole = chat_fit(3)
+        ccontrol = chat_fit(3)
+        hold_resumed("15e resumed Seq2seq",
+                     [h["loss"] for h in cfirst + crest], cresumed, cwhole,
+                     ccontrol, card)
+        print(f"15e Seq2seq fit: 2 epochs of {CHAT_ROWS // CHAT_BATCH} "
+              f"steps in {fit_s:.3f} s (first, warm-up included); epoch "
+              f"losses {[round(h['loss'], 5) for h in cfirst + crest]}")
+        tr = DistributedTrainer(cresumed, objectives.get(
+            "sparse_categorical_crossentropy_with_logits"),
+            optim_method=Adam(lr=0.01))
+        params = tr.place_params(cresumed.get_variables()["params"])
+        opt_state, state = tr.init_opt_state(params), {}
+        batch = tr.put_batch(([a[:CHAT_BATCH] for a in cx], cy[:CHAT_BATCH]))
+        step_ms = []
+        for i in range(3 + CHAT_STEPS_TIMED):
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            params, opt_state, state, loss = tr.train_step_at(
+                params, opt_state, state, batch, 0, i)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - s0) * 1e3)
+        step_ms = step_ms[3:]
+        if not np.isfinite(float(loss)):
+            fail(f"15e step loss {float(loss)}")
+        print(f"15e Seq2seq train_step_at (batch {CHAT_BATCH} x "
+              f"{CHAT_LEN} tokens, Adam): median "
+              f"{statistics.median(step_ms):.3f} ms, min "
+              f"{min(step_ms):.3f}, max {max(step_ms):.3f} over "
+              f"{[round(t, 3) for t in step_ms]} ({card})")
+        del cresumed, cwhole, ccontrol, tr, params, opt_state
+        child = subprocess.run(
+            [sys.executable, __file__, "--profile-seq2seq-train"],
+            capture_output=True, text=True, timeout=600)
+        if child.returncode != 0:
+            fail(f"--profile-seq2seq-train exited {child.returncode}: "
+                 f"{child.stderr[-2000:]}")
+        prof = json.loads(child.stdout.strip().splitlines()[-1])
+        if prof["unplaced"]:
+            fail(f"profile: {len(prof['unplaced'])} device events outside "
+                 f"the range: {prof['unplaced'][:8]}")
+        o = prof["profile"]["seq2seq_train_step"]
+        print(f"profile seq2seq_train_step (torch.profiler): "
+              f"{o['launches']} device kernels, {o['copies']} copies, "
+              f"device busy {o['busy_ms']:.4f} ms of {o['wall_ms']:.4f} ms "
+              f"wall, idle share {o['idle_share']:.4f}; by kind (count, ms) "
+              f"{o['top']} ({card})")
+        print("15e beside phase 10's inference profile: " + "; ".join(
+            f"{k} idle share {v['idle_share']:.4f}, {v['launches']} "
+            f"kernels, {v['wall_ms']:.3f} ms wall"
+            for k, v in rec_profile.items()))
+    finally:
+        # ---- 15f. the snapshots (BERT-base ~1.3 GB each) removed
+        shutil.rmtree(root, ignore_errors=True)
+    if os.path.exists(root):
+        fail(f"15f: {root} was not removed")
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2616,7 +3086,6 @@ def main() -> None:
     from analytics_zoo_torch.ops import fused, kernels
     from analytics_zoo_torch.ops import flash_attention as fa
     from analytics_zoo_torch.ops.activations import gelu
-    from analytics_zoo_torch.models.textclassification import TextClassifier
     from analytics_zoo_torch.parallel.trainer import (
         DistributedTrainer, step_generator)
     from analytics_zoo_torch.pipeline.api.keras import objectives
@@ -2872,10 +3341,7 @@ def main() -> None:
 
     # -------------------------------------- 3. the slice at full width
     t0 = time.perf_counter()
-    model = TextClassifier(class_num=20, token_length=768,
-                           sequence_length=512, encoder="transformer",
-                           n_head=12, n_block=12, max_words_num=30521,
-                           encoder_output_dim=256)
+    model = bert_base()
     model.model.init(torch.Generator().manual_seed(0))
     n_params = sum(int(p.numel()) for layer in
                    model.get_variables()["params"].values()
@@ -3057,7 +3523,7 @@ def main() -> None:
     # --------------------- 9. the cnn TextClassifier, calibrated int8
     cnn_int8(torch, card)
     # ------------- 10. the lstm/gru TextClassifier at the reference width
-    recurrent_phase(torch, card)
+    rec_profile = recurrent_phase(torch, card)
     # ---------------- 11. Seq2seq and generative serving, bench config
     generative_phase(torch, card)
     # ----------------------- 12. SessionRecommender over ML-1M's items
@@ -3080,20 +3546,25 @@ def main() -> None:
     # --------------------- 14. the flash kernels on bf16, bench_attention
     report.update(flash_bf16_phase(torch, card, dev))
 
-    # ------------------------------------------------------ 15. results
+    # -------------- 15. model persistence: resume, retry, load, serve
+    persist_launches = persistence_phase(torch, card, dev, rec_profile)
+
+    # ------------------------------------------------------ 16. results
     print(f"launches: serving (4 requests) {serving_launches}; int8 "
           f"weight-only serving (4 requests) {int8_launches}; training "
           f"(fit, 8 steps) {training_launches}; SGD fit (2 steps) "
           f"{sgd_launches}; NeuralCF fit {ncf_launches}; Wide & Deep fit "
           f"{wd_launches}; ResNet-50 train_step (a turn of "
-          f"{RESNET_UNTIMED + RESNET_TIMED} steps) {img_launches}")
+          f"{RESNET_UNTIMED + RESNET_TIMED} steps) {img_launches}; "
+          f"resumed BERT-base fit (phase 15a, 16 + 8 steps) "
+          f"{persist_launches}")
     for name, r in report.items():
-        # the transformer's training path runs every float32 kernel but
-        # SGD's, which the ResNet-50 training steps run; phase 14's
-        # bench_attention run set the bf16 kernels' launches
+        # phase 15a's resumed transformer training runs every float32
+        # kernel but SGD's, which the ResNet-50 training steps run; phase
+        # 14's bench_attention run set the bf16 kernels' launches
         if "launches" not in r:
             r["launches"] = (img_launches if name == "fused_sgd"
-                             else training_launches)[name]
+                             else persist_launches)[name]
     line = {"kernels": [{"name": n, **{key: r[key] for key in (
         "route", "source", "replaces", "launches", "max_abs_err", "ms",
         "plain_ms", "bound_ms", "bound_by", "library_ms")}}
@@ -3110,5 +3581,7 @@ if __name__ == "__main__":
         profile_recurrent()
     elif sys.argv[1:] == ["--profile-resnet"]:
         profile_resnet()
+    elif sys.argv[1:] == ["--profile-seq2seq-train"]:
+        profile_seq2seq_train()
     else:
         main()

@@ -1,7 +1,7 @@
 """PyTorch port, isolation: importing the port (and every module of the
-serving, training, Cluster Serving, recommender and recurrent/generative
-slices) pulls in
-neither ``jax`` nor ``analytics_zoo_tpu``, no port source loads a file of
+serving, training, Cluster Serving, recommender, recurrent/generative and
+persistence slices) pulls in none of ``jax``, ``analytics_zoo_tpu``,
+``flax`` and ``msgpack``, no port source imports them or loads a file of
 the JAX package by path, and the context refuses to fall back to the CPU
 quietly.  Each import check runs in a fresh interpreter, since this
 test process has both loaded."""
@@ -72,6 +72,10 @@ SLICE_MODULES = [
     "analytics_zoo_torch.models.image.imageclassification",
     "analytics_zoo_torch.benchmarks",
     "analytics_zoo_torch.benchmarks.attention",
+    "analytics_zoo_torch.utils.msgpack_codec",
+    "analytics_zoo_torch.utils.serialization",
+    "analytics_zoo_torch.utils.file_io",
+    "analytics_zoo_torch.resilience.policy",
 ]
 
 
@@ -87,8 +91,9 @@ def test_port_imports_no_jax_and_no_reference_package():
     code = "\n".join(
         [f"import {m}" for m in SLICE_MODULES] +
         ["import sys",
-         "bad = sorted(m for m in sys.modules if m == 'jax' or "
-         "m.startswith(('jax.', 'jaxlib', 'analytics_zoo_tpu')))",
+         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', "
+         "'msgpack') or m.startswith(('jax.', 'jaxlib', 'flax.', "
+         "'msgpack.', 'analytics_zoo_tpu')))",
          "print('LOADED', bad)",
          "sys.exit(1 if bad else 0)"])
     proc = _run(code)
@@ -97,7 +102,8 @@ def test_port_imports_no_jax_and_no_reference_package():
 
 def test_port_sources_import_neither():
     pattern = re.compile(
-        r"^\s*(import|from)\s+(jax|jaxlib|analytics_zoo_tpu)\b", re.M)
+        r"^\s*(import|from)\s+(jax|jaxlib|analytics_zoo_tpu|flax|msgpack)\b",
+        re.M)
     offenders = [str(p.relative_to(REPO)) for p in PORT.rglob("*.py")
                  if pattern.search(p.read_text())]
     assert offenders == []

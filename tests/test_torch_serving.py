@@ -422,8 +422,11 @@ def test_cli_start_stop_round_trip(models, tmp_path):
             / "events.jsonl").exists()
 
 
-def test_cli_refuses_checkpoint_weights_naming_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli._build_model(f"{__name__}:cli_builder", weights="model.ckpt")
+def test_cli_refuses_checkpoint_weights_naming_roadmap(tmp_path):
+    """``model: weights:`` that cannot be read raises: the CLI never
+    serves random weights in their place."""
+    with pytest.raises(FileNotFoundError):
+        cli._build_model(f"{__name__}:cli_builder",
+                         weights=str(tmp_path / "model.ckpt"))
     with pytest.raises(SystemExit):
         cli._build_model("no_colon_here")

@@ -316,8 +316,8 @@ def test_fit_is_reproducible_with_dropout_and_sgd_clipping():
     with pytest.raises(ValueError, match="exceeds"):
         model.fit(x, y, batch_size=64, nb_epoch=1)
     from analytics_zoo_torch.pipeline.estimator import Estimator
-    with pytest.raises(NotImplementedError, match="model_dir"):
-        Estimator(model.model, model_dir="/nonexistent")
+    with pytest.raises(NotImplementedError, match="set_tensorboard"):
+        Estimator(model.model).set_tensorboard("/nonexistent", "app")
     tconfig.get_config().set("train.remat", True)
     with pytest.raises(NotImplementedError, match="remat"):
         model.fit(x, y, batch_size=8, nb_epoch=1)
