@@ -7,8 +7,11 @@ into the port's model under the same key paths, the ``state``
 collection with the params (BatchNormalization's ``moving_mean`` and
 ``moving_var`` under each layer's name; a stateless layer's entry is an
 empty dict).  Both models must be built the same way (same layer order
-after ``reset_name_counters()``), so that their auto-names agree.  Shapes and dtypes are checked, and a
-missing or extra key raises.  A quantized tree (the calibrated int8
+after ``reset_name_counters()``), so that their auto-names agree.  A
+``TimeDistributed`` layer's entry holds its inner layer's params, and a
+layer applied to two inputs (``TransformerLayer``'s shared embedding)
+has one entry, as in the JAX package.  Shapes and dtypes are checked,
+and a missing or extra key raises.  A quantized tree (the calibrated int8
 layout of ``ops/quant.py``: a layer with an int8 ``kernel``, a keepdims
 float32 ``kernel_scale`` of shape ``(1, ..., out)`` and a 0-d float32
 ``act_scale``) loads into a float32 model of the same graph, which then
@@ -16,8 +19,10 @@ runs quantized.
 
 ``load_jax_opt_state(optim, opt_state)`` takes an optax state of the JAX
 package's optimizer (``ScaleByAdamState``/``TraceState``/
-``ScaleByScheduleState``/``EmptyState`` nested in tuples, every leaf a
-numpy array) and returns the port optimizer's state with the same
+``ScaleByScheduleState``/``ScaleByRmsState``/``ScaleByRssState``/
+``ScaleByAdaDeltaState``/``EmptyState`` nested in tuples, every leaf a
+numpy array: SGD, Adam, AdamWeightDecay, RMSprop, Adagrad, Adadelta and
+Adamax) and returns the port optimizer's state with the same
 layout and key paths, on the zoo context's device, so a run resumes
 where the JAX one stopped.
 
@@ -158,7 +163,8 @@ def load_jax_opt_state(optim, opt_state):
     if not errors:
         # the moments' trees stand in for the params the state belongs to
         trees = [getattr(s, f) for s in opt.collect_states(state)
-                 for f in ("mu", "trace") if hasattr(s, f)]
+                 for f in ("mu", "trace", "nu", "sum_of_squares", "e_g")
+                 if hasattr(s, f)]
         want = _layout(optim.init(trees[0] if trees else {}))
         got = _layout(state)
         if want != got:

@@ -23,7 +23,11 @@ from analytics_zoo_torch.pipeline.api.keras.layers.recurrent import (
     GRU, LSTM, Bidirectional, SimpleRNN,
 )
 from analytics_zoo_torch.pipeline.api.keras.layers.attention import (
-    MultiHeadSelfAttention, PositionwiseFeedForward, transformer_block,
+    BERT, MultiHeadSelfAttention, PositionwiseFeedForward, TransformerLayer,
+    transformer_block,
+)
+from analytics_zoo_torch.pipeline.api.keras.layers.wrappers import (
+    KerasLayerWrapper, TimeDistributed,
 )
 
 # Keras-2 style aliases
@@ -42,5 +46,6 @@ __all__ = ["Activation", "Dense", "Dropout", "Flatten", "Lambda",
            "GlobalAveragePooling3D", "GlobalMaxPooling1D",
            "GlobalMaxPooling2D", "GlobalMaxPooling3D", "MaxPooling1D",
            "MaxPooling2D", "MaxPooling3D", "MultiHeadSelfAttention",
-           "PositionwiseFeedForward", "transformer_block", "SimpleRNN", "LSTM",
-           "GRU", "Bidirectional"]
+           "PositionwiseFeedForward", "transformer_block", "BERT",
+           "TransformerLayer", "TimeDistributed", "KerasLayerWrapper",
+           "SimpleRNN", "LSTM", "GRU", "Bidirectional"]

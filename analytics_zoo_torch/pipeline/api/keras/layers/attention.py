@@ -1,12 +1,15 @@
 """Transformer layers (port of ``pipeline/api/keras/layers/attention.py``):
-``MultiHeadSelfAttention``, ``PositionwiseFeedForward`` and the post-LN
-``transformer_block``.
+``MultiHeadSelfAttention``, ``PositionwiseFeedForward``, the post-LN
+``transformer_block``, the ``BERT`` encoder and the GPT-style
+``TransformerLayer``.
 
 QKV is one fused product and heads live in a reshaped axis.  Attention
 takes the flash kernel for a CUDA tensor with no mask and a head_dim the
 kernel takes (64 or 128); every other case takes the dense plain path,
-as the reference takes dense XLA attention.  Sequence and tensor
-parallelism come with the multi-GPU slice and raise here.
+as the reference takes dense XLA attention.  ``BERT`` always feeds its
+attention mask, so its blocks take the dense path, as the reference's
+do; ``TransformerLayer`` feeds none.  Sequence and tensor parallelism
+come with the multi-GPU slice and raise here.
 """
 
 from __future__ import annotations
@@ -18,12 +21,20 @@ import torch
 from analytics_zoo_torch.ops import activations as acts
 from analytics_zoo_torch.ops.attention import scaled_dot_product_attention
 from analytics_zoo_torch.ops.dtypes import matmul as _mm
-from analytics_zoo_torch.pipeline.api.keras.engine import Layer, Params
-from analytics_zoo_torch.pipeline.api.keras.layers.core import Dropout
+from analytics_zoo_torch.pipeline.api.keras.engine import (
+    Input, Layer, Params,
+)
+from analytics_zoo_torch.pipeline.api.keras.layers.core import (
+    Dense, Dropout, Lambda,
+)
+from analytics_zoo_torch.pipeline.api.keras.layers.embedding import (
+    Embedding,
+)
 from analytics_zoo_torch.pipeline.api.keras.layers.merge import Merge
 from analytics_zoo_torch.pipeline.api.keras.layers.normalization import (
     LayerNorm,
 )
+from analytics_zoo_torch.pipeline.api.keras.topology import Model
 
 
 def _no_parallel(kind: str, value) -> None:
@@ -171,3 +182,106 @@ def transformer_block(x, mask, hidden_size: int, n_head: int,
     f = Dropout(hidden_dropout)(f)
     x = Merge(mode="sum")([x, f])
     return LayerNorm(epsilon=ln_eps)(x)
+
+
+def _pooled(x, hidden_size: int):
+    """The pooler: tanh Dense over the first token's state."""
+    first_tok = Lambda(lambda t: t[:, 0], output_shape=(hidden_size,))(x)
+    return Dense(hidden_size, activation="tanh")(first_tok)
+
+
+class BERT:
+    """BERT encoder: ``build()`` makes a graph Model with inputs
+    [token_ids, token_type_ids, position_ids, attention_mask] and outputs
+    [sequence_output, pooled_output]."""
+
+    def __init__(self, vocab: int = 40990, hidden_size: int = 768,
+                 n_block: int = 12, n_head: int = 12,
+                 seq_len: int = 512, intermediate_size: int = 3072,
+                 max_position_len: int = 512, type_vocab_size: int = 2,
+                 hidden_drop: float = 0.1, attn_drop: float = 0.1,
+                 hidden_act: str = "gelu", ln_eps: float = 1e-12):
+        # "gelu" is the tanh approximation; checkpoints trained with the
+        # erf gelu import with hidden_act="gelu_erf"
+        self.cfg = dict(vocab=vocab, hidden_size=hidden_size,
+                        n_block=n_block, n_head=n_head, seq_len=seq_len,
+                        intermediate_size=intermediate_size,
+                        max_position_len=max_position_len,
+                        type_vocab_size=type_vocab_size,
+                        hidden_drop=hidden_drop, attn_drop=attn_drop,
+                        hidden_act=hidden_act, ln_eps=ln_eps)
+
+    def build(self) -> Model:
+        c = self.cfg
+        ids, seg, pos, mask = (Input(shape=(c["seq_len"],))
+                               for _ in range(4))
+        tok_e = Embedding(c["vocab"], c["hidden_size"], init="normal")(ids)
+        seg_e = Embedding(c["type_vocab_size"], c["hidden_size"],
+                          init="normal")(seg)
+        pos_e = Embedding(c["max_position_len"], c["hidden_size"],
+                          init="normal")(pos)
+        x = Merge(mode="sum")([tok_e, seg_e, pos_e])
+        x = LayerNorm(epsilon=c["ln_eps"])(x)
+        x = Dropout(c["hidden_drop"])(x)
+        for _ in range(c["n_block"]):
+            x = transformer_block(x, mask, c["hidden_size"], c["n_head"],
+                                  c["intermediate_size"],
+                                  dropout=c["attn_drop"],
+                                  hidden_dropout=c["hidden_drop"],
+                                  activation=c["hidden_act"],
+                                  ln_eps=c["ln_eps"])
+        return Model([ids, seg, pos, mask],
+                     [x, _pooled(x, c["hidden_size"])])
+
+
+class TransformerLayer:
+    """GPT-style decoder stack: ``build()`` makes a graph Model with
+    inputs [token_ids, position_ids] and outputs [last block states,
+    pooled first-token output].  ``bidirectional=False`` makes every
+    block causal.
+
+    Tokens and positions share ONE ``vocab``-row table: position ids are
+    offset ids in ``[vocab - seq_len, vocab)`` (vocab = n_tokens +
+    n_position_slots), and both lookups go through the same Embedding
+    instance, so the model holds one entry for it and its gradient is
+    the sum of both uses'."""
+
+    def __init__(self, n_block: int = 12, hidden_drop: float = 0.1,
+                 attn_drop: float = 0.1, n_head: int = 12,
+                 bidirectional: bool = False,
+                 vocab: int = 40990, seq_len: int = 77,
+                 hidden_size: int = 768, intermediate_size: int = 0):
+        self.cfg = dict(n_block=n_block, hidden_drop=hidden_drop,
+                        attn_drop=attn_drop, n_head=n_head,
+                        bidirectional=bidirectional, vocab=vocab,
+                        seq_len=seq_len, hidden_size=hidden_size,
+                        intermediate_size=intermediate_size or
+                        4 * hidden_size)
+
+    @classmethod
+    def init_with_default_embedding(cls, vocab: int = 40990,
+                                    seq_len: int = 77, n_block: int = 12,
+                                    hidden_drop: float = 0.1,
+                                    attn_drop: float = 0.1,
+                                    n_head: int = 12,
+                                    bidirectional: bool = False,
+                                    hidden_size: int = 768):
+        return cls(n_block=n_block, hidden_drop=hidden_drop,
+                   attn_drop=attn_drop, n_head=n_head,
+                   bidirectional=bidirectional, vocab=vocab,
+                   seq_len=seq_len, hidden_size=hidden_size)
+
+    def build(self) -> Model:
+        c = self.cfg
+        ids = Input(shape=(c["seq_len"],))
+        pos = Input(shape=(c["seq_len"],))
+        shared = Embedding(c["vocab"], c["hidden_size"], init="normal")
+        x = Merge(mode="sum")([shared(ids), shared(pos)])
+        x = Dropout(c["hidden_drop"])(x)
+        for _ in range(c["n_block"]):
+            x = transformer_block(x, None, c["hidden_size"], c["n_head"],
+                                  c["intermediate_size"],
+                                  dropout=c["attn_drop"],
+                                  hidden_dropout=c["hidden_drop"],
+                                  causal=not c["bidirectional"])
+        return Model([ids, pos], [x, _pooled(x, c["hidden_size"])])

@@ -7,8 +7,12 @@ carried from the JAX package fits one to one
 (``interop.load_jax_opt_state``): a chain's state is a tuple of its
 members' states, with
 
-* ``ScaleByAdamState(count, mu, nu)`` — ``scale_by_adam``,
+* ``ScaleByAdamState(count, mu, nu)`` — ``scale_by_adam`` (and
+  ``scale_by_adamax``, whose ``nu`` is the infinity moment),
 * ``TraceState(trace)`` — ``trace`` (momentum),
+* ``ScaleByRmsState(nu)`` — ``scale_by_rms`` (RMSprop),
+* ``ScaleByRssState(sum_of_squares)`` — ``scale_by_rss`` (Adagrad),
+* ``ScaleByAdaDeltaState(e_g, e_x)`` — ``scale_by_adadelta``,
 * ``ScaleByScheduleState(count)`` — a learning-rate schedule,
 * ``EmptyState()`` — a stateless member (constant lr, weight decay).
 
@@ -16,8 +20,9 @@ Counts are int32 device tensors and schedules are float32 tensor
 functions of them, so a step never reads a value back to the host.
 ``update`` is the unfused reference path (``train.fused_optimizer=false``
 or ``ops.fused=off``); the trainer's default is the fused one-pass update
-of ``ops/fused.py``.  RMSprop, Adagrad, Adadelta, Adamax and
-AdamWeightDecay are not ported yet and raise.
+of ``ops/fused.py``, which takes SGD and Adam only: AdamWeightDecay,
+RMSprop, Adagrad, Adadelta and Adamax always run their chains here, as
+the reference runs optax's.
 """
 
 from __future__ import annotations
@@ -51,8 +56,22 @@ class ScaleByScheduleState(NamedTuple):
     count: torch.Tensor
 
 
+class ScaleByRmsState(NamedTuple):
+    nu: dict
+
+
+class ScaleByRssState(NamedTuple):
+    sum_of_squares: dict
+
+
+class ScaleByAdaDeltaState(NamedTuple):
+    e_g: dict
+    e_x: dict
+
+
 STATE_TYPES = (EmptyState, ScaleByAdamState, TraceState,
-               ScaleByScheduleState)
+               ScaleByScheduleState, ScaleByRmsState, ScaleByRssState,
+               ScaleByAdaDeltaState)
 
 
 def map_states(node, fn):
@@ -117,6 +136,81 @@ def _scale_by_adam(b1: float, b2: float, eps: float) -> _Transform:
     return _Transform(init, update)
 
 
+def _scale_by_adamax(b1: float, b2: float, eps: float) -> _Transform:
+    """optax ``scale_by_adamax``: the first moment bias-corrected over an
+    infinity moment ``max(|g| + eps, b2 * nu)``; ``ScaleByAdamState``."""
+    def init(params):
+        zeros = lambda: tree_map(torch.zeros_like, params)  # noqa: E731
+        return ScaleByAdamState(_zeros_count(_device_of(params)), zeros(),
+                                zeros())
+
+    def update(updates, state, params=None):
+        count_inc = safe_increment(state.count)
+        mu = tree_map(lambda g, t: (1 - b1) * g + b1 * t, updates, state.mu)
+        nu = tree_map(lambda g, t: torch.maximum(torch.abs(g) + eps, b2 * t),
+                      updates, state.nu)
+        bc1 = 1 - b1 ** count_inc
+        out = tree_map(lambda m, v: (m / bc1) / v, mu, nu)
+        return out, ScaleByAdamState(count_inc, mu, nu)
+    return _Transform(init, update)
+
+
+def _scale_by_rms(decay: float, eps: float,
+                  initial_scale: float = 0.0) -> _Transform:
+    """optax ``scale_by_rms`` (eps inside the square root, no bias
+    correction)."""
+    def init(params):
+        return ScaleByRmsState(tree_map(
+            lambda p: torch.full_like(p, initial_scale), params))
+
+    def update(updates, state, params=None):
+        nu = tree_map(lambda g, t: (1 - decay) * (g * g) + decay * t,
+                      updates, state.nu)
+        out = tree_map(lambda n, g: torch.rsqrt(n + eps) * g, nu, updates)
+        return out, ScaleByRmsState(nu)
+    return _Transform(init, update)
+
+
+def _scale_by_rss(initial_accumulator_value: float,
+                  eps: float) -> _Transform:
+    """optax ``scale_by_rss`` (Adagrad's root of the summed squares)."""
+    def init(params):
+        return ScaleByRssState(tree_map(
+            lambda p: torch.full_like(p, initial_accumulator_value), params))
+
+    def update(updates, state, params=None):
+        sums = tree_map(lambda g, t: g * g + t, updates,
+                        state.sum_of_squares)
+        out = tree_map(lambda t, g: torch.where(
+            t > 0, torch.rsqrt(t + eps), torch.zeros_like(t)) * g,
+            sums, updates)
+        return out, ScaleByRssState(sums)
+    return _Transform(init, update)
+
+
+def _scale_by_adadelta(rho: float, eps: float) -> _Transform:
+    """optax ``scale_by_adadelta``."""
+    def init(params):
+        zeros = lambda: tree_map(torch.zeros_like, params)  # noqa: E731
+        return ScaleByAdaDeltaState(zeros(), zeros())
+
+    def update(updates, state, params=None):
+        e_g = tree_map(lambda g, t: (1 - rho) * (g * g) + rho * t, updates,
+                       state.e_g)
+        out = tree_map(lambda g, eg, ex: (torch.sqrt(ex + eps) /
+                                          torch.sqrt(eg + eps)) * g,
+                       updates, e_g, state.e_x)
+        e_x = tree_map(lambda u, t: (1 - rho) * (u * u) + rho * t, out,
+                       state.e_x)
+        return out, ScaleByAdaDeltaState(e_g, e_x)
+    return _Transform(init, update)
+
+
+def _identity() -> _Transform:
+    return _Transform(lambda params: EmptyState(),
+                      lambda u, s, p=None: (u, s))
+
+
 def _trace(decay: float, nesterov: bool) -> _Transform:
     def init(params):
         return TraceState(tree_map(torch.zeros_like, params))
@@ -177,13 +271,16 @@ def fixed(lr: float) -> Callable:
 def poly(lr: float, power: float, max_iteration: int) -> Callable:
     """BigDL SGD.Poly: lr * (1 - iter/max_iter)^power (optax
     ``polynomial_schedule`` to 0)."""
-    if max_iteration <= 0:
-        return lambda step: lr
     return _polynomial(lr, 0.0, power, max_iteration)
 
 
 def _polynomial(init_value: float, end_value: float, power,
                 transition_steps: int) -> Callable:
+    """optax ``polynomial_schedule``: constant when ``transition_steps``
+    is not positive."""
+    if transition_steps <= 0:
+        return lambda count: init_value
+
     def schedule(count):
         count = torch.clamp(count, 0, transition_steps)
         frac = 1 - count / transition_steps
@@ -201,6 +298,17 @@ def warmup_then(base_lr: float, warmup_iterations: int,
     def schedule(step):
         return torch.where(step < warmup_iterations, warm(step),
                            after(step - warmup_iterations))
+    return schedule
+
+
+def _join(schedules, boundaries) -> Callable:
+    """optax ``join_schedules``: each schedule after its boundary, given
+    the steps since it."""
+    def schedule(step):
+        out = schedules[0](step)
+        for boundary, after in zip(boundaries, schedules[1:]):
+            out = torch.where(step < boundary, out, after(step - boundary))
+        return out
     return schedule
 
 
@@ -251,9 +359,7 @@ class SGD(OptimMethod):
             weight_decay=weight_decay, schedule=schedule)
         lr = _sched(learning_rate, schedule)
         # optax.sgd: trace(momentum) or identity(), then the lr
-        first = (_trace(momentum, nesterov) if momentum else
-                 _Transform(lambda params: EmptyState(),
-                            lambda u, s, p=None: (u, s)))
+        first = _trace(momentum, nesterov) if momentum else _identity()
         members = ([_add_decayed_weights(weight_decay)]
                    if weight_decay else [])
         members.append(_chain(first, _scale_by_learning_rate(lr)))
@@ -285,19 +391,89 @@ class Adam(OptimMethod):
             "adam", sched)
 
 
-def _not_ported(name: str):
-    def make(*args, **kwargs):
-        raise NotImplementedError(
-            f"optimizer {name} is not ported to the PyTorch package yet "
-            "(ROADMAP.md, port queue); use SGD or Adam")
-    return make
+class AdamWeightDecay(OptimMethod):
+    """BERT-style AdamW with linear warmup + linear decay: optax
+    ``adamw`` (``scale_by_adam``, then ``add_decayed_weights`` on every
+    leaf, then the lr); with ``total > 0`` the lr rises linearly from 0
+    over ``warmup_portion * total`` steps, then falls linearly to 0 at
+    ``total``."""
+
+    def __init__(self, lr: float = 1e-3, warmup_portion: float = -1.0,
+                 total: int = -1, schedule_name: str = "linear",
+                 beta_1: float = 0.9, beta_2: float = 0.999,
+                 epsilon: float = 1e-6, weight_decay: float = 0.01):
+        self._init_kwargs = dict(
+            lr=lr, warmup_portion=warmup_portion, total=total,
+            schedule_name=schedule_name, beta_1=beta_1, beta_2=beta_2,
+            epsilon=epsilon, weight_decay=weight_decay)
+        if total > 0:
+            warm = int(max(warmup_portion, 0.0) * total)
+            sched = _join([_polynomial(0.0, lr, 1, warm or 1),
+                           _polynomial(lr, 0.0, 1, total - warm)],
+                          [warm or 1])
+        else:
+            sched = lr
+        super().__init__(
+            _chain(_scale_by_adam(beta_1, beta_2, epsilon),
+                   _add_decayed_weights(weight_decay),
+                   _scale_by_learning_rate(sched)),
+            "adamw", sched)
 
 
-AdamWeightDecay = _not_ported("AdamWeightDecay")
-RMSprop = _not_ported("RMSprop")
-Adagrad = _not_ported("Adagrad")
-Adadelta = _not_ported("Adadelta")
-Adamax = _not_ported("Adamax")
+class RMSprop(OptimMethod):
+    """optax ``rmsprop``: ``scale_by_rms``, the lr, then identity (no
+    momentum)."""
+
+    def __init__(self, lr: float = 1e-3, decay_rate: float = 0.9,
+                 epsilon: float = 1e-8, schedule=None):
+        self._init_kwargs = dict(lr=lr, decay_rate=decay_rate,
+                                 epsilon=epsilon, schedule=schedule)
+        sched = _sched(lr, schedule)
+        super().__init__(
+            _chain(_scale_by_rms(decay_rate, epsilon),
+                   _scale_by_learning_rate(sched), _identity()),
+            "rmsprop", sched)
+
+
+class Adagrad(OptimMethod):
+    """optax ``adagrad`` (accumulators start at 0.1)."""
+
+    def __init__(self, lr: float = 1e-2, epsilon: float = 1e-10,
+                 schedule=None):
+        self._init_kwargs = dict(lr=lr, epsilon=epsilon,
+                                 schedule=schedule)
+        sched = _sched(lr, schedule)
+        super().__init__(
+            _chain(_scale_by_rss(0.1, epsilon),
+                   _scale_by_learning_rate(sched)),
+            "adagrad", sched)
+
+
+class Adadelta(OptimMethod):
+    """optax ``adadelta``: a (zero) weight decay, ``scale_by_adadelta``,
+    then the lr."""
+
+    def __init__(self, lr: float = 1.0, rho: float = 0.95,
+                 epsilon: float = 1e-8):
+        self._init_kwargs = dict(lr=lr, rho=rho, epsilon=epsilon)
+        super().__init__(
+            _chain(_add_decayed_weights(0.0), _scale_by_adadelta(rho, epsilon),
+                   _scale_by_learning_rate(lr)),
+            "adadelta", lr)
+
+
+class Adamax(OptimMethod):
+    """optax ``adamax``."""
+
+    def __init__(self, lr: float = 2e-3, beta_1: float = 0.9,
+                 beta_2: float = 0.999, epsilon: float = 1e-8):
+        self._init_kwargs = dict(lr=lr, beta_1=beta_1, beta_2=beta_2,
+                                 epsilon=epsilon)
+        super().__init__(
+            _chain(_scale_by_adamax(beta_1, beta_2, epsilon),
+                   _scale_by_learning_rate(lr)),
+            "adamax", lr)
+
 
 _REGISTRY = {
     "sgd": SGD,

@@ -101,11 +101,13 @@ def _train_metrics():
     }
 
 
-def predict_in_batches(run_batch, x, batch_size: int) -> np.ndarray:
+def predict_in_batches(run_batch, x, batch_size: int):
     """Fixed-shape batched prediction: zero-pad the tail batch, slice the
     padding back off, concatenate on the host.  ``run_batch`` takes a host
-    batch and returns a device tensor; ``window`` batches stay in flight
-    on the device while older results stream to the host."""
+    batch and returns a device tensor, or a list of them for a model of
+    several outputs (then a list of arrays comes back); ``window``
+    batches stay in flight on the device while older results stream to
+    the host."""
     n = len(tree_leaves(x)[0])
     if n == 0:
         raise ValueError("predict called with an empty input")
@@ -120,11 +122,15 @@ def predict_in_batches(run_batch, x, batch_size: int) -> np.ndarray:
                 lambda a: np.concatenate(
                     [a, np.zeros((batch_size - real,) + a.shape[1:],
                                  a.dtype)]), xb)
-        in_flight.append(run_batch(xb)[:real])
+        in_flight.append(tree_map(lambda o: o[:real], run_batch(xb)))
         if len(in_flight) >= window:
-            outs.append(in_flight.pop(0).cpu().numpy())
-    outs.extend(o.cpu().numpy() for o in in_flight)
-    return np.concatenate(outs)
+            outs.append(tree_map(_to_host, in_flight.pop(0)))
+    outs.extend(tree_map(_to_host, o) for o in in_flight)
+    return tree_map(lambda *parts: np.concatenate(parts), *outs)
+
+
+def _to_host(t) -> np.ndarray:
+    return t.cpu().numpy()
 
 
 class Estimator:

@@ -5,9 +5,11 @@ TextClassifier through ``InferenceModel``, train it through
 ``compile``/``fit``/``evaluate``, and show that both paths went through
 the kernels; then the recommenders, int8, the recurrent TextClassifier,
 Seq2seq's generative serving, the session recommender, ResNet-50, the
-flash kernels on bfloat16 through the port's ``bench_attention``, and
+flash kernels on bfloat16 through the port's ``bench_attention``,
 model persistence: checkpointed training resumed and retried,
-``save_model`` files loaded and served.
+``save_model`` files loaded and served, and the Keras transformer models:
+GPT-1 served and trained, BERT-base fine-tuned through the TFPark
+estimators, a BERT checkpoint loaded.
 
     python3 chip_smoke.py
 
@@ -173,7 +175,36 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    and spread, and one step profiled in a child (``--profile-seq2seq-
    train``) beside phase 10's inference profile; 15f the temporary
    directories removed and the phase's seconds printed;
-16. a ``kernels`` JSON line, then the device line last.
+16. the Keras transformer models at full width, seeded random weights:
+   16a GPT-1 (``TransformerLayer.init_with_default_embedding``: vocab
+   40990 = 40478 tokens + 512 position slots, seq_len 512, 12 blocks of
+   768, 12 heads; ``TimeDistributed(Dense(40478))`` over the sequence
+   output) served through ``InferenceModel``: 4 requests of 8 x 512,
+   position ids ``arange(40478, 40990)``, 12 causal float32 flash
+   forward and 12 bias→GeLU launches a request and no other kernel, the
+   logits against ``ops.fused=torch`` (≤ 2e-2), latency median and
+   spread; 16b the same model trained (``fit`` 8 steps of 8 next-token
+   rows, Adam: 12 each of forward, dQ, dK/dV and bias→GeLU and 1 Adam a
+   step), one step's gradients against the plain versions with float32
+   products (relative L2 ≤ 1e-3 a leaf), step ms in turns with
+   ``ops.fused=torch``, peak memory, then the three float32 flash
+   kernels at (8, 12, 512, 64) causal checked and timed beside their
+   plain versions, their bound (T^2/2 pairs) and
+   ``scaled_dot_product_attention``; 16c ``BERTClassifier`` at BERT-Base,
+   Uncased's configuration (2 classes) trained 8 steps of 32 x 128 under
+   ``AdamWeightDecay(lr=2e-5, warmup_portion=0.1, total=8)``: 12
+   bias→GeLU launches a step, no flash kernel (its attention mask takes
+   dense attention) and no Adam kernel (the fused update declines
+   AdamWeightDecay), as the reference routes them, every leaf moved, its
+   step ms, ``evaluate`` and ``predict``; ``BERTSQuAD.predict_spans`` on
+   12 x 384 and ``BERTNER.predict``, shapes and ms a call; 16d
+   ``BERTClassifier(bert_checkpoint=)`` from an HF-named state_dict drawn
+   on the card, every encoder leaf bit-identical to its source and a
+   second load's predictions bit-identical, then ``TransformerLayer`` at
+   ``seq_len=77`` (the port takes the flash kernel, the reference dense
+   attention) against ``ops.fused=torch`` with float32 and bf16 products
+   (≤ 2e-2);
+17. a ``kernels`` JSON line, then the device line last.
 
 The int8 phases besides 9: 2b holds ``quantized_matmul`` and
 ``quantized_conv`` (``torch._int_mm``, a convolution as one product over
@@ -3076,6 +3107,588 @@ def persistence_phase(torch, card, dev, rec_profile):
     return launches
 
 
+# ------------------------------ phase 16: the Keras transformer models
+# GPT-1 (Radford et al. 2018, "Improving Language Understanding by
+# Generative Pre-Training", §4.1): 12 decoder blocks, 768 wide, 12 heads of
+# 64, FFN 3072, a 512-token context, a BPE vocabulary of 40478.  The
+# reference's default embedding shares one table between the tokens and
+# 512 position slots: vocab 40990, position ids arange(40478, 40990).
+GPT1_TOKENS, GPT1_SEQ = 40478, 512
+GPT1 = dict(vocab=GPT1_TOKENS + GPT1_SEQ, seq_len=GPT1_SEQ, n_block=12,
+            n_head=12, hidden_size=768)
+GPT1_ROWS, GPT1_BATCH = 64, 8
+# google-research/bert's BERT-Base, Uncased bert_config.json (vocabulary
+# 30522, hidden 768, 12 layers, 12 heads, intermediate 3072, 512
+# positions, 2 token types, LayerNorm eps 1e-12), its gelu taken as
+# BERT's default here ("gelu", the tanh form the bias→GeLU kernel
+# computes; a checkpoint's bert_config maps to "gelu_erf", no kernel)
+BERT_BASE = dict(vocab=30522, hidden_size=768, n_block=12, n_head=12,
+                 intermediate_size=3072, max_position_len=512,
+                 type_vocab_size=2, hidden_act="gelu", ln_eps=1e-12)
+# run_classifier.py: max_seq_length 128, train_batch_size 32, 2 classes;
+# run_squad.py: max_seq_length 384; CoNLL-2003's 9 BIO tags for BERTNER
+CLS_SEQ, CLS_BATCH, CLS_STEPS = 128, 32, 8
+SQUAD_SEQ, SQUAD_ROWS = 384, 12
+NER_TAGS = 9
+# TransformerLayer's default seq_len: the port takes the flash kernel
+# there, the reference dense attention (77 % 256 != 0)
+ROUTE_SEQ = 77
+PHASE16_LOSS = "sparse_categorical_crossentropy_with_logits"
+
+
+def gpt1_model(torch, seed=0):
+    """``TransformerLayer.init_with_default_embedding`` at GPT-1's width
+    with ``TimeDistributed(Dense(40478))`` over its sequence output, the
+    weights drawn from ``seed``."""
+    from analytics_zoo_torch.pipeline.api.keras import Model
+    from analytics_zoo_torch.pipeline.api.keras.engine import Layer
+    from analytics_zoo_torch.pipeline.api.keras.layers import (
+        Dense, TimeDistributed, TransformerLayer)
+    Layer.reset_name_counters()
+    enc = TransformerLayer.init_with_default_embedding(**GPT1).build()
+    logits = TimeDistributed(Dense(GPT1_TOKENS))(enc.outputs[0])
+    model = Model(enc.inputs, logits)
+    model.init(torch.Generator().manual_seed(seed))
+    return model
+
+
+def gpt1_data(rows, seed):
+    """Seeded token rows with their offset position ids, and next-token
+    targets."""
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(0, GPT1_TOKENS, (rows, GPT1_SEQ + 1)).astype(np.int64)
+    pos = np.broadcast_to(np.arange(GPT1_TOKENS, GPT1_TOKENS + GPT1_SEQ,
+                                    dtype=np.int64), (rows, GPT1_SEQ))
+    return [ids[:, :-1], pos.copy()], ids[:, 1:].copy()
+
+
+def bert_features(rows, seq, seed):
+    """Seeded sentence pairs as run_classifier.py feeds them: [CLS] A [SEP]
+    B [SEP], token types 0 then 1, zero padding past a random length."""
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(1000, 30522, (rows, seq)).astype(np.int64)
+    types = np.zeros((rows, seq), np.int64)
+    mask = np.zeros((rows, seq), np.int64)
+    for r, n in enumerate(rs.randint(seq // 4, seq + 1, rows)):
+        cut = int(rs.randint(2, n - 1))
+        ids[r, 0], ids[r, cut], ids[r, n - 1] = 101, 102, 102
+        types[r, cut + 1:n] = 1
+        mask[r, :n] = 1
+        ids[r, n:] = 0
+    return {"input_ids": ids, "token_type_ids": types,
+            "attention_mask": mask}
+
+
+def gpt1_serving(torch, card, dev, model):
+    """16a: 4 requests of 8 x 512 through ``InferenceModel``; returns the
+    launches of the 4."""
+    from analytics_zoo_torch.ops import kernels
+    from analytics_zoo_torch.pipeline.inference import InferenceModel
+    im = InferenceModel().load_zoo(model)
+    x, _ = gpt1_data(5 * GPT1_BATCH, 16)
+    reqs = [[a[i * GPT1_BATCH:(i + 1) * GPT1_BATCH] for a in x]
+            for i in range(5)]
+    im.predict(reqs[4], batch_size=GPT1_BATCH)        # warm-up, not counted
+    kernels.reset_launch_counts()
+    lat, first = [], None
+    for req in reqs[:4]:
+        s = time.perf_counter()
+        out = im.predict(req, batch_size=GPT1_BATCH)  # host numpy
+        lat.append((time.perf_counter() - s) * 1e3)
+        if out.shape != (GPT1_BATCH, GPT1_SEQ, GPT1_TOKENS) or \
+                not np.isfinite(out).all():
+            fail(f"GPT-1 logits shape {out.shape}, finite "
+                 f"{np.isfinite(out).all()}")
+        first = out if first is None else first
+    launches = kernels.launch_counts()
+    expect_launches(launches, {"flash_attention_fwd": 48, "bias_gelu": 48},
+                    "GPT-1 serving (4 requests)")
+    plain = plain_route(lambda: im.predict(reqs[0], batch_size=GPT1_BATCH))
+    if kernels.launch_counts() != launches:
+        fail("GPT-1 under ops.fused=torch launched a kernel")
+    diff = float(np.abs(plain - first).max())
+    print(f"16a GPT-1 served: launches over 4 requests {launches}; logits "
+          f"vs ops.fused=torch max abs diff {diff:.3e} (tolerance "
+          f"{MODEL_ATOL}), |logits| max {float(np.abs(first).max()):.3e}")
+    if not diff <= MODEL_ATOL:
+        fail(f"GPT-1 kernel and plain logits differ by {diff}")
+    med = statistics.median(lat)
+    print(f"16a GPT-1 request latency ({GPT1_BATCH} x {GPT1_SEQ} in, "
+          f"{first.nbytes} bytes of "
+          f"float32 logits out): median {med:.3f} ms, min {min(lat):.3f}, "
+          f"max {max(lat):.3f} over {lat}; {GPT1_BATCH * 1e3 / med:.1f} "
+          f"sequences/s ({card})")
+    # the same forward with the logits left on the card: what of a
+    # request is the device's, and what the copy of the logits to the host
+    variables = model.get_variables()
+    xd = [torch.as_tensor(a, device=dev) for a in reqs[0]]
+    fwd = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        with torch.no_grad():
+            model.apply(variables["params"], xd, state=variables["state"],
+                        training=False)
+        torch.cuda.synchronize()
+        fwd.append((time.perf_counter() - s) * 1e3)
+    fwd = fwd[1:]
+    print(f"16a GPT-1 forward alone, logits left on the card: median "
+          f"{statistics.median(fwd):.3f} ms, min {min(fwd):.3f}, max "
+          f"{max(fwd):.3f} over {fwd} ({card})")
+    return launches
+
+
+def gpt1_training(torch, card, dev, model):
+    """16b: ``fit`` for 8 steps, one step's gradients against the plain
+    versions under float32 products, step ms in turns, peak memory;
+    returns the fit's launches."""
+    from analytics_zoo_torch.common.config import get_config
+    from analytics_zoo_torch.ops import dtypes, kernels
+    from analytics_zoo_torch.parallel.trainer import (
+        DistributedTrainer, step_generator)
+    from analytics_zoo_torch.pipeline.api.keras import objectives
+    from analytics_zoo_torch.pipeline.api.keras.optimizers import Adam
+    from analytics_zoo_torch.pipeline.api.keras.topology import tree_leaves
+    x, y = gpt1_data(GPT1_ROWS, 17)
+    model.compile(Adam(lr=1e-4), PHASE16_LOSS)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    history = model.fit(x, y, batch_size=GPT1_BATCH, nb_epoch=1, rng=0)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = kernels.launch_counts()
+    steps = GPT1_ROWS // GPT1_BATCH
+    expect_launches(launches, {
+        "flash_attention_fwd": 12 * steps, "flash_attention_dq": 12 * steps,
+        "flash_attention_dkv": 12 * steps, "bias_gelu": 12 * steps,
+        "fused_adam": steps}, "GPT-1 fit")
+    loss = history[0]["loss"]
+    if len(history) != 1 or not np.isfinite(loss):
+        fail(f"GPT-1 fit history {history}")
+    n_leaves = len(tree_leaves(model.get_variables()["params"]))
+    print(f"16b GPT-1 fit: {steps} steps of {GPT1_BATCH} x {GPT1_SEQ} in "
+          f"{fit_s:.3f} s (warm-up included), epoch loss {loss:.5f} "
+          f"(ln {GPT1_TOKENS} = {np.log(GPT1_TOKENS):.5f}); launches "
+          f"{launches} ({n_leaves} leaves); peak device memory {peak} "
+          f"bytes ({card})")
+
+    loss_fn = objectives.get(PHASE16_LOSS)
+    batch_np = ([a[:GPT1_BATCH] for a in x], y[:GPT1_BATCH])
+    tr = DistributedTrainer(model, loss_fn, optim_method=Adam(lr=1e-4))
+    params = tr.place_params(model.get_variables()["params"])
+    batch = tr.put_batch(batch_np)
+    dtypes.set_policy(compute_dtype="float32")
+    grads = {}
+    for mode in ("auto", "torch"):
+        get_config().set("ops.fused", mode)
+        kernels.reset_launch_counts()
+        loss_m, g, _ = tr.loss_and_grads(params, {}, batch,
+                                         step_generator(11, 0, dev))
+        grads[mode] = (float(loss_m), tree_leaves(g))
+        expect_launches(kernels.launch_counts(), {} if mode == "torch" else {
+            "flash_attention_fwd": 12, "flash_attention_dq": 12,
+            "flash_attention_dkv": 12, "bias_gelu": 12},
+            f"GPT-1 gradients under ops.fused={mode}")
+    get_config().set("ops.fused", "auto")
+    dtypes.restore_policy(None)
+    errs = [rel_l2(a, b) for a, b in zip(grads["auto"][1],
+                                         grads["torch"][1])]
+    worst = max(errs)
+    print(f"16b GPT-1 gradients, kernels vs plain versions, float32 "
+          f"products: {len(errs)} leaves, relative L2 max {worst:.3e} median "
+          f"{statistics.median(errs):.3e} (tolerance {GRAD_RTOL_F32}); loss "
+          f"{grads['auto'][0]:.6f} vs {grads['torch'][0]:.6f}")
+    if not worst <= GRAD_RTOL_F32:
+        fail(f"GPT-1 kernel and plain gradients differ: {worst}")
+    del params, grads, g
+
+    def timed(mode, n):
+        get_config().set("ops.fused", mode)
+        t = DistributedTrainer(model, loss_fn, optim_method=Adam(lr=1e-4))
+        p = t.place_params(model.get_variables()["params"])
+        o = t.init_opt_state(p)
+        out = []
+        for i in range(n + 1):                 # the first is a warm-up
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            p, o, _, step_loss = t.train_step(p, o, {}, batch,
+                                              step_generator(0, i, dev))
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - s0) * 1e3)
+        if not np.isfinite(float(step_loss)):
+            fail(f"GPT-1 step loss under ops.fused={mode}")
+        return out[1:]
+
+    step_ms = {"torch": [], "auto": []}
+    for mode in ("torch", "auto", "auto", "torch"):
+        step_ms[mode] += timed(mode, 4)
+    get_config().set("ops.fused", "auto")
+    for mode in ("auto", "torch"):
+        v = step_ms[mode]
+        med = statistics.median(v)
+        print(f"16b GPT-1 training step ops.fused={mode}: median {med:.3f} "
+              f"ms, min {min(v):.3f}, max {max(v):.3f} over {v}; "
+              f"{GPT1_BATCH * 1e3 / med:.1f} sequences/s, Adam ({card})")
+    return launches
+
+
+def causal_flash_times(torch, card, dev):
+    """16b: the three float32 flash kernels at GPT-1's shape, causal,
+    checked against their plain versions, then each timed beside its plain
+    version, its bound (T^2/2 pairs) and ``scaled_dot_product_attention``
+    in float32 causal."""
+    from analytics_zoo_torch.ops import flash_attention as fa
+    b, h, t, d = GPT1_BATCH, 12, GPT1_SEQ, 64
+    g = torch.Generator(device=dev).manual_seed(16)
+    q, k, v, do = (torch.randn((b, h, t, d), generator=g, device=dev)
+                   for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    o_ref, lse_ref = fa.flash_attention_ref(q, k, v, causal=True)
+    delta = fa.flash_attention_delta(o, do)
+    dq = fa.flash_attention_dq(q, k, v, do, lse, delta, True)
+    dk, dv = fa.flash_attention_dkv(q, k, v, do, lse, delta, True)
+    dq_ref = fa.flash_attention_dq_ref(q, k, v, do, lse, delta, True)
+    dk_ref, dv_ref = fa.flash_attention_dkv_ref(q, k, v, do, lse, delta,
+                                                True)
+    torch.cuda.synchronize()
+    errs = {"flash_attention_fwd": max(
+                close("causal O", o, o_ref, FWD_ATOL, FWD_RTOL),
+                close("causal LSE", lse, lse_ref, FWD_LSE_ATOL)),
+            "flash_attention_dq": close("causal dQ", dq, dq_ref, BWD_ATOL,
+                                        BWD_RTOL),
+            "flash_attention_dkv": max(
+                close("causal dK", dk, dk_ref, BWD_ATOL, BWD_RTOL),
+                close("causal dV", dv, dv_ref, BWD_ATOL, BWD_RTOL))}
+    del o_ref, lse_ref, dq_ref, dk_ref, dv_ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_fwd = time_ms(torch, lambda: sdpa(q, k, v, is_causal=True))
+    qg, kg, vg = (a.clone().requires_grad_() for a in (q, k, v))
+    out = sdpa(qg, kg, vg, is_causal=True)
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        out, (qg, kg, vg), do, retain_graph=True))
+    del qg, kg, vg, out
+    pairs = b * h * t * t / 2          # the causal half of the scores
+    n_el = b * h * t * d
+    times = {}
+    for name, fn, plain_fn, tensors, flops, lib in (
+            ("flash_attention_fwd",
+             lambda: fa.flash_attention_fwd(q, k, v, causal=True),
+             lambda: fa.flash_attention_ref(q, k, v, causal=True),
+             4, 4, lib_fwd),
+            ("flash_attention_dq",
+             lambda: fa.flash_attention_dq(q, k, v, do, lse, delta, True),
+             lambda: fa.flash_attention_dq_ref(q, k, v, do, lse, delta,
+                                               True),
+             5, 6, lib_bwd),
+            ("flash_attention_dkv",
+             lambda: fa.flash_attention_dkv(q, k, v, do, lse, delta, True),
+             lambda: fa.flash_attention_dkv_ref(q, k, v, do, lse, delta,
+                                                True),
+             6, 8, lib_bwd)):
+        ms = time_ms(torch, fn)
+        plain = time_ms(torch, plain_fn)
+        moved = (tensors * n_el + 2 * b * h * t) * 4
+        bnd, by = flash_bound_ms(moved, flops * pairs * d)
+        times[name] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                           library_ms=lib, max_abs_err=errs[name])
+        print(f"16b time {name} {(b, h, t, d)} f32 causal: kernel_ms "
+              f"{ms:.5f} plain_ms {plain:.5f} bound_ms {bnd:.6f} ({by}, "
+              f"3xTF32, T^2/2 pairs) library_ms {lib:.5f} "
+              f"(scaled_dot_product_attention f32 causal, "
+              f"{'forward' if name.endswith('fwd') else 'backward: dQ, dK, dV together'}); "
+              f"max abs err {errs[name]:.3e} ({card})")
+    return times
+
+
+def hf_bert_state(torch, dev, seed):
+    """A BERT-base state_dict under HF's names, drawn on the card."""
+    from analytics_zoo_torch.tfpark.text import bert_checkpoint as bc
+    H, inter = BERT_BASE["hidden_size"], BERT_BASE["intermediate_size"]
+    shapes = {"embeddings.word_embeddings.weight": (BERT_BASE["vocab"], H),
+              "embeddings.token_type_embeddings.weight": (2, H),
+              "embeddings.position_embeddings.weight": (512, H),
+              "pooler.dense.weight": (H, H)}
+    names = list(bc._G2HF.values()) + [
+        f"encoder.layer.{i}.{tail}" for i in range(BERT_BASE["n_block"])
+        for tail in bc._BLOCK_G2HF.values()]
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def shape(name):
+        if name in shapes:
+            return shapes[name]
+        if name.endswith("intermediate.dense.weight"):
+            return (inter, H)
+        if name.endswith("intermediate.dense.bias"):
+            return (inter,)
+        if name.endswith("output.dense.weight") and "attention" not in name:
+            return (H, inter)
+        return (H, H) if name.endswith("weight") and "LayerNorm" not in name \
+            else (H,)
+    return {n: torch.randn(shape(n), generator=g, device=dev) * 0.02
+            for n in names}
+
+
+def check_loaded_bert(torch, model, sd) -> int:
+    """Every encoder leaf of ``model`` against its source in ``sd``, bit
+    for bit (kernels transposed, Q/K/V concatenated); returns the count."""
+    from analytics_zoo_torch.pipeline.api.keras.layers import (
+        Dense, Embedding, LayerNorm, MultiHeadSelfAttention,
+        PositionwiseFeedForward)
+    p = model.get_variables()["params"]
+
+    def named(cls):
+        return [l.name for l in model.layers if type(l) is cls]
+    emb, ln, att = named(Embedding), named(LayerNorm), \
+        named(MultiHeadSelfAttention)
+    ffn, dense = named(PositionwiseFeedForward), named(Dense)
+    tr = lambda name: sd[name].t()                         # noqa: E731
+    want = {(emb[0], "embeddings"): sd["embeddings.word_embeddings.weight"],
+            (emb[1], "embeddings"):
+                sd["embeddings.token_type_embeddings.weight"],
+            (emb[2], "embeddings"): sd[
+                "embeddings.position_embeddings.weight"][
+                    :BERT_BASE["max_position_len"]],
+            (ln[0], "gamma"): sd["embeddings.LayerNorm.weight"],
+            (ln[0], "beta"): sd["embeddings.LayerNorm.bias"],
+            (dense[0], "kernel"): tr("pooler.dense.weight"),
+            (dense[0], "bias"): sd["pooler.dense.bias"]}
+    for i in range(BERT_BASE["n_block"]):
+        e = f"encoder.layer.{i}."
+        qkv = ("query", "key", "value")
+        want.update({
+            (att[i], "qkv_kernel"): torch.cat(
+                [tr(e + f"attention.self.{w}.weight") for w in qkv], 1),
+            (att[i], "qkv_bias"): torch.cat(
+                [sd[e + f"attention.self.{w}.bias"] for w in qkv]),
+            (att[i], "out_kernel"): tr(e + "attention.output.dense.weight"),
+            (att[i], "out_bias"): sd[e + "attention.output.dense.bias"],
+            (ln[2 * i + 1], "gamma"):
+                sd[e + "attention.output.LayerNorm.weight"],
+            (ln[2 * i + 1], "beta"):
+                sd[e + "attention.output.LayerNorm.bias"],
+            (ffn[i], "up_kernel"): tr(e + "intermediate.dense.weight"),
+            (ffn[i], "up_bias"): sd[e + "intermediate.dense.bias"],
+            (ffn[i], "down_kernel"): tr(e + "output.dense.weight"),
+            (ffn[i], "down_bias"): sd[e + "output.dense.bias"],
+            (ln[2 * i + 2], "gamma"): sd[e + "output.LayerNorm.weight"],
+            (ln[2 * i + 2], "beta"): sd[e + "output.LayerNorm.bias"]})
+    for (layer, key), w in want.items():
+        if not torch.equal(p[layer][key], w):
+            fail(f"loaded checkpoint: {layer}/{key} differs from its source")
+    return len(want)
+
+
+def bert_finetune(torch, card, dev):
+    """16c: ``BERTClassifier`` fine-tuned for 8 steps under
+    ``AdamWeightDecay``, evaluated and served; ``BERTSQuAD.predict_spans``
+    and ``BERTNER.predict``.  Returns the fine-tuning's launches."""
+    from analytics_zoo_torch.ops import kernels
+    from analytics_zoo_torch.parallel.trainer import (
+        DistributedTrainer, step_generator)
+    from analytics_zoo_torch.pipeline.api.keras import objectives
+    from analytics_zoo_torch.pipeline.api.keras.engine import Layer
+    from analytics_zoo_torch.pipeline.api.keras.optimizers import (
+        AdamWeightDecay)
+    from analytics_zoo_torch.pipeline.api.keras.topology import tree_leaves
+    from analytics_zoo_torch.tfpark.text import (
+        BERTClassifier, BERTNER, BERTSQuAD)
+
+    def adamw():
+        return AdamWeightDecay(lr=2e-5, warmup_portion=0.1, total=CLS_STEPS)
+
+    Layer.reset_name_counters()
+    t0 = time.perf_counter()
+    clf = BERTClassifier(num_classes=2, seq_len=CLS_SEQ, **BERT_BASE)
+    before = [a.clone() for a in
+              tree_leaves(clf.model.get_variables()["params"])]
+    build_s = time.perf_counter() - t0
+    rows = CLS_BATCH * CLS_STEPS
+    feats = bert_features(rows, CLS_SEQ, 18)
+    labels = np.random.RandomState(18).randint(0, 2, rows)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    clf.train(feats, labels, optim_method=adamw(), batch_size=CLS_BATCH)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    expect_launches(launches, {"bias_gelu": 12 * CLS_STEPS},
+                    "BERT-base fine-tuning (the mask takes dense attention, "
+                    "AdamWeightDecay its own chain)")
+    loss = clf.history[0]["loss"]
+    after = tree_leaves(clf.model.get_variables()["params"])
+    moved = sum(not torch.equal(a, b) for a, b in zip(before, after))
+    if not np.isfinite(loss) or moved != len(after):
+        fail(f"BERT fine-tuning: loss {loss}, {moved} of {len(after)} "
+             "leaves moved")
+    del before
+    print(f"16c BERTClassifier (BERT-base, {len(after)} leaves, built in "
+          f"{build_s:.1f} s) train: {CLS_STEPS} steps of {CLS_BATCH} x "
+          f"{CLS_SEQ} in {fit_s:.3f} s (warm-up included), loss "
+          f"{loss:.5f}, all {moved} leaves moved; launches {launches}")
+
+    tr = DistributedTrainer(clf.model, objectives.get(PHASE16_LOSS),
+                            optim_method=adamw())
+    if tr.fused_optimizer_active:
+        fail("the fused update took AdamWeightDecay")
+    params = tr.place_params(clf.model.get_variables()["params"])
+    opt_state = tr.init_opt_state(params)
+    batch = tr.put_batch((clf._inputs({k: a[:CLS_BATCH] for k, a in
+                                       feats.items()}, CLS_SEQ),
+                          labels[:CLS_BATCH]))
+    step_ms = []
+    for i in range(7):                          # the first is a warm-up
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        params, opt_state, _, _ = tr.train_step(
+            params, opt_state, {}, batch, step_generator(0, i, dev))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - s0) * 1e3)
+    step_ms = step_ms[1:]
+    print(f"16c BERT-base fine-tuning step (AdamWeightDecay, unfused, "
+          f"{CLS_BATCH} x {CLS_SEQ}): median {statistics.median(step_ms):.3f}"
+          f" ms, min {min(step_ms):.3f}, max {max(step_ms):.3f} over "
+          f"{step_ms} ({card})")
+    del tr, params, opt_state
+
+    scores = clf.evaluate(feats, labels, batch_size=CLS_BATCH)
+    s0 = time.perf_counter()
+    probs = clf.predict(feats, batch_size=CLS_BATCH)
+    pred_ms = (time.perf_counter() - s0) * 1e3
+    if set(scores) != {"loss"} or not np.isfinite(scores["loss"]) or \
+            probs.shape != (rows, 2) or not np.isfinite(probs).all():
+        fail(f"BERTClassifier evaluate {scores}, predict {probs.shape}")
+    print(f"16c BERTClassifier evaluate {scores}; predict of {rows} x "
+          f"{CLS_SEQ} {pred_ms:.3f} ms ({card})")
+    del clf
+
+    Layer.reset_name_counters()
+    squad = BERTSQuAD(seq_len=SQUAD_SEQ, **BERT_BASE)
+    sfeats = bert_features(SQUAD_ROWS, SQUAD_SEQ, 19)
+    squad.predict_spans(sfeats, batch_size=SQUAD_ROWS)          # warm-up
+    s0 = time.perf_counter()
+    start, end = squad.predict_spans(sfeats, batch_size=SQUAD_ROWS)
+    squad_ms = (time.perf_counter() - s0) * 1e3
+    if start.shape != end.shape or start.shape != (SQUAD_ROWS, SQUAD_SEQ) \
+            or not (np.isfinite(start).all() and np.isfinite(end).all()):
+        fail(f"BERTSQuAD spans {start.shape} {end.shape}")
+    del squad
+    Layer.reset_name_counters()
+    ner = BERTNER(num_entities=NER_TAGS, seq_len=CLS_SEQ, **BERT_BASE)
+    ner.predict(feats, batch_size=CLS_BATCH)                    # warm-up
+    s0 = time.perf_counter()
+    tags = ner.predict(feats, batch_size=CLS_BATCH)
+    ner_ms = (time.perf_counter() - s0) * 1e3
+    if tags.shape != (rows, CLS_SEQ, NER_TAGS) or \
+            not np.isfinite(tags).all():
+        fail(f"BERTNER predict {tags.shape}")
+    print(f"16c BERTSQuAD.predict_spans {SQUAD_ROWS} x {SQUAD_SEQ}: start "
+          f"{start.shape}, end {end.shape}, {squad_ms:.3f} ms a call; "
+          f"BERTNER.predict {rows} x {CLS_SEQ}: {tags.shape}, {ner_ms:.3f} "
+          f"ms a call ({card})")
+    return launches
+
+
+def checkpoint_and_route(torch, card, dev):
+    """16d: ``BERTClassifier(bert_checkpoint=)`` from an HF-named
+    state_dict drawn on the card, every encoder leaf held to its source
+    and a second load's predictions; then ``TransformerLayer`` at
+    ``seq_len=77`` against ``ops.fused=torch``."""
+    from analytics_zoo_torch.ops import dtypes, kernels
+    from analytics_zoo_torch.pipeline.api.keras.engine import Layer
+    from analytics_zoo_torch.pipeline.api.keras.layers import (
+        TransformerLayer)
+    from analytics_zoo_torch.tfpark.text import BERTClassifier
+    sd = hf_bert_state(torch, dev, 20)
+    loaded = []
+    for _ in range(2):
+        Layer.reset_name_counters()
+        t0 = time.perf_counter()
+        clf = BERTClassifier(num_classes=2, bert_checkpoint=sd,
+                             seq_len=CLS_SEQ, **BERT_BASE)
+        torch.cuda.synchronize()
+        loaded.append((clf, time.perf_counter() - t0))
+    a, b = loaded[0][0], loaded[1][0]
+    n = check_loaded_bert(torch, a.model, sd)
+    mp, ep = a.model.get_variables()["params"], \
+        a.encoder.get_variables()["params"]
+    if any(ep[l][k] is not mp[l][k] for l in ep for k in ep[l]):
+        fail("the encoder's copies were not synced from the loaded model")
+    feats = bert_features(CLS_BATCH, CLS_SEQ, 21)
+    with deterministic(torch):
+        pa = a.predict(feats, batch_size=CLS_BATCH)
+        pb = b.predict(feats, batch_size=CLS_BATCH)
+    if not np.array_equal(pa, pb):
+        fail(f"two loads of one checkpoint predict differently: "
+             f"{float(np.abs(pa - pb).max())}")
+    print(f"16d load_bert_checkpoint (HF-named state_dict of BERT-base on "
+          f"the card, through BERTClassifier(bert_checkpoint=)): {n} encoder "
+          f"leaves bit-identical to their sources, the encoder's copies "
+          f"synced; a second load predicts bit-identically; loads "
+          f"{loaded[0][1]:.3f} s, {loaded[1][1]:.3f} s (draw of the head "
+          f"included) ({card})")
+    del loaded, a, b, sd
+
+    Layer.reset_name_counters()
+    tl = TransformerLayer.init_with_default_embedding(seq_len=ROUTE_SEQ)
+    model = tl.build()
+    model.init(torch.Generator().manual_seed(22))
+    rs = np.random.RandomState(22)
+    vocab = tl.cfg["vocab"]
+    x = [rs.randint(0, vocab - ROUTE_SEQ, (8, ROUTE_SEQ)).astype(np.int64),
+         np.broadcast_to(np.arange(vocab - ROUTE_SEQ, vocab),
+                         (8, ROUTE_SEQ)).copy()]
+    for compute in ("float32", "bfloat16"):
+        dtypes.set_policy(compute_dtype=compute)
+        kernels.reset_launch_counts()
+        got = model.predict(x, batch_size=8)
+        expect_launches(kernels.launch_counts(),
+                        {"flash_attention_fwd": 12, "bias_gelu": 12},
+                        f"TransformerLayer at seq_len {ROUTE_SEQ}")
+        want = plain_route(lambda: model.predict(x, batch_size=8))
+        diff = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+        print(f"16d route difference, TransformerLayer (GPT-1 width, "
+              f"seq_len {ROUTE_SEQ}, causal; the port's flash kernel, the "
+              f"reference's dense attention) vs ops.fused=torch (dense), "
+              f"{compute} products: max abs diff {diff:.3e} over the "
+              f"sequence and pooled outputs (bound {MODEL_ATOL}), |states| "
+              f"max {float(np.abs(want[0]).max()):.3e}")
+        if not diff <= MODEL_ATOL:
+            fail(f"route difference at seq_len {ROUTE_SEQ}: {diff}")
+    dtypes.restore_policy(None)
+
+
+def transformer_phase(torch, card, dev):
+    """Phase 16: the Keras transformer models at full width.  Returns
+    (launches of 16a's 4 requests, 16b's fit, 16c's fine-tuning) and the
+    causal float32 flash kernels' times."""
+    from analytics_zoo_torch.pipeline.api.keras.topology import tree_leaves
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    model = gpt1_model(torch)
+    n_params = sum(int(p.numel()) for p in
+                   tree_leaves(model.get_variables()["params"]))
+    print(f"16 GPT-1 (TransformerLayer.init_with_default_embedding, vocab "
+          f"{GPT1['vocab']}, seq_len {GPT1_SEQ}, {GPT1['n_block']} blocks "
+          f"of {GPT1['hidden_size']}, {GPT1['n_head']} heads; "
+          f"TimeDistributed(Dense({GPT1_TOKENS}))): {n_params} params, "
+          f"built and placed in {time.perf_counter() - t0:.1f} s")
+    serve = gpt1_serving(torch, card, dev, model)
+    train = gpt1_training(torch, card, dev, model)
+    del model
+    torch.cuda.empty_cache()
+    times = causal_flash_times(torch, card, dev)
+    torch.cuda.empty_cache()
+    tune = bert_finetune(torch, card, dev)
+    torch.cuda.empty_cache()
+    checkpoint_and_route(torch, card, dev)
+    torch.cuda.empty_cache()
+    print(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
+    return (serve, train, tune), times
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3549,7 +4162,15 @@ def main() -> None:
     # -------------- 15. model persistence: resume, retry, load, serve
     persist_launches = persistence_phase(torch, card, dev, rec_profile)
 
-    # ------------------------------------------------------ 16. results
+    # ------- 16. the Keras transformer models: GPT-1 served and trained,
+    # BERT-base fine-tuned, a checkpoint loaded, the route at seq_len 77
+    (gpt_serve, gpt_train, bert_tune), _ = transformer_phase(torch, card,
+                                                             dev)
+
+    # ------------------------------------------------------ 17. results
+    print(f"launches: GPT-1 serving (4 requests) {gpt_serve}; GPT-1 fit "
+          f"(8 steps) {gpt_train}; BERT-base fine-tuning (8 steps) "
+          f"{bert_tune}")
     print(f"launches: serving (4 requests) {serving_launches}; int8 "
           f"weight-only serving (4 requests) {int8_launches}; training "
           f"(fit, 8 steps) {training_launches}; SGD fit (2 steps) "

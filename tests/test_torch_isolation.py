@@ -1,9 +1,11 @@
 """PyTorch port, isolation: importing the port (and every module of the
-serving, training, Cluster Serving, recommender, recurrent/generative and
-persistence slices) pulls in none of ``jax``, ``analytics_zoo_tpu``,
-``flax`` and ``msgpack``, no port source imports them or loads a file of
-the JAX package by path, and the context refuses to fall back to the CPU
-quietly.  Each import check runs in a fresh interpreter, since this
+serving, training, Cluster Serving, recommender, recurrent/generative,
+persistence and transformer-model slices) pulls in none of ``jax``,
+``analytics_zoo_tpu``, ``flax``, ``msgpack``, ``tensorflow`` and
+``transformers``, no port source imports the first four or loads a file
+of the JAX package by path, TensorFlow is imported only inside the BERT
+checkpoint loader's google reader, and the context refuses to fall back
+to the CPU quietly.  Each import check runs in a fresh interpreter, since this
 test process has both loaded."""
 
 import os
@@ -76,6 +78,13 @@ SLICE_MODULES = [
     "analytics_zoo_torch.utils.serialization",
     "analytics_zoo_torch.utils.file_io",
     "analytics_zoo_torch.resilience.policy",
+    "analytics_zoo_torch.pipeline.api.keras.layers.wrappers",
+    "analytics_zoo_torch.pipeline.api.keras.layers.attention",
+    "analytics_zoo_torch.tfpark",
+    "analytics_zoo_torch.tfpark.text",
+    "analytics_zoo_torch.tfpark.text.estimator",
+    "analytics_zoo_torch.tfpark.text.bert_checkpoint",
+    "analytics_zoo_torch.tfpark.text.keras_models",
 ]
 
 
@@ -92,8 +101,9 @@ def test_port_imports_no_jax_and_no_reference_package():
         [f"import {m}" for m in SLICE_MODULES] +
         ["import sys",
          "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', "
-         "'msgpack') or m.startswith(('jax.', 'jaxlib', 'flax.', "
-         "'msgpack.', 'analytics_zoo_tpu')))",
+         "'msgpack', 'tensorflow', 'transformers') or m.startswith(("
+         "'jax.', 'jaxlib', 'flax.', 'msgpack.', 'analytics_zoo_tpu', "
+         "'tensorflow.', 'transformers.')))",
          "print('LOADED', bad)",
          "sys.exit(1 if bad else 0)"])
     proc = _run(code)
@@ -107,6 +117,19 @@ def test_port_sources_import_neither():
     offenders = [str(p.relative_to(REPO)) for p in PORT.rglob("*.py")
                  if pattern.search(p.read_text())]
     assert offenders == []
+
+
+def test_tensorflow_is_imported_only_by_the_google_checkpoint_reader():
+    pattern = re.compile(r"^(\s*)(import|from)\s+(tensorflow|transformers)\b",
+                         re.M)
+    found = {str(p.relative_to(REPO)): [m.group(1) for m in
+                                        pattern.finditer(p.read_text())]
+             for p in PORT.rglob("*.py")}
+    found = {k: v for k, v in found.items() if v}
+    assert list(found) == ["analytics_zoo_torch/tfpark/text/bert_checkpoint.py"]
+    # one import, indented: inside _google_reader, run only when called
+    assert found["analytics_zoo_torch/tfpark/text/bert_checkpoint.py"] == \
+        ["    "]
 
 
 def test_port_sources_load_no_reference_file_by_path():

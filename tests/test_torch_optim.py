@@ -213,9 +213,10 @@ def test_unsupported_combinations_decline():
                     {"w": torch.zeros(2)})
     assert tfused.build_fused_update(topt.Adam(1e-3),
                                      TClip("other", 1.0)) is None
+    # the reference's fused update takes SGD and Adam only: the other
+    # optimizers run their own chains
     for name in ("rmsprop", "adagrad", "adadelta", "adamax", "adamw"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            topt.get(name)
+        assert tfused.build_fused_update(topt.get(name), None) is None
 
 
 def test_off_switch():

@@ -84,8 +84,8 @@ def test_sparse_crossentropy_with_logits_matches_reference(label_shape):
                                rtol=0)
     np.testing.assert_allclose(grad.numpy(), np.asarray(jgrad), atol=1e-7,
                                rtol=0)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tobj.get("mse")
+    with pytest.raises(ValueError, match="unknown loss"):
+        tobj.get("f1")
 
 
 def test_metrics_are_exact_under_the_tail_padding_mask():
