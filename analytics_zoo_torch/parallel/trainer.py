@@ -222,15 +222,21 @@ class DistributedTrainer:
     # ---------------------------------------------------------- train step
     def loss_and_grads(self, params, state, batch, rng):
         """Forward and backward of one batch: ``(loss, grads, new_state)``,
-        ``grads`` a tree like ``params``; nothing is updated."""
+        ``grads`` a tree like ``params``; nothing is updated.  The
+        gradients are those of the loss plus the model's regularization
+        penalty (``W_regularizer`` and the like); the loss returned is
+        the loss without it."""
         x, y = batch
         live = [p.detach().requires_grad_() for p in tree_leaves(params)]
         with torch.enable_grad():
-            out, new_state = self.model.apply(
-                tree_replace(params, live), x, state=state, training=True,
-                rng=rng)
+            p = tree_replace(params, live)
+            out, new_state = self.model.apply(p, x, state=state,
+                                              training=True, rng=rng)
             loss = self.loss_fn(y, out)
-        grads = torch.autograd.grad(loss, live, allow_unused=True,
+            # a float 0.0 when no layer registered a regularizer
+            reg = self.model.regularization_loss(p)
+            objective = loss + reg if torch.is_tensor(reg) else loss
+        grads = torch.autograd.grad(objective, live, allow_unused=True,
                                     materialize_grads=True)
         return loss.detach(), tree_replace(params, grads), new_state
 

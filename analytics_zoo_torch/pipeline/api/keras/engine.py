@@ -156,6 +156,8 @@ class Layer:
         self.input_dtype = input_dtype
         self._output_shape: Optional[Shape] = None
         self._nodes: List[Node] = []
+        # param_name -> (l1, l2) weight-decay coefficients
+        self.param_regularizers: Dict[str, Tuple[float, float]] = {}
 
     # ---------------------------------------------------------------- numeric
     def build(self, rng, input_shape) -> Params:
@@ -248,13 +250,31 @@ class Layer:
 
     # --------------------------------------------------------------- params
     def add_weight(self, params: Params, rng, name: str, shape,
-                   init="glorot_uniform", dtype=None):
+                   init="glorot_uniform", dtype=None, regularizer=None):
         """Helper used inside ``build`` implementations: draws on the CPU
-        from a generator folded from ``rng`` and the param name."""
+        from a generator folded from ``rng`` and the param name, and
+        registers ``regularizer`` (an ``(l1, l2)`` pair) for the param."""
         dtype = dtype or get_policy().param_dtype
         params[name] = inits.get(init)(fold_name(rng, name), tuple(shape),
                                        dtype)
+        if regularizer is not None:
+            self.param_regularizers[name] = regularizer
         return params
+
+    def regularization_loss(self, params: Params):
+        """Sum of the L1/L2 penalties registered on this layer's params
+        (a float 0.0 when there are none); a registered name the params
+        lack is skipped."""
+        total = 0.0
+        for pname, (l1, l2) in self.param_regularizers.items():
+            if pname not in params:
+                continue
+            w = params[pname]
+            if l1:
+                total = total + l1 * w.abs().sum()
+            if l2:
+                total = total + l2 * w.square().sum()
+        return total
 
     def __repr__(self):
         return f"{type(self).__name__}(name={self.name})"
@@ -274,3 +294,18 @@ class Container(Layer):
             if l.name in seen:
                 raise ValueError(f"duplicate layer name: {l.name}")
             seen.add(l.name)
+
+    def regularization_loss_tree(self, params: Params):
+        """The penalties of every layer below this container, nested
+        containers included."""
+        total = 0.0
+        for l in self.layers:
+            sub = params.get(l.name, {})
+            if isinstance(l, Container):
+                total = total + l.regularization_loss_tree(sub)
+            else:
+                total = total + l.regularization_loss(sub)
+        return total
+
+    def regularization_loss(self, params: Params):
+        return self.regularization_loss_tree(params)

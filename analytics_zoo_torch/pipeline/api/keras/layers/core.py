@@ -1,4 +1,6 @@
-"""Core layers: Dense, Activation, Dropout, Flatten, Lambda (port of
+"""Core layers: the Dense family (Dense, Highway, MaxoutDense,
+SparseDense), Activation, Dropout and the shape layers Flatten, Reshape,
+Permute, RepeatVector, Masking and Lambda (port of
 ``pipeline/api/keras/layers/core.py``).
 
 Dense rounds its operands to the compute dtype and takes a float32
@@ -6,17 +8,20 @@ result (``ops.dtypes.matmul``), or, when its params carry
 ``kernel_scale``/``act_scale``, runs the int8 product
 (``ops.quant.quantized_matmul``); with a bias and the tanh-GeLU
 activation its tail goes through the fused bias→GeLU epilogue either
-way.
+way.  Highway, MaxoutDense and SparseDense take the float route of the
+same product.  SparseDense keeps the reference's contract: its input is
+a dense, mostly-zero array, not a ``torch.sparse`` tensor.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from analytics_zoo_torch.ops import activations as acts
+from analytics_zoo_torch.ops.dtypes import get_policy
 from analytics_zoo_torch.ops.dtypes import matmul as _matmul
 from analytics_zoo_torch.pipeline.api.keras.engine import Layer, Params
 
@@ -26,8 +31,9 @@ class Dense(Layer):
     input may have rank > 2."""
 
     def __init__(self, output_dim: int, init="glorot_uniform",
-                 activation=None, bias: bool = True,
-                 parallel_mode: Optional[str] = None, **kwargs):
+                 activation=None, W_regularizer=None, b_regularizer=None,
+                 bias: bool = True, parallel_mode: Optional[str] = None,
+                 **kwargs):
         super().__init__(**kwargs)
         if parallel_mode is not None:
             raise NotImplementedError(
@@ -37,15 +43,17 @@ class Dense(Layer):
         self.kernel_init = init
         self.activation = acts.get(activation)
         self.use_bias = bias
+        self.W_regularizer = W_regularizer
+        self.b_regularizer = b_regularizer
 
     def build(self, rng, input_shape) -> Params:
         in_dim = input_shape[-1]
         params: Params = {}
         self.add_weight(params, rng, "kernel", (in_dim, self.output_dim),
-                        init=self.kernel_init)
+                        init=self.kernel_init, regularizer=self.W_regularizer)
         if self.use_bias:
             self.add_weight(params, rng, "bias", (self.output_dim,),
-                            init="zero")
+                            init="zero", regularizer=self.b_regularizer)
         return params
 
     def call(self, params, x, training=False, rng=None):
@@ -108,6 +116,180 @@ class Flatten(Layer):
 
     def compute_output_shape(self, input_shape):
         return (input_shape[0], int(np.prod(input_shape[1:])))
+
+
+class Reshape(Layer):
+    """Reshape the non-batch dims; one -1 is inferred."""
+
+    def __init__(self, target_shape: Sequence[int], **kwargs):
+        super().__init__(**kwargs)
+        self.target_shape = tuple(int(d) for d in target_shape)
+
+    def _resolve(self, input_shape):
+        n = int(np.prod(input_shape[1:]))
+        tgt = list(self.target_shape)
+        if -1 in tgt:
+            i = tgt.index(-1)
+            known = int(np.prod([d for d in tgt if d != -1]))
+            tgt[i] = n // known
+        return tuple(tgt)
+
+    def call(self, params, x, training=False, rng=None):
+        return x.reshape((x.shape[0],) +
+                         self._resolve((None,) + tuple(x.shape[1:])))
+
+    def compute_output_shape(self, input_shape):
+        return (input_shape[0],) + self._resolve(input_shape)
+
+
+class Permute(Layer):
+    """Permute the non-batch dims; ``dims`` are 1-indexed as in Keras."""
+
+    def __init__(self, dims: Sequence[int], **kwargs):
+        super().__init__(**kwargs)
+        self.dims = tuple(int(d) for d in dims)
+
+    def call(self, params, x, training=False, rng=None):
+        return x.permute((0,) + self.dims)
+
+    def compute_output_shape(self, input_shape):
+        return (input_shape[0],) + tuple(
+            input_shape[d] for d in self.dims)
+
+
+class RepeatVector(Layer):
+    """(B, F) -> (B, n, F)."""
+
+    def __init__(self, n: int, **kwargs):
+        super().__init__(**kwargs)
+        self.n = int(n)
+
+    def call(self, params, x, training=False, rng=None):
+        return x.unsqueeze(1).repeat(1, self.n, 1)
+
+    def compute_output_shape(self, input_shape):
+        return (input_shape[0], self.n, input_shape[1])
+
+
+class Masking(Layer):
+    """Zero the timesteps whose every feature equals ``mask_value``."""
+
+    def __init__(self, mask_value: float = 0.0, **kwargs):
+        super().__init__(**kwargs)
+        self.mask_value = float(mask_value)
+
+    def call(self, params, x, training=False, rng=None):
+        keep = (x != self.mask_value).any(dim=-1, keepdim=True)
+        return torch.where(keep, x, torch.zeros_like(x))
+
+
+class Highway(Layer):
+    """Highway layer: ``t * h(x) + (1 - t) * x`` with the transform gate
+    ``t = sigmoid(x @ gate_kernel + gate_bias)``; the gate bias starts at
+    -2 (mostly carrying the input through)."""
+
+    def __init__(self, activation="tanh", bias: bool = True,
+                 W_regularizer=None, b_regularizer=None, **kwargs):
+        super().__init__(**kwargs)
+        self.activation = acts.get(activation) or (lambda v: v)
+        self.use_bias = bias
+        self.W_regularizer = W_regularizer
+        self.b_regularizer = b_regularizer
+
+    def build(self, rng, input_shape) -> Params:
+        d = input_shape[-1]
+        params: Params = {}
+        self.add_weight(params, rng, "kernel", (d, d),
+                        regularizer=self.W_regularizer)
+        self.add_weight(params, rng, "gate_kernel", (d, d),
+                        regularizer=self.W_regularizer)
+        if self.use_bias:
+            self.add_weight(params, rng, "bias", (d,), init="zero",
+                            regularizer=self.b_regularizer)
+            params["gate_bias"] = torch.full(
+                (d,), -2.0, dtype=get_policy().param_dtype)
+        return params
+
+    def call(self, params, x, training=False, rng=None):
+        h = _matmul(x, params["kernel"])
+        t = _matmul(x, params["gate_kernel"])
+        if self.use_bias:
+            h = h + params["bias"]
+            t = t + params["gate_bias"]
+        h = self.activation(h)
+        t = torch.sigmoid(t)
+        return t * h + (1.0 - t) * x
+
+
+class MaxoutDense(Layer):
+    """Dense with a max over ``nb_feature`` linear pieces."""
+
+    def __init__(self, output_dim: int, nb_feature: int = 4,
+                 W_regularizer=None, b_regularizer=None, bias: bool = True,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self.output_dim = int(output_dim)
+        self.nb_feature = int(nb_feature)
+        self.use_bias = bias
+        self.W_regularizer = W_regularizer
+        self.b_regularizer = b_regularizer
+
+    def build(self, rng, input_shape) -> Params:
+        d = input_shape[-1]
+        params: Params = {}
+        self.add_weight(params, rng, "kernel",
+                        (d, self.nb_feature * self.output_dim),
+                        regularizer=self.W_regularizer)
+        if self.use_bias:
+            self.add_weight(params, rng, "bias",
+                            (self.nb_feature * self.output_dim,),
+                            init="zero", regularizer=self.b_regularizer)
+        return params
+
+    def call(self, params, x, training=False, rng=None):
+        y = _matmul(x, params["kernel"])
+        if self.use_bias:
+            y = y + params["bias"]
+        y = y.reshape(tuple(y.shape[:-1]) +
+                      (self.nb_feature, self.output_dim))
+        return y.amax(dim=-2)
+
+    def compute_output_shape(self, input_shape):
+        return tuple(input_shape[:-1]) + (self.output_dim,)
+
+
+class SparseDense(Layer):
+    """Dense over a dense, mostly-zero input (the reference's contract;
+    no ``torch.sparse``)."""
+
+    def __init__(self, output_dim: int, init="glorot_uniform",
+                 activation=None, bias: bool = True, **kwargs):
+        super().__init__(**kwargs)
+        self.output_dim = int(output_dim)
+        self.kernel_init = init
+        self.activation = acts.get(activation)
+        self.use_bias = bias
+
+    def build(self, rng, input_shape) -> Params:
+        d = input_shape[-1]
+        params: Params = {}
+        self.add_weight(params, rng, "kernel", (d, self.output_dim),
+                        init=self.kernel_init)
+        if self.use_bias:
+            self.add_weight(params, rng, "bias", (self.output_dim,),
+                            init="zero")
+        return params
+
+    def call(self, params, x, training=False, rng=None):
+        y = _matmul(x, params["kernel"])
+        if self.use_bias:
+            y = y + params["bias"]
+        if self.activation is not None:
+            y = self.activation(y)
+        return y
+
+    def compute_output_shape(self, input_shape):
+        return tuple(input_shape[:-1]) + (self.output_dim,)
 
 
 class Lambda(Layer):

@@ -1,6 +1,11 @@
 """Embedding layers (port of ``pipeline/api/keras/layers/embedding.py``):
 a gather of rows from a device-resident table; ``WordEmbedding`` takes
-its table from pretrained vectors."""
+its table from pretrained vectors; ``SparseEmbedding`` combines the rows
+of each example's id list.
+
+``SparseEmbedding`` keeps the reference's contract: its ids are a dense
+(B, T) array padded with -1, not a ``torch.sparse`` tensor, and
+``max_norm`` renormalises only the rows looked up, never the table."""
 
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ class Embedding(Layer):
     """Integer ids (B, T) -> vectors (B, T, D)."""
 
     def __init__(self, input_dim: int, output_dim: int, init="uniform",
-                 mask_zero: bool = False,
+                 W_regularizer=None, mask_zero: bool = False,
                  parallel_mode: Optional[str] = None, **kwargs):
         super().__init__(**kwargs)
         if parallel_mode is not None:
@@ -36,12 +41,14 @@ class Embedding(Layer):
         self.output_dim = int(output_dim)
         self.kernel_init = init
         self.mask_zero = mask_zero
+        self.W_regularizer = W_regularizer
 
     def build(self, rng, input_shape) -> Params:
         params: Params = {}
         self.add_weight(params, rng, "embeddings",
                         (self.input_dim, self.output_dim),
-                        init=self.kernel_init)
+                        init=self.kernel_init,
+                        regularizer=self.W_regularizer)
         return params
 
     def call(self, params, x, training=False, rng=None):
@@ -71,3 +78,51 @@ class WordEmbedding(Embedding):
     def call(self, params, x, training=False, rng=None):
         emb = params["embeddings"]
         return _take(emb if self.trainable else emb.detach(), x)[1]
+
+
+class SparseEmbedding(Layer):
+    """Combiner embedding over variable-length id lists: ids (B, T)
+    padded with -1; the rows of the valid ids reduced by ``combiner``
+    ("sum" | "mean" | "sqrtn") to (B, D).  With ``max_norm`` > 0 each
+    looked-up row is scaled to an L2 norm of at most ``max_norm``."""
+
+    def __init__(self, input_dim: int, output_dim: int,
+                 combiner: str = "sum", max_norm: float = -1.0,
+                 init="uniform", W_regularizer=None, **kwargs):
+        super().__init__(**kwargs)
+        if combiner not in ("sum", "mean", "sqrtn"):
+            raise ValueError("combiner must be sum|mean|sqrtn")
+        self.input_dim = int(input_dim)
+        self.output_dim = int(output_dim)
+        self.combiner = combiner
+        self.max_norm = float(max_norm)
+        self.kernel_init = init
+        self.W_regularizer = W_regularizer
+
+    def build(self, rng, input_shape) -> Params:
+        params: Params = {}
+        self.add_weight(params, rng, "embeddings",
+                        (self.input_dim, self.output_dim),
+                        init=self.kernel_init,
+                        regularizer=self.W_regularizer)
+        return params
+
+    def call(self, params, x, training=False, rng=None):
+        ids = x.to(torch.int32)
+        valid = ids >= 0
+        _, rows = _take(params["embeddings"], torch.clamp(ids, min=0))
+        if self.max_norm > 0:
+            norms = torch.linalg.vector_norm(rows, dim=-1, keepdim=True)
+            rows = rows * torch.clamp(
+                self.max_norm / torch.clamp(norms, min=1e-12), max=1.0)
+        rows = rows * valid.unsqueeze(-1).to(rows.dtype)
+        out = rows.sum(dim=-2)
+        count = torch.clamp(valid.sum(dim=-1, keepdim=True), min=1)
+        if self.combiner == "mean":
+            out = out / count
+        elif self.combiner == "sqrtn":
+            out = out / torch.sqrt(count.to(out.dtype))
+        return out
+
+    def compute_output_shape(self, input_shape):
+        return tuple(input_shape[:-1]) + (self.output_dim,)

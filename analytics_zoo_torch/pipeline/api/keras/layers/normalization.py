@@ -1,5 +1,5 @@
-"""BatchNormalization and LayerNorm (port of
-``pipeline/api/keras/layers/normalization.py``).
+"""BatchNormalization, LayerNorm, L2Normalization and NormalizeScale
+(port of ``pipeline/api/keras/layers/normalization.py``).
 
 BatchNormalization is the port's stateful layer: its moving statistics
 live in the ``state`` collection and ``apply`` returns the new state
@@ -121,3 +121,49 @@ class LayerNorm(Layer):
         if self.activation is not None:
             y = self.activation(y)
         return y
+
+
+def _l2_normalize(x, axis, epsilon):
+    norm = torch.linalg.vector_norm(x, dim=axis, keepdim=True)
+    return x / torch.clamp(norm, min=epsilon)
+
+
+class L2Normalization(Layer):
+    """Unit-L2 normalize along ``axis`` (the norm floored at
+    ``epsilon``)."""
+
+    def __init__(self, axis: int = -1, epsilon: float = 1e-12, **kwargs):
+        super().__init__(**kwargs)
+        self.axis = axis
+        self.epsilon = epsilon
+
+    def call(self, params, x, training=False, rng=None):
+        return _l2_normalize(x, self.axis, self.epsilon)
+
+
+class NormalizeScale(Layer):
+    """Unit-L2 normalize along ``axis``, then multiply by a learned
+    per-channel scale that starts at ``scale_init`` (the SSD conv4_3
+    feature rescaler)."""
+
+    def __init__(self, axis: int = -1, scale_init: float = 20.0,
+                 epsilon: float = 1e-12, **kwargs):
+        super().__init__(**kwargs)
+        self.axis = int(axis)
+        self.scale_init = float(scale_init)
+        self.epsilon = float(epsilon)
+
+    def build(self, rng, input_shape) -> Params:
+        c = input_shape[self.axis]
+        params: Params = {}
+        s = self.scale_init
+        self.add_weight(params, rng, "scale", (c,),
+                        init=lambda gen, shape, dtype:
+                        torch.full(shape, s, dtype=dtype))
+        return params
+
+    def call(self, params, x, training=False, rng=None):
+        y = _l2_normalize(x, self.axis, self.epsilon)
+        shape = [1] * x.ndim
+        shape[self.axis] = -1
+        return y * params["scale"].reshape(shape)

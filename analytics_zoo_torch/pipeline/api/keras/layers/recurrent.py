@@ -52,7 +52,8 @@ class _RNNBase(Layer):
     def __init__(self, output_dim: int, activation="tanh",
                  inner_activation="sigmoid", return_sequences: bool = False,
                  go_backwards: bool = False, init="glorot_uniform",
-                 inner_init="orthogonal", **kwargs):
+                 inner_init="orthogonal", W_regularizer=None,
+                 U_regularizer=None, b_regularizer=None, **kwargs):
         super().__init__(**kwargs)
         self.output_dim = int(output_dim)
         self.activation = acts.get(activation) or _identity
@@ -61,6 +62,9 @@ class _RNNBase(Layer):
         self.go_backwards = go_backwards
         self.kernel_init = init
         self.inner_init = inner_init
+        self.W_regularizer = W_regularizer
+        self.U_regularizer = U_regularizer
+        self.b_regularizer = b_regularizer
 
     n_gates = 1
 
@@ -69,11 +73,13 @@ class _RNNBase(Layer):
         h = self.output_dim
         params: Params = {}
         self.add_weight(params, rng, "kernel", (d, self.n_gates * h),
-                        init=self.kernel_init)
+                        init=self.kernel_init,
+                        regularizer=self.W_regularizer)
         self.add_weight(params, rng, "recurrent_kernel",
-                        (h, self.n_gates * h), init=self.inner_init)
+                        (h, self.n_gates * h), init=self.inner_init,
+                        regularizer=self.U_regularizer)
         self.add_weight(params, rng, "bias", (self.n_gates * h,),
-                        init="zero")
+                        init="zero", regularizer=self.b_regularizer)
         return params
 
     def initial_carry(self, batch: int, device=None):

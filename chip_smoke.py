@@ -7,9 +7,11 @@ the kernels; then the recommenders, int8, the recurrent TextClassifier,
 Seq2seq's generative serving, the session recommender, ResNet-50, the
 flash kernels on bfloat16 through the port's ``bench_attention``,
 model persistence: checkpointed training resumed and retried,
-``save_model`` files loaded and served, and the Keras transformer models:
+``save_model`` files loaded and served, the Keras transformer models:
 GPT-1 served and trained, BERT-base fine-tuned through the TFPark
-estimators, a BERT checkpoint loaded.
+estimators, a BERT checkpoint loaded, and the rest of the Keras surface:
+AnomalyDetector trained and served, the 64 layer classes of that slice
+and the regularizers held to the CPU.
 
     python3 chip_smoke.py
 
@@ -204,7 +206,23 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    ``seq_len=77`` (the port takes the flash kernel, the reference dense
    attention) against ``ops.fused=torch`` with float32 and bf16 products
    (≤ 2e-2);
-17. a ``kernels`` JSON line, then the device line last.
+17. the rest of the Keras surface under float32 products: 17a
+   ``AnomalyDetector`` at its default widths (LSTM 8 -> 32 -> 15, dropouts
+   0.2, ``Dense(1)``) on the taxi app's synthetic series at the length of
+   NAB's ``nyc_taxi.csv`` (10,320 half-hourly points), unrolled by 24 and
+   split 80/20 in order: ``compile(Adam(lr=0.01), "mse")``, ``fit`` 3
+   epochs at batch 128 with 1 ``fused_adam`` launch a step, the step's
+   median and quartiles, ``predict`` at batch 512 (windows/s) and
+   ``detect_anomalies`` (the incidents recovered), the card's ``predict``
+   against the CPU port's within 1e-5 and a 2-epoch zero-dropout ``fit``
+   card against CPU within 1e-4 a loss; 17b each of the 64 layer classes
+   of the slice on the card against the CPU (forward and gradients,
+   1e-5 scaled by the magnitude above 1), the random layers by their
+   training statistics; 17c a regularized ``Sequential`` (Convolution1D,
+   LSTM, Dense) 3 Adam steps card against CPU within 1e-5, the history
+   losses without the penalty (``python3 chip_smoke.py --keras-surface``
+   runs phase 17 alone);
+18. a ``kernels`` JSON line, then the device line last.
 
 The int8 phases besides 9: 2b holds ``quantized_matmul`` and
 ``quantized_conv`` (``torch._int_mm``, a convolution as one product over
@@ -3689,6 +3707,449 @@ def transformer_phase(torch, card, dev):
     return (serve, train, tune), times
 
 
+# -------------- phase 17: the rest of the Keras surface, AnomalyDetector
+# NAB's nyc_taxi.csv, which the reference's anomaly-detection notebook
+# reads: half-hourly taxi passenger counts, 1 July 2014 - 31 January 2015
+TAXI_POINTS = 10_320
+TAXI_UNROLL = 24           # the taxi app's --unroll default
+AD_BATCH = 128
+AD_PREDICT_BATCH = 512
+AD_EPOCHS = 3
+AD_TIMED_STEPS = 30
+AD_PREDICT_ATOL = 1e-5
+AD_LOSS_ATOL = 1e-4
+AD_CHECK_WINDOWS = 2048    # the zero-dropout card-against-CPU fit's rows
+SWEEP_ATOL = 1e-5
+REG_ATOL = 1e-5
+
+
+def taxi_like_series(length: int, seed: int = 0):
+    """Synthetic NYC-taxi-shaped demand with 6 injected incidents: the
+    taxi app's generator (``apps/anomaly_detection``), value for value."""
+    rs = np.random.RandomState(seed)
+    t = np.arange(length, dtype=np.float32)
+    daily = np.sin(2 * np.pi * t / 48.0)          # 48 samples/day
+    weekly = 0.4 * np.sin(2 * np.pi * t / (48 * 7))
+    series = 10.0 + 3.0 * daily + weekly + 0.15 * rs.randn(length)
+    incidents = rs.choice(np.arange(100, length - 10), 6, replace=False)
+    for i in incidents:
+        series[i:i + 2] += rs.choice([-1, 1]) * 6.0   # spike or outage
+    return series.astype(np.float32), sorted(int(i) for i in incidents)
+
+
+@contextlib.contextmanager
+def zoo_device(device):
+    """Run the port's entry points on ``device`` (the zoo context moved
+    there), then move the context back."""
+    from analytics_zoo_torch.common.zoo_context import (
+        get_zoo_context, init_zoo_context, reset_zoo_context)
+    prior = get_zoo_context().device
+    reset_zoo_context()
+    init_zoo_context(device=device)
+    try:
+        yield
+    finally:
+        reset_zoo_context()
+        init_zoo_context(device=prior)
+
+
+def anomaly_detector(torch, dropouts=(0.2, 0.2, 0.2), variables=None):
+    """AnomalyDetector at its default widths on the zoo context's device,
+    auto-names from 1; ``variables`` (any device) replace its own."""
+    from analytics_zoo_torch.models.anomalydetection import AnomalyDetector
+    from analytics_zoo_torch.pipeline.api.keras.engine import Layer
+    from analytics_zoo_torch.pipeline.api.keras.topology import to_device
+    from analytics_zoo_torch.common.zoo_context import get_zoo_context
+    Layer.reset_name_counters()
+    m = AnomalyDetector((TAXI_UNROLL, 1), dropouts=dropouts)
+    m.model.init(torch.Generator().manual_seed(0))
+    if variables is not None:
+        m.set_variables(to_device(variables, get_zoo_context().device))
+    return m
+
+
+def anomaly_phase(torch, card, dev):
+    """17a: AnomalyDetector trained and served on the card."""
+    from analytics_zoo_torch.models.anomalydetection import (
+        detect_anomalies, unroll)
+    from analytics_zoo_torch.ops import kernels
+    from analytics_zoo_torch.parallel.trainer import (
+        DistributedTrainer, step_generator)
+    from analytics_zoo_torch.pipeline.api.keras import objectives
+    from analytics_zoo_torch.pipeline.api.keras.optimizers import Adam
+    from analytics_zoo_torch.pipeline.api.keras.topology import (
+        to_device, tree_leaves)
+    series, incidents = taxi_like_series(TAXI_POINTS, seed=0)
+    normed = (series - series.mean()) / (series.std() + 1e-8)
+    x, y = unroll(normed, TAXI_UNROLL)
+    split = int(len(x) * 0.8)
+    steps = split // AD_BATCH
+    model = anomaly_detector(torch)
+    start = to_device(model.get_variables(), torch.device("cpu"))
+    n_leaves = len(tree_leaves(start["params"]))
+    model.compile(Adam(lr=0.01), "mse")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = model.fit(x[:split], y[:split], batch_size=AD_BATCH,
+                     nb_epoch=AD_EPOCHS, rng=0)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    expect_launches(kernels.launch_counts(),
+                    {"fused_adam": AD_EPOCHS * steps},
+                    "AnomalyDetector fit")
+    losses = [h["loss"] for h in hist]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"AnomalyDetector fit losses {losses}")
+    epoch_s = [h["wall_s"] for h in hist]
+    print(f"17a AnomalyDetector (LSTM 8 -> 32 -> 15, dropouts 0.2, "
+          f"Dense(1); {n_leaves} leaves) on the taxi series ({TAXI_POINTS} "
+          f"half-hourly points, unroll {TAXI_UNROLL}: {len(x)} windows, "
+          f"{split} to train): fit {AD_EPOCHS} epochs of {steps} steps "
+          f"of {AD_BATCH} in {fit_s:.3f} s, losses {losses}, epoch s "
+          f"{epoch_s} (the first with warm-up), 1 fused_adam launch a step "
+          f"({card})")
+
+    # the step alone, every step ending in a synchronize
+    tr = DistributedTrainer(model.model, objectives.get("mse"),
+                            optim_method=Adam(lr=0.01))
+    params = tr.place_params(to_device(start, dev)["params"])
+    opt_state = tr.init_opt_state(params)
+    batch = tr.put_batch((x[:AD_BATCH], y[:AD_BATCH]))
+    step_ms = []
+    for i in range(AD_TIMED_STEPS + 3):       # 3 warm-up steps
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        params, opt_state, _, loss = tr.train_step(
+            params, opt_state, {}, batch, step_generator(0, i, dev))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - s) * 1e3)
+    step_ms = step_ms[3:]
+    q = np.percentile(step_ms, [0, 25, 50, 75, 100])
+    print(f"17a step: median {q[2]:.3f} ms, quartiles {q[1]:.3f}-"
+          f"{q[3]:.3f}, min {q[0]:.3f}, max {q[4]:.3f} over "
+          f"{AD_TIMED_STEPS} steps of {AD_BATCH} windows "
+          f"({AD_BATCH * 1e3 / q[2]:.1f} windows/s trained) ({card})")
+    del tr, params, opt_state
+
+    # predict, then the app's detection over the whole series
+    model.predict(x[:AD_PREDICT_BATCH], batch_size=AD_PREDICT_BATCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y_pred = model.predict(x, batch_size=AD_PREDICT_BATCH)
+    pred_s = time.perf_counter() - t0
+    if y_pred.shape != (len(x), 1) or not np.isfinite(y_pred).all():
+        fail(f"AnomalyDetector predict: shape {y_pred.shape}")
+    flagged = detect_anomalies(y, y_pred, anomaly_size=2 * len(incidents))
+    flagged_ts = sorted(int(i) + TAXI_UNROLL for i in flagged)
+    recovered = [i for i in incidents
+                 if any(abs(f - i) <= 2 for f in flagged_ts)]
+    print(f"17a predict: {len(x)} windows at batch {AD_PREDICT_BATCH} in "
+          f"{pred_s * 1e3:.3f} ms ({len(x) / pred_s:.1f} windows/s) "
+          f"({card}); detect_anomalies flagged {len(flagged)}, "
+          f"{len(recovered)} of the {len(incidents)} injected incidents "
+          f"within 2 steps ({incidents})")
+
+    # the card's predict against the CPU port's on the trained parameters
+    trained = to_device(model.get_variables(), torch.device("cpu"))
+    with zoo_device("cpu"):
+        cpu = anomaly_detector(torch, variables=trained)
+        y_cpu = cpu.predict(x, batch_size=AD_PREDICT_BATCH)
+    err = float(np.abs(y_pred - y_cpu).max())
+    print(f"17a predict card vs CPU: max abs diff {err:.3e} (tolerance "
+          f"{AD_PREDICT_ATOL}), |y| max {float(np.abs(y_cpu).max()):.3e}")
+    if not err <= AD_PREDICT_ATOL:
+        fail(f"AnomalyDetector predict card vs CPU {err} > {AD_PREDICT_ATOL}")
+
+    # a 2-epoch fit with the dropouts at zero, card against CPU
+    xs, ys = x[:AD_CHECK_WINDOWS], y[:AD_CHECK_WINDOWS]
+    runs = {}
+    for where in ("card", "cpu"):
+        with (zoo_device("cpu") if where == "cpu"
+              else contextlib.nullcontext()):
+            m = anomaly_detector(torch, (0.0, 0.0, 0.0), variables=start)
+            m.compile(Adam(lr=0.01), "mse")
+            runs[where] = [h["loss"] for h in m.fit(
+                xs, ys, batch_size=AD_BATCH, nb_epoch=2, rng=1)]
+    diff = max(abs(a - b) for a, b in zip(runs["card"], runs["cpu"]))
+    print(f"17a zero-dropout fit, 2 epochs of {AD_CHECK_WINDOWS // AD_BATCH} "
+          f"steps, card vs CPU: losses {runs['card']} vs {runs['cpu']}, "
+          f"max abs diff {diff:.3e} (tolerance {AD_LOSS_ATOL})")
+    if not diff <= AD_LOSS_ATOL:
+        fail(f"AnomalyDetector fit card vs CPU {diff} > {AD_LOSS_ATOL}")
+    return {"fused_adam": AD_EPOCHS * steps}
+
+
+def sweep_cases():
+    """(class, layer factory, inputs as numpy, what to check) for each of
+    the 64 layer classes of phase 17b, at small shapes."""
+    from analytics_zoo_torch.pipeline.api.keras import layers as L
+    rs = np.random.RandomState(17)
+
+    def x(*shape):
+        return rs.randn(*shape).astype(np.float32)
+
+    def pos(*shape):
+        return np.abs(x(*shape)) + 0.1
+
+    x3, x2 = x(4, 6, 8), x(4, 10)
+    img, img_th, vol = x(2, 7, 6, 5), x(2, 5, 7, 6), x(2, 5, 4, 6, 3)
+    ids = rs.randint(-1, 20, size=(5, 7)).astype(np.int32)
+    sparse = np.where(rs.rand(4, 12) > 0.8, x(4, 12), 0).astype(np.float32)
+    return [
+        (L.Reshape((4, -1)), x3), (L.Permute((2, 1)), x3),
+        (L.RepeatVector(3), x2), (L.Masking(0.0), np.where(
+            np.arange(6)[None, :, None] % 3 == 0, 0, x3).astype(np.float32)),
+        (L.Highway(), x3), (L.MaxoutDense(5, nb_feature=3), x2),
+        (L.SparseDense(6, activation="tanh"), sparse),
+        (L.LeakyReLU(0.2), x3), (L.ELU(0.7), x3),
+        (L.ThresholdedReLU(0.5), x3), (L.PReLU(), x3), (L.SReLU(), x3),
+        (L.Softmax(), x3),
+        (L.AddConstant(1.5), x3), (L.MulConstant(-0.75), x3),
+        (L.Exp(), x3), (L.Log(), pos(4, 6, 8)), (L.Sqrt(), pos(4, 6, 8)),
+        (L.Square(), x3), (L.Power(1.5, scale=0.5, shift=0.2),
+                           pos(4, 6, 8)),
+        (L.Negative(), x3), (L.Identity(), x3), (L.Threshold(0.1, -0.5), x3),
+        (L.BinaryThreshold(0.2), x3), (L.HardShrink(0.4), x3),
+        (L.SoftShrink(0.4), x3), (L.HardTanh(-0.5, 0.8), x3),
+        (L.RReLU(), x3), (L.CAdd((1, 6, 8)), x3), (L.CMul((1, 6, 1)), x3),
+        (L.Mul(), x3), (L.Scale((1, 1, 8)), x3),
+        (L.LRN2D(alpha=1e-2, dim_ordering="th"), img_th),
+        (L.WithinChannelLRN2D(size=3), img),
+        (L.ResizeBilinear(3, 10, dim_ordering="th"), img_th),
+        (L.GaussianSampler(), [x(4, 5), x(4, 5)]),
+        (L.GaussianNoise(0.5), x3), (L.GaussianDropout(0.3), x3),
+        (L.SpatialDropout1D(0.4), x3), (L.SpatialDropout2D(0.4), img),
+        (L.SpatialDropout3D(0.4), vol),
+        (L.Select(1, 3), x3), (L.Narrow(1, 2, 4), x3),
+        (L.Squeeze(0), x(3, 1, 5)), (L.ExpandDim(1), x3),
+        (L.Expand((-1, 4, 8)), x(3, 6, 1, 8)), (L.SplitTensor(0, 3), x3),
+        (L.SelectTable(1), [x(3, 4), x(3, 4)]), (L.Max(1), x3),
+        (L.GetShape(), x3),
+        (L.L2Normalization(), x3), (L.NormalizeScale(axis=1), img_th),
+        (L.SparseEmbedding(20, 6, combiner="sqrtn", max_norm=0.5), ids),
+        (L.SeparableConvolution2D(3, 2, 3, subsample=(2, 2),
+                                  border_mode="same", depth_multiplier=2),
+         img),
+        (L.Deconvolution2D(3, 3, 3, subsample=(2, 2), border_mode="same"),
+         img),
+        (L.Cropping1D((1, 2)), x3), (L.Cropping2D(((1, 2), (0, 1))), img),
+        (L.Cropping3D(), vol), (L.UpSampling1D(3), x3),
+        (L.UpSampling2D((2, 3)), img), (L.UpSampling3D((1, 2, 2)), vol),
+        (L.ShareConvolution2D(4, 3, 3, pad_h=1, pad_w=2), img),
+        (L.LocallyConnected1D(5, 3), x3),
+        (L.LocallyConnected2D(4, 2, 3, subsample=(2, 2)), img),
+    ]
+
+
+def _graph(layer, inputs):
+    from analytics_zoo_torch.pipeline.api.keras import Input, Model
+    if isinstance(inputs, list):
+        ins = [Input(shape=a.shape[1:]) for a in inputs]
+        return Model(ins, layer(ins))
+    inp = Input(shape=inputs.shape[1:])
+    return Model(inp, layer(inp))
+
+
+def _as_list(v):
+    return list(v) if isinstance(v, (list, tuple)) else [v]
+
+
+def layer_sweep(torch, dev):
+    """17b: each of the 64 new layer classes on the card against the same
+    layer on the CPU: forward, and for float inputs the gradients of
+    sum(out * ct) with respect to the parameters and the input; then the
+    random layers' training paths by their statistics on the card."""
+    from analytics_zoo_torch.pipeline.api.keras import layers as L
+    from analytics_zoo_torch.pipeline.api.keras.engine import Layer
+    from analytics_zoo_torch.pipeline.api.keras.topology import (
+        tree_leaves, tree_replace)
+    Layer.reset_name_counters()
+    cases = sweep_cases()
+    classes = {type(layer).__name__ for layer, _ in cases}
+    if len(classes) != 64:
+        fail(f"phase 17b sweeps {len(classes)} classes, not 64")
+    worst, loose, n_checked = 0.0, [], 0
+    cpu = torch.device("cpu")
+    for layer, inputs in cases:
+        name = type(layer).__name__
+        model = _graph(layer, inputs)
+        shapes = [tuple(p.shape) for p in tree_leaves(
+            model.init(torch.Generator().manual_seed(0))["params"])]
+        rs = np.random.RandomState(7)
+        vals = [torch.from_numpy((rs.randn(*s) * 0.5).astype(np.float32))
+                for s in shapes]
+        results = []                           # the CPU's, then the card's
+        for where in (cpu, dev):
+            ps = [v.to(where).requires_grad_() for v in vals]
+            params = tree_replace(model.get_variables()["params"], ps)
+            xs = [torch.from_numpy(a).to(where) for a in _as_list(inputs)]
+            grad_x = [a for a in xs if a.is_floating_point()]
+            for a in grad_x:
+                a.requires_grad_()
+            out, _ = model.apply(params, xs if isinstance(inputs, list)
+                                 else xs[0])
+            outs = _as_list(out)
+            floats = [o for o in outs if o.is_floating_point()]
+            wrt = ps + grad_x
+            grads = []
+            if floats and wrt and any(o.requires_grad for o in floats):
+                cts = [torch.from_numpy(np.random.RandomState(11).randn(
+                    *o.shape).astype(np.float32)).to(where) for o in floats]
+                loss = sum((o * c).sum() for o, c in zip(floats, cts))
+                grads = torch.autograd.grad(loss, wrt, allow_unused=True,
+                                            materialize_grads=True)
+            results.append([t.detach().cpu() for t in
+                            list(outs) + list(grads)])
+            if any(t.device.type != where.type for t in outs):
+                fail(f"phase 17b {name}: an output left {where}")
+        err = 0.0
+        for want, got in zip(*results):
+            if got.dtype != want.dtype or got.shape != want.shape:
+                fail(f"phase 17b {name}: {got.dtype}{tuple(got.shape)} on "
+                     f"the card, {want.dtype}{tuple(want.shape)} on the CPU")
+            if not want.is_floating_point():
+                if not torch.equal(got, want):
+                    fail(f"phase 17b {name}: integer outputs differ")
+                continue
+            d = float((got - want).abs().max()) if want.numel() else 0.0
+            # SWEEP_ATOL absolute, relative to the magnitude above 1 (the
+            # convolutions' gradients are sums over every position)
+            tol = SWEEP_ATOL * max(1.0, float(want.abs().max()))
+            if not d <= tol:
+                fail(f"phase 17b {name}: card vs CPU {d:.3e} > {tol:.3e}")
+            err = max(err, d)
+        n_checked += 1
+        worst = max(worst, err)
+        if err > 1e-6:
+            loose.append((name, err))
+    print(f"17b layer sweep: {n_checked} layers (64 classes) checked on the "
+          f"card against the CPU, forward and gradients, largest difference "
+          f"{worst:.3e} (tolerance {SWEEP_ATOL}, scaled by the magnitude "
+          f"above 1)")
+    for name, err in loose:
+        print(f"17b {name}: card vs CPU {err:.3e}")
+
+    # the random layers' training paths on the card, by their statistics
+    gen = torch.Generator(device=dev).manual_seed(17)
+    xs = torch.rand(100, 2000, generator=gen, device=dev) + 0.1
+    n = xs.numel()
+
+    def moments(d, mean, std, what):
+        m, s = float(d.mean()), float(d.std())
+        if not (abs(m - mean) < 5 * std / n ** 0.5 and
+                abs(s - std) < 5 * std / (2 * n) ** 0.5):
+            fail(f"phase 17b {what}: mean {m} std {s}, want {mean} {std}")
+        return m, s
+
+    r = [moments((L.GaussianNoise(0.5).call({}, xs, True, gen) - xs) / 0.5,
+                 0.0, 1.0, "GaussianNoise"),
+         moments(L.GaussianDropout(0.3).call({}, xs, True, gen) / xs, 1.0,
+                 (0.3 / 0.7) ** 0.5, "GaussianDropout"),
+         moments(L.RReLU(0.1, 0.4).call({}, -xs, True, gen) / -xs, 0.25,
+                 0.3 / 12 ** 0.5, "RReLU"),
+         moments((L.GaussianSampler().call({}, [xs, xs], True, gen) - xs)
+                 / torch.exp(xs * 0.5), 0.0, 1.0, "GaussianSampler")]
+    vol = torch.rand(400, 3, 3, 3, 50, generator=gen, device=dev) + 0.1
+    out = L.SpatialDropout3D(0.3).call({}, vol, True, gen)
+    kept = (out != 0).reshape(400, -1, 50)
+    if not bool((kept == kept[:, :1]).all()):
+        fail("phase 17b SpatialDropout3D: a channel's mask varies")
+    rate = float(kept[:, 0].float().mean())
+    if abs(rate - 0.7) > 5 * (0.21 / 20000) ** 0.5:
+        fail(f"phase 17b SpatialDropout3D keep rate {rate}")
+    print(f"17b random layers in training on the card: GaussianNoise, "
+          f"GaussianDropout, RReLU, GaussianSampler (mean, std) {r}; "
+          f"SpatialDropout3D keep rate {rate:.4f} (0.7), one draw a channel")
+    return n_checked, worst
+
+
+def regularizer_check(torch, dev):
+    """17c: a regularized Sequential, 3 Adam steps on the card and on the
+    CPU: the same parameters, and history losses without the penalty."""
+    from analytics_zoo_torch.pipeline.api.keras import Sequential
+    from analytics_zoo_torch.pipeline.api.keras import layers as L
+    from analytics_zoo_torch.pipeline.api.keras import objectives
+    from analytics_zoo_torch.pipeline.api.keras.engine import Layer
+    from analytics_zoo_torch.pipeline.api.keras.optimizers import Adam
+    from analytics_zoo_torch.pipeline.api.keras.regularizers import (
+        l1l2, l2)
+    from analytics_zoo_torch.pipeline.api.keras.topology import (
+        to_device, tree_leaves)
+    from analytics_zoo_torch.ops import kernels
+
+    def build(start=None):
+        Layer.reset_name_counters()
+        m = Sequential()
+        m.add(L.Convolution1D(8, 3, input_shape=(12, 6),
+                              W_regularizer=l2(1e-2)))
+        m.add(L.LSTM(6, W_regularizer=l2(1e-2), U_regularizer=l1l2(
+            1e-3, 1e-2)))
+        m.add(L.Dense(3, W_regularizer=l1l2(1e-2, 2e-2),
+                      b_regularizer=l2(3e-2)))
+        m.init(torch.Generator().manual_seed(3))
+        if start is not None:
+            from analytics_zoo_torch.common.zoo_context import (
+                get_zoo_context)
+            m.set_variables(to_device(start, get_zoo_context().device))
+        # Adam's first steps are lr * g / (|g| + eps): eps 1e-3 keeps them a
+        # well-conditioned function of g where a gradient cancels near 0
+        m.compile(Adam(lr=1e-2, epsilon=1e-3), "mse")
+        return m
+
+    rs = np.random.RandomState(18)
+    x = rs.randn(64, 12, 6).astype(np.float32)
+    y = rs.randn(64, 3).astype(np.float32)
+    card = build()
+    start = to_device(card.get_variables(), torch.device("cpu"))
+    kernels.reset_launch_counts()
+    hist = card.fit(x, y, batch_size=64, nb_epoch=3, shuffle=False, rng=0)
+    expect_launches(kernels.launch_counts(), {"fused_adam": 3},
+                    "regularized fit")
+    with zoo_device("cpu"):
+        cpu = build(start)
+        cpu_hist = cpu.fit(x, y, batch_size=64, nb_epoch=3, shuffle=False,
+                           rng=0)
+        p0 = start["params"]
+        out, _ = cpu.apply(p0, torch.from_numpy(x))
+        loss0 = float(objectives.get("mse")(torch.from_numpy(y), out))
+        penalty0 = float(cpu.regularization_loss(p0))
+        got = tree_leaves(cpu.get_variables()["params"])
+    want = [t.cpu() for t in tree_leaves(card.get_variables()["params"])]
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    moved = max(float((a - b).abs().max()) for a, b in
+                zip(want, tree_leaves(start["params"])))
+    losses = [h["loss"] for h in hist]
+    d_loss = max(abs(a - b["loss"]) for a, b in zip(losses, cpu_hist))
+    print(f"17c regularizers (Convolution1D W l2, LSTM W l2 + U l1l2, Dense "
+          f"W l1l2 + b l2), 3 Adam steps of 64: parameters card vs CPU "
+          f"{err:.3e} (tolerance {REG_ATOL}; moved {moved:.3e}), history "
+          f"losses {losses} (CPU {d_loss:.3e} apart); the first is the "
+          f"loss without the penalty {loss0:.6f} (penalty {penalty0:.6f})")
+    if not err <= REG_ATOL or not d_loss <= REG_ATOL:
+        fail(f"regularized fit card vs CPU: params {err}, losses {d_loss}")
+    if not abs(losses[0] - loss0) <= REG_ATOL or \
+            not penalty0 > 100 * REG_ATOL:
+        fail(f"history loss {losses[0]} is not the loss {loss0} without "
+             f"the penalty {penalty0}")
+
+
+def keras_surface_phase(torch, card, dev):
+    """Phase 17, under float32 products: AnomalyDetector trained and
+    served, the 64-class layer sweep, the regularizers.  Returns 17a's
+    launches."""
+    from analytics_zoo_torch.ops import dtypes
+    t_phase = time.perf_counter()
+    dtypes.set_policy(compute_dtype="float32")
+    try:
+        launches = anomaly_phase(torch, card, dev)
+        layer_sweep(torch, dev)
+        regularizer_check(torch, dev)
+    finally:
+        dtypes.restore_policy(None)
+    print(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4167,7 +4628,14 @@ def main() -> None:
     (gpt_serve, gpt_train, bert_tune), _ = transformer_phase(torch, card,
                                                              dev)
 
-    # ------------------------------------------------------ 17. results
+    # -------- 17. the rest of the Keras surface: AnomalyDetector trained
+    # and served, the 64-class layer sweep, the regularizers
+    kernels.reset_launch_counts()
+    ad_launches = keras_surface_phase(torch, card, dev)
+    print(f"launches: AnomalyDetector fit ({AD_EPOCHS} epochs) "
+          f"{ad_launches}")
+
+    # ------------------------------------------------------ 18. results
     print(f"launches: GPT-1 serving (4 requests) {gpt_serve}; GPT-1 fit "
           f"(8 steps) {gpt_train}; BERT-base fine-tuning (8 steps) "
           f"{bert_tune}")
@@ -4197,8 +4665,25 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
+def keras_surface_alone() -> None:
+    """Phase 17 by itself (``--keras-surface``): the kernels built, then
+    AnomalyDetector, the layer sweep and the regularizers on the card."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a GPU")
+    from analytics_zoo_torch import init_zoo_context
+    from analytics_zoo_torch.ops import kernels
+    kernels.build_all()
+    card = gpu_line()
+    print(f"gpu: {card}")
+    ctx = init_zoo_context(device="cuda:0")
+    keras_surface_phase(torch, card, ctx.device)
+
+
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--profile-recurrent"]:
+    if sys.argv[1:] == ["--keras-surface"]:
+        keras_surface_alone()
+    elif sys.argv[1:] == ["--profile-recurrent"]:
         profile_recurrent()
     elif sys.argv[1:] == ["--profile-resnet"]:
         profile_resnet()

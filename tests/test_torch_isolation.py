@@ -1,12 +1,12 @@
 """PyTorch port, isolation: importing the port (and every module of the
 serving, training, Cluster Serving, recommender, recurrent/generative,
-persistence and transformer-model slices) pulls in none of ``jax``,
-``analytics_zoo_tpu``, ``flax``, ``msgpack``, ``tensorflow`` and
-``transformers``, no port source imports the first four or loads a file
-of the JAX package by path, TensorFlow is imported only inside the BERT
-checkpoint loader's google reader, and the context refuses to fall back
-to the CPU quietly.  Each import check runs in a fresh interpreter, since this
-test process has both loaded."""
+persistence, transformer-model and Keras-layer/AnomalyDetector slices)
+pulls in none of ``jax``, ``analytics_zoo_tpu``, ``flax``, ``msgpack``,
+``tensorflow`` and ``transformers``, no port source imports the first
+four or loads a file of the JAX package by path, TensorFlow is imported
+only inside the BERT checkpoint loader's google reader, and the context
+refuses to fall back to the CPU quietly. Each import check runs in a
+fresh interpreter, since this test process has both loaded."""
 
 import os
 import pathlib
@@ -85,6 +85,13 @@ SLICE_MODULES = [
     "analytics_zoo_torch.tfpark.text.estimator",
     "analytics_zoo_torch.tfpark.text.bert_checkpoint",
     "analytics_zoo_torch.tfpark.text.keras_models",
+    "analytics_zoo_torch.pipeline.api.keras.regularizers",
+    "analytics_zoo_torch.pipeline.api.keras.layers.advanced_activations",
+    "analytics_zoo_torch.pipeline.api.keras.layers.elementwise",
+    "analytics_zoo_torch.pipeline.api.keras.layers.noise",
+    "analytics_zoo_torch.pipeline.api.keras.layers.shape_ops",
+    "analytics_zoo_torch.pipeline.api.keras.layers.local",
+    "analytics_zoo_torch.models.anomalydetection",
 ]
 
 

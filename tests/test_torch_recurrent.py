@@ -250,9 +250,11 @@ def test_lstm_options_match_reference(f32_both):
         torch.Generator().manual_seed(0), (None, 4, D))["params"]["bias"]
     np.testing.assert_array_equal(
         bias.numpy(), np.r_[np.zeros(H), np.ones(H), np.zeros(2 * H)])
+    # the positional slots end at the three regularizers, as in the
+    # reference: unit_forget_bias cannot be passed positionally
     with pytest.raises(TypeError):
         trnn.LSTM(H, "tanh", "sigmoid", False, False, "glorot_uniform",
-                  "orthogonal", True)
+                  "orthogonal", None, None, None, True)
 
 
 def test_layers_exported_and_shapes():
