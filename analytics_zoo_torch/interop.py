@@ -24,7 +24,11 @@ package's optimizer (``ScaleByAdamState``/``TraceState``/
 numpy array: SGD, Adam, AdamWeightDecay, RMSprop, Adagrad, Adadelta and
 Adamax) and returns the port optimizer's state with the same
 layout and key paths, on the zoo context's device, so a run resumes
-where the JAX one stopped.
+where the JAX one stopped.  With optimizer groups, ``optim`` is the
+groups' dict (``{group: (OptimMethod, layer names)}``, as
+``Estimator(optim_methods=)`` takes it, or ``{group: OptimMethod}``) and
+``opt_state`` the reference's group-keyed state ``{group: state}``; each
+group's state is carried as above.
 
 This module never imports JAX or optax: the caller turns the trees into
 numpy first, and optax's state classes are recognised by name.
@@ -158,6 +162,15 @@ def load_jax_opt_state(optim, opt_state):
     leaves numpy arrays).  Raises when the layouts differ."""
     from analytics_zoo_torch.common.zoo_context import get_zoo_context
     from analytics_zoo_torch.pipeline.api.keras import optimizers as opt
+    if isinstance(optim, dict):
+        got = (sorted(opt_state) if isinstance(opt_state, dict)
+               else type(opt_state).__name__)
+        if got != sorted(optim):
+            raise ValueError("load_jax_opt_state: the groups differ: "
+                             f"{sorted(optim)} against {got}")
+        return {g: load_jax_opt_state(m[0] if isinstance(m, tuple) else m,
+                                      opt_state[g])
+                for g, m in optim.items()}
     errors: List[str] = []
     state = _to_port_state(opt_state, get_zoo_context().device, "", errors)
     if not errors:

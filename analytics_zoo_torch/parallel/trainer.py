@@ -24,15 +24,25 @@ fault-injection site (``resilience/chaos.py``) at the trainer's 0-based
 step count, before anything is computed, so a fault at step k leaves
 exactly k steps committed.
 
-Not ported: the mesh and sharding, the whole-epoch and chunked scans,
-the observability hooks and ``train.remat`` (which raises).
+With ``optim_groups`` (``{group: (OptimMethod, layer names or "*")}``,
+the reference's multi-optimMethod split) each group's layers take their
+own optimizer's update and the state is ``{group: state}``; groups turn
+the fused update off, as in the reference.  With ``train.remat`` the
+forward and the loss are recomputed in the backward
+(``torch.utils.checkpoint``, non-reentrant); the recompute draws its
+dropout masks from a generator set to the step generator's state before
+the forward, so it sees the first forward's masks, and the model's new
+``state`` is the first forward's.
+
+Not ported: the mesh and sharding, the whole-epoch and chunked scans and
+the observability hooks.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Callable, Optional
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -83,6 +93,24 @@ def mask_frozen_params(model, params, update: Callable):
     return out
 
 
+def _group_params(params, groups: Dict[str, Sequence[str]]):
+    """Split a top-level params dict into named disjoint groups:
+    ``groups`` maps a group name to a list of top-level layer names, or
+    to ``"*"``, the layers no other group names, in the params' order
+    (Topology.scala:1130-1151)."""
+    assigned = set()
+    for names in groups.values():
+        if names != "*":
+            assigned.update(names)
+    out = {}
+    for gname, names in groups.items():
+        if names == "*":
+            out[gname] = [k for k in params if k not in assigned]
+        else:
+            out[gname] = list(names)
+    return out
+
+
 def step_generator(seed: int, step: int, device) -> torch.Generator:
     """The generator training step ``step`` of a run seeded ``seed`` draws
     its dropout masks from, on ``device`` (the layers fold their names
@@ -97,27 +125,27 @@ class DistributedTrainer:
     context's device."""
 
     def __init__(self, model, loss_fn: Optional[Callable],
-                 optim_method=None, clip: Optional[ClipSpec] = None):
+                 optim_method=None, clip: Optional[ClipSpec] = None,
+                 optim_groups: Optional[Dict[str, Tuple[Any, Sequence[str]]]]
+                 = None):
         from analytics_zoo_torch.common.zoo_context import get_zoo_context
         self.model = model
         self.loss_fn = loss_fn
         self.optim = optim_method
         self.clip = clip
+        self.optim_groups = optim_groups  # {name: (OptimMethod, names)}
         self.device = get_zoo_context().device
         self._dispatch_count = 0
         cfg = get_config()
-        if optim_method is not None and bool(cfg.get("train.remat")):
-            raise NotImplementedError(
-                "train.remat=True (recompute activations in the backward) is "
-                "not ported to the PyTorch package yet (ROADMAP.md)")
+        self.remat = bool(cfg.get("train.remat"))
         self.grad_sync_dtype = str(cfg.get("train.grad_sync_dtype"))
         # fused optimizer update (ops/fused.py): clip + moment update +
         # param apply in ONE pass per leaf.  None = unsupported
-        # (an optimizer or clip it does not reproduce, or
-        # train.fused_optimizer off): the optimizer's own update runs.
+        # (optimizer groups, an optimizer or clip it does not reproduce,
+        # or train.fused_optimizer off): the optimizer's own update runs.
         self._fused_update = None
         if bool(cfg.get("train.fused_optimizer", True)) and \
-                self.optim is not None:
+                not self.optim_groups and self.optim is not None:
             from analytics_zoo_torch.ops.fused import build_fused_update
             self._fused_update = build_fused_update(self.optim, self.clip)
 
@@ -205,7 +233,15 @@ class DistributedTrainer:
             t.join()
 
     # ----------------------------------------------------------- optimizer
+    def _groups(self, params):
+        return _group_params(
+            params, {k: v[1] for k, v in self.optim_groups.items()})
+
     def init_opt_state(self, params):
+        if self.optim_groups:
+            return {g: self.optim_groups[g][0].init(
+                        {k: params[k] for k in names})
+                    for g, names in self._groups(params).items()}
         return self.optim.init(params)
 
     @property
@@ -215,6 +251,14 @@ class DistributedTrainer:
         return self._fused_update is not None
 
     def _optimizer_update(self, grads, opt_state, params):
+        if self.optim_groups:
+            new_state = {}
+            for g, names in self._groups(params).items():
+                sub_p = {k: params[k] for k in names}
+                updates, new_state[g] = self.optim_groups[g][0].update(
+                    {k: grads[k] for k in names}, opt_state[g], sub_p)
+                tree_map(lambda p, u: p.add_(u), sub_p, updates)
+            return params, new_state
         updates, new_state = self.optim.update(grads, opt_state, params)
         tree_map(lambda p, u: p.add_(u), params, updates)
         return params, new_state
@@ -228,17 +272,40 @@ class DistributedTrainer:
         the loss without it."""
         x, y = batch
         live = [p.detach().requires_grad_() for p in tree_leaves(params)]
-        with torch.enable_grad():
-            p = tree_replace(params, live)
+        first = {}
+
+        def forward(*leaves):
+            # under remat this runs again in the backward: the recompute
+            # draws from a generator set to the state ``rng`` had before
+            # the first forward, and its new state is dropped
+            g = rng
+            if "new_state" in first and rng is not None:
+                g = torch.Generator(device=rng.device)
+                g.set_state(first["rng_state"])
+            p = tree_replace(params, list(leaves))
             out, new_state = self.model.apply(p, x, state=state,
-                                              training=True, rng=rng)
+                                              training=True, rng=g)
             loss = self.loss_fn(y, out)
             # a float 0.0 when no layer registered a regularizer
             reg = self.model.regularization_loss(p)
-            objective = loss + reg if torch.is_tensor(reg) else loss
-        grads = torch.autograd.grad(objective, live, allow_unused=True,
-                                    materialize_grads=True)
-        return loss.detach(), tree_replace(params, grads), new_state
+            first.setdefault("new_state", new_state)
+            return (loss + reg if torch.is_tensor(reg) else loss), loss
+
+        with torch.enable_grad():
+            if self.remat:
+                from torch.utils.checkpoint import checkpoint
+                first["rng_state"] = (rng.get_state() if rng is not None
+                                      else None)
+                objective, loss = checkpoint(forward, *live,
+                                             use_reentrant=False)
+            else:
+                objective, loss = forward(*live)
+        if objective.requires_grad:
+            grads = torch.autograd.grad(objective, live, allow_unused=True,
+                                        materialize_grads=True)
+        else:   # every param frozen or detached: zero gradients, as jax.grad
+            grads = [torch.zeros_like(p) for p in live]
+        return loss.detach(), tree_replace(params, grads), first["new_state"]
 
     def _step_core(self, params, opt_state, state, batch, rng):
         chaos = active_chaos()

@@ -151,6 +151,10 @@ class Layer:
             name = f"{cls}_{Layer._counters[cls]}".lower()
         self.name = name
         self.built = False
+        # transfer-learning freeze flag: a frozen layer's params enter the
+        # containers' forward detached, and the training engine keeps them
+        # bit-identical through the update
+        self.trainable = True
         self.batch_input_shape: Optional[Shape] = (
             to_batch_shape(input_shape) if input_shape is not None else None)
         self.input_dtype = input_dtype

@@ -6,6 +6,7 @@ from analytics_zoo_torch.pipeline.api.keras.layers.embedding import (
     Embedding, SparseEmbedding, WordEmbedding,
 )
 from analytics_zoo_torch.pipeline.api.keras.layers.merge import Merge, merge
+from analytics_zoo_torch.pipeline.api.keras.layers.moe import MoE
 from analytics_zoo_torch.pipeline.api.keras.layers.normalization import (
     BatchNormalization, L2Normalization, LayerNorm, NormalizeScale,
 )
@@ -36,6 +37,9 @@ from analytics_zoo_torch.pipeline.api.keras.layers.noise import (
 from analytics_zoo_torch.pipeline.api.keras.layers.wrappers import (
     KerasLayerWrapper, TimeDistributed,
 )
+from analytics_zoo_torch.pipeline.api.keras.layers.convlstm import (
+    ConvLSTM2D, ConvLSTM3D,
+)
 from analytics_zoo_torch.pipeline.api.keras.layers.elementwise import (
     AddConstant, BinaryThreshold, CAdd, CMul, Exp, GaussianSampler,
     HardShrink, HardTanh, Identity, Log, LRN2D, Mul, MulConstant,
@@ -59,8 +63,6 @@ Conv1D = Convolution1D
 Conv2D = Convolution2D
 Conv3D = Convolution3D
 
-# the reference's __all__, less ConvLSTM2D, ConvLSTM3D and MoE (not ported
-# yet: ROADMAP.md, queue 1)
 __all__ = [
     "Activation", "Dense", "Dropout", "Flatten", "Highway", "Lambda",
     "Masking", "MaxoutDense", "Permute", "RepeatVector", "Reshape",
@@ -81,11 +83,12 @@ __all__ = [
     "GaussianDropout", "GaussianNoise", "SpatialDropout1D",
     "SpatialDropout2D", "SpatialDropout3D",
     "KerasLayerWrapper", "TimeDistributed",
-    "LocallyConnected1D", "LocallyConnected2D",
+    "ConvLSTM2D", "ConvLSTM3D", "LocallyConnected1D",
+    "LocallyConnected2D",
     "BERT", "MultiHeadSelfAttention", "PositionwiseFeedForward",
     "TransformerLayer", "transformer_block",
     "SparseEmbedding", "AtrousConvolution1D", "ShareConvolution2D",
-    "SpaceToDepth2D",
+    "SpaceToDepth2D", "MoE",
     "AddConstant", "BinaryThreshold", "CAdd", "CMul", "Exp",
     "GaussianSampler", "HardShrink", "HardTanh", "Identity", "Log",
     "LRN2D", "Mul", "MulConstant", "Negative", "Power",

@@ -10,9 +10,13 @@ setters, which run the single-device ``Estimator``; ``set_checkpoint``
 trigger, and resumes from its latest snapshot); ``save_model``/
 ``load_weights`` (the JAX package's file layout, ``utils/
 serialization.py``); ``quantize`` (the calibrated int8 conversion,
-``ops/quant.py``); and the ``Sequential`` stack.  Both containers report
-each layer's input to the calibration taps (``engine.tap_activation``).
-TensorBoard and freezing are not ported yet.
+``ops/quant.py``); the transfer-learning surgery (``freeze``/``unfreeze``/
+``init_from``, ``Model.freeze_up_to``/``new_graph``: a frozen layer's
+params enter the forward detached, the counterpart of ``stop_gradient``,
+and the trainer keeps them bit-identical through the update); and the
+``Sequential`` stack.  Both containers report each layer's input to the
+calibration taps (``engine.tap_activation``).  TensorBoard is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -279,6 +283,59 @@ class KerasNet(Container):
         return any("kernel_scale" in p for p in params.values()
                    if isinstance(p, dict))
 
+    # ------------------------------------------- transfer-learning surgery
+    def freeze(self, *names: str) -> "KerasNet":
+        """Mark layers non-trainable (NetUtils.scala:267 ``freeze``); no
+        names freezes every layer.  A frozen layer's params enter the
+        forward detached and the trainer keeps them bit-identical through
+        the update.  Call before ``fit``."""
+        targets = self._layers_by_names(names) if names else self.layers
+        for l in targets:
+            l.trainable = False
+        return self
+
+    def unfreeze(self, *names: str) -> "KerasNet":
+        """Re-enable training (NetUtils.scala:276 ``unFreeze``); no names
+        = all layers."""
+        targets = self._layers_by_names(names) if names else self.layers
+        for l in targets:
+            l.trainable = True
+        return self
+
+    def frozen_layer_names(self):
+        return {l.name for l in self.layers
+                if not getattr(l, "trainable", True)}
+
+    def init_from(self, donor: "KerasNet", rng=None):
+        """Init this net, then adopt the donor's variables (the same
+        tensors) for every layer shared by name: stack a new head on
+        ``new_graph(...)`` outputs, then ``ft.init_from(pretrained)``."""
+        self.init(rng)
+        dv = donor.get_variables()
+        for l in self.layers:
+            if l.name in dv["params"]:
+                self._variables["params"][l.name] = dv["params"][l.name]
+                if l.name in dv.get("state", {}):
+                    self._variables["state"][l.name] = dv["state"][l.name]
+        return self._variables
+
+    def _layers_by_names(self, names):
+        by_name = {l.name: l for l in self.layers}
+        missing = [n for n in names if n not in by_name]
+        if missing:
+            raise ValueError(
+                f"no such layer(s): {missing}; have {sorted(by_name)}")
+        return [by_name[n] for n in names]
+
+    @staticmethod
+    def _layer_params(params, layer):
+        """The layer's params, detached when it is frozen."""
+        p = params[layer.name]
+        if not getattr(layer, "trainable", True):
+            p = tree_map(lambda t: t.detach()
+                         if isinstance(t, torch.Tensor) else t, p)
+        return p
+
     # ------------------------------------------------------------ save/load
     def save_model(self, path: str, over_write: bool = True):
         """The variables to ``path`` in the JAX package's layout (atomic;
@@ -352,7 +409,8 @@ class Sequential(KerasNet):
         for l in self.layers:
             sub_rng = fold_name(rng, l.name) if rng is not None else None
             tap_activation(l.name, x)
-            x, s = l.apply(params[l.name], x, state=state.get(l.name),
+            x, s = l.apply(self._layer_params(params, l), x,
+                           state=state.get(l.name),
                            training=training, rng=sub_rng)
             if s is not None:
                 new_state[l.name] = s
@@ -411,6 +469,67 @@ class Model(KerasNet):
     def compute_output_shape(self, input_shape):
         return self._output_shape
 
+    # ------------------------------------------- transfer-learning surgery
+    def freeze_up_to(self, *names: str) -> "Model":
+        """Freeze every layer from the inputs up to AND including the
+        named layers (NetUtils.scala:267 ``freezeUpTo``)."""
+        self._layers_by_names(names)   # validate
+        targets = set(names)
+        frozen_layers = set()
+        visited = set()   # node ids: each node of a shared layer is walked
+
+        def visit(node: Node):
+            if id(node) in visited:
+                return
+            visited.add(id(node))
+            frozen_layers.add(node.layer.name)
+            for t in node.inbound:
+                if t.node is not None:
+                    visit(t.node)
+
+        for node in self._topo:
+            if node.layer.name in targets:
+                visit(node)
+        for l in self.layers:
+            if l.name in frozen_layers:
+                l.trainable = False
+        return self
+
+    def new_graph(self, outputs) -> "Model":
+        """Subgraph extraction (NetUtils.scala:82 ``newGraph``): a new
+        Model over the SAME layer objects whose outputs are the named
+        layers' outputs.  The retained layers' variables are the source's
+        tensors, not copies, and the freeze flags are shared (same layer
+        objects).  For a layer applied more than once, the last call's
+        output is used."""
+        names = [outputs] if isinstance(outputs, str) else list(outputs)
+        tensor_of = {}
+        for node in self._topo:
+            tensor_of[node.layer.name] = (
+                node.outputs[0] if len(node.outputs) == 1
+                else list(node.outputs))
+        missing = [n for n in names if n not in tensor_of]
+        if missing:
+            raise ValueError(
+                f"no such layer(s): {missing}; have {sorted(tensor_of)}")
+        outs: List[KTensor] = []
+        for n in names:
+            t = tensor_of[n]
+            outs.extend(t if isinstance(t, list) else [t])
+        sub = Model(self.inputs if not self._single_input
+                    else self.inputs[0],
+                    outs if len(outs) > 1 else outs[0])
+        if self._variables is not None:
+            params = self._variables["params"]
+            state = self._variables["state"]
+            sub._variables = {
+                "params": {l.name: params[l.name] for l in sub.layers
+                           if l.name in params},
+                "state": {l.name: state[l.name] for l in sub.layers
+                          if l.name in state},
+            }
+        return sub
+
     def build(self, rng, input_shape) -> Params:
         params: Params = {}
         self._sub_state: State = {}
@@ -449,7 +568,8 @@ class Model(KerasNet):
             x = args[0] if len(args) == 1 else args
             sub_rng = fold_name(rng, l.name) if rng is not None else None
             tap_activation(l.name, x)
-            out, s = l.apply(params[l.name], x, state=state.get(l.name),
+            out, s = l.apply(self._layer_params(params, l), x,
+                             state=state.get(l.name),
                              training=training, rng=sub_rng,
                              **node.call_kwargs)
             if s is not None:

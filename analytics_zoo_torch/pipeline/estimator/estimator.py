@@ -43,7 +43,12 @@ Counters ``checkpoint_save_total``, ``checkpoint_restore_total``,
 Not ported: TensorBoard summaries, the watchdog and its halt snapshot,
 ``DataPipeline`` state in the snapshot, mesh re-formation and the
 degraded exit, the chunked and whole-epoch dispatch engines, the
-device-resident validation cache, and multiple optimizer groups.
+device-resident validation cache.
+
+``optim_methods={group: (OptimMethod, layer names or "*")}`` trains each
+group of layers with its own optimizer (the reference's multi-optimMethod
+split; ``parallel/trainer.py``): the optimizer state, and a snapshot's
+``opt_state``, are ``{group: state}``.
 """
 
 from __future__ import annotations
@@ -135,10 +140,12 @@ def _to_host(t) -> np.ndarray:
 
 class Estimator:
     def __init__(self, model, optim_method=None,
+                 optim_methods: Optional[Dict] = None,
                  model_dir: Optional[str] = None):
         from analytics_zoo_torch.pipeline.api.keras import optimizers
         self.model = model
         self.optim_method = optimizers.get(optim_method)
+        self.optim_groups = optim_methods
         self.model_dir = model_dir
         self._clip: Optional[ClipSpec] = None
         self.variables = None
@@ -176,7 +183,7 @@ class Estimator:
         from analytics_zoo_torch.resilience.policy import (
             RecoveryAction, RecoveryPolicy, RetryBudget)
         from analytics_zoo_torch.utils.serialization import Checkpoint
-        if self.optim_method is None:
+        if self.optim_method is None and not self.optim_groups:
             raise ValueError("Estimator needs an optim_method to train")
         criterion = objectives.get(criterion)
         end_trigger = end_trigger or MaxEpoch(1)
@@ -185,7 +192,8 @@ class Estimator:
         seed = int(rng if rng is not None else cfg.get("data.shuffle_seed"))
         trainer = DistributedTrainer(self.model, criterion,
                                      optim_method=self.optim_method,
-                                     clip=self._clip)
+                                     clip=self._clip,
+                                     optim_groups=self.optim_groups)
         if train_set.size < batch_size:
             raise ValueError(
                 f"batch_size {batch_size} exceeds dataset size "

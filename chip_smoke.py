@@ -9,9 +9,10 @@ flash kernels on bfloat16 through the port's ``bench_attention``,
 model persistence: checkpointed training resumed and retried,
 ``save_model`` files loaded and served, the Keras transformer models:
 GPT-1 served and trained, BERT-base fine-tuned through the TFPark
-estimators, a BERT checkpoint loaded, and the rest of the Keras surface:
+estimators, a BERT checkpoint loaded, the rest of the Keras surface:
 AnomalyDetector trained and served, the 64 layer classes of that slice
-and the regularizers held to the CPU.
+and the regularizers held to the CPU, and KNRM trained and ranked, MoE,
+ConvLSTM, remat, freezing and optimizer groups, keras2 and autograd.
 
     python3 chip_smoke.py
 
@@ -222,7 +223,34 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    LSTM, Dense) 3 Adam steps card against CPU within 1e-5, the history
    losses without the penalty (``python3 chip_smoke.py --keras-surface``
    runs phase 17 alone);
-18. a ``kernels`` JSON line, then the device line last.
+18. text matching and the rest of the Keras API (``python3 chip_smoke.py
+   --text-matching`` runs it alone): 18a ``KNRM`` at the qaranker
+   example's lengths (10 and 40 tokens), KNRM.scala's 300-wide embedding
+   (a seeded 20,001 x 300 matrix, trainable), 21 kernels, on 2,048
+   synthetic questions with 1 relevant and 9 irrelevant answers each (the
+   example's generator over 20,000 words) through ``TextSet`` and
+   ``from_relation_pairs``: ``compile(Adam, "rank_hinge")``, ``fit``
+   (``shuffle=False``, batch 256, 3 epochs) with 1 ``fused_adam`` launch a
+   step, the step's median and quartiles, pairs/s, ``score_pairs`` rows/s,
+   MAP and NDCG@3 before and after training, card against CPU
+   ``score_pairs`` on the trained weights (1e-5); 18b ``MoE`` at
+   Switch-Base's widths (768, 3072, 8 experts, top-1, capacity factor
+   1.25) on 8 x 512 tokens, 4 Adam steps of ``call_with_aux`` under mse +
+   1e-2 aux (ms, tokens dropped, aux), card against CPU output and aux,
+   and top-2 with an overflow at a small width; 18c a ``ConvLSTM2D`` stack
+   of 128, 64 and 64 filters, 5 x 5, on 16 x 10 frames of 16 x 16 x 16
+   (Shi et al. 2015's Moving-MNIST patches): forward and backward ms,
+   card against CPU, and ``ConvLSTM3D`` small; 18a-c under float32
+   products; 18d at BERT-base width (phase 4's model, 8 x 512, Adam):
+   ``train.remat`` off and on in turns, 4 steps each under deterministic
+   algorithms, step ms, peak memory and launches, the params bit-identical;
+   ``freeze_up_to`` the encoder, then ``fit`` on the fused Adam with the
+   frozen leaves bit-identical; two optimizer groups (Adam on the head,
+   SGD on ``"*"``) with no optimizer kernel, one step card against CPU;
+   18e a ``keras2`` Conv2D/MaxPooling2D/Dense ``Sequential`` fit on
+   ``datasets.mnist``'s synthetic digits, and ``custom_loss_example.py``'s
+   ``autograd.CustomLoss`` in ``compile``;
+19. a ``kernels`` JSON line, then the device line last.
 
 The int8 phases besides 9: 2b holds ``quantized_matmul`` and
 ``quantized_conv`` (``torch._int_mm``, a convolution as one product over
@@ -4150,6 +4178,687 @@ def keras_surface_phase(torch, card, dev):
     return launches
 
 
+# ------------------------------------------------------------ phase 18
+def qa_relations(n_questions: int, n_neg: int, vocab_size: int, seed: int):
+    """Synthetic QA relations by the qaranker example's scheme
+    (``examples/qaranker/qa_ranker.py``): each question is 3 of 4 theme
+    words, its relevant answer the 4 themes and 4 random words, each of
+    its ``n_neg`` irrelevant answers 8 random words, over a vocabulary of
+    ``vocab_size`` words; at 3 negatives and 200 words, the example's."""
+    rs = np.random.RandomState(seed)
+    # an array once (the example passes a list, which ``choice`` converts
+    # at every call: the same draws, 20,000 words converted 22,528 times)
+    vocab = np.array([f"w{i}" for i in range(vocab_size)])
+    q_corpus, a_corpus, relations = {}, {}, []
+    aid = 0
+    for qi in range(n_questions):
+        theme = rs.choice(vocab, 4, replace=False)
+        qid = f"q{qi}"
+        q_corpus[qid] = " ".join(theme[:3])
+        pos = f"a{aid}"
+        aid += 1
+        a_corpus[pos] = " ".join(np.concatenate(
+            [theme, rs.choice(vocab, 4)]))
+        relations.append((qid, pos, 1))
+        for _ in range(n_neg):
+            neg = f"a{aid}"
+            aid += 1
+            a_corpus[neg] = " ".join(rs.choice(vocab, 8))
+            relations.append((qid, neg, 0))
+    return relations, q_corpus, a_corpus
+
+
+def qa_word_index(q_corpus, a_corpus):
+    """The word index over both corpora, through the port's ``TextSet``."""
+    from analytics_zoo_torch.feature.text import TextSet
+    return (TextSet.from_texts(list(q_corpus.values()) +
+                               list(a_corpus.values()))
+            .tokenize().normalize().word2idx().word_index)
+
+
+def _qa_ids(texts, word_index, length):
+    from analytics_zoo_torch.feature.text import TextSet
+    ts = (TextSet.from_texts(texts).tokenize().normalize()
+          .word2idx(existing_map=word_index)
+          .shape_sequence(length, trunc_mode="post"))
+    return ts.to_arrays()[0]
+
+
+def qa_pair_arrays(relations, q_corpus, a_corpus, q_len, a_len):
+    """``(q, a, y, word_index)``: the interleaved (pos, neg) pairs of
+    ``TextSet.from_relation_pairs`` as fixed-length ids, as the example
+    builds them (question and answer split at the pair's separator)."""
+    from analytics_zoo_torch.feature.text import TextSet
+    wi = qa_word_index(q_corpus, a_corpus)
+    pairs = TextSet.from_relation_pairs(relations, q_corpus, a_corpus)
+    split = [f.text.split(" \t ") for f in pairs.features]
+    q = _qa_ids([s[0] for s in split], wi, q_len)
+    a = _qa_ids([s[1] for s in split], wi, a_len)
+    y = np.asarray([f.label for f in pairs.features],
+                   np.float32).reshape(-1, 1)
+    return q, a, y, wi
+
+
+def qa_rank_arrays(relations, q_corpus, a_corpus, q_len, a_len, wi=None):
+    """``(q, a)`` ids of every relation, in order, for ``score_pairs``
+    (``wi`` the word index, when the caller has it)."""
+    wi = wi if wi is not None else qa_word_index(q_corpus, a_corpus)
+    return (_qa_ids([q_corpus[r[0]] for r in relations], wi, q_len),
+            _qa_ids([a_corpus[r[1]] for r in relations], wi, a_len))
+
+
+KNRM_Q_LEN, KNRM_A_LEN = 10, 40   # the qaranker example's defaults
+KNRM_EMBED = 300                  # KNRM.scala's default
+KNRM_KERNELS = 21
+KNRM_QUESTIONS = 2048
+KNRM_NEG = 9
+KNRM_VOCAB = 20_000
+KNRM_BATCH = 256
+KNRM_EPOCHS = 3
+KNRM_TIMED_STEPS = 30
+# Card against CPU scores, relative to their scale: a score sums 21
+# log-kernel features over 10 query terms in float32 to ~38, where an ulp
+# is 3.8e-6, in another order on each device (1.144e-05 absolute on the
+# H100)
+KNRM_ATOL = 1e-5
+# Switch-Base (Fedus et al. 2021): d_model 768, d_ff 3072, 8 experts,
+# top-1, capacity factor 1.25
+MOE_D, MOE_FF, MOE_EXPERTS, MOE_CF = 768, 3072, 8, 1.25
+MOE_BATCH, MOE_SEQ = 8, 512
+MOE_STEPS = 4
+MOE_ATOL = 1e-5
+# Shi et al. 2015, Moving MNIST: 16 x 16 patch tensors of 16 values,
+# 10 frames, three ConvLSTM layers of 128, 64 and 64 filters, 5 x 5
+CLSTM_BATCH, CLSTM_FRAMES, CLSTM_SIZE, CLSTM_CHANNELS = 16, 10, 16, 16
+CLSTM_FILTERS = (128, 64, 64)
+CLSTM_KERNEL = 5
+CLSTM_GRAD_ROWS = 2
+CLSTM_ATOL = 1e-4
+CLSTM_GRAD_RTOL = 1e-4
+SWITCH_STEPS = 4
+GROUP_ROWS = 2                    # the groups' card-against-CPU step
+
+
+def zero_dropout(net) -> None:
+    """Every dropout of ``net`` at 0: the card's and the CPU's generators
+    draw different masks."""
+    for layer in net.layers:
+        if hasattr(layer, "p"):
+            layer.p = 0.0
+        if hasattr(layer, "attn_dropout"):
+            layer.attn_dropout = 0.0
+        if hasattr(layer, "layers"):
+            zero_dropout(layer)
+
+
+def knrm_model(embedding_matrix):
+    from analytics_zoo_torch.models.textmatching import KNRM
+    from analytics_zoo_torch.pipeline.api.keras.engine import Layer
+    Layer.reset_name_counters()
+    return KNRM(KNRM_Q_LEN, KNRM_A_LEN, vocab_size=KNRM_VOCAB,
+                embed_size=KNRM_EMBED, embedding_matrix=embedding_matrix,
+                train_embed=True, kernel_num=KNRM_KERNELS, sigma=0.1,
+                exact_sigma=0.001)
+
+
+def knrm_phase(torch, card, dev):
+    """18a: KNRM trained and ranked at its published width."""
+    from analytics_zoo_torch.models.common_ranker import (
+        evaluate_map, evaluate_ndcg)
+    from analytics_zoo_torch.ops import kernels
+    from analytics_zoo_torch.parallel.trainer import (
+        DistributedTrainer, step_generator)
+    from analytics_zoo_torch.pipeline.api.keras import objectives
+    from analytics_zoo_torch.pipeline.api.keras.optimizers import Adam
+    from analytics_zoo_torch.pipeline.api.keras.topology import (
+        to_device, tree_leaves)
+    t0 = time.perf_counter()
+    relations, qc, ac = qa_relations(KNRM_QUESTIONS, KNRM_NEG, KNRM_VOCAB,
+                                     seed=0)
+    q, a, y, wi = qa_pair_arrays(relations, qc, ac, KNRM_Q_LEN, KNRM_A_LEN)
+    rq, ra = qa_rank_arrays(relations, qc, ac, KNRM_Q_LEN, KNRM_A_LEN, wi)
+    emb = (np.random.RandomState(0).randn(KNRM_VOCAB + 1, KNRM_EMBED)
+           * 0.1).astype(np.float32)
+    print(f"18a data: {KNRM_QUESTIONS} questions x (1 + {KNRM_NEG}) "
+          f"answers over {KNRM_VOCAB} words ({len(wi)} indexed), "
+          f"{len(y)} interleaved pair rows, {len(relations)} relations to "
+          f"rank, in {time.perf_counter() - t0:.2f} s (host)")
+    model = knrm_model(emb)
+    model.model.init(torch.Generator().manual_seed(0))
+    start = to_device(model.get_variables(), torch.device("cpu"))
+    n_leaves = len(tree_leaves(start["params"]))
+    before = model.score_pairs(rq, ra)
+    map0 = evaluate_map(relations, before)
+    ndcg0 = evaluate_ndcg(relations, before, k=3)
+    model.compile(Adam(lr=1e-3), "rank_hinge")
+    steps = len(y) // KNRM_BATCH
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = model.fit([q, a], y, batch_size=KNRM_BATCH, nb_epoch=KNRM_EPOCHS,
+                     shuffle=False, rng=0)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    expect_launches(launches, {"fused_adam": KNRM_EPOCHS * steps},
+                    "KNRM fit")
+    losses = [h["loss"] for h in hist]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"KNRM fit losses {losses}")
+    print(f"18a KNRM (text1 {KNRM_Q_LEN}, text2 {KNRM_A_LEN}, embed "
+          f"{KNRM_EMBED} trainable, {KNRM_KERNELS} kernels, sigma 0.1, "
+          f"exact 0.001; {n_leaves} leaves) fit {KNRM_EPOCHS} epochs of "
+          f"{steps} steps of {KNRM_BATCH} rows, rank_hinge, "
+          f"shuffle=False, in {fit_s:.3f} s, losses {losses}, epoch s "
+          f"{[h['wall_s'] for h in hist]} (the first with warm-up); "
+          f"launches {launches} ({card})")
+
+    tr = DistributedTrainer(model.model, objectives.get("rank_hinge"),
+                            optim_method=Adam(lr=1e-3))
+    params = tr.place_params(to_device(start, dev)["params"])
+    opt_state = tr.init_opt_state(params)
+    batch = tr.put_batch(([q[:KNRM_BATCH], a[:KNRM_BATCH]], y[:KNRM_BATCH]))
+    step_ms = []
+    for i in range(KNRM_TIMED_STEPS + 3):       # 3 warm-up steps
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        params, opt_state, _, loss = tr.train_step(
+            params, opt_state, {}, batch, step_generator(0, i, dev))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - s) * 1e3)
+    step_ms = step_ms[3:]
+    qs = np.percentile(step_ms, [0, 25, 50, 75, 100])
+    print(f"18a step: median {qs[2]:.3f} ms, quartiles {qs[1]:.3f}-"
+          f"{qs[3]:.3f}, min {qs[0]:.3f}, max {qs[4]:.3f} over "
+          f"{KNRM_TIMED_STEPS} steps of {KNRM_BATCH // 2} pairs "
+          f"({KNRM_BATCH // 2 * 1e3 / qs[2]:.1f} pairs/s trained) ({card})")
+    del tr, params, opt_state
+
+    model.score_pairs(rq[:1024], ra[:1024])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores = model.score_pairs(rq, ra)
+    score_s = time.perf_counter() - t0
+    map1 = evaluate_map(relations, scores)
+    ndcg1 = evaluate_ndcg(relations, scores, k=3)
+    print(f"18a score_pairs: {len(rq)} rows at batch 1024 in "
+          f"{score_s * 1e3:.3f} ms ({len(rq) / score_s:.1f} rows/s) "
+          f"({card}); MAP {map0:.4f} -> {map1:.4f}, NDCG@3 {ndcg0:.4f} -> "
+          f"{ndcg1:.4f} (untrained -> trained)")
+    if not (map1 > map0 and ndcg1 > ndcg0):
+        fail(f"KNRM ranking did not improve: MAP {map0} -> {map1}, "
+             f"NDCG@3 {ndcg0} -> {ndcg1}")
+    trained = to_device(model.get_variables(), torch.device("cpu"))
+    with zoo_device("cpu"):
+        cpu = knrm_model(emb)
+        cpu.set_variables(trained)
+        cpu_scores = cpu.score_pairs(rq, ra)
+    err = float(np.abs(scores - cpu_scores).max())
+    scale = max(float(np.abs(cpu_scores).max()), 1.0)
+    cpu_map = evaluate_map(relations, cpu_scores)
+    print(f"18a score_pairs card vs CPU on the trained weights: max abs "
+          f"diff {err:.3e} (tolerance {KNRM_ATOL} of the scores' scale "
+          f"{scale:.3e}), MAP {map1:.4f} vs {cpu_map:.4f}")
+    if not (err <= KNRM_ATOL * scale and cpu_map == map1):
+        fail(f"KNRM score_pairs card vs CPU {err} > {KNRM_ATOL} x {scale}, "
+             f"MAP {map1} vs {cpu_map}")
+    return launches
+
+
+class MoENet:
+    """One ``MoE`` layer as a trainable model whose output is
+    ``call_with_aux``'s ``[y, aux]``."""
+
+    def __init__(self, layer):
+        self.layer = layer
+
+    def apply(self, params, x, state=None, training=False, rng=None):
+        y, aux = self.layer.call_with_aux(params["moe"], x)
+        return [y, aux], state
+
+    def regularization_loss(self, params):
+        return 0.0
+
+
+def moe_loss(y, out):
+    from analytics_zoo_torch.pipeline.api.keras import objectives
+    return objectives.get("mse")(y, out[0]) + 1e-2 * out[1]
+
+
+def moe_routing(torch, layer, params, x):
+    """(kept slots per token, combine > 0) of ``layer``'s routing of
+    ``x``: which expert and slot each token took."""
+    from analytics_zoo_torch.pipeline.api.keras.layers import moe as tmoe
+    xt = x.reshape(-1, x.shape[-1])
+    with torch.no_grad():
+        probs = torch.softmax(
+            tmoe._low_matmul(xt, params["router"]).float(), dim=-1)
+        combine, _ = layer._route(probs, xt.shape[0])
+    used = combine > 0
+    return used.sum(dim=(1, 2)), used
+
+
+def moe_check(torch, what, layer, params, x, atol):
+    """The layer's output and aux on the card against the CPU on the same
+    weights and inputs.  A token whose routing differs (a near tie of two
+    router probabilities resolved the other way) is counted and left out
+    of the output's comparison; at most one in a thousand may differ."""
+    from analytics_zoo_torch.pipeline.api.keras.topology import to_device
+    cpu_p = to_device(params, torch.device("cpu"))
+    with torch.no_grad():
+        y, aux = layer.call_with_aux(params, x)
+        y_cpu, aux_cpu = layer.call_with_aux(cpu_p, x.cpu())
+    _, used = moe_routing(torch, layer, params, x)
+    _, used_cpu = moe_routing(torch, layer, cpu_p, x.cpu())
+    same = (used.cpu() == used_cpu).flatten(1).all(dim=1)
+    n = int(same.numel())
+    differ = n - int(same.sum())
+    d = x.shape[-1]
+    err = float((y.cpu().reshape(-1, d)[same] -
+                 y_cpu.reshape(-1, d)[same]).abs().max())
+    aux_err = abs(float(aux) - float(aux_cpu))
+    aux_tol = 1e-6 + differ * layer.num_experts / n
+    print(f"{what} card vs CPU: output max abs diff {err:.3e} (tolerance "
+          f"{atol}) over {n - differ} of {n} tokens ({differ} routed "
+          f"otherwise), aux {float(aux):.6f} vs {float(aux_cpu):.6f} "
+          f"(tolerance {aux_tol:.2e})")
+    if not (err <= atol and differ <= n // 1000 and aux_err <= aux_tol):
+        fail(f"{what} card vs CPU: output {err}, {differ} tokens routed "
+             f"otherwise, aux {aux_err}")
+
+
+def moe_phase(torch, card, dev):
+    """18b: MoE at Switch-Base's widths, 4 Adam steps of call_with_aux."""
+    from analytics_zoo_torch.ops import kernels
+    from analytics_zoo_torch.parallel.trainer import (
+        DistributedTrainer, step_generator)
+    from analytics_zoo_torch.pipeline.api.keras.engine import Layer
+    from analytics_zoo_torch.pipeline.api.keras.layers import MoE
+    from analytics_zoo_torch.pipeline.api.keras.optimizers import Adam
+    Layer.reset_name_counters()
+    layer = MoE(MOE_EXPERTS, MOE_FF, top_k=1, capacity_factor=MOE_CF)
+    params = {"moe": layer.init(torch.Generator().manual_seed(0),
+                                (None, MOE_SEQ, MOE_D))["params"]}
+    gen = torch.Generator(device=dev).manual_seed(18)
+    x = torch.randn((MOE_BATCH, MOE_SEQ, MOE_D), generator=gen, device=dev)
+    y = torch.randn((MOE_BATCH, MOE_SEQ, MOE_D), generator=gen, device=dev)
+    tokens = MOE_BATCH * MOE_SEQ
+    net = MoENet(layer)
+    tr = DistributedTrainer(net, moe_loss, optim_method=Adam(lr=1e-3))
+    p = tr.place_params(params)
+    moe_check(torch, "18b MoE forward (untrained)", layer, p["moe"], x,
+              MOE_ATOL)
+    opt_state = tr.init_opt_state(p)
+    kernels.reset_launch_counts()
+    step_ms, losses, dropped, auxes = [], [], [], []
+    for i in range(MOE_STEPS):
+        kept, _ = moe_routing(torch, layer, p["moe"], x)
+        dropped.append(int((kept == 0).sum()))
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        p, opt_state, _, loss = tr.train_step(
+            p, opt_state, {}, (x, y), step_generator(0, i, dev))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - s) * 1e3)
+        losses.append(float(loss))
+        auxes.append(float(layer.aux_loss().detach()))
+    expect_launches(kernels.launch_counts(), {"fused_adam": MOE_STEPS},
+                    "MoE steps")
+    if not all(np.isfinite(losses)):
+        fail(f"MoE losses {losses}")
+    print(f"18b MoE (d_model {MOE_D}, d_ff {MOE_FF}, {MOE_EXPERTS} experts, "
+          f"top-1, capacity factor {MOE_CF}: {layer._capacity(tokens)} slots "
+          f"an expert for {tokens} tokens) {MOE_STEPS} Adam steps of mse + "
+          f"1e-2 aux: ms {[round(v, 3) for v in step_ms]} (the first with "
+          f"warm-up), median of the last {MOE_STEPS - 1} "
+          f"{statistics.median(step_ms[1:]):.3f} ms "
+          f"({tokens * 1e3 / statistics.median(step_ms[1:]):.1f} tokens/s), "
+          f"tokens dropped {dropped}, aux {auxes}, losses {losses}, "
+          f"1 fused_adam launch a step ({card})")
+    moe_check(torch, "18b MoE forward (after the steps)", layer, p["moe"],
+              x, MOE_ATOL)
+    # top-2 at a small width, with overflow: checks only
+    small = MoE(4, 64, top_k=2, capacity_factor=0.75)
+    sp = small.init(torch.Generator().manual_seed(1), (None, 32))["params"]
+    sp = {k: v.to(dev) for k, v in sp.items()}
+    xs = torch.randn((4, 64, 32), generator=gen, device=dev)
+    moe_check(torch, "18b MoE top-2 (4 experts, capacity factor 0.75)",
+              small, sp, xs, 1e-5)
+    kept, _ = moe_routing(torch, small, sp, xs)
+    print(f"18b top-2: slots kept per token {torch.bincount(kept.cpu()).tolist()}"
+          f" (0, 1 or 2 of the 2 choices)")
+    return {"fused_adam": MOE_STEPS}
+
+
+def convlstm_net(torch, filters, kernel, input_shape, seed=0):
+    from analytics_zoo_torch.pipeline.api.keras import Sequential
+    from analytics_zoo_torch.pipeline.api.keras.engine import Layer
+    from analytics_zoo_torch.pipeline.api.keras.layers import (
+        ConvLSTM2D, ConvLSTM3D)
+    Layer.reset_name_counters()
+    cls = ConvLSTM2D if len(input_shape) == 4 else ConvLSTM3D
+    net = Sequential()
+    for i, f in enumerate(filters):
+        last = i == len(filters) - 1
+        kw = {"input_shape": input_shape} if i == 0 else {}
+        net.add(cls(f, kernel, return_sequences=not last, **kw))
+    net.init(torch.Generator().manual_seed(seed))
+    return net
+
+
+def convlstm_grads(torch, net, params, x, w):
+    from analytics_zoo_torch.pipeline.api.keras.topology import (
+        tree_leaves, tree_replace)
+    live = [t.detach().requires_grad_() for t in tree_leaves(params)]
+    out, _ = net.apply(tree_replace(params, live), x)
+    (out * w).sum().backward()
+    return out.detach(), [t.grad for t in live]
+
+
+def convlstm_check(torch, what, net, x):
+    """Forward and gradients of the first ``CLSTM_GRAD_ROWS`` rows on the
+    card against the CPU on the same weights."""
+    from analytics_zoo_torch.pipeline.api.keras.topology import to_device
+    params = net.get_variables()["params"]
+    cpu_p = to_device(params, torch.device("cpu"))
+    rows = x[:CLSTM_GRAD_ROWS]
+    w = torch.randn(tuple(net.get_output_shape()[1:]),
+                    generator=torch.Generator().manual_seed(3))
+    o, g = convlstm_grads(torch, net, params, rows, w.to(rows.device))
+    o_cpu, g_cpu = convlstm_grads(torch, net, cpu_p, rows.cpu(), w)
+    err = float((o.cpu() - o_cpu).abs().max())
+    grad_err = max(rel_l2(a.cpu(), b) for a, b in zip(g, g_cpu))
+    print(f"{what} card vs CPU on {CLSTM_GRAD_ROWS} rows: output max abs "
+          f"diff {err:.3e} (tolerance {CLSTM_ATOL}), gradients of {len(g)} "
+          f"leaves relative L2 max {grad_err:.3e} (tolerance "
+          f"{CLSTM_GRAD_RTOL})")
+    if not (err <= CLSTM_ATOL and grad_err <= CLSTM_GRAD_RTOL):
+        fail(f"{what} card vs CPU: output {err}, gradients {grad_err}")
+
+
+def convlstm_phase(torch, card, dev):
+    """18c: ConvLSTM2D at Shi et al.'s Moving-MNIST width; ConvLSTM3D
+    small (float32 products)."""
+    from analytics_zoo_torch.pipeline.api.keras.topology import (
+        tree_leaves, tree_replace)
+    shape = (CLSTM_FRAMES, CLSTM_SIZE, CLSTM_SIZE, CLSTM_CHANNELS)
+    net = convlstm_net(torch, CLSTM_FILTERS, CLSTM_KERNEL, shape)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.rand((CLSTM_BATCH,) + shape, generator=gen, device=dev)
+    params = net.get_variables()["params"]
+    target = torch.rand((CLSTM_BATCH,) + tuple(net.get_output_shape()[1:]),
+                        generator=gen, device=dev)
+    ms = []
+    for _ in range(3):                       # the first with warm-up
+        live = [t.detach().requires_grad_() for t in tree_leaves(params)]
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        out, _ = net.apply(tree_replace(params, live), x, training=True)
+        loss = torch.mean(torch.square(out - target))
+        grads = torch.autograd.grad(loss, live)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - s) * 1e3)
+    if not (np.isfinite(float(loss.detach())) and
+            all(bool(torch.isfinite(g).all()) for g in grads)):
+        fail("ConvLSTM2D forward and backward not finite")
+    print(f"18c ConvLSTM2D stack {CLSTM_FILTERS} filters, {CLSTM_KERNEL}x"
+          f"{CLSTM_KERNEL}, on {CLSTM_BATCH} x {CLSTM_FRAMES} frames of "
+          f"{CLSTM_SIZE}x{CLSTM_SIZE}x{CLSTM_CHANNELS}: forward + backward "
+          f"ms {[round(v, 3) for v in ms]} (the first with warm-up), "
+          f"output {tuple(out.shape)}, loss {float(loss.detach()):.6f} "
+          f"({card})")
+    convlstm_check(torch, "18c ConvLSTM2D", net, x)
+    small = convlstm_net(torch, (4, 3), 3, (4, 6, 5, 4, 3), seed=1)
+    xs = torch.rand((3, 4, 6, 5, 4, 3), generator=gen, device=dev)
+    convlstm_check(torch, "18c ConvLSTM3D (4, 3 filters, 3x3x3)", small, xs)
+
+
+def bert_steps(torch, model, start, batch, remat, steps):
+    """``steps`` train steps of ``model`` from ``start`` with train.remat
+    ``remat``: (params, step ms, peak bytes above the bytes allocated at
+    the turn's start)."""
+    from analytics_zoo_torch.common.config import get_config
+    from analytics_zoo_torch.parallel.trainer import DistributedTrainer
+    from analytics_zoo_torch.pipeline.api.keras import objectives
+    from analytics_zoo_torch.pipeline.api.keras.optimizers import Adam
+    get_config().set("train.remat", remat)
+    try:
+        tr = DistributedTrainer(
+            model.model, objectives.get(
+                "sparse_categorical_crossentropy_with_logits"),
+            optim_method=Adam(lr=1e-4))
+    finally:
+        get_config().set("train.remat", False)
+    params = tr.place_params(start["params"])
+    opt_state = tr.init_opt_state(params)
+    state = start["state"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms = []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        params, opt_state, state, loss = tr.train_step_at(
+            params, opt_state, state, batch, seed=0, step=i)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - s) * 1e3)
+    return params, ms, torch.cuda.max_memory_allocated() - base
+
+
+def switches_phase(torch, card, dev):
+    """18d: train.remat, freezing and optimizer groups at BERT-base
+    width."""
+    from analytics_zoo_torch.common.triggers import MaxEpoch
+    from analytics_zoo_torch.feature import FeatureSet
+    from analytics_zoo_torch.ops import dtypes, kernels
+    from analytics_zoo_torch.parallel.trainer import DistributedTrainer
+    from analytics_zoo_torch.pipeline.api.keras.engine import Layer
+    from analytics_zoo_torch.pipeline.api.keras.optimizers import Adam, SGD
+    from analytics_zoo_torch.pipeline.api.keras.topology import (
+        to_device, tree_leaves)
+    from analytics_zoo_torch.pipeline.estimator import Estimator
+    rs = np.random.RandomState(18)
+    x = rs.randint(0, 30522, size=(16, 512)).astype(np.int64)
+    y = rs.randint(0, 20, size=(16,)).astype(np.int64)
+    Layer.reset_name_counters()
+    model = bert_base()
+    model.model.init(torch.Generator().manual_seed(0))
+    start = model.get_variables()
+    tr = DistributedTrainer(model.model, None)
+    batch = tr.put_batch((x[:8], y[:8]))
+    ref, worst, launches = None, 0.0, {}
+    with deterministic(torch):
+        for remat in (False, True, True, False):
+            kernels.reset_launch_counts()
+            params, ms, peak = bert_steps(torch, model, start, batch, remat,
+                                          SWITCH_STEPS)
+            launches[remat] = kernels.launch_counts()
+            leaves = tree_leaves(params)
+            ref = ref if ref is not None else leaves
+            diff = max(float((a - b).abs().max())
+                       for a, b in zip(leaves, ref))
+            worst = max(worst, diff)
+            del params, leaves
+            print(f"18d train.remat={remat}: {SWITCH_STEPS} steps of 8 x 512, "
+                  f"ms {[round(v, 3) for v in ms]} (median "
+                  f"{statistics.median(ms[1:]):.3f} of the last "
+                  f"{SWITCH_STEPS - 1}), peak memory above the turn's start "
+                  f"{peak / 2 ** 30:.3f} GiB, launches {launches[remat]}, "
+                  f"params max abs diff from the first remat=False turn "
+                  f"{diff:.3e} ({card})")
+    plain, again = launches[False], launches[True]
+    fwd = ("flash_attention_fwd", "bias_gelu", "layernorm_act")
+    if any(again[k] < plain[k] * 3 // 2 for k in fwd) or any(
+            again[k] != plain[k] for k in plain if k not in fwd):
+        fail(f"remat launches {again} against {plain}: the forward's "
+             "kernels should run again in the recompute")
+    if worst != 0.0:
+        fail(f"train.remat params differ from the plain steps by {worst} "
+             "under deterministic algorithms")
+    print("18d train.remat: params bit-identical to the plain steps in "
+          "every turn")
+    del ref
+
+    # freeze_up_to the encoder's pooling, then fit on the fused Adam
+    pool = next(l.name for l in model.model.layers
+                if type(l).__name__ == "GlobalMaxPooling1D")
+    model.set_variables(to_device(start, dev))
+    model.model.freeze_up_to(pool)
+    frozen = model.model.frozen_layer_names()
+    before = {k: [t.clone() for t in tree_leaves(start["params"][k])]
+              for k in frozen}
+    model.compile(Adam(lr=1e-4), "sparse_categorical_crossentropy_with_logits")
+    kernels.reset_launch_counts()
+    model.fit(x, y, batch_size=8, nb_epoch=1, rng=0)
+    launches = kernels.launch_counts()
+    after = model.get_variables()["params"]
+    moved = sum(not torch.equal(a, b) for k in frozen
+                for a, b in zip(before[k], tree_leaves(after[k])))
+    live = [k for k in after if k not in frozen]
+    changed = sum(not torch.equal(a, b) for k in live
+                  for a, b in zip(tree_leaves(start["params"][k]),
+                                  tree_leaves(after[k])))
+    print(f"18d freeze_up_to({pool!r}): {len(frozen)} of "
+          f"{len(model.model.layers)} layers frozen, {moved} frozen leaves "
+          f"moved, {changed} live leaves moved, fit 2 steps, launches "
+          f"{launches}")
+    if moved or not changed or launches["fused_adam"] != 2:
+        fail(f"freeze_up_to fit: {moved} frozen leaves moved, {changed} "
+             f"live leaves moved, launches {launches}")
+    model.model.unfreeze()
+
+    # two optimizer groups, card against CPU, float32 products, no dropout
+    heads = [l.name for l in model.model.layers
+             if type(l).__name__ == "Dense"][-2:]
+    adam_lr = 1e-5
+
+    def groups():
+        return {"head": (Adam(lr=adam_lr), heads),
+                "rest": (SGD(1e-3, momentum=0.9), "*")}
+    zero_dropout(model.model)
+    dtypes.set_policy(compute_dtype="float32")
+    try:
+        ends = {}
+        for where in ("card", "cpu"):
+            with (zoo_device("cpu") if where == "cpu"
+                  else contextlib.nullcontext()):
+                target = torch.device("cpu") if where == "cpu" else dev
+                model.set_variables(to_device(start, target))
+                est = Estimator(model.model, optim_methods=groups())
+                kernels.reset_launch_counts()
+                est.train(FeatureSet.from_ndarrays(
+                    x[:GROUP_ROWS], y[:GROUP_ROWS], shuffle=False),
+                    "sparse_categorical_crossentropy_with_logits",
+                    end_trigger=MaxEpoch(1), batch_size=GROUP_ROWS)
+                ends[where] = (to_device(est.variables["params"],
+                                         torch.device("cpu")),
+                               kernels.launch_counts())
+                if where == "card":
+                    grouped = DistributedTrainer(model.model, None,
+                                                 optim_groups=groups())
+                    if grouped.fused_optimizer_active:
+                        fail("optimizer groups ran the fused update")
+    finally:
+        dtypes.restore_policy(None)
+    (pc, lc), (pp, _) = ends["card"], ends["cpu"]
+    if lc["fused_adam"] or lc["fused_sgd"]:
+        fail(f"grouped step launched an optimizer kernel: {lc}")
+    tol = 2 * adam_lr + 1e-6
+    diffs = {k: max(float((a - b).abs().max()) for a, b in
+                    zip(tree_leaves(pc[k]), tree_leaves(pp[k])))
+             for k in pc if tree_leaves(pc[k])}
+    moved = sum(not torch.equal(a, b) for k in pc for a, b in zip(
+        tree_leaves(pc[k]), tree_leaves(to_device(start["params"][k],
+                                                  torch.device("cpu")))))
+    print(f"18d optimizer groups (Adam lr {adam_lr} on {heads}, "
+          f"SGD(1e-3, momentum 0.9) on the rest), one step of "
+          f"{GROUP_ROWS} x 512, float32 products, no dropout: launches "
+          f"{lc}, {moved} leaves moved; card vs CPU max abs diff "
+          f"{max(diffs.values()):.3e} (tolerance {tol:.1e}: an Adam "
+          f"element whose gradient is float32 noise moves by up to its lr "
+          f"either way), worst layer {max(diffs, key=diffs.get)}")
+    if not max(diffs.values()) <= tol or not moved:
+        fail(f"optimizer groups card vs CPU {diffs}")
+
+
+def keras2_autograd_phase(torch, card, dev):
+    """18e: a keras2 MNIST-style Sequential on the datasets' synthetic
+    digits, and custom_loss_example.py's CustomLoss (checks only)."""
+    from analytics_zoo_torch.pipeline.api import autograd as A
+    from analytics_zoo_torch.pipeline.api import keras2
+    from analytics_zoo_torch.pipeline.api.keras import Sequential
+    from analytics_zoo_torch.pipeline.api.keras.datasets import mnist
+    from analytics_zoo_torch.pipeline.api.keras.engine import Layer
+    from analytics_zoo_torch.pipeline.api.keras.layers import Dense
+    from analytics_zoo_torch.pipeline.api.keras.optimizers import Adam
+    (xtr, ytr), (xte, yte) = mnist.load_data()
+    xtr = (xtr[..., None] / 255.0).astype(np.float32)
+    xte = (xte[..., None] / 255.0).astype(np.float32)
+    Layer.reset_name_counters()
+    net = keras2.Sequential()
+    net.add(keras2.Conv2D(16, 3, activation="relu",
+                          input_shape=(28, 28, 1)))
+    net.add(keras2.MaxPooling2D())
+    net.add(keras2.Flatten())
+    net.add(keras2.Dense(10))
+    net.init(torch.Generator().manual_seed(0))
+    net.compile(Adam(lr=1e-3), "sparse_categorical_crossentropy_with_logits",
+                metrics=["accuracy"])
+    t0 = time.perf_counter()
+    hist = net.fit(xtr, ytr.astype(np.int64), batch_size=128, epochs=2,
+                   rng=0)
+    fit_s = time.perf_counter() - t0
+    acc = net.evaluate(xte, yte.astype(np.int64), batch_size=250)
+    print(f"18e keras2 Conv2D -> MaxPooling2D -> Dense on "
+          f"datasets.mnist's {len(xtr)} synthetic digits: 2 epochs in "
+          f"{fit_s:.3f} s, losses {[h['loss'] for h in hist]}, test "
+          f"{acc} ({card})")
+    if not acc["sparse_categorical_accuracy"] > 0.2:
+        fail(f"keras2 MNIST accuracy {acc} is not above chance")
+
+    def custom_loss(y_true, y_pred):
+        err = A.abs(y_true - y_pred)
+        return A.mean(A.minimum(A.square(err), err), axis=1)
+    rs = np.random.RandomState(0)
+    x = rs.randn(512, 4).astype(np.float32)
+    yv = (x @ rs.randn(4, 1)).astype(np.float32)
+    Layer.reset_name_counters()
+    m = Sequential()
+    m.add(Dense(8, activation="relu", input_shape=(4,)))
+    m.add(Dense(1))
+    m.compile(Adam(lr=0.02), A.CustomLoss(custom_loss, y_pred_shape=(1,)))
+    h = m.fit(x, yv, batch_size=64, nb_epoch=5, rng=0)
+    print(f"18e autograd.CustomLoss (custom_loss_example.py's) fit 5 "
+          f"epochs: losses {[round(v['loss'], 6) for v in h]}")
+    if not h[-1]["loss"] < h[0]["loss"]:
+        fail(f"CustomLoss fit {h}")
+
+
+def text_matching_phase(torch, card, dev):
+    """Phase 18: KNRM, MoE, ConvLSTM, the training switches, keras2 and
+    autograd.  Returns the fused Adam launches of 18a and 18b."""
+    from analytics_zoo_torch.ops import dtypes
+    t_phase = time.perf_counter()
+    seconds = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn(torch, card, dev)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+    dtypes.set_policy(compute_dtype="float32")
+    try:
+        knrm = timed("18a", knrm_phase)
+        moe = timed("18b", moe_phase)
+        timed("18c", convlstm_phase)
+    finally:
+        dtypes.restore_policy(None)
+    timed("18d", switches_phase)
+    timed("18e", keras2_autograd_phase)
+    print(f"phase 18: {time.perf_counter() - t_phase:.1f} s ({seconds})")
+    return knrm, moe
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4635,7 +5344,13 @@ def main() -> None:
     print(f"launches: AnomalyDetector fit ({AD_EPOCHS} epochs) "
           f"{ad_launches}")
 
-    # ------------------------------------------------------ 18. results
+    # ------ 18. KNRM trained and ranked, MoE, ConvLSTM, the training
+    # switches at BERT-base width, keras2 and autograd
+    knrm_launches, moe_launches = text_matching_phase(torch, card, dev)
+    print(f"launches: KNRM fit ({KNRM_EPOCHS} epochs) {knrm_launches}; MoE "
+          f"({MOE_STEPS} steps) {moe_launches}")
+
+    # ------------------------------------------------------ 19. results
     print(f"launches: GPT-1 serving (4 requests) {gpt_serve}; GPT-1 fit "
           f"(8 steps) {gpt_train}; BERT-base fine-tuning (8 steps) "
           f"{bert_tune}")
@@ -4680,9 +5395,27 @@ def keras_surface_alone() -> None:
     keras_surface_phase(torch, card, ctx.device)
 
 
+def text_matching_alone() -> None:
+    """Phase 18 by itself (``--text-matching``): the kernels built, then
+    KNRM, MoE, ConvLSTM, the training switches, keras2 and autograd on
+    the card."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a GPU")
+    from analytics_zoo_torch import init_zoo_context
+    from analytics_zoo_torch.ops import kernels
+    kernels.build_all()
+    card = gpu_line()
+    print(f"gpu: {card}")
+    ctx = init_zoo_context(device="cuda:0")
+    text_matching_phase(torch, card, ctx.device)
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--keras-surface"]:
         keras_surface_alone()
+    elif sys.argv[1:] == ["--text-matching"]:
+        text_matching_alone()
     elif sys.argv[1:] == ["--profile-recurrent"]:
         profile_recurrent()
     elif sys.argv[1:] == ["--profile-resnet"]:

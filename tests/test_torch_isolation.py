@@ -1,6 +1,7 @@
 """PyTorch port, isolation: importing the port (and every module of the
 serving, training, Cluster Serving, recommender, recurrent/generative,
-persistence, transformer-model and Keras-layer/AnomalyDetector slices)
+persistence, transformer-model, Keras-layer/AnomalyDetector and
+text-matching/autograd/keras2/datasets slices)
 pulls in none of ``jax``, ``analytics_zoo_tpu``, ``flax``, ``msgpack``,
 ``tensorflow`` and ``transformers``, no port source imports the first
 four or loads a file of the JAX package by path, TensorFlow is imported
@@ -92,6 +93,21 @@ SLICE_MODULES = [
     "analytics_zoo_torch.pipeline.api.keras.layers.shape_ops",
     "analytics_zoo_torch.pipeline.api.keras.layers.local",
     "analytics_zoo_torch.models.anomalydetection",
+    "analytics_zoo_torch.feature.text",
+    "analytics_zoo_torch.models.common_ranker",
+    "analytics_zoo_torch.models.textmatching",
+    "analytics_zoo_torch.models.textmatching.knrm",
+    "analytics_zoo_torch.pipeline.api.autograd",
+    "analytics_zoo_torch.pipeline.api.keras.layers.convlstm",
+    "analytics_zoo_torch.pipeline.api.keras.layers.moe",
+    "analytics_zoo_torch.pipeline.api.keras2",
+    "analytics_zoo_torch.pipeline.api.keras2.layers",
+    "analytics_zoo_torch.pipeline.api.keras2.models",
+    "analytics_zoo_torch.pipeline.api.keras.datasets",
+    "analytics_zoo_torch.pipeline.api.keras.datasets.mnist",
+    "analytics_zoo_torch.pipeline.api.keras.datasets.imdb",
+    "analytics_zoo_torch.pipeline.api.keras.datasets.reuters",
+    "analytics_zoo_torch.pipeline.api.keras.datasets.boston_housing",
 ]
 
 

@@ -18,8 +18,7 @@ PORT = REPO / "analytics_zoo_torch"
 REF = REPO / "analytics_zoo_tpu"
 
 OWED = {
-    # queue 1 item 1, second half: convlstm.py and moe.py
-    "pipeline.api.keras.layers": {"ConvLSTM2D", "ConvLSTM3D", "MoE"},
+    "pipeline.api.keras.layers": set(),
     # queue 1 item 5: local_estimator.py
     "pipeline.estimator": {"LocalEstimator"},
     # queue 1 item 5: the data/ pipeline
@@ -109,6 +108,8 @@ PACKAGES = _packages()
 def test_the_port_packages_with_a_counterpart():
     assert "" in PACKAGES and "common" in PACKAGES and "ops" in PACKAGES
     assert "models.anomalydetection" in PACKAGES
+    assert {"models.textmatching", "pipeline.api.keras2",
+            "pipeline.api.keras.datasets"} <= set(PACKAGES)
     assert set(OWED) <= set(PACKAGES)
     assert not THIS_SLICE & set().union(*OWED.values())
 

@@ -106,6 +106,11 @@ def test_every_reference_regularizer_argument_has_its_counterpart():
     assert set(declared) == {"Dense", "Highway", "MaxoutDense", "_ConvND",
                              "CAdd", "CMul", "Embedding", "SparseEmbedding",
                              "_RNNBase"}
+    # keras2's Conv1D/Conv2D and LSTM/GRU/SimpleRNN subclass these bases
+    # too: imported here, so that the subclasses seen do not depend on
+    # what an earlier test in the same process imported
+    import analytics_zoo_torch.pipeline.api.keras2  # noqa: F401
+    import analytics_zoo_tpu.pipeline.api.keras2  # noqa: F401
     from analytics_zoo_tpu.pipeline.api.keras.layers import (
         conv as jconv, recurrent as jrec)
     from analytics_zoo_torch.pipeline.api.keras.layers import (
@@ -116,11 +121,13 @@ def test_every_reference_regularizer_argument_has_its_counterpart():
     for name, args in declared.items():
         if name in bases:
             jbase, tbase = bases[name]
-            names = {c.__name__ for c in _subclasses(jbase)}
-            # every reference subclass that the port has (ConvLSTM is not
-            # ported yet) and the base itself
+            names = {(c.__module__.split(".", 1)[1], c.__name__)
+                     for c in _subclasses(jbase)}
+            # every reference subclass that the port has, by module and
+            # name, and the base itself
             pairs = [(tbase, args)] + [
-                (c, args) for c in _subclasses(tbase) if c.__name__ in names]
+                (c, args) for c in _subclasses(tbase)
+                if (c.__module__.split(".", 1)[1], c.__name__) in names]
         else:
             pairs = [(getattr(tl, name), args)]
         for cls, want in pairs:
@@ -137,8 +144,9 @@ def test_every_reference_regularizer_argument_has_its_counterpart():
                 else:
                     raise AssertionError((cls.__name__, arg))
             checked += 1
-    # 7 classes, _ConvND and its 6 subclasses, _RNNBase and its 3
-    assert checked == 18
+    # 7 classes, _ConvND and its 6 subclasses and keras2's 2, _RNNBase
+    # and its 3 and keras2's 3
+    assert checked == 23
 
 
 # a nested model: a graph Model over a Sequential of recurrent and conv
