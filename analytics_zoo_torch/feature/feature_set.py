@@ -7,8 +7,9 @@ deterministic per-epoch permutation, ``np.random.default_rng(seed *
 1_000_003 + epoch)``, bit for bit the reference's, so the two packages
 see the same batches in the same order; evaluation iterates in order
 with the tail batch zero-padded and a float mask marking real rows.
-This slice ports ``from_ndarrays`` and the per-step iteration; the disk
-tiers, chunked iteration and the other factories are not ported yet.
+This slice ports ``from_ndarrays``, the per-step iteration and the
+chunked iteration (``epoch_chunks``); the disk tiers and the other
+factories are not ported yet.
 """
 
 from __future__ import annotations
@@ -108,3 +109,23 @@ class FeatureSet:
                     yb = pad_rows(yb, pad)
                 mask = np.concatenate([mask, np.zeros(pad, np.float32)])
             yield (xb, yb, mask)
+
+    def epoch_chunks(self, epoch: int, batch_size: int, steps: int
+                     ) -> Iterator[Tuple]:
+        """Chunked training iterator: ``(x, y, k)`` host arrays of ``k`` (up
+        to ``steps``) whole batches each, with the same per-epoch
+        permutation and remainder drop as ``epoch_batches``.  The training
+        engine runs a chunk's ``k`` steps on the device with no host read
+        between them (``DistributedTrainer.epoch_scan_fn(k, batch_size)``),
+        holding only ``k x batch_size`` rows there."""
+        n = self._size
+        idx = self._epoch_perm(epoch) if self.shuffle else np.arange(n)
+        nb_total = n // batch_size
+        b = 0
+        while b < nb_total:
+            k = min(int(steps), nb_total - b)
+            sel = idx[b * batch_size:(b + k) * batch_size]
+            yield (_tree_take(self.x, sel),
+                   _tree_take(self.y, sel) if self.y is not None else None,
+                   k)
+            b += k

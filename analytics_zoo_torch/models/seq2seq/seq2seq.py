@@ -159,48 +159,100 @@ class Seq2seq(KerasNet):
     def infer(self, enc_ids: np.ndarray, start_sign: int,
               max_seq_len: int = 30, stop_sign: Optional[int] = None,
               early_exit: bool = True, return_steps: bool = False):
-        """Greedy decode on the weights' device.
+        """Greedy decode on the weights' device, through
+        ``compile.engine_jit`` as the reference's is.
 
         With a ``stop_sign`` and ``early_exit`` the loop ends the moment
         every sequence has emitted the stop token (one host read of
         ``stopped.all()`` an iteration): a batch that finishes at step 5
         pays 5 iterations, not ``max_seq_len``; a stopped lane records
         ``stop_sign`` while the raw token still feeds back, so the
-        executed steps equal the whole-sequence loop's.  Otherwise all
-        ``max_seq_len`` steps run, then everything after the first stop
-        token is masked on the host.  Both give the same array.
-        ``return_steps=True`` also returns how many decode iterations
-        ran."""
+        executed steps equal the whole-sequence loop's.  The prefill and
+        each decode step are programs of their own (a CUDA graph each on
+        the card), the step writing its column of the output at a device
+        index it advances: the reference's ``while_loop`` keeps its test
+        on the device, which a CUDA graph cannot without conditional
+        nodes, so the host reads it between replays.  Otherwise all
+        ``max_seq_len`` steps run as ONE program, then everything after
+        the first stop token is masked on the host.  Both give the same
+        array.  ``return_steps=True`` also returns how many decode
+        iterations ran.  The programs are kept on the model, one set per
+        (start, stop, length)."""
         params = self.get_variables()["params"]
         enc = torch.as_tensor(np.asarray(enc_ids, np.int32)).to(
             self._device())
-        batch = enc.shape[0]
         with torch.inference_mode():
-            carries = self.prefill(params, enc)
-            tok = torch.full((batch,), start_sign, dtype=torch.int32,
-                             device=enc.device)
             if stop_sign is not None and early_exit:
-                out = torch.full((batch, max_seq_len), stop_sign,
-                                 dtype=torch.int32, device=enc.device)
-                stopped = torch.zeros((batch,), dtype=torch.bool,
-                                      device=enc.device)
+                prefill, step = self._infer_programs(
+                    "early_exit", start_sign, max_seq_len, stop_sign)
+                state = prefill(params, enc)
                 steps = 0
-                while steps < max_seq_len and not bool(stopped.all()):
-                    tok, carries = self.decode_step(params, tok, carries)
-                    emit = torch.where(stopped, stop_sign, tok)
-                    out[:, steps] = emit
-                    stopped |= emit == stop_sign
+                while steps < max_seq_len and not bool(state[3].all()):
+                    state = step(params, *state)
                     steps += 1
-                out = out.cpu().numpy()
+                out = state[2].cpu().numpy()
             else:
-                toks = []
-                for _ in range(max_seq_len):
-                    tok, carries = self.decode_step(params, tok, carries)
-                    toks.append(tok)
-                out = torch.stack(toks, dim=1).cpu().numpy()
+                decode = self._infer_programs("scan", start_sign,
+                                              max_seq_len, None)
+                out = decode(params, enc).cpu().numpy()
                 steps = max_seq_len
                 if stop_sign is not None:
                     # mask everything after the first stop token
                     stopped = np.cumsum(out == stop_sign, axis=1) > 0
                     out = np.where(stopped, stop_sign, out).astype(np.int32)
         return (out, steps) if return_steps else out
+
+    def _infer_programs(self, kind: str, start_sign: int, max_seq_len: int,
+                        stop_sign: Optional[int]):
+        """The engine-built programs of ``infer``: ``"scan"`` one program
+        over the whole sequence; ``"early_exit"`` (prefill, step)."""
+        from analytics_zoo_torch.compile import engine_jit
+        cache = self.__dict__.setdefault("_infer_cache", {})
+        key = (kind, int(start_sign), int(max_seq_len), stop_sign)
+        if key in cache:
+            return cache[key]
+
+        def start(params, enc):
+            carries = self.prefill(params, enc)
+            tok = torch.full((enc.shape[0],), start_sign, dtype=torch.int32,
+                             device=enc.device)
+            return tok, carries
+
+        if kind == "scan":
+            def decode_scan(params, enc):
+                tok, carries = start(params, enc)
+                toks = []
+                for _ in range(max_seq_len):
+                    tok, carries = self.decode_step(params, tok, carries)
+                    toks.append(tok)
+                return torch.stack(toks, dim=1)
+            progs = engine_jit(decode_scan, borrow_argnums=(0,),
+                               key_hint="seq2seq_decode")
+        else:
+            def prefill(params, enc):
+                tok, carries = start(params, enc)
+                batch = enc.shape[0]
+                out = torch.full((batch, max_seq_len), stop_sign,
+                                 dtype=torch.int32, device=enc.device)
+                stopped = torch.zeros((batch,), dtype=torch.bool,
+                                      device=enc.device)
+                i = torch.zeros((1,), dtype=torch.int64, device=enc.device)
+                return tok, carries, out, stopped, i
+
+            def step(params, tok, carries, out, stopped, i):
+                tok, carries = self.decode_step(params, tok, carries)
+                emit = torch.where(stopped, stop_sign, tok)
+                out.index_copy_(1, i, emit[:, None])
+                stopped |= emit == stop_sign
+                i += 1
+                return tok, carries, out, stopped, i
+            # the weights are read (borrowed); out, stopped and i are
+            # written in place (donated); the token and carries come back
+            # fresh each step and are copied in
+            progs = (engine_jit(prefill, borrow_argnums=(0,),
+                                key_hint="seq2seq_prefill"),
+                     engine_jit(step, borrow_argnums=(0,),
+                                donate_argnums=(3, 4, 5),
+                                key_hint="seq2seq_decode_early_exit"))
+        cache[key] = progs
+        return progs

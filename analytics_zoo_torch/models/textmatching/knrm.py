@@ -61,15 +61,24 @@ class KernelPooling(Layer):
             out.append((mu, sigma))
         return out
 
+    def _constants(self, device):
+        """The kernels' means and 2 sigma^2 on ``device``, made once (a
+        host-to-device copy cannot be captured into a CUDA graph)."""
+        cache = self.__dict__.setdefault("_consts", {})
+        if device not in cache:
+            ks = self._kernels()
+            cache[device] = (
+                torch.tensor([m for m, _ in ks], dtype=torch.float32,
+                             device=device),
+                torch.tensor([2 * s * s for _, s in ks],
+                             dtype=torch.float32, device=device))
+        return cache[device]
+
     def call(self, params, inputs, training=False, rng=None):
         q, d = inputs                       # (B, Q, E), (B, D, E)
         trans = torch.bmm(_unit_rows(q.float()),
                           _unit_rows(d.float()).transpose(1, 2))
-        ks = self._kernels()
-        mu = torch.tensor([m for m, _ in ks], dtype=torch.float32,
-                          device=trans.device)
-        denom = torch.tensor([2 * s * s for _, s in ks],
-                             dtype=torch.float32, device=trans.device)
+        mu, denom = self._constants(trans.device)
         k = torch.exp(-torch.square(trans.unsqueeze(-1) - mu) / denom)
         kq = torch.sum(k, dim=2)                         # (B, Q, K)
         return torch.sum(torch.log1p(kq), dim=1)         # (B, K)

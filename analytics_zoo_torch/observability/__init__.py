@@ -7,8 +7,9 @@ instrument into; a :class:`Tracer` whose ``span("name")`` blocks export
 as Chrome-trace JSON (Perfetto); :func:`sample_device_telemetry` pulling
 the CUDA allocator's counters into gauges; and :class:`MetricsServer`
 exposing it all over HTTP ``/metrics`` (Prometheus text exposition)
-without any third-party dependency.  The rest of the reference's
-observability (compile diagnostics, watchdog, aggregator, TSDB, SLO,
+without any third-party dependency.  The compile half of the
+diagnostics (``diagnostics.py``) is ported; the rest of the reference's
+observability (MFU, watchdog, aggregator, TSDB, SLO,
 drift, incident forensics, collectives accounting) is not ported yet
 (ROADMAP.md, queue 1).
 
@@ -63,8 +64,18 @@ from analytics_zoo_torch.observability.flightrec import (
     record_event,
     reset_flightrec,
 )
+from analytics_zoo_torch.observability.diagnostics import (
+    CompileMonitor,
+    get_compile_monitor,
+    reset_compile_monitor,
+    step_attribution_histogram,
+)
 
 __all__ = [
+    "CompileMonitor",
+    "get_compile_monitor",
+    "reset_compile_monitor",
+    "step_attribution_histogram",
     "DEFAULT_BUCKETS",
     "EPOCH_BUCKETS",
     "MetricsRegistry",

@@ -26,9 +26,8 @@ def scaled_dot_product_attention(q, k, v, mask=None, causal: bool = False,
         tq, tk = logits.shape[-2], logits.shape[-1]
         keep = (torch.arange(tq, device=q.device)[:, None] >=
                 torch.arange(tk, device=q.device)[None, :])
-        logits = torch.where(keep, logits, logits.new_tensor(-1e30))
+        logits = logits.masked_fill(~keep, -1e30)
     if mask is not None:
-        logits = torch.where(mask.to(torch.bool), logits,
-                             logits.new_tensor(-1e30))
+        logits = logits.masked_fill(~mask.to(torch.bool), -1e30)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)

@@ -12,6 +12,7 @@ import dataclasses
 import torch
 
 from analytics_zoo_torch.common.config import get_config
+from analytics_zoo_torch.compile.engine import register_trace_key
 
 _DTYPES = {
     "float32": torch.float32,
@@ -38,6 +39,15 @@ def get_policy() -> Policy:
             compute_dtype=_DTYPES[str(cfg.get("dtype.compute"))],
         )
     return _policy
+
+
+def _policy_key():
+    p = get_policy()
+    return p.param_dtype, p.compute_dtype
+
+
+# a captured program bakes in the policy it ran under (compile/engine.py)
+register_trace_key(_policy_key)
 
 
 def set_policy(param_dtype: str = "float32",

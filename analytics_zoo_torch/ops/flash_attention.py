@@ -78,7 +78,7 @@ def flash_attention_ref(q, k, v, causal: bool = False,
         scale = d ** -0.5
     s = torch.matmul(_scaled_q(q, scale).float(), k.float().transpose(-1, -2))
     if causal:
-        s = torch.where(_causal_keep(t, q.device), s, s.new_tensor(-1e30))
+        s = s.masked_fill(~_causal_keep(t, q.device), -1e30)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l_safe = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
@@ -103,7 +103,7 @@ def _recompute_p_ds(q, k, v, lse, do, delta, causal, scale):
     qs = _scaled_q(q, scale)
     s = torch.matmul(qs.float(), k.float().transpose(-1, -2))
     if causal:
-        s = torch.where(_causal_keep(t, q.device), s, s.new_tensor(-1e30))
+        s = s.masked_fill(~_causal_keep(t, q.device), -1e30)
     p = torch.exp(s - lse.reshape(b, h, t, 1))
     dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
     return qs, p, p * (dp - delta.reshape(b, h, t, 1))

@@ -38,6 +38,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from analytics_zoo_torch.compile.engine import register_trace_key
 from analytics_zoo_torch.ops import activations as acts
 from analytics_zoo_torch.ops import kernels
 from analytics_zoo_torch.ops import multi_tensor as mt
@@ -51,6 +52,10 @@ def _mode() -> str:
     if m not in MODES:
         raise ValueError(f"ops.fused={m!r}; the port takes one of {MODES}")
     return m
+
+
+# a captured program bakes in the route it took (compile/engine.py)
+register_trace_key(_mode)
 
 
 def fused_enabled() -> bool:

@@ -14,7 +14,19 @@ versions for CUDA tensors.
 Every C entry point launches on the stream it is given, allocates
 nothing, and returns ``cudaGetLastError()``; ``launch`` turns a non-zero
 return into an exception.  ``LAUNCHES`` counts, per kernel, the launches
-the wrappers made through ``launch``, and nothing else.
+the wrappers made through ``launch``, and nothing else: a launch on the
+stream of an open ``record_launches`` block (a graph's warm-up and
+capture on the engine's side stream, ``compile/engine.py``) goes to that
+block's own counts instead, and ``add_launches`` adds a captured graph's
+counts on each replay, so the counts mean launches that ran.  Launches
+on any other stream (another thread's) count as usual.
+
+With a persistent cache directory (``compile.cache_dir`` or
+``ZOO_TPU_COMPILE_CACHE``, ``compile/cache.py``) a library not yet in
+``_build/`` is looked up there first: a hit writes it into ``_build/``
+without running ``nvcc``; a miss builds it and stores it.  The entry's
+key is the library's hash, the toolkit's version (``nvcc_version``) and
+the backend signature.
 """
 
 from __future__ import annotations
@@ -26,7 +38,9 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, List
+import time
+from contextlib import contextmanager
+from typing import Dict, List, Optional
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(os.path.dirname(_HERE), "csrc")
@@ -93,6 +107,10 @@ _libs: Dict[str, ctypes.CDLL] = {}
 # guards the builds and LAUNCHES: the serving batcher and several
 # predict threads launch at once, and ``+= 1`` is a read-modify-write
 _lock = threading.Lock()
+# stream handle -> the counts of the open ``record_launches`` blocks on
+# it, innermost last (keyed by stream, not thread: a captured backward
+# launches from autograd's worker thread, on its forward's stream)
+_recording: Dict[int, List[Dict[str, int]]] = {}
 
 
 def reset_launch_counts() -> None:
@@ -104,6 +122,38 @@ def reset_launch_counts() -> None:
 def launch_counts() -> Dict[str, int]:
     with _lock:
         return dict(LAUNCHES)
+
+
+@contextmanager
+def record_launches(stream: int):
+    """Count the launches made on ``stream`` (a ``cuda_stream`` handle)
+    while the block is open into a dict of their own (yielded) instead
+    of ``LAUNCHES``."""
+    counts: Dict[str, int] = {name: 0 for name in SIGNATURES}
+    with _lock:
+        _recording.setdefault(stream, []).append(counts)
+    try:
+        yield counts
+    finally:
+        with _lock:
+            open_ = _recording[stream]
+            open_.remove(counts)
+            if not open_:
+                del _recording[stream]
+
+
+def _target(stream: int) -> Dict[str, int]:
+    open_ = _recording.get(stream)
+    return open_[-1] if open_ else LAUNCHES
+
+
+def add_launches(counts: Dict[str, int], stream: int) -> None:
+    """Add ``counts`` to ``LAUNCHES`` (a captured graph's replay on
+    ``stream``; inside an open record of that stream, to the record)."""
+    with _lock:
+        target = _target(stream)
+        for name, n in counts.items():
+            target[name] += n
 
 
 def nvcc_path() -> str:
@@ -136,13 +186,83 @@ def library_path(source: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{source}_{h.hexdigest()[:16]}.so")
 
 
+_nvcc_version: Optional[str] = None
+
+
+def nvcc_version() -> str:
+    """The CUDA toolkit's identity, for the persistent cache's key, read
+    without starting nvcc (so a cache hit runs no nvcc process at all):
+    the ``version.json`` manifest beside ``bin/nvcc`` (a CUDA 11.1 or
+    later installer's), else a digest of the nvcc binary itself."""
+    global _nvcc_version
+    if _nvcc_version is None:
+        nvcc = os.path.realpath(nvcc_path())
+        manifest = os.path.join(os.path.dirname(os.path.dirname(nvcc)),
+                                "version.json")
+        if os.path.isfile(manifest):
+            with open(manifest) as f:
+                _nvcc_version = f.read().strip()
+        else:
+            h = hashlib.sha256()
+            with open(nvcc, "rb") as f:
+                for block in iter(lambda: f.read(1 << 20), b""):
+                    h.update(block)
+            _nvcc_version = f"nvcc sha256 {h.hexdigest()}"
+    return _nvcc_version
+
+
+def library_cache_key(source: str) -> str:
+    """The persistent cache's key for ``source``'s library."""
+    from analytics_zoo_torch.compile.cache import cache_key
+    digest = os.path.basename(library_path(source))
+    return cache_key(digest, nvcc_version())
+
+
+def _write_atomic(path: str, payload: bytes) -> None:
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(payload)
+    os.replace(tmp, path)
+
+
+def _from_cache(source: str, out: str) -> bool:
+    """Write ``source``'s library from the persistent cache; whether it
+    was there."""
+    from analytics_zoo_torch.compile.cache import get_cache
+    cache = get_cache()
+    if cache is None:
+        return False
+    from analytics_zoo_torch.observability.diagnostics import (
+        get_compile_monitor)
+    t0 = time.perf_counter()
+    payload = cache.load(library_cache_key(source))
+    if payload is not None:
+        _write_atomic(out, payload)
+    get_compile_monitor().record_cache_event(
+        source, hit=payload is not None,
+        seconds=time.perf_counter() - t0 if payload is not None else None)
+    return payload is not None
+
+
+def _to_cache(source: str, out: str) -> None:
+    from analytics_zoo_torch.compile.cache import get_cache
+    cache = get_cache()
+    if cache is not None:
+        with open(out, "rb") as f:
+            cache.store(library_cache_key(source), f.read(),
+                        key_hint=source)
+
+
 def _start_build(source: str):
     """Start one nvcc; returns (Popen, tmp path, final path) or None when
-    the library for this source is already built."""
+    the library for this source is already built or came from the
+    persistent cache."""
     out = library_path(source)
     if os.path.isfile(out):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
+    if _from_cache(source, out):
+        return None
     tmp = f"{out}.{os.getpid()}.tmp"
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, source_path(source)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -161,6 +281,7 @@ def _finish_build(source: str, started) -> None:
         raise RuntimeError(f"nvcc failed for {source}.cu "
                            f"(exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)      # atomic: a concurrent builder sees all or nothing
+    _to_cache(source, out)
 
 
 def _load(source: str) -> ctypes.CDLL:
@@ -180,22 +301,29 @@ def build_all(names: List[str] = None) -> None:
     sources = sorted({SIGNATURES[n][0] for n in (names or SIGNATURES)})
     with _lock:
         todo = [src for src in sources if src not in _libs]
-        started = {}
-        try:
-            for src in todo:
-                started[src] = _start_build(src)
-        finally:
-            # reap whatever was started, even if a later start raised
-            errors = []
-            for src, proc in started.items():
-                try:
-                    _finish_build(src, proc)
-                except RuntimeError as e:
-                    errors.append(str(e))
-            if errors:
-                raise RuntimeError("\n".join(errors))
+        build_libraries(todo)
         for src in todo:
             _libs[src] = _load(src)
+
+
+def build_libraries(sources: List[str]) -> None:
+    """Put the libraries of ``sources`` into ``_build/``: each one already
+    there is kept, each in the persistent cache is copied from it, and
+    the rest are built by one nvcc each, all started together."""
+    started = {}
+    try:
+        for src in sources:
+            started[src] = _start_build(src)
+    finally:
+        # reap whatever was started, even if a later start raised
+        errors = []
+        for src, proc in started.items():
+            try:
+                _finish_build(src, proc)
+            except RuntimeError as e:
+                errors.append(str(e))
+        if errors:
+            raise RuntimeError("\n".join(errors))
 
 
 def entry(name: str):
@@ -215,9 +343,14 @@ def launch(name: str, device, *args) -> None:
         raise ValueError(
             f"{name}: tensors on {device} but the current CUDA device is "
             f"cuda:{torch.cuda.current_device()}")
-    err = entry(name)(*args, torch.cuda.current_stream().cuda_stream)
+    stream = torch.cuda.current_stream().cuda_stream
+    err = entry(name)(*args, stream)
     if err != 0:
         raise RuntimeError(
             f"CUDA kernel {name} failed to launch: cudaError {err}")
+    _count(name, stream)
+
+
+def _count(name: str, stream: int) -> None:
     with _lock:
-        LAUNCHES[name] += 1
+        _target(stream)[name] += 1

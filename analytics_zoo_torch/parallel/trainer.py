@@ -34,20 +34,47 @@ dropout masks from a generator set to the step generator's state before
 the forward, so it sees the first forward's masks, and the model's new
 ``state`` is the first forward's.
 
-Not ported: the mesh and sharding, the whole-epoch and chunked scans and
-the observability hooks.
+Every step program is built through ``compile.engine_jit``: the train
+step (``train_step``, ``train_step_at``), the eval and predict steps,
+and the device-resident epoch's step (``epoch_scan_fn``).  On the card
+each is captured into a CUDA graph at its first call, or ahead of it by
+``warm_start``, and replayed; on the CPU, or with ``compile.aot=false``,
+it runs eagerly.  The fault-injection trip and the dispatch count stay
+on the host, before the replay (the reference's
+``_dispatch_instrumented``), and each dispatch observes its host wall as
+``train_step_time_seconds{component="host_dispatch"}``.
+
+The device-resident epoch (``epoch_scan_fn``, ``put_epoch``,
+``put_epoch_source``, ``permute_rows_fn``): the reference scans
+``num_batches`` steps in one XLA program.  The port replays a one-step
+graph ``num_batches`` times over the epoch's rows on the device: the
+step gathers its batch at a device offset that the graph itself
+advances, so no batch crosses from the host inside a chunk, and each
+step's dropout generator is set on the host before its replay, the same
+generator the per-step route gives that step.  One graph of k steps
+would need k sets of generators registered and k steps' activations in
+one pool; the one-step graph serves every k, shares the per-step
+route's memory footprint, and keeps the per-step fault-injection site
+(the reference's fused program trips it only on its per-step route).
+
+Not ported: the mesh and sharding, collectives accounting, MFU.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import time
+import weakref
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from analytics_zoo_torch.common.config import get_config
+from analytics_zoo_torch.compile import engine_jit
+from analytics_zoo_torch.observability.diagnostics import (
+    get_compile_monitor, step_attribution_histogram)
 from analytics_zoo_torch.pipeline.api.keras.topology import (
     tree_leaves, tree_map, tree_replace,
 )
@@ -136,6 +163,14 @@ class DistributedTrainer:
         self.optim_groups = optim_groups  # {name: (OptimMethod, names)}
         self.device = get_zoo_context().device
         self._dispatch_count = 0
+        self._monitor = get_compile_monitor()
+        self._m_step_time = step_attribution_histogram()
+        self._train_step = None
+        self._train_step_at = None
+        self._epoch_steps: Dict[int, Any] = {}
+        self._predict_step = None
+        self._offset = None
+        self._permuted = None
         cfg = get_config()
         self.remat = bool(cfg.get("train.remat"))
         self.grad_sync_dtype = str(cfg.get("train.grad_sync_dtype"))
@@ -166,6 +201,8 @@ class DistributedTrainer:
         def put(a):
             if a is None:
                 return None
+            if isinstance(a, torch.Tensor) and a.device == self.device:
+                return a
             t = torch.as_tensor(np.ascontiguousarray(a))
             if self.device.type == "cuda":
                 return t.pin_memory().to(self.device, non_blocking=True)
@@ -308,10 +345,8 @@ class DistributedTrainer:
         return loss.detach(), tree_replace(params, grads), first["new_state"]
 
     def _step_core(self, params, opt_state, state, batch, rng):
-        chaos = active_chaos()
-        if chaos is not None:
-            chaos.trip(SITE_TRAINER_DISPATCH, self._dispatch_count)
-        self._dispatch_count += 1
+        """One forward, backward and update: the body every step program
+        captures."""
         loss, grads, new_state = self.loss_and_grads(params, state, batch,
                                                      rng)
         if self.grad_sync_dtype == "bfloat16":
@@ -327,22 +362,190 @@ class DistributedTrainer:
                                                    update)
         return params, opt_state, new_state, loss
 
+    def _build_train_step(self, fold_rng: bool = False):
+        """The train-step program; ``fold_rng`` names the one
+        ``train_step_at`` dispatches (the generator is made on the host
+        from the step index, so one program serves both)."""
+        # through a weak reference: the graphs die with the trainer
+        core = weakref.WeakMethod(self._step_core)
+        jitted = engine_jit(
+            lambda *args: core()(*args), donate_argnums=(0, 1, 2),
+            key_hint="train_step_at" if fold_rng else "train_step")
+        return self._monitor.wrap("train_step", jitted)
+
+    def _dispatch_instrumented(self, fn, *args):
+        """One step dispatch: the fault-injection site, keyed on this
+        trainer's 0-based dispatch count and tripped BEFORE the dispatch
+        (a fault at step k leaves exactly k committed steps), then the
+        program, its host wall observed."""
+        chaos = active_chaos()
+        if chaos is not None:
+            chaos.trip(SITE_TRAINER_DISPATCH, self._dispatch_count)
+        self._dispatch_count += 1
+        t0 = time.perf_counter()
+        out = fn(*args)
+        self._m_step_time.labels("host_dispatch").observe(
+            time.perf_counter() - t0)
+        return out
+
     def train_step(self, params, opt_state, state, batch, rng):
         """One step on a device-placed ``batch`` (``put_batch``), with the
         dropout generator ``rng``; returns ``(params, opt_state, state,
         loss)``, ``params`` and the moments updated in place."""
-        return self._step_core(params, opt_state, state, batch, rng)
+        if self._train_step is None:
+            self._train_step = self._build_train_step()
+        return self._dispatch_instrumented(
+            self._train_step, params, opt_state, state, batch, rng)
 
     def train_step_at(self, params, opt_state, state, batch, seed: int,
                       step: int):
         """``train_step`` with the dropout generator of step ``step`` of a
         run seeded ``seed``: ``step_generator(seed, step, device)``."""
-        return self._step_core(params, opt_state, state, batch,
-                               step_generator(seed, step, self.device))
+        if self._train_step_at is None:
+            self._train_step_at = self._build_train_step(fold_rng=True)
+        return self._dispatch_instrumented(
+            self._train_step_at, params, opt_state, state, batch,
+            step_generator(seed, step, self.device))
+
+    def warm_start(self, params, opt_state, state, host_batch,
+                   seed: int) -> bool:
+        """Capture the per-step train program (``train_step_at``'s) for
+        ``host_batch``'s shapes before the first real batch arrives, so
+        the capture is paid at start-up where it is attributable.  The
+        batch is placed as a step's would be; nothing is executed on the
+        arguments (``EngineJit.warm``: params, moments and generators as
+        they were, no launch counted).  Returns whether a graph is in
+        place (False: the eager route, or a failed capture; never an
+        error)."""
+        try:
+            if self._train_step_at is None:
+                self._train_step_at = self._build_train_step(fold_rng=True)
+            batch = self.put_batch(host_batch)
+            from analytics_zoo_torch.observability import get_tracer
+            with get_tracer().span("aot_warm_start"):
+                return bool(self._train_step_at.warm(
+                    params, opt_state, state, batch,
+                    step_generator(seed, 0, self.device)))
+        except Exception:   # noqa: BLE001 — warm-start is best-effort
+            import logging
+            logging.getLogger("analytics_zoo_torch.compile").debug(
+                "train-step warm start failed; capturing lazily",
+                exc_info=True)
+            return False
+
+    # ------------------------------------------------- device-resident epoch
+    def _epoch_step(self, batch_size: int):
+        """The one-step program over device-resident rows: the batch is
+        rows ``[offset, offset + batch_size)`` of ``x``/``y``, gathered on
+        the device, and the step advances ``offset`` (a device scalar) in
+        place."""
+        fn = self._epoch_steps.get(batch_size)
+        if fn is None:
+            core = weakref.WeakMethod(self._step_core)
+
+            def step(params, opt_state, state, x, y, offset, rng):
+                idx = offset + torch.arange(batch_size, device=offset.device)
+                xb = tree_map(lambda a: a.index_select(0, idx), x)
+                yb = None if y is None else tree_map(
+                    lambda a: a.index_select(0, idx), y)
+                params, opt_state, state, loss = core()(
+                    params, opt_state, state, (xb, yb), rng)
+                offset.add_(batch_size)
+                return params, opt_state, state, loss, offset
+            # the epoch rows (the HBM buffers, or a chunk the caller
+            # drops) and the offset are donated with the training state
+            fn = engine_jit(step, donate_argnums=(0, 1, 2, 3, 4, 5),
+                            key_hint="train_epoch_scan")
+            self._epoch_steps[batch_size] = fn
+        return fn
+
+    def epoch_scan_fn(self, num_batches: int, batch_size: int):
+        """``num_batches`` steps over DEVICE-RESIDENT rows — the HBM tier of
+        the FeatureSet cache hierarchy, and a chunk of the chunked route.
+        Returns ``f(params, opt_state, state, x, y, seed, start_step,
+        on_step=None) -> (params, opt_state, state, mean_loss)``: step i
+        takes rows ``[i * batch_size, (i + 1) * batch_size)`` and the
+        generator ``step_generator(seed, start_step + i)``, the per-step
+        route's for that step, so the routes take the same steps;
+        ``on_step()`` runs on the host after each step (the Estimator
+        counts its iterations there).  Each step is one dispatch of the
+        captured one-step program (``_epoch_step``): no host read and no
+        host-to-device copy inside."""
+        # a compile monitor of its own for each chunk length, as the
+        # reference builds a program for each: a short last chunk is a new
+        # program, not recompilation churn
+        step = self._monitor.wrap("train_epoch_scan",
+                                  self._epoch_step(batch_size))
+
+        def epoch(params, opt_state, state, x, y, seed, start_step,
+                  on_step=None):
+            if self._offset is None:
+                self._offset = torch.zeros((), dtype=torch.int64,
+                                           device=self.device)
+            offset = self._offset
+            offset.zero_()
+            losses = []
+            for i in range(num_batches):
+                params, opt_state, state, loss, offset = \
+                    self._dispatch_instrumented(
+                        step, params, opt_state, state, x, y, offset,
+                        step_generator(seed, start_step + i, self.device))
+                losses.append(loss)
+                if on_step is not None:
+                    on_step()
+            self._offset = offset
+            return params, opt_state, state, torch.stack(losses).mean()
+        return epoch
+
+    def put_epoch(self, x, y, epoch: int, feature_set=None):
+        """Device-place a whole epoch; with ``feature_set`` its
+        deterministic per-epoch permutation is applied on the host first
+        (one gather per epoch instead of one per step)."""
+        if feature_set is not None and feature_set.shuffle:
+            perm = feature_set._epoch_perm(epoch)
+            x = tree_map(lambda a: np.asarray(a)[perm], x)
+            y = tree_map(lambda a: np.asarray(a)[perm], y) \
+                if y is not None else None
+        return self.put_epoch_source(x, y)
+
+    def put_epoch_source(self, x, y):
+        """Place the UNPERMUTED whole dataset on the device once — the HBM
+        cache tier (the reference's DRAM cache, FeatureSet.scala:585-662,
+        promoted into device memory).  One device, so no padding to a
+        data-parallel width."""
+        return self.put_batch((x, y))
+
+    def permute_rows_fn(self):
+        """DEVICE-SIDE row gather ``(x, y, perm) -> (x[perm], y[perm])``:
+        one int64 index upload an epoch instead of the epoch's bytes.  The
+        gathers write the same buffers every epoch, so the epoch step's
+        captured inputs stay the tensors it was captured on.  One gather a
+        leaf is one kernel, captured or not: it runs eagerly."""
+        def permute(x, y, perm):
+            idx = torch.as_tensor(np.asarray(perm, np.int64)).to(
+                self.device)
+            src = (x, y)
+            leaves = [a for a in tree_leaves(src) if a is not None]
+            prev = self._permuted
+            if prev is None or [tuple(b.shape) for b in prev[1]] != \
+                    [(len(idx),) + tuple(a.shape[1:]) for a in leaves]:
+                bufs = [a.new_empty((len(idx),) + tuple(a.shape[1:]))
+                        for a in leaves]
+                self._permuted = prev = (None, bufs)
+            it = iter(prev[1])
+
+            def take(a):
+                if a is None:
+                    return None
+                out = next(it)
+                torch.index_select(a, 0, idx, out=out)
+                return out
+            return tree_map(take, x), (None if y is None else
+                                       tree_map(take, y))
+        return permute
 
     # ----------------------------------------------------------- eval step
-    def make_eval_runner(self, metrics):
-        from analytics_zoo_torch.pipeline.api.keras.metrics import accumulate
+    def _build_eval_step(self, metrics):
         model = self.model
 
         def step(params, state, batch):
@@ -350,6 +553,16 @@ class DistributedTrainer:
             with torch.no_grad():
                 out, _ = model.apply(params, x, state=state, training=False)
                 return tuple(m.batch_update(y, out, mask) for m in metrics)
+        # params and state are read, never written: the graph reads the
+        # caller's tensors themselves, and other weights capture it again
+        return engine_jit(step, borrow_argnums=(0, 1), key_hint="eval_step")
+
+    def make_eval_runner(self, metrics):
+        """``run(params, state, batches)``: the eval step over host batches
+        or batches already on the device (the Estimator's eval cache),
+        folded into the metrics' scores."""
+        from analytics_zoo_torch.pipeline.api.keras.metrics import accumulate
+        step = self._build_eval_step(metrics)
 
         def run(params, state, batches):
             return accumulate(metrics, (step(params, state,
@@ -359,10 +572,14 @@ class DistributedTrainer:
 
     # -------------------------------------------------------- predict step
     def predict_fn(self):
-        model = self.model
+        if self._predict_step is None:
+            model = self.model
 
-        def step(params, state, x):
-            with torch.no_grad():
-                out, _ = model.apply(params, x, state=state, training=False)
-            return out
-        return step
+            def step(params, state, x):
+                with torch.no_grad():
+                    out, _ = model.apply(params, x, state=state,
+                                         training=False)
+                return out
+            self._predict_step = engine_jit(step, borrow_argnums=(0, 1),
+                                            key_hint="predict_step")
+        return self._predict_step

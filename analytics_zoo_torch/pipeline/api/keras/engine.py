@@ -51,10 +51,14 @@ def to_batch_shape(shape) -> Shape:
 def fold_name(rng: torch.Generator, name: str) -> torch.Generator:
     """Deterministic per-layer generator (stable across runs): a fresh
     generator on ``rng``'s device, seeded from ``rng``'s seed and the CRC
-    of ``name``."""
+    of ``name`` (through ``compile.engine.derived_generator``, so that a
+    captured step re-seeds it on every replay)."""
+    from analytics_zoo_torch.compile.engine import derived_generator
     crc = zlib.crc32(name.encode()) & 0x7FFFFFFF
-    seed = (rng.initial_seed() * 0x9E3779B97F4A7C15 + crc) % _SEED_MOD
-    return torch.Generator(device=rng.device).manual_seed(seed)
+
+    def seed_of(parent: int) -> int:
+        return (parent * 0x9E3779B97F4A7C15 + crc) % _SEED_MOD
+    return derived_generator(rng, seed_of)
 
 
 # ------------------------------------------------------- activation taps

@@ -240,17 +240,23 @@ class KerasNet(Container):
     def evaluate(self, x, y=None, batch_size: int = 32):
         """Loss and metrics over a dataset: ``{"loss": ..., metric: ...}``."""
         from analytics_zoo_torch.feature.feature_set import FeatureSet
-        from analytics_zoo_torch.pipeline.estimator import Estimator
         data = x if isinstance(x, FeatureSet) else \
             FeatureSet.from_ndarrays(x, y, shuffle=False)
-        return Estimator(self).evaluate(
+        return self._infer_estimator().evaluate(
             data, self.loss, validation_method=self.metrics or [],
             batch_size=batch_size)
 
+    def _infer_estimator(self):
+        """The inference Estimator, kept on the model: its evaluate and
+        predict programs are captured once per model, not once per call."""
+        if getattr(self, "_cached_infer_estimator", None) is None:
+            from analytics_zoo_torch.pipeline.estimator import Estimator
+            self._cached_infer_estimator = Estimator(self)
+        return self._cached_infer_estimator
+
     def predict(self, x, batch_size: int = 256):
         """Batched inference on the zoo context's device; host numpy out."""
-        from analytics_zoo_torch.pipeline.estimator import Estimator
-        return Estimator(self).predict(x, batch_size=batch_size)
+        return self._infer_estimator().predict(x, batch_size=batch_size)
 
     def predict_classes(self, x, batch_size: int = 256,
                         zero_based_label: bool = True):

@@ -1,38 +1,41 @@
 """Estimator — the training loop, single device (port of
 ``pipeline/estimator/estimator.py``).
 
-``train`` runs the reference's per-step loop: each epoch walks the
-FeatureSet's deterministic batches through ``DistributedTrainer.prefetch``
-(inline, or ``data.prefetch`` deep on a thread), one
-``DistributedTrainer.train_step_at`` each, until the end trigger fires;
-an epoch appends ``{"epoch", "loss", "throughput", "wall_s"}`` to
-``history``, its loss the mean of the epoch's step losses (what the
-reference's whole-epoch scan reports for an in-memory FeatureSet), and
-with a ``validation_set`` and ``validation_method`` also ``"val"``, the
-validation scores after the epoch.  The step losses stay on the device;
-the epoch's mean is the one value read back per epoch.  ``evaluate`` and
-``predict`` run the eval and predict steps over ordered batches with a
-padded tail.
+``train`` runs the reference's three dispatch routes, under its exact
+gates (``pipeline/estimator/estimator.py:395-497``):
 
-With a ``model_dir``, training checkpoints and recovers as the
-reference's does (Topology.scala:1179-1306):
+- **HBM epoch cache**: when ``train.steps_per_dispatch > 1``, the train
+  set is exactly a ``FeatureSet``, the end trigger is a ``MaxEpoch`` and
+  the checkpoint trigger an ``EveryEpoch``, and twice the dataset's bytes
+  fit ``train.hbm_cache_mb``, the whole dataset is placed on the device
+  once and permuted there each epoch (one index upload), and the epoch
+  runs as ``DistributedTrainer.epoch_scan_fn`` over it: no host read and
+  no host-to-device copy between its steps.  The epoch's loss is the mean
+  of its steps' losses.  A failed placement trains chunked instead; a
+  failure inside an HBM epoch (the budget cannot see free device memory)
+  restores the latest snapshot and falls back to chunked dispatch, or,
+  with no snapshot and no step of this call committed before that epoch,
+  rebuilds from the entry-time variables, or else raises
+  ``_UnrecoverableTraining``.
+- **chunked dispatch**: under the same gates, the epoch goes to the
+  device in chunks of ``train.steps_per_dispatch`` batches
+  (``FeatureSet.epoch_chunks``), each run as ``epoch_scan_fn``; the
+  epoch's loss is the last chunk's mean.
+- **per-step dispatch** otherwise: one ``train_step_at`` a batch through
+  ``prefetch`` (inline, or ``data.prefetch`` deep on a thread),
+  iteration-level triggers firing between steps; the epoch's loss is the
+  last step's.  At entry the step program is warmed (captured) on the
+  first batch.
 
-- at entry the latest ``snapshot.<iteration>.ckpt`` there is restored —
-  params, state, optimizer state, epoch and iteration — and training
-  resumes from it; a snapshot that cannot be read or does not match the
-  model raises (training never starts fresh beside it);
-- when ``checkpoint_trigger`` fires (default ``EveryEpoch()``: after
-  each epoch's record) the payload ``{"params", "state", "opt_state",
-  "epoch", "iteration"}`` is written in the JAX package's layout
-  (``utils/serialization.Checkpoint``), so a snapshot either package
-  writes resumes in the other;
-- a failure inside an epoch goes to ``resilience/policy.RecoveryPolicy``
-  (``elastic=False``): a transient or unknown failure within the
-  ``train.retry_times`` / ``train.retry_interval_s`` budget restores the
-  latest snapshot and replays from it; a poisoned or unrecoverable one,
-  an exhausted budget, or no ``model_dir`` raises.  As in the reference,
-  a retry before the first snapshot replays the epoch from the state it
-  reached.
+The three routes take the same steps (same batches, same dropout
+generators, ``step_generator(seed, iteration)``), so they end in the same
+parameters; only the reported epoch loss follows the route, as in the
+reference.  An epoch appends ``{"epoch", "loss", "throughput",
+"wall_s"}`` to ``history``, and with a ``validation_set`` and
+``validation_method`` also ``"val"``, the validation scores after the
+epoch (on the eval batches placed once on the device when they fit the
+budget beside the train cache).  ``evaluate`` and ``predict`` run the
+eval and predict steps over ordered batches with a padded tail.
 
 Counters ``checkpoint_save_total``, ``checkpoint_restore_total``,
 ``train_retry_total``, ``train_failures_total{class}`` and
@@ -40,10 +43,14 @@ Counters ``checkpoint_save_total``, ``checkpoint_restore_total``,
 ``checkpoint_restore`` spans (with ``bytes`` and the snapshot's
 ``iteration``); ``train.failure``/``train.retry`` flight-recorder events.
 
+A restore writes the snapshot's leaves into the training state's
+tensors in place, so a captured step program keeps replaying on its
+captured tensors.  The fault-injection site trips before every step on
+every route (the port's fused routes are replays of a one-step program).
+
 Not ported: TensorBoard summaries, the watchdog and its halt snapshot,
 ``DataPipeline`` state in the snapshot, mesh re-formation and the
-degraded exit, the chunked and whole-epoch dispatch engines, the
-device-resident validation cache.
+degraded exit.
 
 ``optim_methods={group: (OptimMethod, layer names or "*")}`` trains each
 group of layers with its own optimizer (the reference's multi-optimMethod
@@ -60,6 +67,7 @@ import time
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from analytics_zoo_torch.common.config import get_config
 from analytics_zoo_torch.common.triggers import (
@@ -68,11 +76,46 @@ from analytics_zoo_torch.common.triggers import (
 from analytics_zoo_torch.parallel.trainer import (
     ClipSpec, DistributedTrainer,
 )
+from analytics_zoo_torch.resilience.chaos import InjectedFault
 from analytics_zoo_torch.pipeline.api.keras.topology import (
     to_device, tree_leaves, tree_map,
 )
 
 log = logging.getLogger("analytics_zoo_torch.estimator")
+
+
+class _UnrecoverableTraining(RuntimeError):
+    """A failure the retry machinery must not absorb: steps were
+    committed and no snapshot can restore them."""
+
+
+def _nbytes(tree) -> int:
+    return sum(int(np.asarray(a).nbytes) for a in tree_leaves(tree)
+               if a is not None)
+
+
+def _assign(dst, src):
+    """``src``'s values in ``dst``'s tensors, in place where a leaf's shape,
+    dtype and device match (a captured step keeps its tensors); ``src``'s
+    leaf elsewhere."""
+    if isinstance(dst, dict) and isinstance(src, dict) and \
+            dst.keys() == src.keys():
+        return {k: _assign(dst[k], src[k]) for k in src}
+    if isinstance(dst, tuple) and isinstance(src, tuple) and \
+            type(dst) is type(src) and len(dst) == len(src):
+        vals = [_assign(a, b) for a, b in zip(dst, src)]
+        return type(src)(*vals) if hasattr(src, "_fields") else tuple(vals)
+    if isinstance(dst, list) and isinstance(src, list) and \
+            len(dst) == len(src):
+        return [_assign(a, b) for a, b in zip(dst, src)]
+    if isinstance(dst, torch.Tensor) and isinstance(src, torch.Tensor) and \
+            dst.shape == src.shape and dst.dtype == src.dtype and \
+            dst.device == src.device:
+        if dst is not src:
+            with torch.no_grad():
+                dst.copy_(src)
+        return dst
+    return src
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -177,6 +220,7 @@ class Estimator:
         ``checkpoint_trigger`` fires (default every epoch).  ``rng`` is
         the integer seed of the dropout generators (default
         ``data.shuffle_seed``)."""
+        from analytics_zoo_torch.feature.feature_set import FeatureSet
         from analytics_zoo_torch.observability import get_tracer
         from analytics_zoo_torch.observability.flightrec import record_event
         from analytics_zoo_torch.pipeline.api.keras import objectives
@@ -203,7 +247,9 @@ class Estimator:
         if self.variables is None:
             self.variables = self.model.get_variables()
         params = trainer.place_params(self.variables["params"])
-        state = trainer.replicate(self.variables["state"])
+        # a copy as well: the step program writes the state fed back into
+        # the tensors it captured, which must not be the model's
+        state = trainer.place_params(self.variables["state"])
         opt_state = trainer.init_opt_state(params)
         ts = self.train_state
         ckpt = Checkpoint(self.model_dir) if self.model_dir else None
@@ -222,8 +268,8 @@ class Estimator:
             met["ckpt_save"].inc()
 
         def restore_snapshot() -> bool:
-            """The latest snapshot into params, state, opt_state and the
-            counters; False when the directory holds none."""
+            """The latest snapshot into params, state, opt_state (in place)
+            and the counters; False when the directory holds none."""
             nonlocal params, state, opt_state
             path = ckpt.latest_path() if ckpt is not None else None
             if path is None:
@@ -232,8 +278,9 @@ class Estimator:
             restored = ckpt.restore_latest(
                 {"params": params, "state": state, "opt_state": opt_state,
                  "epoch": 0, "iteration": 0})
-            params, state = restored["params"], restored["state"]
-            opt_state = restored["opt_state"]
+            params = _assign(params, restored["params"])
+            state = _assign(state, restored["state"])
+            opt_state = _assign(opt_state, restored["opt_state"])
             ts.epoch = int(restored["epoch"])
             ts.iteration = int(restored["iteration"])
             tracer.complete("checkpoint_restore", start,
@@ -246,6 +293,9 @@ class Estimator:
         if restore_snapshot():
             log.info("resumed from checkpoint at epoch %d iter %d",
                      ts.epoch, ts.iteration)
+        # iteration count at entry to THIS call: "no step committed yet"
+        # for the HBM-cache recovery means none beyond this point
+        start_iteration = ts.iteration
         eval_runner = None
         if validation_set is not None and validation_method:
             eval_runner = trainer.make_eval_runner(list(validation_method))
@@ -257,18 +307,175 @@ class Estimator:
                         float(cfg.get("train.retry_interval_s"))),
             elastic=False)
 
-        while not end_trigger(ts):
-            epoch_start = time.perf_counter()
-            seen, steps, loss_sum, stop = 0, 0, None, False
-            try:
+        # chunked dispatch and the HBM epoch cache only where the
+        # semantics are provably unchanged: epoch-scoped triggers and the
+        # EXACT FeatureSet class (a subclass may override epoch_batches)
+        chunk_steps = int(cfg.get("train.steps_per_dispatch"))
+        use_chunks = (chunk_steps > 1 and type(train_set) is FeatureSet
+                      and isinstance(end_trigger, MaxEpoch)
+                      and isinstance(checkpoint_trigger, EveryEpoch))
+        chunk_fns: Dict[int, object] = {}
+        hbm_src = None
+        hbm_mb = float(cfg.get("train.hbm_cache_mb"))
+        nbytes = 0
+        if use_chunks and hbm_mb > 0:
+            nbytes = _nbytes((train_set.x, train_set.y))
+            if 2 * nbytes <= hbm_mb * (1 << 20):
+                nb_epoch = train_set.size // batch_size
+                epoch_rows = nb_epoch * batch_size
+                try:
+                    hbm_src = trainer.put_epoch_source(train_set.x,
+                                                       train_set.y)
+                    hbm_permute = trainer.permute_rows_fn()
+                    hbm_scan = trainer.epoch_scan_fn(nb_epoch, batch_size)
+                except Exception:   # noqa: BLE001 — train chunked instead
+                    hbm_src = None
+                    log.warning("HBM epoch cache placement failed; falling "
+                                "back to chunked dispatch", exc_info=True)
+                else:
+                    log.info("HBM epoch cache active: %.1f MB on device, %d "
+                             "steps/epoch, on-device reshuffle",
+                             nbytes / (1 << 20), nb_epoch)
+        hbm_train_bytes = 2 * nbytes if hbm_src is not None else 0
+
+        # the eval batches placed once when they fit beside the train cache
+        eval_cache = [None]
+        if (eval_runner is not None and hbm_mb > 0
+                and type(validation_set) is FeatureSet):
+            val_bytes = _nbytes((validation_set.x, validation_set.y))
+            if val_bytes + hbm_train_bytes <= hbm_mb * (1 << 20):
+                try:
+                    eval_cache[0] = [
+                        trainer.put_batch(b) for b in
+                        validation_set.epoch_batches(0, batch_size,
+                                                     train=False)]
+                    log.info("eval-batch HBM cache active: %.1f MB on "
+                             "device", val_bytes / (1 << 20))
+                except Exception:   # noqa: BLE001
+                    eval_cache[0] = None
+                    log.warning("eval-batch HBM cache placement failed; "
+                                "streaming per epoch", exc_info=True)
+
+        # the eval step reads its weights by identity (borrowed): params
+        # stay the same tensors, updated in place, while each step hands
+        # back new state tensors, so the state is copied into tensors of
+        # the eval's own
+        eval_state = [None]
+
+        def run_eval():
+            eval_state[0] = tree_map(torch.clone, state) \
+                if eval_state[0] is None else _assign(eval_state[0], state)
+            if eval_cache[0] is not None:
+                try:
+                    return eval_runner(params, eval_state[0], eval_cache[0])
+                except Exception:   # noqa: BLE001
+                    eval_cache[0] = None
+                    log.warning("eval failed with cached batches; released "
+                                "the cache, retrying streamed",
+                                exc_info=True)
+            return eval_runner(params, eval_state[0],
+                               validation_set.epoch_batches(
+                                   0, batch_size, train=False))
+
+        def advance():
+            ts.iteration += 1
+
+        def hbm_epoch():
+            """The epoch over the device-resident rows, permuted on the
+            device: one dispatch of its ``nb_epoch`` steps."""
+            xs, ys = hbm_src
+            if train_set.shuffle:
+                perm = train_set._epoch_perm(ts.epoch)[:epoch_rows]
+                xe, ye = hbm_permute(xs, ys, perm)
+            else:
+                xe, ye = xs, ys
+            with tracer.span("train_epoch_scan", steps=nb_epoch):
+                out = hbm_scan(params, opt_state, state, xe, ye, seed,
+                               ts.iteration, on_step=advance)
+            # an execution failure surfaces here, inside the recovery
+            # scope: one scalar read an epoch
+            float(out[3])
+            return out
+
+        def dispatches():
+            """This epoch's dispatches on the route, as (steps, run):
+            ``run()`` takes the steps, advancing ``ts.iteration`` by them,
+            and returns ``(params, opt_state, state, loss)``, the loss the
+            mean of its steps' (the reported epoch loss is the last
+            dispatch's: the HBM epoch's mean, the last chunk's mean, the
+            last step's)."""
+            if hbm_src is not None:
+                yield nb_epoch, hbm_epoch
+            elif use_chunks:
+                chunks = ((x, y) for x, y, _ in train_set.epoch_chunks(
+                    ts.epoch, batch_size, chunk_steps))
+                for xc, yc in trainer.prefetch(chunks):
+                    k = len(tree_leaves(xc)[0]) // batch_size
+                    if k not in chunk_fns:
+                        chunk_fns[k] = trainer.epoch_scan_fn(k, batch_size)
+
+                    def run(fn=chunk_fns[k], xc=xc, yc=yc, k=k):
+                        with tracer.span("train_dispatch", steps=k):
+                            return fn(params, opt_state, state, xc, yc, seed,
+                                      ts.iteration, on_step=advance)
+                    yield k, run
+            else:
                 for batch in trainer.prefetch(train_set.epoch_batches(
                         ts.epoch, batch_size, train=True)):
-                    params, opt_state, state, loss = trainer.train_step_at(
-                        params, opt_state, state, batch, seed, ts.iteration)
-                    loss_sum = loss if loss_sum is None else loss_sum + loss
-                    steps += 1
-                    ts.iteration += 1
-                    seen += batch_size
+                    def run(batch=batch):
+                        out = trainer.train_step_at(params, opt_state, state,
+                                                    batch, seed, ts.iteration)
+                        advance()
+                        return out
+                    yield 1, run
+
+        def leave_hbm(epoch_iteration: int) -> None:
+            """After a failure inside an HBM epoch: train chunked from the
+            latest snapshot, or, with none and no step of this call
+            committed before that epoch, from the entry-time variables;
+            else ``_UnrecoverableTraining``."""
+            nonlocal hbm_src, params, state, opt_state
+            hbm_src = None
+            eval_cache[0] = None
+            if restore_snapshot():
+                log.warning("HBM epoch cache failed (likely OOM); restored "
+                            "checkpoint, falling back to chunked dispatch",
+                            exc_info=True)
+                return
+            if epoch_iteration == start_iteration:
+                log.warning("HBM epoch cache failed (likely OOM) before any "
+                            "step; falling back to chunked dispatch",
+                            exc_info=True)
+                params = _assign(params, trainer.place_params(
+                    self.variables["params"]))
+                state = _assign(state, trainer.place_params(
+                    self.variables["state"]))
+                opt_state = _assign(opt_state,
+                                    trainer.init_opt_state(params))
+                ts.iteration = start_iteration
+                return
+            raise _UnrecoverableTraining(
+                f"HBM epoch cache failed at iteration {ts.iteration} with "
+                "no checkpoint to restore; set model_dir or "
+                "train.hbm_cache_mb=0")
+
+        while not end_trigger(ts):
+            epoch_start = time.perf_counter()
+            epoch_iteration = ts.iteration
+            seen, loss, stop, again = 0, None, False, False
+            try:
+                for steps, run in dispatches():
+                    try:
+                        params, opt_state, state, loss = run()
+                    except InjectedFault:
+                        raise     # injected faults go to the policy below
+                    except Exception:   # noqa: BLE001 — recovery below
+                        if hbm_src is None:
+                            raise
+                        leave_hbm(epoch_iteration)
+                        again = True
+                        break
+                    seen += steps * batch_size
                     # iteration-level triggers (SeveralIteration,
                     # MaxIteration) fire mid-epoch
                     if ckpt is not None and checkpoint_trigger(ts):
@@ -276,6 +483,8 @@ class Estimator:
                     if end_trigger(ts):
                         stop = True
                         break
+            except _UnrecoverableTraining:
+                raise
             except Exception as exc:   # noqa: BLE001 — the policy engine
                 decision = policy.decide(exc,
                                          have_checkpoint=ckpt is not None)
@@ -303,8 +512,12 @@ class Estimator:
                             policy.budget.remaining)
                 restore_snapshot()
                 continue
-            if steps:
-                ts.last_loss = float(loss_sum / steps)   # the epoch's sync
+            if again:
+                continue
+            # the route's loss: the HBM epoch's mean, the last chunk's
+            # mean, or the last step's (the epoch's one host read)
+            if loss is not None:
+                ts.last_loss = float(loss)
             if stop:
                 break
             ts.epoch += 1
@@ -314,9 +527,7 @@ class Estimator:
             record = {"epoch": ts.epoch, "loss": ts.last_loss,
                       "throughput": seen / max(wall, 1e-9), "wall_s": wall}
             if eval_runner is not None:
-                scores = eval_runner(params, state,
-                                     validation_set.epoch_batches(
-                                         0, batch_size, train=False))
+                scores = run_eval()
                 record["val"] = scores
                 ts.last_score = next(iter(scores.values()), None)
             self.history.append(record)
@@ -333,19 +544,35 @@ class Estimator:
         variables = to_device(self.model.get_variables(), trainer.device)
         return variables["params"], variables["state"]
 
+    def _infer_trainer(self) -> DistributedTrainer:
+        """The trainer of evaluate and predict, kept across calls so their
+        programs are captured once per Estimator, not once per call."""
+        if getattr(self, "_cached_infer_trainer", None) is None:
+            self._cached_infer_trainer = DistributedTrainer(self.model, None)
+            self._cached_eval_runner = (None, None)
+        return self._cached_infer_trainer
+
     def evaluate(self, data_set, criterion=None, validation_method=None,
                  batch_size: int = 32) -> Dict[str, float]:
         from analytics_zoo_torch.pipeline.api.keras import metrics as met
         methods = list(validation_method or [])
-        if criterion is not None:
-            methods = [met.Loss(criterion)] + methods
-        trainer = DistributedTrainer(self.model, None)
+        trainer = self._infer_trainer()
+        # the runner of the last criterion and metric objects only: other
+        # objects replace its programs rather than adding to them
+        objs = (criterion, *methods)
+        cached, runner = self._cached_eval_runner
+        if cached is None or len(cached) != len(objs) or \
+                any(a is not b for a, b in zip(cached, objs)):
+            if criterion is not None:
+                methods = [met.Loss(criterion)] + methods
+            runner = trainer.make_eval_runner(methods)
+            self._cached_eval_runner = (objs, runner)
         params, state = self._placed(trainer)
-        return trainer.make_eval_runner(methods)(
-            params, state, data_set.epoch_batches(0, batch_size, train=False))
+        return runner(params, state,
+                      data_set.epoch_batches(0, batch_size, train=False))
 
     def predict(self, x, batch_size: int = 256) -> np.ndarray:
-        trainer = DistributedTrainer(self.model, None)
+        trainer = self._infer_trainer()
         params, state = self._placed(trainer)
         fn = trainer.predict_fn()
         return predict_in_batches(

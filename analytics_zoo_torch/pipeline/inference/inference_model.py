@@ -7,7 +7,9 @@ places the weights on the zoo context's device once; ``predict`` splits
 the input into batches, pads the last one to the batch shape, and runs
 the model's pure ``apply`` in eval mode (BatchNormalization reads its
 moving statistics, so a row's answer does not depend on the rows padded
-beside it) under ``torch.inference_mode()``, recording
+beside it) under ``torch.inference_mode()``, built through
+``compile.engine_jit`` (a CUDA graph a batch shape on the card, captured
+at the first request of that shape or by ``warm``), recording
 the reference's ``inference_predict`` span and its three metrics.
 ``predict`` and ``warm`` run under ``torch.cuda.device`` of the model's
 device: the current CUDA device is per host thread, and serving calls
@@ -176,7 +178,11 @@ class InferenceModel:
             out, _ = model.apply(params, x, state=state, training=False)
             return out
 
-        self._predict_fn = fn
+        # the weights are read, never written: the graphs read the loaded
+        # tensors themselves (borrowed positions), one copy for all buckets
+        from analytics_zoo_torch.compile import engine_jit
+        self._predict_fn = engine_jit(fn, borrow_argnums=(0, 1),
+                                      key_hint="inference_predict")
         return self
 
     def load_zoo_file(self, model, path: str,
@@ -215,22 +221,22 @@ class InferenceModel:
         before the first request arrives, so a serving replica pays its
         cold start at spawn instead of inside a client's request.
 
-        The reference compiles an XLA program ahead of time and never
-        runs the model; eager PyTorch has no compile step, and a first
-        request here pays the kernel build at first use, CUDA's lazy
-        module loading and the libraries' first-call setup.  So this
-        (1) builds the kernels a forward pass launches (on a CUDA
-        device) and (2) runs one forward on a zero batch of that shape
-        under ``torch.inference_mode()``, discarding the output; it
-        records no metric and counts no record.  The forward runs on a
-        thread of its own that ends before this returns: CUDA's
-        libraries set up state per host thread (a first predict on a new
-        thread paid ~100 ms on an H100) and hand it on when the thread
-        ends, so the serving batcher's thread inherits it instead of
-        paying it inside a client's request.  Returns True when both
-        succeeded; a shape already warmed returns True at once.  A
-        failed build raises (``ClusterServing.warm_start`` logs it per
-        bucket, and the first predict raises it again)."""
+        On the card this (1) builds the kernels a forward pass launches
+        and (2) captures the predict program for that bucket into a CUDA
+        graph (``compile.engine_jit``), as the reference compiles its XLA
+        program ahead of time: nothing is executed on the weights, no
+        metric is recorded and no record counted, and later requests of
+        that shape replay the graph.  On the CPU, with
+        ``compile.aot=false``, or where the capture fails, it runs one
+        forward on a zero batch of that shape instead, its output
+        discarded.  The work runs on a thread of its own that ends before
+        this returns: CUDA's libraries set up state per host thread (a
+        first predict on a new thread paid ~100 ms on an H100) and hand it
+        on when the thread ends, so the serving batcher's thread inherits
+        it.  Returns True when it succeeded; a shape already warmed
+        returns True at once.  A failed build raises
+        (``ClusterServing.warm_start`` logs it per bucket, and the first
+        predict raises it again)."""
         if self._predict_fn is None:
             raise RuntimeError("no model loaded")
         key = ((int(batch_size),) + tuple(int(d) for d in input_shape),
@@ -249,9 +255,18 @@ class InferenceModel:
 
     def _warm_forward(self, x) -> None:
         with self._on_device(), torch.inference_mode():
-            self._forward(x)
+            args = (self._variables["params"], self._variables["state"],
+                    tree_map(self._to_device, x))
+            capture = getattr(self._predict_fn, "warm", None)
+            if capture is None or not capture(*args):
+                self._predict_fn(*args)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
+
+    @property
+    def aot_signatures(self) -> int:
+        """Buckets whose predict replays a captured graph."""
+        return int(getattr(self._predict_fn, "aot_signatures", 0))
 
     def predict(self, x, batch_size: Optional[int] = None) -> np.ndarray:
         """Thread-safe batched prediction; ``x`` is an array or a list of

@@ -27,7 +27,8 @@ schedules at *iteration* granularity instead:
   ``on_token`` callback — the per-token streaming hook the HTTP fast
   path's chunked ``/generate`` route rides.
 
-The pool's two device functions:
+The pool's two device functions, each built through
+``compile.engine_jit`` (a CUDA graph a bucket on the card):
 
 * ``prefill(params, tokens, carries, enc_ids[b,L], slot_ids[b])`` — run
   the model's encoder/bridge for ``b`` new sequences and copy their
@@ -55,7 +56,9 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import logging
+import threading
 import time
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional
 
@@ -98,9 +101,10 @@ class DecodeSlotPool:
     """Device-resident per-sequence decode state + the per-step
     functions over it.
 
-    NOT thread-safe by itself: the batcher's single executor thread is
-    the only caller of :meth:`step_once`/:meth:`admit` (the same
-    single-dispatcher discipline the stateless executor runs under)."""
+    The batcher's single executor thread is the only caller of
+    :meth:`step_once`/:meth:`admit` (the same single-dispatcher discipline
+    the stateless executor runs under); ``warm``, which may run while that
+    thread serves, takes the pool's lock as they do."""
 
     def __init__(self, model, *, capacity: int, enc_len: int,
                  start_sign: int, stop_sign: Optional[int],
@@ -123,6 +127,8 @@ class DecodeSlotPool:
         self.device = self._tokens.device
         self._free: List[int] = list(range(self.capacity))
         self._active: Dict[int, _ActiveSeq] = {}
+        # held by warm and by every call that touches the device state
+        self._lock = threading.RLock()
         self._warmed = set()           # (function, bucket) rungs run
         self.iterations = 0            # device steps executed
         self.admitted_total = 0
@@ -131,10 +137,25 @@ class DecodeSlotPool:
         self.admit_log: List[tuple] = []
         self.retire_log: List[tuple] = []
 
-        # what an iteration and an admission call; warm() runs the
-        # functions themselves
-        self._step = self._step_fn
-        self._prefill = self._prefill_fn
+        # the per-iteration and admission programs (compile.engine_jit):
+        # on the card a CUDA graph a bucket, captured by warm() or at the
+        # first call.  The weights are borrowed and the pool state
+        # donated: the graphs read and update those tensors themselves
+        # (the pool in place), so between iterations ONE copy of the
+        # decode state lives on the device and nothing is copied in but
+        # the slot ids and the prefill's tokens
+        from analytics_zoo_torch.compile import engine_jit
+        cap = self.capacity
+        # (each program calls the pool's function of the moment, through
+        # a weak reference: the graphs die with the pool)
+        pool = weakref.proxy(self)
+        self._step = engine_jit(lambda *a: pool._step_fn(*a),
+                                borrow_argnums=(0,), donate_argnums=(1, 2),
+                                key_hint=f"gen_decode_step_c{cap}")
+        self._prefill = engine_jit(lambda *a: pool._prefill_fn(*a),
+                                   borrow_argnums=(0,),
+                                   donate_argnums=(1, 2),
+                                   key_hint=f"gen_decode_prefill_c{cap}")
 
         reg = get_registry()
         self._m_tokens = reg.counter(
@@ -188,6 +209,14 @@ class DecodeSlotPool:
         return tokens, carries
 
     # ------------------------------------------------------------ geometry
+    def _reset_state(self) -> None:
+        """Back to fresh state, written into the pool's own tensors (the
+        captured programs hold them)."""
+        tokens, carries = self._fresh_state()
+        with torch.inference_mode():
+            self._tokens.copy_(tokens)
+            tree_map(lambda dst, src: dst.copy_(src), self._carries, carries)
+
     def _fresh_state(self):
         """A brand-new device-resident pool state, ``capacity + 1`` rows.
         Every leaf is copied: the model's ``initial_carries`` may alias
@@ -224,35 +253,41 @@ class DecodeSlotPool:
 
     # ----------------------------------------------------------- warm start
     def warm(self) -> int:
-        """Run both pool functions (step + prefill) once at every bucket
-        of the ladder, every lane on the sink row, so a first request
-        pays neither CUDA's lazy loading nor the libraries' first-call
-        setup for its shape.  The work runs on a thread of its own that
-        ends (CUDA's libraries set up per host thread and hand that on
-        when the thread ends, so the batcher's thread inherits it); no
-        slot is touched and, with no sequence active, the pool is reset
-        to fresh state.  Returns #rungs warmed (both functions count)."""
+        """Warm both pool programs (step + prefill) at every bucket of the
+        ladder, every lane on the sink row, so a first request pays
+        neither a capture, CUDA's lazy loading nor the libraries'
+        first-call setup for its shape.  On the card each rung is captured
+        into a CUDA graph without running (``EngineJit.warm``); on the CPU,
+        with ``compile.aot=false``, or where a capture fails, the function
+        runs once instead.  The work runs on a thread of its own that ends
+        (CUDA's libraries set up per host thread and hand that on when the
+        thread ends, so the batcher's thread inherits it); no slot is
+        touched and, with no sequence active, the pool is reset to fresh
+        state.  Returns #rungs warmed (both functions count)."""
         with ThreadPoolExecutor(1, thread_name_prefix="zoo-warm") as ex:
             warmed = ex.submit(self._warm_rungs).result()
-        if not self._active:
-            self._tokens, self._carries = self._fresh_state()
+        with self._lock:
+            if not self._active:
+                self._reset_state()
         return warmed
 
     def _warm_rungs(self) -> int:
         warmed = 0
-        with self._on_device(), torch.inference_mode():
+        with self._lock, self._on_device(), torch.inference_mode():
             for b in self.buckets:
                 ids = self._pad_ids([], b)
                 enc = torch.zeros((b, self.enc_len), dtype=torch.int32,
                                   device=self.device)
                 try:
-                    self._tokens, self._carries, _ = self._step_fn(
-                        self._params, self._tokens, self._carries, ids)
+                    args = (self._params, self._tokens, self._carries, ids)
+                    if not self._step.warm(*args):
+                        self._tokens, self._carries, _ = self._step(*args)
                     self._warmed.add(("step", b))
                     warmed += 1
-                    self._tokens, self._carries = self._prefill_fn(
-                        self._params, self._tokens, self._carries, enc,
-                        ids)
+                    args = (self._params, self._tokens, self._carries, enc,
+                            ids)
+                    if not self._prefill.warm(*args):
+                        self._tokens, self._carries = self._prefill(*args)
                     self._warmed.add(("prefill", b))
                     warmed += 1
                 except Exception:   # noqa: BLE001 — warm is best-effort
@@ -264,9 +299,10 @@ class DecodeSlotPool:
 
     @property
     def aot_signatures(self) -> int:
-        """Rungs warmed (step and prefill each count), the counterpart of
-        the reference's AOT executables."""
-        return len(self._warmed)
+        """Captured graphs of the step and the prefill; where no graph is
+        captured (the CPU, ``compile.aot=false``), the rungs warmed."""
+        captured = self._step.aot_signatures + self._prefill.aot_signatures
+        return captured or len(self._warmed)
 
     # ------------------------------------------------------------ admission
     def admit(self, requests: List, now: Optional[float] = None
@@ -274,6 +310,10 @@ class DecodeSlotPool:
         """Prefill + copy up to ``len(self._free)`` new sequences into
         free slots (one bucket-padded prefill call).  Returns #admitted;
         the rest stay with the caller."""
+        with self._lock:
+            return self._admit(requests, now)
+
+    def _admit(self, requests: List, now: Optional[float] = None) -> int:
         n = min(len(requests), len(self._free))
         if n == 0:
             return 0
@@ -305,7 +345,7 @@ class DecodeSlotPool:
             # queue), because re-queueing a deterministically-poison
             # group would fail every future iteration forever.  The
             # state may hold a partial copy: rebuild.
-            self._tokens, self._carries = self._fresh_state()
+            self._reset_state()
             self._free = sorted(set(self._free) | set(slots))
             for r in batch:
                 self._m_retired.labels(self._endpoint_name,
@@ -338,6 +378,10 @@ class DecodeSlotPool:
         """One decode iteration over the active slots: gather → step →
         copy back → emit.  Retires EOS/budget-exhausted sequences and
         frees their slots.  Returns #tokens emitted."""
+        with self._lock:
+            return self._step_once()
+
+    def _step_once(self) -> int:
         # sweep abandoned sequences first: a transport that timed a
         # request out already answered its client — decoding its
         # remaining tokens would burn device steps on a response
@@ -408,6 +452,10 @@ class DecodeSlotPool:
         one step call, so a failed iteration fails them ALL (each
         request carries the error to its transport) and the pool resets
         to empty — the endpoint is never wedged on corrupt state."""
+        with self._lock:
+            return self._fail_all(exc)
+
+    def _fail_all(self, exc: BaseException) -> int:
         n = len(self._active)
         for slot, seq in list(self._active.items()):
             self._m_retired.labels(self._endpoint_name, "error").inc()
@@ -417,7 +465,7 @@ class DecodeSlotPool:
         self._free = list(range(self.capacity))
         # the failed call may have copied part of its rows before
         # raising — rebuild, don't reuse
-        self._tokens, self._carries = self._fresh_state()
+        self._reset_state()
         self._m_occupancy.labels(self._endpoint_name).set(0.0)
         return n
 

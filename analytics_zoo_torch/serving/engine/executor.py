@@ -161,17 +161,20 @@ class EndpointRegistry:
 
     def warm_all(self) -> Dict[str, int]:
         """Warm every endpoint's full bucket ladder; returns
-        {endpoint: buckets warmed}."""
+        {endpoint: buckets warmed} and logs each endpoint's captured
+        graphs (``aot_signatures`` of its model or decode pool)."""
         out = {}
         for ep in self:
             t0 = time.perf_counter()
             n = ep.warm()
             out[ep.name] = n
             if n:
+                holder = getattr(ep, "pool", ep.model)
                 log.info(
-                    "endpoint %s: %d/%d buckets warm in %.2fs "
-                    "(buckets=%s)", ep.name, n, len(ep.buckets),
-                    time.perf_counter() - t0, ep.buckets)
+                    "endpoint %s: %d/%d buckets warm in %.2fs, %d captured "
+                    "graphs (buckets=%s)", ep.name, n, len(ep.buckets),
+                    time.perf_counter() - t0,
+                    int(getattr(holder, "aot_signatures", 0)), ep.buckets)
         return out
 
 

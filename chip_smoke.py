@@ -12,7 +12,8 @@ GPT-1 served and trained, BERT-base fine-tuned through the TFPark
 estimators, a BERT checkpoint loaded, the rest of the Keras surface:
 AnomalyDetector trained and served, the 64 layer classes of that slice
 and the regularizers held to the CPU, and KNRM trained and ranked, MoE,
-ConvLSTM, remat, freezing and optimizer groups, keras2 and autograd.
+ConvLSTM, remat, freezing and optimizer groups, keras2 and autograd, and
+the compiled path (CUDA-graph capture) against the eager one.
 
     python3 chip_smoke.py
 
@@ -250,7 +251,31 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    18e a ``keras2`` Conv2D/MaxPooling2D/Dense ``Sequential`` fit on
    ``datasets.mnist``'s synthetic digits, and ``custom_loss_example.py``'s
    ``autograd.CustomLoss`` in ``compile``;
-19. a ``kernels`` JSON line, then the device line last.
+19. compile and warm start (``python3 chip_smoke.py --compile`` runs it
+   alone; every earlier phase runs under ``compile.aot=true``, the
+   default, and prints its captured programs and capture fallbacks): 19a
+   phase 4's BERT-base ``fit`` (64 seeded sequences, batch 8, Adam,
+   dropout on) captured and eager under deterministic algorithms, params
+   and ``history`` bit-identical, 12/12/12/12/1/1 launches a step on both,
+   no capture fallback, then ``train_step_at`` ms in turns, capture
+   seconds and pool bytes; 19b the same width served through
+   ``InferenceModel``: ``warm`` captures buckets 1/2/4/8 x 512, 4 requests
+   of 8 bit-identical to the eager route, request ms in turns, then phase
+   3b's Cluster Serving traffic on both routes (records/s, arrival→result
+   p50/p99); 19c NeuralCF at ``bench_ncf``'s width, 2 epochs on the HBM
+   epoch cache, chunked (``hbm_cache_mb=0``), per-step captured and
+   per-step eager routes (``steps_per_dispatch=1``, ``compile.aot`` on
+   and off) under deterministic algorithms: params bit-identical, each
+   epoch loss
+   its route's rule, ms a step and samples/s, the bytes ``put_batch``
+   moved (the HBM route: the dataset once); 19d phase 11's ``Seq2seq``
+   pool (16 slots, 64 requests) captured at every rung against the eager
+   pool, tokens held to ``infer``'s, tokens/s and inter-token p50/p99;
+   19e a cold build fills a cache directory, a child process with an
+   empty build directory loads every kernel library from it starting no
+   ``nvcc`` process, then a corrupted entry is a loud miss, rebuilt, its kernels
+   identical in SASS;
+20. a ``kernels`` JSON line, then the device line last.
 
 The int8 phases besides 9: 2b holds ``quantized_matmul`` and
 ``quantized_conv`` (``torch._int_mm``, a convolution as one product over
@@ -2044,6 +2069,11 @@ def resnet_train_steps(torch, model, batch, mode, n_untimed, n_timed):
         return out, float(loss), state
     finally:
         get_config().set("ops.fused", "auto")
+        # the trainer's captured step (its graph pool) goes with the turn
+        tr = params = opt_state = None
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def image_serving(torch, card):
@@ -2191,7 +2221,9 @@ def image_phase(torch, card, dev):
     print(f"resnet-50 training: last loss {loss:.5f}, all 106 BN statistics "
           f"moved, launches of a turn of {RESNET_UNTIMED + RESNET_TIMED} "
           f"steps {train_launches}; torch.cuda.max_memory_allocated "
-          f"{peak / 2**30:.3f} GiB")
+          f"{peak / 2**30:.3f} GiB; after the turns allocated "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB, reserved "
+          f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB")
     # ---- 13c: the normal entry point, fit on host numpy data
     model.set_variables(tree_map(torch.clone, start))
     model.compile(bench_sgd(), "sparse_categorical_crossentropy_with_logits")
@@ -4859,6 +4891,541 @@ def text_matching_phase(torch, card, dev):
     return knrm, moe
 
 
+# ------------------------------------------- phase 19: compile and warm start
+# 19e: what the cache holds and where the warm child builds
+WARM_CHILD = "--warm-start-child"
+
+
+def capture_count(since: int):
+    """(captures, fallbacks) logged by the engine since ``since``."""
+    from analytics_zoo_torch.compile.engine import CAPTURE_LOG
+    new = CAPTURE_LOG[since:]
+    return ([c for c in new if c["fallback"] is None],
+            [c for c in new if c["fallback"] is not None])
+
+
+def report_captures(tag: str, since: int, card: str,
+                    allow_fallback: bool = True) -> None:
+    """Print the programs captured since ``since`` (signatures, capture
+    seconds, pool bytes) and every capture fallback; fail on a fallback
+    where none is allowed."""
+    import gc
+    gc.collect()                  # graphs held in reference cycles, and
+    import torch                  # their pools, go with the phase
+    torch.cuda.empty_cache()
+    caps, falls = capture_count(since)
+    by_fn = Counter(c["fn"] for c in caps)
+    secs = sum(c["capture_s"] for c in caps)
+    pool = sum(max(c["pool_bytes"], 0) for c in caps)
+    again = sum(1 for c in caps if c.get("recapture"))
+    print(f"{tag}: {len(caps)} captured signatures {dict(by_fn)} ({again} "
+          f"of them captured again for new weights), capture {secs:.3f} s, "
+          f"pool bytes {pool} ({card})")
+    for c in falls:
+        print(f"{tag}: capture fallback {c['fn']}: {c['fallback']}")
+    if falls and not allow_fallback:
+        fail(f"{tag}: {len(falls)} capture fallback(s)")
+
+
+def warm_start_child(build_dir: str, cache_dir: str) -> None:
+    """Phase 19e's child: load every kernel library into an empty
+    ``build_dir`` from the cache ``cache_dir``, counting every nvcc
+    process it starts (``--version`` included); prints one JSON line."""
+    os.environ["ZOO_TPU_COMPILE_CACHE"] = cache_dir
+    from analytics_zoo_torch.observability import get_registry
+    from analytics_zoo_torch.ops import kernels
+    kernels.BUILD_DIR = build_dir
+    real = subprocess.Popen
+    calls = []
+
+    class Counted(real):
+        def __init__(self, args, *rest, **kw):
+            if os.path.basename(str(args[0])) == "nvcc":
+                calls.append(list(args[1:]))
+            super().__init__(args, *rest, **kw)
+    subprocess.Popen = Counted
+    t0 = time.perf_counter()
+    kernels.build_all()
+    load_s = time.perf_counter() - t0
+    reg = get_registry()
+    hits = reg.counter("compile_cache_hits_total", labels=("fn",))
+    corrupt = reg.counter("compile_cache_errors_total",
+                          labels=("kind",)).labels("corrupt").value
+    print(json.dumps({
+        "load_s": load_s, "nvcc_calls": len(calls), "nvcc_args": calls,
+        "hits": sum(hits.labels(s).value for s in kernels.SOURCES),
+        "corrupt": corrupt, "loaded": sorted(kernels._libs)}))
+
+
+def library_bytes(build_dir: str):
+    return {f.rsplit("_", 1)[0]: open(os.path.join(build_dir, f), "rb").read()
+            for f in sorted(os.listdir(build_dir)) if f.endswith(".so")}
+
+
+def library_sass(build_dir: str):
+    """Each library's kernels as ``cuobjdump --dump-sass`` prints them: two
+    nvcc runs of one source write other bytes around the same machine
+    code."""
+    from analytics_zoo_torch.ops import kernels
+    tool = os.path.join(os.path.dirname(kernels.nvcc_path()), "cuobjdump")
+    out = {}
+    for f in sorted(os.listdir(build_dir)):
+        if f.endswith(".so"):
+            out[f.rsplit("_", 1)[0]] = subprocess.run(
+                [tool, "--dump-sass", os.path.join(build_dir, f)],
+                capture_output=True, text=True, check=True).stdout
+    return out
+
+
+def warm_start_phase(card: str) -> None:
+    """19e: a cold build fills a cache directory; a child process with an
+    empty build directory loads every kernel from it without nvcc; then a
+    corrupted entry is a loud miss, rebuilt, the same library bytes."""
+    import shutil
+    import tempfile
+
+    from analytics_zoo_torch.compile.cache import reset_cache_state
+    from analytics_zoo_torch.ops import kernels
+    tmp = tempfile.mkdtemp(prefix="zoo-warm-start-")
+    cache_dir = os.path.join(tmp, "cache")
+    try:
+        prev_dir = kernels.BUILD_DIR
+        os.environ["ZOO_TPU_COMPILE_CACHE"] = cache_dir
+        reset_cache_state()
+        kernels.BUILD_DIR = os.path.join(tmp, "cold")
+        t0 = time.perf_counter()
+        kernels.build_libraries(kernels.SOURCES)
+        cold_s = time.perf_counter() - t0
+        kernels.BUILD_DIR = prev_dir
+        del os.environ["ZOO_TPU_COMPILE_CACHE"]
+        reset_cache_state()
+        cold = library_bytes(os.path.join(tmp, "cold"))
+        entries = sorted(f for f in os.listdir(cache_dir)
+                         if f.endswith(".zooexec"))
+        if len(entries) != len(kernels.SOURCES):
+            fail(f"19e: the cold build stored {len(entries)} entries, want "
+                 f"{len(kernels.SOURCES)}")
+
+        def child(build):
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), WARM_CHILD,
+                 os.path.join(tmp, build), cache_dir],
+                capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                fail(f"19e child ({build}) failed:\n{proc.stdout[-2000:]}"
+                     f"\n{proc.stderr[-3000:]}")
+            return json.loads(proc.stdout.strip().splitlines()[-1])
+        warm = child("warm")
+        if warm["nvcc_calls"] or warm["hits"] != len(kernels.SOURCES) or \
+                len(warm["loaded"]) != len(kernels.SOURCES) or \
+                library_bytes(os.path.join(tmp, "warm")) != cold:
+            fail(f"19e: the warm child {warm}")
+        print(f"warm start (19e): cold build of {len(kernels.SOURCES)} "
+              f"kernel libraries (one nvcc each, all started together) "
+              f"{cold_s:.3f} s; a second process loaded all "
+              f"{len(warm['loaded'])} from the cache in {warm['load_s']:.3f} "
+              f"s with {warm['nvcc_calls']} nvcc calls, {int(warm['hits'])} "
+              f"hits, "
+              f"the libraries bit-identical ({card})")
+        # a flipped byte inside one entry's payload
+        victim = os.path.join(cache_dir, entries[0])
+        blob = bytearray(open(victim, "rb").read())
+        blob[len(blob) // 2] ^= 0xFF
+        open(victim, "wb").write(bytes(blob))
+        again = child("again")
+        rebuilt = library_bytes(os.path.join(tmp, "again"))
+        same_bytes = [k for k in cold if rebuilt.get(k) == cold[k]]
+        if again["corrupt"] != 1 or again["nvcc_calls"] != 1 or \
+                len(same_bytes) != len(cold) - 1 or \
+                library_sass(os.path.join(tmp, "again")) != \
+                library_sass(os.path.join(tmp, "cold")):
+            fail(f"19e: after a corrupted entry {again}, {len(same_bytes)} "
+                 f"of {len(cold)} libraries byte-identical")
+        print(f"warm start (19e): a corrupted entry was a loud miss "
+              f"(compile_cache_errors_total{{kind=\"corrupt\"}} "
+              f"{int(again['corrupt'])}), rebuilt by {again['nvcc_calls']} "
+              f"nvcc call in {again['load_s']:.3f} s; the other "
+              f"{len(same_bytes)} libraries byte-identical from the cache, "
+              f"the rebuilt one's kernels identical in SASS to the cold "
+              f"build's (cuobjdump --dump-sass; nvcc writes other bytes "
+              f"around them)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def compile_phase(torch, card, dev) -> None:
+    """Phase 19: the compiled path against the eager one (see the module
+    docstring)."""
+    import gc
+    import itertools
+
+    from analytics_zoo_torch.common.config import get_config
+    from analytics_zoo_torch.compile.engine import CAPTURE_LOG
+    from analytics_zoo_torch.feature import FeatureSet
+    from analytics_zoo_torch.feature.datasets import movielens
+    from analytics_zoo_torch.models.recommendation import NeuralCF
+    from analytics_zoo_torch.ops import dtypes, kernels
+    from analytics_zoo_torch.parallel.trainer import (
+        DistributedTrainer, step_generator)
+    from analytics_zoo_torch.pipeline.api.keras import objectives
+    from analytics_zoo_torch.pipeline.api.keras.engine import Layer
+    from analytics_zoo_torch.pipeline.api.keras.optimizers import Adam
+    from analytics_zoo_torch.pipeline.api.keras.topology import tree_leaves
+    from analytics_zoo_torch.pipeline.inference import InferenceModel
+    from analytics_zoo_torch.serving.engine import Request, ServingEngine
+    cfg = get_config()
+    t_phase = time.perf_counter()
+    loss_name = "sparse_categorical_crossentropy_with_logits"
+
+    def routes(fn, order=(True, False, False, True)):
+        """``fn(aot)`` in turns, compile.aot set for each; {aot: [out]}."""
+        out = {True: [], False: []}
+        for aot in order:
+            cfg.set("compile.aot", aot)
+            out[aot].append(fn(aot))
+        cfg.set("compile.aot", True)
+        return out
+
+    def spread(v):
+        return f"median {statistics.median(v):.3f} ms, spread " \
+               f"{min(v):.3f}-{max(v):.3f}"
+
+    # ---- 19a. BERT-base fit, captured and eager, deterministic
+    rs = np.random.RandomState(19)
+    x = rs.randint(0, 30522, size=(64, 512)).astype(np.int64)
+    y = rs.randint(0, 20, size=(64,)).astype(np.int64)
+    mark = len(CAPTURE_LOG)
+
+    def bert_fit(aot):
+        Layer.reset_name_counters()
+        model = bert_base()
+        model.model.init(torch.Generator().manual_seed(0))
+        model.compile(Adam(lr=1e-4), loss_name)
+        kernels.reset_launch_counts()
+        with deterministic(torch):
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            hist = model.fit(x, y, batch_size=8, nb_epoch=1, rng=0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - s0
+        leaves = [t.clone() for t in
+                  tree_leaves(model.get_variables()["params"])]
+        return [h["loss"] for h in hist], kernels.launch_counts(), leaves, \
+            wall, model
+    cfg.set("compile.aot", True)
+    h_aot, l_aot, p_aot, w_aot, model = bert_fit(True)
+    report_captures("19a BERT-base fit captured", mark, card,
+                    allow_fallback=False)
+    cfg.set("compile.aot", False)
+    h_eag, l_eag, p_eag, w_eag, _ = bert_fit(False)
+    cfg.set("compile.aot", True)
+    want = {name: 0 for name in kernels.SIGNATURES}
+    want.update({"flash_attention_fwd": 96, "flash_attention_dq": 96,
+                 "flash_attention_dkv": 96, "bias_gelu": 96,
+                 "layernorm_act": 8, "fused_adam": 8})
+    if l_aot != want or l_eag != want:
+        fail(f"19a launches captured {l_aot}, eager {l_eag}, want {want}")
+    same = h_aot == h_eag and all(torch.equal(a, b)
+                                  for a, b in zip(p_aot, p_eag))
+    if not same:
+        worst = max(float((a - b).abs().max()) for a, b in zip(p_aot, p_eag))
+        fail(f"19a captured vs eager fit: history {h_aot} vs {h_eag}, "
+             f"params max abs diff {worst:.3e}")
+    print(f"19a BERT-base fit (64 x 512, batch 8, Adam, dropout on, "
+          f"deterministic): captured and eager bit-identical, history "
+          f"{h_aot}, all {len(p_aot)} leaves; launches a step 12/12/12/12/"
+          f"1/1 on both; fit wall {w_aot:.3f} s captured (capture "
+          f"included), {w_eag:.3f} s eager ({card})")
+    del p_aot, p_eag
+    loss_fn = objectives.get(loss_name)
+    batch_np = (x[:8], y[:8])
+    params0 = model.get_variables()["params"]
+
+    def bert_steps(aot, n=6):
+        tr = DistributedTrainer(model.model, loss_fn,
+                                optim_method=Adam(lr=1e-4))
+        params = tr.place_params(params0)
+        opt_state, state = tr.init_opt_state(params), {}
+        batch = tr.put_batch(batch_np)
+        ms = []
+        with deterministic(torch):
+            for i in range(n + 1):            # the first captures
+                torch.cuda.synchronize()
+                s0 = time.perf_counter()
+                params, opt_state, state, _ = tr.train_step_at(
+                    params, opt_state, state, batch, 0, i)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - s0) * 1e3)
+        return ms[1:]
+    mark = len(CAPTURE_LOG)
+    steps = routes(bert_steps)
+    caps, falls = capture_count(mark)
+    if falls:
+        fail(f"19a step capture fallback {falls}")
+    step_caps = [c for c in caps if c["fn"] == "train_step_at"]
+    for aot, name in ((True, "captured"), (False, "eager")):
+        v = sum(steps[aot], [])
+        print(f"19a BERT-base train_step_at {name}: {spread(v)} over "
+              f"{len(v)} steps in 2 turns, batch 8 x 512, Adam ({card})")
+    print(f"19a capture: {[round(c['capture_s'], 3) for c in step_caps]} s "
+          f"a turn, pool bytes {[c['pool_bytes'] for c in step_caps]} "
+          f"({card})")
+    del model, params0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 19b. BERT-base served through InferenceModel
+    Layer.reset_name_counters()
+    serve = bert_base()
+    serve.model.init(torch.Generator().manual_seed(0))
+    reqs = [rs.randint(0, 30522, size=(8, 512)).astype(np.int64)
+            for _ in range(4)]
+    mark = len(CAPTURE_LOG)
+    im = InferenceModel().load_zoo(serve)
+    t0 = time.perf_counter()
+    for b in (1, 2, 4, 8):
+        im.warm((512,), b, dtype=np.int64)
+    warm_s = time.perf_counter() - t0
+    if im.aot_signatures != 4:
+        fail(f"19b warm captured {im.aot_signatures} buckets, want 4")
+    report_captures("19b InferenceModel.warm", mark, card,
+                    allow_fallback=False)
+
+    def serve_once(aot):
+        kernels.reset_launch_counts()
+        outs, ms = [], []
+        for r in reqs:
+            s0 = time.perf_counter()
+            outs.append(im.predict(r, batch_size=8))
+            ms.append((time.perf_counter() - s0) * 1e3)
+        return outs, ms, kernels.launch_counts()
+    im.predict(reqs[0], batch_size=8)          # the eager route's set-up
+    served = routes(serve_once)
+    for a, b in zip(served[True][0][0], served[False][0][0]):
+        if not np.array_equal(a, b):
+            fail("19b captured and eager logits differ")
+    if served[True][0][2] != served[False][0][2]:
+        fail(f"19b launches {served[True][0][2]} vs {served[False][0][2]}")
+    for aot, name in ((True, "captured"), (False, "eager")):
+        v = sum((r[1] for r in served[aot]), [])
+        print(f"19b BERT-base request {name} (8 x 512): {spread(v)} over "
+              f"{len(v)} requests in 2 turns ({card})")
+    print(f"19b: warm captured buckets 1/2/4/8 x 512 in {warm_s:.3f} s; "
+          f"logits captured vs eager bit-identical; launches a request "
+          f"{served[True][0][2]} on both")
+    fronts = {}
+    for aot in (True, False):
+        cfg.set("compile.aot", aot)
+        run = serve_front_end(torch, im, fail)
+        fronts[aot] = run
+        n = len(run["results"])
+        print(f"19b cluster serving {'captured' if aot else 'eager'}: "
+              f"{n} records in {run['wall_s']:.4f} s, "
+              f"{n / run['wall_s']:.2f} records/s, arrival->result p50 "
+              f"{run['p50_ms']:.3f} ms, p99 {run['p99_ms']:.3f} ms "
+              f"({card})")
+    cfg.set("compile.aot", True)
+    # the batches' compositions follow arrival timing, and a bucket's size
+    # picks the products' kernels, so a record's probabilities may move in
+    # their last bits between the runs: top-1 and PROB_ATOL
+    worst = 0.0
+    for a, b in zip(fronts[True]["results"], fronts[False]["results"]):
+        pa, pb = dict(a), dict(b)
+        worst = max([worst] + [abs(pa[k] - pb[k]) for k in pa if k in pb])
+        if a[0][0] != b[0][0] and abs(a[0][1] - a[1][1]) > PROB_ATOL:
+            fail(f"19b cluster serving: top-1 {a} captured, {b} eager")
+    if not worst <= PROB_ATOL:
+        fail(f"19b cluster serving: probabilities captured vs eager differ "
+             f"by {worst}")
+    print(f"19b cluster serving captured vs eager: top-1 equal, "
+          f"probabilities max abs diff {worst:.3e} (tolerance {PROB_ATOL})")
+    del im, serve, served, fronts
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 19c. NeuralCF's routes at bench_ncf's width
+    users, items = movielens.ML1M_USERS, movielens.ML1M_ITEMS
+    ratings = movielens.synthetic_ratings(users, items, 1_000_000)
+    train_x, train_y, _, _ = movielens.build_ncf_samples(
+        ratings, users, items, neg_per_pos=4, eval_neg=100)
+    batch = NCF_BATCH
+    nb = len(train_y) // batch
+    ncf_routes = {"hbm": (16, 2048, True), "chunked": (16, 0, True),
+                  "per_step_captured": (1, 2048, True),
+                  "per_step_eager": (1, 2048, False)}
+    moved = []
+    real_put = DistributedTrainer.put_batch
+
+    def counting_put(self, b):
+        moved.append(sum(int(np.asarray(a).nbytes) for a in tree_leaves(b)
+                         if a is not None and not isinstance(a, torch.Tensor)))
+        return real_put(self, b)
+
+    def ncf_fit(route):
+        k, mb, aot = ncf_routes[route]
+        cfg.set("train.steps_per_dispatch", k)
+        cfg.set("train.hbm_cache_mb", mb)
+        cfg.set("compile.aot", aot)
+        Layer.reset_name_counters()
+        m = NeuralCF(users, items, class_num=2, user_embed=64, item_embed=64,
+                     mf_embed=64, hidden_layers=(128, 64, 32))
+        m.model.init(torch.Generator().manual_seed(0))
+        m.compile(Adam(lr=1e-3), loss_name)
+        moved.clear()
+        DistributedTrainer.put_batch = counting_put
+        try:
+            with deterministic(torch):
+                torch.cuda.synchronize()
+                s0 = time.perf_counter()
+                hist = m.fit(train_x, train_y, batch_size=batch, nb_epoch=2,
+                             rng=0)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - s0
+        finally:
+            DistributedTrainer.put_batch = real_put
+        leaves = [t.clone() for t in tree_leaves(m.get_variables()["params"])]
+        return dict(hist=[h["loss"] for h in hist], leaves=leaves, wall=wall,
+                    epoch_s=[h["wall_s"] for h in hist], moved=list(moved))
+    mark = len(CAPTURE_LOG)
+    ncf = {}
+    for route in ("hbm", "chunked", "per_step_captured", "per_step_eager",
+                  "per_step_captured", "chunked", "hbm"):
+        ncf.setdefault(route, []).append(ncf_fit(route))
+    cfg.set("train.steps_per_dispatch", 16)
+    cfg.set("train.hbm_cache_mb", 2048)
+    cfg.set("compile.aot", True)
+    report_captures("19c NeuralCF fits", mark, card, allow_fallback=False)
+    ref = ncf["per_step_eager"][0]["leaves"]
+    for route, runs in ncf.items():
+        for run in runs:
+            if not all(torch.equal(a, b) for a, b in zip(run["leaves"], ref)):
+                fail(f"19c {route}: params differ from the per-step route")
+    # the step losses of the per-step route, for the routes' rules
+    cfg.set("compile.aot", False)
+    Layer.reset_name_counters()
+    m = NeuralCF(users, items, class_num=2, user_embed=64, item_embed=64,
+                 mf_embed=64, hidden_layers=(128, 64, 32))
+    m.model.init(torch.Generator().manual_seed(0))
+    tr = DistributedTrainer(m.model, objectives.get(loss_name),
+                            optim_method=Adam(lr=1e-3))
+    params = tr.place_params(m.get_variables()["params"])
+    opt_state, state = tr.init_opt_state(params), {}
+    fs = FeatureSet.from_ndarrays(train_x, train_y)
+    step_losses = []
+    with deterministic(torch):
+        for epoch in range(2):
+            for i, b in enumerate(fs.epoch_batches(epoch, batch)):
+                params, opt_state, state, loss = tr.train_step_at(
+                    params, opt_state, state, tr.put_batch(b), 0,
+                    epoch * nb + i)
+                step_losses.append(loss)
+    cfg.set("compile.aot", True)
+    last = step_losses[nb:]
+    rules = {"per_step_eager": float(last[-1]),
+             "per_step_captured": float(last[-1]),
+             "chunked": float(torch.stack(last[(nb - 1) // 16 * 16:]).mean()),
+             "hbm": float(torch.stack(last).mean())}
+    for route, want_loss in rules.items():
+        got = ncf[route][0]["hist"][1]
+        if abs(got - want_loss) > 1e-6 * max(1.0, abs(want_loss)):
+            fail(f"19c {route}: epoch-2 loss {got} against its rule "
+                 f"{want_loss}")
+    full = sum(int(a.nbytes) for a in list(train_x) + [train_y])
+    for route, runs in ncf.items():
+        ms = [r["epoch_s"][1] * 1e3 / nb for r in runs]
+        print(f"19c NeuralCF {route}: second epoch {ms} ms a step, "
+              f"{[round(batch * 1e3 / v, 1) for v in ms]} samples/s, "
+              f"history {runs[0]['hist']}; put_batch moved "
+              f"{sum(runs[0]['moved'])} bytes in {len(runs[0]['moved'])} "
+              f"calls over 2 epochs ({card})")
+    hbm_moved = ncf["hbm"][0]["moved"]
+    if hbm_moved != [full]:
+        fail(f"19c hbm: put_batch moved {hbm_moved}, want the dataset once "
+             f"({full} bytes) and nothing within an epoch")
+    print(f"19c: the routes' params bit-identical (deterministic "
+          f"algorithms), each epoch-2 loss its route's rule; the HBM route "
+          f"placed the dataset once ({full} bytes) and copied nothing from "
+          f"the host within an epoch but its int64 permutation")
+    del ncf, m, tr, params, opt_state, step_losses
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 19d. generative serving, the decode pool captured at every rung
+    sm, enc, budgets = seq2seq_model(torch)
+    kw = dict(start_sign=GEN_START, max_seq_len=GEN_MAX_LEN,
+              stop_sign=GEN_STOP)
+    default = dtypes.get_policy()
+    dtypes.set_policy("float32", "float32")
+    rows, margins = greedy_margins(torch, sm, enc, GEN_START, GEN_MAX_LEN)
+    served = {}
+    for aot in (True, False, False, True):
+        cfg.set("compile.aot", aot)
+        mark = len(CAPTURE_LOG)
+        if not np.array_equal(sm.infer(enc, start_sign=GEN_START,
+                                       max_seq_len=GEN_MAX_LEN), rows):
+            fail(f"19d: infer ({'captured' if aot else 'eager'}) and the "
+                 "margin walk disagree")
+        eng_ = ServingEngine()
+        ep = eng_.register_generative(
+            "gen", sm, enc_len=GEN_ENC_LEN, stop_sign=GEN_STOP,
+            start_sign=GEN_START, max_seq_len=GEN_MAX_LEN, slots=GEN_SLOTS)
+        ep.warm()
+        rungs = 2 * len(ep.pool.buckets)
+        captured = ep.pool._step.aot_signatures + \
+            ep.pool._prefill.aot_signatures
+        if captured != (rungs if aot else 0):
+            fail(f"19d: {captured} captured rungs of {rungs}")
+        eng_.start()
+        times = {i: [] for i in range(GEN_REQUESTS)}
+        t0 = time.perf_counter()
+        rq = [Request(endpoint="gen", uri=f"c{i}", data=enc[i],
+                      max_tokens=int(budgets[i]),
+                      on_token=(lambda i: lambda _j, _t: times[i].append(
+                          time.perf_counter()))(i))
+              for i in range(GEN_REQUESTS)]
+        eng_.wait_all(eng_.submit(rq), timeout_s=600)
+        wall = time.perf_counter() - t0
+        eng_.stop()
+        if any(r.error is not None for r in rq):
+            fail("19d: a generative request failed")
+        compared = sum(held_to_infer(
+            f"19d {'captured' if aot else 'eager'} request {i}", r.result,
+            rows[i], margins[i], budgets[i]) for i, r in enumerate(rq))
+        gaps = []
+        for i in range(GEN_REQUESTS):
+            gaps.extend(np.diff(times[i]).tolist())
+        tokens = sum(len(r.result) for r in rq)
+        served.setdefault(aot, []).append(
+            (tokens / wall, float(np.percentile(gaps, 50)) * 1e3,
+             float(np.percentile(gaps, 99)) * 1e3, [r.result for r in rq],
+             compared))
+        if aot:
+            report_captures("19d decode pool and infer", mark, card,
+                            allow_fallback=False)
+    cfg.set("compile.aot", True)
+    dtypes.restore_policy(default)
+    same = sum(a == b for a, b in zip(served[True][0][3],
+                                      served[False][0][3]))
+    for aot, name in ((True, "captured"), (False, "eager")):
+        runs = served[aot]
+        print(f"19d generative {name} (64 requests, 16 slots, float32 "
+              f"products): {[round(r[0], 1) for r in runs]} tokens/s, "
+              f"inter-token p50 {[round(r[1], 3) for r in runs]} ms, p99 "
+              f"{[round(r[2], 3) for r in runs]} ms ({card})")
+    print(f"19d: served tokens held to Seq2seq.infer's rows on both routes "
+          f"({served[True][0][4]} of them up to each row's first margin "
+          f"below {GEN_MARGIN}); captured and eager pools served the same "
+          f"tokens on {same} of {GEN_REQUESTS} requests; every rung "
+          f"captured")
+    del sm, served
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 19e. warm start across processes
+    warm_start_phase(card)
+    print(f"phase 19: {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -5122,7 +5689,9 @@ def main() -> None:
     # ------------------- 2b. int8 products against their plain routes
     int8_products(torch, card, dev)
 
+    from analytics_zoo_torch.compile.engine import CAPTURE_LOG
     # -------------------------------------- 3. the slice at full width
+    mark = len(CAPTURE_LOG)
     t0 = time.perf_counter()
     model = bert_base()
     model.model.init(torch.Generator().manual_seed(0))
@@ -5174,6 +5743,8 @@ def main() -> None:
     # ------------------------- 3c. the same model served weight-only int8
     int8_launches = int8_serving(torch, card, model, im, requests, outs)
     del im
+    report_captures("phases 3-3c", mark, card)
+    mark = len(CAPTURE_LOG)
 
     # ---------------------------------------- 4. training at full width
     loss_name = "sparse_categorical_crossentropy_with_logits"
@@ -5251,6 +5822,7 @@ def main() -> None:
               f"{step_ms[mode]}, {8 * 1e3 / med:.1f} sequences/s, batch 8 x "
               f"512 tokens, Adam ({card})")
 
+    report_captures("phase 4", mark, card)
     # ------------------------- 5. kernel route against plain route, grads
     from analytics_zoo_torch.ops import dtypes
     tr = DistributedTrainer(model.model, loss_fn, optim_method=Adam(lr=1e-4))
@@ -5300,19 +5872,33 @@ def main() -> None:
           f"{sgd_history[0]['loss']:.5f}, launches {sgd_launches}")
 
     # ------------------------------------ 7. NeuralCF at bench_ncf's shape
+    mark = len(CAPTURE_LOG)
     ncf_launches, ncf_errs, ncf_times = ncf_phase(torch, card)
+    report_captures("phases 6-7b", mark, card)
     # ---------------------------------- 8. Wide & Deep, census configuration
+    mark = len(CAPTURE_LOG)
     wd_launches, wd_errs, wd_times = wide_deep_phase(torch, card)
+    report_captures("phase 8", mark, card)
     # --------------------- 9. the cnn TextClassifier, calibrated int8
+    mark = len(CAPTURE_LOG)
     cnn_int8(torch, card)
+    report_captures("phase 9", mark, card)
     # ------------- 10. the lstm/gru TextClassifier at the reference width
+    mark = len(CAPTURE_LOG)
     rec_profile = recurrent_phase(torch, card)
+    report_captures("phase 10", mark, card)
     # ---------------- 11. Seq2seq and generative serving, bench config
+    mark = len(CAPTURE_LOG)
     generative_phase(torch, card)
+    report_captures("phase 11", mark, card)
     # ----------------------- 12. SessionRecommender over ML-1M's items
+    mark = len(CAPTURE_LOG)
     session_phase(torch, card)
+    report_captures("phase 12", mark, card)
     # ------------------- 13. image classification: ResNet-50 at the bench
+    mark = len(CAPTURE_LOG)
     img_launches, img_errs, img_times = image_phase(torch, card, dev)
+    report_captures("phase 13", mark, card)
     for name in ("fused_adam", "fused_sgd"):
         report[name]["max_abs_err"] = max(report[name]["max_abs_err"],
                                           bert_errs[name], ncf_errs[name],
@@ -5330,27 +5916,38 @@ def main() -> None:
     report.update(flash_bf16_phase(torch, card, dev))
 
     # -------------- 15. model persistence: resume, retry, load, serve
+    mark = len(CAPTURE_LOG)
     persist_launches = persistence_phase(torch, card, dev, rec_profile)
+    report_captures("phase 15", mark, card)
 
     # ------- 16. the Keras transformer models: GPT-1 served and trained,
     # BERT-base fine-tuned, a checkpoint loaded, the route at seq_len 77
+    mark = len(CAPTURE_LOG)
     (gpt_serve, gpt_train, bert_tune), _ = transformer_phase(torch, card,
                                                              dev)
+    report_captures("phase 16", mark, card)
 
     # -------- 17. the rest of the Keras surface: AnomalyDetector trained
     # and served, the 64-class layer sweep, the regularizers
     kernels.reset_launch_counts()
+    mark = len(CAPTURE_LOG)
     ad_launches = keras_surface_phase(torch, card, dev)
+    report_captures("phase 17", mark, card)
     print(f"launches: AnomalyDetector fit ({AD_EPOCHS} epochs) "
           f"{ad_launches}")
 
     # ------ 18. KNRM trained and ranked, MoE, ConvLSTM, the training
     # switches at BERT-base width, keras2 and autograd
+    mark = len(CAPTURE_LOG)
     knrm_launches, moe_launches = text_matching_phase(torch, card, dev)
+    report_captures("phase 18", mark, card)
     print(f"launches: KNRM fit ({KNRM_EPOCHS} epochs) {knrm_launches}; MoE "
           f"({MOE_STEPS} steps) {moe_launches}")
 
-    # ------------------------------------------------------ 19. results
+    # -------------------------- 19. compile and warm start (--compile)
+    compile_phase(torch, card, dev)
+
+    # ------------------------------------------------------ 20. results
     print(f"launches: GPT-1 serving (4 requests) {gpt_serve}; GPT-1 fit "
           f"(8 steps) {gpt_train}; BERT-base fine-tuning (8 steps) "
           f"{bert_tune}")
@@ -5395,6 +5992,21 @@ def keras_surface_alone() -> None:
     keras_surface_phase(torch, card, ctx.device)
 
 
+def compile_alone() -> None:
+    """Phase 19 by itself (``--compile``): the kernels built, then the
+    captured routes against the eager ones and the warm start."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a GPU")
+    from analytics_zoo_torch import init_zoo_context
+    from analytics_zoo_torch.ops import kernels
+    kernels.build_all()
+    card = gpu_line()
+    print(f"gpu: {card}")
+    ctx = init_zoo_context(device="cuda:0")
+    compile_phase(torch, card, ctx.device)
+
+
 def text_matching_alone() -> None:
     """Phase 18 by itself (``--text-matching``): the kernels built, then
     KNRM, MoE, ConvLSTM, the training switches, keras2 and autograd on
@@ -5416,6 +6028,10 @@ if __name__ == "__main__":
         keras_surface_alone()
     elif sys.argv[1:] == ["--text-matching"]:
         text_matching_alone()
+    elif sys.argv[1:] == ["--compile"]:
+        compile_alone()
+    elif sys.argv[1:2] == [WARM_CHILD] and len(sys.argv) == 4:
+        warm_start_child(sys.argv[2], sys.argv[3])
     elif sys.argv[1:] == ["--profile-recurrent"]:
         profile_recurrent()
     elif sys.argv[1:] == ["--profile-resnet"]:

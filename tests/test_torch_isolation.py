@@ -1,7 +1,7 @@
 """PyTorch port, isolation: importing the port (and every module of the
 serving, training, Cluster Serving, recommender, recurrent/generative,
 persistence, transformer-model, Keras-layer/AnomalyDetector and
-text-matching/autograd/keras2/datasets slices)
+text-matching/autograd/keras2/datasets and compile slices)
 pulls in none of ``jax``, ``analytics_zoo_tpu``, ``flax``, ``msgpack``,
 ``tensorflow`` and ``transformers``, no port source imports the first
 four or loads a file of the JAX package by path, TensorFlow is imported
@@ -108,6 +108,10 @@ SLICE_MODULES = [
     "analytics_zoo_torch.pipeline.api.keras.datasets.imdb",
     "analytics_zoo_torch.pipeline.api.keras.datasets.reuters",
     "analytics_zoo_torch.pipeline.api.keras.datasets.boston_housing",
+    "analytics_zoo_torch.compile",
+    "analytics_zoo_torch.compile.engine",
+    "analytics_zoo_torch.compile.cache",
+    "analytics_zoo_torch.observability.diagnostics",
 ]
 
 

@@ -32,19 +32,19 @@ OWED = {
     # queue 1 items 6 (aggregator, tsdb, slo, drift, incident), 8
     # (collectives) and 9 (diagnostics, watchdog)
     "observability": {
-        "BurnWindow", "ClusterAggregator", "CompileMonitor", "DriftDetector",
+        "BurnWindow", "ClusterAggregator", "DriftDetector",
         "DriftWatch", "SeriesStore", "SloEngine", "SloObjective",
         "SloStatus", "TrainingHalted", "TrainingWatchdog", "TsdbSampler",
         "TsdbWriter", "WorkerSource", "diagnose", "drift_report",
         "estimate_train_step_collectives", "evaluate_timeline",
         "flush_active_tsdb", "flush_worker_observability",
-        "get_active_tsdb", "get_active_watchdog", "get_compile_monitor",
+        "get_active_tsdb", "get_active_watchdog",
         "init_tsdb", "init_worker_observability", "load_slo_yaml",
         "merge_requests", "merge_snapshots", "merge_traces",
         "parse_slo_specs", "publish_mfu", "record_step_collectives",
-        "render_incident", "reset_compile_monitor", "reset_tsdb",
+        "render_incident", "reset_tsdb",
         "reset_worker_observability", "set_active_watchdog",
-        "step_attribution_histogram", "straggler_report",
+        "straggler_report",
         "write_incident"},
     # queue 1 item 8: parallel/mesh.py and sharding.py
     "parallel": {"DATA_AXIS", "FSDP_AXIS", "MODEL_AXIS", "SEQ_AXIS",
@@ -107,6 +107,7 @@ PACKAGES = _packages()
 
 def test_the_port_packages_with_a_counterpart():
     assert "" in PACKAGES and "common" in PACKAGES and "ops" in PACKAGES
+    assert "compile" in PACKAGES
     assert "models.anomalydetection" in PACKAGES
     assert {"models.textmatching", "pipeline.api.keras2",
             "pipeline.api.keras.datasets"} <= set(PACKAGES)
