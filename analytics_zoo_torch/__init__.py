@@ -9,16 +9,24 @@ hand-written CUDA kernel for Hopper (``csrc/``, built at first use by
 The port imports neither ``jax`` nor ``analytics_zoo_tpu``.  Its entry
 points run on ``cuda:0`` unless the caller asks for the CPU
 (``init_zoo_context(device="cpu")``).
+
+The context names are imported on first use, so a stdlib-only module of
+the package (the batch tier's ledger and report) loads without torch.
 """
 
-from analytics_zoo_torch.common.zoo_context import (
-    ZooContext,
-    get_zoo_context,
-    init_zoo_context,
-    reset_zoo_context,
-)
-
 __version__ = "0.1.0"
+
+_CONTEXT_NAMES = ("ZooContext", "get_zoo_context", "init_zoo_context",
+                  "reset_zoo_context")
+
+
+def __getattr__(name):
+    if name in _CONTEXT_NAMES:
+        from analytics_zoo_torch.common import zoo_context
+        return getattr(zoo_context, name)
+    raise AttributeError(f"module 'analytics_zoo_torch' has no attribute "
+                         f"{name!r}")
+
 
 __all__ = ["__version__", "init_zoo_context", "get_zoo_context",
            "reset_zoo_context", "ZooContext"]

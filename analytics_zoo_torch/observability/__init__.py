@@ -8,8 +8,10 @@ as Chrome-trace JSON (Perfetto); :func:`sample_device_telemetry` pulling
 the CUDA allocator's counters into gauges; and :class:`MetricsServer`
 exposing it all over HTTP ``/metrics`` (Prometheus text exposition)
 without any third-party dependency.  The compile half of the
-diagnostics (``diagnostics.py``) is ported; the rest of the reference's
-observability (MFU, watchdog, aggregator, TSDB, SLO,
+diagnostics (``diagnostics.py``) and the worker half of the cluster
+aggregator (``aggregator.py``: the run-dir slot a fleet worker writes)
+are ported; the rest of the reference's observability (MFU, watchdog,
+the aggregator's merge half, TSDB, SLO,
 drift, incident forensics, collectives accounting) is not ported yet
 (ROADMAP.md, queue 1).
 
@@ -64,6 +66,11 @@ from analytics_zoo_torch.observability.flightrec import (
     record_event,
     reset_flightrec,
 )
+from analytics_zoo_torch.observability.aggregator import (
+    flush_worker_observability,
+    init_worker_observability,
+    reset_worker_observability,
+)
 from analytics_zoo_torch.observability.diagnostics import (
     CompileMonitor,
     get_compile_monitor,
@@ -72,6 +79,9 @@ from analytics_zoo_torch.observability.diagnostics import (
 )
 
 __all__ = [
+    "flush_worker_observability",
+    "init_worker_observability",
+    "reset_worker_observability",
     "CompileMonitor",
     "get_compile_monitor",
     "reset_compile_monitor",

@@ -138,6 +138,22 @@ def _group_params(params, groups: Dict[str, Sequence[str]]):
     return out
 
 
+def put_on_device(batch, device):
+    """Host arrays (a tree, None leaves allowed) onto ``device``.  On the
+    card the copy goes through pinned memory, so it does not wait for the
+    steps already queued."""
+    def put(a):
+        if a is None:
+            return None
+        if isinstance(a, torch.Tensor) and a.device == device:
+            return a
+        t = torch.as_tensor(np.ascontiguousarray(a))
+        if device.type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
+        return t.to(device)
+    return tree_map(put, batch)
+
+
 def step_generator(seed: int, step: int, device) -> torch.Generator:
     """The generator training step ``step`` of a run seeded ``seed`` draws
     its dropout masks from, on ``device`` (the layers fold their names
@@ -195,19 +211,9 @@ class DistributedTrainer:
         return tree_map(lambda a: a.to(self.device), tree)
 
     def put_batch(self, batch):
-        """Host arrays (a tree, None leaves allowed) onto the device.  On
-        the card the copy goes through pinned memory, so it does not wait
-        for the steps already queued."""
-        def put(a):
-            if a is None:
-                return None
-            if isinstance(a, torch.Tensor) and a.device == self.device:
-                return a
-            t = torch.as_tensor(np.ascontiguousarray(a))
-            if self.device.type == "cuda":
-                return t.pin_memory().to(self.device, non_blocking=True)
-            return t.to(self.device)
-        return tree_map(put, batch)
+        """Host arrays (a tree, None leaves allowed) onto the device
+        (``put_on_device``)."""
+        return put_on_device(batch, self.device)
 
     def prefetch(self, batches, depth: Optional[int] = None):
         """Place host batches (``put_batch``) ``depth`` deep ahead of the

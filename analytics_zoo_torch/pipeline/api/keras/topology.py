@@ -181,22 +181,27 @@ class KerasNet(Container):
     def fit(self, x, y=None, batch_size: int = 32, nb_epoch: int = 10,
             validation_data=None, validation_split: float = 0.0,
             shuffle: bool = True, rng: Optional[int] = None):
-        """Train on ndarrays or a FeatureSet; returns the per-epoch history
+        """Train on ndarrays, a FeatureSet or a resumable DataPipeline
+        (``data/``; its own batch size replaces ``batch_size``); returns
+        the per-epoch history
         ``[{"epoch", "loss", "throughput", "wall_s"[, "val"]}, ...]``.
-        ``validation_data`` (``(x, y)`` or a FeatureSet), or the last
+        ``validation_data`` (``(x, y)``, a FeatureSet or a DataPipeline
+        built with ``remainder="pad"``), or the last
         ``validation_split`` of ndarray data, is scored after each epoch
         with the compiled metrics (the loss when none was compiled).
         ``rng`` is the integer seed the dropout generators derive from
         (default: ``data.shuffle_seed``)."""
         from analytics_zoo_torch.common.triggers import EveryEpoch, MaxEpoch
+        from analytics_zoo_torch.data import DataPipeline
         from analytics_zoo_torch.feature.feature_set import FeatureSet
         from analytics_zoo_torch.pipeline.api.keras.metrics import Loss
         from analytics_zoo_torch.pipeline.estimator import Estimator
-        if isinstance(x, FeatureSet):
+        if isinstance(x, (FeatureSet, DataPipeline)):
             if validation_split:
                 raise ValueError(
                     "validation_split is not supported when x is a "
-                    "FeatureSet; pass validation_data instead")
+                    "FeatureSet/DataPipeline; pass validation_data "
+                    "instead")
             train_set = x
         else:
             if validation_split and validation_data is None:
@@ -210,7 +215,7 @@ class KerasNet(Container):
             train_set = FeatureSet.from_ndarrays(x, y, shuffle=shuffle)
         val_set = None
         if validation_data is not None:
-            if isinstance(validation_data, FeatureSet):
+            if isinstance(validation_data, (FeatureSet, DataPipeline)):
                 val_set = validation_data
             else:
                 vx, vy = validation_data

@@ -26,6 +26,16 @@ gates (``pipeline/estimator/estimator.py:395-497``):
   iteration-level triggers firing between steps; the epoch's loss is the
   last step's.  At entry the step program is warmed (captured) on the
   first batch.
+- **a** ``DataPipeline`` (``data/``) always takes the per-step route: a
+  ``DeviceLoader`` (``data.prefetch`` deep) places its batches, and the
+  pipeline fixes the batch size.  The step program is warmed at entry on
+  a peeked batch, which is not consumed.  The pipeline's position
+  commits per batch consumed and rides in the snapshot's ``data`` slot,
+  so a resumed run starts mid-epoch on the exact next batch; a snapshot
+  without that slot restores the model state and logs that the epoch's
+  batches replay from the pipeline's current position.  A retry that
+  finds no snapshot before any step of the call rewinds the pipeline to
+  its position at entry.
 
 The three routes take the same steps (same batches, same dropout
 generators, ``step_generator(seed, iteration)``), so they end in the same
@@ -35,7 +45,9 @@ reference.  An epoch appends ``{"epoch", "loss", "throughput",
 ``validation_method`` also ``"val"``, the validation scores after the
 epoch (on the eval batches placed once on the device when they fit the
 budget beside the train cache).  ``evaluate`` and ``predict`` run the
-eval and predict steps over ordered batches with a padded tail.
+eval and predict steps over ordered batches with a padded tail; a
+``DataPipeline`` to evaluate or validate on must be built with
+``remainder="pad"`` (``eval_batches``).
 
 Counters ``checkpoint_save_total``, ``checkpoint_restore_total``,
 ``train_retry_total``, ``train_failures_total{class}`` and
@@ -49,8 +61,7 @@ captured tensors.  The fault-injection site trips before every step on
 every route (the port's fused routes are replays of a one-step program).
 
 Not ported: TensorBoard summaries, the watchdog and its halt snapshot,
-``DataPipeline`` state in the snapshot, mesh re-formation and the
-degraded exit.
+mesh re-formation and the degraded exit.
 
 ``optim_methods={group: (OptimMethod, layer names or "*")}`` trains each
 group of layers with its own optimizer (the reference's multi-optimMethod
@@ -149,6 +160,24 @@ def _train_metrics():
     }
 
 
+def eval_batches(data_set, batch_size: int):
+    """Ordered, masked eval batches from either data layer: a
+    ``FeatureSet`` (zero-padded tail + mask) or a ``DataPipeline`` built
+    with ``remainder="pad"`` (which yields the same ``(x, y, mask)``
+    shape).  The shared entry for ``evaluate`` and the in-training
+    validation pass."""
+    from analytics_zoo_torch.data import DataPipeline
+    if isinstance(data_set, DataPipeline):
+        if data_set.sampler.remainder != "pad":
+            raise ValueError(
+                "evaluation needs every sample exactly once: build the "
+                "validation DataPipeline with remainder='pad' (and "
+                "shuffle=False) so the tail batch is masked, not "
+                "dropped")
+        return (batch for _step, batch in data_set.iter_epoch(0))
+    return data_set.epoch_batches(0, batch_size, train=False)
+
+
 def predict_in_batches(run_batch, x, batch_size: int):
     """Fixed-shape batched prediction: zero-pad the tail batch, slice the
     padding back off, concatenate on the host.  ``run_batch`` takes a host
@@ -214,12 +243,14 @@ class Estimator:
               checkpoint_trigger: Optional[Trigger] = None,
               validation_set=None, validation_method=None,
               batch_size: int = 32, rng: Optional[int] = None):
-        """Train on a FeatureSet until ``end_trigger`` (default one
-        epoch), scoring ``validation_method`` on ``validation_set`` after
-        each epoch, and with a ``model_dir`` snapshotting when
-        ``checkpoint_trigger`` fires (default every epoch).  ``rng`` is
-        the integer seed of the dropout generators (default
-        ``data.shuffle_seed``)."""
+        """Train on a FeatureSet or a DataPipeline until ``end_trigger``
+        (default one epoch), scoring ``validation_method`` on
+        ``validation_set`` after each epoch, and with a ``model_dir``
+        snapshotting when ``checkpoint_trigger`` fires (default every
+        epoch).  ``rng`` is the integer seed of the dropout generators
+        (default ``data.shuffle_seed``).  A pipeline's own batch size
+        replaces ``batch_size``."""
+        from analytics_zoo_torch.data import DataPipeline, DeviceLoader
         from analytics_zoo_torch.feature.feature_set import FeatureSet
         from analytics_zoo_torch.observability import get_tracer
         from analytics_zoo_torch.observability.flightrec import record_event
@@ -234,11 +265,16 @@ class Estimator:
         checkpoint_trigger = checkpoint_trigger or EveryEpoch()
         cfg = get_config()
         seed = int(rng if rng is not None else cfg.get("data.shuffle_seed"))
+        is_pipeline = isinstance(train_set, DataPipeline)
+        if is_pipeline:
+            # the pipeline owns its batch geometry (it is part of the
+            # checkpointed stream identity): the argument is ignored
+            batch_size = train_set.batch_size
         trainer = DistributedTrainer(self.model, criterion,
                                      optim_method=self.optim_method,
                                      clip=self._clip,
                                      optim_groups=self.optim_groups)
-        if train_set.size < batch_size:
+        if not is_pipeline and train_set.size < batch_size:
             raise ValueError(
                 f"batch_size {batch_size} exceeds dataset size "
                 f"{train_set.size}: no full training batch can be formed "
@@ -258,9 +294,15 @@ class Estimator:
 
         def save_snapshot():
             start = time.perf_counter()
-            path = ckpt.save({"params": params, "state": state,
-                              "opt_state": opt_state, "epoch": ts.epoch,
-                              "iteration": ts.iteration}, step=ts.iteration)
+            payload = {"params": params, "state": state,
+                       "opt_state": opt_state, "epoch": ts.epoch,
+                       "iteration": ts.iteration}
+            if is_pipeline:
+                # the position points at the NEXT batch to deliver
+                # (committed per consumed batch): the snapshot resumes
+                # mid-epoch exactly
+                payload["data"] = train_set.state_dict()
+            path = ckpt.save(payload, step=ts.iteration)
             tracer.complete("checkpoint_save", start,
                             time.perf_counter() - start,
                             iteration=ts.iteration,
@@ -275,14 +317,31 @@ class Estimator:
             if path is None:
                 return False
             start = time.perf_counter()
-            restored = ckpt.restore_latest(
-                {"params": params, "state": state, "opt_state": opt_state,
-                 "epoch": 0, "iteration": 0})
+            like = {"params": params, "state": state,
+                    "opt_state": opt_state, "epoch": 0, "iteration": 0}
+            if is_pipeline:
+                like["data"] = train_set.state_dict()
+            try:
+                restored = ckpt.restore_latest(like)
+            except (ValueError, KeyError):
+                if "data" not in like:
+                    raise
+                # a snapshot saved without the pipeline's position
+                del like["data"]
+                restored = ckpt.restore_latest(like)
+                log.warning(
+                    "checkpoint has no data-pipeline state (pre-pipeline "
+                    "snapshot); restored model state only — the epoch's "
+                    "batches replay from the pipeline's current position")
             params = _assign(params, restored["params"])
             state = _assign(state, restored["state"])
             opt_state = _assign(opt_state, restored["opt_state"])
             ts.epoch = int(restored["epoch"])
             ts.iteration = int(restored["iteration"])
+            if is_pipeline and restored.get("data") is not None:
+                # seek to the checkpointed position: the resumed run
+                # consumes the exact next batch
+                train_set.load_state_dict(restored["data"])
             tracer.complete("checkpoint_restore", start,
                             time.perf_counter() - start,
                             iteration=ts.iteration,
@@ -296,6 +355,10 @@ class Estimator:
         # iteration count at entry to THIS call: "no step committed yet"
         # for the HBM-cache recovery means none beyond this point
         start_iteration = ts.iteration
+        # the pipeline's position at entry: a retry with no snapshot to
+        # restore and no step of this call committed rewinds to it, so
+        # the batches the failed attempt consumed replay
+        entry_data_state = train_set.state_dict() if is_pipeline else None
         eval_runner = None
         if validation_set is not None and validation_method:
             eval_runner = trainer.make_eval_runner(list(validation_method))
@@ -374,8 +437,7 @@ class Estimator:
                                 "the cache, retrying streamed",
                                 exc_info=True)
             return eval_runner(params, eval_state[0],
-                               validation_set.epoch_batches(
-                                   0, batch_size, train=False))
+                               eval_batches(validation_set, batch_size))
 
         def advance():
             ts.iteration += 1
@@ -404,7 +466,15 @@ class Estimator:
             mean of its steps' (the reported epoch loss is the last
             dispatch's: the HBM epoch's mean, the last chunk's mean, the
             last step's)."""
-            if hbm_src is not None:
+            if is_pipeline:
+                for batch in device_loader.epoch():
+                    def run(batch=batch):
+                        out = trainer.train_step_at(params, opt_state, state,
+                                                    batch, seed, ts.iteration)
+                        advance()
+                        return out
+                    yield 1, run
+            elif hbm_src is not None:
                 yield nb_epoch, hbm_epoch
             elif use_chunks:
                 chunks = ((x, y) for x, y, _ in train_set.epoch_chunks(
@@ -459,6 +529,21 @@ class Estimator:
                 "no checkpoint to restore; set model_dir or "
                 "train.hbm_cache_mb=0")
 
+        device_loader = None
+        if is_pipeline:
+            device_loader = DeviceLoader(train_set, put_fn=trainer.put_batch)
+            # warm (capture) the step program on a peeked batch: a pure
+            # read, the position commits only per batch the loader hands
+            # out
+            try:
+                warm_batch = next(iter(train_set.iter_epoch(
+                    train_set.epoch, start_step=train_set.step)))[1]
+            except StopIteration:
+                warm_batch = None
+            if warm_batch is not None:
+                trainer.warm_start(params, opt_state, state, warm_batch,
+                                   seed)
+
         while not end_trigger(ts):
             epoch_start = time.perf_counter()
             epoch_iteration = ts.iteration
@@ -510,7 +595,9 @@ class Estimator:
                             "latest checkpoint (%d retries left)",
                             decision.failure_class.value, exc,
                             policy.budget.remaining)
-                restore_snapshot()
+                if not restore_snapshot() and is_pipeline and \
+                        ts.iteration == start_iteration:
+                    train_set.load_state_dict(entry_data_state)
                 continue
             if again:
                 continue
@@ -568,8 +655,7 @@ class Estimator:
             runner = trainer.make_eval_runner(methods)
             self._cached_eval_runner = (objs, runner)
         params, state = self._placed(trainer)
-        return runner(params, state,
-                      data_set.epoch_batches(0, batch_size, train=False))
+        return runner(params, state, eval_batches(data_set, batch_size))
 
     def predict(self, x, batch_size: int = 256) -> np.ndarray:
         trainer = self._infer_trainer()

@@ -23,40 +23,8 @@ import struct
 import time
 from typing import Optional
 
-_CRC_TABLE = None
-
-
-def _crc_table():
-    global _CRC_TABLE
-    if _CRC_TABLE is None:
-        poly = 0x82F63B78        # reversed Castagnoli polynomial
-        table = []
-        for i in range(256):
-            c = i
-            for _ in range(8):
-                c = (c >> 1) ^ poly if c & 1 else c >> 1
-            table.append(c)
-        # benign race: the table build is deterministic and the rebind
-        # is atomic, so concurrent first calls at worst build it twice
-        _CRC_TABLE = table
-    return _CRC_TABLE
-
-
-def crc32c(data: bytes, crc: int = 0) -> int:
-    """CRC-32C (Castagnoli), the TensorBoard record-framing checksum.
-    The JAX package computes it in its native data-path library with
-    this table loop as the fallback; the port keeps only the loop (an
-    event record is a few dozen bytes)."""
-    table = _crc_table()
-    crc = crc ^ 0xFFFFFFFF
-    for b in data:
-        crc = table[(crc ^ b) & 0xFF] ^ (crc >> 8)
-    return crc ^ 0xFFFFFFFF
-
-
-def masked_crc32c(data: bytes) -> int:
-    crc = crc32c(data)
-    return (((crc >> 15) | (crc << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+# one CRC-32C for the TensorBoard writer and the TFRecord codec
+from analytics_zoo_torch.utils.crc32c import crc32c, masked_crc32c  # noqa: F401
 
 
 # ------------------------------------------------------- proto primitives

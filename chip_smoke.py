@@ -12,8 +12,10 @@ GPT-1 served and trained, BERT-base fine-tuned through the TFPark
 estimators, a BERT checkpoint loaded, the rest of the Keras surface:
 AnomalyDetector trained and served, the 64 layer classes of that slice
 and the regularizers held to the CPU, and KNRM trained and ranked, MoE,
-ConvLSTM, remat, freezing and optimizer groups, keras2 and autograd, and
-the compiled path (CUDA-graph capture) against the eager one.
+ConvLSTM, remat, freezing and optimizer groups, keras2 and autograd, the
+compiled path (CUDA-graph capture) against the eager one, and the data
+pipeline and offline batch scoring: BERT-base trained on a resumable
+``DataPipeline`` and scored by a fleet of worker processes.
 
     python3 chip_smoke.py
 
@@ -275,7 +277,35 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    empty build directory loads every kernel library from it starting no
    ``nvcc`` process, then a corrupted entry is a loud miss, rebuilt, its kernels
    identical in SASS;
-20. a ``kernels`` JSON line, then the device line last.
+20. the data pipeline and offline batch scoring (``python3 chip_smoke.py
+   --data-pipeline`` runs it alone): 20a phase 4's BERT-base trained on a
+   ``DataPipeline`` over an ``NpyDirSource`` of 256 seeded rows of 512
+   tokens (batch 8, shuffled, 2 workers, ``data.prefetch`` 2, Adam, 2
+   epochs, ``Estimator(model_dir=)`` snapshotting every 12 iterations)
+   under deterministic algorithms: a run stopped by a fault at the
+   ``data.batch`` site mid-epoch and resumed from its snapshot, held bit
+   for bit to the uninterrupted run (params, ``history``, the resumed first
+   batch) as phase 15 holds, 12/12/12/12/1/1 launches a step; then one
+   epoch's step ms on the pipeline route in turns with the ``FeatureSet``
+   per-step route, and the host's wait for a batch; 20b
+   ``bench_input_pipeline`` at its defaults (4096 x 32x32x3 float32, batch
+   128): samples/s bare, with a normalize stage single-threaded and in a
+   pool, and through the ``DeviceLoader`` to the card; 20c
+   ``bench_batch_scoring`` at its defaults (the demo job: 4096 rows, 512 a
+   shard, batch 128, 2 worker processes), a control and a drill killing
+   worker 0 at ``worker.step`` 1: rows/s/chip, chips for the deadline,
+   resume overhead, rows recomputed, restarts, duplicate commits (0); 20d
+   the batch fleet scoring phase 3's BERT-base (a ``save_model`` file,
+   built in each worker by ``chip_smoke.py:fleet_bert``) on 2048 rows of
+   512 tokens, 256 a shard, batch 32, 2 workers on the card, a control and
+   a kill drill: outputs byte-identical to each other and to an in-process
+   ``InferenceModel.predict`` at batch 32, less than a shard recomputed, no
+   duplicate commit, each worker's ``warm`` captured, the replacement
+   incarnation loading the kernel libraries from the run dir's compile
+   farm without ``nvcc``; rows/s/chip beside in-process predict, worker
+   start-up s cold and replacement, ``chips_for``; one ``BatchWorker`` in
+   process on a 256-row ledger with 12/12/1 launches a batch;
+21. a ``kernels`` JSON line, then the device line last.
 
 The int8 phases besides 9: 2b holds ``quantized_matmul`` and
 ``quantized_conv`` (``torch._int_mm``, a convolution as one product over
@@ -5426,6 +5456,569 @@ def compile_phase(torch, card, dev) -> None:
     print(f"phase 19: {time.perf_counter() - t_phase:.1f} s ({card})")
 
 
+# ------------------------------------------------------------------ phase 20
+PIPE_ROWS, PIPE_BATCH, PIPE_EPOCHS, PIPE_EVERY = 256, 8, 2, 12
+PIPE_FAULT_STEP = 20              # the first epoch's 21st batch
+INPUT_ROWS, INPUT_BATCH, INPUT_HW = 4096, 128, 32   # bench_input_pipeline
+CRC_BYTES = 1 << 21
+SCORE_ROWS, SCORE_SHARD, SCORE_BATCH, SCORE_WORKERS = 4096, 512, 128, 2
+FLEET_ROWS, FLEET_SHARD, FLEET_BATCH, FLEET_WORKERS = 2048, 256, 32, 2
+FLEET_LEASE_S = 5.0
+STARTUP_FILE = "startup-{pid}.json"
+
+
+def _process_age_s() -> float:
+    """Seconds since this process started (``/proc``)."""
+    with open("/proc/self/stat") as f:
+        start_ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/uptime") as f:
+        uptime = float(f.read().split()[0])
+    return uptime - start_ticks / os.sysconf("SC_CLK_TCK")
+
+
+class FleetModel:
+    """Phase 20d's model in a fleet worker: the ``InferenceModel`` of
+    ``fleet_bert``; ``warm`` fails unless it captured on the card, and
+    writes the incarnation's start-up record (seconds since the process
+    started, nvcc processes it started, captured buckets) into its
+    run-dir slot."""
+
+    def __init__(self, im, nvcc_calls):
+        self.im = im
+        self.nvcc_calls = nvcc_calls
+
+    def predict(self, x, batch_size=None):
+        return self.im.predict(x, batch_size=batch_size)
+
+    def warm(self, input_shape, batch_size, dtype=np.float32):
+        if self.im.device.type != "cuda":
+            raise RuntimeError(f"fleet worker on {self.im.device}, not a GPU")
+        self.im.warm(input_shape, batch_size, dtype=dtype)
+        if self.im.aot_signatures < 1:
+            raise RuntimeError("warm did not capture the predict program")
+        slot = os.environ.get("ZOO_TPU_METRICS_DIR")
+        if slot:
+            with open(os.path.join(slot, STARTUP_FILE.format(
+                    pid=os.getpid())), "w") as f:
+                json.dump({"pid": os.getpid(), "written": time.time(),
+                           "startup_s": _process_age_s(),
+                           "nvcc_calls": len(self.nvcc_calls),
+                           "captured": self.im.aot_signatures}, f)
+        return True
+
+
+def fleet_bert(weights: str, device: str = "cuda:0", fresh_build: bool = True):
+    """Phase 20d's builder (``/path/chip_smoke.py:fleet_bert``): phase 3's
+    ``TextClassifier`` with the weights of ``save_model`` file
+    ``weights``, behind ``InferenceModel`` on ``device``.  With
+    ``fresh_build`` (a fleet worker) the kernel libraries go to an empty
+    build directory of this process, so they come from the run dir's
+    compile farm or from nvcc, whose processes are counted."""
+    import tempfile
+
+    import torch
+
+    from analytics_zoo_torch import init_zoo_context
+    from analytics_zoo_torch.ops import kernels
+    from analytics_zoo_torch.pipeline.api.keras.engine import Layer
+    from analytics_zoo_torch.pipeline.inference import InferenceModel
+    calls = []
+    if fresh_build:
+        kernels.BUILD_DIR = tempfile.mkdtemp(prefix="zoo-fleet-build-")
+        real = subprocess.Popen
+
+        class Counted(real):
+            def __init__(self, args, *rest, **kw):
+                if os.path.basename(str(args[0])) == "nvcc":
+                    calls.append(list(args[1:]))
+                super().__init__(args, *rest, **kw)
+        subprocess.Popen = Counted
+    ctx = init_zoo_context(device=device)
+    if ctx.device.type != "cuda":
+        raise RuntimeError(f"fleet builder on {ctx.device}, not a GPU")
+    Layer.reset_name_counters()
+    model = bert_base()
+    model.model.init(torch.Generator().manual_seed(0))
+    im = InferenceModel().load_zoo_file(model, weights)
+    return FleetModel(im, calls)
+
+
+def input_pipeline_bench(torch, dev) -> dict:
+    """``bench_input_pipeline`` (``bench.py:1148-1237``) at its defaults on
+    the port: samples/s of bare iteration, a normalize stage
+    single-threaded and in a pool of 4, and the ``DeviceLoader`` path
+    (depth 2, 2 workers) to a batch resident on the card, each batch
+    synchronized before the next is pulled."""
+    from analytics_zoo_torch.data import DataPipeline, DeviceLoader
+    rs = np.random.RandomState(0)
+    x = (rs.rand(INPUT_ROWS, INPUT_HW, INPUT_HW, 3) * 255).astype(np.float32)
+    y = rs.randint(0, 1000, size=(INPUT_ROWS, 1)).astype(np.int32)
+    mean, std = x.mean(), x.std() + 1e-6
+
+    def normalize(batch):
+        bx, by = batch
+        return ((bx - mean) / std, by)
+
+    def time_epochs(pipe, epochs=3):
+        for _ in pipe:             # epoch 0 warms pools and caches
+            pass
+        t0 = time.perf_counter()
+        n = 0
+        for _ in range(epochs):
+            for _ in pipe:
+                n += 1
+        wall = time.perf_counter() - t0
+        pipe.close()
+        return n * pipe.batch_size / wall
+
+    out = {
+        "bare": time_epochs(DataPipeline(x, y, batch_size=INPUT_BATCH,
+                                         seed=7, name="bench-base")),
+        "map": time_epochs(DataPipeline(x, y, batch_size=INPUT_BATCH,
+                                        seed=7, name="bench-map")
+                           .map(normalize)),
+        "pooled_map": time_epochs(DataPipeline(
+            x, y, batch_size=INPUT_BATCH, seed=7, num_workers=4,
+            name="bench-pool").map(normalize))}
+    pipe = DataPipeline(x, y, batch_size=INPUT_BATCH, seed=7, num_workers=2,
+                        name="bench-device").map(normalize)
+    loader = DeviceLoader(pipe, depth=2)
+    for b in loader:                # warm epoch
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = 0
+    for _ in range(2):
+        for b in loader:
+            if b[0].device != dev:
+                fail(f"20b: a DeviceLoader batch on {b[0].device}")
+            torch.cuda.synchronize()
+            n += 1
+    out["device_feed"] = n * INPUT_BATCH / (time.perf_counter() - t0)
+    pipe.close()
+    out["sample_bytes"] = int(x[0].nbytes + y[0].nbytes)
+    # the TFRecord framing's CRC-32C (the port's table loop) on the host
+    from analytics_zoo_torch.utils.crc32c import crc32c
+    blob = rs.bytes(CRC_BYTES)
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        crc32c(blob)
+        runs.append(CRC_BYTES / 1e6 / (time.perf_counter() - t0))
+    out["crc32c_mb_s"] = runs
+    return out
+
+
+def fleet_env():
+    env = dict(os.environ)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def startup_records(run_dir: str):
+    out = []
+    for slot in sorted(os.listdir(run_dir)):
+        path = os.path.join(run_dir, slot)
+        if slot.startswith("host-") and os.path.isdir(path):
+            for name in sorted(os.listdir(path)):
+                if name.startswith("startup-"):
+                    with open(os.path.join(path, name)) as f:
+                        out.append(dict(json.load(f), slot=slot))
+    return out
+
+
+def outputs(out_dir: str, shards: int) -> np.ndarray:
+    return np.concatenate([np.load(os.path.join(
+        out_dir, f"shard-{i:05d}.npy")) for i in range(shards)])
+
+
+def pipeline_training(torch, card, dev, tmp) -> None:
+    """20a: phase 4's BERT-base trained on a ``DataPipeline`` over an
+    ``NpyDirSource``, stopped by a fault at ``data.batch`` and resumed,
+    against the uninterrupted run; then the pipeline route's step time in
+    turns with the ``FeatureSet`` per-step route."""
+    from analytics_zoo_torch.common.config import get_config
+    from analytics_zoo_torch.common.triggers import (
+        MaxEpoch, SeveralIteration)
+    from analytics_zoo_torch.data import DataPipeline, NpyDirSource
+    from analytics_zoo_torch.feature import FeatureSet
+    from analytics_zoo_torch.observability import get_registry
+    from analytics_zoo_torch.ops import kernels
+    from analytics_zoo_torch.parallel.trainer import DistributedTrainer
+    from analytics_zoo_torch.pipeline.api.keras.engine import Layer
+    from analytics_zoo_torch.pipeline.api.keras.optimizers import Adam
+    from analytics_zoo_torch.pipeline.estimator import Estimator
+    from analytics_zoo_torch.resilience.chaos import (
+        ChaosPlan, FaultSpec, TransientFault, clear_chaos, install_chaos)
+    cfg = get_config()
+    loss_name = "sparse_categorical_crossentropy_with_logits"
+    rs = np.random.RandomState(20)
+    data_dir = os.path.join(tmp, "npy")
+    os.makedirs(data_dir)
+    x = rs.randint(0, 30522, size=(PIPE_ROWS, 512)).astype(np.int64)
+    y = rs.randint(0, 20, size=(PIPE_ROWS,)).astype(np.int64)
+    np.save(os.path.join(data_dir, "x.npy"), x)
+    np.save(os.path.join(data_dir, "y.npy"), y)
+    steps = PIPE_EPOCHS * PIPE_ROWS // PIPE_BATCH
+
+    def pipe():
+        return DataPipeline(NpyDirSource(data_dir), batch_size=PIPE_BATCH,
+                            shuffle=True, seed=20).workers(2)
+
+    def run(model_dir=None, train_set=None):
+        Layer.reset_name_counters()
+        model = bert_base()
+        model.model.init(torch.Generator().manual_seed(0))
+        est = Estimator(model.model, optim_method=Adam(lr=1e-4),
+                        model_dir=model_dir)
+        train_set = train_set if train_set is not None else pipe()
+        try:
+            with deterministic(torch):
+                est.train(train_set, loss_name,
+                          end_trigger=MaxEpoch(PIPE_EPOCHS),
+                          checkpoint_trigger=SeveralIteration(PIPE_EVERY),
+                          rng=0)
+        finally:
+            train_set.close()
+        return model, est.history
+
+    kernels.reset_launch_counts()
+    whole = run(os.path.join(tmp, "whole"))
+    launches = kernels.launch_counts()
+    expect_launches(launches, {
+        "flash_attention_fwd": 12 * steps, "flash_attention_dq": 12 * steps,
+        "flash_attention_dkv": 12 * steps, "bias_gelu": 12 * steps,
+        "layernorm_act": steps, "fused_adam": steps},
+        "20a pipeline training")
+    control = run()
+    # the fault: data.batch trips at the first epoch's 21st batch, before
+    # its position commits; no retry, so it stops the run
+    retries = cfg.get("train.retry_times")
+    cfg.set("train.retry_times", 0)
+    install_chaos(ChaosPlan([FaultSpec("data.batch", at_step=PIPE_FAULT_STEP)]))
+    stopped = os.path.join(tmp, "stopped")
+    try:
+        run(stopped)
+    except TransientFault:
+        pass
+    else:
+        fail("20a: the injected data.batch fault did not stop the run")
+    finally:
+        clear_chaos()
+        cfg.set("train.retry_times", retries)
+    snaps = sorted(os.listdir(stopped))
+    # the resumed run's first batch: record the first device batch that
+    # the DeviceLoader hands a real step after the restore (the warm
+    # start's peek is placed by put_batch and never reaches a step)
+    first = []
+    real_step = DistributedTrainer.train_step_at
+
+    def step_at(self, params, opt_state, state, batch, seed, step):
+        if not first:
+            first.append((step, [t.detach().cpu().numpy() for t in batch]))
+        return real_step(self, params, opt_state, state, batch, seed, step)
+    DistributedTrainer.train_step_at = step_at
+    try:
+        resumed_pipe = pipe()
+        resumed = run(stopped, resumed_pipe)
+    finally:
+        DistributedTrainer.train_step_at = real_step
+    want_first = next(iter(pipe().iter_epoch(0, PIPE_EVERY)))[1]
+    first_step, first_batch = first[0]
+    if first_step != PIPE_EVERY or not (
+            np.array_equal(first_batch[0], want_first[0]) and
+            np.array_equal(first_batch[1], want_first[1])):
+        fail(f"20a: the resumed run's first step (iteration {first_step}) "
+             "did not take the uninterrupted run's batch "
+             f"{PIPE_EVERY + 1}")
+    if (resumed_pipe.epoch, resumed_pipe.step) != (PIPE_EPOCHS, 0):
+        fail(f"20a: resumed pipeline at {resumed_pipe.state_dict()}")
+    print(f"20a pipeline training: BERT-base, {PIPE_ROWS} x 512 tokens from "
+          f"an NpyDirSource, batch {PIPE_BATCH}, shuffled, 2 workers, Adam, "
+          f"{PIPE_EPOCHS} epochs ({steps} steps), snapshots every "
+          f"{PIPE_EVERY} iterations; launches {launches} (12/12/12/12/1/1 a "
+          f"step); a data.batch fault at the first epoch's step "
+          f"{PIPE_FAULT_STEP} stopped a run holding {snaps}; the resumed "
+          f"run's first step (iteration {first_step}) took the device batch "
+          f"equal to the epoch's batch {PIPE_EVERY + 1} ({card})")
+    hold_resumed("20a resumed pipeline run", [h["loss"] for h in resumed[1]],
+                 resumed[0], whole, control, card)
+    snapshot_lines("20a", card)
+
+    # step time in turns: the pipeline route against the FeatureSet's
+    # per-step route, two epochs each, no snapshots; the second epoch's
+    # wall (history's wall_s: after the first epoch's closing loss read,
+    # so warm start and capture lie outside it) over its steps
+    wait = get_registry().histogram("train_step_time_seconds",
+                                     labels=("component",)).labels(
+        "data_wait")
+    ms = {"pipeline": [], "feature_set": []}
+    waits = []
+    per_dispatch = cfg.get("train.steps_per_dispatch")
+    for route in ("pipeline", "feature_set", "feature_set", "pipeline"):
+        Layer.reset_name_counters()
+        model = bert_base()
+        model.model.init(torch.Generator().manual_seed(0))
+        est = Estimator(model.model, optim_method=Adam(lr=1e-4))
+        if route == "pipeline":
+            data = pipe()
+            n0, s0 = wait.count, wait.sum
+        else:
+            cfg.set("train.steps_per_dispatch", 1)
+            data = FeatureSet.from_ndarrays(x, y, seed=20)
+        est.train(data, loss_name, end_trigger=MaxEpoch(2),
+                  batch_size=PIPE_BATCH, rng=0)
+        if route == "pipeline":
+            data.close()
+            waits.append((wait.sum - s0) / max(wait.count - n0, 1) * 1e3)
+        else:
+            cfg.set("train.steps_per_dispatch", per_dispatch)
+        ms[route].append(est.history[1]["wall_s"] * 1e3
+                         / (PIPE_ROWS // PIPE_BATCH))
+    print(f"20a step ms (the second epoch's wall over its "
+          f"{PIPE_ROWS // PIPE_BATCH} steps), in turns: pipeline "
+          f"{[round(v, 3) for v in ms['pipeline']]}, FeatureSet per-step "
+          f"{[round(v, 3) for v in ms['feature_set']]}; the host's wait "
+          f"for a DeviceLoader batch, mean ms a step "
+          f"{[round(v, 4) for v in waits]} ({card})")
+
+
+def batch_scoring_bench(card, tmp) -> None:
+    """20c: ``bench_batch_scoring`` (``bench.py:1239-1325``) at its
+    defaults on the port: the demo job through a coordinator and 2 worker
+    processes, a clean control and a drill in which chaos kills worker 0
+    at ``worker.step`` 1."""
+    from analytics_zoo_torch.batchjobs.coordinator import run_job
+    from analytics_zoo_torch.batchjobs.demo import demo_job
+    from analytics_zoo_torch.resilience.chaos import ChaosPlan, FaultSpec
+    root = os.path.join(tmp, "bench-batch")
+    control = run_job(
+        demo_job(os.path.join(root, "out-control"), num_rows=SCORE_ROWS,
+                 rows_per_shard=SCORE_SHARD, batch_size=SCORE_BATCH),
+        os.path.join(root, "run-control"), num_workers=SCORE_WORKERS,
+        env=fleet_env(), timeout_s=240)
+    drill_rows = max(SCORE_ROWS // 4, SCORE_SHARD)
+    drill_shard = max(SCORE_SHARD // 2, SCORE_BATCH)
+    drill = run_job(
+        demo_job(os.path.join(root, "out-drill"), num_rows=drill_rows,
+                 rows_per_shard=drill_shard, batch_size=SCORE_BATCH,
+                 delay_s=0.1, lease_timeout_s=1.5),
+        os.path.join(root, "run-drill"), num_workers=SCORE_WORKERS,
+        env=fleet_env(), timeout_s=240,
+        chaos=ChaosPlan([FaultSpec(site="worker.step", at_step=1,
+                                   kind="kill", process_index=0)]))
+    res = drill["resume"]
+    if control["status"] != "complete" or drill["status"] != "complete" or \
+            drill["restarts"] < 1 or res["duplicate_commits"] != 0 or \
+            not 0 < res["rows_recomputed"] < drill_shard:
+        fail(f"20c: control {control}, drill {drill}")
+    target = f"{control['target_deadline_s']:g}"
+    print(f"20c batch scoring (the demo job, {SCORE_ROWS} rows, "
+          f"{SCORE_SHARD} a shard, batch {SCORE_BATCH}, {SCORE_WORKERS} "
+          f"workers, numpy LinearModel on the host): "
+          f"{control['rows_per_sec_per_chip']} rows/s/chip, "
+          f"{control['rows_per_sec']} rows/s, chips for the {target} s "
+          f"deadline {control['chips_for'].get(target)}; drill "
+          f"({drill_rows} rows, {drill_shard} a shard, worker 0 killed at "
+          f"worker.step 1): resume overhead fraction "
+          f"{res['resume_overhead_fraction']}, {res['rows_recomputed']} rows "
+          f"recomputed, {drill['restarts']} restart(s), "
+          f"{res['duplicate_commits']} duplicate commits ({card})")
+
+
+def fleet_scoring(torch, card, dev, tmp) -> None:
+    """20d: phase 3's BERT-base scoring 2048 rows of 512 tokens through
+    the batch fleet (2 worker processes on the card), a control and a
+    kill drill, held byte for byte to each other and to an in-process
+    ``InferenceModel.predict``; one ``BatchWorker`` in process on a
+    256-row ledger with its launches checked."""
+    import shutil
+
+    from analytics_zoo_torch.batchjobs import (
+        BatchJobSpec, BatchWorker, ShardManifest)
+    from analytics_zoo_torch.batchjobs.coordinator import run_job
+    from analytics_zoo_torch.compile.engine import CAPTURE_LOG
+    from analytics_zoo_torch.data import NpyDirSource
+    from analytics_zoo_torch.ops import kernels
+    from analytics_zoo_torch.pipeline.api.keras.engine import Layer
+    from analytics_zoo_torch.resilience.chaos import ChaosPlan, FaultSpec
+    rs = np.random.RandomState(21)
+    data_dir = os.path.join(tmp, "fleet-npy")
+    os.makedirs(data_dir)
+    x = rs.randint(0, 30522, size=(FLEET_ROWS, 512)).astype(np.int64)
+    np.save(os.path.join(data_dir, "x.npy"), x)
+    Layer.reset_name_counters()
+    model = bert_base()
+    model.model.init(torch.Generator().manual_seed(3))
+    weights = os.path.join(tmp, "bert-base.ckpt")
+    model.save_model(weights)
+    del model
+    ref = f"{os.path.abspath(__file__)}:fleet_bert"
+    shards = FLEET_ROWS // FLEET_SHARD
+
+    def job(out, rows=FLEET_ROWS, data=data_dir):
+        return BatchJobSpec(
+            name="bert-base-scoring", output_dir=out,
+            source={"kind": "npy_dir", "path": data},
+            model={"kind": "builder", "ref": ref,
+                   "args": {"weights": weights, "device": "cuda:0"}},
+            rows_per_shard=FLEET_SHARD, batch_size=FLEET_BATCH,
+            lease_timeout_s=FLEET_LEASE_S, num_rows=rows)
+
+    ctl_run = os.path.join(tmp, "fleet-control")
+    t0 = time.perf_counter()
+    control = run_job(job(os.path.join(tmp, "fleet-out-control")), ctl_run,
+                      num_workers=FLEET_WORKERS, env=fleet_env(),
+                      timeout_s=600)
+    ctl_wall = time.perf_counter() - t0
+    drill_run = os.path.join(tmp, "fleet-drill")
+    # the drill's run dir starts with the control's compile farm: the
+    # kernel libraries process 0 stored there (none where no kernel was
+    # built: the replacement's nvcc count then shows it)
+    farm = os.path.join(ctl_run, "compile-cache")
+    if os.path.isdir(farm):
+        shutil.copytree(farm, os.path.join(drill_run, "compile-cache"))
+    drill = run_job(
+        job(os.path.join(tmp, "fleet-out-drill")), drill_run,
+        num_workers=FLEET_WORKERS, env=fleet_env(), timeout_s=600,
+        chaos=ChaosPlan([FaultSpec(site="worker.step", at_step=1,
+                                   kind="kill", process_index=0)]))
+    got_ctl = outputs(os.path.join(tmp, "fleet-out-control"), shards)
+    got_drill = outputs(os.path.join(tmp, "fleet-out-drill"), shards)
+    res = drill["resume"]
+    if control["status"] != "complete" or drill["status"] != "complete" or \
+            drill["restarts"] < 1 or res["duplicate_commits"] != 0 or \
+            not 0 < res["rows_recomputed"] < FLEET_SHARD:
+        fail(f"20d: control {control}, drill {drill}")
+    if got_ctl.shape != (FLEET_ROWS, 20) or not np.isfinite(got_ctl).all():
+        fail(f"20d: outputs {got_ctl.shape}, finite "
+             f"{np.isfinite(got_ctl).all()}")
+    if got_drill.tobytes() != got_ctl.tobytes():
+        fail(f"20d: the drill's outputs differ from the control's by "
+             f"{float(np.abs(got_drill - got_ctl).max())}")
+    cold = startup_records(ctl_run)
+    warm = startup_records(drill_run)
+    replacement = [r for r in warm if r["slot"] == "host-0"]
+    if len(cold) != FLEET_WORKERS or len(replacement) != 2 or \
+            any(r["captured"] < 1 for r in cold + warm):
+        fail(f"20d: start-up records {cold} {warm}")
+    replacement = max(replacement, key=lambda r: r["written"])
+    if replacement["nvcc_calls"] != 0:
+        fail(f"20d: the replacement incarnation started nvcc {replacement}")
+
+    # the same rows in process, and one BatchWorker on a 256-row ledger
+    mark = len(CAPTURE_LOG)
+    fm = fleet_bert(weights, str(dev), fresh_build=False)
+    fm.warm((512,), FLEET_BATCH, dtype=np.int64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = fm.predict(x, batch_size=FLEET_BATCH)
+    predict_s = time.perf_counter() - t0
+    if want.tobytes() != got_ctl.tobytes():
+        fail(f"20d: the fleet's outputs differ from in-process predict by "
+             f"{float(np.abs(want - got_ctl).max())}")
+    small = os.path.join(tmp, "fleet-small")
+    os.makedirs(small)
+    np.save(os.path.join(small, "x.npy"), x[:FLEET_SHARD])
+    small_job = job(os.path.join(tmp, "fleet-out-small"), rows=FLEET_SHARD,
+                    data=small)
+    ShardManifest.create(small_job, os.path.join(tmp, "fleet-small-run"))
+    kernels.reset_launch_counts()
+    BatchWorker(small_job, os.path.join(tmp, "fleet-small-run"),
+                source=NpyDirSource(small), model=fm).run()
+    batches = FLEET_SHARD // FLEET_BATCH
+    expect_launches(kernels.launch_counts(), {
+        "flash_attention_fwd": 12 * batches, "bias_gelu": 12 * batches,
+        "layernorm_act": batches}, "20d in-process BatchWorker")
+    if outputs(os.path.join(tmp, "fleet-out-small"), 1).tobytes() != \
+            got_ctl[:FLEET_SHARD].tobytes():
+        fail("20d: the in-process worker's shard differs from the fleet's")
+    report_captures("20d in-process", mark, card, allow_fallback=False)
+    target = f"{control['target_deadline_s']:g}"
+    print(f"20d fleet: BERT-base (phase 3's TextClassifier from a save_model "
+          f"file, built in each worker by {os.path.basename(ref)}), "
+          f"{FLEET_ROWS} x 512 tokens from an NpyDirSource, {FLEET_SHARD} rows "
+          f"a shard, batch {FLEET_BATCH}, {FLEET_WORKERS} workers on one card: "
+          f"control {control['rows_per_sec']} rows/s on the card, the "
+          f"report's rows/s/chip {control['rows_per_sec_per_chip']} (it "
+          f"counts a worker a chip), {control['elapsed_s']} s of job "
+          f"({ctl_wall:.3f} s with the fleet's set-up), chips_for "
+          f"{control['chips_for']} (target {target} s); in-process predict "
+          f"{FLEET_ROWS / predict_s:.1f} rows/s; drill: worker 0 killed at "
+          f"worker.step 1, {drill['restarts']} restart(s), "
+          f"{res['rows_recomputed']} rows recomputed, "
+          f"{res['duplicate_commits']} duplicate commits, resume overhead "
+          f"fraction {res['resume_overhead_fraction']}; outputs of control, "
+          f"drill and in-process predict byte-identical ({card})")
+    hosts = {h: (v["rows"], round(v["seconds"], 3))
+             for h, v in control["per_host"].items()}
+    print(f"20d control, rows and shard-scoring seconds by worker {hosts}: "
+          f"{FLEET_ROWS / max(v[1] for v in hosts.values()):.1f} rows a "
+          f"second of the slower worker's scoring; the job's "
+          f"{control['elapsed_s']} s include the workers' start-up "
+          f"({card})")
+    print(f"20d worker start-up, s from process start to a captured warm: "
+          f"cold {[round(r['startup_s'], 3) for r in cold]} (nvcc processes "
+          f"{[r['nvcc_calls'] for r in cold]}), replacement "
+          f"{replacement['startup_s']:.3f} (nvcc processes "
+          f"{replacement['nvcc_calls']}: the libraries from the run dir's "
+          f"compile farm) ({card})")
+    print(f"20d in-process BatchWorker: {batches} batches of "
+          f"{FLEET_BATCH} x 512, launches {kernels.launch_counts()} "
+          f"(12/12/1 a batch) ({card})")
+
+
+def data_pipeline_phase(torch, card, dev) -> None:
+    """Phase 20: the data pipeline and offline batch scoring (see the
+    module docstring)."""
+    import shutil
+    import tempfile
+
+    from analytics_zoo_torch.common.config import get_config
+    cfg = get_config()
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="zoo-phase20-")
+    prefetch = cfg.get("data.prefetch")
+    try:
+        cfg.set("data.prefetch", 2)
+        pipeline_training(torch, card, dev, tmp)
+        cfg.set("data.prefetch", prefetch)
+        sps = input_pipeline_bench(torch, dev)
+        print(f"20b input pipeline ({INPUT_ROWS} x {INPUT_HW}x{INPUT_HW}x3 "
+              f"float32, batch {INPUT_BATCH}, {sps['sample_bytes']} bytes a "
+              f"sample): samples/s bare {sps['bare']:.1f}, normalize map "
+              f"{sps['map']:.1f}, in a pool of 4 {sps['pooled_map']:.1f}, "
+              f"DeviceLoader to the card (2 workers, depth 2) "
+              f"{sps['device_feed']:.1f}; CRC-32C (utils/crc32c.py) over "
+              f"{CRC_BYTES} bytes on the host, MB/s "
+              f"{[round(v, 3) for v in sps['crc32c_mb_s']]} ({card})")
+        batch_scoring_bench(card, tmp)
+        fleet_scoring(torch, card, dev, tmp)
+    finally:
+        cfg.set("data.prefetch", prefetch)
+        shutil.rmtree(tmp, ignore_errors=True)
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 20: {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
+def data_pipeline_alone() -> None:
+    """Phase 20 by itself (``--data-pipeline``): the kernels built, then
+    the pipeline training, the input-pipeline and batch-scoring benches
+    and the BERT-base fleet on the card."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a GPU")
+    from analytics_zoo_torch import init_zoo_context
+    from analytics_zoo_torch.ops import kernels
+    kernels.build_all()
+    card = gpu_line()
+    print(f"gpu: {card}")
+    ctx = init_zoo_context(device="cuda:0")
+    data_pipeline_phase(torch, card, ctx.device)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -5947,7 +6540,10 @@ def main() -> None:
     # -------------------------- 19. compile and warm start (--compile)
     compile_phase(torch, card, dev)
 
-    # ------------------------------------------------------ 20. results
+    # ------- 20. the data pipeline and offline batch scoring (--data-pipeline)
+    data_pipeline_phase(torch, card, dev)
+
+    # ------------------------------------------------------ 21. results
     print(f"launches: GPT-1 serving (4 requests) {gpt_serve}; GPT-1 fit "
           f"(8 steps) {gpt_train}; BERT-base fine-tuning (8 steps) "
           f"{bert_tune}")
@@ -6030,6 +6626,8 @@ if __name__ == "__main__":
         text_matching_alone()
     elif sys.argv[1:] == ["--compile"]:
         compile_alone()
+    elif sys.argv[1:] == ["--data-pipeline"]:
+        data_pipeline_alone()
     elif sys.argv[1:2] == [WARM_CHILD] and len(sys.argv) == 4:
         warm_start_child(sys.argv[2], sys.argv[3])
     elif sys.argv[1:] == ["--profile-recurrent"]:

@@ -1,14 +1,18 @@
 """PyTorch port, isolation: importing the port (and every module of the
 serving, training, Cluster Serving, recommender, recurrent/generative,
-persistence, transformer-model, Keras-layer/AnomalyDetector and
-text-matching/autograd/keras2/datasets and compile slices)
+persistence, transformer-model, Keras-layer/AnomalyDetector,
+text-matching/autograd/keras2/datasets, compile, and data-pipeline and
+batch-scoring slices)
 pulls in none of ``jax``, ``analytics_zoo_tpu``, ``flax``, ``msgpack``,
 ``tensorflow`` and ``transformers``, no port source imports the first
-four or loads a file of the JAX package by path, TensorFlow is imported
-only inside the BERT checkpoint loader's google reader, and the context
-refuses to fall back to the CPU quietly. Each import check runs in a
-fresh interpreter, since this test process has both loaded."""
+four or loads a file of the JAX package by path (the one file-path
+loader, the batch worker's ``resolve_ref`` for a user's builder file,
+refuses the JAX package's files), TensorFlow is imported only inside the
+BERT checkpoint loader's google reader, and the context refuses to fall
+back to the CPU quietly. Each import check runs in a fresh interpreter,
+since this test process has both loaded."""
 
+import ast
 import os
 import pathlib
 import re
@@ -112,6 +116,25 @@ SLICE_MODULES = [
     "analytics_zoo_torch.compile.engine",
     "analytics_zoo_torch.compile.cache",
     "analytics_zoo_torch.observability.diagnostics",
+    "analytics_zoo_torch.data.source",
+    "analytics_zoo_torch.data.sampler",
+    "analytics_zoo_torch.data.stages",
+    "analytics_zoo_torch.data.pipeline",
+    "analytics_zoo_torch.data.device_loader",
+    "analytics_zoo_torch.data.adapters",
+    "analytics_zoo_torch.utils.crc32c",
+    "analytics_zoo_torch.utils.pbwire",
+    "analytics_zoo_torch.feature.tfrecord",
+    "analytics_zoo_torch.observability.aggregator",
+    "analytics_zoo_torch.parallel.launcher",
+    "analytics_zoo_torch.batchjobs",
+    "analytics_zoo_torch.batchjobs.spec",
+    "analytics_zoo_torch.batchjobs.manifest",
+    "analytics_zoo_torch.batchjobs.report",
+    "analytics_zoo_torch.batchjobs.worker",
+    "analytics_zoo_torch.batchjobs.coordinator",
+    "analytics_zoo_torch.batchjobs.demo",
+    "analytics_zoo_torch.batchjobs.cli",
 ]
 
 
@@ -159,14 +182,74 @@ def test_tensorflow_is_imported_only_by_the_google_checkpoint_reader():
         ["    "]
 
 
+# the one place a file is loaded by path: a batch job's builder ref
+# ``/path/to/file.py:attr`` (the reference's ``resolve_ref``), which
+# refuses the JAX package's files
+PATH_LOADER = ("analytics_zoo_torch/batchjobs/worker.py", "resolve_ref")
+
+
+def _function_lines(path: pathlib.Path, name: str):
+    tree = ast.parse(path.read_text())
+    fn = next(n for n in tree.body
+              if isinstance(n, ast.FunctionDef) and n.name == name)
+    return range(fn.lineno, fn.end_lineno + 1)
+
+
 def test_port_sources_load_no_reference_file_by_path():
     """The port keeps its own copies: no file-path loader
-    (``scripts/_analysis_loader.py``, ``spec_from_file_location``)."""
+    (``scripts/_analysis_loader.py``, ``spec_from_file_location``,
+    ``SourceFileLoader``, ``runpy``) but ``spec_from_file_location`` in
+    ``batchjobs/worker.py::resolve_ref``."""
     pattern = re.compile(r"_analysis_loader|spec_from_file_location|"
                          r"SourceFileLoader|runpy")
-    offenders = [str(p.relative_to(REPO)) for p in PORT.rglob("*.py")
-                 if pattern.search(p.read_text())]
+    allowed = _function_lines(REPO / PATH_LOADER[0], PATH_LOADER[1])
+    offenders = []
+    for p in PORT.rglob("*.py"):
+        rel = str(p.relative_to(REPO))
+        for i, line in enumerate(p.read_text().splitlines(), 1):
+            m = pattern.search(line)
+            if m is None:
+                continue
+            if rel == PATH_LOADER[0] and i in allowed and \
+                    m.group(0) == "spec_from_file_location":
+                continue
+            offenders.append(f"{rel}:{i}")
     assert offenders == []
+    # and the function does use it, once: the allowance is not stale
+    worker = (REPO / PATH_LOADER[0]).read_text().splitlines()
+    assert sum("spec_from_file_location" in worker[i - 1]
+               for i in allowed) == 1
+
+
+@pytest.mark.parametrize("target", [
+    "analytics_zoo_tpu/batchjobs/demo.py",
+    "analytics_zoo_tpu/../analytics_zoo_tpu/data/source.py",
+    "analytics_zoo_tpu/batchjobs/no_such_file.py",
+])
+def test_resolve_ref_refuses_the_reference_package(target, tmp_path):
+    """A builder file under the JAX package's directory is refused before
+    anything is loaded; a file elsewhere loads."""
+    code = "\n".join([
+        "import sys",
+        "from analytics_zoo_torch.batchjobs.worker import resolve_ref",
+        "before = set(sys.modules)",
+        "try:",
+        f"    resolve_ref({str(REPO / target)!r} + ':demo_model')",
+        "except ValueError as e:",
+        "    assert 'JAX package' in str(e), e",
+        "else:",
+        "    raise SystemExit('loaded a file of the JAX package')",
+        "new = sorted(m for m in set(sys.modules) - before",
+        "             if 'builder' in m or 'analytics_zoo_tpu' in m)",
+        "assert not new, new",
+        f"path = {str(tmp_path / 'builder.py')!r}",
+        "open(path, 'w').write('def make(k=1):\\n    return k + 1\\n')",
+        "assert resolve_ref(path + ':make')(k=2) == 3",
+        "print('OK')",
+    ])
+    proc = _run(code)
+    assert proc.returncode == 0 and "OK" in proc.stdout, \
+        proc.stdout + proc.stderr
 
 
 def test_context_without_a_gpu_raises_unless_cpu_is_asked_for():

@@ -21,15 +21,10 @@ OWED = {
     "pipeline.api.keras.layers": set(),
     # queue 1 item 5: local_estimator.py
     "pipeline.estimator": {"LocalEstimator"},
-    # queue 1 item 5: the data/ pipeline
-    "data": {"ArraySource", "BatchStage", "DataPipeline", "DeviceLoader",
-             "IndexSampler", "MapStage", "NpyDirSource", "PrefetchIterator",
-             "Source", "Stage", "TFRecordSource", "TransformStage",
-             "as_data_pipeline", "as_source", "from_feature_set",
-             "run_stages"},
     # queue 1 item 6: the fleet supervisor and autoscaler
     "serving": {"ServingSupervisor", "cli_worker_factory"},
-    # queue 1 items 6 (aggregator, tsdb, slo, drift, incident), 8
+    # queue 1 items 6 (the aggregator's merge half, tsdb, slo, drift,
+    # incident), 8
     # (collectives) and 9 (diagnostics, watchdog)
     "observability": {
         "BurnWindow", "ClusterAggregator", "DriftDetector",
@@ -37,13 +32,11 @@ OWED = {
         "SloStatus", "TrainingHalted", "TrainingWatchdog", "TsdbSampler",
         "TsdbWriter", "WorkerSource", "diagnose", "drift_report",
         "estimate_train_step_collectives", "evaluate_timeline",
-        "flush_active_tsdb", "flush_worker_observability",
-        "get_active_tsdb", "get_active_watchdog",
-        "init_tsdb", "init_worker_observability", "load_slo_yaml",
+        "flush_active_tsdb", "get_active_tsdb", "get_active_watchdog",
+        "init_tsdb", "load_slo_yaml",
         "merge_requests", "merge_snapshots", "merge_traces",
         "parse_slo_specs", "publish_mfu", "record_step_collectives",
-        "render_incident", "reset_tsdb",
-        "reset_worker_observability", "set_active_watchdog",
+        "render_incident", "reset_tsdb", "set_active_watchdog",
         "straggler_report",
         "write_incident"},
     # queue 1 item 8: parallel/mesh.py and sharding.py
