@@ -9,45 +9,80 @@ a thin container over ndarrays; ``transform`` applies a Preprocessing
 stage to every image and ``to_feature_set`` stacks them into a columnar
 FeatureSet.
 
-Not ported: decoding (``decode_image_bytes``, ``read_image``,
-``ImageSet.read``), ``ImageResize`` and ``ImageHue`` (and so
-``ImageColorJitter``'s hue stage), which run on OpenCV or PIL in the
-reference; they raise ``NotImplementedError`` naming ROADMAP.md.
+Decoding (``decode_image_bytes``, ``read_image``, ``ImageSet.read``),
+``ImageResize`` and ``ImageHue`` run on OpenCV when it imports, else on
+PIL, as the reference's do (the same ``_HAS_CV2`` guard), so both
+packages decode and resize to the same bytes on either codec.  PIL's BGR
+result is a negative-stride view of its RGB array, as the reference
+returns it; the consumers that hand arrays to torch make them contiguous.
 """
 
 from __future__ import annotations
 
+import glob
+import os
 from typing import List, Optional, Tuple
 
 import numpy as np
+
+try:
+    import cv2
+    _HAS_CV2 = True
+except Exception:            # pragma: no cover
+    _HAS_CV2 = False
 
 from analytics_zoo_torch.feature.common import Preprocessing
 from analytics_zoo_torch.feature.feature_set import FeatureSet
 
 
-def _needs_codec(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} needs an image codec (OpenCV or PIL) and is not ported to "
-        "the PyTorch package yet (ROADMAP.md, port queue 1): pass decoded "
-        "HWC arrays through ImageSet.from_ndarrays")
-
-
 def decode_image_bytes(data: bytes, to_rgb: bool = True,
                        context: str = "") -> np.ndarray:
-    raise _needs_codec("decode_image_bytes")
+    """Decode one encoded image (JPEG/PNG bytes) to HWC uint8.
+    ``context`` names the source (path / record id) in decode errors."""
+    what = f"image {context}" if context else "image bytes"
+    if _HAS_CV2:
+        img = cv2.imdecode(np.frombuffer(data, np.uint8),
+                           cv2.IMREAD_COLOR)
+        if img is None:
+            raise IOError(f"cannot decode {what}")
+        return cv2.cvtColor(img, cv2.COLOR_BGR2RGB) if to_rgb else img
+    import io
+    from PIL import Image
+    try:
+        rgb = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+    except Exception as e:
+        raise IOError(f"cannot decode {what}") from e
+    return rgb if to_rgb else rgb[..., ::-1]
 
 
 def read_image(path: str, to_rgb: bool = True) -> np.ndarray:
-    raise _needs_codec("read_image")
+    """Decode one image file (local or remote URI) to HWC uint8."""
+    from analytics_zoo_torch.utils import file_io
+    if file_io.is_remote(path):
+        return decode_image_bytes(file_io.read_bytes(path), to_rgb,
+                                  context=path)
+    if _HAS_CV2:
+        img = cv2.imread(path, cv2.IMREAD_COLOR)
+        if img is None:
+            raise IOError(f"cannot decode image {path}")
+        return cv2.cvtColor(img, cv2.COLOR_BGR2RGB) if to_rgb else img
+    from PIL import Image
+    return np.asarray(Image.open(path).convert("RGB"))
 
 
 # ------------------------------------------------------------- transforms
 class ImageResize(Preprocessing):
+    """Bilinear resize to (resize_h, resize_w)."""
+
     def __init__(self, resize_h: int, resize_w: int):
         self.h, self.w = int(resize_h), int(resize_w)
 
-    def apply(self, img):
-        raise _needs_codec("ImageResize")
+    def apply(self, img: np.ndarray) -> np.ndarray:
+        if _HAS_CV2:
+            return cv2.resize(img, (self.w, self.h),
+                              interpolation=cv2.INTER_LINEAR)
+        from PIL import Image
+        return np.asarray(Image.fromarray(img).resize((self.w, self.h)))
 
 
 class ImageCenterCrop(Preprocessing):
@@ -152,7 +187,7 @@ class ImageSaturation(Preprocessing):
 
 
 class ImageHue(Preprocessing):
-    """Hue rotation in HSV space: needs OpenCV or PIL."""
+    """Hue rotation in HSV space."""
 
     def __init__(self, delta: float = 18.0, seed: int = 0):
         self.delta = float(delta)
@@ -162,12 +197,27 @@ class ImageHue(Preprocessing):
         self.rng = np.random.default_rng(seed)
 
     def apply(self, img):
-        raise _needs_codec("ImageHue")
+        shift = self.rng.uniform(-self.delta, self.delta)
+        u8 = np.clip(img, 0, 255).astype(np.uint8)
+        if _HAS_CV2:
+            hsv = cv2.cvtColor(u8, cv2.COLOR_RGB2HSV)
+            h = hsv[..., 0].astype(np.int16)
+            hsv[..., 0] = ((h + int(shift / 2)) % 180).astype(np.uint8)
+            out = cv2.cvtColor(hsv, cv2.COLOR_HSV2RGB)
+        else:
+            from PIL import Image
+            hsv = np.asarray(Image.fromarray(u8).convert("HSV"),
+                             np.int16)
+            hsv[..., 0] = (hsv[..., 0] + int(shift * 255 / 360)) % 256
+            out = np.asarray(Image.fromarray(
+                hsv.astype(np.uint8), "HSV").convert("RGB"))
+        return out.astype(img.dtype if np.issubdtype(
+            np.asarray(img).dtype, np.floating) else np.uint8)
 
 
 class ImageColorJitter(Preprocessing):
-    """Brightness, contrast, saturation and hue jitter in a random order;
-    the hue stage raises (``ImageHue``) when the order reaches it."""
+    """Brightness, contrast, saturation and hue jitter in a random order
+    (the full photometric distort)."""
 
     def __init__(self, brightness_delta: float = 32.0,
                  contrast: Tuple[float, float] = (0.5, 1.5),
@@ -251,7 +301,11 @@ class ImageMatToTensor(Preprocessing):
 
 # -------------------------------------------------------------- ImageSet
 class ImageSet:
-    """Images (and optional labels) with chained transforms."""
+    """Images (and optional labels) with chained transforms.
+
+    ``read`` takes a local directory of files matching ``pattern``; with
+    ``with_label=True``, one sub-directory per class, labelled in sorted
+    order."""
 
     def __init__(self, images: List, labels: Optional[np.ndarray] = None,
                  label_map: Optional[dict] = None):
@@ -262,7 +316,20 @@ class ImageSet:
     @classmethod
     def read(cls, path: str, with_label: bool = False,
              pattern: str = "*.jpg") -> "ImageSet":
-        raise _needs_codec("ImageSet.read")
+        if with_label:
+            classes = sorted(
+                d for d in os.listdir(path)
+                if os.path.isdir(os.path.join(path, d)))
+            label_map = {c: i for i, c in enumerate(classes)}
+            files, labels = [], []
+            for c in classes:
+                for f in sorted(glob.glob(os.path.join(path, c, pattern))):
+                    files.append(f)
+                    labels.append(label_map[c])
+            images = [read_image(f) for f in files]
+            return cls(images, np.asarray(labels, np.int32), label_map)
+        files = sorted(glob.glob(os.path.join(path, pattern)))
+        return cls([read_image(f) for f in files])
 
     @classmethod
     def from_ndarrays(cls, images: np.ndarray,

@@ -9,12 +9,15 @@ mirrors the reference's column-spec object.
 
 The wide weights are an embedding table gathered by active-feature
 indices and summed, as in the reference.  The graph is the reference's,
-layer for layer; its two ``Lambda``s are torch ops on tensors.
+layer for layer; its two ``Lambda``s are torch ops on tensors, module
+functions rather than closures, so the built net pickles (an NNFrames
+``save``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Sequence
 
 import numpy as np
@@ -24,6 +27,14 @@ from analytics_zoo_torch.pipeline.api.keras import Input, Model
 from analytics_zoo_torch.pipeline.api.keras.layers import (
     Dense, Embedding, Flatten, Lambda, Merge,
 )
+
+
+def _sum_columns(t):
+    return t.sum(dim=1)
+
+
+def _column(t, j):
+    return t[:, j:j + 1]
 
 
 @dataclasses.dataclass
@@ -72,7 +83,7 @@ class WideAndDeep(Recommender):
             inputs.append(wide_in)
             total = int(sum(info.wide_dims)) + 1
             wide_emb = Embedding(total, self.class_num, init="zero")(wide_in)
-            wide_out = Lambda(lambda t: t.sum(dim=1),
+            wide_out = Lambda(_sum_columns,
                               output_shape=(self.class_num,))(wide_emb)
             parts.append(wide_out)
 
@@ -89,7 +100,7 @@ class WideAndDeep(Recommender):
                 emb_in = Input(shape=(n_emb,))
                 inputs.append(emb_in)
                 for j in range(n_emb):
-                    col = Lambda(lambda t, j=j: t[:, j:j + 1],
+                    col = Lambda(functools.partial(_column, j=j),
                                  output_shape=(1,))(emb_in)
                     e = Embedding(int(info.embed_in_dims[j]) + 1,
                                   int(info.embed_out_dims[j]),

@@ -329,7 +329,9 @@ def _sched(learning_rate, schedule):
 class OptimMethod:
     """A named optimizer: a chain of transformations + its lr schedule.
     Subclasses record their constructor kwargs (``_init_kwargs``), which
-    the fused update reads."""
+    the fused update reads and by which the optimizer pickles: the
+    transformations are closures, so a pickle rebuilds it from them (the
+    NNFrames persistence, ``nnframes/nn_estimator.py``)."""
 
     def __init__(self, tx: _Transform, name: str,
                  learning_rate: Union[float, Callable] = None):
@@ -343,6 +345,19 @@ class OptimMethod:
     def update(self, grads, opt_state, params):
         """(updates, new_state): the unfused optax path."""
         return self.tx.update(grads, opt_state, params)
+
+    def __reduce__(self):
+        kwargs = getattr(self, "_init_kwargs", None)
+        if kwargs is None:
+            raise TypeError(
+                f"{type(self).__name__} cannot be pickled: no recorded "
+                "constructor args (custom OptimMethod instances must "
+                "set self._init_kwargs or be rebuilt by hand)")
+        return (_rebuild_optim, (type(self), dict(kwargs)))
+
+
+def _rebuild_optim(cls, kwargs):
+    return cls(**kwargs)
 
 
 class SGD(OptimMethod):

@@ -60,8 +60,15 @@ tensors in place, so a captured step program keeps replaying on its
 captured tensors.  The fault-injection site trips before every step on
 every route (the port's fused routes are replays of a one-step program).
 
-Not ported: TensorBoard summaries, the watchdog and its halt snapshot,
-mesh re-formation and the degraded exit.
+``set_tensorboard(log_dir, app_name)`` writes the reference's scalars
+(``utils/summary.py``: JSONL and tfevents): ``Loss`` at each dispatch
+that carries the iteration count across a multiple of 20 (the
+dispatch's loss, at the count after it), ``Throughput`` after each epoch
+at its count, and each validation score under its name.  The writers are
+closed when ``train`` returns or raises.
+
+Not ported: the watchdog and its halt snapshot, mesh re-formation and
+the degraded exit.
 
 ``optim_methods={group: (OptimMethod, layer names or "*")}`` trains each
 group of layers with its own optimizer (the reference's multi-optimMethod
@@ -127,12 +134,6 @@ def _assign(dst, src):
                 dst.copy_(src)
         return dst
     return src
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"Estimator {what} is not ported to the PyTorch package yet "
-        "(ROADMAP.md, port queue)")
 
 
 def _train_metrics():
@@ -220,6 +221,8 @@ class Estimator:
         self.optim_groups = optim_methods
         self.model_dir = model_dir
         self._clip: Optional[ClipSpec] = None
+        self._train_summary = None
+        self._val_summary = None
         self.variables = None
         self.history: List[Dict] = []
         self.train_state = TrainingState()
@@ -235,7 +238,10 @@ class Estimator:
         self._clip = None
 
     def set_tensorboard(self, log_dir: str, app_name: str):
-        raise _not_ported("set_tensorboard")
+        from analytics_zoo_torch.utils.summary import (
+            TrainSummary, ValidationSummary)
+        self._train_summary = TrainSummary(log_dir, app_name)
+        self._val_summary = ValidationSummary(log_dir, app_name)
 
     # ------------------------------------------------------------- training
     def train(self, train_set, criterion,
@@ -544,83 +550,104 @@ class Estimator:
                 trainer.warm_start(params, opt_state, state, warm_batch,
                                    seed)
 
-        while not end_trigger(ts):
-            epoch_start = time.perf_counter()
-            epoch_iteration = ts.iteration
-            seen, loss, stop, again = 0, None, False, False
-            try:
-                for steps, run in dispatches():
-                    try:
-                        params, opt_state, state, loss = run()
-                    except InjectedFault:
-                        raise     # injected faults go to the policy below
-                    except Exception:   # noqa: BLE001 — recovery below
-                        if hbm_src is None:
-                            raise
-                        leave_hbm(epoch_iteration)
-                        again = True
-                        break
-                    seen += steps * batch_size
-                    # iteration-level triggers (SeveralIteration,
-                    # MaxIteration) fire mid-epoch
-                    if ckpt is not None and checkpoint_trigger(ts):
-                        save_snapshot()
-                    if end_trigger(ts):
-                        stop = True
-                        break
-            except _UnrecoverableTraining:
-                raise
-            except Exception as exc:   # noqa: BLE001 — the policy engine
-                decision = policy.decide(exc,
-                                         have_checkpoint=ckpt is not None)
-                met["failures"].labels(decision.failure_class.value).inc()
-                record_event(
-                    "train.failure",
-                    classification=decision.failure_class.value,
-                    action=decision.action.name.lower(),
-                    iteration=ts.iteration,
-                    cause=f"{type(exc).__name__}: {exc}"[:200])
-                if decision.action is not RecoveryAction.RETRY:
-                    log.error("training failure classified %s is not "
-                              "recoverable here: %s",
-                              decision.failure_class.value, decision.reason)
+        try:
+            while not end_trigger(ts):
+                epoch_start = time.perf_counter()
+                epoch_iteration = ts.iteration
+                seen, loss, stop, again = 0, None, False, False
+                try:
+                    for steps, run in dispatches():
+                        try:
+                            params, opt_state, state, loss = run()
+                        except InjectedFault:
+                            raise     # injected faults go to the policy below
+                        except Exception:   # noqa: BLE001 — recovery below
+                            if hbm_src is None:
+                                raise
+                            leave_hbm(epoch_iteration)
+                            again = True
+                            break
+                        seen += steps * batch_size
+                        # the reference's Loss scalar: at each dispatch
+                        # that carries the count across a multiple of 20
+                        if self._train_summary is not None and \
+                                ts.iteration // 20 != \
+                                (ts.iteration - steps) // 20:
+                            self._train_summary.add_scalar(
+                                "Loss", float(loss), ts.iteration)
+                        # iteration-level triggers (SeveralIteration,
+                        # MaxIteration) fire mid-epoch
+                        if ckpt is not None and checkpoint_trigger(ts):
+                            save_snapshot()
+                        if end_trigger(ts):
+                            stop = True
+                            break
+                except _UnrecoverableTraining:
                     raise
-                met["retries"].inc()
-                met["recoveries"].labels("retry").inc()
-                record_event("train.retry",
-                             classification=decision.failure_class.value,
-                             retries_left=policy.budget.remaining,
-                             iteration=ts.iteration)
-                log.warning("training step failed (%s: %s); restoring the "
-                            "latest checkpoint (%d retries left)",
-                            decision.failure_class.value, exc,
-                            policy.budget.remaining)
-                if not restore_snapshot() and is_pipeline and \
-                        ts.iteration == start_iteration:
-                    train_set.load_state_dict(entry_data_state)
-                continue
-            if again:
-                continue
-            # the route's loss: the HBM epoch's mean, the last chunk's
-            # mean, or the last step's (the epoch's one host read)
-            if loss is not None:
-                ts.last_loss = float(loss)
-            if stop:
-                break
-            ts.epoch += 1
-            ts.slice_index = 0
-            ts.epoch_finished = True
-            wall = time.perf_counter() - epoch_start
-            record = {"epoch": ts.epoch, "loss": ts.last_loss,
-                      "throughput": seen / max(wall, 1e-9), "wall_s": wall}
-            if eval_runner is not None:
-                scores = run_eval()
-                record["val"] = scores
-                ts.last_score = next(iter(scores.values()), None)
-            self.history.append(record)
-            if ckpt is not None and checkpoint_trigger(ts):
-                save_snapshot()
-            ts.epoch_finished = False
+                except Exception as exc:   # noqa: BLE001 — the policy engine
+                    decision = policy.decide(exc,
+                                             have_checkpoint=ckpt is not None)
+                    met["failures"].labels(decision.failure_class.value).inc()
+                    record_event(
+                        "train.failure",
+                        classification=decision.failure_class.value,
+                        action=decision.action.name.lower(),
+                        iteration=ts.iteration,
+                        cause=f"{type(exc).__name__}: {exc}"[:200])
+                    if decision.action is not RecoveryAction.RETRY:
+                        log.error("training failure classified %s is not "
+                                  "recoverable here: %s",
+                                  decision.failure_class.value, decision.reason)
+                        raise
+                    met["retries"].inc()
+                    met["recoveries"].labels("retry").inc()
+                    record_event("train.retry",
+                                 classification=decision.failure_class.value,
+                                 retries_left=policy.budget.remaining,
+                                 iteration=ts.iteration)
+                    log.warning("training step failed (%s: %s); restoring the "
+                                "latest checkpoint (%d retries left)",
+                                decision.failure_class.value, exc,
+                                policy.budget.remaining)
+                    if not restore_snapshot() and is_pipeline and \
+                            ts.iteration == start_iteration:
+                        train_set.load_state_dict(entry_data_state)
+                    continue
+                if again:
+                    continue
+                # the route's loss: the HBM epoch's mean, the last chunk's
+                # mean, or the last step's (the epoch's one host read)
+                if loss is not None:
+                    ts.last_loss = float(loss)
+                if stop:
+                    break
+                ts.epoch += 1
+                ts.slice_index = 0
+                ts.epoch_finished = True
+                wall = time.perf_counter() - epoch_start
+                record = {"epoch": ts.epoch, "loss": ts.last_loss,
+                          "throughput": seen / max(wall, 1e-9), "wall_s": wall}
+                if self._train_summary is not None:
+                    self._train_summary.add_scalar(
+                        "Throughput", record["throughput"], ts.iteration)
+                if eval_runner is not None:
+                    scores = run_eval()
+                    record["val"] = scores
+                    ts.last_score = next(iter(scores.values()), None)
+                    if self._val_summary is not None:
+                        for k, v in scores.items():
+                            self._val_summary.add_scalar(k, v, ts.iteration)
+                self.history.append(record)
+                if ckpt is not None and checkpoint_trigger(ts):
+                    save_snapshot()
+                ts.epoch_finished = False
+
+        finally:
+            # the writers hold open files; one reopens on its next
+            # scalar, so a later train() keeps recording
+            for summary in (self._train_summary, self._val_summary):
+                if summary is not None:
+                    summary.close()
 
         self.variables = {"params": params, "state": state}
         self.model.set_variables(self.variables)

@@ -20,8 +20,9 @@ model (``register_endpoint`` / ``params.endpoints``).  The stream
 fields and the result JSON are the JAX package's, byte for byte, so a
 client of either package talks to a server of the other.
 
-Not ported yet (ROADMAP.md, queue 1): ``image`` records (JPEG decode,
-``feature/image``) get an error result like any undecodable record; the
+An ``image`` record (base64 JPEG or PNG) is decoded on the decode pool to
+BGR float32, as the reference's OpenCV path does; an undecodable one gets
+the per-record error result.  Not ported yet (ROADMAP.md, queue 1): the
 drain-time flush into a launcher run dir waits for the observability
 aggregator.
 """
@@ -95,10 +96,13 @@ def decode_field(fields: Dict[str, bytes]):
     if isinstance(rid, bytes):
         rid = rid.decode()
     if "image" in fields:
-        raise NotImplementedError(
-            f"record {uri!r}: image records (JPEG decode, feature/image) "
-            "are not ported to the PyTorch package yet (ROADMAP.md, "
-            "queue 1); enqueue the decoded array as 'data'")
+        from analytics_zoo_torch.feature.image import decode_image_bytes
+        raw = base64.b64decode(fields["image"])
+        # serving consumes BGR, as the reference's OpenCV path does
+        # (ImageProcessing.scala:24); astype copies PIL's reversed view
+        # into a contiguous array
+        img = decode_image_bytes(raw, to_rgb=False, context=uri)
+        return uri, img.astype(np.float32, order="C"), rid
     raw = base64.b64decode(fields["data"])
     import io
     arr = np.load(io.BytesIO(raw), allow_pickle=False)

@@ -16,7 +16,9 @@ checkpoint decoder can view it without a copy.
 
 from __future__ import annotations
 
+import glob as _glob
 import os
+from typing import List
 
 _REMOTE_SCHEMES = ("gs://", "s3://", "s3a://", "hdfs://", "abfs://",
                    "http://", "https://")
@@ -77,3 +79,19 @@ def exists(path: str) -> bool:
     if is_remote(path):
         return _fs(path).exists(path)
     return os.path.exists(path)
+
+
+def list_files(pattern: str) -> List[str]:
+    """Glob local or remote; remote results keep their scheme."""
+    if is_remote(pattern):
+        fs = _fs(pattern)
+        return sorted(fs.unstrip_protocol(p) if "://" not in str(p)
+                      else str(p) for p in fs.glob(pattern))
+    return sorted(_glob.glob(pattern))
+
+
+def makedirs(path: str) -> None:
+    if is_remote(path):
+        _fs(path).makedirs(path, exist_ok=True)
+    else:
+        os.makedirs(path, exist_ok=True)

@@ -15,7 +15,9 @@ and the regularizers held to the CPU, and KNRM trained and ranked, MoE,
 ConvLSTM, remat, freezing and optimizer groups, keras2 and autograd, the
 compiled path (CUDA-graph capture) against the eager one, and the data
 pipeline and offline batch scoring: BERT-base trained on a resumable
-``DataPipeline`` and scored by a fleet of worker processes.
+``DataPipeline`` and scored by a fleet of worker processes, and images
+in: JPEG records served through Cluster Serving, SSD-300 object detection
+served and trained, and NNFrames' ``NNClassifier`` on Wide & Deep.
 
     python3 chip_smoke.py
 
@@ -305,7 +307,34 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    farm without ``nvcc``; rows/s/chip beside in-process predict, worker
    start-up s cold and replacement, ``chips_for``; one ``BatchWorker`` in
    process on a 256-row ledger with 12/12/1 launches a batch;
-21. a ``kernels`` JSON line, then the device line last.
+21. images in (``python3 chip_smoke.py --images`` runs it alone), each
+   figure beside the card's name and power limit: 21a ``bench_serving``'s
+   workload through the port (ResNet-18 at 64x64x3 and 1000 classes,
+   seeded weights, 2048 JPEG records from ``RandomState(0)``, batch 32,
+   top 5, on an ``EmbeddedBroker``): the codec that decoded, sequential
+   and pipelined records/s, latency p50/p95/p99 and the calibrated-int8
+   pass's records/s; every served top 5 held to ``predict`` on the same
+   decoded BGR arrays, and a poison record answered with an error while
+   the records after it are served; 21b ``ObjectDetector("ssd_vgg300",
+   num_classes=21)`` (BN-VGG at Liu et al.'s widths, seeded weights at
+   He's gain, the default policy): ``detect`` at batch 32 captured and
+   eager in turns (ms a batch, images/s, capture seconds, the two routes
+   bit-identical), and card against CPU on two images with float32
+   products (boxes and probabilities before NMS within 1e-4, detections
+   equal where neighbouring scores are more than 1e-3 apart); 21c
+   MultiBox loss ``train_step``s at batch 32 and 16 boxes under Adam (step
+   ms, peak memory, one ``fused_adam`` a step; the kernel held and timed
+   at SSD-300's leaves), then a VOC tree written from a seed through
+   ``read_voc >> DetHFlip >> DetResize >> DetNormalize >> to_feature_set``
+   trains ``ssd_lite`` at 64x64 until its mAP beats the untrained
+   model's; 21d ``NNClassifier`` on Wide & Deep at
+   ``benchmarks/wide_deep.py``'s configuration (2^19 rows, batch 8192, 1
+   warm and 3 timed epochs, ``Adam(1e-3)``; a pandas frame, or where
+   pandas does not import a ``ColumnFrame`` defined here): samples/s an
+   epoch, ``transform`` rows/s, train accuracy, a saved and reloaded
+   ``NNClassifierModel`` predicting the same, the Adam kernel held and
+   timed at its leaves;
+22. a ``kernels`` JSON line, then the device line last.
 
 The int8 phases besides 9: 2b holds ``quantized_matmul`` and
 ``quantized_conv`` (``torch._int_mm``, a convolution as one product over
@@ -6019,6 +6048,670 @@ def data_pipeline_alone() -> None:
     data_pipeline_phase(torch, card, ctx.device)
 
 
+# ------------------------------------------ phase 21: images in (--images)
+# 21a: bench_serving's workload (bench.py:486-600)
+SERVE_RECORDS = 2048
+SERVE_SIDE = 64
+SERVE_BATCH = 32
+# a served top-5 against predict's: the same rows through the same
+# bucket; probabilities are compared at PROB_ATOL (phase 3b's bound), and
+# the classes where the in-process probabilities of neighbouring ranks are
+# more than this apart
+SERVE_GAP = 1e-3
+# 21b/21c: SSD-300 at batch 32, 16 boxes an image
+SSD_BATCH = 32
+SSD_MAX_BOXES = 16
+SSD_TIMED = 5
+SSD_TRAIN_WARM, SSD_TRAIN_TIMED = 2, 10
+# card against CPU, float32 products: boxes and probabilities before NMS
+# (a ~31-layer forward in other summation orders, ~1e-6 relative of a
+# value), and detections compared where the CPU's scores of neighbouring
+# detections are more than SSD_GAP apart
+SSD_F32_ATOL = 1e-4
+SSD_GAP = 1e-3
+# 21c's VOC tree: 24 images of 64 x 64, ssd_lite, 8 classes
+VOC_IMAGES, VOC_EPOCHS, VOC_MAX_EPOCHS = 24, 30, 90
+# 21d: benchmarks/wide_deep.py's configuration
+NN_ROWS, NN_BATCH, NN_WARM, NN_TIMED = 1 << 19, 8192, 1, 3
+
+
+def codec_name() -> str:
+    """The codec ``feature/image`` decodes with; fails when none imports."""
+    from analytics_zoo_torch.feature import image as timage
+    if timage._HAS_CV2:
+        import cv2
+        return f"OpenCV {cv2.__version__}"
+    try:
+        import PIL
+    except ImportError:
+        fail("phase 21: neither cv2 nor PIL imports: no image codec")
+    return f"PIL {PIL.__version__} (cv2 does not import)"
+
+
+def encode_jpeg(img) -> bytes:
+    """JPEG bytes of an HWC uint8 RGB-order array, as the client encodes
+    an ndarray (OpenCV; PIL where OpenCV is missing)."""
+    from analytics_zoo_torch.feature import image as timage
+    if timage._HAS_CV2:
+        import cv2
+        return cv2.imencode(".jpg", img)[1].tobytes()
+    import io
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(np.ascontiguousarray(img[..., ::-1])).save(buf, "JPEG")
+    return buf.getvalue()
+
+
+def image_records(torch, card, n_records=SERVE_RECORDS, side=SERVE_SIDE,
+                  batch=SERVE_BATCH, depth=18, classes=1000):
+    """21a: ``bench_serving`` through the port: ResNet-18 at 64x64x3 and
+    1000 classes (seeded weights), ``n_records`` JPEG records from
+    ``RandomState(0)`` served at batch 32, top 5, on an ``EmbeddedBroker``
+    sequentially, then pipelined (the serving thread), then calibrated
+    int8; every served top 5 held to ``predict`` on the same decoded BGR
+    arrays; a poison record answered with an error while the records
+    after it are served."""
+    import threading
+
+    from analytics_zoo_torch.feature.image import decode_image_bytes
+    from analytics_zoo_torch.models.image.imageclassification import resnet
+    from analytics_zoo_torch.ops import kernels
+    from analytics_zoo_torch.pipeline.inference import InferenceModel
+    from analytics_zoo_torch.serving.client import InputQueue, OutputQueue
+    from analytics_zoo_torch.serving.engine.executor import ModelExecutor
+    from analytics_zoo_torch.serving.redis_client import EmbeddedBroker
+    from analytics_zoo_torch.serving.server import (
+        ClusterServing, ServingConfig)
+    print(f"21a codec: {codec_name()} decodes the records ({card})")
+    model = resnet(depth, num_classes=classes, input_shape=(side, side, 3))
+    model.init(torch.Generator().manual_seed(0))
+    im = InferenceModel().load_zoo(model)
+    rs = np.random.RandomState(0)
+    jpegs = [encode_jpeg((rs.rand(side, side, 3) * 255).astype(np.uint8))
+             for _ in range(n_records)]
+
+    def serving_on(im_pass):
+        broker = EmbeddedBroker()
+        serving = ClusterServing(im_pass, ServingConfig(
+            batch_size=batch, top_n=5), broker=broker)
+        inq = InputQueue(broker=broker)
+        for i, data in enumerate(jpegs):
+            inq.enqueue_image(f"rec-{i}", data)
+        return serving, broker, inq
+
+    # sequential: run_once until the stream is drained; the first pass
+    # warms (captures) the padded-batch program and is not timed
+    kernels.reset_launch_counts()
+    serving, broker, inq = serving_on(im)
+    serving.run_once(block_ms=0)
+    warm_records = serving.total_records
+    t0 = time.perf_counter()
+    while serving.total_records < n_records:
+        if serving.run_once(block_ms=0) == 0:
+            break
+    seq_wall = time.perf_counter() - t0
+    seq_rps = (serving.total_records - warm_records) / max(seq_wall, 1e-9)
+    if serving.total_records != n_records:
+        fail(f"21a sequential pass served {serving.total_records} of "
+             f"{n_records}")
+    outq = OutputQueue(broker=broker)
+    served = [outq.query(f"rec-{i}") for i in range(n_records)]
+    # a poison record between two good ones
+    inq.enqueue_image("poison", b"not-a-jpeg")
+    inq.enqueue_image("after-0", jpegs[0])
+    inq.enqueue_image("after-1", jpegs[1])
+    while serving.run_once(block_ms=0):
+        pass
+    poison = outq.query("poison")
+    after = [outq.query("after-0"), outq.query("after-1")]
+    serving.close()
+    if not isinstance(poison, dict) or "error" not in poison or \
+            "cannot decode image poison" not in poison["error"]:
+        fail(f"21a poison record: result {poison}")
+    if after != served[:2]:
+        fail(f"21a records after the poison record: {after} against "
+             f"{served[:2]}")
+    print(f"21a poison record: error result {poison['error']!r}; the two "
+          "records after it served the same top 5 as their first copies")
+    if sum(kernels.launch_counts().values()):
+        fail(f"21a ResNet-18 serving launched kernels "
+             f"{kernels.launch_counts()}: its path has none")
+
+    # served top 5 against predict on the same decoded BGR arrays
+    x = np.stack([decode_image_bytes(d, to_rgb=False) for d in jpegs]
+                 ).astype(np.float32)
+    want = ModelExecutor.postprocess(im.predict(x, batch_size=batch), 5)
+    exact = compared = 0
+    worst = 0.0
+    for i, (got, ref) in enumerate(zip(served, want)):
+        if not isinstance(got, list) or len(got) != 5:
+            fail(f"21a record {i}: result {got}")
+        exact += [c for c, _ in got] == [c for c, _ in ref]
+        worst = max(worst, max(abs(p - q) for (_, p), (_, q) in
+                               zip(got, ref)))
+        probs = [q for _, q in ref]
+        for k in range(5):
+            gaps = [abs(probs[k] - probs[j]) for j in (k - 1, k + 1)
+                    if 0 <= j < 5]
+            if min(gaps) > SERVE_GAP:
+                compared += 1
+                if got[k][0] != ref[k][0]:
+                    fail(f"21a record {i}: served top 5 {got} against "
+                         f"predict's {ref}")
+    if not worst <= PROB_ATOL:
+        fail(f"21a served probabilities differ from predict's by {worst}")
+    print(f"21a served top 5 against InferenceModel.predict on the same "
+          f"decoded BGR arrays (batch {batch}): {exact} of {n_records} "
+          f"records identical in all five classes; all {compared} ranks "
+          f"whose neighbours' probabilities are more than {SERVE_GAP} apart "
+          f"equal; probability max abs diff {worst:.3e} (tolerance "
+          f"{PROB_ATOL})")
+
+    def pipelined_pass(im_pass):
+        serving_p, _, _ = serving_on(im_pass)
+        t = threading.Thread(target=serving_p.run, kwargs={"poll_ms": 10})
+        t0 = time.perf_counter()
+        t.start()
+        while serving_p.total_records < n_records and \
+                time.perf_counter() - t0 < 300:
+            time.sleep(0.02)
+        wall = time.perf_counter() - t0
+        serving_p.stop()
+        t.join(timeout=60)
+        if t.is_alive():
+            fail("21a ClusterServing.run did not stop")
+        stats = serving_p.stats()
+        n = serving_p.total_records
+        serving_p.close()
+        if n != n_records:
+            fail(f"21a pipelined pass served {n} of {n_records}")
+        return n / max(wall, 1e-9), stats
+
+    pipe_rps, stats = pipelined_pass(im)
+    calib = rs.rand(128, side, side, 3).astype(np.float32) * 255
+    im8 = InferenceModel().load_zoo(model, quantize="calibrated",
+                                    calib_set=calib)
+    im8.predict(np.zeros((batch, side, side, 3), np.float32))
+    int8_rps, int8_stats = pipelined_pass(im8)
+    print(f"21a ResNet-{depth} {side}x{side}x3, {classes} classes, "
+          f"{n_records} JPEG records, batch {batch}, top 5: sequential "
+          f"{seq_rps:.1f} records/s, pipelined {pipe_rps:.1f} records/s, "
+          f"latency p50 {stats['latency_p50_ms']:.3f} ms p95 "
+          f"{stats['latency_p95_ms']:.3f} ms p99 "
+          f"{stats['latency_p99_ms']:.3f} ms; calibrated int8 pipelined "
+          f"{int8_rps:.1f} records/s, p50 "
+          f"{int8_stats['latency_p50_ms']:.3f} ms ({card})")
+    del im, im8, model
+    torch.cuda.empty_cache()
+
+
+def he_scaled(params) -> None:
+    """Seeded random SSD weights made to behave like a trained detector's
+    at the scale of its outputs: every kernel times sqrt(2) (He's gain
+    for a ReLU: at the initializer's scale the activations halve in
+    variance at each of the 15 layers, and every score is ~1/21), and the
+    heads' kernels (the convolutions with a bias) times 4 more, so the
+    scores spread and detections are not ties."""
+    for p in params.values():
+        if "kernel" in p:
+            p["kernel"].mul_(2 ** 0.5 * (4.0 if "bias" in p else 1.0))
+
+
+def ssd300_served(torch, card, dev, batch=SSD_BATCH, timed=SSD_TIMED):
+    """21b: ``ObjectDetector("ssd_vgg300", num_classes=21)`` under the
+    default policy: ``detect`` at batch 32 captured and eager in turns,
+    then card against CPU on two images with float32 products.  Returns
+    the detector."""
+    from analytics_zoo_torch.common.config import get_config
+    from analytics_zoo_torch.compile.engine import CAPTURE_LOG
+    from analytics_zoo_torch.models.image.objectdetection import (
+        ObjectDetector, SSDDetector, decode_boxes)
+    from analytics_zoo_torch.ops import dtypes, kernels
+    from analytics_zoo_torch.pipeline.api.keras.topology import to_device
+    cfg = get_config()
+    t0 = time.perf_counter()
+    det = ObjectDetector("ssd_vgg300", num_classes=21)
+    v = det.get_variables()
+    with torch.no_grad():
+        he_scaled(v["params"])
+    n_params = sum(int(p.numel()) for layer in v["params"].values()
+                   for p in layer.values())
+    print(f"21b SSD-300 (BN-VGG, {len(det.model.layers)} layers, "
+          f"{n_params} params, {len(det.priors)} priors) built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    x = (np.random.RandomState(21).rand(batch, 300, 300, 3).astype(
+        np.float32) - 0.5) * 2
+    mark = len(CAPTURE_LOG)
+    kernels.reset_launch_counts()
+    ms = {True: [], False: []}
+    outs = {}
+    for aot in (True, False, False, True):
+        cfg.set("compile.aot", aot)
+        outs[aot] = det.detect(x)                 # warm (captures once)
+        for _ in range(timed):
+            s0 = time.perf_counter()
+            det.detect(x)                         # ends on the host
+            ms[aot].append((time.perf_counter() - s0) * 1e3)
+    cfg.set("compile.aot", True)
+    caps = [c for c in CAPTURE_LOG[mark:] if c["fn"] == "ssd_detect"]
+    if len(caps) != 1 or caps[0]["fallback"] is not None:
+        fail(f"21b detect captures {caps}")
+    if sum(kernels.launch_counts().values()):
+        fail(f"21b detect launched kernels {kernels.launch_counts()}: its "
+             "path has none")
+    for (gb, gs, gl), (wb, ws, wl) in zip(outs[True], outs[False]):
+        if not (np.array_equal(gb, wb) and np.array_equal(gs, ws) and
+                np.array_equal(gl, wl)):
+            fail("21b captured and eager detections differ")
+    n_det = [len(o[2]) for o in outs[True]]
+    for aot, name in ((True, "captured"), (False, "eager")):
+        med = statistics.median(ms[aot])
+        print(f"21b SSD-300 detect {name}, batch {batch} x 300x300x3, "
+              f"in turns: median {med:.3f} ms, spread {min(ms[aot]):.3f}-"
+              f"{max(ms[aot]):.3f} ms, {batch * 1e3 / med:.1f} images/s "
+              f"({card})")
+    print(f"21b detect captured once in {caps[0]['capture_s']:.3f} s (pool "
+          f"{caps[0]['pool_bytes']} bytes); captured and eager detections "
+          f"bit-identical; "
+          f"detections an image {min(n_det)}-{max(n_det)} at score "
+          f"threshold {det.score_threshold}")
+
+    # card against CPU, float32 products, two images
+    dtypes.set_policy(param_dtype="float32", compute_dtype="float32")
+    x2 = x[:2]
+    vc = to_device(v, torch.device("cpu"))
+
+    def raw(variables, device):
+        priors = torch.as_tensor(det.priors).to(device)
+        with torch.inference_mode():
+            (loc, conf), _ = det.model.apply(
+                variables["params"], torch.from_numpy(x2).to(device),
+                state=variables["state"])
+            return (decode_boxes(loc, priors).cpu().numpy(),
+                    torch.softmax(conf, -1).cpu().numpy())
+    (cb, cp), (hb, hp) = raw(v, dev), raw(vc, torch.device("cpu"))
+    err_b, err_p = float(np.abs(cb - hb).max()), float(np.abs(cp - hp).max())
+    if not (err_b <= SSD_F32_ATOL and err_p <= SSD_F32_ATOL):
+        fail(f"21b card vs CPU before NMS: boxes {err_b}, probabilities "
+             f"{err_p} (tolerance {SSD_F32_ATOL})")
+    card_det = det.detect(x2)
+    kw = dict(num_classes=21, score_threshold=det.score_threshold,
+              iou_threshold=det.iou_threshold,
+              max_detections=det.max_detections)
+    det.model.set_variables(vc)
+    cpu_det = SSDDetector(det.model, det.priors, **kw).detect(x2)
+    det.model.set_variables(v)
+    dtypes.restore_policy(None)
+    compared = 0
+    for i, ((gb, gs, gl), (wb, ws, wl)) in enumerate(zip(card_det, cpu_det)):
+        if len(gl) != len(wl):
+            fail(f"21b image {i}: {len(gl)} detections on the card, "
+                 f"{len(wl)} on the CPU")
+        gaps = np.abs(np.diff(ws))
+        clear = np.ones(len(ws), bool)
+        clear[1:] &= gaps > SSD_GAP
+        clear[:-1] &= gaps > SSD_GAP
+        for k in np.flatnonzero(clear):
+            compared += 1
+            if gl[k] != wl[k] or np.abs(gb[k] - wb[k]).max() > SSD_F32_ATOL \
+                    or abs(gs[k] - ws[k]) > SSD_F32_ATOL:
+                fail(f"21b image {i} detection {k}: card {gb[k]} {gs[k]} "
+                     f"{gl[k]}, CPU {wb[k]} {ws[k]} {wl[k]}")
+    print(f"21b card vs CPU, 2 images, float32 products: before NMS boxes "
+          f"max abs err {err_b:.3e}, probabilities {err_p:.3e} (tolerance "
+          f"{SSD_F32_ATOL}); detections {[len(d[2]) for d in card_det]}, "
+          f"{compared} whose neighbours' CPU scores are more than {SSD_GAP} "
+          f"apart equal (labels; boxes and scores within {SSD_F32_ATOL})")
+    return det
+
+
+def ssd_batch(rs, batch, max_boxes, size=300):
+    """A synthetic detection batch: images and padded ground truths
+    (1..max_boxes boxes an image, labels 1..20)."""
+    x = (rs.rand(batch, size, size, 3).astype(np.float32) - 0.5) * 2
+    lo = rs.uniform(0.0, 0.8, (batch, max_boxes, 2))
+    wh = rs.uniform(0.05, 0.2, (batch, max_boxes, 2))
+    boxes = np.concatenate([lo, np.minimum(lo + wh, 1.0)], -1).astype(
+        np.float32)
+    labels = rs.randint(1, 21, (batch, max_boxes)).astype(np.int32)
+    n = rs.randint(1, max_boxes + 1, batch)
+    mask = (np.arange(max_boxes)[None] < n[:, None]).astype(np.float32)
+    return x, (boxes, labels, mask)
+
+
+def ssd300_trained(torch, card, det, batch=SSD_BATCH,
+                   max_boxes=SSD_MAX_BOXES, warm=SSD_TRAIN_WARM,
+                   timed=SSD_TRAIN_TIMED):
+    """21c: MultiBox loss steps on SSD-300 at batch 32 and 16 boxes under
+    Adam: step ms, peak memory and launches (the Adam kernel once a
+    step); returns the launch counts and the Adam kernel's numbers at
+    SSD-300's leaves."""
+    from analytics_zoo_torch.models.image.objectdetection import (
+        MultiBoxLoss)
+    from analytics_zoo_torch.ops import kernels
+    from analytics_zoo_torch.parallel.trainer import DistributedTrainer
+    from analytics_zoo_torch.pipeline.api.keras.optimizers import Adam
+    from analytics_zoo_torch.pipeline.api.keras.topology import tree_leaves
+    tr = DistributedTrainer(det.model, MultiBoxLoss(det.priors),
+                            optim_method=Adam(lr=1e-4))
+    v = det.get_variables()
+    params = tr.place_params(v["params"])
+    state = tr.replicate(v["state"])
+    opt_state = tr.init_opt_state(params)
+    batch_dev = tr.put_batch(ssd_batch(np.random.RandomState(22), batch,
+                                       max_boxes))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    ms, losses = [], []
+    for i in range(warm + timed):
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        params, opt_state, state, loss = tr.train_step(
+            params, opt_state, state, batch_dev, None)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - s0) * 1e3)
+        losses.append(float(loss))
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    expect_launches(launches, {"fused_adam": warm + timed},
+                    "21c SSD-300 train_step")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"21c SSD-300 losses {losses}")
+    steady = ms[warm:]
+    med = statistics.median(steady)
+    print(f"21c SSD-300 MultiBoxLoss train_step, batch {batch} x 300x300x3, "
+          f"{max_boxes} boxes, Adam: median {med:.3f} ms, spread "
+          f"{min(steady):.3f}-{max(steady):.3f} ms over {timed} steps "
+          f"(first {warm}: {[round(t, 3) for t in ms[:warm]]} ms, capture "
+          f"inside), {batch * 1e3 / med:.1f} images/s, peak memory "
+          f"{peak / 2 ** 30:.2f} GiB, launches {launches} "
+          f"({launches['fused_adam'] // (warm + timed)} fused_adam a step), "
+          f"losses {[round(x, 5) for x in losses]} ({card})")
+    leaves = tree_leaves(params)
+    errs = opt_leaves_check(torch, leaves, "SSD-300")
+    times = time_updates(torch, leaves, card, "SSD-300")
+    del tr, params, opt_state, state, batch_dev, leaves
+    torch.cuda.empty_cache()
+    return launches, errs, times
+
+
+def write_voc_tree(root, n=VOC_IMAGES, size=64, seed=1):
+    """A VOCdevkit tree written from a seed (the JAX package's
+    ``tests/test_objectdetection.py::_write_voc``): dark images with one
+    bright square, a ``car`` box around it and an unknown class's box."""
+    rs = np.random.RandomState(seed)
+    for d in ("JPEGImages", "Annotations"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    for i in range(n):
+        img = (rs.rand(size, size, 3) * 40).astype(np.uint8)
+        w = rs.randint(size // 4, size // 2)
+        x0 = rs.randint(0, size - w)
+        y0 = rs.randint(0, size - w)
+        img[y0:y0 + w, x0:x0 + w] = 255
+        img_id = f"img{i:03d}"
+        with open(os.path.join(root, "JPEGImages", img_id + ".jpg"),
+                  "wb") as f:
+            f.write(encode_jpeg(img))
+        with open(os.path.join(root, "Annotations", img_id + ".xml"),
+                  "w") as f:
+            f.write(
+                f"<annotation><object><name>car</name><difficult>0"
+                f"</difficult><bndbox><xmin>{x0 + 1}</xmin><ymin>{y0 + 1}"
+                f"</ymin><xmax>{x0 + w + 1}</xmax><ymax>{y0 + w + 1}</ymax>"
+                f"</bndbox></object><object><name>unknown_thing</name>"
+                f"<bndbox><xmin>1</xmin><ymin>1</ymin><xmax>5</xmax><ymax>5"
+                f"</ymax></bndbox></object></annotation>")
+
+
+def voc_pipeline_training(torch, card, n_images=VOC_IMAGES,
+                          epochs=VOC_EPOCHS, max_epochs=VOC_MAX_EPOCHS):
+    """21c's second half: a VOC tree written here goes through
+    ``read_voc >> DetHFlip >> DetResize >> DetNormalize >>
+    to_feature_set`` and trains ``ssd_lite`` at 64x64 (8 classes, batch
+    8, Adam) until its mAP beats the untrained model's."""
+    import tempfile
+
+    from analytics_zoo_torch.feature.image_detection import (
+        DetectionSet, DetHFlip, DetNormalize, DetResize)
+    from analytics_zoo_torch.models.image.objectdetection import (
+        MeanAveragePrecision, MultiBoxLoss, SSDDetector, ssd_lite)
+    from analytics_zoo_torch.ops import kernels
+    from analytics_zoo_torch.parallel.trainer import DistributedTrainer
+    from analytics_zoo_torch.pipeline.api.keras.optimizers import Adam
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        write_voc_tree(root, n_images)
+        ds = DetectionSet.read_voc(root) \
+            >> DetHFlip(prob=0.5, seed=2) \
+            >> DetResize(64, 64) \
+            >> DetNormalize((127.5, 127.5, 127.5), (127.5, 127.5, 127.5))
+        fs = ds.to_feature_set(max_boxes=4, shuffle=True)
+        read_s = time.perf_counter() - t0
+    model, priors = ssd_lite(num_classes=8, image_size=64)
+    model.init(torch.Generator().manual_seed(0))
+    tr = DistributedTrainer(model, MultiBoxLoss(priors),
+                            optim_method=Adam(lr=3e-3))
+    v = model.get_variables()
+    params = tr.place_params(v["params"])
+    state = tr.replicate(v["state"])
+    opt_state = tr.init_opt_state(params)
+
+    def eval_map():
+        model.set_variables({"params": params, "state": state})
+        det = SSDDetector(model, priors, num_classes=8, score_threshold=0.25)
+        m = MeanAveragePrecision(num_classes=8)
+        boxes, labels, mask = fs.y
+        for r, gb, gl, gm in zip(det.detect(fs.x), boxes, labels, mask):
+            keep = gm > 0
+            m.add(r[0], r[1], r[2], gb[keep], gl[keep])
+        return m.result()["mAP"]
+
+    before = eval_map()
+    kernels.reset_launch_counts()
+    steps, after, t0 = 0, before, time.perf_counter()
+    for epoch in range(max_epochs):
+        for batch in tr.prefetch(fs.epoch_batches(epoch, 8, train=True)):
+            params, opt_state, state, _ = tr.train_step(
+                params, opt_state, state, batch, None)
+            steps += 1
+        if (epoch + 1) % epochs == 0:
+            after = eval_map()
+            if after > before:
+                break
+    train_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    expect_launches(launches, {"fused_adam": steps}, "21c ssd_lite fit")
+    if not after > before:
+        fail(f"21c ssd_lite mAP {after} after {epoch + 1} epochs does not "
+             f"beat the untrained model's {before}")
+    print(f"21c VOC tree of {n_images} JPEGs + XML read through read_voc >> "
+          f"DetHFlip >> DetResize >> DetNormalize >> to_feature_set in "
+          f"{read_s:.3f} s; ssd_lite 64x64 trained {epoch + 1} epochs "
+          f"({steps} steps of 8, Adam, {launches['fused_adam']} fused_adam "
+          f"launches) in {train_s:.3f} s: mAP {before:.4f} untrained, "
+          f"{after:.4f} trained ({card})")
+
+
+class ColumnFrame:
+    """A column frame with only what ``nnframes`` reads (``df[col]`` with
+    ``iloc``, iteration and ``to_numpy``; ``columns``; ``copy``; item
+    assignment), for a machine without pandas.  Not part of the package."""
+
+    class Column:
+        def __init__(self, values):
+            self.values = values
+            self.iloc = values
+
+        def __iter__(self):
+            return iter(self.values)
+
+        def to_numpy(self):
+            return np.asarray(self.values)
+
+    def __init__(self, columns):
+        self.cols = dict(columns)
+
+    @property
+    def columns(self):
+        return list(self.cols)
+
+    def __getitem__(self, name):
+        return ColumnFrame.Column(self.cols[name])
+
+    def __setitem__(self, name, values):
+        self.cols[name] = values
+
+    def copy(self):
+        return ColumnFrame(self.cols)
+
+
+def nnframes_wide_deep(torch, card, rows=NN_ROWS, batch=NN_BATCH,
+                       warm=NN_WARM, timed=NN_TIMED):
+    """21d: ``NNClassifier`` on Wide & Deep at ``benchmarks/wide_deep.py``'s
+    configuration (a packed ``features`` column, ``SplitColumns``,
+    ``Adam(1e-3)``): samples/s an epoch, ``transform`` rows/s, train
+    accuracy, a saved and reloaded ``NNClassifierModel``; returns the
+    launches, and the Adam kernel's numbers at the model's leaves."""
+    import tempfile
+
+    from analytics_zoo_torch.feature.common import SplitColumns
+    from analytics_zoo_torch.models.recommendation import (
+        ColumnFeatureInfo, WideAndDeep)
+    from analytics_zoo_torch.ops import kernels
+    from analytics_zoo_torch.pipeline.api.keras.optimizers import Adam
+    from analytics_zoo_torch.pipeline.api.keras.topology import tree_leaves
+    from analytics_zoo_torch.pipeline.nnframes import (
+        NNClassifier, NNClassifierModel, NNModel)
+    try:
+        import pandas as pd
+        frame, kind = pd.DataFrame, f"pandas {pd.__version__}"
+    except ImportError:
+        frame, kind = ColumnFrame, "chip_smoke.ColumnFrame (no pandas)"
+    info = ColumnFeatureInfo(
+        wide_base_cols=["gender", "age_bucket", "education"],
+        wide_base_dims=[3, 10, 16],
+        wide_cross_cols=["gender_age", "edu_age"],
+        wide_cross_dims=[30, 160],
+        embed_cols=["occupation", "relationship"],
+        embed_in_dims=[48, 8], embed_out_dims=[16, 8],
+        continuous_cols=["hours_per_week", "capital_gain"])
+    rs = np.random.RandomState(0)
+    gender = rs.randint(0, 3, rows)
+    age = rs.randint(0, 10, rows)
+    edu = rs.randint(0, 16, rows)
+    occ = rs.randint(0, 48, rows)
+    rel = rs.randint(0, 8, rows)
+    hours = rs.rand(rows).astype(np.float32)
+    gain = rs.rand(rows).astype(np.float32)
+    cols = {"gender": gender, "age_bucket": age, "education": edu,
+            "gender_age": gender * 10 + age, "edu_age": edu * 10 + age,
+            "occupation": occ, "relationship": rel,
+            "hours_per_week": hours, "capital_gain": gain}
+    logit = (((gender == 1) & (age >= 5)) * 1.2
+             + np.sin(occ / 48 * np.pi) + hours + gain - 1.8)
+    label = (logit + 0.3 * rs.randn(rows) > 0).astype(np.int64)
+    model = WideAndDeep(2, info, model_type="wide_n_deep",
+                        hidden_layers=(64, 32, 16))
+    model.model.init(torch.Generator().manual_seed(0))
+    feats = model.features_from_columns(cols)
+    sizes = [f.shape[1] for f in feats]
+    packed = np.concatenate([f.astype(np.float32) for f in feats], axis=1)
+    t0 = time.perf_counter()
+    df = frame({"features": list(packed), "label": label})
+    frame_s = time.perf_counter() - t0
+    clf = (NNClassifier(model.model,
+                        "sparse_categorical_crossentropy_with_logits",
+                        feature_preprocessing=SplitColumns(sizes))
+           .set_batch_size(batch).set_max_epoch(warm + timed)
+           .set_optim_method(Adam(lr=1e-3)))
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    nn_model = clf.fit(df)
+    fit_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    steps = rows // batch * (warm + timed)
+    expect_launches(launches, {"fused_adam": steps}, "21d NNClassifier.fit")
+    history = clf.fitted_estimator.history
+    if len(history) != warm + timed or not all(
+            np.isfinite(h["loss"]) for h in history):
+        fail(f"21d NNClassifier history {history}")
+    steady = [h["throughput"] for h in history[warm:]]
+    t0 = time.perf_counter()
+    out = nn_model.transform(df)
+    transform_s = time.perf_counter() - t0
+    pred = np.asarray(out["prediction"].to_numpy())
+    acc = float(np.mean(pred == label))
+    if not isinstance(nn_model, NNClassifierModel) or pred.shape != (rows,) \
+            or not acc > 0.5:
+        fail(f"21d transform: {type(nn_model).__name__}, predictions "
+             f"{pred.shape}, accuracy {acc}")
+    with tempfile.TemporaryDirectory() as tmp:
+        nn_model.save(os.path.join(tmp, "m"))
+        loaded = NNModel.load(os.path.join(tmp, "m"))
+    n_head = min(rows, 65536)
+    head = frame({"features": list(packed[:n_head]),
+                  "label": label[:n_head]})
+    again = np.asarray(loaded.transform(head)["prediction"].to_numpy())
+    if type(loaded) is not NNClassifierModel or \
+            not np.array_equal(again, pred[:n_head]):
+        fail(f"21d the reloaded {type(loaded).__name__} predicts otherwise "
+             f"on {int(np.sum(again != pred[:n_head]))} of {n_head} rows")
+    print(f"21d NNClassifier on Wide & Deep (census configuration, "
+          f"{rows} rows, batch {batch}, Adam(1e-3), frame {kind} built in "
+          f"{frame_s:.3f} s): fit {fit_s:.3f} s, samples/s an epoch "
+          f"{[round(h['throughput'], 1) for h in history]} (timed epochs "
+          f"median {statistics.median(steady):.1f}), losses "
+          f"{[round(h['loss'], 5) for h in history]}; transform "
+          f"{rows / transform_s:.1f} rows/s; train accuracy {acc:.4f}; "
+          f"launches {launches}; the saved and reloaded NNClassifierModel "
+          f"predicts the same {n_head} rows ({card})")
+    leaves = tree_leaves(model.get_variables()["params"])
+    errs = opt_leaves_check(torch, leaves, "Wide & Deep under NNClassifier")
+    times = time_updates(torch, leaves, card,
+                         "Wide & Deep under NNClassifier")
+    return launches, errs, times
+
+
+def images_phase(torch, card, dev):
+    """Phase 21: image records served (21a), SSD-300 served (21b) and
+    trained with the VOC pipeline (21c), NNFrames on Wide & Deep (21d).
+    Returns the SSD-300 training launches and the Adam kernel's errors
+    and times at SSD-300's and W&D's leaves."""
+    from analytics_zoo_torch.compile.engine import CAPTURE_LOG
+    t_phase = time.perf_counter()
+    mark = len(CAPTURE_LOG)
+    image_records(torch, card)
+    report_captures("21a", mark, card)
+    mark = len(CAPTURE_LOG)
+    det = ssd300_served(torch, card, dev)
+    ssd_launches, ssd_errs, ssd_times = ssd300_trained(torch, card, det)
+    del det
+    voc_pipeline_training(torch, card)
+    report_captures("21b-21c", mark, card)
+    mark = len(CAPTURE_LOG)
+    _, wd_errs, wd_times = nnframes_wide_deep(torch, card)
+    report_captures("21d", mark, card)
+    print(f"phase 21: {time.perf_counter() - t_phase:.1f} s")
+    return ssd_launches, {k: max(ssd_errs[k], wd_errs[k])
+                          for k in ssd_errs}, ssd_times, wd_times
+
+
+def images_alone() -> None:
+    """Phase 21 by itself (``--images``): the kernels built, then image
+    records, SSD-300 and NNFrames on the card."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a GPU")
+    from analytics_zoo_torch import init_zoo_context
+    from analytics_zoo_torch.ops import kernels
+    kernels.build_all()
+    card = gpu_line()
+    print(f"gpu: {card}")
+    ctx = init_zoo_context(device="cuda:0")
+    images_phase(torch, card, ctx.device)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -6543,7 +7236,23 @@ def main() -> None:
     # ------- 20. the data pipeline and offline batch scoring (--data-pipeline)
     data_pipeline_phase(torch, card, dev)
 
-    # ------------------------------------------------------ 21. results
+    # ------- 21. images in: image records, SSD-300 served and trained,
+    # NNFrames on Wide & Deep (--images)
+    ssd_launches, img21_errs, ssd_times, nn_times = images_phase(
+        torch, card, dev)
+    for name in ("fused_adam", "fused_sgd"):
+        report[name]["max_abs_err"] = max(report[name]["max_abs_err"],
+                                          img21_errs[name])
+    for what, times in (("SSD-300", ssd_times),
+                        ("Wide & Deep under NNClassifier", nn_times)):
+        for name, r in times.items():
+            print(f"time {name} over {what}'s {r['leaves']} leaves: kernel_ms "
+                  f"{r['ms']:.5f} update_ms {r['update_ms']:.5f} plain_ms "
+                  f"{r['plain_ms']:.5f} library_ms {r['library_ms']:.5f} "
+                  f"bound_ms {r['bound_ms']:.6f} host_ms {r['host_ms']:.5f} "
+                  f"({card})")
+
+    # ------------------------------------------------------ 22. results
     print(f"launches: GPT-1 serving (4 requests) {gpt_serve}; GPT-1 fit "
           f"(8 steps) {gpt_train}; BERT-base fine-tuning (8 steps) "
           f"{bert_tune}")
@@ -6555,6 +7264,14 @@ def main() -> None:
           f"{RESNET_UNTIMED + RESNET_TIMED} steps) {img_launches}; "
           f"resumed BERT-base fit (phase 15a, 16 + 8 steps) "
           f"{persist_launches}")
+    print(f"launches: SSD-300 train_step (phase 21c, "
+          f"{SSD_TRAIN_WARM + SSD_TRAIN_TIMED} steps) {ssd_launches}")
+    # this slice's main path: Adam's launches are phase 21c's SSD-300
+    # steps, its times those at SSD-300's 93 leaves (BERT-base's are
+    # printed above)
+    report["fused_adam"]["launches"] = ssd_launches["fused_adam"]
+    report["fused_adam"].update({key: ssd_times["fused_adam"][key] for key in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     for name, r in report.items():
         # phase 15a's resumed transformer training runs every float32
         # kernel but SGD's, which the ResNet-50 training steps run; phase
@@ -6628,6 +7345,8 @@ if __name__ == "__main__":
         compile_alone()
     elif sys.argv[1:] == ["--data-pipeline"]:
         data_pipeline_alone()
+    elif sys.argv[1:] == ["--images"]:
+        images_alone()
     elif sys.argv[1:2] == [WARM_CHILD] and len(sys.argv) == 4:
         warm_start_child(sys.argv[2], sys.argv[3])
     elif sys.argv[1:] == ["--profile-recurrent"]:

@@ -351,15 +351,46 @@ def test_preprocessing_helpers_match_reference():
     assert (fn >> tcommon.FnPreprocessing(lambda a: a + 1))(3) == 7
 
 
-@pytest.mark.parametrize("call", [
-    lambda: timage.decode_image_bytes(b"\xff\xd8"),
-    lambda: timage.read_image("x.jpg"),
-    lambda: timage.ImageSet.read("/nonexistent"),
-    lambda: timage.ImageResize(8, 8).apply(_images(1)[0]),
-    lambda: timage.ImageHue(seed=0).apply(_images(1)[0]),
-    lambda: timage.ImageColorJitter(seed=0).apply(_images(1)[0]),
-], ids=["decode", "read_image", "ImageSet.read", "ImageResize", "ImageHue",
-        "ImageColorJitter"])
-def test_codec_paths_raise_naming_roadmap(call):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call()
+def _codec_case(mod, name, tmp_path):
+    """One entry point of ``mod`` (either package's ``feature/image``) on
+    the same seeded inputs: what used to raise before the codec was
+    ported."""
+    import cv2
+    img = _images(1, h=24, w=20)[0]
+    png = cv2.imencode(".png", img)[1].tobytes()
+    if name == "decode":
+        return [mod.decode_image_bytes(png),
+                mod.decode_image_bytes(png, to_rgb=False)]
+    if name == "read_image":
+        path = tmp_path / "x.png"
+        path.write_bytes(png)
+        return [mod.read_image(str(path))]
+    if name == "ImageSet.read":
+        for i, im in enumerate(_images(3, h=16, w=12, seed=4)):
+            (tmp_path / f"{i}.png").write_bytes(
+                cv2.imencode(".png", im)[1].tobytes())
+        return mod.ImageSet.read(str(tmp_path), pattern="*.png").images
+    if name == "ImageResize":
+        return [mod.ImageResize(8, 9).apply(img)]
+    if name == "ImageHue":
+        return [mod.ImageHue(seed=0).apply(img),
+                mod.ImageHue(seed=1).apply(img.astype(np.float32))]
+    jitter = mod.ImageColorJitter(seed=0)
+    return [jitter.apply(img) for _ in range(4)]
+
+
+@pytest.mark.parametrize("name", [
+    "decode", "read_image", "ImageSet.read", "ImageResize", "ImageHue",
+    "ImageColorJitter"])
+def test_codec_paths_raise_naming_roadmap(name, tmp_path):
+    """The codec entry points no longer raise: each gives the reference's
+    bytes on the same inputs (``tests/test_torch_image_codec.py`` holds
+    them on both codecs)."""
+    (tmp_path / "t").mkdir()
+    (tmp_path / "j").mkdir()
+    got = _codec_case(timage, name, tmp_path / "t")
+    want = _codec_case(jimage, name, tmp_path / "j")
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g, w)

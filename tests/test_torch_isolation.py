@@ -1,8 +1,8 @@
 """PyTorch port, isolation: importing the port (and every module of the
 serving, training, Cluster Serving, recommender, recurrent/generative,
 persistence, transformer-model, Keras-layer/AnomalyDetector,
-text-matching/autograd/keras2/datasets, compile, and data-pipeline and
-batch-scoring slices)
+text-matching/autograd/keras2/datasets, compile, data-pipeline and
+batch-scoring, and image-decode/NNFrames/object-detection slices)
 pulls in none of ``jax``, ``analytics_zoo_tpu``, ``flax``, ``msgpack``,
 ``tensorflow`` and ``transformers``, no port source imports the first
 four or loads a file of the JAX package by path (the one file-path
@@ -135,6 +135,12 @@ SLICE_MODULES = [
     "analytics_zoo_torch.batchjobs.coordinator",
     "analytics_zoo_torch.batchjobs.demo",
     "analytics_zoo_torch.batchjobs.cli",
+    "analytics_zoo_torch.feature.image3d",
+    "analytics_zoo_torch.feature.image_detection",
+    "analytics_zoo_torch.pipeline.nnframes",
+    "analytics_zoo_torch.pipeline.nnframes.nn_estimator",
+    "analytics_zoo_torch.pipeline.nnframes.nn_image_reader",
+    "analytics_zoo_torch.models.image.objectdetection",
 ]
 
 

@@ -46,6 +46,13 @@ OWED = {
     # queue 1 item 4: TFPark's Keras path
     "tfpark": {"KerasModel", "ModeKeys", "TFDataset", "TFEstimator",
                "TFEstimatorSpec", "TFOptimizer", "TFPredictor"},
+    # the torchvision-derived pretrained detectors (pretrained.py,
+    # pretrained_ssdlite.py): they wait for checkpoint files
+    "models.image.objectdetection": {
+        "COCO_91_LABELS", "coco_label_map", "detection_configure",
+        "load_object_detector", "load_torch_ssd300", "ssd300_vgg16",
+        "tv_default_boxes", "load_torch_ssdlite320",
+        "ssdlite320_mobilenet_v3", "ssdlite_default_boxes"},
     # queue 1 item 9: the benchmarks' MFU helpers
     "benchmarks": {"PEAK_FLOPS", "calibrate_chip", "compiled_flops",
                    "cost_of_compiled", "mfu_estimate"},
@@ -103,7 +110,8 @@ def test_the_port_packages_with_a_counterpart():
     assert "compile" in PACKAGES
     assert "models.anomalydetection" in PACKAGES
     assert {"models.textmatching", "pipeline.api.keras2",
-            "pipeline.api.keras.datasets"} <= set(PACKAGES)
+            "pipeline.api.keras.datasets", "pipeline.nnframes",
+            "models.image.objectdetection"} <= set(PACKAGES)
     assert set(OWED) <= set(PACKAGES)
     assert not THIS_SLICE & set().union(*OWED.values())
 

@@ -593,10 +593,10 @@ def test_worker_idles_on_an_open_breaker_and_recovers():
 
 # --------------------------------------- what is not ported fails loudly
 def test_image_record_gets_the_undecodable_record_path():
-    """An ``image`` record (not ported) and a record whose ``data`` is
-    not a .npy both get an explicit error result, count as errors, are
-    acked, and leave the dead-letter stream empty; the healthy record
-    beside them is served."""
+    """An ``image`` record that is not a decodable JPEG and a record whose
+    ``data`` is not a .npy both get an explicit error result naming the
+    decode failure, count as errors, are acked, and leave the dead-letter
+    stream empty; the healthy record beside them is served."""
     import base64
     broker = EmbeddedBroker()
     s = ClusterServing(ArgmaxLastModel(),
@@ -613,8 +613,8 @@ def test_image_record_gets_the_undecodable_record_path():
         assert s.run_once(block_ms=0) == 1
         outq = OutputQueue(broker=broker)
         img = outq.query_meta("img-0")
-        assert "NotImplementedError" in img["value"]["error"]
-        assert "ROADMAP" in img["value"]["error"]
+        assert "OSError" in img["value"]["error"]
+        assert "cannot decode image img-0" in img["value"]["error"]
         assert img["request_id"] == "r-img"
         assert "error" in outq.query("bad-0")
         assert outq.query("ok-0")[0][0] == 3
@@ -625,7 +625,6 @@ def test_image_record_gets_the_undecodable_record_path():
         assert _dead_letters(broker) == []
         assert not broker._groups[("serving_stream", "g")]["pending"]
         raw = broker.hgetall("result:img-0")
-        assert json.loads(raw["value"])["error"].startswith(
-            "NotImplementedError")
+        assert json.loads(raw["value"])["error"].startswith("OSError")
     finally:
         s.close()

@@ -7,6 +7,8 @@ Dropout is set to 0 on both models after build (the two frameworks draw
 different random numbers), and both run ``dtype.compute=float32`` so the
 comparison is of the algorithm, not of bf16 rounding."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -284,10 +286,12 @@ def test_fit_and_evaluate_match_reference(f32_policy):
                                atol=1e-4, rtol=0)
 
 
-def test_fit_is_reproducible_with_dropout_and_sgd_clipping():
+def test_fit_is_reproducible_with_dropout_and_sgd_clipping(tmp_path):
     """With dropout on, the same fit seed gives the same run; the unfused
     and fused updates agree; validation_split needs ndarray data;
-    ``set_tensorboard`` (not ported) raises; ``train.remat`` trains."""
+    ``set_tensorboard`` writes the train and validation summaries
+    (``tests/test_torch_nnframes.py`` holds their scalars to the
+    reference's); ``train.remat`` trains."""
     x, y = _data(16)
 
     def fit(fused, seed):
@@ -316,8 +320,10 @@ def test_fit_is_reproducible_with_dropout_and_sgd_clipping():
     with pytest.raises(ValueError, match="exceeds"):
         model.fit(x, y, batch_size=64, nb_epoch=1)
     from analytics_zoo_torch.pipeline.estimator import Estimator
-    with pytest.raises(NotImplementedError, match="set_tensorboard"):
-        Estimator(model.model).set_tensorboard("/nonexistent", "app")
+    est = Estimator(model.model)
+    est.set_tensorboard(str(tmp_path), "app")
+    assert os.path.isdir(tmp_path / "app" / "train")
+    assert os.path.isdir(tmp_path / "app" / "validation")
     # train.remat trains (its step's parity: test_torch_training_switches)
     tconfig.get_config().set("train.remat", True)
     hist = model.fit(x, y, batch_size=8, nb_epoch=1)
