@@ -110,8 +110,17 @@ _SCALARS = (bool, int, float, complex, str, bytes)
 #: ``{"fn", "capture_s", "pool_bytes", "launches", "fallback"}``
 #: (``fallback`` None, or why the signature runs eagerly); a capture also
 #: has ``"recapture"``, whether it replaced a program whose borrowed
-#: tensors changed
+#: tensors changed; a program that runs eagerly by design (no capture is
+#: tried) is logged by ``log_eager`` with ``"eager"``, the reason
 CAPTURE_LOG: List[Dict[str, Any]] = []
+
+
+def log_eager(fn: str, reason: str) -> None:
+    """Record that ``fn`` runs eagerly by design: not a capture and not a
+    capture fallback."""
+    CAPTURE_LOG.append({"fn": fn, "capture_s": None, "pool_bytes": None,
+                        "launches": {}, "fallback": None, "eager": reason})
+    log.info("%r runs eagerly: %s", fn, reason)
 
 
 # ------------------------------------------------------------------ trees

@@ -49,6 +49,9 @@ _NP_TO_TORCH = {
     np.dtype(np.int32): torch.int32,
     np.dtype(np.int64): torch.int64,
     np.dtype(np.int8): torch.int8,
+    np.dtype(np.int16): torch.int16,
+    np.dtype(np.uint8): torch.uint8,
+    np.dtype(np.bool_): torch.bool,
 }
 
 

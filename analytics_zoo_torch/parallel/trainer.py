@@ -163,6 +163,30 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(mixed)
 
 
+def _integer_leaf_message(params, path: str = "") -> str:
+    """Name the first param leaf that is neither real nor complex: the
+    gradient cannot be taken, as ``jax.grad`` refuses such an input in the
+    reference (a ``TorchNet`` over BatchNorm carries the integer
+    ``num_batches_tracked``)."""
+    if isinstance(params, dict):
+        for k, v in params.items():
+            msg = _integer_leaf_message(v, f"{path}/{k}")
+            if msg:
+                return msg
+        return ""
+    if isinstance(params, (list, tuple)):
+        for i, v in enumerate(params):
+            msg = _integer_leaf_message(v, f"{path}/{i}")
+            if msg:
+                return msg
+        return ""
+    if torch.is_tensor(params) and not (params.is_floating_point() or
+                                        params.is_complex()):
+        return (f"grad requires real- or complex-valued inputs, but the "
+                f"param leaf {path} is {params.dtype}")
+    return ""
+
+
 class DistributedTrainer:
     """Runs the train, eval and predict steps of one model on the zoo
     context's device."""
@@ -314,7 +338,10 @@ class DistributedTrainer:
         penalty (``W_regularizer`` and the like); the loss returned is
         the loss without it."""
         x, y = batch
-        live = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        leaves = tree_leaves(params)
+        if not all(p.is_floating_point() or p.is_complex() for p in leaves):
+            raise TypeError(_integer_leaf_message(params))
+        live = [p.detach().requires_grad_() for p in leaves]
         first = {}
 
         def forward(*leaves):

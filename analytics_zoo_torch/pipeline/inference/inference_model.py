@@ -21,8 +21,13 @@ device with per-last-axis scales, dequantized inside each predict call;
 no float32 copy is kept); ``quantize="calibrated"`` records per-layer
 input ranges over ``calib_set`` and runs the Dense/conv products
 int8 x int8 -> int32 (``ops/quant.py``).  Both label the span and the
-metrics ``backend="int8"``.  ``load_torch`` and ``load_tf`` are not
-ported yet and raise.
+metrics ``backend="int8"``.
+
+``load_torch`` serves a ``torch.nn.Module`` as a ``TorchNet`` in a
+``Sequential`` through ``load_zoo`` (captured like any model);
+``load_tf`` serves a TensorFlow SavedModel or tf.keras model through
+``TFNet``'s host round trip, which a CUDA graph cannot capture: its
+predict runs eagerly and says so in ``compile.engine.CAPTURE_LOG``.
 """
 
 from __future__ import annotations
@@ -92,12 +97,6 @@ def quantize_params_calibrated(model, variables, act_ranges,
     return quantize_model(variables, act_ranges, min_size=min_size)
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"InferenceModel.{what} is not ported to the PyTorch package yet "
-        "(ROADMAP.md, port queue); use the f32 load_zoo path")
-
-
 class InferenceModel:
     """Concurrency-bounded predictor over a loaded model."""
 
@@ -147,10 +146,8 @@ class InferenceModel:
         from analytics_zoo_torch.models.common import ZooModel
         if isinstance(model, ZooModel):
             model = model.model
-        self.model = model
-        self.device = get_zoo_context().device
-        self._warmed = set()
-        self._scales = None
+        device = get_zoo_context().device
+        scales_of = None
         variables = model.get_variables()
         if quantize == "calibrated":
             if calib_set is None:
@@ -166,11 +163,8 @@ class InferenceModel:
         elif quantize:
             qp, scales = quantize_params(variables["params"])
             variables = {"params": qp, "state": variables["state"]}
-            self._scales = [None if s is None else s.to(self.device)
-                            for s in scales]
-        self._quantized = bool(quantize)
-        self._variables = to_device(variables, self.device)
-        scales_of = self._scales
+            scales_of = [None if s is None else s.to(device)
+                         for s in scales]
 
         def fn(params, state, x):
             if scales_of is not None:
@@ -181,8 +175,23 @@ class InferenceModel:
         # the weights are read, never written: the graphs read the loaded
         # tensors themselves (borrowed positions), one copy for all buckets
         from analytics_zoo_torch.compile import engine_jit
-        self._predict_fn = engine_jit(fn, borrow_argnums=(0, 1),
-                                      key_hint="inference_predict")
+        return self._serve(model, device, variables,
+                           engine_jit(fn, borrow_argnums=(0, 1),
+                                      key_hint="inference_predict"),
+                           scales=scales_of, quantized=bool(quantize))
+
+    def _serve(self, model, device, variables, predict_fn, scales=None,
+               quantized: bool = False) -> "InferenceModel":
+        """What every loader sets for ``predict``: the model, its device,
+        its variables placed there, the predict program, the int8 scales,
+        and no warmed batch shape."""
+        self.model = model
+        self.device = device
+        self._warmed = set()
+        self._scales = scales
+        self._quantized = quantized
+        self._variables = to_device(variables, device)
+        self._predict_fn = predict_fn
         return self
 
     def load_zoo_file(self, model, path: str,
@@ -193,11 +202,35 @@ class InferenceModel:
         model.load_weights(path)
         return self.load_zoo(model, quantize=quantize)
 
-    def load_torch(self, *args, **kwargs):
-        raise _not_ported("load_torch")
+    def load_torch(self, torch_module, input_shape,
+                   quantize: bool = False) -> "InferenceModel":
+        """A ``torch.nn.Module`` served as a ``TorchNet`` (its fx graph
+        emitted on its own params; ref InferenceModel.doLoadPyTorch)."""
+        from analytics_zoo_torch.pipeline.api.keras import Sequential
+        from analytics_zoo_torch.pipeline.api.net import TorchNet
+        m = Sequential()
+        m.add(TorchNet.from_pytorch(torch_module,
+                                    input_shape=input_shape))
+        m.init()
+        return self.load_zoo(m, quantize=quantize)
 
-    def load_tf(self, *args, **kwargs):
-        raise _not_ported("load_tf")
+    def load_tf(self, source, **kwargs) -> "InferenceModel":
+        """SavedModel dir path or tf.keras model (ref
+        InferenceModel.doLoadTF).  Each predict is a host round trip into
+        TensorFlow: eager, never captured."""
+        from analytics_zoo_torch.common.zoo_context import get_zoo_context
+        from analytics_zoo_torch.compile.engine import log_eager
+        from analytics_zoo_torch.pipeline.api.net import TFNet
+        if isinstance(source, str):
+            net = TFNet.from_saved_model(source, **kwargs)
+        else:
+            net = TFNet.from_keras(source, **kwargs)
+        log_eager("inference_tf_predict",
+                  "a host round trip into TensorFlow (TFNet) is not "
+                  "captured into a CUDA graph")
+        return self._serve(net, get_zoo_context().device,
+                           {"params": {}, "state": {}},
+                           lambda p, s, x: net.tf_fn(x))
 
     # -------------------------------------------------------------- predict
     def _to_device(self, a) -> torch.Tensor:

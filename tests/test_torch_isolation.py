@@ -8,8 +8,10 @@ pulls in none of ``jax``, ``analytics_zoo_tpu``, ``flax``, ``msgpack``,
 four or loads a file of the JAX package by path (the one file-path
 loader, the batch worker's ``resolve_ref`` for a user's builder file,
 refuses the JAX package's files), TensorFlow is imported only inside the
-BERT checkpoint loader's google reader, and the context refuses to fall
-back to the CPU quietly. Each import check runs in a fresh interpreter,
+functions that call it (the BERT checkpoint loader's google reader, TFNet,
+the TF1 ``train_op`` importer, the Inception-v1 builder) and ``torch.fx``
+only inside TorchNet's, and the context refuses to fall back to the CPU
+quietly. Each import check runs in a fresh interpreter,
 since this test process has both loaded."""
 
 import ast
@@ -141,6 +143,25 @@ SLICE_MODULES = [
     "analytics_zoo_torch.pipeline.nnframes.nn_estimator",
     "analytics_zoo_torch.pipeline.nnframes.nn_image_reader",
     "analytics_zoo_torch.models.image.objectdetection",
+    "analytics_zoo_torch.pipeline.api.onnx",
+    "analytics_zoo_torch.pipeline.api.onnx.onnx_pb",
+    "analytics_zoo_torch.pipeline.api.onnx.mapper",
+    "analytics_zoo_torch.pipeline.api.onnx.onnx_loader",
+    "analytics_zoo_torch.pipeline.api.net",
+    "analytics_zoo_torch.pipeline.api.net.torch_net",
+    "analytics_zoo_torch.pipeline.api.net.tf_net",
+    "analytics_zoo_torch.pipeline.api.net.net",
+    "analytics_zoo_torch.tfpark.converter",
+    "analytics_zoo_torch.tfpark.model",
+    "analytics_zoo_torch.tfpark.tf_dataset",
+    "analytics_zoo_torch.tfpark.tf_optimizer",
+    "analytics_zoo_torch.tfpark.estimator",
+    "analytics_zoo_torch.tfpark.tf_predictor",
+    "analytics_zoo_torch.tfpark.tf1_graph",
+    "analytics_zoo_torch.tfpark.gan",
+    "analytics_zoo_torch.tfpark.gan.gan_estimator",
+    "analytics_zoo_torch.benchmarks.inception",
+    "analytics_zoo_torch.benchmarks.wide_deep",
 ]
 
 
@@ -175,17 +196,40 @@ def test_port_sources_import_neither():
     assert offenders == []
 
 
-def test_tensorflow_is_imported_only_by_the_google_checkpoint_reader():
-    pattern = re.compile(r"^(\s*)(import|from)\s+(tensorflow|transformers)\b",
-                         re.M)
+# the modules that call TensorFlow (or trace with torch.fx), each import
+# inside the functions that need it
+TF_IMPORTERS = {
+    "analytics_zoo_torch/tfpark/text/bert_checkpoint.py": 1,
+    "analytics_zoo_torch/pipeline/api/net/tf_net.py": 4,
+    "analytics_zoo_torch/tfpark/tf1_graph.py": 1,
+    "analytics_zoo_torch/tfpark/tf_optimizer.py": 1,
+    "analytics_zoo_torch/benchmarks/inception.py": 1,
+}
+FX_IMPORTERS = {"analytics_zoo_torch/pipeline/api/net/torch_net.py": 3}
+
+
+def _indented_imports(pattern):
     found = {str(p.relative_to(REPO)): [m.group(1) for m in
                                         pattern.finditer(p.read_text())]
              for p in PORT.rglob("*.py")}
-    found = {k: v for k, v in found.items() if v}
-    assert list(found) == ["analytics_zoo_torch/tfpark/text/bert_checkpoint.py"]
-    # one import, indented: inside _google_reader, run only when called
-    assert found["analytics_zoo_torch/tfpark/text/bert_checkpoint.py"] == \
-        ["    "]
+    return {k: v for k, v in found.items() if v}
+
+
+def test_tensorflow_is_imported_only_by_the_google_checkpoint_reader():
+    """TensorFlow (and transformers) are imported by the BERT checkpoint
+    loader's google reader and by the TensorFlow-facing modules of TFPark
+    and ``pipeline/api/net``, every import indented: inside a function,
+    run only when called (the TFPark converter decides the topology from
+    the model object and imports none); ``torch.fx`` likewise only inside
+    TorchNet's functions."""
+    found = _indented_imports(re.compile(
+        r"^(\s*)(import|from)\s+(tensorflow|transformers)\b", re.M))
+    assert {k: len(v) for k, v in found.items()} == TF_IMPORTERS
+    assert all(indent for v in found.values() for indent in v)
+    fx = _indented_imports(re.compile(r"^(\s*)(import|from)\s+torch\.fx\b",
+                                      re.M))
+    assert {k: len(v) for k, v in fx.items()} == FX_IMPORTERS
+    assert all(indent for v in fx.values() for indent in v)
 
 
 # the one place a file is loaded by path: a batch job's builder ref

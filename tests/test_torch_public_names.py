@@ -43,9 +43,7 @@ OWED = {
     "parallel": {"DATA_AXIS", "FSDP_AXIS", "MODEL_AXIS", "SEQ_AXIS",
                  "batch_shardings", "create_mesh", "data_sharding",
                  "fsdp_shardings", "local_batch_size", "replicated"},
-    # queue 1 item 4: TFPark's Keras path
-    "tfpark": {"KerasModel", "ModeKeys", "TFDataset", "TFEstimator",
-               "TFEstimatorSpec", "TFOptimizer", "TFPredictor"},
+    "tfpark": set(),
     # the torchvision-derived pretrained detectors (pretrained.py,
     # pretrained_ssdlite.py): they wait for checkpoint files
     "models.image.objectdetection": {
@@ -111,7 +109,8 @@ def test_the_port_packages_with_a_counterpart():
     assert "models.anomalydetection" in PACKAGES
     assert {"models.textmatching", "pipeline.api.keras2",
             "pipeline.api.keras.datasets", "pipeline.nnframes",
-            "models.image.objectdetection"} <= set(PACKAGES)
+            "models.image.objectdetection", "pipeline.api.net",
+            "pipeline.api.onnx", "tfpark.gan"} <= set(PACKAGES)
     assert set(OWED) <= set(PACKAGES)
     assert not THIS_SLICE & set().union(*OWED.values())
 

@@ -282,7 +282,16 @@ def test_lstm_calibrated_int8_carries_the_reference_recurrent_quirk(
 
 
 def test_inference_paths_not_ported_raise():
-    with pytest.raises(NotImplementedError):
-        InferenceModel().load_torch(None, (3,))
-    with pytest.raises(NotImplementedError):
+    """``load_torch`` and ``load_tf`` are ported now (they raised before
+    the interop slice; ``tests/test_torch_net.py`` and
+    ``test_torch_tfpark.py`` hold them to the reference): ``load_torch``
+    serves a module as its own forward does, and ``load_tf`` of a path
+    that holds no SavedModel raises rather than serving."""
+    module = torch.nn.Sequential(torch.nn.Linear(3, 2))
+    x = np.random.RandomState(0).randn(4, 3).astype(np.float32)
+    got = InferenceModel().load_torch(module, (3,)).predict(x)
+    with torch.no_grad():
+        want = module(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    with pytest.raises((ImportError, OSError)):
         InferenceModel().load_tf("model_dir")
