@@ -13,6 +13,7 @@ Idempotent like the reference: repeated calls return the live context.
 from __future__ import annotations
 
 import logging
+import os
 from typing import Any, Dict, Optional
 
 import torch
@@ -86,6 +87,21 @@ def init_zoo_context(conf: Optional[Dict[str, Any]] = None,
         torch.cuda.set_device(dev)
 
     _context = ZooContext(config, dev)
+
+    # the cluster observability plane, as in the reference: when a
+    # launcher or a serving supervisor hands this process a run dir,
+    # stamp its host/process_index labels on the registry, start its
+    # metrics endpoint and recorder and sample the TSDB into its slot
+    # (the process index from ZOO_TPU_PROCESS_ID: one device a process).
+    # Best-effort: a broken metrics port must never stop the process
+    if os.environ.get("ZOO_TPU_RUN_DIR"):
+        try:
+            from analytics_zoo_torch.observability.aggregator import (
+                init_worker_observability)
+            init_worker_observability()
+        except Exception:   # noqa: BLE001
+            log.exception("cluster observability bring-up failed")
+
     log.info("%s initialised: %r", name, _context)
     return _context
 

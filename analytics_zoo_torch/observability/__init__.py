@@ -7,13 +7,14 @@ instrument into; a :class:`Tracer` whose ``span("name")`` blocks export
 as Chrome-trace JSON (Perfetto); :func:`sample_device_telemetry` pulling
 the CUDA allocator's counters into gauges; and :class:`MetricsServer`
 exposing it all over HTTP ``/metrics`` (Prometheus text exposition)
-without any third-party dependency.  The compile half of the
-diagnostics (``diagnostics.py``) and the worker half of the cluster
-aggregator (``aggregator.py``: the run-dir slot a fleet worker writes)
-are ported; the rest of the reference's observability (MFU, watchdog,
-the aggregator's merge half, TSDB, SLO,
-drift, incident forensics, collectives accounting) is not ported yet
-(ROADMAP.md, queue 1).
+without any third-party dependency.  Beside them: the compile half of
+the diagnostics (``diagnostics.py``), the training-health watchdog
+(``watchdog.py``), the cluster aggregator (``aggregator.py``: the
+run-dir slot a fleet worker writes, and the merge of a run dir's slots),
+the embedded time-series store (``tsdb.py``), SLO burn rates
+(``slo.py``), drift detection (``drift.py``) and incident forensics
+(``incident.py``).  Not ported yet (ROADMAP.md, queue 1): MFU and the
+collectives accounting.
 
 Quick use::
 
@@ -67,9 +68,49 @@ from analytics_zoo_torch.observability.flightrec import (
     reset_flightrec,
 )
 from analytics_zoo_torch.observability.aggregator import (
+    ClusterAggregator,
+    WorkerSource,
     flush_worker_observability,
     init_worker_observability,
+    merge_requests,
+    merge_snapshots,
+    merge_traces,
     reset_worker_observability,
+    straggler_report,
+)
+from analytics_zoo_torch.observability.watchdog import (
+    TrainingHalted,
+    TrainingWatchdog,
+    get_active_watchdog,
+    set_active_watchdog,
+)
+from analytics_zoo_torch.observability.tsdb import (
+    SeriesStore,
+    TsdbSampler,
+    TsdbWriter,
+    flush_active_tsdb,
+    get_active_tsdb,
+    init_tsdb,
+    reset_tsdb,
+)
+from analytics_zoo_torch.observability.slo import (
+    BurnWindow,
+    SloEngine,
+    SloObjective,
+    SloStatus,
+    evaluate_timeline,
+    load_slo_yaml,
+    parse_slo_specs,
+)
+from analytics_zoo_torch.observability.drift import (
+    DriftDetector,
+    DriftWatch,
+    drift_report,
+)
+from analytics_zoo_torch.observability.incident import (
+    diagnose,
+    render_incident,
+    write_incident,
 )
 from analytics_zoo_torch.observability.diagnostics import (
     CompileMonitor,
@@ -79,9 +120,39 @@ from analytics_zoo_torch.observability.diagnostics import (
 )
 
 __all__ = [
+    "ClusterAggregator",
+    "WorkerSource",
     "flush_worker_observability",
     "init_worker_observability",
+    "merge_requests",
+    "merge_snapshots",
+    "merge_traces",
     "reset_worker_observability",
+    "straggler_report",
+    "TrainingHalted",
+    "TrainingWatchdog",
+    "get_active_watchdog",
+    "set_active_watchdog",
+    "SeriesStore",
+    "TsdbSampler",
+    "TsdbWriter",
+    "flush_active_tsdb",
+    "get_active_tsdb",
+    "init_tsdb",
+    "reset_tsdb",
+    "BurnWindow",
+    "SloEngine",
+    "SloObjective",
+    "SloStatus",
+    "evaluate_timeline",
+    "load_slo_yaml",
+    "parse_slo_specs",
+    "DriftDetector",
+    "DriftWatch",
+    "drift_report",
+    "diagnose",
+    "render_incident",
+    "write_incident",
     "CompileMonitor",
     "get_compile_monitor",
     "reset_compile_monitor",

@@ -8,15 +8,23 @@ Routes:
     /metrics.json     registry snapshot as JSON
     /requests.json    the request log's kept timelines (tail-sampled
                       per-request station waterfalls, newest last)
+    /tsdb.json        the embedded time-series store's recent samples
+                      (``?selector=name{label="v"}``, ``?start=``/
+                      ``?end=`` unix seconds filter the answer) — the
+                      live query face of ``observability/tsdb.py``
+    /metrics/cluster  federated CLUSTER view (host 0 of a multi-host
+                      run, when a ClusterAggregator is attached):
+                      counters summed across hosts, histograms merged,
+                      gauges as per-host vectors, plus the
+                      cluster_* skew/straggler gauges
+    /metrics/cluster.json  same view as JSON, including the full
+                      straggler/collective report under "cluster"
     /trace            Chrome-trace JSON of the span tracer (Perfetto)
     /healthz          liveness ("ok") — or a READINESS probe when the
                       owner installed a ``health_check``: 200 JSON when
                       healthy, 503 JSON naming the reason when not
                       (serving wires its queue-depth / error-rate
                       thresholds in here)
-
-The JAX package's ``/tsdb.json`` and ``/metrics/cluster`` routes wait for
-the port of its TSDB and cluster aggregator (ROADMAP.md, queue 1).
 
 Port 0 binds an ephemeral port (``server.port`` has the real one) —
 what tests and multi-worker hosts use to avoid collisions.
@@ -34,6 +42,7 @@ import logging
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
+from urllib.parse import unquote as _unquote
 
 from analytics_zoo_torch.observability.metrics import (
     MetricsRegistry, get_registry)
@@ -73,6 +82,50 @@ class _Handler(BaseHTTPRequestHandler):
                 body = json.dumps(
                     get_request_log().snapshot()).encode()
                 self._respond(body, "application/json")
+            elif path == "/tsdb.json":
+                from analytics_zoo_torch.observability import tsdb
+                writer = tsdb.get_active_tsdb()
+                if writer is None:
+                    self._respond(
+                        b"no tsdb writer active (init_worker_"
+                        b"observability starts one inside a run dir)",
+                        "text/plain", 404)
+                else:
+                    params = {}
+                    for part in query.split("&"):
+                        k, _, v = part.partition("=")
+                        if v:
+                            params[k] = _unquote(v)
+                    store = tsdb.SeriesStore.from_writer(writer)
+                    t0, t1 = store.time_range()
+                    start = float(params.get("start") or t0 or 0.0)
+                    end = float(params.get("end") or t1 or 0.0)
+                    sel = params.get("selector")
+                    doc = {"start": start, "end": end,
+                           "samples": len(store.samples)}
+                    if sel:
+                        doc["series"] = store.query(sel, start, end)
+                    else:
+                        # no selector: index answer — the keys
+                        # present, not every point
+                        doc["counter_keys"] = store.counter_keys("")
+                        doc["gauge_keys"] = store.gauge_keys("")
+                    body = json.dumps(doc).encode()
+                    self._respond(body, "application/json")
+            elif path in ("/metrics/cluster", "/metrics/cluster.json"):
+                agg = getattr(self.server, "aggregator", None)
+                if agg is None:
+                    self._respond(
+                        b"no cluster aggregator attached (this is a "
+                        b"worker endpoint; scrape host 0)",
+                        "text/plain", 404)
+                elif path.endswith(".json"):
+                    body = json.dumps(agg.cluster_snapshot(),
+                                      indent=2).encode()
+                    self._respond(body, "application/json")
+                else:
+                    body = agg.prometheus_text().encode()
+                    self._respond(body, PROM_CONTENT_TYPE)
             elif path == "/trace":
                 body = json.dumps(
                     self.server.tracer.chrome_trace()).encode()
@@ -119,7 +172,7 @@ class MetricsServer:
     def __init__(self, port: int = 0, host: Optional[str] = None,
                  registry: Optional[MetricsRegistry] = None,
                  tracer: Optional[Tracer] = None,
-                 health_check=None):
+                 health_check=None, aggregator=None):
         if host is None:
             host = default_bind_host()
         self._requested = (host, int(port))
@@ -129,6 +182,9 @@ class MetricsServer:
         # readiness probe: a callable returning None (healthy) or a
         # JSON-able dict naming the reason (-> 503 on /healthz)
         self.health_check = health_check
+        # host-0 federation point: a ClusterAggregator serving the
+        # /metrics/cluster routes (workers leave this None)
+        self.aggregator = aggregator
         self._httpd: Optional[_Server] = None
         self._thread: Optional[threading.Thread] = None
 
@@ -143,6 +199,7 @@ class MetricsServer:
         self._httpd.registry = self.registry
         self._httpd.tracer = self.tracer
         self._httpd.health_check = self.health_check
+        self._httpd.aggregator = self.aggregator
         self._thread = threading.Thread(
             target=self._httpd.serve_forever, daemon=True,
             name=f"zoo-metrics-http:{self.port}")
@@ -175,9 +232,10 @@ def default_bind_host() -> str:
 def start_metrics_server(port: int = 0, host: Optional[str] = None,
                          registry: Optional[MetricsRegistry] = None,
                          tracer: Optional[Tracer] = None,
-                         health_check=None) -> MetricsServer:
+                         health_check=None,
+                         aggregator=None) -> MetricsServer:
     """Build + start in one call; returns the server (``.port`` holds
     the bound port when ``port=0``)."""
     return MetricsServer(port=port, host=host, registry=registry,
-                         tracer=tracer,
-                         health_check=health_check).start()
+                         tracer=tracer, health_check=health_check,
+                         aggregator=aggregator).start()

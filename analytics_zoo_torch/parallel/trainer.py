@@ -22,7 +22,12 @@ inline by default, or ``data.prefetch`` deep on a thread of its own
 while the steps run.  Each step first trips the ``trainer.dispatch``
 fault-injection site (``resilience/chaos.py``) at the trainer's 0-based
 step count, before anything is computed, so a fault at step k leaves
-exactly k steps committed.
+exactly k steps committed.  With ``observability.check_finite`` (the
+default) each step also computes the watchdog's ``isfinite(loss + Σ
+grads)`` flag on the device, an output of its program, and hands it to
+``finite_flags`` (``observability/watchdog.py::StepFlags``), which
+delivers it to the active watchdog once the device has computed it: no
+host read is added to a step.
 
 With ``optim_groups`` (``{group: (OptimMethod, layer names or "*")}``,
 the reference's multi-optimMethod split) each group's layers take their
@@ -75,6 +80,8 @@ from analytics_zoo_torch.common.config import get_config
 from analytics_zoo_torch.compile import engine_jit
 from analytics_zoo_torch.observability.diagnostics import (
     get_compile_monitor, step_attribution_histogram)
+from analytics_zoo_torch.observability.watchdog import (
+    StepFlags, fold_finiteness_check)
 from analytics_zoo_torch.pipeline.api.keras.topology import (
     tree_leaves, tree_map, tree_replace,
 )
@@ -214,6 +221,11 @@ class DistributedTrainer:
         cfg = get_config()
         self.remat = bool(cfg.get("train.remat"))
         self.grad_sync_dtype = str(cfg.get("train.grad_sync_dtype"))
+        # the watchdog's NaN/Inf detector: each step folds a finite flag
+        # into its program and returns it; the flags reach the host
+        # through ``finite_flags`` without a sync of their own
+        self._obs_check_finite = bool(cfg.get("observability.check_finite"))
+        self.finite_flags = StepFlags()
         # fused optimizer update (ops/fused.py): clip + moment update +
         # param apply in ONE pass per leaf.  None = unsupported
         # (optimizer groups, an optimizer or clip it does not reproduce,
@@ -379,9 +391,15 @@ class DistributedTrainer:
 
     def _step_core(self, params, opt_state, state, batch, rng):
         """One forward, backward and update: the body every step program
-        captures."""
+        captures.  Returns ``(params, opt_state, state, loss, finite)``,
+        ``finite`` the watchdog's flag (None with
+        ``observability.check_finite`` off)."""
         loss, grads, new_state = self.loss_and_grads(params, state, batch,
                                                      rng)
+        # the watchdog's NaN/Inf detector, folded into the step's program
+        # (a flag among its outputs, read later without a sync)
+        finite = (fold_finiteness_check(loss, grads)
+                  if self._obs_check_finite else None)
         if self.grad_sync_dtype == "bfloat16":
             grads = tree_map(lambda g: g.to(torch.bfloat16).float(), grads)
 
@@ -393,7 +411,7 @@ class DistributedTrainer:
         with torch.no_grad():
             params, opt_state = mask_frozen_params(self.model, params,
                                                    update)
-        return params, opt_state, new_state, loss
+        return params, opt_state, new_state, loss, finite
 
     def _build_train_step(self, fold_rng: bool = False):
         """The train-step program; ``fold_rng`` names the one
@@ -419,7 +437,10 @@ class DistributedTrainer:
         out = fn(*args)
         self._m_step_time.labels("host_dispatch").observe(
             time.perf_counter() - t0)
-        return out
+        # the step's finite flag goes to the watchdog's queue; the
+        # caller gets the step's other outputs
+        self.finite_flags.push(out[-1])
+        return out[:-1]
 
     def train_step(self, params, opt_state, state, batch, rng):
         """One step on a device-placed ``batch`` (``put_batch``), with the
@@ -481,10 +502,10 @@ class DistributedTrainer:
                 xb = tree_map(lambda a: a.index_select(0, idx), x)
                 yb = None if y is None else tree_map(
                     lambda a: a.index_select(0, idx), y)
-                params, opt_state, state, loss = core()(
+                params, opt_state, state, loss, finite = core()(
                     params, opt_state, state, (xb, yb), rng)
                 offset.add_(batch_size)
-                return params, opt_state, state, loss, offset
+                return params, opt_state, state, loss, offset, finite
             # the epoch rows (the HBM buffers, or a chunk the caller
             # drops) and the offset are donated with the training state
             fn = engine_jit(step, donate_argnums=(0, 1, 2, 3, 4, 5),

@@ -67,8 +67,21 @@ dispatch's loss, at the count after it), ``Throughput`` after each epoch
 at its count, and each validation score under its name.  The writers are
 closed when ``train`` returns or raises.
 
-Not ported: the watchdog and its halt snapshot, mesh re-formation and
-the degraded exit.
+The training-health watchdog (``observability/watchdog.py``) runs as in
+the reference: each step's finite flag reaches it through the trainer's
+``finite_flags`` (delivered once the device has computed it, with no
+sync of its own, and all of them at the epoch's one host read), the
+loop beats it after every dispatch and feeds it each loss it has
+already read, and ``health_check`` runs between dispatches.  Under
+``observability.watchdog_policy=checkpoint_and_halt`` a halting issue
+(non-finite, divergence) snapshots the training state into
+``<model_dir>/halt/`` (never into ``model_dir``: the halt-time state may
+be poisoned and must not shadow the last good periodic snapshot) and
+raises ``TrainingHalted``, which the retry loop does not absorb.  Each
+beat also writes the worker's ``heartbeat.json`` inside a launcher's run
+dir (``HostHeartbeat``).
+
+Not ported: mesh re-formation and the degraded exit.
 
 ``optim_methods={group: (OptimMethod, layer names or "*")}`` trains each
 group of layers with its own optimizer (the reference's multi-optimMethod
@@ -90,6 +103,9 @@ import torch
 from analytics_zoo_torch.common.config import get_config
 from analytics_zoo_torch.common.triggers import (
     EveryEpoch, MaxEpoch, Trigger, TrainingState,
+)
+from analytics_zoo_torch.observability.watchdog import (
+    TrainingHalted, TrainingWatchdog, set_active_watchdog,
 )
 from analytics_zoo_torch.parallel.trainer import (
     ClipSpec, DistributedTrainer,
@@ -261,6 +277,7 @@ class Estimator:
         from analytics_zoo_torch.observability import get_tracer
         from analytics_zoo_torch.observability.flightrec import record_event
         from analytics_zoo_torch.pipeline.api.keras import objectives
+        from analytics_zoo_torch.resilience.detector import HostHeartbeat
         from analytics_zoo_torch.resilience.policy import (
             RecoveryAction, RecoveryPolicy, RetryBudget)
         from analytics_zoo_torch.utils.serialization import Checkpoint
@@ -298,7 +315,57 @@ class Estimator:
         met = _train_metrics()
         tracer = get_tracer()
 
-        def save_snapshot():
+        # training-health watchdog: collects the steps' finite flags
+        # (trainer.finite_flags), the losses read at sync points and the
+        # stall heartbeat; health_check() runs between dispatches and
+        # applies the policy.  (Installed as the ACTIVE watchdog just
+        # before the training loop, so a failure in restore or cache
+        # set-up cannot leak its thread.)
+        watchdog = TrainingWatchdog()
+        # worker liveness heartbeat (the launcher's run-dir contract):
+        # a throttled file write; None outside a run dir
+        heartbeat = HostHeartbeat.from_env()
+
+        def beat():
+            watchdog.beat()
+            if heartbeat is not None:
+                heartbeat.beat(ts.iteration)
+        # one observation per iteration: several sync points may hold
+        # the same loss, and the plateau window counts iterations
+        last_observed_iter = [-1]
+
+        def observe_loss_once(value):
+            if ts.iteration != last_observed_iter[0]:
+                last_observed_iter[0] = ts.iteration
+                watchdog.observe_loss(value)
+
+        def health_check(wait: bool = False):
+            """Deliver the finite flags the device has computed (all of
+            them with ``wait``, which the loop passes only where it has
+            just synchronized), then apply the policy to what the
+            watchdog gathered."""
+            trainer.finite_flags.drain(wait=wait)
+            issue = watchdog.poll()
+            if issue is None:
+                return
+            # checkpoint_and_halt: snapshot into <model_dir>/halt/ (the
+            # halt-time state may be poisoned: at the highest step in
+            # model_dir it would shadow the last good snapshot), then
+            # stop in a way the retry loop does not absorb
+            log.error("watchdog halting training: %s", issue)
+            if ckpt is not None:
+                halt_dir = os.path.join(self.model_dir, "halt")
+                save_snapshot(target=Checkpoint(halt_dir))
+                log.error(
+                    "halt-time state snapshotted to %s (iteration %d); "
+                    "resume from model_dir restores the last GOOD "
+                    "periodic snapshot", halt_dir, ts.iteration)
+            raise TrainingHalted(
+                f"training halted by watchdog policy "
+                f"'checkpoint_and_halt' at iteration {ts.iteration}: "
+                f"{issue}", issue=issue)
+
+        def save_snapshot(target=None):
             start = time.perf_counter()
             payload = {"params": params, "state": state,
                        "opt_state": opt_state, "epoch": ts.epoch,
@@ -308,7 +375,7 @@ class Estimator:
                 # (committed per consumed batch): the snapshot resumes
                 # mid-epoch exactly
                 payload["data"] = train_set.state_dict()
-            path = ckpt.save(payload, step=ts.iteration)
+            path = (target or ckpt).save(payload, step=ts.iteration)
             tracer.complete("checkpoint_save", start,
                             time.perf_counter() - start,
                             iteration=ts.iteration,
@@ -550,6 +617,10 @@ class Estimator:
                 trainer.warm_start(params, opt_state, state, warm_batch,
                                    seed)
 
+        # install the watchdog only now: the finally below is the only
+        # teardown, so nothing may fail between install and the try
+        prev_watchdog = set_active_watchdog(watchdog)
+        watchdog.start_stall_monitor()
         try:
             while not end_trigger(ts):
                 epoch_start = time.perf_counter()
@@ -573,8 +644,13 @@ class Estimator:
                         if self._train_summary is not None and \
                                 ts.iteration // 20 != \
                                 (ts.iteration - steps) // 20:
+                            value = float(loss)
+                            # a loss the loop has read: the watchdog's too
+                            observe_loss_once(value)
                             self._train_summary.add_scalar(
-                                "Loss", float(loss), ts.iteration)
+                                "Loss", value, ts.iteration)
+                        beat()
+                        health_check()
                         # iteration-level triggers (SeveralIteration,
                         # MaxIteration) fire mid-epoch
                         if ckpt is not None and checkpoint_trigger(ts):
@@ -582,7 +658,9 @@ class Estimator:
                         if end_trigger(ts):
                             stop = True
                             break
-                except _UnrecoverableTraining:
+                except (_UnrecoverableTraining, TrainingHalted):
+                    # a watchdog halt is deliberate: a retry would replay
+                    # the same poisoned step
                     raise
                 except Exception as exc:   # noqa: BLE001 — the policy engine
                     decision = policy.decide(exc,
@@ -619,6 +697,10 @@ class Estimator:
                 # mean, or the last step's (the epoch's one host read)
                 if loss is not None:
                     ts.last_loss = float(loss)
+                    # the loss read synchronized the steps: every flag
+                    # is ready
+                    observe_loss_once(ts.last_loss)
+                    health_check(wait=True)
                 if stop:
                     break
                 ts.epoch += 1
@@ -643,6 +725,8 @@ class Estimator:
                 ts.epoch_finished = False
 
         finally:
+            watchdog.stop()
+            set_active_watchdog(prev_watchdog)
             # the writers hold open files; one reopens on its next
             # scalar, so a later train() keeps recording
             for summary in (self._train_summary, self._val_summary):

@@ -22,9 +22,10 @@ client of either package talks to a server of the other.
 
 An ``image`` record (base64 JPEG or PNG) is decoded on the decode pool to
 BGR float32, as the reference's OpenCV path does; an undecodable one gets
-the per-record error result.  Not ported yet (ROADMAP.md, queue 1): the
-drain-time flush into a launcher run dir waits for the observability
-aggregator.
+the per-record error result.  Inside a launcher's or a supervisor's run
+dir the replica flushes its registry, trace, request log, TSDB and
+recorder into its ``host-<k>/`` slot when its loop ends (the drain), so
+the fleet's tools see its final counts.
 """
 
 from __future__ import annotations
@@ -1478,7 +1479,22 @@ class ClusterServing:
                     break
         finally:
             pool.shutdown(wait=False)
+            self._flush_observability()
             self.close()
+
+    def _flush_observability(self) -> None:
+        """Drain-time metrics flush: inside a launcher-managed run dir
+        the worker's registry snapshot is persisted so fleet
+        aggregation sees the final counts (no-op anywhere else —
+        ``flush_worker_observability`` guards on its own init)."""
+        if not os.environ.get("ZOO_TPU_METRICS_DIR"):
+            return
+        try:
+            from analytics_zoo_torch.observability.aggregator import (
+                flush_worker_observability)
+            flush_worker_observability()
+        except Exception:   # noqa: BLE001 — flush is best-effort
+            log.exception("observability flush failed")
 
     def _drain(self, pending: deque) -> None:
         """Graceful drain: every batch already read past (_last_id

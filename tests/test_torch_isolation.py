@@ -2,7 +2,8 @@
 serving, training, Cluster Serving, recommender, recurrent/generative,
 persistence, transformer-model, Keras-layer/AnomalyDetector,
 text-matching/autograd/keras2/datasets, compile, data-pipeline and
-batch-scoring, and image-decode/NNFrames/object-detection slices)
+batch-scoring, image-decode/NNFrames/object-detection, and local
+trainer/watchdog/serving-fleet/TSDB/SLO/drift/incident slices)
 pulls in none of ``jax``, ``analytics_zoo_tpu``, ``flax``, ``msgpack``,
 ``tensorflow`` and ``transformers``, no port source imports the first
 four or loads a file of the JAX package by path (the one file-path
@@ -162,6 +163,19 @@ SLICE_MODULES = [
     "analytics_zoo_torch.tfpark.gan.gan_estimator",
     "analytics_zoo_torch.benchmarks.inception",
     "analytics_zoo_torch.benchmarks.wide_deep",
+    "analytics_zoo_torch.pipeline.estimator.local_estimator",
+    "analytics_zoo_torch.observability.watchdog",
+    "analytics_zoo_torch.observability.tsdb",
+    "analytics_zoo_torch.observability.slo",
+    "analytics_zoo_torch.observability.drift",
+    "analytics_zoo_torch.observability.incident",
+    "analytics_zoo_torch.serving.supervisor",
+    "analytics_zoo_torch.serving.quick_start",
+    "analytics_zoo_torch.serving.loadgen",
+    "analytics_zoo_torch.serving.loadgen.loadgen",
+    "analytics_zoo_torch.serving.loadgen.scenarios",
+    "analytics_zoo_torch.serving.loadgen.verdict",
+    "analytics_zoo_torch.serving.loadgen.cli",
 ]
 
 

@@ -19,26 +19,12 @@ REF = REPO / "analytics_zoo_tpu"
 
 OWED = {
     "pipeline.api.keras.layers": set(),
-    # queue 1 item 5: local_estimator.py
-    "pipeline.estimator": {"LocalEstimator"},
-    # queue 1 item 6: the fleet supervisor and autoscaler
-    "serving": {"ServingSupervisor", "cli_worker_factory"},
-    # queue 1 items 6 (the aggregator's merge half, tsdb, slo, drift,
-    # incident), 8
-    # (collectives) and 9 (diagnostics, watchdog)
+    "pipeline.estimator": set(),
+    "serving": set(),
+    # queue 1 items 8 (collectives) and 9 (MFU)
     "observability": {
-        "BurnWindow", "ClusterAggregator", "DriftDetector",
-        "DriftWatch", "SeriesStore", "SloEngine", "SloObjective",
-        "SloStatus", "TrainingHalted", "TrainingWatchdog", "TsdbSampler",
-        "TsdbWriter", "WorkerSource", "diagnose", "drift_report",
-        "estimate_train_step_collectives", "evaluate_timeline",
-        "flush_active_tsdb", "get_active_tsdb", "get_active_watchdog",
-        "init_tsdb", "load_slo_yaml",
-        "merge_requests", "merge_snapshots", "merge_traces",
-        "parse_slo_specs", "publish_mfu", "record_step_collectives",
-        "render_incident", "reset_tsdb", "set_active_watchdog",
-        "straggler_report",
-        "write_incident"},
+        "estimate_train_step_collectives", "publish_mfu",
+        "record_step_collectives"},
     # queue 1 item 8: parallel/mesh.py and sharding.py
     "parallel": {"DATA_AXIS", "FSDP_AXIS", "MODEL_AXIS", "SEQ_AXIS",
                  "batch_shardings", "create_mesh", "data_sharding",
