@@ -99,7 +99,7 @@ class BatchCoordinator:
         # cluster.json) + chaos env — reuse the launcher wholesale
         self.cluster = ZooCluster(
             num_processes=self.num_workers, env=env or {},
-            run_dir=run_dir, chaos=chaos)
+            run_dir=run_dir, chaos=chaos, rendezvous=False)
         self.manifest = ShardManifest.create(job, run_dir)
         self.worker_factory = worker_factory or self._default_factory
         self._slots = [

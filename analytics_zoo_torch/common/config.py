@@ -41,6 +41,9 @@ _DEFAULTS: Dict[str, Any] = {
     # Default mesh shape; "auto" = all devices on the data axis,
     # else "data:4,model:2"-style axis sizes.
     "mesh.shape": "auto",
+    # Seconds a collective may wait before the group raises (a lost rank
+    # then fails the step instead of hanging it).
+    "parallel.timeout_s": 1800.0,
     # Training engine --------------------------------------------------
     # Failure-retry loop, mirroring bigdl.failure.retryTimes /
     # retryTimeInterval (Topology.scala:1179-1261).

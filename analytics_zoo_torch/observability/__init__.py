@@ -13,8 +13,8 @@ the diagnostics (``diagnostics.py``), the training-health watchdog
 run-dir slot a fleet worker writes, and the merge of a run dir's slots),
 the embedded time-series store (``tsdb.py``), SLO burn rates
 (``slo.py``), drift detection (``drift.py``) and incident forensics
-(``incident.py``).  Not ported yet (ROADMAP.md, queue 1): MFU and the
-collectives accounting.
+(``incident.py``), and the collectives accounting (``collectives.py``).
+Not ported yet (ROADMAP.md, queue 1): MFU.
 
 Quick use::
 
@@ -66,6 +66,10 @@ from analytics_zoo_torch.observability.flightrec import (
     init_flightrec,
     record_event,
     reset_flightrec,
+)
+from analytics_zoo_torch.observability.collectives import (
+    estimate_train_step_collectives,
+    record_step_collectives,
 )
 from analytics_zoo_torch.observability.aggregator import (
     ClusterAggregator,
@@ -185,4 +189,6 @@ __all__ = [
     "init_flightrec",
     "record_event",
     "reset_flightrec",
+    "estimate_train_step_collectives",
+    "record_step_collectives",
 ]

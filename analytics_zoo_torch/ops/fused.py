@@ -361,7 +361,9 @@ def sgd_multi_update(ps, gs, traces, step_size, *, momentum: float,
                    clip_const, use_clip_scale)
 
 
-def build_fused_update(optim, clip=None) -> Optional[Callable]:
+def build_fused_update(optim, clip=None,
+                       norm_fn: Optional[Callable] = None
+                       ) -> Optional[Callable]:
     """Return ``update(grads, opt_state, params) -> (params, opt_state)``
     fusing clip+moments+apply into one pass over every leaf, in place, or
     None when the (optimizer, clip) combination isn't supported — the
@@ -370,7 +372,10 @@ def build_fused_update(optim, clip=None) -> Optional[Callable]:
     Supported: ``SGD`` (momentum/nesterov/weight_decay, float or schedule
     lr, dampening 0) and ``Adam`` (float or schedule lr incl. the Keras
     ``decay`` form) from ``pipeline/api/keras/optimizers.py``; ``clip`` is
-    a trainer ``ClipSpec`` (const or l2norm) or None.  The state keeps
+    a trainer ``ClipSpec`` (const or l2norm) or None; ``norm_fn`` takes
+    the gradient leaves and returns their global norm (default
+    ``optimizers.global_norm``; a sharded trainer sums its pieces over
+    the mesh).  The state keeps
     its layout: the moments are updated where they lie and the counts
     are replaced.  On the card a step is one multi-tensor launch (with an
     l2-norm clip, the global norm before it; with a schedule, the
@@ -426,7 +431,8 @@ def build_fused_update(optim, clip=None) -> Optional[Callable]:
         flat_p = tree_leaves(params)
         flat_g = [g.contiguous() for g in tree_leaves(grads)]
         # one read sweep for the global norm — the only pre-pass left
-        gnorm = None if clip_norm is None else opt.global_norm(flat_g)
+        gnorm = None if clip_norm is None else \
+            (norm_fn or opt.global_norm)(flat_g)
         common = dict(gnorm=gnorm, clip_norm=clip_norm or 1.0,
                       clip_const=clip_const, cache=cache)
 

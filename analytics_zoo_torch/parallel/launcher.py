@@ -11,11 +11,12 @@ injects the env contract (ZOO_TPU_COORDINATOR / NUM_PROCESSES /
 PROCESS_ID, the same keys as the reference), and guards children with
 PR_SET_PDEATHSIG so they die with the launcher, plus atexit cleanup.
 The reference's workers turn that contract into a ``jax.distributed``
-rendezvous inside ``init_zoo_context``; the port's rendezvous
-(``torch.distributed``) and ``launch_cli.py`` come with the multi-GPU
-slice (ROADMAP.md, queue 1 item 8), so until then a port ``ZooCluster``
-starts INDEPENDENT processes — the batch-scoring fleet
-(``batchjobs/coordinator.py``) needs no collective.
+rendezvous inside ``init_zoo_context``; the port's workers join a
+``torch.distributed`` process group there (``common/zoo_context.py``),
+and ``launch_cli.py`` is the command line over this launcher.  A cluster
+of INDEPENDENT processes (``rendezvous=False``: the batch-scoring fleet,
+``batchjobs/coordinator.py``, whose workers restart one by one) leaves
+the coordinator out of the workers' env, so they join no group.
 
 Observability plane: passing ``run_dir`` makes the launcher the
 cluster's rendezvous for fleet-level metrics — it creates one
@@ -173,16 +174,18 @@ class ZooCluster:
     """Launch ``script`` as N worker processes.
 
     Each worker sees ZOO_TPU_COORDINATOR / ZOO_TPU_NUM_PROCESSES /
-    ZOO_TPU_PROCESS_ID, the reference's contract; the port's workers run
-    independently (no rendezvous yet: see the module docstring).
+    ZOO_TPU_PROCESS_ID, the reference's contract, and joins the process
+    group in ``init_zoo_context``; with ``rendezvous=False`` the
+    coordinator is left out and the workers run independently.
     """
 
     def __init__(self, num_processes: int,
                  coordinator: Optional[str] = None,
                  env: Optional[Dict[str, str]] = None,
                  run_dir: Optional[str] = None,
-                 chaos=None):
+                 chaos=None, rendezvous: bool = True):
         self.num_processes = int(num_processes)
+        self.rendezvous = bool(rendezvous)
         self.coordinator = coordinator or \
             f"localhost:{_free_port()}"
         self.extra_env = env or {}
@@ -210,6 +213,17 @@ class ZooCluster:
         workers = []
         from analytics_zoo_torch.resilience.detector import (
             HEARTBEAT_FILE)
+        # a reused run dir may also hold an earlier run's re-formation
+        # stores (resilience.recovery): a file store serves one
+        # rendezvous, and a stale one would stall the survivors' next
+        from analytics_zoo_torch.resilience.recovery import (
+            REFORM_STORE_PREFIX)
+        for name in os.listdir(run_dir) if os.path.isdir(run_dir) else ():
+            if name.startswith(REFORM_STORE_PREFIX):
+                try:
+                    os.remove(os.path.join(run_dir, name))
+                except OSError:
+                    pass
         for pid in range(self.num_processes):
             wdir = os.path.join(run_dir,
                                 agg_lib.host_dir_name(pid))
@@ -249,6 +263,8 @@ class ZooCluster:
             "ZOO_TPU_NUM_PROCESSES": str(self.num_processes),
             "ZOO_TPU_PROCESS_ID": str(process_id),
         })
+        if not self.rendezvous:
+            env.pop("ZOO_TPU_COORDINATOR")
         if self.chaos is not None:
             from analytics_zoo_torch.resilience.chaos import ENV_CHAOS
             env[ENV_CHAOS] = (self.chaos if isinstance(self.chaos, str)

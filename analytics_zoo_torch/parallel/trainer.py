@@ -1,8 +1,9 @@
-"""The training engine, single device (port of ``parallel/trainer.py``).
+"""The training engine (port of ``parallel/trainer.py``).
 
 The reference compiles one step — forward, backward, optimizer update —
 into one XLA program over a device mesh and donates the old parameters
-to it.  The port runs the same step eagerly on one device: autograd over
+to it.  The port runs the same step on each rank of the mesh
+(``parallel/mesh.py``, one process a device): autograd over
 the plain ``{layer: {param: tensor}}`` tree gives the gradients, and the
 update writes the parameters and the optimizer state in place (the
 counterpart of donation).  By default the update is the fused one-pass
@@ -62,7 +63,38 @@ one pool; the one-step graph serves every k, shares the per-step
 route's memory footprint, and keeps the per-step fault-injection site
 (the reference's fused program trips it only on its per-step route).
 
-Not ported: the mesh and sharding, collectives accounting, MFU.
+On a mesh (the zoo context's, or ``mesh=``) the step is the reference's
+under GSPMD, with the collectives written out on the mesh's groups:
+
+- **data parallel**: each rank takes its rows of the batch
+  (``put_batch``: a process's own batch when the data axes span every
+  process, else its ``1 / dp`` of the global batch); the gradients are
+  summed over ``data`` × ``fsdp`` in one bucket and divided by the
+  degree BEFORE clipping and the update, so the global norm is the
+  global batch's, as in the reference; the reported loss is the mean
+  over those ranks;
+- **FSDP** (ZeRO-style): a leaf the spec shards (``parallel/sharding.py``)
+  lives on each rank as its piece; the step all-gathers the pieces for
+  the forward and backward, reduce-scatters its gradient over ``fsdp``
+  (then sums it over ``data``), and the optimizer state stays on the
+  pieces;
+- **tensor parallel**: a leaf a layer declares (``param_pspecs``) stays a
+  piece for good; the layer's own collectives make its output whole;
+- the fused Adam/SGD update runs on each rank's pieces through the same
+  multi-tensor kernels, one launch a step; an l2-norm clip's global norm
+  sums the pieces' squares over their axis.
+
+A step on a mesh of more than one rank runs eagerly (gloo's collectives
+run on the host, and a captured program would replay without them); on
+one rank it is captured as before.  ``gather_tree`` puts pieces back
+together (snapshots and the Estimator's final variables are whole) and
+``shard_tree`` cuts a whole tree into this rank's pieces (restores).
+Each dispatch on a mesh adds the step's estimated collective bytes to
+``collective_bytes_total`` (``observability/collectives.py``), and every
+``observability.device_time_every`` steps a multi-process run times a
+barrier (``train_barrier_wait_seconds``).
+
+Not ported: MFU.
 """
 
 from __future__ import annotations
@@ -78,6 +110,9 @@ import torch
 
 from analytics_zoo_torch.common.config import get_config
 from analytics_zoo_torch.compile import engine_jit
+from analytics_zoo_torch.compile.engine import log_eager
+from analytics_zoo_torch.parallel import comm
+from analytics_zoo_torch.parallel import mesh as mesh_lib
 from analytics_zoo_torch.observability.diagnostics import (
     get_compile_monitor, step_attribution_histogram)
 from analytics_zoo_torch.observability.watchdog import (
@@ -99,7 +134,7 @@ class ClipSpec:
     b: float = 0.0
 
 
-def _apply_clipping(grads, clip: Optional[ClipSpec]):
+def _apply_clipping(grads, clip: Optional[ClipSpec], norm_fn=None):
     if clip is None:
         return grads
     if clip.kind == "const":
@@ -107,7 +142,7 @@ def _apply_clipping(grads, clip: Optional[ClipSpec]):
     if clip.kind == "l2norm":
         from analytics_zoo_torch.pipeline.api.keras.optimizers import (
             global_norm)
-        gnorm = global_norm(tree_leaves(grads))
+        gnorm = (norm_fn or global_norm)(tree_leaves(grads))
         scale = torch.clamp(clip.a / (gnorm + 1e-12), max=1.0)
         return tree_map(lambda g: g * scale, grads)
     raise ValueError(clip.kind)
@@ -170,6 +205,18 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(mixed)
 
 
+def _map_with_specs(fn, tree, specs):
+    """``fn(leaf, spec)`` over ``tree`` and a spec tree laid out like it
+    (NamedTuples kept)."""
+    if isinstance(tree, dict):
+        return {k: _map_with_specs(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        vals = [_map_with_specs(fn, v, s) for v, s in zip(tree, specs)]
+        return type(tree)(*vals) if hasattr(tree, "_fields") \
+            else type(tree)(vals)
+    return fn(tree, specs)
+
+
 def _integer_leaf_message(params, path: str = "") -> str:
     """Name the first param leaf that is neither real nor complex: the
     gradient cannot be taken, as ``jax.grad`` refuses such an input in the
@@ -201,14 +248,23 @@ class DistributedTrainer:
     def __init__(self, model, loss_fn: Optional[Callable],
                  optim_method=None, clip: Optional[ClipSpec] = None,
                  optim_groups: Optional[Dict[str, Tuple[Any, Sequence[str]]]]
-                 = None):
+                 = None, mesh=None):
         from analytics_zoo_torch.common.zoo_context import get_zoo_context
         self.model = model
         self.loss_fn = loss_fn
         self.optim = optim_method
         self.clip = clip
         self.optim_groups = optim_groups  # {name: (OptimMethod, names)}
-        self.device = get_zoo_context().device
+        ctx = get_zoo_context()
+        self.device = ctx.device
+        self.mesh = mesh if mesh is not None else ctx.mesh
+        # the params' spec tree and its leaves (tree_leaves order), set by
+        # the first place_params; None: every leaf whole
+        self._specs = None
+        self._flat_specs = None
+        self._sharded = False
+        self._collective_bytes = None
+        self._barrier_every = 0
         self._dispatch_count = 0
         self._monitor = get_compile_monitor()
         self._m_step_time = step_attribution_histogram()
@@ -226,6 +282,12 @@ class DistributedTrainer:
         # through ``finite_flags`` without a sync of their own
         self._obs_check_finite = bool(cfg.get("observability.check_finite"))
         self.finite_flags = StepFlags()
+        self._obs_collectives = bool(cfg.get("observability.collectives",
+                                             True))
+        if bool(cfg.get("observability.barrier_probe", True)) and \
+                self.mesh.world_size > 1:
+            self._barrier_every = int(
+                cfg.get("observability.device_time_every") or 0)
         # fused optimizer update (ops/fused.py): clip + moment update +
         # param apply in ONE pass per leaf.  None = unsupported
         # (optimizer groups, an optimizer or clip it does not reproduce,
@@ -234,24 +296,152 @@ class DistributedTrainer:
         if bool(cfg.get("train.fused_optimizer", True)) and \
                 not self.optim_groups and self.optim is not None:
             from analytics_zoo_torch.ops.fused import build_fused_update
-            self._fused_update = build_fused_update(self.optim, self.clip)
+            self._fused_update = build_fused_update(
+                self.optim, self.clip, norm_fn=self._grad_norm)
+
+    # ------------------------------------------------------------- programs
+    def _jit(self, fn, key_hint: str, **kwargs):
+        """``engine_jit(fn)`` on a one-rank mesh; ``fn`` itself, run
+        eagerly, when its collectives must run on every call."""
+        if self.mesh.world_size == 1:
+            return engine_jit(fn, key_hint=key_hint, **kwargs)
+        log_eager(key_hint, f"collectives over a mesh of "
+                            f"{self.mesh.world_size} ranks")
+        return fn
+
+    # ------------------------------------------------------------- sharding
+    def param_shardings(self, params):
+        """The spec tree of ``params`` (whole leaves): tensor-parallel
+        specs the layers declare, FSDP, or None (``parallel/sharding.py``)."""
+        if self._specs is None:
+            from analytics_zoo_torch.parallel.sharding import (
+                any_sharded, collect_param_shardings)
+            self._specs = collect_param_shardings(self.model, params,
+                                                  self.mesh)
+            self._flat_specs = tree_leaves(self._specs)
+            self._whole_shapes = [tuple(a.shape) for a in tree_leaves(params)]
+            self._sharded = any_sharded(self._specs)
+        return self._specs
+
+    def _specs_like(self, tree, specs=None):
+        """The spec tree of ``tree``: the params' specs on every subtree
+        laid out like (part of) the params (an optimizer state's moments),
+        None elsewhere."""
+        specs = self._specs if specs is None else specs
+        if isinstance(tree, dict):
+            if isinstance(specs, dict) and tree and set(tree) <= set(specs):
+                return {k: self._specs_like(v, specs[k])
+                        for k, v in tree.items()}
+            return {k: self._specs_like(v, specs) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            vals = [self._specs_like(v, specs) for v in tree]
+            return type(tree)(*vals) if hasattr(tree, "_fields") \
+                else type(tree)(vals)
+        if isinstance(specs, mesh_lib.Shard) and \
+                isinstance(tree, torch.Tensor) and tree.ndim > specs.dim:
+            return specs
+        return None
+
+    def shard_tree(self, tree):
+        """This rank's pieces of a tree of whole leaves (params, or a tree
+        laid out like them), as new tensors on the device."""
+        def cut(a, s):
+            if not isinstance(a, torch.Tensor):
+                return a
+            return mesh_lib.shard_of(a.detach(), s, self.mesh).to(
+                self.device, copy=True).contiguous()
+        return _map_with_specs(cut, tree, self._specs_like(tree))
+
+    def gather_tree(self, tree):
+        """The whole leaves of a tree of this rank's pieces (a collective
+        on a sharded mesh: every rank calls it); the tree itself when
+        nothing is sharded."""
+        if not self._sharded:
+            return tree
+        return _map_with_specs(
+            lambda a, s: mesh_lib.gather_leaf(a, s, self.mesh)
+            if isinstance(a, torch.Tensor) else a,
+            tree, self._specs_like(tree))
+
+    def full_like(self, tree, device=None):
+        """Uninitialised tensors of the whole leaves' shapes, like a tree
+        of pieces (the target a whole snapshot restores into), on
+        ``device`` (default each piece's; ``"meta"`` allocates nothing)."""
+        if not self._sharded:
+            return tree
+
+        def whole(a, s):
+            if not isinstance(a, torch.Tensor) or s is None:
+                return a
+            shape = list(a.shape)
+            shape[s.dim] *= self.mesh.size(s.axis)
+            return torch.empty(shape, dtype=a.dtype,
+                               device=device or a.device)
+        return _map_with_specs(whole, tree, self._specs_like(tree))
 
     # ------------------------------------------------------------ placement
     def place_params(self, params):
-        """A copy of ``params`` on the device, for the steps to update in
-        place (the caller's tensors are never written)."""
-        return tree_map(lambda a: a.detach().to(self.device, copy=True),
-                        params)
+        """This rank's pieces of ``params`` (whole leaves) on the device,
+        new tensors the steps update in place (the caller's tensors are
+        never written)."""
+        self.param_shardings(params)
+        return self.shard_tree(params)
+
+    def place_state(self, tree):
+        """A copy of a replicated tree (the model's ``state``) on the
+        device."""
+        return tree_map(lambda a: a.detach().to(self.device, copy=True)
+                        if isinstance(a, torch.Tensor) else a, tree)
+
+    def place_like(self, host_tree, like_tree):
+        """Whole host leaves (a restored optimizer state) cut like a live
+        tree of pieces."""
+        del like_tree
+        return self.shard_tree(host_tree)
 
     def replicate(self, tree):
         return tree_map(lambda a: a.to(self.device), tree)
 
+    def _batch_rows(self, n: int) -> Optional[Tuple[int, int]]:
+        """(first row, rows) this rank takes of a host batch of ``n``
+        rows, or None when it takes all of them: a process's own batch
+        (the data axes span every process), or one that does not split
+        into the data-parallel degree (replicated, as the reference)."""
+        dp = self.mesh.dp_size
+        if dp == 1 or mesh_lib.data_split_across_hosts(self.mesh) or \
+                n % dp:
+            return None
+        k = n // dp
+        return self.mesh.dp_index * k, k
+
+    def _rows_differ(self, n: int) -> bool:
+        """Whether ranks of the data-parallel group hold different rows of
+        a batch of ``n``."""
+        return self.mesh.dp_size > 1 and (
+            mesh_lib.data_split_across_hosts(self.mesh) or
+            n % self.mesh.dp_size == 0)
+
     def put_batch(self, batch):
         """Host arrays (a tree, None leaves allowed) onto the device
-        (``put_on_device``)."""
+        (``put_on_device``), this rank's rows of them on a data-parallel
+        mesh."""
+        placed = put_on_device(batch, self.device)
+        leaves = [a for a in tree_leaves(placed)
+                  if isinstance(a, torch.Tensor) and a.ndim > 0]
+        rows = self._batch_rows(len(leaves[0])) if leaves else None
+        if rows is None:
+            return placed
+        lo, k = rows
+        return tree_map(lambda a: a[lo:lo + k]
+                        if isinstance(a, torch.Tensor) and a.ndim > 0
+                        else a, placed)
+
+    def put_whole(self, batch):
+        """Host arrays onto the device, every row (the epoch routes cut
+        each step's batch on the device)."""
         return put_on_device(batch, self.device)
 
-    def prefetch(self, batches, depth: Optional[int] = None):
+    def prefetch(self, batches, depth: Optional[int] = None, place=None):
         """Place host batches (``put_batch``) ``depth`` deep ahead of the
         steps (default ``data.prefetch``): 0 places each batch inline; above
         0 a daemon thread pulls, places and queues them, overlapping host
@@ -266,11 +456,12 @@ class DistributedTrainer:
         that uses a batch is ordered after the batch's copy."""
         import queue
         import threading
+        place = place or self.put_batch
         if depth is None:
             depth = int(get_config().get("data.prefetch"))
         if depth <= 0:
             for b in batches:
-                yield self.put_batch(b)
+                yield place(b)
             return
         q: "queue.Queue" = queue.Queue(maxsize=depth)
         end = object()
@@ -291,7 +482,7 @@ class DistributedTrainer:
                       if self.device.type == "cuda"
                       else contextlib.nullcontext()):
                     for b in batches:
-                        if not put(self.put_batch(b)):
+                        if not put(place(b)):
                             return
                 put(end)
             except BaseException as e:   # handed on to the consumer
@@ -317,6 +508,8 @@ class DistributedTrainer:
             params, {k: v[1] for k, v in self.optim_groups.items()})
 
     def init_opt_state(self, params):
+        """The optimizer state of ``params`` (this rank's pieces: the
+        moments live on the pieces, ZeRO-style)."""
         if self.optim_groups:
             return {g: self.optim_groups[g][0].init(
                         {k: params[k] for k in names})
@@ -342,6 +535,74 @@ class DistributedTrainer:
         tree_map(lambda p, u: p.add_(u), params, updates)
         return params, new_state
 
+    # -------------------------------------------------------- collectives
+    def _grad_norm(self, flat_g):
+        """The global L2 norm of the gradient leaves (``tree_leaves``
+        order): each piece's squares summed over its axis, a whole leaf's
+        counted once.  Unsharded, ``optimizers.global_norm`` itself."""
+        from analytics_zoo_torch.pipeline.api.keras.optimizers import (
+            global_norm)
+        if not self._sharded:
+            return global_norm(flat_g)
+        by_axis: Dict[Optional[str], list] = {}
+        for g, sp in zip(flat_g, self._flat_specs):
+            by_axis.setdefault(None if sp is None else sp.axis, []).append(g)
+        total = None
+        for axis, gs in by_axis.items():
+            sq = torch.stack(torch._foreach_norm(
+                [g.float() for g in gs])).square().sum()
+            if axis is not None:
+                sq = comm.all_reduce_sum(sq, self.mesh.group(axis))
+            total = sq if total is None else total + sq
+        return total.sqrt()
+
+    def _gather_params(self, params):
+        """The params the forward takes: FSDP pieces all-gathered whole
+        (tensor-parallel pieces stay pieces: their layers compute on
+        them)."""
+        if not self._sharded or self.mesh.size(mesh_lib.FSDP_AXIS) == 1:
+            return params
+        leaves = tree_leaves(params)
+        out = [mesh_lib.gather_leaf(p, sp, self.mesh)
+               if sp is not None and sp.axis == mesh_lib.FSDP_AXIS and
+               tuple(p.shape) != whole else p
+               for p, sp, whole in zip(leaves, self._flat_specs,
+                                       self._whole_shapes)]
+        return tree_replace(params, out)
+
+    def _sync_grads(self, grads):
+        """The gradients averaged over ``data`` × ``fsdp``: FSDP leaves
+        reduce-scattered over ``fsdp`` into this rank's piece (then summed
+        over ``data``), every other leaf summed in one bucket; then
+        divided by the degree."""
+        dp = self.mesh.dp_size
+        if dp == 1:
+            return grads
+        flat = tree_leaves(grads)
+        specs = self._flat_specs or [None] * len(flat)
+        out = list(flat)
+        bucket = []
+        for i, (g, sp) in enumerate(zip(flat, specs)):
+            if sp is not None and sp.axis == mesh_lib.FSDP_AXIS:
+                g = comm.reduce_scatter_sum(
+                    g, self.mesh.group(mesh_lib.FSDP_AXIS), dim=sp.dim)
+                g = comm.all_reduce_sum(
+                    g, self.mesh.group(mesh_lib.DATA_AXIS))
+                out[i] = g / dp
+            else:
+                bucket.append(i)
+        if bucket:
+            flat_b = torch.cat([flat[i].reshape(-1).float()
+                                for i in bucket])
+            flat_b = comm.all_reduce_sum(flat_b, self.mesh.dp_group()) / dp
+            at = 0
+            for i in bucket:
+                n = flat[i].numel()
+                out[i] = flat_b[at:at + n].view(flat[i].shape).to(
+                    flat[i].dtype)
+                at += n
+        return tree_replace(grads, out)
+
     # ---------------------------------------------------------- train step
     def loss_and_grads(self, params, state, batch, rng):
         """Forward and backward of one batch: ``(loss, grads, new_state)``,
@@ -355,6 +616,10 @@ class DistributedTrainer:
             raise TypeError(_integer_leaf_message(params))
         live = [p.detach().requires_grad_() for p in leaves]
         first = {}
+        # on a data-parallel mesh this rank's rows are block dp_index of
+        # the global batch (random masks are drawn for the whole of it)
+        block = ((self.mesh.dp_index, self.mesh.dp_size)
+                 if self.mesh.dp_size > 1 else None)
 
         def forward(*leaves):
             # under remat this runs again in the backward: the recompute
@@ -365,8 +630,9 @@ class DistributedTrainer:
                 g = torch.Generator(device=rng.device)
                 g.set_state(first["rng_state"])
             p = tree_replace(params, list(leaves))
-            out, new_state = self.model.apply(p, x, state=state,
-                                              training=True, rng=g)
+            with mesh_lib.active(self.mesh, block):
+                out, new_state = self.model.apply(p, x, state=state,
+                                                  training=True, rng=g)
             loss = self.loss_fn(y, out)
             # a float 0.0 when no layer registered a regularizer
             reg = self.model.regularization_loss(p)
@@ -394,8 +660,14 @@ class DistributedTrainer:
         captures.  Returns ``(params, opt_state, state, loss, finite)``,
         ``finite`` the watchdog's flag (None with
         ``observability.check_finite`` off)."""
-        loss, grads, new_state = self.loss_and_grads(params, state, batch,
-                                                     rng)
+        loss, grads, new_state = self.loss_and_grads(
+            self._gather_params(params), state, batch, rng)
+        if self.mesh.dp_size > 1:
+            # the global batch's gradients and loss, before clipping and
+            # the update (the reference's are global under GSPMD)
+            grads = self._sync_grads(grads)
+            loss = comm.all_reduce_sum(loss, self.mesh.dp_group()) / \
+                self.mesh.dp_size
         # the watchdog's NaN/Inf detector, folded into the step's program
         # (a flag among its outputs, read later without a sync)
         finite = (fold_finiteness_check(loss, grads)
@@ -406,8 +678,9 @@ class DistributedTrainer:
         def update():
             if self._fused_update is not None:
                 return self._fused_update(grads, opt_state, params)
-            return self._optimizer_update(_apply_clipping(grads, self.clip),
-                                          opt_state, params)
+            return self._optimizer_update(
+                _apply_clipping(grads, self.clip, self._grad_norm),
+                opt_state, params)
         with torch.no_grad():
             params, opt_state = mask_frozen_params(self.model, params,
                                                    update)
@@ -419,7 +692,7 @@ class DistributedTrainer:
         from the step index, so one program serves both)."""
         # through a weak reference: the graphs die with the trainer
         core = weakref.WeakMethod(self._step_core)
-        jitted = engine_jit(
+        jitted = self._jit(
             lambda *args: core()(*args), donate_argnums=(0, 1, 2),
             key_hint="train_step_at" if fold_rng else "train_step")
         return self._monitor.wrap("train_step", jitted)
@@ -437,10 +710,54 @@ class DistributedTrainer:
         out = fn(*args)
         self._m_step_time.labels("host_dispatch").observe(
             time.perf_counter() - t0)
+        self.account_collectives(args[0], 1)
+        if self._barrier_every and \
+                self._dispatch_count % self._barrier_every == 0:
+            self._probe_barrier_wait()
         # the step's finite flag goes to the watchdog's queue; the
         # caller gets the step's other outputs
         self.finite_flags.push(out[-1])
         return out[:-1]
+
+    def _estimate_collectives(self, params) -> Dict[str, float]:
+        """The step's ``{op: bytes}`` from the mesh and the whole params'
+        sizes (``observability/collectives.py``); {} off a mesh."""
+        if not self._obs_collectives or self.mesh.world_size == 1:
+            return {}
+        try:
+            from analytics_zoo_torch.observability.collectives import (
+                estimate_train_step_collectives)
+            return estimate_train_step_collectives(
+                self.full_like(params, "meta"), self.mesh,
+                self.grad_sync_dtype)
+        except Exception:   # noqa: BLE001 — accounting never fails a step
+            return {}
+
+    def account_collectives(self, params, steps: int) -> None:
+        """Add ``steps`` steps of the estimated collective traffic to the
+        counters.  Never raises."""
+        if self._collective_bytes is None:
+            self._collective_bytes = self._estimate_collectives(params)
+        if self._collective_bytes and steps > 0:
+            from analytics_zoo_torch.observability.collectives import (
+                record_step_collectives)
+            record_step_collectives(self._collective_bytes, steps=steps)
+
+    def _probe_barrier_wait(self) -> None:
+        """Time a barrier over every rank after the sampled step: the wait
+        is the slowest rank's remaining step time (~0 on the straggler),
+        ``train_barrier_wait_seconds``.  Every rank reaches it at the same
+        dispatch count."""
+        from analytics_zoo_torch.observability import get_registry
+        t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        comm.barrier()
+        get_registry().histogram(
+            "train_barrier_wait_seconds",
+            "sampled cross-host barrier wait after a train step "
+            "(multi-host only): ~0 on the straggler, ~skew on the "
+            "fastest host").observe(time.perf_counter() - t0)
 
     def train_step(self, params, opt_state, state, batch, rng):
         """One step on a device-placed ``batch`` (``put_batch``), with the
@@ -497,8 +814,12 @@ class DistributedTrainer:
         if fn is None:
             core = weakref.WeakMethod(self._step_core)
 
+            rows = self._batch_rows(batch_size)
+            first, count = rows if rows is not None else (0, batch_size)
+
             def step(params, opt_state, state, x, y, offset, rng):
-                idx = offset + torch.arange(batch_size, device=offset.device)
+                idx = offset + first + torch.arange(count,
+                                                    device=offset.device)
                 xb = tree_map(lambda a: a.index_select(0, idx), x)
                 yb = None if y is None else tree_map(
                     lambda a: a.index_select(0, idx), y)
@@ -508,8 +829,8 @@ class DistributedTrainer:
                 return params, opt_state, state, loss, offset, finite
             # the epoch rows (the HBM buffers, or a chunk the caller
             # drops) and the offset are donated with the training state
-            fn = engine_jit(step, donate_argnums=(0, 1, 2, 3, 4, 5),
-                            key_hint="train_epoch_scan")
+            fn = self._jit(step, donate_argnums=(0, 1, 2, 3, 4, 5),
+                           key_hint="train_epoch_scan")
             self._epoch_steps[batch_size] = fn
         return fn
 
@@ -565,9 +886,9 @@ class DistributedTrainer:
     def put_epoch_source(self, x, y):
         """Place the UNPERMUTED whole dataset on the device once — the HBM
         cache tier (the reference's DRAM cache, FeatureSet.scala:585-662,
-        promoted into device memory).  One device, so no padding to a
-        data-parallel width."""
-        return self.put_batch((x, y))
+        promoted into device memory).  Every row is placed: each step takes
+        its rank's rows of its batch on the device."""
+        return self.put_whole((x, y))
 
     def permute_rows_fn(self):
         """DEVICE-SIDE row gather ``(x, y, perm) -> (x[perm], y[perm])``:
@@ -604,12 +925,22 @@ class DistributedTrainer:
 
         def step(params, state, batch):
             x, y, mask = batch
-            with torch.no_grad():
-                out, _ = model.apply(params, x, state=state, training=False)
+            with torch.no_grad(), mesh_lib.active(self.mesh):
+                out, _ = model.apply(self._gather_params(params), x,
+                                     state=state, training=False)
                 return tuple(m.batch_update(y, out, mask) for m in metrics)
         # params and state are read, never written: the graph reads the
         # caller's tensors themselves, and other weights capture it again
-        return engine_jit(step, borrow_argnums=(0, 1), key_hint="eval_step")
+        return self._jit(step, borrow_argnums=(0, 1), key_hint="eval_step")
+
+    def _sum_partials(self, partials, n: int):
+        """A batch's metric partials summed over the data-parallel ranks
+        when they scored different rows of it."""
+        if not self._rows_differ(n):
+            return partials
+        group = self.mesh.dp_group()
+        return tuple(tuple(comm.all_reduce_sum(t, group) for t in p)
+                     for p in partials)
 
     def make_eval_runner(self, metrics):
         """``run(params, state, batches)``: the eval step over host batches
@@ -618,9 +949,13 @@ class DistributedTrainer:
         from analytics_zoo_torch.pipeline.api.keras.metrics import accumulate
         step = self._build_eval_step(metrics)
 
+        def score(params, state, b):
+            n = len(tree_leaves(b)[0])
+            return self._sum_partials(step(params, state, self.put_batch(b)),
+                                      n)
+
         def run(params, state, batches):
-            return accumulate(metrics, (step(params, state,
-                                             self.put_batch(b))
+            return accumulate(metrics, (score(params, state, b)
                                         for b in batches))
         return run
 
@@ -630,10 +965,10 @@ class DistributedTrainer:
             model = self.model
 
             def step(params, state, x):
-                with torch.no_grad():
-                    out, _ = model.apply(params, x, state=state,
-                                         training=False)
+                with torch.no_grad(), mesh_lib.active(self.mesh):
+                    out, _ = model.apply(self._gather_params(params), x,
+                                         state=state, training=False)
                 return out
-            self._predict_step = engine_jit(step, borrow_argnums=(0, 1),
-                                            key_hint="predict_step")
+            self._predict_step = self._jit(step, borrow_argnums=(0, 1),
+                                           key_hint="predict_step")
         return self._predict_step

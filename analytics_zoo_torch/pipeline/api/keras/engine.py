@@ -166,6 +166,9 @@ class Layer:
         self._nodes: List[Node] = []
         # param_name -> (l1, l2) weight-decay coefficients
         self.param_regularizers: Dict[str, Tuple[float, float]] = {}
+        # param_name -> parallel.mesh.Shard: the tensor-parallel specs a
+        # layer declares in ``build`` (parallel/sharding.py reads them)
+        self.param_pspecs: Dict[str, object] = {}
 
     # ---------------------------------------------------------------- numeric
     def build(self, rng, input_shape) -> Params:

@@ -8,8 +8,26 @@ takes the flash kernel for a CUDA tensor with no mask and a head_dim the
 kernel takes (64 or 128); every other case takes the dense plain path,
 as the reference takes dense XLA attention.  ``BERT`` always feeds its
 attention mask, so its blocks take the dense path, as the reference's
-do; ``TransformerLayer`` feeds none.  Sequence and tensor parallelism
-come with the multi-GPU slice and raise here.
+do; ``TransformerLayer`` feeds none.
+
+On a mesh, ``tensor_parallel`` and ``sequence_parallel`` route as in the
+reference ("auto": whether the ``model``/``seq`` axis has more than one
+rank; True/False force it):
+
+- tensor parallel (Megatron): the QKV kernel is split by heads (column),
+  the output kernel by rows; each rank attends over its own heads and
+  the output products are summed over ``model``; the FFN's up product is
+  split by columns and its down product by rows, the same way;
+- sequence parallel (no mask): each rank takes its block of the
+  sequence, runs ring attention (``parallel/ring_attention.py``) over
+  ``seq`` and its block of the output product; the blocks are gathered.
+
+The reference takes its flash kernel only on a one-device mesh
+(``pallas_call`` cannot be partitioned by GSPMD) and dense attention on
+a larger one; each port rank attends over its own rows or heads, so it
+keeps the kernel.  The attention dropout mask is always the one a single
+device draws for the whole batch and every head (this rank's part of
+it).
 """
 
 from __future__ import annotations
@@ -37,13 +55,22 @@ from analytics_zoo_torch.pipeline.api.keras.layers.normalization import (
 from analytics_zoo_torch.pipeline.api.keras.topology import Model
 
 
-def _no_parallel(kind: str, value) -> None:
-    if value is True:
-        raise NotImplementedError(
-            f"{kind}=True: ring/sequence and tensor parallelism come with "
-            "the multi-GPU slice of the port (ROADMAP.md)")
-    if value not in ("auto", False, None):
+def _check_parallel(kind: str, value) -> None:
+    if value not in ("auto", True, False, None):
         raise ValueError(f"{kind} must be 'auto', True or False")
+
+
+def _uses(value, axis: str) -> bool:
+    """The reference's routing: "auto" when the mesh's axis has more than
+    one rank, or True."""
+    from analytics_zoo_torch.parallel.mesh import current_mesh
+    return (value == "auto" and current_mesh().size(axis) > 1) or \
+        value is True
+
+
+def _model_group():
+    from analytics_zoo_torch.parallel.mesh import MODEL_AXIS, current_mesh
+    return current_mesh().group(MODEL_AXIS)
 
 
 class MultiHeadSelfAttention(Layer):
@@ -58,13 +85,23 @@ class MultiHeadSelfAttention(Layer):
         if hidden_size % n_head:
             raise ValueError(f"hidden_size {hidden_size} must divide into "
                              f"n_head {n_head} heads")
-        _no_parallel("sequence_parallel", sequence_parallel)
-        _no_parallel("tensor_parallel", tensor_parallel)
+        _check_parallel("sequence_parallel", sequence_parallel)
+        _check_parallel("tensor_parallel", tensor_parallel)
         self.hidden_size = int(hidden_size)
         self.n_head = int(n_head)
         self.head_dim = self.hidden_size // self.n_head
         self.attn_dropout = float(attn_dropout)
         self.causal = causal
+        self.sequence_parallel = sequence_parallel
+        self.tensor_parallel = tensor_parallel
+
+    def _use_sp(self) -> bool:
+        from analytics_zoo_torch.parallel.mesh import SEQ_AXIS
+        return _uses(self.sequence_parallel, SEQ_AXIS)
+
+    def _use_tp(self) -> bool:
+        from analytics_zoo_torch.parallel.mesh import MODEL_AXIS
+        return _uses(self.tensor_parallel, MODEL_AXIS)
 
     def build(self, rng, input_shape) -> Params:
         if isinstance(input_shape, list):
@@ -78,24 +115,67 @@ class MultiHeadSelfAttention(Layer):
         self.add_weight(params, rng, "out_kernel",
                         (self.hidden_size, d))
         self.add_weight(params, rng, "out_bias", (d,), init="zero")
+        if self._use_tp():
+            from analytics_zoo_torch.parallel.mesh import MODEL_AXIS, Shard
+            # the QKV columns by heads: each of the q, k, v blocks split
+            self.param_pspecs["qkv_kernel"] = Shard(MODEL_AXIS, 1, 3)
+            self.param_pspecs["qkv_bias"] = Shard(MODEL_AXIS, 0, 3)
+            self.param_pspecs["out_kernel"] = Shard(MODEL_AXIS, 0)
         return params
 
     def call(self, params, inputs, training=False, rng=None):
+        from analytics_zoo_torch.parallel import comm
+        from analytics_zoo_torch.parallel.mesh import (
+            SEQ_AXIS, current_mesh)
         if isinstance(inputs, (list, tuple)):
             x, mask = inputs[0], inputs[1]
         else:
             x, mask = inputs, None
         b, t, _ = x.shape
-        qkv = _mm(x, params["qkv_kernel"]) + params["qkv_bias"]
-        qkv = qkv.reshape(b, t, 3, self.n_head, self.head_dim)
+        mesh = current_mesh()
+        qkv_k, qkv_b, out_k = (params["qkv_kernel"], params["qkv_bias"],
+                               params["out_kernel"])
+        # tensor parallel: this rank's heads (pieces of a whole kernel
+        # when the layer is called outside a trainer)
+        tp = _model_group() if self._use_tp() else None
+        heads, head0 = self.n_head, 0
+        x_in = x
+        if tp is not None:
+            n = comm.group_size(tp)
+            heads = self.n_head // n
+            head0 = comm.group_rank(tp) * heads
+            if qkv_k.shape[1] == 3 * self.hidden_size:
+                qkv_k = comm.local_part(qkv_k, tp, 1, 3)
+                qkv_b = comm.local_part(qkv_b, tp, 0, 3)
+                out_k = comm.local_part(out_k, tp, 0)
+            x_in = comm.copy_to_group(x_in, tp)
+        # sequence parallel: this rank's block of the positions
+        use_sp = self._use_sp() and mask is None
+        sp = mesh.group(SEQ_AXIS) if use_sp else None
+        t0, tl = 0, t
+        out_b = params["out_bias"]
+        if sp is not None:
+            tl = t // comm.group_size(sp)
+            t0 = comm.group_rank(sp) * tl
+            x_in = comm.local_part(comm.copy_to_group(x_in, sp), sp, 1)
+            # each rank's block gives part of the weights' gradients
+            qkv_k, qkv_b, out_k, out_b = (
+                comm.copy_to_group(w, sp) for w in (qkv_k, qkv_b, out_k,
+                                                    out_b))
+        qkv = _mm(x_in, qkv_k) + qkv_b
+        qkv = qkv.reshape(b, tl, 3, heads, self.head_dim)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
 
         from analytics_zoo_torch.ops import flash_attention as fa
         from analytics_zoo_torch.ops.fused import fused_enabled
-        use_flash = (mask is None and x.is_cuda and fused_enabled() and
-                     fa.kernel_supports(q))
+        use_flash = (not use_sp and mask is None and x.is_cuda and
+                     fused_enabled() and fa.kernel_supports(q))
         if use_flash:
             ctx = fa.flash_attention(q, k, v, causal=self.causal)
+        elif use_sp:
+            from analytics_zoo_torch.parallel.ring_attention import (
+                ring_attention)
+            ctx = ring_attention(q, k, v, mesh, causal=self.causal)
         else:
             attn_mask = None
             if mask is not None:
@@ -106,14 +186,21 @@ class MultiHeadSelfAttention(Layer):
         if training and self.attn_dropout > 0:
             if rng is None:
                 raise ValueError(f"{self.name} needs rng when training")
+            from analytics_zoo_torch.parallel.mesh import rand_rows
             keep = 1.0 - self.attn_dropout
-            m = torch.rand(tuple(ctx.shape), generator=rng,
-                           device=ctx.device)
+            m = rand_rows((b, self.n_head, t, self.head_dim), rng,
+                          ctx.device)
+            m = m[:, head0:head0 + heads, t0:t0 + tl]
             ctx = ctx * (m < keep).to(ctx.dtype) / keep
 
-        ctx = ctx.transpose(1, 2).reshape(b, t, self.hidden_size)
-        return (_mm(ctx, params["out_kernel"]) +
-                params["out_bias"]).to(x.dtype)
+        ctx = ctx.transpose(1, 2).reshape(b, tl, heads * self.head_dim)
+        y = _mm(ctx, out_k)
+        if tp is not None:
+            y = comm.reduce_from_group(y, tp)
+        y = (y + out_b).to(x.dtype)
+        if sp is not None:
+            y = comm.gather_from_group(y, sp, 1)
+        return y
 
     def compute_output_shape(self, input_shape):
         if isinstance(input_shape, list):
@@ -127,10 +214,15 @@ class PositionwiseFeedForward(Layer):
     def __init__(self, hidden_size: int, intermediate_size: int,
                  activation="gelu", tensor_parallel="auto", **kwargs):
         super().__init__(**kwargs)
-        _no_parallel("tensor_parallel", tensor_parallel)
+        _check_parallel("tensor_parallel", tensor_parallel)
         self.hidden_size = int(hidden_size)
         self.intermediate_size = int(intermediate_size)
         self.activation = acts.get(activation)
+        self.tensor_parallel = tensor_parallel
+
+    def _use_tp(self) -> bool:
+        from analytics_zoo_torch.parallel.mesh import MODEL_AXIS
+        return _uses(self.tensor_parallel, MODEL_AXIS)
 
     def build(self, rng, input_shape) -> Params:
         d = input_shape[-1]
@@ -143,23 +235,41 @@ class PositionwiseFeedForward(Layer):
                         (self.intermediate_size, self.hidden_size))
         self.add_weight(params, rng, "down_bias",
                         (self.hidden_size,), init="zero")
+        if self._use_tp():
+            from analytics_zoo_torch.parallel.mesh import MODEL_AXIS, Shard
+            self.param_pspecs["up_kernel"] = Shard(MODEL_AXIS, 1)
+            self.param_pspecs["up_bias"] = Shard(MODEL_AXIS, 0)
+            self.param_pspecs["down_kernel"] = Shard(MODEL_AXIS, 0)
         return params
 
     def call(self, params, x, training=False, rng=None):
-        up = _mm(x, params["up_kernel"])
+        from analytics_zoo_torch.parallel import comm
+        up_k, up_b, down_k = (params["up_kernel"], params["up_bias"],
+                              params["down_kernel"])
+        tp = _model_group() if self._use_tp() else None
+        x_in = x
+        if tp is not None:
+            if up_k.shape[1] == self.intermediate_size:
+                up_k = comm.local_part(up_k, tp, 1)
+                up_b = comm.local_part(up_b, tp, 0)
+                down_k = comm.local_part(down_k, tp, 0)
+            x_in = comm.copy_to_group(x, tp)
+        up = _mm(x_in, up_k)
         if self.activation is acts.gelu:
             # fused bias→GeLU epilogue; the unfused form is gelu(up + bias)
             from analytics_zoo_torch.ops import fused
             if fused.fused_enabled():
-                h = fused.bias_gelu(up, params["up_bias"])
+                h = fused.bias_gelu(up, up_b)
             else:
-                h = acts.gelu(up + params["up_bias"])
+                h = acts.gelu(up + up_b)
         else:
-            h = up + params["up_bias"]
+            h = up + up_b
             if self.activation is not None:
                 h = self.activation(h)
-        return (_mm(h, params["down_kernel"]) +
-                params["down_bias"]).to(x.dtype)
+        y = _mm(h, down_k)
+        if tp is not None:
+            y = comm.reduce_from_group(y, tp)
+        return (y + params["down_bias"]).to(x.dtype)
 
 
 def transformer_block(x, mask, hidden_size: int, n_head: int,

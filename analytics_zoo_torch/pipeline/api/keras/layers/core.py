@@ -11,6 +11,18 @@ activation its tail goes through the fused bias→GeLU epilogue either
 way.  Highway, MaxoutDense and SparseDense take the float route of the
 same product.  SparseDense keeps the reference's contract: its input is
 a dense, mostly-zero array, not a ``torch.sparse`` tensor.
+
+``Dense(parallel_mode="column"|"row")`` is Megatron-style tensor
+parallelism over the mesh's ``model`` axis: "column" splits the output
+dim (each rank computes its columns, which are then gathered), "row" the
+input dim (each rank multiplies its rows of the input by its rows of
+the kernel, and the partial products are summed).  Either way the
+output is whole on every rank, as the reference's is under GSPMD; a
+layer given the whole kernel (outside a trainer) takes its own piece.
+
+Dropout's mask on a data-parallel step is this rank's rows of the mask a
+single device draws for the whole global batch
+(``parallel.mesh.rand_rows``).
 """
 
 from __future__ import annotations
@@ -35,10 +47,9 @@ class Dense(Layer):
                  bias: bool = True, parallel_mode: Optional[str] = None,
                  **kwargs):
         super().__init__(**kwargs)
-        if parallel_mode is not None:
-            raise NotImplementedError(
-                "Dense(parallel_mode=...): tensor parallelism comes with "
-                "the multi-GPU slice of the port (ROADMAP.md)")
+        if parallel_mode not in (None, "column", "row"):
+            raise ValueError("parallel_mode must be None|column|row")
+        self.parallel_mode = parallel_mode
         self.output_dim = int(output_dim)
         self.kernel_init = init
         self.activation = acts.get(activation)
@@ -47,6 +58,7 @@ class Dense(Layer):
         self.b_regularizer = b_regularizer
 
     def build(self, rng, input_shape) -> Params:
+        from analytics_zoo_torch.parallel.mesh import MODEL_AXIS, Shard
         in_dim = input_shape[-1]
         params: Params = {}
         self.add_weight(params, rng, "kernel", (in_dim, self.output_dim),
@@ -54,9 +66,49 @@ class Dense(Layer):
         if self.use_bias:
             self.add_weight(params, rng, "bias", (self.output_dim,),
                             init="zero", regularizer=self.b_regularizer)
+        if self.parallel_mode == "column":
+            self.param_pspecs["kernel"] = Shard(MODEL_AXIS, 1)
+            if self.use_bias:
+                self.param_pspecs["bias"] = Shard(MODEL_AXIS, 0)
+        elif self.parallel_mode == "row":
+            self.param_pspecs["kernel"] = Shard(MODEL_AXIS, 0)
         return params
 
+    def _tail(self, y, bias):
+        if self.use_bias and self.activation is acts.gelu:
+            # fused bias→GeLU epilogue; its plain form is gelu(y + bias)
+            from analytics_zoo_torch.ops import fused
+            if fused.fused_enabled():
+                return fused.bias_gelu(y, bias)
+        if self.use_bias:
+            y = y + bias
+        if self.activation is not None:
+            y = self.activation(y)
+        return y
+
+    def _parallel_call(self, params, x, group):
+        """The column- or row-parallel product on this rank's piece."""
+        from analytics_zoo_torch.parallel import comm
+        k, b = params["kernel"], params.get("bias")
+        x = comm.copy_to_group(x, group)
+        if self.parallel_mode == "column":
+            if k.shape[1] == self.output_dim:     # whole: take the piece
+                k = comm.local_part(k, group, 1)
+                b = None if b is None else comm.local_part(b, group, 0)
+            y = self._tail(_matmul(x, k), b)
+            return comm.gather_from_group(y, group, -1)
+        if k.shape[0] == x.shape[-1]:
+            k = comm.local_part(k, group, 0)
+        y = _matmul(comm.local_part(x, group, -1), k)
+        return self._tail(comm.reduce_from_group(y, group), b)
+
     def call(self, params, x, training=False, rng=None):
+        if self.parallel_mode is not None and "kernel_scale" not in params:
+            from analytics_zoo_torch.parallel.mesh import (
+                MODEL_AXIS, current_mesh)
+            group = current_mesh().group(MODEL_AXIS)
+            if group is not None:
+                return self._parallel_call(params, x, group)
         if "kernel_scale" in params:
             # calibrated int8 path (ops/quant.py), set by quantization
             from analytics_zoo_torch.ops.quant import quantized_matmul
@@ -64,16 +116,7 @@ class Dense(Layer):
                                  params["act_scale"])
         else:
             y = _matmul(x, params["kernel"])
-        if self.use_bias and self.activation is acts.gelu:
-            # fused bias→GeLU epilogue; its plain form is gelu(y + bias)
-            from analytics_zoo_torch.ops import fused
-            if fused.fused_enabled():
-                return fused.bias_gelu(y, params["bias"])
-        if self.use_bias:
-            y = y + params["bias"]
-        if self.activation is not None:
-            y = self.activation(y)
-        return y
+        return self._tail(y, params.get("bias"))
 
     def compute_output_shape(self, input_shape):
         return tuple(input_shape[:-1]) + (self.output_dim,)
@@ -104,9 +147,9 @@ class Dropout(Layer):
         if rng is None:
             raise ValueError(
                 f"dropout layer {self.name} needs an rng when training")
+        from analytics_zoo_torch.parallel.mesh import rand_rows
         keep = 1.0 - self.p
-        mask = torch.rand(tuple(x.shape), generator=rng,
-                          device=x.device) < keep
+        mask = rand_rows(x.shape, rng, x.device) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
 
 

@@ -5,7 +5,11 @@ of each example's id list.
 
 ``SparseEmbedding`` keeps the reference's contract: its ids are a dense
 (B, T) array padded with -1, not a ``torch.sparse`` tensor, and
-``max_norm`` renormalises only the rows looked up, never the table."""
+``max_norm`` renormalises only the rows looked up, never the table.
+
+``Embedding(parallel_mode="dim")`` splits the embedding dim over the
+mesh's ``model`` axis: each rank gathers its columns of the rows looked
+up, and the pieces are gathered whole."""
 
 from __future__ import annotations
 
@@ -33,10 +37,9 @@ class Embedding(Layer):
                  W_regularizer=None, mask_zero: bool = False,
                  parallel_mode: Optional[str] = None, **kwargs):
         super().__init__(**kwargs)
-        if parallel_mode is not None:
-            raise NotImplementedError(
-                "Embedding(parallel_mode=...): tensor parallelism comes "
-                "with the multi-GPU slice of the port (ROADMAP.md)")
+        if parallel_mode not in (None, "dim"):
+            raise ValueError("parallel_mode must be None|dim")
+        self.parallel_mode = parallel_mode
         self.input_dim = int(input_dim)
         self.output_dim = int(output_dim)
         self.kernel_init = init
@@ -49,12 +52,26 @@ class Embedding(Layer):
                         (self.input_dim, self.output_dim),
                         init=self.kernel_init,
                         regularizer=self.W_regularizer)
+        if self.parallel_mode == "dim":
+            from analytics_zoo_torch.parallel.mesh import MODEL_AXIS, Shard
+            self.param_pspecs["embeddings"] = Shard(MODEL_AXIS, 1)
         return params
 
     def call(self, params, x, training=False, rng=None):
-        ids, out = _take(params["embeddings"], x)
+        table = params["embeddings"]
+        group = None
+        if self.parallel_mode == "dim":
+            from analytics_zoo_torch.parallel import comm
+            from analytics_zoo_torch.parallel.mesh import (
+                MODEL_AXIS, current_mesh)
+            group = current_mesh().group(MODEL_AXIS)
+            if group is not None and table.shape[1] == self.output_dim:
+                table = comm.local_part(table, group, 1)
+        ids, out = _take(table, x)
         if self.mask_zero:
             out = out * (ids != 0).unsqueeze(-1).to(out.dtype)
+        if group is not None:
+            out = comm.gather_from_group(out, group, -1)
         return out
 
     def compute_output_shape(self, input_shape):

@@ -1,4 +1,4 @@
-"""Mixture-of-Experts, one device (port of
+"""Mixture-of-Experts with expert parallelism (port of
 ``pipeline/api/keras/layers/moe.py``).
 
 The public GShard/Switch formulation: a learned router picks top-k
@@ -17,12 +17,19 @@ bf16 result; the dispatch and the first expert product take a float32
 operand beside a bf16-rounded one, so they run in float32; the combine
 is float32.
 
-The reference shards the stacked expert weights on the mesh's
-``expert`` axis; the port has no mesh yet, so the layer runs on one
-device and keeps the axis's name (``EXPERT_AXIS``) for that day.  The
-router's load-balancing auxiliary loss (Switch eq. 4) comes with the
-output from ``call_with_aux``, and ``aux_loss()`` returns the last
-forward's.
+Expert parallelism.  The stacked expert weights are split on their
+leading dim over the mesh's ``expert`` axis (``param_pspecs``), as in
+the reference, where GSPMD then inserts the token all_to_all.  The port
+writes the GShard exchange out: the tokens (the same on every rank of
+the group) are split in ``n`` blocks, each rank routes its block (the
+capacity positions come from every rank's choices, gathered, so the
+drops are the single device's), dispatches it into partial buffers of
+all the experts and sends each rank its experts' partials
+(``all_to_all``); a rank sums them, runs its experts' FFN and sends its
+outputs to every rank (``all_to_all`` again); each rank combines its
+tokens' outputs and the blocks are gathered whole.  The router's
+load-balancing auxiliary loss (Switch eq. 4) comes with the output from
+``call_with_aux``, and ``aux_loss()`` returns the last forward's.
 """
 
 from __future__ import annotations
@@ -36,7 +43,7 @@ from analytics_zoo_torch.ops import activations as acts
 from analytics_zoo_torch.ops.dtypes import get_policy
 from analytics_zoo_torch.pipeline.api.keras.engine import Layer, Params
 
-EXPERT_AXIS = "expert"
+from analytics_zoo_torch.parallel.mesh import EXPERT_AXIS  # noqa: F401
 
 
 def _low_matmul(a, b):
@@ -88,6 +95,10 @@ class MoE(Layer):
         self.add_weight(params, rng, "w2", (e, h, d),
                         init=self.kernel_init)
         self.add_weight(params, rng, "b2", (e, d), init="zero")
+        from analytics_zoo_torch.parallel.mesh import Shard
+        # expert parallelism: the stacked expert dim split over the axis
+        for name in ("w1", "b1", "w2", "b2"):
+            self.param_pspecs[name] = Shard(EXPERT_AXIS, 0)
         return params
 
     def _capacity(self, tokens: int) -> int:
@@ -131,7 +142,87 @@ class MoE(Layer):
         aux = e * torch.sum(f * p)
         return combine, aux
 
+    def _route_block(self, probs, tokens: int, group, first: int):
+        """``_route`` for this rank's block of tokens starting at token
+        ``first``: (combine (t, E, C), aux).  The positions in the
+        experts' buffers are the whole sequence's (every rank's choices
+        gathered); the aux loss's mean router probability is summed over
+        the group."""
+        from analytics_zoo_torch.parallel import comm
+        e = self.num_experts
+        cap = self._capacity(tokens)
+        slots = torch.arange(cap, device=probs.device)
+        rows = slice(first, first + probs.shape[0])
+
+        def one_round(probs, taken):
+            expert = comm.all_gather_cat(torch.argmax(probs, dim=-1), group)
+            gate = torch.amax(probs, dim=-1)
+            onehot = F.one_hot(expert, e).to(probs.dtype)          # (T, E)
+            pos = torch.cumsum(onehot, dim=0) - 1.0 + taken[None, :]
+            pos_tok = torch.sum(pos * onehot, dim=-1)
+            keep = pos_tok < cap
+            slot = (pos_tok[rows].to(torch.int32)[:, None] ==
+                    slots[None, :]).to(probs.dtype)
+            combine = (gate * keep[rows])[:, None, None] \
+                * onehot[rows][:, :, None] * slot[:, None, :]
+            new_taken = taken + torch.sum(onehot * keep[:, None], dim=0)
+            return combine, onehot, new_taken
+
+        taken = torch.zeros((e,), dtype=probs.dtype, device=probs.device)
+        combine, onehot1, taken = one_round(probs, taken)
+        if self.top_k == 2:
+            probs2 = probs * (1.0 - onehot1[rows])
+            combine2, _, taken = one_round(probs2, taken)
+            combine = combine + combine2
+        f = torch.mean(onehot1, dim=0)
+        p = comm.reduce_from_group(torch.sum(probs, dim=0), group) / tokens
+        return combine, e * torch.sum(f * p)
+
+    def _expert_parallel(self, params, x, group):
+        """The forward with the experts split over ``group`` (see the
+        module docstring)."""
+        from analytics_zoo_torch.parallel import comm
+        n, r = comm.group_size(group), comm.group_rank(group)
+        e = self.num_experts
+        if e % n:
+            raise ValueError(f"{e} experts do not split over {n} ranks")
+        w1, b1, w2, b2 = (params[k] for k in ("w1", "b1", "w2", "b2"))
+        if w1.shape[0] == e:          # whole: take this rank's experts
+            w1, b1, w2, b2 = (comm.local_part(w, group, 0)
+                              for w in (w1, b1, w2, b2))
+        shape = x.shape
+        d = shape[-1]
+        xt = x.reshape(-1, d)
+        t = xt.shape[0]
+        if t % n:
+            raise ValueError(f"{t} tokens do not split over {n} ranks")
+        tl = t // n
+        xs = comm.local_part(comm.copy_to_group(xt, group), group, 0)
+        router = comm.copy_to_group(params["router"], group)
+        probs = torch.softmax(_low_matmul(xs, router).float(), dim=-1)
+        combine, aux = self._route_block(probs, t, group, r * tl)
+        self._trace_aux = aux
+        self._last_aux = aux
+        dispatch = (combine > 0).to(xt.dtype)                    # (t, E, C)
+        part = torch.einsum("tec,td->ecd", dispatch.float(), _rounded(xs))
+        # each rank's partial buffers of my experts, summed
+        buf = comm.all_to_all(part, group).reshape(
+            n, e // n, *part.shape[1:]).sum(0)
+        h = torch.einsum("ecd,edh->ech", buf, _rounded(w1)) \
+            + b1[:, None, :]
+        h = self.activation(h) if self.activation else h
+        out = _low_matmul(h, w2) + b2[:, None, :]
+        # every rank receives every expert's outputs
+        out_all = comm.all_to_all(torch.cat([out] * n), group)
+        y = torch.einsum("tec,eco->to", combine.to(out_all.dtype), out_all)
+        y = comm.gather_from_group(y, group, 0)
+        return y.reshape(shape).to(x.dtype)
+
     def _call_impl(self, params, x, training=False, rng=None):
+        from analytics_zoo_torch.parallel.mesh import current_mesh
+        group = current_mesh().group(EXPERT_AXIS)
+        if group is not None:
+            return self._expert_parallel(params, x, group)
         shape = x.shape
         d = shape[-1]
         xt = x.reshape(-1, d)                     # (T, d)

@@ -10,6 +10,11 @@ float32 batch statistics from one pass (mean and mean of squares, the
 biased variance clamped at 0), ``moving = m * moving + (1 - m) * batch``,
 and mean, variance, gamma and beta folded into a float32 per-channel
 scale and bias, applied as one multiply-add in the activation's dtype.
+On a data-parallel mesh the training statistics are the GLOBAL batch's,
+as the reference's ``jnp.mean`` over a sharded batch is: each rank's
+sums of x and x², and its count, are summed over ``data`` × ``fsdp``
+(differentiably: the backward sums too) and the same single-pass formula
+runs on the sums.  Per-rank statistics would be another model.
 
 With ``activation="gelu"`` LayerNorm's normalisation and activation run
 as one fused LayerNorm→GeLU epilogue (``ops/fused.py``); other
@@ -64,10 +69,20 @@ class BatchNormalization(Layer):
         bshape = [1] * x.ndim
         bshape[ax] = x.shape[ax]
         if training:
+            from analytics_zoo_torch.parallel.mesh import current_mesh
             xf = x.float()
-            mean = xf.mean(dim=dims)
-            var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean,
-                              min=0.0)
+            group = current_mesh().dp_group()
+            if group is None:
+                mean = xf.mean(dim=dims)
+                m2 = (xf * xf).mean(dim=dims)
+            else:
+                from analytics_zoo_torch.parallel import comm
+                count = comm.all_reduce_sum(torch.tensor(
+                    float(x.numel() // x.shape[ax]), device=x.device), group)
+                sums = comm.sum_across_group(torch.stack(
+                    [xf.sum(dim=dims), (xf * xf).sum(dim=dims)]), group)
+                mean, m2 = sums[0] / count, sums[1] / count
+            var = torch.clamp(m2 - mean * mean, min=0.0)
             m = self.momentum
             # the moving statistics take no gradient: the reference's
             # state is an auxiliary output of its step

@@ -350,9 +350,17 @@ class KerasNet(Container):
     # ------------------------------------------------------------ save/load
     def save_model(self, path: str, over_write: bool = True):
         """The variables to ``path`` in the JAX package's layout (atomic;
-        ``over_write=False`` refuses an existing file)."""
+        ``over_write=False`` refuses an existing file).  On a mesh of
+        several ranks every rank calls it: rank 0 writes (the variables
+        are whole after training) and the others wait for the file."""
+        from analytics_zoo_torch.common.zoo_context import get_zoo_context
         from analytics_zoo_torch.utils.serialization import save_variables
-        save_variables(path, self.get_variables(), over_write=over_write)
+        mesh = get_zoo_context().mesh
+        if mesh.rank == 0:
+            save_variables(path, self.get_variables(), over_write=over_write)
+        if mesh.world_size > 1:
+            from analytics_zoo_torch.parallel import comm
+            comm.barrier()
 
     def load_weights(self, path: str):
         """The variables from a file either package's ``save_model``

@@ -1,4 +1,4 @@
-"""Estimator — the training loop, single device (port of
+"""Estimator — the training loop (port of
 ``pipeline/estimator/estimator.py``).
 
 ``train`` runs the reference's three dispatch routes, under its exact
@@ -81,7 +81,22 @@ raises ``TrainingHalted``, which the retry loop does not absorb.  Each
 beat also writes the worker's ``heartbeat.json`` inside a launcher's run
 dir (``HostHeartbeat``).
 
-Not ported: mesh re-formation and the degraded exit.
+On a mesh (the zoo context's, or ``mesh=``) every rank runs the loop
+together (``parallel/trainer.py``): a process passes its own rows when
+the data axes span every process (``batch_size`` is then per process),
+else the global batch.  Snapshots hold the WHOLE training state: the
+pieces are gathered and rank 0 writes them (the other ranks wait at a
+barrier), so a sharded run whose parameters equal a data-parallel run's
+writes the same bytes; a restore reads the whole snapshot on every rank
+and keeps its pieces.  ``predict`` runs on every row a process passes
+(a process predicts its own rows); ``evaluate`` sums the metrics over
+the data-parallel ranks.  A lost host (``LostHost``) is the reference's
+elastic branch (``train.elastic``): the survivors re-form the process
+group and the mesh (``resilience/recovery.py``), rebuild the trainer,
+restore the latest snapshot and resume from its pipeline position; with
+no viable topology, or past ``train.max_mesh_reformations``, the run ends
+DEGRADED (``_raise_degraded``: ``degraded.json`` in ``model_dir`` and
+``DegradedTraining``).
 
 ``optim_methods={group: (OptimMethod, layer names or "*")}`` trains each
 group of layers with its own optimizer (the reference's multi-optimMethod
@@ -230,9 +245,11 @@ def _to_host(t) -> np.ndarray:
 class Estimator:
     def __init__(self, model, optim_method=None,
                  optim_methods: Optional[Dict] = None,
-                 model_dir: Optional[str] = None):
+                 model_dir: Optional[str] = None, mesh=None):
         from analytics_zoo_torch.pipeline.api.keras import optimizers
         self.model = model
+        # elastic recovery rebinds this to the re-formed surviving mesh
+        self._mesh = mesh
         self.optim_method = optimizers.get(optim_method)
         self.optim_groups = optim_methods
         self.model_dir = model_dir
@@ -278,6 +295,8 @@ class Estimator:
         from analytics_zoo_torch.observability.flightrec import record_event
         from analytics_zoo_torch.pipeline.api.keras import objectives
         from analytics_zoo_torch.resilience.detector import HostHeartbeat
+        from analytics_zoo_torch.parallel import comm
+        from analytics_zoo_torch.parallel import mesh as mesh_lib
         from analytics_zoo_torch.resilience.policy import (
             RecoveryAction, RecoveryPolicy, RetryBudget)
         from analytics_zoo_torch.utils.serialization import Checkpoint
@@ -296,7 +315,10 @@ class Estimator:
         trainer = DistributedTrainer(self.model, criterion,
                                      optim_method=self.optim_method,
                                      clip=self._clip,
-                                     optim_groups=self.optim_groups)
+                                     optim_groups=self.optim_groups,
+                                     mesh=self._mesh)
+        # a batch must tile the data-parallel ranks it is split over
+        mesh_lib.local_batch_size(trainer.mesh, batch_size)
         if not is_pipeline and train_set.size < batch_size:
             raise ValueError(
                 f"batch_size {batch_size} exceeds dataset size "
@@ -308,7 +330,7 @@ class Estimator:
         params = trainer.place_params(self.variables["params"])
         # a copy as well: the step program writes the state fed back into
         # the tensors it captured, which must not be the model's
-        state = trainer.place_params(self.variables["state"])
+        state = trainer.place_state(self.variables["state"])
         opt_state = trainer.init_opt_state(params)
         ts = self.train_state
         ckpt = Checkpoint(self.model_dir) if self.model_dir else None
@@ -367,20 +389,25 @@ class Estimator:
 
         def save_snapshot(target=None):
             start = time.perf_counter()
-            payload = {"params": params, "state": state,
-                       "opt_state": opt_state, "epoch": ts.epoch,
-                       "iteration": ts.iteration}
+            # the whole state: pieces gathered (every rank), rank 0 writes
+            payload = {"params": trainer.gather_tree(params),
+                       "state": state,
+                       "opt_state": trainer.gather_tree(opt_state),
+                       "epoch": ts.epoch, "iteration": ts.iteration}
             if is_pipeline:
                 # the position points at the NEXT batch to deliver
                 # (committed per consumed batch): the snapshot resumes
                 # mid-epoch exactly
                 payload["data"] = train_set.state_dict()
-            path = (target or ckpt).save(payload, step=ts.iteration)
-            tracer.complete("checkpoint_save", start,
-                            time.perf_counter() - start,
-                            iteration=ts.iteration,
-                            bytes=os.path.getsize(path))
-            met["ckpt_save"].inc()
+            if trainer.mesh.rank == 0:
+                path = (target or ckpt).save(payload, step=ts.iteration)
+                tracer.complete("checkpoint_save", start,
+                                time.perf_counter() - start,
+                                iteration=ts.iteration,
+                                bytes=os.path.getsize(path))
+                met["ckpt_save"].inc()
+            if trainer.mesh.world_size > 1:
+                comm.barrier()
 
         def restore_snapshot() -> bool:
             """The latest snapshot into params, state, opt_state (in place)
@@ -390,8 +417,9 @@ class Estimator:
             if path is None:
                 return False
             start = time.perf_counter()
-            like = {"params": params, "state": state,
-                    "opt_state": opt_state, "epoch": 0, "iteration": 0}
+            like = {"params": trainer.full_like(params), "state": state,
+                    "opt_state": trainer.full_like(opt_state), "epoch": 0,
+                    "iteration": 0}
             if is_pipeline:
                 like["data"] = train_set.state_dict()
             try:
@@ -406,9 +434,10 @@ class Estimator:
                     "checkpoint has no data-pipeline state (pre-pipeline "
                     "snapshot); restored model state only — the epoch's "
                     "batches replay from the pipeline's current position")
-            params = _assign(params, restored["params"])
+            params = _assign(params, trainer.shard_tree(restored["params"]))
             state = _assign(state, restored["state"])
-            opt_state = _assign(opt_state, restored["opt_state"])
+            opt_state = _assign(opt_state, trainer.place_like(
+                restored["opt_state"], opt_state))
             ts.epoch = int(restored["epoch"])
             ts.iteration = int(restored["iteration"])
             if is_pipeline and restored.get("data") is not None:
@@ -436,12 +465,13 @@ class Estimator:
         if validation_set is not None and validation_method:
             eval_runner = trainer.make_eval_runner(list(validation_method))
         # the reference's failure policy (resilience/policy.py): the
-        # time-windowed retry budget is the TRANSIENT/UNKNOWN branch; one
-        # device, so a lost host takes that budget too
+        # time-windowed retry budget is the TRANSIENT/UNKNOWN branch, a
+        # lost host re-forms the mesh (train.elastic)
         policy = RecoveryPolicy(
             RetryBudget(int(cfg.get("train.retry_times")),
                         float(cfg.get("train.retry_interval_s"))),
-            elastic=False)
+            elastic=bool(cfg.get("train.elastic", True)),
+            max_reformations=int(cfg.get("train.max_mesh_reformations", 2)))
 
         # chunked dispatch and the HBM epoch cache only where the
         # semantics are provably unchanged: epoch-scoped triggers and the
@@ -482,7 +512,7 @@ class Estimator:
             if val_bytes + hbm_train_bytes <= hbm_mb * (1 << 20):
                 try:
                     eval_cache[0] = [
-                        trainer.put_batch(b) for b in
+                        trainer.put_whole(b) for b in
                         validation_set.epoch_batches(0, batch_size,
                                                      train=False)]
                     log.info("eval-batch HBM cache active: %.1f MB on "
@@ -552,7 +582,8 @@ class Estimator:
             elif use_chunks:
                 chunks = ((x, y) for x, y, _ in train_set.epoch_chunks(
                     ts.epoch, batch_size, chunk_steps))
-                for xc, yc in trainer.prefetch(chunks):
+                for xc, yc in trainer.prefetch(chunks,
+                                               place=trainer.put_whole):
                     k = len(tree_leaves(xc)[0]) // batch_size
                     if k not in chunk_fns:
                         chunk_fns[k] = trainer.epoch_scan_fn(k, batch_size)
@@ -601,6 +632,67 @@ class Estimator:
                 f"HBM epoch cache failed at iteration {ts.iteration} with "
                 "no checkpoint to restore; set model_dir or "
                 "train.hbm_cache_mb=0")
+
+        def reform(exc, decision):
+            """REFORM_MESH: the survivors re-form the group and the mesh,
+            the trainer and everything placed for the old mesh are
+            rebuilt, and the latest snapshot is restored on the new one
+            (without one, and with no step of this call committed, the
+            entry-time variables; else ``_UnrecoverableTraining``)."""
+            nonlocal trainer, params, state, opt_state, device_loader, \
+                eval_runner, hbm_src
+            from analytics_zoo_torch.resilience import (
+                recovery as recovery_lib)
+            old_devices = trainer.mesh.world_size
+            try:
+                with tracer.span("elastic_recovery", iteration=ts.iteration):
+                    new_mesh = recovery_lib.reform_mesh(
+                        recovery_lib.surviving_devices(exc),
+                        batch_size=batch_size)
+            except recovery_lib.NoViableTopology as nv:
+                met["recoveries"].labels("degrade").inc()
+                self._raise_degraded(exc, decision, ckpt,
+                                     train_set if is_pipeline else None,
+                                     detail=str(nv))
+            log.warning("lost-host failure at iteration %d; mesh re-formed "
+                        "on %d surviving rank(s) — restoring the latest "
+                        "snapshot onto the new topology", ts.iteration,
+                        new_mesh.world_size)
+            record_event("mesh.reform", old_devices=old_devices,
+                         new_devices=new_mesh.world_size,
+                         iteration=ts.iteration)
+            # every mesh-bound artifact names the old group
+            trainer = DistributedTrainer(
+                self.model, criterion, optim_method=self.optim_method,
+                clip=self._clip, optim_groups=self.optim_groups,
+                mesh=new_mesh)
+            self._mesh = new_mesh
+            self._cached_infer_trainer = None
+            if is_pipeline:
+                device_loader = DeviceLoader(train_set,
+                                             put_fn=trainer.put_batch)
+            if eval_runner is not None:
+                eval_runner = trainer.make_eval_runner(
+                    list(validation_method))
+            chunk_fns.clear()
+            hbm_src = None
+            eval_cache[0] = None
+            eval_state[0] = None
+            # the entry-time state on the new topology, then the snapshot
+            params = trainer.place_params(self.variables["params"])
+            state = trainer.place_state(self.variables["state"])
+            opt_state = trainer.init_opt_state(params)
+            met["recoveries"].labels("reform_mesh").inc()
+            if restore_snapshot():
+                return
+            if ts.iteration != start_iteration:
+                raise _UnrecoverableTraining(
+                    f"mesh re-formed at iteration {ts.iteration} but no "
+                    "snapshot exists to restore the training state lost "
+                    "with the old topology; set model_dir or checkpoint "
+                    "more often") from exc
+            if is_pipeline and entry_data_state is not None:
+                train_set.load_state_dict(entry_data_state)
 
         device_loader = None
         if is_pipeline:
@@ -672,11 +764,19 @@ class Estimator:
                         action=decision.action.name.lower(),
                         iteration=ts.iteration,
                         cause=f"{type(exc).__name__}: {exc}"[:200])
-                    if decision.action is not RecoveryAction.RETRY:
+                    if decision.action is RecoveryAction.RAISE:
                         log.error("training failure classified %s is not "
                                   "recoverable here: %s",
                                   decision.failure_class.value, decision.reason)
                         raise
+                    if decision.action is RecoveryAction.DEGRADE:
+                        met["recoveries"].labels("degrade").inc()
+                        self._raise_degraded(
+                            exc, decision, ckpt,
+                            train_set if is_pipeline else None)
+                    if decision.action is RecoveryAction.REFORM_MESH:
+                        reform(exc, decision)
+                        continue
                     met["retries"].inc()
                     met["recoveries"].labels("retry").inc()
                     record_event("train.retry",
@@ -733,9 +833,67 @@ class Estimator:
                 if summary is not None:
                     summary.close()
 
-        self.variables = {"params": params, "state": state}
+        self.variables = {"params": trainer.gather_tree(params),
+                          "state": state}
         self.model.set_variables(self.variables)
         return self
+
+    # ----------------------------------------------------------- resilience
+    def _raise_degraded(self, exc, decision, ckpt, pipeline=None,
+                        detail: Optional[str] = None):
+        """Checkpoint-and-queue: end the run DEGRADED instead of hanging
+        or dying empty.  The structured record points at the last good
+        snapshot and data position (``degraded.json`` in ``model_dir``,
+        written by rank 0), so a later run resumes exactly where capacity
+        ran out.  Never returns: raises ``DegradedTraining`` carrying the
+        record."""
+        import json
+        from analytics_zoo_torch.observability import get_registry
+        from analytics_zoo_torch.observability.flightrec import record_event
+        from analytics_zoo_torch.parallel.mesh import current_mesh
+        from analytics_zoo_torch.resilience.policy import DegradedTraining
+        ts = self.train_state
+        snapshot = ckpt.latest_path() if ckpt is not None else None
+        result = {
+            "status": "degraded",
+            "failure_class": decision.failure_class.value,
+            "reason": detail or decision.reason,
+            "cause": f"{type(exc).__name__}: {exc}",
+            "epoch": ts.epoch,
+            "iteration": ts.iteration,
+            "checkpoint_dir": self.model_dir,
+            "snapshot": snapshot,
+            "data_position": (
+                {"epoch": pipeline.epoch, "step": pipeline.step}
+                if pipeline is not None else None),
+            "recorded_unix": round(time.time(), 1),
+        }
+        if self.model_dir and current_mesh().rank == 0:
+            try:
+                with open(os.path.join(self.model_dir,
+                                       "degraded.json"), "w") as f:
+                    json.dump(result, f, indent=2)
+            except OSError:
+                log.exception("could not write degraded.json")
+        try:
+            get_registry().counter(
+                "train_degraded_total",
+                "training runs that ended degraded "
+                "(checkpoint-and-queue)").inc()
+        except Exception:   # noqa: BLE001 — metrics never block the exit
+            pass
+        record_event(
+            "train.degraded",
+            failure_class=decision.failure_class.value,
+            reason=str(detail or decision.reason)[:200],
+            epoch=ts.epoch, iteration=ts.iteration,
+            snapshot=snapshot or "")
+        log.error("training DEGRADED (checkpoint-and-queue): %s", result)
+        raise DegradedTraining(
+            "no viable topology to continue training; run queued at "
+            f"snapshot {snapshot!r} — resume from model_dir "
+            f"{self.model_dir!r} when capacity returns",
+            result=result) from exc
 
     # ------------------------------------------------------------ inference
     def _placed(self, trainer):
@@ -746,7 +904,8 @@ class Estimator:
         """The trainer of evaluate and predict, kept across calls so their
         programs are captured once per Estimator, not once per call."""
         if getattr(self, "_cached_infer_trainer", None) is None:
-            self._cached_infer_trainer = DistributedTrainer(self.model, None)
+            self._cached_infer_trainer = DistributedTrainer(
+                self.model, None, mesh=self._mesh)
             self._cached_eval_runner = (None, None)
         return self._cached_infer_trainer
 
@@ -773,5 +932,5 @@ class Estimator:
         params, state = self._placed(trainer)
         fn = trainer.predict_fn()
         return predict_in_batches(
-            lambda xb: fn(params, state, trainer.put_batch(xb)), x,
+            lambda xb: fn(params, state, trainer.put_whole(xb)), x,
             batch_size)

@@ -8,10 +8,10 @@ the JAX package's ``resilience/``):
                      and the run-dir heartbeat a serving replica writes;
 - :mod:`.policy`   — the policy engine the Estimator's retry loop
                      dispatches through (the reference's time-windowed
-                     retry budget is the TRANSIENT branch).
-
-Mesh re-formation (``recovery``) comes with the multi-GPU slice
-(ROADMAP.md, queue 1).
+                     retry budget is the TRANSIENT branch);
+- :mod:`.recovery` — the process group and mesh re-formed on the
+                     surviving ranks, and the no-viable-topology
+                     (degraded) exit; imported lazily by its callers.
 """
 
 from analytics_zoo_torch.resilience.chaos import (

@@ -23,7 +23,10 @@ trained through TFPark, ResNet-50 imported from ONNX, TorchNet, the Wide &
 Deep bench and a GAN, and the local trainer and the serving fleet:
 ``LocalEstimator`` on BERT-base, the training watchdog's halt drill, and
 an autoscaled, supervised fleet of BERT-base replicas stormed by the
-open-loop load generator, with the offline tools over its run dir.
+open-loop load generator, with the offline tools over its run dir, and
+multi-GPU: BERT-base trained through ``launch_cli`` on an NCCL world of
+one and on two gloo ranks of the one card under data, FSDP and tensor
+parallelism.
 
     python3 chip_smoke.py
 
@@ -278,7 +281,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    and off) under deterministic algorithms: params bit-identical, each
    epoch loss
    its route's rule, ms a step and samples/s, the bytes ``put_batch``
-   moved (the HBM route: the dataset once); 19d phase 11's ``Seq2seq``
+   and ``put_whole`` moved (the HBM route: the dataset once); 19d phase 11's ``Seq2seq``
    pool (16 slots, 64 requests) captured at every rung against the eager
    pool, tokens held to ``infer``'s, tokens/s and inter-token p50/p99;
    19e a cold build fills a cache directory, a child process with an
@@ -397,9 +400,26 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    ``merge_requests``, the SLO timeline of ``slo.yaml``, ``drift_report``
    and ``diagnose`` over the run dir (the broker outage ranked with its
    breaker-open citations); 23e ``quick_start --smoke`` on the card;
-24. a ``kernels`` JSON line (the float32 forward and backward kernels'
-   and Adam's launches from phase 23, Adam's times at 23b's leaves, SGD's
-   launches and times from 22a), then the device line last.
+24. multi-GPU on the one card (``python3 chip_smoke.py --multi-gpu`` runs
+   it alone): 24a ``launch_cli -n 1`` starts a child that joins an NCCL
+   process group of one and runs ``Estimator.train`` for 8 Adam steps of
+   phase 3's BERT-base ``TextClassifier`` (8 x 512) on the mesh
+   ``{"data": 1}``: launches 12/12/12/12/1 and one ``fused_adam`` a step,
+   every param bit-identical to the same steps taken in this process with
+   no process group (deterministic algorithms on both); 24b ``launch_cli
+   -n 2`` starts two ranks on the card over gloo with CUDA tensors, each
+   taking 2 SGD steps (float32 products) under ``{"data": 2}`` (4 rows
+   each), ``{"fsdp": 2}`` and ``{"model": 2}`` (the flash kernels on 6
+   heads): the ranks' gathered params bit-identical after every step
+   (SHA-256), within 1e-5 of their magnitude of one device's steps over
+   the same 8 rows, per-rank launches, step times and the gradient sync's
+   time, and which collectives gloo carried on the card's tensors and
+   which it staged through the host; NCCL between cards, the ring's and
+   the pipeline's sends and MoE's all_to_all wait for a machine with more
+   than one card;
+25. a ``kernels`` JSON line (the float32 forward and backward kernels'
+   and Adam's launches from 24a, SGD's from 24b rank 0, Adam's times at
+   23b's leaves, SGD's times from 22a), then the device line last.
 
 The int8 phases besides 9: 2b holds ``quantized_matmul`` and
 ``quantized_conv`` (``torch._int_mm``, a convolution as one product over
@@ -5390,12 +5410,18 @@ def compile_phase(torch, card, dev) -> None:
                   "per_step_captured": (1, 2048, True),
                   "per_step_eager": (1, 2048, False)}
     moved = []
-    real_put = DistributedTrainer.put_batch
+    # the trainer's two host-to-device entries: put_batch (a step's rows)
+    # and put_whole (the HBM epoch's rows and the chunks, every row)
+    real_puts = {"put_batch": DistributedTrainer.put_batch,
+                 "put_whole": DistributedTrainer.put_whole}
 
-    def counting_put(self, b):
-        moved.append(sum(int(np.asarray(a).nbytes) for a in tree_leaves(b)
-                         if a is not None and not isinstance(a, torch.Tensor)))
-        return real_put(self, b)
+    def counting(real):
+        def put(self, b):
+            moved.append(sum(int(np.asarray(a).nbytes)
+                             for a in tree_leaves(b) if a is not None and
+                             not isinstance(a, torch.Tensor)))
+            return real(self, b)
+        return put
 
     def ncf_fit(route):
         k, mb, aot = ncf_routes[route]
@@ -5408,7 +5434,8 @@ def compile_phase(torch, card, dev) -> None:
         m.model.init(torch.Generator().manual_seed(0))
         m.compile(Adam(lr=1e-3), loss_name)
         moved.clear()
-        DistributedTrainer.put_batch = counting_put
+        for name, real in real_puts.items():
+            setattr(DistributedTrainer, name, counting(real))
         try:
             with deterministic(torch):
                 torch.cuda.synchronize()
@@ -5418,7 +5445,8 @@ def compile_phase(torch, card, dev) -> None:
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - s0
         finally:
-            DistributedTrainer.put_batch = real_put
+            for name, real in real_puts.items():
+                setattr(DistributedTrainer, name, real)
         leaves = [t.clone() for t in tree_leaves(m.get_variables()["params"])]
         return dict(hist=[h["loss"] for h in hist], leaves=leaves, wall=wall,
                     epoch_s=[h["wall_s"] for h in hist], moved=list(moved))
@@ -5471,12 +5499,13 @@ def compile_phase(torch, card, dev) -> None:
         ms = [r["epoch_s"][1] * 1e3 / nb for r in runs]
         print(f"19c NeuralCF {route}: second epoch {ms} ms a step, "
               f"{[round(batch * 1e3 / v, 1) for v in ms]} samples/s, "
-              f"history {runs[0]['hist']}; put_batch moved "
+              f"history {runs[0]['hist']}; put_batch/put_whole moved "
               f"{sum(runs[0]['moved'])} bytes in {len(runs[0]['moved'])} "
               f"calls over 2 epochs ({card})")
     hbm_moved = ncf["hbm"][0]["moved"]
     if hbm_moved != [full]:
-        fail(f"19c hbm: put_batch moved {hbm_moved}, want the dataset once "
+        fail(f"19c hbm: put_batch/put_whole moved {hbm_moved}, want the "
+             f"dataset once "
              f"({full} bytes) and nothing within an epoch")
     print(f"19c: the routes' params bit-identical (deterministic "
           f"algorithms), each epoch-2 loss its route's rule; the HBM route "
@@ -8138,6 +8167,478 @@ def fleet_alone() -> None:
     fleet_phase(torch, card, ctx.device)
 
 
+# ------------------------------------------------------ 24. multi-GPU
+MG_ROWS, MG_BATCH = 64, 8          # 24a: one epoch of 8 steps of 8 x 512
+MG_SGD_STEPS = 2                   # 24b: SGD steps in each mesh
+MG_SGD_LR = 1e-3
+MG_SHAPES = ({"data": 2}, {"fsdp": 2}, {"model": 2})
+MG_TIMEOUT = 600
+# 24b against the one-device run over the same 8 rows, float32 products:
+# the ranks' means of 4-row means, the row-parallel sums and the reduced
+# gradients add in another order than one device (~1e-7 relative of a
+# result), which two SGD steps carry into the params
+MG_PARAM_RTOL = 1e-5               # of each leaf's largest magnitude
+# 24b against the one-device run through the plain versions
+# (ops.fused=torch): the routes' gradients differ by the flash kernels'
+# split-TF32 products and LayerNorm's order of summation, which phase 3
+# bounds at GRAD_RTOL_F32 of a leaf's gradient.  Two SGD steps move a
+# leaf by lr times the sum of its gradients, so the params differ by that
+# share of their update on top of MG_PARAM_RTOL of their magnitude: a
+# zero-initialised bias holds nothing but its update (1.888e-05 of a
+# leaf's magnitude on an H100 at 700 W, 0.019 of this bound), and a leaf
+# whose update is a thousandth of its size differs by its float32 rounding
+MG_PLAIN_UPDATE_RTOL = GRAD_RTOL_F32  # of each leaf's largest update
+MG_LOSS_RTOL = 1e-5
+MG_CHILD = "--multi-gpu-child"
+
+
+def mg_data():
+    rs = np.random.RandomState(24)
+    x = rs.randint(0, 30522, size=(MG_ROWS, 512)).astype(np.int64)
+    y = rs.randint(0, 20, size=(MG_ROWS,)).astype(np.int64)
+    return x, y
+
+
+def mg_net(torch, mesh=None):
+    """Phase 3's BERT-base ``TextClassifier`` (seeded 0), its layers built
+    on ``mesh`` (the tensor-parallel layers declare their pieces there)."""
+    from analytics_zoo_torch.parallel import mesh as mesh_lib
+    from analytics_zoo_torch.pipeline.api.keras.engine import Layer
+    Layer.reset_name_counters()
+    net = bert_base().model
+    with (mesh_lib.active(mesh) if mesh is not None
+          else contextlib.nullcontext()):
+        net.init(torch.Generator().manual_seed(0))
+    return net
+
+
+def mg_flat(tree) -> dict:
+    from analytics_zoo_torch.pipeline.api.keras.topology import tree_leaves
+    return {str(i): a.detach().cpu() for i, a in
+            enumerate(tree_leaves(tree))}
+
+
+def mg_digest(tree) -> str:
+    """SHA-256 of a tree's leaves' bytes, in ``tree_leaves`` order."""
+    import hashlib
+
+    import torch
+    h = hashlib.sha256()
+    for a in mg_flat(tree).values():
+        h.update(a.contiguous().view(-1).view(torch.uint8).numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def mg_adam_run(torch):
+    """24a's steps: ``Estimator.train``, 8 Adam steps of 8 x 512 on the
+    context's mesh, deterministic algorithms on (the embeddings'
+    ``index_add_``); (whole params, loss, launches)."""
+    from analytics_zoo_torch.common.triggers import MaxEpoch
+    from analytics_zoo_torch.feature.feature_set import FeatureSet
+    from analytics_zoo_torch.ops import kernels
+    from analytics_zoo_torch.pipeline.api.keras.optimizers import Adam
+    from analytics_zoo_torch.pipeline.estimator import Estimator
+    net = mg_net(torch)
+    x, y = mg_data()
+    est = Estimator(net, optim_method=Adam(lr=1e-4))
+    kernels.reset_launch_counts()
+    with deterministic(torch):
+        est.train(FeatureSet.from_ndarrays(x, y, shuffle=False),
+                  "sparse_categorical_crossentropy_with_logits",
+                  end_trigger=MaxEpoch(1), batch_size=MG_BATCH, rng=0)
+    torch.cuda.synchronize()
+    return (mg_flat(est.variables["params"]), est.history[-1]["loss"],
+            kernels.launch_counts())
+
+
+# the kernel wrappers 24b's steps launch, each beside its plain version:
+# (module attribute, plain version's attribute, launch-count name, the
+# tolerances of its outputs as (atol, rtol), those of phase 2)
+MG_KERNELS = (
+    ("flash_attention_fwd", "flash_attention_ref", "flash_attention_fwd",
+     ((FWD_ATOL, FWD_RTOL), (FWD_LSE_ATOL, 0.0))),
+    ("flash_attention_dq", "flash_attention_dq_ref", "flash_attention_dq",
+     ((BWD_ATOL, BWD_RTOL),)),
+    ("flash_attention_dkv", "flash_attention_dkv_ref", "flash_attention_dkv",
+     ((BWD_ATOL, BWD_RTOL), (BWD_ATOL, BWD_RTOL))),
+    ("bias_gelu_kernel", "bias_gelu_ref", "bias_gelu", ((1e-6, 0.0),)),
+    ("layernorm_act_kernel", "layernorm_act_ref", "layernorm_act",
+     ((1e-5, 0.0),)),
+)
+
+
+def mg_kernel_checks(torch, calls, leaves, what):
+    """Each kernel the steps launched against its plain version on the
+    inputs of its first launch there (this rank's shapes: 6 heads and
+    1,536 FFN columns a rank under ``model=2``), and the multi-tensor
+    Adam and SGD (momentum 0, as the steps) on this rank's own table of
+    pieces; {kernel: max abs err}."""
+    errs = {}
+    with torch.no_grad():
+        for name, (kernel, plain, tols, args, kwargs) in calls.items():
+            got, want = kernel(*args, **kwargs), plain(*args, **kwargs)
+            if not isinstance(got, tuple):
+                got, want = (got,), (want,)
+            torch.cuda.synchronize()
+            errs[name] = max(
+                close(f"{what} {name} {tuple(args[0].shape)} output {i}", g,
+                      w, atol, rtol)
+                for i, (g, w, (atol, rtol)) in enumerate(zip(got, want,
+                                                             tols)))
+    errs.update(opt_leaves_check(torch, leaves, what, sgd_momentum=0))
+    return errs
+
+
+def mg_sgd_steps(torch, mesh, rows, check=False):
+    """24b's steps on ``mesh``: ``MG_SGD_STEPS`` SGD steps of the trainer
+    over ``rows`` of the data (this rank's), float32 products; the
+    gathered params' digest and loss after each step, the step and
+    gradient-sync times, the launches and the whole params.  With
+    ``check``, each kernel is then held against its plain version on the
+    inputs of its first launch and on this rank's pieces
+    (``mg_kernel_checks``)."""
+    from analytics_zoo_torch.ops import fused, kernels
+    from analytics_zoo_torch.ops import flash_attention as fa
+    from analytics_zoo_torch.parallel.trainer import DistributedTrainer
+    from analytics_zoo_torch.pipeline.api.keras import objectives
+    from analytics_zoo_torch.pipeline.api.keras.optimizers import SGD
+    from analytics_zoo_torch.pipeline.api.keras.topology import tree_leaves
+    net = mg_net(torch, mesh)
+    x, y = mg_data()
+    trainer = DistributedTrainer(
+        net, objectives.get("sparse_categorical_crossentropy_with_logits"),
+        optim_method=SGD(MG_SGD_LR), mesh=mesh)
+    params = trainer.place_params(net.get_variables()["params"])
+    state = trainer.place_state(net.get_variables()["state"])
+    opt_state = trainer.init_opt_state(params)
+    batch = trainer.put_batch((x[rows], y[rows]))
+    # the first sharded leaves: (this rank's piece, the axis)
+    pieces = [(tuple(p.shape), sp.axis) for p, sp in zip(
+        tree_leaves(params), trainer._flat_specs) if sp is not None][:3]
+    sync_ms, heads = [], set()
+    sync = trainer._sync_grads
+
+    def timed_sync(grads):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sync(grads)
+        torch.cuda.synchronize()
+        sync_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+    trainer._sync_grads = timed_sync
+    # every wrapper records the inputs of its first launch, and the
+    # forward the heads of every launch
+    calls, originals = {}, []
+    for attr, plain_attr, name, tols in MG_KERNELS:
+        mod = fa if attr.startswith("flash") else fused
+        kernel = getattr(mod, attr)
+        originals.append((mod, attr, kernel))
+
+        def seen(*args, _k=kernel, _name=name, _plain=getattr(mod, plain_attr),
+                 _tols=tols, **kwargs):
+            if _name == "flash_attention_fwd":
+                heads.add(int(args[0].shape[1]))
+            if check and _name not in calls:
+                calls[_name] = (_k, _plain, _tols, [
+                    a.detach().clone() if isinstance(a, torch.Tensor) else a
+                    for a in args], kwargs)
+            return _k(*args, **kwargs)
+        setattr(mod, attr, seen)
+    digests, losses, step_ms = [], [], []
+    kernels.reset_launch_counts()
+    try:
+        for i in range(MG_SGD_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt_state, state, loss = trainer.train_step_at(
+                params, opt_state, state, batch, 0, i)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            whole = trainer.gather_tree(params)
+            digests.append(mg_digest(whole))
+            losses.append(float(loss))
+    finally:
+        for mod, attr, kernel in originals:
+            setattr(mod, attr, kernel)
+    launches = kernels.launch_counts()
+    missed = [n for _, _, n, _ in MG_KERNELS if check and launches[n] and
+              n not in calls]
+    if missed:
+        fail(f"24b {mesh.shape}: {missed} launched but no input recorded")
+    errs = mg_kernel_checks(
+        torch, calls, tree_leaves(params),
+        f"24b {mesh.shape} rank {mesh.rank}") if check else {}
+    return {"digests": digests, "losses": losses, "step_ms": step_ms,
+            "sync_ms": sync_ms, "launches": launches,
+            "heads": sorted(heads), "whole": mg_flat(whole),
+            "pieces": pieces, "errs": errs,
+            "checked": {n: tuple(c[3][0].shape) for n, c in calls.items()}}
+
+
+def multi_gpu_child(part: str, out_dir: str) -> None:
+    """A rank of 24a (``a``: a world of one over NCCL) or 24b (``b``: two
+    ranks on the one card over gloo), started by ``launch_cli``."""
+    import torch
+    from analytics_zoo_torch.common import zoo_context as zc
+    from analytics_zoo_torch.ops import kernels
+    from analytics_zoo_torch.parallel import comm
+    from analytics_zoo_torch.parallel import mesh as mesh_lib
+    kernels.build_all()
+    t0 = time.perf_counter()
+    if part == "a":
+        # launch_cli -n 1: the group of one joined explicitly (the
+        # context joins a group only for more than one process)
+        zc.init_process_group(os.environ["ZOO_TPU_COORDINATOR"], 1, 0,
+                              torch.device("cuda:0"))
+        ctx = zc.init_zoo_context(device="cuda:0")
+        import torch.distributed as dist
+        backend, world = dist.get_backend(), dist.get_world_size()
+        whole, loss, launches = mg_adam_run(torch)
+        torch.save({"whole": whole, "loss": loss, "launches": launches,
+                    "backend": backend, "world": world,
+                    "mesh": ctx.mesh.shape,
+                    "join_s": time.perf_counter() - t0},
+                   os.path.join(out_dir, "a.pt"))
+        return
+    # two ranks on one card: NCCL refuses them, so they join a gloo group
+    # themselves and the context keeps it
+    from analytics_zoo_torch.common.config import get_config
+    get_config().set("parallel.timeout_s", MG_TIMEOUT)
+    zc.init_process_group(os.environ["ZOO_TPU_COORDINATOR"],
+                          int(os.environ["ZOO_TPU_NUM_PROCESSES"]),
+                          int(os.environ["ZOO_TPU_PROCESS_ID"]),
+                          torch.device("cuda:0"), backend="gloo")
+    ctx = zc.init_zoo_context(device="cuda:0")
+    from analytics_zoo_torch.ops import dtypes
+    dtypes.set_policy(param_dtype="float32", compute_dtype="float32")
+    rank = ctx.process_index
+    ref = torch.load(os.path.join(out_dir, "ref_sgd.pt"))
+    x, _ = mg_data()
+    out = {"rank": rank, "modes": {}}
+    comm.reset_collective_log()
+    for shape in MG_SHAPES:
+        mesh = mesh_lib.create_mesh(shape)
+        split = mesh_lib.data_split_across_hosts(mesh)
+        rows = slice(rank * MG_BATCH // 2, (rank + 1) * MG_BATCH // 2) \
+            if split else slice(0, MG_BATCH)
+        r = mg_sgd_steps(torch, mesh, rows, check=True)
+        # the params against the one-device runs: through the kernels,
+        # within MG_PARAM_RTOL of each leaf's magnitude; through the plain
+        # versions, the largest share of each leaf's bound there
+        r["max_rel_err_kernels"] = max(
+            float((r["whole"][k] - ref["kernels"][k]).abs().max()) /
+            max(float(ref["kernels"][k].abs().max()), 1e-30)
+            for k in ref["kernels"])
+        r["plain_share"] = max(
+            float((r["whole"][k] - ref["plain"][k]).abs().max()) / max(
+                MG_PARAM_RTOL * float(ref["plain"][k].abs().max()) +
+                MG_PLAIN_UPDATE_RTOL * float(
+                    (ref["plain"][k] - ref["init"][k]).abs().max()), 1e-30)
+            for k in ref["plain"])
+        del r["whole"]
+        out["modes"][json.dumps(shape)] = r
+    out["collectives"] = {op: sorted(w) for op, w in
+                          comm.COLLECTIVE_LOG.items()}
+    torch.save(out, os.path.join(out_dir, f"b{rank}.pt"))
+
+
+def mg_launch(part: str, n: int, out_dir: str) -> float:
+    """``launch_cli -n n chip_smoke.py --multi-gpu-child part out_dir``;
+    the command's seconds (fails on a non-zero exit)."""
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "analytics_zoo_torch.parallel.launch_cli",
+           "-n", str(n), "--timeout", str(MG_TIMEOUT),
+           os.path.abspath(__file__), MG_CHILD, part, out_dir]
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=MG_TIMEOUT + 60)
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:])
+        print(proc.stderr[-8000:])
+        fail(f"24{part}: launch_cli exited {proc.returncode}")
+    return time.perf_counter() - t0
+
+
+def multi_gpu_phase(torch, card, dev):
+    """Phase 24: the multi-GPU path on the one card.  Returns 24a's
+    launches (the NCCL world of one), 24b rank 0's (SGD), the largest
+    error of each kernel held against its plain version on the ranks'
+    inputs and pieces and on BERT-base's whole leaves, and the Adam and
+    SGD (momentum 0) updates' times over those leaves."""
+    import shutil
+    import tempfile
+
+    from analytics_zoo_torch.ops import dtypes
+    from analytics_zoo_torch.ops import kernels
+    from analytics_zoo_torch.parallel.mesh import trivial_mesh
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="zoo-phase24-")
+    try:
+        # the same steps with no process group: 24a's control
+        t0 = time.perf_counter()
+        whole, loss, launches = mg_adam_run(torch)
+        steps = MG_ROWS // MG_BATCH
+        expect_launches(launches, {
+            "flash_attention_fwd": 12 * steps,
+            "flash_attention_dq": 12 * steps,
+            "flash_attention_dkv": 12 * steps, "bias_gelu": 12 * steps,
+            "layernorm_act": steps, "fused_adam": steps},
+            "24a control (no process group)")
+        control_s = time.perf_counter() - t0
+        # 24b's one-device controls: the same SGD steps over the 8 rows,
+        # through the kernels and through the plain versions
+        prior = dtypes.get_policy()
+        dtypes.set_policy(param_dtype="float32", compute_dtype="float32")
+        try:
+            ref = mg_sgd_steps(torch, trivial_mesh(), slice(0, MG_BATCH))
+            kernels.reset_launch_counts()
+            plain = plain_route(lambda: mg_sgd_steps(
+                torch, trivial_mesh(), slice(0, MG_BATCH)))
+        finally:
+            dtypes.restore_policy(prior)
+        if any(kernels.launch_counts().values()):
+            fail(f"24b's plain control launched kernels "
+                 f"{kernels.launch_counts()}")
+        refs = {"kernels": ref["losses"], "plain": plain["losses"]}
+        torch.save({"kernels": ref["whole"], "plain": plain["whole"],
+                    "init": mg_flat(mg_net(torch).get_variables()["params"])},
+                   os.path.join(tmp, "ref_sgd.pt"))
+        del plain
+        torch.cuda.empty_cache()
+
+        # ---- 24a: a world of one over NCCL, started through launch_cli
+        a_s = mg_launch("a", 1, tmp)
+        a = torch.load(os.path.join(tmp, "a.pt"))
+        expect_launches(a["launches"], {
+            "flash_attention_fwd": 12 * steps,
+            "flash_attention_dq": 12 * steps,
+            "flash_attention_dkv": 12 * steps, "bias_gelu": 12 * steps,
+            "layernorm_act": steps, "fused_adam": steps},
+            "24a Estimator.train on the NCCL world of one")
+        differ = [k for k in whole if not torch.equal(whole[k],
+                                                      a["whole"][k])]
+        if a["backend"] != "nccl" or a["world"] != 1 or differ or \
+                a["loss"] != loss:
+            fail(f"24a: backend {a['backend']} world {a['world']}, loss "
+                 f"{a['loss']} vs {loss} with no group, {len(differ)} of "
+                 f"{len(whole)} leaves differ")
+        print(f"24a Estimator.train through launch_cli on an NCCL world of "
+              f"one, mesh {a['mesh']}: {steps} Adam steps of {MG_BATCH} x "
+              f"512 bit-identical to the same steps with no process group "
+              f"({len(whole)} leaves, loss {loss:.6f}); launches a step "
+              f"{ {k: v // steps for k, v in a['launches'].items() if v} }; "
+              f"the child's command {a_s:.1f} s ({card})")
+
+        # ---- 24b: two ranks on the one card over gloo, CUDA tensors
+        b_s = mg_launch("b", 2, tmp)
+        ranks = [torch.load(os.path.join(tmp, f"b{r}.pt")) for r in (0, 1)]
+        for shape in MG_SHAPES:
+            key = json.dumps(shape)
+            r0, r1 = (r["modes"][key] for r in ranks)
+            if r0["digests"] != r1["digests"]:
+                fail(f"24b {shape}: the ranks' params differ after a step")
+            for r, m in ((0, r0), (1, r1)):
+                if m["max_rel_err_kernels"] > MG_PARAM_RTOL or \
+                        m["plain_share"] > 1.0 or \
+                        max(abs(a_ - b_) / max(abs(b_), 1e-30)
+                            for want in refs.values()
+                            for a_, b_ in zip(m["losses"], want)) > \
+                        MG_LOSS_RTOL:
+                    fail(f"24b {shape} rank {r}: params "
+                         f"{m['max_rel_err_kernels']:.3e} of their magnitude "
+                         f"from one device through the kernels (rtol "
+                         f"{MG_PARAM_RTOL}); through the plain versions "
+                         f"{m['plain_share']:.3e} of their bound "
+                         f"({MG_PARAM_RTOL} of a leaf's magnitude + "
+                         f"{MG_PLAIN_UPDATE_RTOL} of its update); losses "
+                         f"{m['losses']} vs "
+                         f"{refs}")
+            want_heads = [6] if "model" in shape else [12]
+            for r, m in ((0, r0), (1, r1)):
+                if m["heads"] != want_heads:
+                    fail(f"24b {shape} rank {r}: flash heads {m['heads']}")
+                expect_launches(m["launches"], {
+                    "flash_attention_fwd": 12 * MG_SGD_STEPS,
+                    "flash_attention_dq": 12 * MG_SGD_STEPS,
+                    "flash_attention_dkv": 12 * MG_SGD_STEPS,
+                    "bias_gelu": 12 * MG_SGD_STEPS,
+                    "layernorm_act": MG_SGD_STEPS,
+                    "fused_sgd": MG_SGD_STEPS}, f"24b {shape} rank {r}")
+                sync = (f"gradient sync median "
+                        f"{statistics.median(m['sync_ms']):.3f} ms"
+                        if m["sync_ms"] else "no gradient sync (dp 1)")
+                print(f"24b {shape} rank {r}: {MG_SGD_STEPS} SGD steps, params"
+                      f" bit-identical across the ranks after every step, "
+                      f"{m['max_rel_err_kernels']:.3e} of their magnitude "
+                      f"from one device through the kernels (rtol "
+                      f"{MG_PARAM_RTOL}), through the plain versions "
+                      f"{m['plain_share']:.3e} of their bound "
+                      f"({MG_PARAM_RTOL} of a leaf's magnitude + "
+                      f"{MG_PLAIN_UPDATE_RTOL} of its update); losses "
+                      f"{m['losses']} (one device {refs['kernels']}, plain "
+                      f"{refs['plain']}); pieces "
+                      f"{m['pieces']}; flash heads {m['heads']}; launches "
+                      f"{ {k: v for k, v in m['launches'].items() if v} }; "
+                      f"step ms {[round(s, 3) for s in m['step_ms']]}, "
+                      f"{sync} ({card})")
+                print(f"24b {shape} rank {r}: each kernel against its plain "
+                      f"version on the inputs of its first launch "
+                      f"{m['checked']} and the optimizers on the rank's "
+                      f"own pieces, max abs err {m['errs']} (phase 2's "
+                      f"tolerances; the optimizers bit-identical)")
+        for r in ranks:
+            print(f"24b rank {r['rank']} collectives: {r['collectives']} "
+                  f"('device': gloo took the CUDA tensors on the card; "
+                  f"'host': staged through host memory, gloo takes them on "
+                  f"the CPU only)")
+        print("24b waits for a machine with more than one card: every NCCL "
+              "collective between two cards, ring attention's and the "
+              "pipeline's point-to-point sends and MoE's all_to_all (NCCL "
+              "refuses two ranks on one device); their CPU tests run them "
+              "over gloo")
+        errs = {}
+        for r in ranks:
+            for m in r["modes"].values():
+                for k, v in m["errs"].items():
+                    errs[k] = max(errs.get(k, 0.0), v)
+        # the optimizers over 24a's and a data=2 rank's table, BERT-base's
+        # whole leaves: held to their plain versions, then timed
+        from analytics_zoo_torch.pipeline.api.keras.topology import (
+            tree_leaves)
+        leaves = [t.to(dev) for t in tree_leaves(
+            mg_net(torch).get_variables()["params"])]
+        for k, v in opt_leaves_check(torch, leaves, "24 BERT-base",
+                                     sgd_momentum=0).items():
+            errs[k] = max(errs[k], v)
+        times = time_updates(torch, leaves, card, "24 BERT-base",
+                             sgd_momentum=0)
+        del leaves
+        torch.cuda.empty_cache()
+        print(f"phase 24: {time.perf_counter() - t_phase:.1f} s (the "
+              f"controls {control_s:.1f} s, 24a's command {a_s:.1f} s, "
+              f"24b's {b_s:.1f} s) ({card})")
+        return {"a_launches": a["launches"],
+                "b_launches": ranks[0]["modes"][json.dumps(
+                    MG_SHAPES[0])]["launches"],
+                "errs": errs, "times": times}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def multi_gpu_alone() -> None:
+    """Phase 24 by itself (``--multi-gpu``)."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a GPU")
+    from analytics_zoo_torch import init_zoo_context
+    from analytics_zoo_torch.ops import kernels
+    kernels.build_all()
+    card = gpu_line()
+    print(f"gpu: {card}")
+    ctx = init_zoo_context(device="cuda:0")
+    multi_gpu_phase(torch, card, ctx.device)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -8707,7 +9208,19 @@ def main() -> None:
           f"{r['plain_ms']:.5f} library_ms {r['library_ms']:.5f} bound_ms "
           f"{r['bound_ms']:.6f} host_ms {r['host_ms']:.5f} ({card})")
 
-    # ------------------------------------------------------ 24. results
+    # ---- 24. multi-GPU: Estimator.train on an NCCL world of one through
+    # launch_cli, then two gloo ranks on the card under data, fsdp and
+    # model parallelism (--multi-gpu)
+    kernels.reset_launch_counts()
+    mg = multi_gpu_phase(torch, card, dev)
+    for name, r in mg["times"].items():
+        print(f"time {name} over BERT-base's {r['leaves']} leaves (momentum "
+              f"0 for SGD): kernel_ms {r['ms']:.5f} update_ms "
+              f"{r['update_ms']:.5f} plain_ms {r['plain_ms']:.5f} library_ms "
+              f"{r['library_ms']:.5f} bound_ms {r['bound_ms']:.6f} host_ms "
+              f"{r['host_ms']:.5f} ({card})")
+
+    # ------------------------------------------------------ 25. results
     print(f"launches: GPT-1 serving (4 requests) {gpt_serve}; GPT-1 fit "
           f"(8 steps) {gpt_train}; BERT-base fine-tuning (8 steps) "
           f"{bert_tune}")
@@ -8724,23 +9237,27 @@ def main() -> None:
     print(f"launches: Inception-v1 KerasModel.fit (phase 22a) "
           f"{inc_launches}; ResNet-50 (ONNX) train_step (phase 22b, "
           f"{ONNX_TRAIN_STEPS} steps) {onnx_launches}")
-    # this slice's main path is phase 23: the float32 forward and backward
-    # kernels' launches are its LocalEstimator steps, evaluate, predict and
-    # the fleet's in-process references; Adam's are 23b's Estimator steps
-    # of the watchdog drill, its times those at AnomalyDetector's leaves.
-    # SGD is off phase 23's path: its launches are phase 22a's Inception-v1
-    # steps (momentum 0, as the reference maps tf.keras SGD), its times
-    # those at Inception-v1's leaves (the earlier models' are printed
-    # above)
-    report["fused_sgd"]["launches"] = inc_launches["fused_sgd"]
-    report["fused_sgd"].update({key: inc_times["fused_sgd"][key] for key in (
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
-    report["fused_adam"].update({key: fleet_adam_times[key] for key in (
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    print(f"launches: phase 23 {fleet_launches}")
+    # this slice's main path is phase 24: the float32 forward and backward
+    # kernels' and Adam's launches are 24a's Estimator steps on the NCCL
+    # world of one (launch_cli's child), SGD's 24b rank 0's data-parallel
+    # steps; the optimizers' times are those over BERT-base's leaves (SGD
+    # at momentum 0, as 24b), their errors those on phase 24's tables
+    # (the earlier models' are printed above); every other kernel's error
+    # is the largest of phase 2's and 24b's
+    report["fused_sgd"]["launches"] = mg["b_launches"]["fused_sgd"]
+    for name in ("fused_adam", "fused_sgd"):
+        report[name].update({key: mg["times"][name][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+        report[name]["max_abs_err"] = mg["errs"][name]
+    for name in ("flash_attention_fwd", "flash_attention_dq",
+                 "flash_attention_dkv", "bias_gelu", "layernorm_act"):
+        report[name]["max_abs_err"] = max(report[name]["max_abs_err"],
+                                          mg["errs"][name])
     for name in ("flash_attention_fwd", "flash_attention_dq",
                  "flash_attention_dkv", "bias_gelu", "layernorm_act",
                  "fused_adam"):
-        report[name]["launches"] = fleet_launches[name]
+        report[name]["launches"] = mg["a_launches"][name]
     for name, r in report.items():
         # phase 15a's resumed transformer training runs every float32
         # kernel but the optimizers'; phase 14's bench_attention run set
@@ -8819,6 +9336,10 @@ if __name__ == "__main__":
         interop_alone()
     elif sys.argv[1:] == ["--fleet"]:
         fleet_alone()
+    elif sys.argv[1:] == ["--multi-gpu"]:
+        multi_gpu_alone()
+    elif sys.argv[1:2] == [MG_CHILD] and len(sys.argv) == 4:
+        multi_gpu_child(sys.argv[2], sys.argv[3])
     elif sys.argv[1:2] == [WARM_CHILD] and len(sys.argv) == 4:
         warm_start_child(sys.argv[2], sys.argv[3])
     elif sys.argv[1:] == ["--profile-recurrent"]:

@@ -2,8 +2,9 @@
 serving, training, Cluster Serving, recommender, recurrent/generative,
 persistence, transformer-model, Keras-layer/AnomalyDetector,
 text-matching/autograd/keras2/datasets, compile, data-pipeline and
-batch-scoring, image-decode/NNFrames/object-detection, and local
-trainer/watchdog/serving-fleet/TSDB/SLO/drift/incident slices)
+batch-scoring, image-decode/NNFrames/object-detection, local
+trainer/watchdog/serving-fleet/TSDB/SLO/drift/incident, and multi-GPU
+mesh/collectives/ring/pipeline/recovery slices)
 pulls in none of ``jax``, ``analytics_zoo_tpu``, ``flax``, ``msgpack``,
 ``tensorflow`` and ``transformers``, no port source imports the first
 four or loads a file of the JAX package by path (the one file-path
@@ -130,6 +131,15 @@ SLICE_MODULES = [
     "analytics_zoo_torch.feature.tfrecord",
     "analytics_zoo_torch.observability.aggregator",
     "analytics_zoo_torch.parallel.launcher",
+    "analytics_zoo_torch.parallel",
+    "analytics_zoo_torch.parallel.mesh",
+    "analytics_zoo_torch.parallel.comm",
+    "analytics_zoo_torch.parallel.sharding",
+    "analytics_zoo_torch.parallel.ring_attention",
+    "analytics_zoo_torch.parallel.pipeline",
+    "analytics_zoo_torch.parallel.launch_cli",
+    "analytics_zoo_torch.resilience.recovery",
+    "analytics_zoo_torch.observability.collectives",
     "analytics_zoo_torch.batchjobs",
     "analytics_zoo_torch.batchjobs.spec",
     "analytics_zoo_torch.batchjobs.manifest",

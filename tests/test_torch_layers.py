@@ -164,12 +164,18 @@ def test_positionwise_feed_forward(activation, mode):
 
 
 def test_parallelism_waits_for_the_multi_gpu_slice():
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tl.MultiHeadSelfAttention(32, 4, sequence_parallel=True)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tl.PositionwiseFeedForward(32, 64, tensor_parallel=True)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tl.Dense(8, parallel_mode="column")
+    """The multi-GPU slice has come: the parallel options build, and on a
+    one-rank mesh each layer computes the reference layer's output with
+    the same options (tests/test_torch_parallel.py holds them on
+    several ranks)."""
+    _compare(jatt.MultiHeadSelfAttention(32, 4, sequence_parallel=True),
+             tl.MultiHeadSelfAttention(32, 4, sequence_parallel=True),
+             _x(3, 8, 8, 32), (8, 32))
+    _compare(jatt.PositionwiseFeedForward(32, 64, tensor_parallel=True),
+             tl.PositionwiseFeedForward(32, 64, tensor_parallel=True),
+             _x(4, 2, 8, 32), (8, 32))
+    _compare(jcore.Dense(8, parallel_mode="column"),
+             tl.Dense(8, parallel_mode="column"), _x(5, 4, 32), (32,))
 
 
 def test_auto_names_follow_the_reference():

@@ -21,14 +21,9 @@ OWED = {
     "pipeline.api.keras.layers": set(),
     "pipeline.estimator": set(),
     "serving": set(),
-    # queue 1 items 8 (collectives) and 9 (MFU)
-    "observability": {
-        "estimate_train_step_collectives", "publish_mfu",
-        "record_step_collectives"},
-    # queue 1 item 8: parallel/mesh.py and sharding.py
-    "parallel": {"DATA_AXIS", "FSDP_AXIS", "MODEL_AXIS", "SEQ_AXIS",
-                 "batch_shardings", "create_mesh", "data_sharding",
-                 "fsdp_shardings", "local_batch_size", "replicated"},
+    # queue 1 item 9 (MFU)
+    "observability": {"publish_mfu"},
+    "parallel": set(),
     "tfpark": set(),
     # the torchvision-derived pretrained detectors (pretrained.py,
     # pretrained_ssdlite.py): they wait for checkpoint files
