@@ -27,7 +27,9 @@
 // What bounds it on the H100: at the serving shape (8, 12, 512, 64) it
 // does 4*B*H*T^2*D = 6.44 GFLOP on 50 MB of q, k, v, O and LSE; taken as
 // three TF32 products at 495 TFLOP/s that is 0.039 ms, against 0.015 ms to
-// move the bytes: bound by operations.  As in the backward, a streamed K or
+// move the bytes: bound by operations.  BERT-base's width in 3 heads of 256
+// or 4 of 192, (8, 3, 512, 256) and (8, 4, 512, 192), keeps H*D = 768 and
+// with it the same operations and bytes.  As in the backward, a streamed K or
 // V tile is split once, as it lands, and only the A operands (q*scale, P)
 // are split in registers.
 //
@@ -49,6 +51,20 @@
 //   D=64: BM=128 (8 warps), BN=32: 85 KB of shared memory and at most 128
 //   registers a thread, so two blocks (16 warps) share an SM; D=128:
 //   BM=64 (4 warps), BN=32, 132 KB, one block an SM.
+//   D=192 and 256: one lane's O accumulator is 96 or 128 registers, and a
+//   warp's S, at few keys a tile, is a short row of chains of dependent
+//   mma (96 in a chain at D=256): the time goes to their latency, so the
+//   design puts two warps on each sub-partition (BM=128, 8 warps) and as
+//   many keys a tile as shared memory holds.  To make room, K keeps no lo
+//   plane: each warp splits its K fragments as it reads them (K_LO false;
+//   flash_tile.cuh's RAW_B), to the parts split_own would store, so s is
+//   still the dQ kernel's bit for bit.  D=192: BN=32, (128 + 5*32) rows
+//   of 196 floats, 225,792 bytes; D=256: BN=16, (128 + 5*16) rows of 260
+//   floats, 216,320 bytes (BN=32 would take 266,240 even at BM=64 with
+//   both lo planes, over the 232,448 a block may have).  One block an SM;
+//   ptxas gives 241 and 253 registers a thread, no spill.
+//   scripts/bench_flash.py --wide --diagnose times these against the
+//   earlier tilings (WIDE_VARIANTS).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -63,17 +79,20 @@ using namespace flash_tile;
 template <int D_>
 struct Cfg {
     static constexpr int D = D_;
-    static constexpr int BM = D == 64 ? 128 : 64;  // q rows a block owns
-    static constexpr int BN = 32;                  // keys of each streamed tile
+    static constexpr int BM = D == 128 ? 64 : 128;  // q rows a block owns
+    static constexpr int BN = D <= 192 ? 32 : 16;   // keys of each streamed tile
+    // K split as it lands into a lo plane; else (no room) as it is read
+    static constexpr bool K_LO = D <= 128;
     static constexpr int MIN_BLOCKS = D == 64 ? 2 : 1;  // blocks an SM (__launch_bounds__)
     static constexpr int NTHREADS = 32 * (BM / 16);
     static constexpr int NJ = BN / 8;              // m16n8 tiles across a streamed tile
     static constexpr int S = D + 4;                // padded row stride, floats
     static constexpr int OWN = BM * S;             // floats in the q tile
     static constexpr int TILE = BN * S;            // floats in one streamed tile
-    // q; ring: two stages of K and V (split in place to their hi parts);
-    // the K and V lo planes
-    static constexpr int BYTES = (OWN + 6 * TILE) * (int)sizeof(float);
+    // q; ring: two stages of K and V (V split in place to its hi part, K
+    // too where K_LO); (K_LO) the K lo plane; the V lo plane
+    static constexpr int BYTES = (OWN + (K_LO ? 6 : 5) * TILE) * (int)sizeof(float);
+    static_assert(BYTES <= 232448, "a block's shared memory on the H100");
 };
 
 template <class C>
@@ -85,8 +104,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     extern __shared__ float4 smem4[];
     float* qs = reinterpret_cast<float*>(smem4);
     float* ring = qs + C::OWN;                     // stage s: K at 2s, V at 2s+1
-    float* k_lo = ring + 4 * C::TILE;
-    float* v_lo = k_lo + C::TILE;
+    float* k_lo = C::K_LO ? ring + 4 * C::TILE : nullptr;
+    float* v_lo = ring + (C::K_LO ? 5 : 4) * C::TILE;
 
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int g = lane >> 2, tg = lane & 3;
@@ -126,7 +145,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
             cp_async_wait<0>();
         }
         if (kt == 0) scale_own<C>(qs, scale);
-        split_own<C>(ks, k_lo, 1.f);
+        if (C::K_LO) split_own<C>(ks, k_lo, 1.f);
         split_own<C>(vs, v_lo, 1.f);
         __syncthreads();
 
@@ -134,7 +153,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         // causal: a warp whose rows all lie above this tile's keys skips it
         if (row0 < t && !(causal && k0 > row0 + 15)) {
             float p[NJ][4];
-            dots<C>(p, qs, r0, ks, k_lo, g, tg);
+            dots<C, !C::K_LO>(p, qs, r0, ks, k_lo, g, tg);
             // keys past T get s = -inf: no part in the max, p = exp(-inf) = 0
             // (m is finite from its start at -1e30)
             if (k0 + BN > t || (causal && k0 + BN - 1 > row0)) {
@@ -224,6 +243,10 @@ extern "C" int zoo_flash_attention_fwd(const float* q, const float* k,
             return (int)launch<64>(q, k, v, o, lse, bh, t, scale, causal, s);
         case 128:
             return (int)launch<128>(q, k, v, o, lse, bh, t, scale, causal, s);
+        case 192:
+            return (int)launch<192>(q, k, v, o, lse, bh, t, scale, causal, s);
+        case 256:
+            return (int)launch<256>(q, k, v, o, lse, bh, t, scale, causal, s);
         default:
             return (int)cudaErrorInvalidValue;
     }

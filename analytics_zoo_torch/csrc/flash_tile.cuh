@@ -7,10 +7,13 @@
 //
 // Every template here takes the kernel's tile configuration C, which
 // names:
-//   C::D         head dimension (64 or 128)
-//   C::BM        rows of the block's own tile (16 a warp)
-//   C::BN        rows of each streamed tile
-//   C::NTHREADS  threads of a block (32 * BM / 16)
+//   C::D         head dimension (64, 128, 192 or 256: the fragment loops
+//                run over D/8 steps)
+//   C::BM        rows of the block's own tile (16 a warp, or a pair of
+//                warps where dQ or dK/dV splits its work)
+//   C::BN        rows of each streamed tile (16 to 64)
+//   C::NTHREADS  threads of a block (32 * BM / 16, twice that for a split
+//                dQ or dK/dV)
 //   C::NJ        BN / 8, the m16n8 tiles across a streamed tile
 //   C::S         padded row stride of a shared tile, D + 4 floats
 //
@@ -25,7 +28,10 @@
 // rounding is an integer add of half a TF32 ulp and a mask, which tf32_rna
 // does.  A B operand is read by every warp of the block, so a streamed tile
 // is split once, as it lands (split_own: hi in place, lo in a plane
-// beside it), and only the A operands are split in registers.
+// beside it), and only the A operands are split in registers; where a
+// kernel's shared memory has no room for a tile's lo plane, that tile
+// stays plain and each warp splits its B fragments as it reads them
+// (dots' RAW_B, accumulate's RAW_X), to the same parts.
 //
 // Fragment layout: lane (g, t) = (lane / 4, lane % 4) of an m16n8
 // accumulator holds rows g, g+8 and columns 2t, 2t+1.  An m16n8k8 A
@@ -156,11 +162,26 @@ __device__ __forceinline__ void mma3(float c[4], const uint32_t ah[4], const uin
     mma(c, ah, h0, h1);
 }
 
+// mma3 with b a tile that was not split as it landed (a kernel whose
+// shared memory has no room for its lo plane): b split here, into the
+// hi and lo parts split_own would have stored, so the products are
+// mma3's bit for bit
+__device__ __forceinline__ void mma3_raw(float c[4], const uint32_t ah[4], const uint32_t al[4],
+                                         const float* b, int o0, int o1) {
+    uint32_t h0, l0, h1, l1;
+    split(b[o0], h0, l0);
+    split(b[o1], h1, l1);
+    mma(c, al, __uint_as_float(h0), __uint_as_float(h1));
+    mma(c, ah, __uint_as_float(l0), __uint_as_float(l1));
+    mma(c, ah, __uint_as_float(h0), __uint_as_float(h1));
+}
+
 // acc[j] = a[ra : ra+16, :D] . b[8j : 8j + 8, :D]^T for j < NJ: a 16 x 8NJ
 // tile of row-by-row dot products over D, summed in 8-wide steps of d in
-// order; a is plain float32 (split here), b a split streamed tile.  Lane
-// (g, t) holds rows ra+g, ra+g+8 and columns 8j + 2t, +1.
-template <class C>
+// order; a is plain float32 (split here), b a split streamed tile (RAW_B:
+// a plain one, split as it is read, bl unused).  Lane (g, t) holds rows
+// ra+g, ra+g+8 and columns 8j + 2t, +1.
+template <class C, bool RAW_B = false>
 __device__ __forceinline__ void dots(float acc[C::NJ][4], const float* a, int ra,
                                      const float* bh, const float* bl, int g, int t) {
     constexpr int S = C::S, NJ = C::NJ;
@@ -177,7 +198,8 @@ __device__ __forceinline__ void dots(float acc[C::NJ][4], const float* a, int ra
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
             const int o = (8 * j + g) * S + d0 + t;
-            mma3(acc[j], ah, al, bh, bl, o, o + 4);
+            if (RAW_B) mma3_raw(acc[j], ah, al, bh, o, o + 4);
+            else mma3(acc[j], ah, al, bh, bl, o, o + 4);
         }
     }
 }
@@ -187,8 +209,9 @@ __device__ __forceinline__ void dots(float acc[C::NJ][4], const float* a, int ra
 // split streamed tile.  Accumulator to A operand without a shuffle or a
 // shared round trip: the k order inside an 8-wide step is free as long as
 // A and B agree, so w's columns 2t, 2t+1 of each step serve as k-slots t,
-// t+4, and x is read at rows 8kk + 2t and + 1.
-template <class C>
+// t+4, and x is read at rows 8kk + 2t and + 1 (RAW_X: x a plain tile,
+// split as it is read, xl unused).
+template <class C, bool RAW_X = false>
 __device__ __forceinline__ void accumulate(float acc[C::D / 8][4], const float w[C::NJ][4],
                                            const float* xh, const float* xl, int g, int t) {
     constexpr int S = C::S, NJ = C::NJ;
@@ -201,7 +224,10 @@ __device__ __forceinline__ void accumulate(float acc[C::D / 8][4], const float w
         split(w[kk][3], ah[3], al[3]);   // row g+8, k-slot t+4
         const int o = (8 * kk + 2 * t) * S + g;
 #pragma unroll
-        for (int n = 0; n < C::D / 8; ++n) mma3(acc[n], ah, al, xh, xl, o + 8 * n, o + S + 8 * n);
+        for (int n = 0; n < C::D / 8; ++n) {
+            if (RAW_X) mma3_raw(acc[n], ah, al, xh, o + 8 * n, o + S + 8 * n);
+            else mma3(acc[n], ah, al, xh, xl, o + 8 * n, o + S + 8 * n);
+        }
     }
 }
 

@@ -4,7 +4,8 @@ versions (port of ``ops/pallas_attention.py``).
 ``flash_attention(q, k, v, causal, scale)`` returns O for (B, H, T, D)
 inputs and is differentiable.  ``takes_kernels`` routes it: for CUDA
 tensors under ``ops.fused=auto`` whose q, k and v share one dtype the
-kernels take (float32 or bfloat16) and one shape with head_dim 64 or 128,
+kernels take and one shape with a head_dim the kernels of that dtype take
+(``HEAD_DIMS``: float32 64, 128, 192 and 256; bfloat16 64 and 128),
 it launches the forward (``csrc/flash_attention_fwd.cu`` for float32,
 ``csrc/flash_attention_fwd_bf16.cu`` for bfloat16), which also writes the
 per-row log-sum-exp; the backward recomputes the probabilities from it:
@@ -18,7 +19,8 @@ take bf16 products where both operands are bf16 values and three bf16
 products where one is float32, on ``wgmma`` (``csrc/wgmma_tile.cuh``).
 ``delta = rowsum(dO * O)`` is a PyTorch op between them, as the reference
 leaves it to XLA.  Every other input (a CPU tensor, ``ops.fused=torch``,
-float16, another head_dim) takes the plain versions,
+float16, bfloat16 at head_dim 192 or 256, any other head_dim) takes the
+plain versions,
 ``flash_attention_ref`` and ``flash_attention_bwd_ref``, which follow the
 reference's order of operations in every dtype and judge the kernels.
 """
@@ -31,7 +33,8 @@ import torch
 
 from analytics_zoo_torch.ops import kernels
 
-HEAD_DIMS = (64, 128)
+# the head_dims each dtype's kernels take
+HEAD_DIMS = {torch.float32: (64, 128, 192, 256), torch.bfloat16: (64, 128)}
 # the kernels' names by input dtype: (forward, dQ, dK/dV)
 KERNELS = {
     torch.float32: ("flash_attention_fwd", "flash_attention_dq",
@@ -147,13 +150,14 @@ def _supported(dtypes, shapes) -> bool:
     if len(dtypes) != 1 or len(shapes) != 1:
         return False
     (dtype,), (shape,) = dtypes, shapes
-    return dtype in KERNELS and len(shape) == 4 and shape[-1] in HEAD_DIMS
+    return (dtype in KERNELS and len(shape) == 4 and
+            shape[-1] in HEAD_DIMS[dtype])
 
 
 def kernel_supports(q: torch.Tensor, k: Optional[torch.Tensor] = None,
                     v: Optional[torch.Tensor] = None) -> bool:
     """Whether the CUDA kernels take this q (and k, v, where given): one
-    dtype of ``KERNELS`` and one (B, H, T, D) shape with D in
+    dtype of ``KERNELS`` and one (B, H, T, D) shape with D in that dtype's
     ``HEAD_DIMS``."""
     given = [x for x in (q, k, v) if x is not None]
     return _supported([x.dtype for x in given], [x.shape for x in given])
@@ -188,8 +192,9 @@ def _check(name: str, **tensors) -> None:
     if q.dim() != 4:
         raise ValueError(f"{name}: inputs must be (B, H, T, D), got "
                          f"{tuple(q.shape)}")
-    if q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"{name}: head_dim {q.shape[-1]} not in {HEAD_DIMS}")
+    if q.shape[-1] not in HEAD_DIMS[q.dtype]:
+        raise ValueError(f"{name}: head_dim {q.shape[-1]} not in "
+                         f"{HEAD_DIMS[q.dtype]} for {q.dtype}")
     if torch.is_grad_enabled() and any(x.requires_grad
                                        for x in tensors.values()):
         raise RuntimeError(

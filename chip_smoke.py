@@ -26,7 +26,8 @@ an autoscaled, supervised fleet of BERT-base replicas stormed by the
 open-loop load generator, with the offline tools over its run dir, and
 multi-GPU: BERT-base trained through ``launch_cli`` on an NCCL world of
 one and on two gloo ranks of the one card under data, FSDP and tensor
-parallelism.
+parallelism, and BERT-base's width in heads of 256 and 192: served and
+trained through the float32 flash kernels' wide instances.
 
     python3 chip_smoke.py
 
@@ -44,9 +45,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    ``torch.nn.functional.layer_norm`` beside it at (4096, 768) with no
    activation, and its fixed cost at (1, 4)), Adam and SGD on the embedding's 23,440,896-element leaf and a
    small odd one (a one-leaf table through the multi-tensor kernels); the
-   flash kernels are also checked at (2, 4, 200, 64)
-   and (2, 4, 512, 128), causal and not, and each twice to show two
-   launches bit-identical;
+   flash kernels are also checked at (2, 4, 200, 64), (2, 4, 512, 128),
+   (8, 3, 512, 256), (8, 4, 512, 192) and (2, 2, 200, 256), causal and
+   not, and each twice to show two launches bit-identical;
 3. ``TextClassifier(encoder="transformer")`` at BERT-base widths
    (hidden 768, 12 heads of 64, FFN 3072, 512 positions, vocabulary
    30522, 12 blocks) with seeded random weights, served through
@@ -290,7 +291,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    identical in SASS;
 20. the data pipeline and offline batch scoring (``python3 chip_smoke.py
    --data-pipeline`` runs it alone): 20a phase 4's BERT-base trained on a
-   ``DataPipeline`` over an ``NpyDirSource`` of 256 seeded rows of 512
+   ``DataPipeline`` over an ``NpyDirSource`` of 128 seeded rows of 512
    tokens (batch 8, shuffled, 2 workers, ``data.prefetch`` 2, Adam, 2
    epochs, ``Estimator(model_dir=)`` snapshotting every 12 iterations)
    under deterministic algorithms: a run stopped by a fault at the
@@ -417,9 +418,28 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    which it staged through the host; NCCL between cards, the ring's and
    the pipeline's sends and MoE's all_to_all wait for a machine with more
    than one card;
-25. a ``kernels`` JSON line (the float32 forward and backward kernels'
-   and Adam's launches from 24a, SGD's from 24b rank 0, Adam's times at
-   23b's leaves, SGD's times from 22a), then the device line last.
+25. BERT-base's width in heads of 256 and 192 (``python3 chip_smoke.py
+   --wide-heads`` runs it alone): 25a the ``TextClassifier`` at BERT-base
+   widths with ``n_head=3`` served (4 requests of 8 x 512, 12 float32
+   flash forward launches a request at head_dim 256) and trained (4 Adam
+   steps of 8 x 512 through ``fit`` on the per-step captured route: 12
+   forward, dQ and dK/dV launches and 1 ``fused_adam`` a step), logits
+   against ``ops.fused=torch`` within MODEL_ATOL and one step's gradients
+   against the plain versions under float32 products within
+   GRAD_RTOL_F32; 25b the same with ``n_head=4`` (head_dim 192), 1
+   request and 1 step; 25c one Adam step of GPT-1's ``TransformerLayer``
+   with 3 heads (causal, head_dim 256) and its gradients; 25d each
+   instance at (8, 3, 512, 256) and (8, 4, 512, 192), causal and not,
+   timed in turns with its plain version, float32
+   ``scaled_dot_product_attention`` and the head_dim-64 instance at
+   (8, 12, 512, 64) (the same work), beside its bound;
+26. a ``kernels`` JSON line (the float32 flash kernels' launches from
+   phase 25 and their times from 25d at (8, 3, 512, 256), non-causal, the
+   instance of most of those launches; bias-GeLU's, LayerNorm's and Adam's
+   launches from 24a, SGD's from 24b rank 0, the optimizers' times over
+   BERT-base's leaves from phase 24; the flash kernels' errors the largest
+   over every head_dim of phase 2), then the
+   device line last.
 
 The int8 phases besides 9: 2b holds ``quantized_matmul`` and
 ``quantized_conv`` (``torch._int_mm``, a convolution as one product over
@@ -475,9 +495,11 @@ FWD_ATOL, FWD_RTOL = 1e-5, 1e-5
 FWD_LSE_ATOL = 1e-5
 BWD_ATOL, BWD_RTOL = 1e-4, 1e-4
 # where the flash kernels are checked: the training shape, the JAX
-# TextClassifier's default token_length (200, a ragged last tile), and
-# head_dim 128
-FLASH_SHAPES = ((8, 12, 512, 64), (2, 4, 200, 64), (2, 4, 512, 128))
+# TextClassifier's default token_length (200, a ragged last tile),
+# head_dim 128, and BERT-base's width in 3 heads of 256 and 4 of 192
+# (phase 25's models) with a ragged length at 256
+FLASH_SHAPES = ((8, 12, 512, 64), (2, 4, 200, 64), (2, 4, 512, 128),
+                (8, 3, 512, 256), (8, 4, 512, 192), (2, 2, 200, 256))
 # The optimizer kernels block FMA contraction and repeat the plain
 # version's elementwise ops: bit-identical.
 OPT_ATOL = 0.0
@@ -2632,11 +2654,11 @@ def flash_bf16_bound(shape, causal, passes, tensors_moved, rows):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def sdpa_backend(torch, q, k, v) -> str:
+def sdpa_backend(torch, q, k, v, causal=True) -> str:
     """The backend PyTorch picks for scaled_dot_product_attention on these
-    inputs, causal."""
+    inputs, causal or not."""
     from torch.nn.attention import SDPBackend
-    choice = int(torch._fused_sdp_choice(q, k, v, is_causal=True))
+    choice = int(torch._fused_sdp_choice(q, k, v, is_causal=causal))
     for name, member in SDPBackend.__members__.items():
         if int(member) == choice:
             return name
@@ -2955,13 +2977,14 @@ CHAT_VOCAB, CHAT_LEN, CHAT_ROWS, CHAT_BATCH = 40, 8, 4096, 128
 CHAT_STEPS_TIMED = 20
 
 
-def bert_base():
+def bert_base(n_head=12):
     """The phase 3/4 ``TextClassifier`` at BERT-base widths, not yet
-    built (phase 15d's serving-CLI builder: ``chip_smoke:bert_base``)."""
+    built (phase 15d's serving-CLI builder: ``chip_smoke:bert_base``);
+    phase 25 takes 768 in 3 heads of 256 or 4 of 192."""
     from analytics_zoo_torch.models.textclassification import TextClassifier
     return TextClassifier(class_num=20, token_length=768,
                           sequence_length=512, encoder="transformer",
-                          n_head=12, n_block=12, max_words_num=30521,
+                          n_head=n_head, n_block=12, max_words_num=30521,
                           encoder_output_dim=256)
 
 
@@ -3369,16 +3392,17 @@ ROUTE_SEQ = 77
 PHASE16_LOSS = "sparse_categorical_crossentropy_with_logits"
 
 
-def gpt1_model(torch, seed=0):
+def gpt1_model(torch, seed=0, n_head=GPT1["n_head"]):
     """``TransformerLayer.init_with_default_embedding`` at GPT-1's width
     with ``TimeDistributed(Dense(40478))`` over its sequence output, the
-    weights drawn from ``seed``."""
+    weights drawn from ``seed``; phase 25 takes its 768 in 3 heads."""
     from analytics_zoo_torch.pipeline.api.keras import Model
     from analytics_zoo_torch.pipeline.api.keras.engine import Layer
     from analytics_zoo_torch.pipeline.api.keras.layers import (
         Dense, TimeDistributed, TransformerLayer)
     Layer.reset_name_counters()
-    enc = TransformerLayer.init_with_default_embedding(**GPT1).build()
+    enc = TransformerLayer.init_with_default_embedding(
+        **{**GPT1, "n_head": n_head}).build()
     logits = TimeDistributed(Dense(GPT1_TOKENS))(enc.outputs[0])
     model = Model(enc.inputs, logits)
     model.init(torch.Generator().manual_seed(seed))
@@ -5592,8 +5616,10 @@ def compile_phase(torch, card, dev) -> None:
 
 
 # ------------------------------------------------------------------ phase 20
-PIPE_ROWS, PIPE_BATCH, PIPE_EPOCHS, PIPE_EVERY = 256, 8, 2, 12
-PIPE_FAULT_STEP = 20              # the first epoch's 21st batch
+# 128 rows: 16 steps an epoch (cut from 256 to keep the whole script well
+# inside its time limit)
+PIPE_ROWS, PIPE_BATCH, PIPE_EPOCHS, PIPE_EVERY = 128, 8, 2, 12
+PIPE_FAULT_STEP = 14              # the first epoch's 15th batch
 INPUT_ROWS, INPUT_BATCH, INPUT_HW = 4096, 128, 32   # bench_input_pipeline
 CRC_BYTES = 1 << 21
 SCORE_ROWS, SCORE_SHARD, SCORE_BATCH, SCORE_WORKERS = 4096, 512, 128, 2
@@ -5826,7 +5852,7 @@ def pipeline_training(torch, card, dev, tmp) -> None:
         "layernorm_act": steps, "fused_adam": steps},
         "20a pipeline training")
     control = run()
-    # the fault: data.batch trips at the first epoch's 21st batch, before
+    # the fault: data.batch trips at the first epoch's 15th batch, before
     # its position commits; no retry, so it stops the run
     retries = cfg.get("train.retry_times")
     cfg.set("train.retry_times", 0)
@@ -8639,6 +8665,317 @@ def multi_gpu_alone() -> None:
     multi_gpu_phase(torch, card, ctx.device)
 
 
+# ------------------------------------ phase 25: wide heads (--wide-heads)
+# BERT-base's width, 768, in 3 heads of 256 and 4 of 192: the float32
+# flash kernels' head_dim 256 and 192 instances on a model's path (H * D
+# stays 768: each launch does the work of one at (8, 12, 512, 64))
+WIDE_HEADS = (3, 4)                      # head_dim 256, 192
+WIDE_REQUESTS = 4                        # 25a's requests of 8 x 512
+WIDE_ROWS = 32                           # 25a's fit: 4 steps of 8 x 512
+WIDE_BATCH = 8
+WIDE_TIMED = ((8, 3, 512, 256), (8, 4, 512, 192))
+WIDE_FLASH = ("flash_attention_fwd", "flash_attention_dq",
+              "flash_attention_dkv")
+
+
+def wide_serving(torch, card, model, requests, what):
+    """``requests`` (8 x 512 each) through ``InferenceModel.predict``: 12
+    forward and bias-GeLU launches and one LayerNorm-GeLU a request; the
+    first request's logits against ``ops.fused=torch``."""
+    from analytics_zoo_torch.ops import kernels
+    from analytics_zoo_torch.pipeline.inference import InferenceModel
+    im = InferenceModel().load_zoo(model)
+    im.predict(requests[0], batch_size=WIDE_BATCH)        # warm-up
+    kernels.reset_launch_counts()
+    lat, outs = [], []
+    for req in requests:
+        s0 = time.perf_counter()
+        outs.append(im.predict(req, batch_size=WIDE_BATCH))
+        lat.append((time.perf_counter() - s0) * 1e3)
+    launches = kernels.launch_counts()
+    n = len(requests)
+    expect_launches(launches, {"flash_attention_fwd": 12 * n,
+                               "bias_gelu": 12 * n, "layernorm_act": n},
+                    f"{what} serving ({n} requests)")
+    for out in outs:
+        if out.shape != (WIDE_BATCH, 20) or not np.isfinite(out).all():
+            fail(f"{what} logits shape {out.shape}, finite "
+                 f"{np.isfinite(out).all()}")
+    plain = plain_route(lambda: im.predict(requests[0],
+                                           batch_size=WIDE_BATCH))
+    if kernels.launch_counts() != launches:
+        fail(f"{what} under ops.fused=torch launched a kernel")
+    diff = float(np.abs(plain - outs[0]).max())
+    print(f"25 {what} served: launches over {n} requests {launches}; logits "
+          f"vs ops.fused=torch max abs diff {diff:.3e} (tolerance "
+          f"{MODEL_ATOL}), |logits| max {float(np.abs(outs[0]).max()):.3e}; "
+          f"request latency {[round(v, 3) for v in lat]} ms ({card})")
+    if not diff <= MODEL_ATOL:
+        fail(f"{what}: kernel and plain logits differ by {diff}")
+    return launches
+
+
+def wide_fit(torch, card, model, x, y, what, per_step):
+    """``compile``/``fit`` with Adam for one epoch on the Estimator's
+    per-step route (``train.steps_per_dispatch`` 1: each step a replay of
+    the program captured on the first batch): ``per_step`` launches a
+    step, a finite loss, no capture fallback."""
+    from analytics_zoo_torch.common.config import get_config
+    from analytics_zoo_torch.compile.engine import CAPTURE_LOG
+    from analytics_zoo_torch.ops import kernels
+    from analytics_zoo_torch.pipeline.api.keras.optimizers import Adam
+    cfg = get_config()
+    per_dispatch = cfg.get("train.steps_per_dispatch")
+    model.compile(Adam(lr=1e-4), PHASE16_LOSS)
+    mark = len(CAPTURE_LOG)
+    cfg.set("train.steps_per_dispatch", 1)
+    kernels.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        history = model.fit(x, y, batch_size=WIDE_BATCH, nb_epoch=1, rng=0)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    finally:
+        cfg.set("train.steps_per_dispatch", per_dispatch)
+    launches = kernels.launch_counts()
+    steps = len(y) // WIDE_BATCH
+    expect_launches(launches, {k: n * steps for k, n in per_step.items()},
+                    f"{what} fit ({steps} steps)")
+    loss = history[0]["loss"]
+    if len(history) != 1 or not np.isfinite(loss):
+        fail(f"{what} fit history {history}")
+    print(f"25 {what} fit: {steps} steps of {WIDE_BATCH} x 512 in "
+          f"{fit_s:.3f} s (capture included), loss {loss:.5f}; launches "
+          f"{launches} ({card})")
+    report_captures(f"25 {what} fit", mark, card, allow_fallback=False)
+    return launches
+
+
+def wide_grads(torch, dev, model, batch_np, what):
+    """One step's gradients through the kernels against the plain
+    versions, float32 products, the same batch, dropout masks and
+    max-pool tokens: each leaf within GRAD_RTOL_F32 (relative L2); 12
+    launches of each flash kernel through the kernels, none through the
+    plain versions.  The plain route's ``GlobalMaxPooling1D`` takes the
+    tokens the kernel route's took: where a channel's two largest tokens
+    lie within the routes' float32 differences of each other, either is
+    its max, and the whole channel's gradient goes to the one taken.  The
+    tokens the plain route would have taken otherwise are counted."""
+    from analytics_zoo_torch.common.config import get_config
+    from analytics_zoo_torch.ops import dtypes, kernels
+    from analytics_zoo_torch.parallel.trainer import (
+        DistributedTrainer, step_generator)
+    from analytics_zoo_torch.pipeline.api.keras import objectives
+    from analytics_zoo_torch.pipeline.api.keras.layers import pooling
+    from analytics_zoo_torch.pipeline.api.keras.optimizers import Adam
+    from analytics_zoo_torch.pipeline.api.keras.topology import tree_leaves
+    tr = DistributedTrainer(getattr(model, "model", model),
+                            objectives.get(PHASE16_LOSS),
+                            optim_method=Adam(lr=1e-4))
+    params = tr.place_params(model.get_variables()["params"])
+    batch = tr.put_batch(batch_np)
+    pool_call = pooling.GlobalMaxPooling1D.call
+    own_call = "call" in vars(pooling.GlobalMaxPooling1D)
+    tokens, other = [], []
+
+    def pooled(layer, params_, x, training=False, rng=None):
+        picked = x.detach().argmax(dim=1, keepdim=True)
+        if get_config().get("ops.fused") == "auto":
+            tokens.append(picked)
+            return pool_call(layer, params_, x, training, rng)
+        want = tokens[len(other)]
+        other.append(int((picked != want).sum()))
+        return x.gather(1, want).squeeze(1)
+
+    dtypes.set_policy(compute_dtype="float32")
+    pooling.GlobalMaxPooling1D.call = pooled
+    grads = {}
+    try:
+        for mode in ("auto", "torch"):
+            get_config().set("ops.fused", mode)
+            kernels.reset_launch_counts()
+            loss_m, g, _ = tr.loss_and_grads(params, {}, batch,
+                                             step_generator(11, 0, dev))
+            grads[mode] = (float(loss_m), tree_leaves(g))
+            counts = kernels.launch_counts()
+            if mode == "torch" and any(counts.values()):
+                fail(f"{what}: ops.fused=torch launched kernels {counts}")
+            if mode == "auto" and any(counts[n] != 12 for n in WIDE_FLASH):
+                fail(f"{what}: gradient launches {counts}")
+    finally:
+        if own_call:
+            pooling.GlobalMaxPooling1D.call = pool_call
+        else:
+            del pooling.GlobalMaxPooling1D.call
+        get_config().set("ops.fused", "auto")
+        dtypes.restore_policy(None)
+    errs = [rel_l2(a, b) for a, b in zip(grads["auto"][1], grads["torch"][1])]
+    worst = max(errs)
+    pool = (f"; max-pool tokens the plain route would have taken otherwise "
+            f"{sum(other)} of {sum(int(t.numel()) for t in tokens)}"
+            if tokens else "")
+    print(f"25 {what} gradients, kernels vs plain versions, float32 "
+          f"products: {len(errs)} leaves, relative L2 max {worst:.3e} median "
+          f"{statistics.median(errs):.3e} (tolerance {GRAD_RTOL_F32}); loss "
+          f"{grads['auto'][0]:.6f} vs {grads['torch'][0]:.6f}{pool}")
+    if not worst <= GRAD_RTOL_F32:
+        fail(f"{what}: kernel and plain gradients differ: {worst}")
+
+
+def wide_kernel_times(torch, card, dev):
+    """25d: each head_dim 256 and 192 instance at BERT-base's width,
+    causal and not, timed in turns (kernel, plain, library, the head_dim
+    64 instance at (8, 12, 512, 64), then in reverse) with its plain
+    version, float32 ``scaled_dot_product_attention`` (the forward; the
+    backward of dQ, dK and dV together) and the instance of rows 1-3 at
+    the same work, beside its bound.  Returns {(shape, causal): {kernel:
+    {ms, plain_ms, library_ms (the medians of the turns), bound_ms,
+    bound_by}}}."""
+    from analytics_zoo_torch.ops import flash_attention as fa
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    g = torch.Generator(device=dev).manual_seed(25)
+    results = {}
+
+    def inputs(shape):
+        return [torch.randn(shape, generator=g, device=dev) for _ in range(4)]
+
+    base = inputs(FLASH_SHAPES[0])
+    for shape in WIDE_TIMED:
+        b, h, t, d = shape
+        wide = inputs(shape)
+        for causal in (False, True):
+            fns = {}
+            for tag, (q, k, v, do) in (("kernel", wide), ("d64", base)):
+                o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+                delta = fa.flash_attention_delta(o, do)
+                fns[tag] = (
+                    lambda q=q, k=k, v=v: fa.flash_attention_fwd(
+                        q, k, v, causal=causal),
+                    lambda a=(q, k, v, do, lse, delta): fa.flash_attention_dq(
+                        *a, causal),
+                    lambda a=(q, k, v, do, lse, delta): fa.flash_attention_dkv(
+                        *a, causal))
+                if tag == "kernel":
+                    plain = (
+                        lambda q=q, k=k, v=v: fa.flash_attention_ref(
+                            q, k, v, causal=causal),
+                        lambda a=(q, k, v, do, lse, delta):
+                            fa.flash_attention_dq_ref(*a, causal),
+                        lambda a=(q, k, v, do, lse, delta):
+                            fa.flash_attention_dkv_ref(*a, causal))
+            q, k, v, do = wide
+            qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+            sdpa_out = sdpa(qg, kg, vg, is_causal=causal)
+            lib = (lambda: sdpa(q, k, v, is_causal=causal),
+                   lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), do,
+                                               retain_graph=True))
+            backend = sdpa_backend(torch, q, k, v, causal)
+            pairs = b * h * t * t / (2 if causal else 1)
+            n_el = b * h * t * d
+            for i, (name, tensors, rows, flops) in enumerate((
+                    ("flash_attention_fwd", 4, 1, 4),
+                    ("flash_attention_dq", 5, 2, 6),
+                    ("flash_attention_dkv", 6, 2, 8))):
+                turns = {"kernel": fns["kernel"][i], "plain": plain[i],
+                         "library": lib[min(i, 1)], "d64": fns["d64"][i]}
+                runs = {tag: [] for tag in turns}
+                for tag in list(turns) + list(turns)[::-1]:
+                    runs[tag].append(time_ms(torch, turns[tag]))
+                bnd, by = flash_bound_ms(
+                    (tensors * n_el + rows * b * h * t) * 4,
+                    flops * pairs * d)
+                results.setdefault((shape, causal), {})[name] = dict(
+                    ms=statistics.median(runs["kernel"]),
+                    plain_ms=statistics.median(runs["plain"]),
+                    library_ms=statistics.median(runs["library"]),
+                    bound_ms=bnd, bound_by=by)
+                print(f"25d time {name} {shape} f32 causal={causal}: "
+                      f"kernel_ms {runs['kernel']} plain_ms {runs['plain']} "
+                      f"library_ms {runs['library']} "
+                      f"(scaled_dot_product_attention f32, "
+                      f"{'forward' if i == 0 else 'backward: dQ, dK, dV together'}"
+                      f"; {backend}) head_dim-64 instance at "
+                      f"{FLASH_SHAPES[0]} (the same work) {runs['d64']}; "
+                      f"bound_ms {bnd:.6f} ({by}, 3xTF32"
+                      f"{', T^2/2 pairs' if causal else ''}) ({card})")
+            del qg, kg, vg, sdpa_out, lib, plain, fns
+        del wide
+    return results
+
+
+def wide_heads_phase(torch, card, dev):
+    """Phase 25: BERT-base's width in heads of 256 and 192 on the card.
+    25a the BERT-base ``TextClassifier`` with 3 heads of 256 served (4
+    requests of 8 x 512) and trained (4 Adam steps of 8 x 512 on the
+    per-step captured route), its gradients against the plain versions;
+    25b the same with 4 heads of 192 (1 request, 1 step, gradients); 25c
+    one Adam step of GPT-1's ``TransformerLayer`` with 3 heads of 256
+    (causal), its gradients; 25d the instances timed.  Returns the
+    launches of 25a-c's requests and steps, in all and by part, and 25d's
+    times."""
+    from collections import Counter as Counts
+    from analytics_zoo_torch.ops import kernels
+    t_phase = time.perf_counter()
+    rs = np.random.RandomState(25)
+    total = Counts()
+    by_part = {}
+    step = {"flash_attention_fwd": 12, "flash_attention_dq": 12,
+            "flash_attention_dkv": 12, "bias_gelu": 12, "layernorm_act": 1,
+            "fused_adam": 1}
+    for n_head in WIDE_HEADS:
+        what = f"BERT-base TextClassifier, {n_head} heads of {768 // n_head}"
+        t0 = time.perf_counter()
+        model = bert_base(n_head)
+        model.model.init(torch.Generator().manual_seed(0))
+        print(f"25 {what}: built and placed in "
+              f"{time.perf_counter() - t0:.1f} s")
+        n_req = WIDE_REQUESTS if n_head == 3 else 1
+        rows = WIDE_ROWS if n_head == 3 else WIDE_BATCH
+        requests = [rs.randint(0, 30522, size=(WIDE_BATCH, 512))
+                    .astype(np.int64) for _ in range(n_req)]
+        x = rs.randint(0, 30522, size=(rows, 512)).astype(np.int64)
+        y = rs.randint(0, 20, size=(rows,)).astype(np.int64)
+        part = Counts(wide_serving(torch, card, model, requests, what))
+        part.update(wide_fit(torch, card, model, x, y, what, step))
+        by_part[what] = part
+        total.update(part)
+        wide_grads(torch, dev, model, (x[:WIDE_BATCH], y[:WIDE_BATCH]), what)
+        del model
+        torch.cuda.empty_cache()
+    what = "GPT-1 TransformerLayer, 3 heads of 256, causal"
+    model = gpt1_model(torch, n_head=3)
+    x, y = gpt1_data(WIDE_BATCH, 25)
+    by_part[what] = Counts(wide_fit(torch, card, model, x, y, what, {
+        "flash_attention_fwd": 12, "flash_attention_dq": 12,
+        "flash_attention_dkv": 12, "bias_gelu": 12, "fused_adam": 1}))
+    total.update(by_part[what])
+    wide_grads(torch, dev, model, (x, y), what)
+    del model
+    torch.cuda.empty_cache()
+    times = wide_kernel_times(torch, card, dev)
+    launches = {name: total[name] for name in kernels.SIGNATURES}
+    print(f"launches: phase 25's requests and steps {launches}; the flash "
+          f"kernels' by model: " + "; ".join(
+              f"{what} {[part[n] for n in WIDE_FLASH]}"
+              for what, part in by_part.items()))
+    print(f"phase 25: {time.perf_counter() - t_phase:.1f} s ({card})")
+    return launches, by_part, times
+
+
+def wide_heads_alone() -> None:
+    """Phase 25 by itself (``--wide-heads``)."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a GPU")
+    from analytics_zoo_torch import init_zoo_context
+    from analytics_zoo_torch.ops import kernels
+    kernels.build_all()
+    card = gpu_line()
+    print(f"gpu: {card}")
+    ctx = init_zoo_context(device="cuda:0")
+    wide_heads_phase(torch, card, ctx.device)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -8676,8 +9013,9 @@ def main() -> None:
 
     # ----------------------------------- 2. kernels against plain versions
     # flash forward against the plain version, and two launches against
-    # each other
+    # each other; the kernels line takes the largest error of every width
     b, h, t, d = FLASH_SHAPES[0]
+    flash_err = 0.0
     for shape in FLASH_SHAPES:
         q, k, v = (randn(*shape) for _ in range(3))
         for causal in (False, True):
@@ -8696,8 +9034,7 @@ def main() -> None:
                   f"{err_o:.3e} (|O| max {float(o_ref.abs().max()):.3e}, "
                   f"atol {FWD_ATOL}, rtol {FWD_RTOL}), LSE {err_l:.3e} (atol "
                   f"{FWD_LSE_ATOL}); two launches bit-identical")
-            if shape == FLASH_SHAPES[0] and not causal:
-                flash_err = max(err_o, err_l)
+            flash_err = max(flash_err, err_o, err_l)
     del o2, lse2
     sdpa = torch.nn.functional.scaled_dot_product_attention
     q, k, v = (randn(b, h, t, d) for _ in range(3))
@@ -8775,6 +9112,7 @@ def main() -> None:
         ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None)
     # flash backward: dQ and dK/dV, against the plain versions, and two
     # launches against each other
+    errs = (0.0, 0.0)
     for shape in FLASH_SHAPES:
         q, k, v, do = (randn(*shape) for _ in range(4))
         for causal in (False, True):
@@ -8799,8 +9137,7 @@ def main() -> None:
                   f"{err_q:.3e}, dK {err_k:.3e}, dV {err_v:.3e} (|dQ| max "
                   f"{float(dq_ref.abs().max()):.3e}, atol {BWD_ATOL}, rtol "
                   f"{BWD_RTOL}); two launches bit-identical")
-            if shape == (b, h, t, d) and not causal:
-                errs = (err_q, max(err_k, err_v))
+            errs = (max(errs[0], err_q), max(errs[1], err_k, err_v))
     q, k, v, do = (randn(b, h, t, d) for _ in range(4))
     o, lse = fa.flash_attention_fwd(q, k, v)
     delta = fa.flash_attention_delta(o, do)
@@ -9220,7 +9557,13 @@ def main() -> None:
               f"{r['library_ms']:.5f} bound_ms {r['bound_ms']:.6f} host_ms "
               f"{r['host_ms']:.5f} ({card})")
 
-    # ------------------------------------------------------ 25. results
+    # ---- 25. wide heads: BERT-base's width in 3 heads of 256 and 4 of 192
+    # served and trained through the float32 flash kernels (--wide-heads)
+    mark = len(CAPTURE_LOG)
+    wide_launches, wide_parts, wide_times = wide_heads_phase(torch, card, dev)
+    report_captures("phase 25", mark, card)
+
+    # ------------------------------------------------------ 26. results
     print(f"launches: GPT-1 serving (4 requests) {gpt_serve}; GPT-1 fit "
           f"(8 steps) {gpt_train}; BERT-base fine-tuning (8 steps) "
           f"{bert_tune}")
@@ -9238,13 +9581,18 @@ def main() -> None:
           f"{inc_launches}; ResNet-50 (ONNX) train_step (phase 22b, "
           f"{ONNX_TRAIN_STEPS} steps) {onnx_launches}")
     print(f"launches: phase 23 {fleet_launches}")
-    # this slice's main path is phase 24: the float32 forward and backward
-    # kernels' and Adam's launches are 24a's Estimator steps on the NCCL
-    # world of one (launch_cli's child), SGD's 24b rank 0's data-parallel
-    # steps; the optimizers' times are those over BERT-base's leaves (SGD
-    # at momentum 0, as 24b), their errors those on phase 24's tables
-    # (the earlier models' are printed above); every other kernel's error
-    # is the largest of phase 2's and 24b's
+    print(f"launches: phase 24a {mg['a_launches']}; phase 25 "
+          f"{wide_launches}")
+    # the float32 flash kernels' launches are phase 25's requests and steps
+    # (this slice's path: head_dim 256 and 192), their times 25d's at
+    # WIDE_TIMED[0] non-causal, the instance of most of those launches
+    # (25a's); bias-GeLU's, LayerNorm's
+    # and Adam's are 24a's Estimator steps on the NCCL world of one
+    # (launch_cli's child), SGD's 24b rank 0's data-parallel steps; the
+    # optimizers' times are those over BERT-base's leaves (SGD at momentum
+    # 0, as 24b), their errors those on phase 24's tables (the earlier
+    # models' are printed above); every other kernel's error is the
+    # largest of phase 2's (every head_dim) and 24b's
     report["fused_sgd"]["launches"] = mg["b_launches"]["fused_sgd"]
     for name in ("fused_adam", "fused_sgd"):
         report[name].update({key: mg["times"][name][key] for key in (
@@ -9254,10 +9602,17 @@ def main() -> None:
                  "flash_attention_dkv", "bias_gelu", "layernorm_act"):
         report[name]["max_abs_err"] = max(report[name]["max_abs_err"],
                                           mg["errs"][name])
-    for name in ("flash_attention_fwd", "flash_attention_dq",
-                 "flash_attention_dkv", "bias_gelu", "layernorm_act",
-                 "fused_adam"):
+    for name in ("bias_gelu", "layernorm_act", "fused_adam"):
         report[name]["launches"] = mg["a_launches"][name]
+    main_part = f"BERT-base TextClassifier, {WIDE_HEADS[0]} heads of " \
+        f"{768 // WIDE_HEADS[0]}"
+    for name in WIDE_FLASH:
+        report[name]["launches"] = wide_launches[name]
+        report[name].update(wide_times[(WIDE_TIMED[0], False)][name])
+        print(f"kernels line {name}: {wide_launches[name]} launches on phase "
+              f"25's path, {wide_parts[main_part][name]} of them at "
+              f"{WIDE_TIMED[0]} non-causal ({main_part}); ms, plain_ms, "
+              f"library_ms and bound_ms from 25d at that shape ({card})")
     for name, r in report.items():
         # phase 15a's resumed transformer training runs every float32
         # kernel but the optimizers'; phase 14's bench_attention run set
@@ -9338,6 +9693,8 @@ if __name__ == "__main__":
         fleet_alone()
     elif sys.argv[1:] == ["--multi-gpu"]:
         multi_gpu_alone()
+    elif sys.argv[1:] == ["--wide-heads"]:
+        wide_heads_alone()
     elif sys.argv[1:2] == [MG_CHILD] and len(sys.argv) == 4:
         multi_gpu_child(sys.argv[2], sys.argv[3])
     elif sys.argv[1:2] == [WARM_CHILD] and len(sys.argv) == 4:

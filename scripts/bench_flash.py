@@ -3,7 +3,7 @@
 build, inspect, check and time, beside other versions of the same sources.
 
     python3 scripts/bench_flash.py [--compare PATH.cu ...] [--diagnose]
-                                   [--fit | --bf16] [--out PATH]
+                                   [--fit | --bf16 | --wide] [--out PATH]
 
 Builds ``analytics_zoo_torch/csrc/flash_attention_fwd.cu`` and
 ``flash_attention_bwd.cu`` and, with ``--compare``, other sources with the
@@ -74,6 +74,18 @@ taking turns), ``fast_exp``, ``bn64`` (64-key tiles in place of 128) and
 ``grid_by_head`` (the query block on x, reversed, and the head on y: a
 head's blocks run together, heaviest first).
 
+With ``--wide``, instead of all that, the float32 kernels at every
+head_dim: it builds the current sources and prints each instance's
+registers, spills and SASS mix.  With ``--diagnose`` it also builds the
+variants of ``WIDE_VARIANTS`` (other tilings of the head_dim 192 and 256
+instances, the designs they replaced; the split dQ and dK/dV at 64, the
+unsplit ones at 128), holds each variant's outputs to the current build's (bit-identical,
+or within ``chip_smoke.py``'s tolerances) and times each in turns with the
+current build at ``WIDE_TIMED`` (BERT-base's width in heads of 64, 128,
+192 and 256: the same work at each), causal and not.  ``chip_smoke.py``
+holds the current build to the plain versions and times it beside them,
+its bound and the library (phases 2 and 25).
+
 Needs a CUDA device and ``nvcc``; with ``--out PATH`` also writes the
 results as JSON.  Exits non-zero if a check failed (after timing).
 """
@@ -99,15 +111,66 @@ SHAPES = [((8, 12, 512, 64), False), ((8, 12, 512, 64), True),
           ((2, 4, 512, 128), False), ((2, 4, 512, 128), True)]
 TRAIN_SHAPE = (8, 12, 512, 64)
 FWD, BWD = "flash_attention_fwd", "flash_attention_bwd"
-KINDS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
-         "flash_fwd_bf16_kernel", "flash_dq_bf16_kernel",
-         "flash_dkv_bf16_kernel")
+KINDS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dq_split_kernel",
+         "flash_dkv_kernel", "flash_dkv_split_kernel", "flash_fwd_bf16_kernel",
+         "flash_dq_bf16_kernel", "flash_dkv_bf16_kernel")
 BF16_FWD = "flash_attention_fwd_bf16"
 BF16_BWD = "flash_attention_bwd_bf16"
 BF16_NAMES = ["flash_attention_dq_bf16", "flash_attention_dkv_bf16"]
 F32_NAMES = ["flash_attention_dq", "flash_attention_dkv"]
 # bench_attention's shape and twice its sequence, causal
 BF16_TIMED = ((4, 8, 4096, 128), (4, 8, 8192, 128))
+# --wide --diagnose: BERT-base's width in heads of 64, 128, 192 and 256
+# (H * D = 768: the work of TRAIN_SHAPE at each)
+WIDE_TIMED = ((8, 12, 512, 64), (8, 6, 512, 128), (8, 4, 512, 192),
+              (8, 3, 512, 256))
+# --wide --diagnose: variants of the float32 sources, by source, each a
+# list of (text in it, replacement); correct kernels, held to the current
+# build and timed.  The tilings are the wide instances' earlier designs and
+# their neighbours; "split", "dq64_bn32" and "unsplit128" ask at which
+# head_dims the split dQ and dK/dV kernels beat the unsplit ones.
+_DQ_BN = ("    // rows of each streamed K and V tile\n"
+          "    static constexpr int BN = D == 64 ? 64 : D == 128 ? 32 : 16;")
+_DKV_BN = ("    // rows of each streamed q and dO tile\n"
+           "    static constexpr int BN = D == 64 ? 64 : D == 128 ? 32 : 16;")
+_BN8 = ": D == 128 ? 32 : D == 192 ? 16 : 8;"
+WIDE_VARIANTS = {FWD: {
+    # the forward's first tiling: BM 64 (4 warps), BN 32 at 192 and 16 at
+    # 256, K split as it lands
+    "fwd_first": [("int BM = D == 128 ? 64 : 128;",
+                   "int BM = D == 64 ? 128 : 64;"),
+                  ("bool K_LO = D <= 128;", "bool K_LO = true;")],
+    # then: BM 128, BN 8 at 256 (8 warps, one chain each), K split as it lands
+    "fwd_bn8": [("int BM = D == 128 ? 64 : 128;",
+                 "int BM = D == 128 || D == 192 ? 64 : 128;"),
+                ("int BN = D <= 192 ? 32 : 16;", "int BN = D <= 192 ? 32 : 8;"),
+                ("bool K_LO = D <= 128;", "bool K_LO = true;")],
+}, BWD: {
+    # dQ's first design: one warp a 16-row group, BN 16 at 192 and 8 at 256
+    "dq_unsplit": [("bool SPLIT = D > 64;          // two warps a 16-row",
+                    "bool SPLIT = D > 256;         // two warps a 16-row"),
+                   (_DQ_BN, _DQ_BN.replace(": D == 128 ? 32 : 16;", _BN8)),
+                   ("bool V_LO = D != 256;", "bool V_LO = true;")],
+    # then: split, BN 8 at 256 with V split as it lands
+    "dq_bn8": [(_DQ_BN, _DQ_BN.replace(": D == 128 ? 32 : 16;", _BN8)),
+               ("bool V_LO = D != 256;", "bool V_LO = true;")],
+    # dK/dV's first design: BN 8 at 256 with dO split as it lands
+    "dkv_bn8": [(_DKV_BN, _DKV_BN.replace(": D == 128 ? 32 : 16;", _BN8)),
+                ("bool DO_LO = D != 256;", "bool DO_LO = true;")],
+    # BM 32 (4 warps) at 256, BN 16, dO split as it lands
+    "dkv256_bm32": [("int BM = D == 64 ? 128 : 64;  // key rows",
+                     "int BM = D == 64 ? 128 : D == 256 ? 32 : 64;  // key rows"),
+                    ("bool DO_LO = D != 256;", "bool DO_LO = true;")],
+    # the split dQ and dK/dV at head_dim 64 too; dQ's with BN 32 there (its
+    # P and dP buffers take 64 KB: BN 64 would need 239,616 bytes)
+    "split": [("bool SPLIT = D > 64;", "bool SPLIT = true;"),
+              (_DQ_BN, _DQ_BN.replace("D == 64 ? 64", "D == 64 ? 32"))],
+    # the unsplit dQ at 64 with BN 32: what that tiling alone costs
+    "dq64_bn32": [(_DQ_BN, _DQ_BN.replace("D == 64 ? 64", "D == 64 ? 32"))],
+    # the unsplit dQ and dK/dV at head_dim 128 (the split ones took 128
+    # from them)
+    "unsplit128": [("bool SPLIT = D > 64;", "bool SPLIT = D > 128;")],
+}}
 # --diagnose --bf16: variant name -> [(text in the bf16 source, replacement)]
 DIAGNOSE_BF16 = {
     "one_part": [("constexpr int PARTS = 3;", "constexpr int PARTS = 1;")],
@@ -295,10 +358,10 @@ def defines(path: str, entry: str) -> bool:
         return f"{entry}(" in f.read()
 
 
-def diagnose_bf16_sources(csrc: str, out_dir: str, source: str, variants):
+def variant_sources(csrc: str, out_dir: str, source: str, variants):
     """Write the --diagnose variants (``variants``: {name: [(old, new)]})
-    of the current bf16 ``source`` (each beside its own copy of the
-    headers); returns {tag: path}."""
+    of the current ``source`` (each beside its own copy of the headers);
+    returns {tag: path}."""
     with open(os.path.join(csrc, source + ".cu")) as f:
         text = f.read()
     out = {}
@@ -320,6 +383,134 @@ def diagnose_bf16_sources(csrc: str, out_dir: str, source: str, variants):
             f.write(variant)
         out[f"diag_{name}"] = path
     return out
+
+
+def wide_flash(args, torch, kernels, fa, card) -> None:
+    """--wide: the float32 kernels' registers, spills and SASS mix at every
+    head_dim; with --diagnose the ``WIDE_VARIANTS`` held to the current
+    build and timed in turns with it (see the module's docstring)."""
+    from chip_smoke import BWD_ATOL, BWD_RTOL, FWD_ATOL, FWD_RTOL, time_ms
+    versions = {"current": {FWD: kernels.source_path(FWD),
+                            BWD: kernels.source_path(BWD)}}
+    if args.diagnose:
+        for src, variants in WIDE_VARIANTS.items():
+            for tag, path in variant_sources(
+                    kernels.CSRC_DIR, kernels.BUILD_DIR, src,
+                    variants).items():
+                versions[tag] = {src: path}
+    names = {FWD: [FWD], BWD: F32_NAMES}
+    started = {(tag, dirn): start_build(kernels, src, f"wide_{dirn}_{tag}")
+               for tag, srcs in versions.items() for dirn, src in srcs.items()}
+    libs = collections.defaultdict(dict)
+    result = {"card": card, "versions": {}}
+    for (tag, dirn), st in started.items():
+        src = versions[tag][dirn]
+        lib, path, ptxas = finish_build(kernels, st, src, names[dirn])
+        libs[tag][dirn] = lib
+        mix = sass_mix(path, kernels.nvcc_path())
+        result["versions"][f"{dirn}:{tag}"] = {"source": src, "ptxas": ptxas,
+                                               "sass": mix}
+        print(f"[wide {dirn}:{tag}] {src}")
+        # ptxas names each instance before its registers and spills
+        for ln in ptxas:
+            kind = next((k for k in KINDS if k + "I" in ln), None)
+            dim = re.search(r"Li(\d+)E", ln)
+            print(f"  {kind}<{dim.group(1) if dim else '?'}>" if kind
+                  else f"    {ln}")
+        for kern, counts in mix.items():
+            print(f"  sass {kern}: {counts}")
+    if not args.diagnose:
+        return write_out(args, result)
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(24)
+    stream = torch.cuda.current_stream().cuda_stream
+    failures = []
+
+    def calls(tag, q, k, v, do, lse, delta, outs, causal):
+        """{part: fn} of the version ``tag`` (its forward or its backward
+        where it has one) writing into ``outs`` (o, lse, dq, dk, dv)."""
+        b, h, t, d = q.shape
+        scale = float(d ** -0.5)
+        ptrs = [x.data_ptr() for x in (q, k, v, do, lse, delta)]
+        o, lse_o, dq, dk, dv = (x.data_ptr() for x in outs)
+        fns = {}
+        if FWD in libs[tag]:
+            fns["fwd"] = lambda: libs[tag][FWD].zoo_flash_attention_fwd(
+                *ptrs[:3], o, lse_o, b * h, t, d, scale, int(causal), stream)
+        if BWD in libs[tag]:
+            lib = libs[tag][BWD]
+            fns["dq"] = lambda: lib.zoo_flash_attention_dq(
+                *ptrs, dq, b * h, t, d, scale, int(causal), stream)
+            fns["dkv"] = lambda: lib.zoo_flash_attention_dkv(
+                *ptrs, dk, dv, b * h, t, d, scale, int(causal), stream)
+        return fns
+
+    checks, times = [], {}
+    for shape in WIDE_TIMED:
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
+                       for _ in range(4))
+        for causal in (False, True):
+            key = f"{shape} causal={causal}"
+            o_ref, lse = fa.flash_attention_ref(q, k, v, causal=causal)
+            delta = fa.flash_attention_delta(o_ref, do)
+            fns, got = {}, {}
+            for tag in libs:
+                outs = [torch.zeros_like(x)
+                        for x in (q, lse, q, k, v)]
+                fns[tag] = calls(tag, q, k, v, do, lse, delta, outs, causal)
+                for part, fn in fns[tag].items():
+                    if fn():
+                        sys.exit(f"bench_flash: {tag} {part} {key}: launch "
+                                 "failed")
+                got[tag] = dict(zip(("o", "lse", "dq", "dk", "dv"), outs))
+            torch.cuda.synchronize()
+            # each variant against the current build, on the outputs of
+            # the source it changes (chip_smoke.py holds the current one
+            # to the plain versions)
+            for tag in libs:
+                if tag == "current":
+                    continue
+                which = ("o", "lse") if FWD in libs[tag] else ("dq", "dk", "dv")
+                for n in which:
+                    want, x = got["current"][n], got[tag][n]
+                    atol, rtol = ((FWD_ATOL, FWD_RTOL) if n in ("o", "lse")
+                                  else (BWD_ATOL, BWD_RTOL))
+                    err = (x - want).abs()
+                    same = torch.equal(x, want)
+                    if not float((err - rtol * want.abs()).max()) <= atol:
+                        failures.append(f"{tag} {n} {key}: max abs diff "
+                                        f"{float(err.max()):.3e}")
+                    checks.append(dict(version=tag, shape=shape, causal=causal,
+                                       output=n, bit_identical=same,
+                                       max_abs_diff=float(err.max())))
+                    print(f"check [wide {tag}] {n} {key} against current: "
+                          f"{'bit-identical' if same else f'max abs diff {float(err.max()):.3e}'}")
+            entry = times[key] = {}
+            for part in ("fwd", "dq", "dkv"):
+                turn = {tag: f[part] for tag, f in fns.items() if part in f}
+                if len(turn) < 2:
+                    continue
+                runs = collections.defaultdict(list)
+                in_turns(torch, time_ms, turn, runs)
+                entry[part] = {tag: dict(runs=r, median=statistics.median(r))
+                               for tag, r in runs.items()}
+                print(f"time [wide] {part} {key} f32: " + ", ".join(
+                    f"{tag} {r['median']:.5f}" for tag, r in
+                    entry[part].items()) + f" ms ({card})")
+        del q, k, v, do
+    result.update(checks=checks, times_ms=times, failures=failures)
+    write_out(args, result)
+    if failures:
+        print("bench_flash: FAILED:\n  " + "\n  ".join(failures))
+        sys.exit(1)
+
+
+def write_out(args, result) -> None:
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
 
 
 def bf16_flash(args, torch, kernels, fa, card) -> None:
@@ -352,7 +543,7 @@ def bf16_flash(args, torch, kernels, fa, card) -> None:
     if args.diagnose:
         for kind, source, variants in (("bwd", BF16_BWD, DIAGNOSE_BF16),
                                        ("fwd", BF16_FWD, DIAGNOSE_BF16_FWD)):
-            for tag, path in diagnose_bf16_sources(
+            for tag, path in variant_sources(
                     kernels.CSRC_DIR, kernels.BUILD_DIR, source,
                     variants).items():
                 srcs[kind][tag] = path
@@ -654,6 +845,7 @@ def main() -> None:
     ap.add_argument("--diagnose", action="store_true")
     ap.add_argument("--fit", action="store_true")
     ap.add_argument("--bf16", action="store_true")
+    ap.add_argument("--wide", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
@@ -671,6 +863,8 @@ def main() -> None:
     print(f"gpu: {card}")
     if args.bf16:
         return bf16_flash(args, torch, kernels, fa, card)
+    if args.wide:
+        return wide_flash(args, torch, kernels, fa, card)
     # direction -> {tag: source}
     versions = {FWD: {}, BWD: {}}
     for p in args.compare:

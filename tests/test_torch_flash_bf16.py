@@ -410,14 +410,16 @@ def test_f32_plain_versions_bit_identical_to_before(d, causal):
 
 @pytest.mark.parametrize("mode", ["auto", "torch", "off"])
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
-@pytest.mark.parametrize("head_dim", [32, 64, 128, 192])
+@pytest.mark.parametrize("head_dim", [32, 64, 128, 192, 256, 320])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 def test_takes_kernels(dtype, head_dim, device, mode):
+    """float32 takes the kernels at head_dim 64, 128, 192 and 256, bf16 at
+    64 and 128; float16, and every other width, the plain versions."""
     shape = (2, 4, 256, head_dim)
+    widths = {torch.float32: (64, 128, 192, 256), torch.bfloat16: (64, 128)}
     want = (mode == "auto" and device == "cuda" and
-            dtype in (torch.float32, torch.bfloat16) and
-            head_dim in (64, 128))
+            head_dim in widths.get(dtype, ()))
     assert tfa.takes_kernels((dtype,) * 3, (shape,) * 3,
                              torch.device(device), mode) is want
 
@@ -437,6 +439,12 @@ def test_kernel_supports_reads_dtype_and_head_dim():
     assert not tfa.kernel_supports(bf, bf.float(), bf)
     assert not tfa.kernel_supports(bf.half())
     assert not tfa.kernel_supports(torch.zeros(1, 2, 8, 32))
+    # head_dim 192 and 256 on float32 only
+    for d in (192, 256):
+        assert tfa.kernel_supports(torch.zeros(1, 2, 8, d))
+        assert not tfa.kernel_supports(torch.zeros(1, 2, 8, d,
+                                                   dtype=torch.bfloat16))
+    assert not tfa.kernel_supports(torch.zeros(1, 2, 8, 320))
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 32),

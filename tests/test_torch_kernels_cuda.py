@@ -33,7 +33,11 @@ def _randn(dev, *shape, seed=0):
 
 @pytest.mark.parametrize("t,d,causal", [(128, 64, False), (128, 64, True),
                                         (100, 128, False), (100, 128, True),
-                                        (1, 64, False), (257, 64, True)])
+                                        (1, 64, False), (257, 64, True),
+                                        (128, 192, False), (100, 192, True),
+                                        (257, 192, False), (128, 256, True),
+                                        (100, 256, False), (257, 256, True),
+                                        (1, 256, False)])
 def test_flash_kernel_matches_plain(dev, t, d, causal):
     # split-TF32 products (~1e-6 relative) that do not cancel: O is a convex
     # combination of rows of V, LSE the log of a sum of positive terms
@@ -47,7 +51,8 @@ def test_flash_kernel_matches_plain(dev, t, d, causal):
 
 
 @pytest.mark.parametrize("t,d,causal", [(512, 64, False), (200, 64, True),
-                                        (257, 128, True)])
+                                        (257, 128, True), (257, 192, True),
+                                        (200, 256, False)])
 def test_flash_kernel_is_deterministic(dev, t, d, causal):
     """Each output row is written by one warp of one block: two launches
     on the same inputs agree bit for bit."""
@@ -62,6 +67,11 @@ def test_flash_kernel_refuses_what_it_does_not_take(dev):
     q = _randn(dev, 1, 2, 64, 32)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention_fwd(q, q, q)
+    for d, dtype in ((320, torch.float32), (192, torch.bfloat16),
+                     (256, torch.bfloat16)):
+        q = _randn(dev, 1, 2, 64, d).to(dtype)
+        with pytest.raises(ValueError, match="head_dim"):
+            fa.flash_attention_fwd(q, q, q)
     q = _randn(dev, 1, 2, 64, 64).requires_grad_()
     with pytest.raises(RuntimeError, match="forward-only"):
         fa.flash_attention_fwd(q, q, q)
@@ -101,7 +111,11 @@ BWD_TOL = dict(atol=1e-4, rtol=1e-4)
                                         (100, 128, False), (100, 128, True),
                                         (1, 64, False), (257, 64, True),
                                         (512, 64, False), (512, 64, True),
-                                        (200, 64, False), (200, 64, True)])
+                                        (200, 64, False), (200, 64, True),
+                                        (128, 192, False), (100, 192, True),
+                                        (257, 192, True), (128, 256, True),
+                                        (100, 256, False), (257, 256, True),
+                                        (512, 256, True), (1, 256, False)])
 def test_flash_backward_kernels_match_plain(dev, t, d, causal):
     q, k, v, do = (_randn(dev, 2, 3, t, d, seed=s) for s in range(4))
     o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
@@ -116,7 +130,8 @@ def test_flash_backward_kernels_match_plain(dev, t, d, causal):
 
 
 @pytest.mark.parametrize("t,d,causal", [(512, 64, False), (200, 64, True),
-                                        (257, 128, True)])
+                                        (257, 128, True), (257, 192, True),
+                                        (200, 256, False), (512, 256, True)])
 def test_flash_backward_kernels_are_deterministic(dev, t, d, causal):
     """No output element is written by two blocks and nothing is summed
     with atomics: two launches on the same inputs agree bit for bit."""
@@ -131,11 +146,10 @@ def test_flash_backward_kernels_are_deterministic(dev, t, d, causal):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("causal", [False, True])
-def test_flash_autograd_on_the_card_matches_plain_autograd(dev, causal):
-    q, k, v = (_randn(dev, 2, 2, 192, 64, seed=s).requires_grad_()
+def _autograd_matches_plain(dev, causal, d):
+    q, k, v = (_randn(dev, 2, 2, 192, d, seed=s).requires_grad_()
                for s in range(3))
-    do = _randn(dev, 2, 2, 192, 64, seed=3)
+    do = _randn(dev, 2, 2, 192, d, seed=3)
     o = fa.flash_attention(q, k, v, causal=causal)
     got = torch.autograd.grad(o, (q, k, v), do)
     o_ref = fa.flash_attention_ref(q, k, v, causal=causal)[0]
@@ -143,6 +157,20 @@ def test_flash_autograd_on_the_card_matches_plain_autograd(dev, causal):
     torch.testing.assert_close(o, o_ref, atol=1e-5, rtol=1e-5)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, **BWD_TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_autograd_on_the_card_matches_plain_autograd(dev, causal):
+    _autograd_matches_plain(dev, causal, 64)
+
+
+@pytest.mark.parametrize("d", [192, 256])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_autograd_at_wide_heads_matches_plain_autograd(dev, causal, d):
+    before = kernels.launch_counts()
+    _autograd_matches_plain(dev, causal, d)
+    after = kernels.launch_counts()
+    assert all(after[n] == before[n] + 1 for n in fa.KERNELS[torch.float32])
 
 
 # bf16 kernels against their plain versions on the same bf16 inputs.  O:
@@ -346,7 +374,10 @@ def test_flash_bf16_kernels_are_deterministic(dev, t, d, causal):
 @pytest.mark.parametrize("dtype,d,fired", [
     (torch.bfloat16, 64, "bf16"), (torch.bfloat16, 128, "bf16"),
     (torch.float32, 128, "f32"), (torch.bfloat16, 32, None),
-    (torch.float32, 32, None), (torch.float16, 64, None)])
+    (torch.float32, 32, None), (torch.float16, 64, None),
+    (torch.float32, 192, "f32"), (torch.float32, 256, "f32"),
+    (torch.bfloat16, 192, None), (torch.bfloat16, 256, None),
+    (torch.float16, 256, None), (torch.float32, 320, None)])
 def test_flash_op_routes_by_dtype_and_head_dim_on_the_card(dev, dtype, d,
                                                             fired):
     """Through the op and autograd: bf16 launches only the bf16 kernels,
