@@ -82,6 +82,25 @@
 //   Shared memory at D = 128: dQ 163 KB (q, dO of 128 rows; three stages
 //   of K, V), dK/dV 179 KB (K, V of 64 rows; three stages of q, dO, lse,
 //   delta and P^T), alignment included.
+//
+// Head_dim 192 and 256 (Cfg::NC = 1).  A consumer's 64 x D float32
+// accumulator is 96 or 128 registers a thread; with S and dP (32 each) or
+// dS's parts (48) beside it, no role fits the 168 registers of a 384-thread
+// block.  So a block is the loader warpgroup and ONE consumer warpgroup
+// (256 threads: ptxas may give a thread 255 registers, and setmaxnreg is
+// not used), with two stages:
+//   - dQ: 64 query rows a block (q, dO 48/64 KB; stages of K, V 96/128 KB:
+//     145/193 KB at D = 192/256).
+//   - dK/dV: the grid has two blocks a 64-key block kb: y = 2 kb, the dV
+//     block, takes S^T, P^T and dV as consumer 1 above does (its loader
+//     loads K, not V); y = 2 kb + 1, the dK block, takes S^T and dP^T,
+//     forms P^T itself (the same instructions on the same operands: the
+//     same P^T) and dS^T, then dK.  No P^T crosses warpgroups, and S^T is
+//     taken twice: 9 passes for the pair where the split above takes 8.
+//     (K, V 48/64 KB; stages of q, dO, lse, delta 97/129 KB: 146/194 KB.)
+//   - dQ = dS K, dV = P^T dO and dK = dS^T qs take their D columns as a
+//     128- and a 64- or 128-column wgmma on the same A registers
+//     (wgmma_rs).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -99,20 +118,21 @@ using namespace wgmma_tile;
 
 constexpr int PARTS = 3;  // bf16 parts of a float32 operand (smallest first)
 
-template <int D_, int BM_>
+template <int D_, bool DQ>
 struct Cfg {
     static constexpr int D = D_;
-    static constexpr int BM = BM_;                 // rows a block owns: dQ 128, dK/dV 64
+    static constexpr int NC = D_ <= 128 ? 2 : 1;   // consumer warpgroups (see above)
+    static constexpr int BM = DQ ? 64 * NC : 64;   // rows a block owns: dQ 128 (64), dK/dV 64
     static constexpr int BN = 64;                  // rows of a streamed tile
-    static constexpr int STAGES = 3;
-    static constexpr int NTHREADS = 384;           // loader + two consumer warpgroups
+    static constexpr int STAGES = NC == 2 ? 3 : 2;
+    static constexpr int NTHREADS = 128 * (1 + NC);   // loader + consumer warpgroups
     static constexpr int NK = BN / 16;             // reduction steps over a streamed tile
     static constexpr int OWN = BM * D * 2;         // bytes of an own tile
     static constexpr int TILE = BN * D * 2;        // bytes of a streamed tile
     static constexpr int RING = 2 * OWN;           // stage s: two tiles at RING + 2s TILE
     static constexpr int ROWS = RING + STAGES * 2 * TILE;   // dK/dV, stage s: lse, delta
     static constexpr int PBUF = ROWS + STAGES * 2 * BN * 4; // dK/dV, stage s: P^T, 64 x 64
-    static constexpr int BARS = PBUF + (BM == 64 ? STAGES * BN * BN * 4 : 0);
+    static constexpr int BARS = PBUF + (!DQ && NC == 2 ? STAGES * BN * BN * 4 : 0);
     static constexpr int SMEM = BARS + 5 * STAGES * 8 + 8 + 1024;  // + alignment slack
     // setmaxnreg: the loader's and each consumer's registers a thread (dQ,
     // dK/dV); the block's pool, 384 x 168 (__launch_bounds__(384, 1)),
@@ -122,9 +142,9 @@ struct Cfg {
 };
 
 template <int D>
-using DqCfg = Cfg<D, 128>;
+using DqCfg = Cfg<D, true>;
 template <int D>
-using DkvCfg = Cfg<D, 64>;
+using DkvCfg = Cfg<D, false>;
 
 // A consumer's setmaxnreg.inc waits until the loader has released enough
 // registers; if the compiler gave the kernel fewer than the pool assumes,
@@ -197,7 +217,7 @@ __device__ __forceinline__ void product3(float (&acc)[C::D / 8][4], const uint32
 #pragma unroll
     for (int kk = 0; kk < C::NK; ++kk)
 #pragma unroll
-        for (int p = PARTS - 1; p >= 0; --p) wgmma_rs<C::D>(acc, a[kk][p], desc_mn<C::BN>(x, kk));
+        for (int p = PARTS - 1; p >= 0; --p) wgmma_rs<C::D, C::BN>(acc, a[kk][p], x, kk);
 }
 
 // Write a warpgroup's 64 x D float32 accumulator times mul as bf16 rows
@@ -248,7 +268,7 @@ flash_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
         bar_init(own, 1);
         for (int s = 0; s < ST; ++s) {
             bar_init(full + s, 1);
-            bar_init(empty + s, 256);
+            bar_init(empty + s, 128 * C::NC);
         }
         bar_init_fence();
     }
@@ -258,7 +278,7 @@ flash_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
     // whole warpgroups, and the two roles never meet again)
     const int role = __shfl_sync(0xffffffff, threadIdx.x / 128, 0);
     if (role == 0) {                               // the loader
-        setmaxnreg_dec<C::DQ_LOADER>();
+        if constexpr (C::NC == 2) setmaxnreg_dec<C::DQ_LOADER>();
         if (threadIdx.x == 0) {
             bar_arrive_tx(own, 2 * C::OWN);
             load_tile<BM, D>(qs, &tq, q0, bh, own);
@@ -273,7 +293,7 @@ flash_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
             }
         }
     } else {                                       // the consumers
-        setmaxnreg_inc<C::DQ_CONSUMER>();
+        if constexpr (C::NC == 2) setmaxnreg_inc<C::DQ_CONSUMER>();
         const int wg = role - 1;          // rows [64 wg, 64 wg + 64) of the block
         const int tid = threadIdx.x % 128;
         const int lane = tid % 32, g = lane / 4, tg = lane % 4;
@@ -349,6 +369,33 @@ flash_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
 
 // ---------------------------------------------------------------- dK/dV
 
+// P^T = exp(S^T - lse) in place on S^T's accumulator x: x[j][e] is key
+// krow + 8 (e >> 1) against query q0 + 8j + 2tg + (e & 1) (ls: the tile's
+// lse by query); causal cells (key > query) at -1e30, queries past t 0.
+// With STORE each 8-query block also goes to pb, thread by thread, for the
+// consumer that forms dS^T.
+template <bool STORE>
+__device__ __forceinline__ void p_transposed(float (&x)[8][4], const float* ls, float4* pb,
+                                             int krow, int q0, int t, bool edge, int causal,
+                                             int tg, int tid) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+        const int qc = 8 * j + 2 * tg;
+        const float2 l2 = *reinterpret_cast<const float2*>(ls + qc);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int kr = krow + 8 * (e >> 1);
+            const int qr = q0 + qc + (e & 1);
+            float sv = x[j][e];
+            if (edge && causal && kr > qr) sv = -1e30f;
+            float p = expf(sv - ((e & 1) ? l2.y : l2.x));
+            if (edge && qr >= t) p = 0.f;
+            x[j][e] = p;
+        }
+        if constexpr (STORE) pb[j * 128 + tid] = make_float4(x[j][0], x[j][1], x[j][2], x[j][3]);
+    }
+}
+
 template <int D>
 __global__ void __launch_bounds__(DkvCfg<D>::NTHREADS, 1)
 flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
@@ -371,7 +418,8 @@ flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
     uint64_t* pready = empty + ST;                 // a stage's P^T is in pbuf
 
     const int bh = blockIdx.x;
-    const int k0 = blockIdx.y * BM;                // causal: the most q tiles first
+    // one consumer (C::NC == 1): two blocks a key block, y = 2 kb + kind
+    const int k0 = (C::NC == 2 ? blockIdx.y : blockIdx.y >> 1) * BM;   // causal: the most q tiles first
     const int n_q = (t + BN - 1) / BN;
     // causal: q tiles above k0 see none of these keys; every later tile
     // sees some (BM = BN), so no tile of the walk is skipped
@@ -383,7 +431,7 @@ flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
         for (int s = 0; s < ST; ++s) {
             bar_init(raw + s, 1);
             bar_init(full + s, 128);
-            bar_init(empty + s, 256);
+            bar_init(empty + s, 128 * C::NC);
             bar_init(pready + s, 128);
         }
         bar_init_fence();
@@ -394,12 +442,14 @@ flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
     // whole warpgroups, and the three roles never meet again)
     const int role = __shfl_sync(0xffffffff, threadIdx.x / 128, 0);
     if (role == 0) {                               // the loader
-        setmaxnreg_dec<C::DKV_LOADER>();
+        if constexpr (C::NC == 2) setmaxnreg_dec<C::DKV_LOADER>();
         const int tid = threadIdx.x;
+        // one consumer: the dV block (y even) never reads V
+        const bool with_v = C::NC == 2 || (blockIdx.y & 1);
         if (tid == 0) {
-            bar_arrive_tx(own, 2 * C::OWN);
+            bar_arrive_tx(own, (with_v ? 2 : 1) * C::OWN);
             load_tile<BM, D>(ks, &tk, k0, bh, own);
-            load_tile<BM, D>(vs, &tv, k0, bh, own);
+            if (with_v) load_tile<BM, D>(vs, &tv, k0, bh, own);
         }
         for (int i = 0; i < n; ++i) {
             const int s = i % ST, q0 = (qt0 + i) * BN;
@@ -421,9 +471,11 @@ flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
         }
     } else {
         // role 1: S^T, P^T and dV; role 2: dP^T, dS^T and dK, with P^T
-        // from role 1 through shared memory.  Each holds one 64 x D
-        // accumulator for the block's 64 keys.
-        setmaxnreg_inc<C::DKV_CONSUMER>();
+        // from role 1 through shared memory (one consumer: the block's
+        // kind picks the role, and role 2 takes S^T and P^T itself).  Each
+        // holds one 64 x D accumulator for the block's 64 keys.
+        if constexpr (C::NC == 2) setmaxnreg_inc<C::DKV_CONSUMER>();
+        const int kind = C::NC == 2 ? role : 1 + (blockIdx.y & 1);
         const int tid = threadIdx.x % 128;
         const int lane = tid % 32, g = lane / 4, tg = lane % 4;
         const int krow = k0 + 16 * (tid / 32) + g;   // this thread's key rows: krow, krow + 8
@@ -433,7 +485,7 @@ flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
         zero(acc);
         float x[8][4];
         uint32_t a[4][PARTS][4];
-        if (role == 1) {
+        if (kind == 1) {
             for (int i = 0; i < n; ++i) {
                 const int s = i % ST, q0 = (qt0 + i) * BN;
                 const uint8_t* qst = smem + C::RING + s * 2 * C::TILE;
@@ -449,23 +501,8 @@ flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
                 wg_commit();
                 wg_wait<0>();
                 keep(x);
-#pragma unroll
-                for (int j = 0; j < 8; ++j) {
-                    const int qc = 8 * j + 2 * tg;
-                    const float2 l2 = *reinterpret_cast<const float2*>(ls + qc);
-#pragma unroll
-                    for (int e = 0; e < 4; ++e) {
-                        const int kr = krow + 8 * (e >> 1);
-                        const int qr = q0 + qc + (e & 1);
-                        float sv = x[j][e];
-                        if (edge && causal && kr > qr) sv = -1e30f;
-                        float p = expf(sv - ((e & 1) ? l2.y : l2.x));
-                        if (edge && qr >= t) p = 0.f;
-                        x[j][e] = p;
-                    }
-                    pb[j * 128 + tid] = make_float4(x[j][0], x[j][1], x[j][2], x[j][3]);
-                }
-                bar_arrive(pready + s);
+                p_transposed<C::NC == 2>(x, ls, pb, krow, q0, t, edge, causal, tg, tid);
+                if constexpr (C::NC == 2) bar_arrive(pready + s);
                 a_parts(a, x);                     // P^T
                 wg_fence();
                 product3<C>(acc, a, qst + C::TILE);   // dV += P^T dO
@@ -482,23 +519,51 @@ flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
                 const float* dl = rows + s * 2 * BN + BN;
                 const float4* pb = pbuf + s * (BN * BN / 4);
                 bar_wait(full + s, (i / ST) & 1);
-                wg_fence();
+                if constexpr (C::NC == 2) {
+                    wg_fence();
 #pragma unroll
-                for (int kk = 0; kk < D / 16; ++kk)
-                    wgmma_ss64(x, desc_k<BM>(vs, 0, kk), desc_k<BN>(qst + C::TILE, 0, kk),
-                               kk > 0);
-                wg_commit();
-                wg_wait<0>();
-                keep(x);
-                bar_wait(pready + s, (i / ST) & 1);
+                    for (int kk = 0; kk < D / 16; ++kk)
+                        wgmma_ss64(x, desc_k<BM>(vs, 0, kk), desc_k<BN>(qst + C::TILE, 0, kk),
+                                   kk > 0);
+                    wg_commit();
+                    wg_wait<0>();
+                    keep(x);
+                    bar_wait(pready + s, (i / ST) & 1);
 #pragma unroll
-                for (int j = 0; j < 8; ++j) {
-                    const float2 d2 = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * tg);
-                    const float4 p = pb[j * 128 + tid];
-                    x[j][0] = p.x * (x[j][0] - d2.x);
-                    x[j][1] = p.y * (x[j][1] - d2.y);
-                    x[j][2] = p.z * (x[j][2] - d2.x);
-                    x[j][3] = p.w * (x[j][3] - d2.y);
+                    for (int j = 0; j < 8; ++j) {
+                        const float2 d2 = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * tg);
+                        const float4 p = pb[j * 128 + tid];
+                        x[j][0] = p.x * (x[j][0] - d2.x);
+                        x[j][1] = p.y * (x[j][1] - d2.y);
+                        x[j][2] = p.z * (x[j][2] - d2.x);
+                        x[j][3] = p.w * (x[j][3] - d2.y);
+                    }
+                } else {
+                    const int q0 = (qt0 + i) * BN;
+                    const bool edge = (causal && k0 + BM - 1 > q0) || q0 + BN > t;
+                    float sp[8][4];                // S^T, then P^T
+                    wg_fence();
+#pragma unroll
+                    for (int kk = 0; kk < D / 16; ++kk)
+                        wgmma_ss64(sp, desc_k<BM>(ks, 0, kk), desc_k<BN>(qst, 0, kk), kk > 0);
+#pragma unroll
+                    for (int kk = 0; kk < D / 16; ++kk)
+                        wgmma_ss64(x, desc_k<BM>(vs, 0, kk), desc_k<BN>(qst + C::TILE, 0, kk),
+                                   kk > 0);
+                    wg_commit();
+                    wg_wait<0>();
+                    keep(sp);
+                    keep(x);
+                    p_transposed<false>(sp, rows + s * 2 * BN, nullptr, krow, q0, t, edge,
+                                        causal, tg, tid);
+#pragma unroll
+                    for (int j = 0; j < 8; ++j) {
+                        const float2 d2 = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * tg);
+                        x[j][0] = sp[j][0] * (x[j][0] - d2.x);
+                        x[j][1] = sp[j][1] * (x[j][1] - d2.y);
+                        x[j][2] = sp[j][2] * (x[j][2] - d2.x);
+                        x[j][3] = sp[j][3] * (x[j][3] - d2.y);
+                    }
                 }
                 a_parts(a, x);                     // dS^T
                 wg_fence();
@@ -510,7 +575,7 @@ flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
                 bar_arrive(empty + s);
             }
         }
-        store_rows<D>((role == 1 ? dv : dk) + (size_t)bh * t * D, acc, krow, t, 1.f, tg);
+        store_rows<D>((kind == 1 ? dv : dk) + (size_t)bh * t * D, acc, krow, t, 1.f, tg);
     }
 }
 
@@ -529,9 +594,11 @@ cudaError_t launch_dq(const bf16* q, const bf16* k, const bf16* v, const bf16* d
     using C = DqCfg<D>;
     CUtensorMap m[4];
     if (!make_maps(m, q, k, v, dout, bh, t, D)) return cudaErrorInvalidValue;
-    static const cudaError_t pool =
-        check_pool(flash_dq_bf16_kernel<D>, C::DQ_LOADER, C::DQ_CONSUMER);
-    if (pool != cudaSuccess) return pool;
+    if constexpr (C::NC == 2) {
+        static const cudaError_t pool =
+            check_pool(flash_dq_bf16_kernel<D>, C::DQ_LOADER, C::DQ_CONSUMER);
+        if (pool != cudaSuccess) return pool;
+    }
     cudaError_t err = cudaFuncSetAttribute(
         flash_dq_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
     if (err != cudaSuccess) return err;
@@ -548,13 +615,16 @@ cudaError_t launch_dkv(const bf16* q, const bf16* k, const bf16* v, const bf16* 
     using C = DkvCfg<D>;
     CUtensorMap m[4];
     if (!make_maps(m, q, k, v, dout, bh, t, D)) return cudaErrorInvalidValue;
-    static const cudaError_t pool =
-        check_pool(flash_dkv_bf16_kernel<D>, C::DKV_LOADER, C::DKV_CONSUMER);
-    if (pool != cudaSuccess) return pool;
+    if constexpr (C::NC == 2) {
+        static const cudaError_t pool =
+            check_pool(flash_dkv_bf16_kernel<D>, C::DKV_LOADER, C::DKV_CONSUMER);
+        if (pool != cudaSuccess) return pool;
+    }
     cudaError_t err = cudaFuncSetAttribute(
         flash_dkv_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
     if (err != cudaSuccess) return err;
-    dim3 grid(bh, (t + C::BM - 1) / C::BM);
+    // one consumer: a dV block and a dK block for each 64 keys
+    dim3 grid(bh, ((t + C::BM - 1) / C::BM) * (C::NC == 2 ? 1 : 2));
     flash_dkv_bf16_kernel<D><<<grid, C::NTHREADS, C::SMEM, stream>>>(
         m[0], m[1], m[2], m[3], lse, delta, dk, dv, t, qscale, causal);
     return cudaGetLastError();
@@ -579,6 +649,12 @@ extern "C" int zoo_flash_attention_dq_bf16(const __nv_bfloat16* q,
         case 128:
             return (int)launch_dq<128>(q, k, v, dout, lse, delta, dq, bh, t, scale, qscale,
                                        causal, s);
+        case 192:
+            return (int)launch_dq<192>(q, k, v, dout, lse, delta, dq, bh, t, scale, qscale,
+                                       causal, s);
+        case 256:
+            return (int)launch_dq<256>(q, k, v, dout, lse, delta, dq, bh, t, scale, qscale,
+                                       causal, s);
         default:
             return (int)cudaErrorInvalidValue;
     }
@@ -600,6 +676,12 @@ extern "C" int zoo_flash_attention_dkv_bf16(const __nv_bfloat16* q,
                                        causal, s);
         case 128:
             return (int)launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, bh, t, qscale,
+                                        causal, s);
+        case 192:
+            return (int)launch_dkv<192>(q, k, v, dout, lse, delta, dk, dv, bh, t, qscale,
+                                        causal, s);
+        case 256:
+            return (int)launch_dkv<256>(q, k, v, dout, lse, delta, dk, dv, bh, t, qscale,
                                         causal, s);
         default:
             return (int)cudaErrorInvalidValue;

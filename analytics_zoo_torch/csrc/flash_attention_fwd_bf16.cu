@@ -70,6 +70,20 @@
 //     so two launches give bit-identical O and LSE.
 //   Shared memory at D = 128: q 32 KB and two stages of K and V, 32 KB
 //   each: 161 KB with the barriers and alignment; at D = 64, 81 KB.
+//
+// Head_dim 192 and 256 (Cfg).  O alone is D / 2 registers a consumer
+// thread (96, 128), and a 128-key tile's S another 64: the design above
+// at BN = 128 would pass the 168 registers and, with 192 or 256 KB of K/V
+// stages, the 227 KB of shared memory.  Both widths take 64-key tiles
+// (S 32 registers; the online softmax and P's rounding run per 64-key
+// tile).  At 192 the two consumers keep their turns (O 96 + S 32
+// registers fit the 168 without a spill; q 48 KB, stages 96 KB: 145 KB).
+// At 256 O + S alone are 160, so a block is one consumer warpgroup of 64
+// rows and the loader warp, 160 threads, for which ptxas may give a
+// thread 255 registers (it takes 235); it takes no turns (q 32 KB, stages
+// 128 KB: 161 KB, one block an SM).  P V's
+// 192 or 256 columns go to the tensor core as a 128- and a 64- or
+// 128-column wgmma on the same P registers (wgmma_rs).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -89,10 +103,12 @@ constexpr bool PINGPONG = true;
 template <int D_>
 struct Cfg {
     static constexpr int D = D_;
-    static constexpr int BM = 128;                 // query rows a block owns, 64 a consumer
-    static constexpr int BN = 128;                 // keys of a streamed tile
+    static constexpr int NC = D_ <= 192 ? 2 : 1;   // consumer warpgroups (see above)
+    static constexpr int BM = 64 * NC;             // query rows a block owns, 64 a consumer
+    static constexpr int BN = D_ <= 128 ? 128 : 64;   // keys of a streamed tile
     static constexpr int STAGES = 2;
-    static constexpr int NTHREADS = 288;           // two consumer warpgroups, a loader warp
+    static constexpr int NTHREADS = 128 * NC + 32; // the consumer warpgroups, a loader warp
+    static constexpr bool TURNS = PINGPONG && NC == 2;
     static constexpr int NJ = BN / 8;              // 8-column blocks of S
     static constexpr int OWN = BM * D * 2;         // bytes of the q tile
     static constexpr int TILE = BN * D * 2;        // bytes of a K or V tile
@@ -150,7 +166,7 @@ template <class C>
 __device__ __forceinline__ void product_pv(float (&o)[C::D / 8][4], const uint32_t (&p)[C::BN / 16][4],
                                            const uint8_t* vs) {
 #pragma unroll
-    for (int kk = 0; kk < C::BN / 16; ++kk) wgmma_rs<C::D>(o, p[kk], desc_mn<C::BN>(vs, kk));
+    for (int kk = 0; kk < C::BN / 16; ++kk) wgmma_rs<C::D, C::BN>(o, p[kk], vs, kk);
 }
 
 // The online softmax of one tile of scores s (keys k0 ..), for this
@@ -222,13 +238,15 @@ __device__ __forceinline__ void pack_p(uint32_t (&a)[NJ / 2][4], const float (&w
 // The turns of the two consumers at the tensor core: consumer w waits at
 // barrier 3 + w for its turn, and when it has issued its products hands
 // the turn to the other at barrier 4 - w (each 256 threads: 128 waiting,
-// 128 arriving).
+// 128 arriving).  A block of one consumer takes no turns.
+template <class C>
 __device__ __forceinline__ void my_turn(int wg) {
-    if (PINGPONG) named_bar_sync(3 + wg, 256);
+    if (C::TURNS) named_bar_sync(3 + wg, 256);
 }
 
+template <class C>
 __device__ __forceinline__ void your_turn(int wg) {
-    if (PINGPONG) named_bar_arrive(4 - wg, 256);
+    if (C::TURNS) named_bar_arrive(4 - wg, 256);
 }
 
 template <int D>
@@ -257,8 +275,8 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
         for (int s = 0; s < ST; ++s) {
             bar_init(full_k + s, 1);
             bar_init(full_v + s, 1);
-            bar_init(empty_k + s, 256);
-            bar_init(empty_v + s, 256);
+            bar_init(empty_k + s, 128 * C::NC);
+            bar_init(empty_v + s, 128 * C::NC);
         }
         bar_init_fence();
     }
@@ -266,8 +284,8 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
 
     // the warpgroup, the same in every lane of a warp
     const int wg = __shfl_sync(0xffffffff, threadIdx.x / 128, 0);
-    if (wg == 2) {                                 // the loader warp
-        if (threadIdx.x == 256) {
+    if (wg == C::NC) {                             // the loader warp
+        if (threadIdx.x == 128 * C::NC) {
             bar_arrive_tx(qbar, C::OWN);
             load_tile<BM, D>(qs, &tq, q0, bh, qbar);
             for (int i = 0; i < n; ++i) {
@@ -295,7 +313,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
     scale_own_rows<C>(qs, wg, qscale, tid);        // q * scale in bf16, once
     fence_proxy_async();
     named_bar_sync(1 + wg, 128);
-    if (PINGPONG && wg == 0) named_bar_arrive(3, 256);   // the first turn is consumer 0's
+    if (C::TURNS && wg == 0) named_bar_arrive(3, 256);   // the first turn is consumer 0's
 
     float acc[D / 8][4];
 #pragma unroll
@@ -308,11 +326,11 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
     // P's registers are then free), then tile i's S; turn n: tile n-1's
     // P V.  Out of turn, the softmax of the S just taken.
     bar_wait(full_k, 0);
-    my_turn(wg);
+    my_turn<C>(wg);
     wg_fence();
     product_s<C>(sc, qs, wg, smem + C::RING);
     wg_commit();
-    your_turn(wg);
+    your_turn<C>(wg);
     wg_wait<0>();
     keep(sc);
     bar_arrive(empty_k);
@@ -323,7 +341,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
         const uint8_t* ks = smem + C::RING + s * 2 * C::TILE;
         bar_wait(full_k + s, (i / ST) & 1);
         bar_wait(full_v + sp, ((i - 1) / ST) & 1);
-        my_turn(wg);
+        my_turn<C>(wg);
         wg_fence();
         product_pv<C>(acc, p, smem + C::RING + sp * 2 * C::TILE + C::TILE);
         wg_commit();
@@ -334,7 +352,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
         wg_fence();
         product_s<C>(sc, qs, wg, ks);
         wg_commit();
-        your_turn(wg);
+        your_turn<C>(wg);
         wg_wait<0>();
         keep(sc);
         bar_arrive(empty_k + s);
@@ -348,11 +366,11 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
     {
         const int sp = (n - 1) % ST;
         bar_wait(full_v + sp, ((n - 1) / ST) & 1);
-        my_turn(wg);
+        my_turn<C>(wg);
         wg_fence();
         product_pv<C>(acc, p, smem + C::RING + sp * 2 * C::TILE + C::TILE);
         wg_commit();
-        if (wg == 0) your_turn(wg);                // consumer 1's last turn is the last
+        if (wg == 0) your_turn<C>(wg);                // consumer 1's last turn is the last
         wg_wait<0>();
         keep(acc);
         keep(p);
@@ -406,6 +424,10 @@ extern "C" int zoo_flash_attention_fwd_bf16(const __nv_bfloat16* q,
             return (int)launch<64>(q, k, v, o, lse, bh, t, qscale, causal, s);
         case 128:
             return (int)launch<128>(q, k, v, o, lse, bh, t, qscale, causal, s);
+        case 192:
+            return (int)launch<192>(q, k, v, o, lse, bh, t, qscale, causal, s);
+        case 256:
+            return (int)launch<256>(q, k, v, o, lse, bh, t, qscale, causal, s);
         default:
             return (int)cudaErrorInvalidValue;
     }

@@ -25,7 +25,9 @@
 //   dV = P^T dO, dK = dS^T (q*scale): the sum runs over the tile's rows):
 //   step kk starts 16 rows down, at kk * 2048 bytes; 8-row groups lie
 //   SBO = 1024 bytes apart, the next 64 output columns LBO = R * 128 bytes
-//   on (the next column block).
+//   on (the next column block).  A product wider than 128 columns (head_dim
+//   192, 256) is taken as 128- and 64-column slices, a slice's descriptor
+//   starting at its first column block (wgmma_rs).
 //
 // Fragments.  Of an m64nN float32 accumulator, warp w of the warpgroup
 // holds rows 16w + g and 16w + g + 8 (g = lane / 4) and, for each 8-column
@@ -212,12 +214,14 @@ __device__ __forceinline__ void keep(uint32_t (&a)[K][P][4]) {
 }
 
 #define WG_ACC4(d, j) "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]), "+f"(d[j][3])
-#define WG_ACC32(d)                                                                     \
-    WG_ACC4(d, 0), WG_ACC4(d, 1), WG_ACC4(d, 2), WG_ACC4(d, 3), WG_ACC4(d, 4),          \
-        WG_ACC4(d, 5), WG_ACC4(d, 6), WG_ACC4(d, 7)
-#define WG_ACC64(d)                                                                     \
-    WG_ACC32(d), WG_ACC4(d, 8), WG_ACC4(d, 9), WG_ACC4(d, 10), WG_ACC4(d, 11),           \
-        WG_ACC4(d, 12), WG_ACC4(d, 13), WG_ACC4(d, 14), WG_ACC4(d, 15)
+// 32 or 64 accumulator registers from 8-column block o of d on
+#define WG_ACC32(d, o)                                                                  \
+    WG_ACC4(d, o + 0), WG_ACC4(d, o + 1), WG_ACC4(d, o + 2), WG_ACC4(d, o + 3),          \
+        WG_ACC4(d, o + 4), WG_ACC4(d, o + 5), WG_ACC4(d, o + 6), WG_ACC4(d, o + 7)
+#define WG_ACC64(d, o)                                                                  \
+    WG_ACC32(d, o), WG_ACC4(d, o + 8), WG_ACC4(d, o + 9), WG_ACC4(d, o + 10),            \
+        WG_ACC4(d, o + 11), WG_ACC4(d, o + 12), WG_ACC4(d, o + 13), WG_ACC4(d, o + 14),  \
+        WG_ACC4(d, o + 15)
 #define WG_OUT4(d, j) "=f"(d[j][0]), "=f"(d[j][1]), "=f"(d[j][2]), "=f"(d[j][3])
 #define WG_OUT64(d)                                                                     \
     WG_OUT4(d, 0), WG_OUT4(d, 1), WG_OUT4(d, 2), WG_OUT4(d, 3), WG_OUT4(d, 4),          \
@@ -240,7 +244,7 @@ __device__ __forceinline__ void wgmma_ss64(float (&d)[8][4], uint64_t a, uint64_
     asm volatile("{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %34, 0;\n\t"
                  "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS32
                  ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-                 : WG_ACC32(d)
+                 : WG_ACC32(d, 0)
                  : "l"(a), "l"(b), "r"(accumulate));
 }
 
@@ -260,28 +264,46 @@ __device__ __forceinline__ void wgmma_ss128(float (&d)[16][4], uint64_t a, uint6
     asm volatile("{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %66, 0;\n\t"
                  "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_REGS64
                  ", %64, %65, p, 1, 1, 0, 0;\n}\n"
-                 : WG_ACC64(d)
+                 : WG_ACC64(d, 0)
                  : "l"(a), "l"(b), "r"(1));
 }
 
-// d (64 x N) += A . B over one 16-value step: A (64 x 16 bf16) from
-// registers, B MN-major in shared memory (transposed)
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4], const uint32_t (&a)[4],
-                                         uint64_t b) {
-    static_assert(N == 64 || N == 128, "head_dim 64 or 128");
+// Columns [8 J0, 8 J0 + N) of d (64 x 8J) += A . B over one 16-value step:
+// A (64 x 16 bf16) from registers, B an N-column slice read MN-major
+template <int N, int J0, int J>
+__device__ __forceinline__ void wgmma_rs_at(float (&d)[J][4], const uint32_t (&a)[4],
+                                            uint64_t b) {
+    static_assert((N == 64 || N == 128) && J0 + N / 8 <= J, "a 64- or 128-column slice");
     if constexpr (N == 64) {
         asm volatile("{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %37, 0;\n\t"
                      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS32
                      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-                     : WG_ACC32(d)
+                     : WG_ACC32(d, J0)
                      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
     } else {
         asm volatile("{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %69, 0;\n\t"
                      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_REGS64
                      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-                     : WG_ACC64(d)
+                     : WG_ACC64(d, J0)
                      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+    }
+}
+
+// d (64 x N) += A . B over reduction step kk: A (64 x 16 bf16) from
+// registers, B rows 16kk .. 16kk + 15 of an R-row tile read MN-major
+// (transposed), its N columns the output's.  A wgmma here takes at most
+// 128 columns: N = 192 or 256 is a 128-column slice (column blocks 0-1)
+// and a 64- or 128-column one (from column block 2) on the same A
+// registers.
+template <int N, int R>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4], const uint32_t (&a)[4],
+                                         const uint8_t* tile, int kk) {
+    static_assert(N == 64 || N == 128 || N == 192 || N == 256, "head_dim 64, 128, 192 or 256");
+    if constexpr (N <= 128) {
+        wgmma_rs_at<N, 0>(d, a, desc_mn<R>(tile, kk));
+    } else {
+        wgmma_rs_at<128, 0>(d, a, desc_mn<R>(tile, kk));
+        wgmma_rs_at<N - 128, 16>(d, a, desc_mn<R>(tile + 2 * R * 128, kk));
     }
 }
 

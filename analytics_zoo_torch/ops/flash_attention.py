@@ -5,7 +5,7 @@ versions (port of ``ops/pallas_attention.py``).
 inputs and is differentiable.  ``takes_kernels`` routes it: for CUDA
 tensors under ``ops.fused=auto`` whose q, k and v share one dtype the
 kernels take and one shape with a head_dim the kernels of that dtype take
-(``HEAD_DIMS``: float32 64, 128, 192 and 256; bfloat16 64 and 128),
+(``HEAD_DIMS``: 64, 128, 192 and 256 for float32 and for bfloat16),
 it launches the forward (``csrc/flash_attention_fwd.cu`` for float32,
 ``csrc/flash_attention_fwd_bf16.cu`` for bfloat16), which also writes the
 per-row log-sum-exp; the backward recomputes the probabilities from it:
@@ -19,8 +19,7 @@ take bf16 products where both operands are bf16 values and three bf16
 products where one is float32, on ``wgmma`` (``csrc/wgmma_tile.cuh``).
 ``delta = rowsum(dO * O)`` is a PyTorch op between them, as the reference
 leaves it to XLA.  Every other input (a CPU tensor, ``ops.fused=torch``,
-float16, bfloat16 at head_dim 192 or 256, any other head_dim) takes the
-plain versions,
+float16, any other head_dim) takes the plain versions,
 ``flash_attention_ref`` and ``flash_attention_bwd_ref``, which follow the
 reference's order of operations in every dtype and judge the kernels.
 """
@@ -34,7 +33,8 @@ import torch
 from analytics_zoo_torch.ops import kernels
 
 # the head_dims each dtype's kernels take
-HEAD_DIMS = {torch.float32: (64, 128, 192, 256), torch.bfloat16: (64, 128)}
+HEAD_DIMS = {torch.float32: (64, 128, 192, 256),
+             torch.bfloat16: (64, 128, 192, 256)}
 # the kernels' names by input dtype: (forward, dQ, dK/dV)
 KERNELS = {
     torch.float32: ("flash_attention_fwd", "flash_attention_dq",

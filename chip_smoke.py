@@ -27,7 +27,8 @@ open-loop load generator, with the offline tools over its run dir, and
 multi-GPU: BERT-base trained through ``launch_cli`` on an NCCL world of
 one and on two gloo ranks of the one card under data, FSDP and tensor
 parallelism, and BERT-base's width in heads of 256 and 192: served and
-trained through the float32 flash kernels' wide instances.
+trained through the float32 flash kernels' wide instances, and the bf16
+flash kernels at head_dim 192 and 256 through ``bench_attention``.
 
     python3 chip_smoke.py
 
@@ -433,12 +434,31 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    timed in turns with its plain version, float32
    ``scaled_dot_product_attention`` and the head_dim-64 instance at
    (8, 12, 512, 64) (the same work), beside its bound;
-26. a ``kernels`` JSON line (the float32 flash kernels' launches from
+26. the bf16 flash kernels at head_dim 192 and 256 (``python3
+   chip_smoke.py --wide-bf16`` runs it alone): 26a forward, dQ and dK/dV
+   against their plain versions with phase 14's checks and tolerances at
+   (2, 4, 200, 192), (1, 2, 17, 256), (2, 3, 129, 192), (2, 3, 129, 256),
+   (1, 2, 1, 256), (4, 8, 4096, 192) and (4, 8, 4096, 256), causal and not,
+   two launches bit-identical, key 0 leading (both controls failing on
+   causal rows of more than one key); 26b ``flash_attention`` through
+   autograd launching only the bf16 kernels on bf16 at 192 and 256, only
+   the float32 ones on float32 there, none at bf16 320 or float16 192;
+   26c each kernel at (4, 8, 4096, D) causal beside its plain version,
+   bf16 ``scaled_dot_product_attention`` and its bound, and at
+   (4, 8, 8192, D) beside the library and its bound, its outputs on the
+   whole inputs held against the plain versions on three heads' slices; 26d
+   ``bench_attention(head_dim=192)`` and ``(head_dim=256)``, 192 launches
+   of each bf16 kernel a call;
+27. a ``kernels`` JSON line (the float32 flash kernels' launches from
    phase 25 and their times from 25d at (8, 3, 512, 256), non-causal, the
-   instance of most of those launches; bias-GeLU's, LayerNorm's and Adam's
-   launches from 24a, SGD's from 24b rank 0, the optimizers' times over
-   BERT-base's leaves from phase 24; the flash kernels' errors the largest
-   over every head_dim of phase 2), then the
+   instance of most of those launches; the bf16 ones an entry for each
+   head_dim ``bench_attention`` drives them at: under the kernel's name
+   head_dim 128 (launches from 14d, times from 14c), under
+   ``<name>_d192`` and ``<name>_d256`` those widths (launches from 26d's
+   call at the width, times from 26c at (4, 8, 4096, D)); bias-GeLU's,
+   LayerNorm's and Adam's launches from 24a, SGD's from 24b rank 0, the
+   optimizers' times over BERT-base's leaves from phase 24; the flash
+   kernels' errors the largest over every head_dim of phase 2), then the
    device line last.
 
 The int8 phases besides 9: 2b holds ``quantized_matmul`` and
@@ -2707,6 +2727,194 @@ def check_bf16_heads(torch, fa, q, k, v, do, o, lse, delta, bwd_close):
     return errs
 
 
+def check_route(torch, fa, randn, dtype, d, fired):
+    """``flash_attention`` on causal (2, 4, 256, d) ``dtype`` leaves,
+    forward and backward through autograd: fails unless it launched each
+    kernel of ``fired`` once and nothing else, with outputs and gradients of
+    that dtype, finite, and (where nothing fired) the plain result."""
+    from analytics_zoo_torch.ops import kernels
+    leaves = [randn((2, 4, 256, d), dtype).requires_grad_()
+              for _ in range(3)]
+    kernels.reset_launch_counts()
+    o = fa.flash_attention(*leaves, causal=True)
+    grads = torch.autograd.grad(o.float().sum(), leaves)
+    counts = kernels.launch_counts()
+    expect_launches(counts, {n: 1 for n in fired},
+                    f"flash_attention {dtype} head_dim {d}")
+    if o.dtype != dtype or any(g_.dtype != dtype or
+                               not torch.isfinite(g_.float()).all()
+                               for g_ in grads):
+        fail(f"flash_attention {dtype} head_dim {d}: output or "
+             "gradients of the wrong dtype or not finite")
+    if not fired:
+        with torch.no_grad():
+            plain = fa.flash_attention_ref(*leaves, causal=True)[0]
+        if not torch.equal(o.detach(), plain):
+            fail(f"flash_attention {dtype} head_dim {d}: not the plain "
+                 "result")
+    print(f"routing: flash_attention {dtype} head_dim {d} causal, "
+          f"forward and backward: launches "
+          f"{ {n: c for n, c in counts.items() if c} or 'none' }")
+
+
+def bf16_bwd_close(name, got, want) -> float:
+    """A bf16 kernel's gradient against its plain version's: fails past
+    ``BF16_BWD_*``; returns the largest abs error."""
+    atol = (BF16_BWD_ATOL_SHARE * float(want.abs().max()) +
+            BF16_BWD_ATOL_FLOOR)
+    return close(name, got.float(), want.float(), atol, BF16_BWD_RTOL)
+
+
+def check_bf16_shape(torch, fa, shape, randn, gen, dev, errs,
+                     controls_must_fail):
+    """The three bf16 kernels against their plain versions at ``shape``,
+    causal and not, two launches of each bit-identical; then, on inputs
+    where key 0 leads every row, the forward's O equal to the plain
+    version's but on a few elements, and both controls (S rounded to bf16
+    first, an unrounded P) failing that check where
+    ``controls_must_fail(causal)``.  Raises each kernel's entry of ``errs``
+    to its largest abs error."""
+    names = fa.KERNELS[torch.bfloat16]
+    q, k, v, do = (randn(shape) for _ in range(4))
+    for causal in (False, True):
+        tag = f"{shape} causal={causal}"
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        o2, lse2 = fa.flash_attention_fwd(q, k, v, causal=causal)
+        o_ref, lse_ref = fa.flash_attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err_o, used_o = o_close(f"bf16 forward {tag} O", o, o_ref)
+        err_l = close(f"bf16 forward {tag} LSE", lse, lse_ref,
+                      BF16_LSE_ATOL)
+        if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+            fail(f"bf16 forward {tag}: two launches differ")
+        # what the same bound reads for the former order
+        control = o_fault2_order(torch, q, k, v, causal).float()
+        used_control = o_used(control, o_ref)
+        del o2, lse2, o_ref, lse_ref, control
+        delta = fa.flash_attention_delta(o, do)
+        got = (fa.flash_attention_dq(q, k, v, do, lse, delta, causal),
+               *fa.flash_attention_dkv(q, k, v, do, lse, delta, causal))
+        again = (fa.flash_attention_dq(q, k, v, do, lse, delta, causal),
+                 *fa.flash_attention_dkv(q, k, v, do, lse, delta, causal))
+        if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
+            fail(f"bf16 backward {tag}: two launches differ")
+        del again
+        want = (fa.flash_attention_dq_ref(q, k, v, do, lse, delta, causal),
+                *fa.flash_attention_dkv_ref(q, k, v, do, lse, delta,
+                                            causal))
+        torch.cuda.synchronize()
+        e_q, e_k, e_v = (bf16_bwd_close(f"bf16 {n} {tag}", g, w)
+                         for n, g, w in zip(("dQ", "dK", "dV"), got, want))
+        print(f"check bf16 flash {tag}: O max abs err {err_o:.3e}, "
+              f"{used_o:.3f} of its bound (|O| max "
+              f"{float(o.float().abs().max()):.3e}; rtol {BF16_O_RTOL}, "
+              f"atol {BF16_O_ROW_RMS} x the row's RMS; S rounded first "
+              f"reads {used_control:.3f}), LSE {err_l:.3e} "
+              f"(atol {BF16_LSE_ATOL}); dQ {e_q:.3e}, dK {e_k:.3e}, dV "
+              f"{e_v:.3e} (|dQ|,|dK|,|dV| max "
+              + ", ".join(f"{float(w.float().abs().max()):.3e}"
+                          for w in want)
+              + f"; rtol {BF16_BWD_RTOL}, atol {BF16_BWD_ATOL_SHARE} x "
+              f"max + {BF16_BWD_ATOL_FLOOR}); two launches bit-identical")
+        errs[names[0]] = max(errs[names[0]], err_o, err_l)
+        errs[names[1]] = max(errs[names[1]], e_q)
+        errs[names[2]] = max(errs[names[2]], e_k, e_v)
+        del got, want, o, lse, delta
+    del q, k, v, do
+    # P's rounding: where key 0 leads every row, the kernel and the
+    # plain version round P alike, and both controls must fail
+    q, k, v = leading_key_inputs(torch, shape, gen, dev)
+    for causal in (False, True):
+        tag = f"{shape} causal={causal}, key 0 leading"
+        o = fa.flash_attention_fwd(q, k, v, causal=causal)[0]
+        o_ref = fa.flash_attention_ref(q, k, v, causal=causal)[0]
+        tipped, used = o_tipped(o, o_ref)
+        controls = [o_tipped(fn(torch, q, k, v, causal), o_ref)
+                    for fn in (o_fault2_order, o_unrounded_p)]
+        torch.cuda.synchronize()
+        if not (tipped <= BF16_O_TIPPED_SHARE and used <= 1.0):
+            fail(f"bf16 forward {tag}: O differs from the plain "
+                 f"version's on {tipped:.4%} of its elements (at most "
+                 f"{BF16_O_TIPPED_SHARE:.0%}), {used:.3f} of its "
+                 "tolerance")
+        if controls_must_fail(causal) and any(
+                c_share <= BF16_O_TIPPED_SHARE and c_used <= 1.0
+                for c_share, c_used in controls):
+            fail(f"bf16 forward {tag}: a control passes the check "
+                 f"({controls})")
+        print(f"check bf16 flash {tag}: O differs from the plain "
+              f"version's on {tipped:.4%} of its elements (at most "
+              f"{BF16_O_TIPPED_SHARE:.0%}), {used:.3f} of its "
+              f"tolerance; S rounded first on "
+              f"{controls[0][0]:.2%} ({controls[0][1]:.3f}), P "
+              f"unrounded on {controls[1][0]:.2%} ({controls[1][1]:.3f})")
+        del o, o_ref
+    del q, k, v
+
+
+def time_bf16_kernels(torch, fa, card, q, k, v, do, lse, delta, plain):
+    """The three bf16 kernels on causal (B, H, T, D) inputs, each timed
+    beside bf16 ``scaled_dot_product_attention`` (forward, or backward) and
+    ``flash_bf16_bound``, and beside its plain version where ``plain``;
+    prints a line each, and the library's and the kernels' forward +
+    backward.  Returns each kernel's entry of the ``kernels`` line, its
+    error and launches aside."""
+    names = fa.KERNELS[torch.bfloat16]
+    shape = tuple(q.shape)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    backend = sdpa_backend(torch, q, k, v)
+    lib_fwd = time_ms(torch, lambda: sdpa(q, k, v, is_causal=True))
+    out = sdpa(qg, kg, vg, is_causal=True)
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        out, (qg, kg, vg), do, retain_graph=True))
+    lib_both = time_ms(torch, lambda: torch.autograd.grad(
+        sdpa(qg, kg, vg, is_causal=True), (qg, kg, vg), do))
+    del out
+    entries = {}
+    runs = (
+        (names[0], lambda: fa.flash_attention_fwd(q, k, v, causal=True),
+         lambda: fa.flash_attention_ref(q, k, v, causal=True),
+         (2, 4, 1), lib_fwd,
+         "analytics_zoo_torch/csrc/flash_attention_fwd_bf16.cu",
+         "analytics_zoo_tpu/ops/pallas_attention.py:51"),
+        (names[1], lambda: fa.flash_attention_dq(q, k, v, do, lse, delta,
+                                                 True),
+         lambda: fa.flash_attention_dq_ref(q, k, v, do, lse, delta, True),
+         (5, 5, 2), lib_bwd,
+         "analytics_zoo_torch/csrc/flash_attention_bwd_bf16.cu",
+         "analytics_zoo_tpu/ops/pallas_attention.py:94"),
+        (names[2], lambda: fa.flash_attention_dkv(q, k, v, do, lse, delta,
+                                                  True),
+         lambda: fa.flash_attention_dkv_ref(q, k, v, do, lse, delta,
+                                            True),
+         (8, 6, 2), lib_bwd,
+         "analytics_zoo_torch/csrc/flash_attention_bwd_bf16.cu",
+         "analytics_zoo_tpu/ops/pallas_attention.py:134"))
+    for name, fn, plain_fn, work, lib, src, ref in runs:
+        ms = time_ms(torch, fn)
+        plain_ms = time_ms(torch, plain_fn) if plain else None
+        plain_txt = "not run" if plain_ms is None else f"{plain_ms:.5f}"
+        passes = work[0]
+        bnd, by = flash_bf16_bound(shape, True, *work)
+        print(f"time {name} {shape} bf16 causal: kernel_ms {ms:.5f} "
+              f"plain_ms {plain_txt} "
+              f"library_ms {lib:.5f} bound_ms {bnd:.6f} ({by}, "
+              f"{passes} bf16 passes) {bnd / ms:.3f} of the bound "
+              f"({card})")
+        entries[name] = dict(route="cuda", source=src, replaces=ref, ms=ms,
+                             plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                             library_ms=lib)
+    both = time_ms(torch, lambda: fa.flash_attention_bwd(
+        q, k, v, *fa.flash_attention_fwd(q, k, v, causal=True), do,
+        causal=True))
+    print(f"library: bf16 scaled_dot_product_attention {shape} causal "
+          f"({backend}): forward {lib_fwd:.5f} ms, backward {lib_bwd:.5f} "
+          f"ms, forward + backward {lib_both:.5f} ms; the kernels' "
+          f"forward + backward (with delta) {both:.5f} ms ({card})")
+    return entries
+
+
 def flash_bf16_phase(torch, card, dev):
     """Phase 14: the three bf16 flash kernels against the plain versions,
     the op's routing through autograd, their times beside the library's,
@@ -2723,88 +2931,11 @@ def flash_bf16_phase(torch, card, dev):
     def randn(shape, dtype=torch.bfloat16):
         return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
 
-    def bwd_close(name, got, want):
-        atol = (BF16_BWD_ATOL_SHARE * float(want.abs().max()) +
-                BF16_BWD_ATOL_FLOOR)
-        return close(name, got.float(), want.float(), atol, BF16_BWD_RTOL)
-
     # ---- 14a. each kernel against its plain version; two launches
     errs = {name: 0.0 for name in names}
     for shape in BF16_SHAPES:
-        q, k, v, do = (randn(shape) for _ in range(4))
-        for causal in (False, True):
-            tag = f"{shape} causal={causal}"
-            o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
-            o2, lse2 = fa.flash_attention_fwd(q, k, v, causal=causal)
-            o_ref, lse_ref = fa.flash_attention_ref(q, k, v, causal=causal)
-            torch.cuda.synchronize()
-            err_o, used_o = o_close(f"bf16 forward {tag} O", o, o_ref)
-            err_l = close(f"bf16 forward {tag} LSE", lse, lse_ref,
-                          BF16_LSE_ATOL)
-            if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
-                fail(f"bf16 forward {tag}: two launches differ")
-            # what the same bound reads for the former order
-            control = o_fault2_order(torch, q, k, v, causal).float()
-            used_control = o_used(control, o_ref)
-            del o2, lse2, o_ref, lse_ref, control
-            delta = fa.flash_attention_delta(o, do)
-            got = (fa.flash_attention_dq(q, k, v, do, lse, delta, causal),
-                   *fa.flash_attention_dkv(q, k, v, do, lse, delta, causal))
-            again = (fa.flash_attention_dq(q, k, v, do, lse, delta, causal),
-                     *fa.flash_attention_dkv(q, k, v, do, lse, delta, causal))
-            if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
-                fail(f"bf16 backward {tag}: two launches differ")
-            del again
-            want = (fa.flash_attention_dq_ref(q, k, v, do, lse, delta, causal),
-                    *fa.flash_attention_dkv_ref(q, k, v, do, lse, delta,
-                                                causal))
-            torch.cuda.synchronize()
-            e_q, e_k, e_v = (bwd_close(f"bf16 {n} {tag}", g, w) for n, g, w
-                             in zip(("dQ", "dK", "dV"), got, want))
-            print(f"check bf16 flash {tag}: O max abs err {err_o:.3e}, "
-                  f"{used_o:.3f} of its bound (|O| max "
-                  f"{float(o.float().abs().max()):.3e}; rtol {BF16_O_RTOL}, "
-                  f"atol {BF16_O_ROW_RMS} x the row's RMS; S rounded first "
-                  f"reads {used_control:.3f}), LSE {err_l:.3e} "
-                  f"(atol {BF16_LSE_ATOL}); dQ {e_q:.3e}, dK {e_k:.3e}, dV "
-                  f"{e_v:.3e} (|dQ|,|dK|,|dV| max "
-                  + ", ".join(f"{float(w.float().abs().max()):.3e}"
-                              for w in want)
-                  + f"; rtol {BF16_BWD_RTOL}, atol {BF16_BWD_ATOL_SHARE} x "
-                  f"max + {BF16_BWD_ATOL_FLOOR}); two launches bit-identical")
-            errs[names[0]] = max(errs[names[0]], err_o, err_l)
-            errs[names[1]] = max(errs[names[1]], e_q)
-            errs[names[2]] = max(errs[names[2]], e_k, e_v)
-            del got, want, o, lse, delta
-        del q, k, v, do
-        # P's rounding: where key 0 leads every row, the kernel and the
-        # plain version round P alike, and both controls must fail
-        q, k, v = leading_key_inputs(torch, shape, gen, dev)
-        for causal in (False, True):
-            tag = f"{shape} causal={causal}, key 0 leading"
-            o = fa.flash_attention_fwd(q, k, v, causal=causal)[0]
-            o_ref = fa.flash_attention_ref(q, k, v, causal=causal)[0]
-            tipped, used = o_tipped(o, o_ref)
-            controls = [o_tipped(fn(torch, q, k, v, causal), o_ref)
-                        for fn in (o_fault2_order, o_unrounded_p)]
-            torch.cuda.synchronize()
-            if not (tipped <= BF16_O_TIPPED_SHARE and used <= 1.0):
-                fail(f"bf16 forward {tag}: O differs from the plain "
-                     f"version's on {tipped:.4%} of its elements (at most "
-                     f"{BF16_O_TIPPED_SHARE:.0%}), {used:.3f} of its "
-                     "tolerance")
-            if any(c_share <= BF16_O_TIPPED_SHARE and c_used <= 1.0
-                   for c_share, c_used in controls):
-                fail(f"bf16 forward {tag}: a control passes the check "
-                     f"({controls})")
-            print(f"check bf16 flash {tag}: O differs from the plain "
-                  f"version's on {tipped:.4%} of its elements (at most "
-                  f"{BF16_O_TIPPED_SHARE:.0%}), {used:.3f} of its "
-                  f"tolerance; S rounded first on "
-                  f"{controls[0][0]:.2%} ({controls[0][1]:.3f}), P "
-                  f"unrounded on {controls[1][0]:.2%} ({controls[1][1]:.3f})")
-            del o, o_ref
-        del q, k, v
+        check_bf16_shape(torch, fa, shape, randn, gen, dev, errs,
+                         lambda causal: True)
     for shape in BF16_FWD_SHAPES:
         q, k, v = (randn(shape) for _ in range(3))
         for causal in (False, True):
@@ -2854,31 +2985,9 @@ def flash_bf16_phase(torch, card, dev):
                             (torch.float32, 64, f32_names),
                             (torch.bfloat16, 32, ()),
                             (torch.float32, 32, ())):
-        leaves = [randn((2, 4, 256, d), dtype).requires_grad_()
-                  for _ in range(3)]
-        kernels.reset_launch_counts()
-        o = fa.flash_attention(*leaves, causal=True)
-        grads = torch.autograd.grad(o.float().sum(), leaves)
-        counts = kernels.launch_counts()
-        expect_launches(counts, {n: 1 for n in fired},
-                        f"flash_attention {dtype} head_dim {d}")
-        if o.dtype != dtype or any(g_.dtype != dtype or
-                                   not torch.isfinite(g_.float()).all()
-                                   for g_ in grads):
-            fail(f"flash_attention {dtype} head_dim {d}: output or "
-                 "gradients of the wrong dtype or not finite")
-        if not fired:
-            with torch.no_grad():
-                plain = fa.flash_attention_ref(*leaves, causal=True)[0]
-            if not torch.equal(o.detach(), plain):
-                fail(f"flash_attention {dtype} head_dim {d}: not the plain "
-                     "result")
-        print(f"routing: flash_attention {dtype} head_dim {d} causal, "
-              f"forward and backward: launches "
-              f"{ {n: c for n, c in counts.items() if c} or 'none' }")
+        check_route(torch, fa, randn, dtype, d, fired)
 
     # ---- 14c. times at bench_attention's shape, and at twice its sequence
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     report = {}
     for shape in (BF16_BENCH, BF16_BENCH[:2] + (2 * BF16_BENCH[2],)
                   + BF16_BENCH[3:]):
@@ -2888,60 +2997,15 @@ def flash_bf16_phase(torch, card, dev):
         delta = fa.flash_attention_delta(o, do)
         if not full:
             errs_2x = check_bf16_heads(torch, fa, q, k, v, do, o, lse, delta,
-                                       bwd_close)
+                                       bf16_bwd_close)
             for name, err in errs_2x.items():
                 errs[name] = max(errs[name], err)
-        qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
-        backend = sdpa_backend(torch, q, k, v)
-        lib_fwd = time_ms(torch, lambda: sdpa(q, k, v, is_causal=True))
-        out = sdpa(qg, kg, vg, is_causal=True)
-        lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
-            out, (qg, kg, vg), do, retain_graph=True))
-        lib_both = time_ms(torch, lambda: torch.autograd.grad(
-            sdpa(qg, kg, vg, is_causal=True), (qg, kg, vg), do))
-        del out
-        runs = (
-            (names[0], lambda: fa.flash_attention_fwd(q, k, v, causal=True),
-             lambda: fa.flash_attention_ref(q, k, v, causal=True),
-             (2, 4, 1), lib_fwd,
-             "analytics_zoo_torch/csrc/flash_attention_fwd_bf16.cu",
-             "analytics_zoo_tpu/ops/pallas_attention.py:51"),
-            (names[1], lambda: fa.flash_attention_dq(q, k, v, do, lse, delta,
-                                                     True),
-             lambda: fa.flash_attention_dq_ref(q, k, v, do, lse, delta, True),
-             (5, 5, 2), lib_bwd,
-             "analytics_zoo_torch/csrc/flash_attention_bwd_bf16.cu",
-             "analytics_zoo_tpu/ops/pallas_attention.py:94"),
-            (names[2], lambda: fa.flash_attention_dkv(q, k, v, do, lse, delta,
-                                                      True),
-             lambda: fa.flash_attention_dkv_ref(q, k, v, do, lse, delta,
-                                                True),
-             (8, 6, 2), lib_bwd,
-             "analytics_zoo_torch/csrc/flash_attention_bwd_bf16.cu",
-             "analytics_zoo_tpu/ops/pallas_attention.py:134"))
-        for name, fn, plain_fn, work, lib, src, ref in runs:
-            ms = time_ms(torch, fn)
-            plain = time_ms(torch, plain_fn) if full else None
-            passes = work[0]
-            bnd, by = flash_bf16_bound(shape, True, *work)
-            print(f"time {name} {shape} bf16 causal: kernel_ms {ms:.5f} "
-                  f"plain_ms {'not run' if plain is None else f'{plain:.5f}'} "
-                  f"library_ms {lib:.5f} bound_ms {bnd:.6f} ({by}, "
-                  f"{passes} bf16 passes) {bnd / ms:.3f} of the bound "
-                  f"({card})")
-            if full:
-                report[name] = dict(route="cuda", source=src, replaces=ref,
-                                    max_abs_err=errs[name], ms=ms,
-                                    plain_ms=plain, bound_ms=bnd, bound_by=by,
-                                    library_ms=lib)
-        both = time_ms(torch, lambda: fa.flash_attention_bwd(
-            q, k, v, *fa.flash_attention_fwd(q, k, v, causal=True), do,
-            causal=True))
-        print(f"library: bf16 scaled_dot_product_attention {shape} causal "
-              f"({backend}): forward {lib_fwd:.5f} ms, backward {lib_bwd:.5f} "
-              f"ms, forward + backward {lib_both:.5f} ms; the kernels' "
-              f"forward + backward (with delta) {both:.5f} ms ({card})")
-        del q, k, v, do, o, lse, delta, qg, kg, vg
+        times = time_bf16_kernels(torch, fa, card, q, k, v, do, lse, delta,
+                                  plain=full)
+        if full:
+            report = {n: dict(r, max_abs_err=errs[n])
+                      for n, r in times.items()}
+        del q, k, v, do, o, lse, delta
         torch.cuda.empty_cache()
 
     # ---- 14d. the entry point: bench_attention at its defaults
@@ -8976,6 +9040,119 @@ def wide_heads_alone() -> None:
     wide_heads_phase(torch, card, ctx.device)
 
 
+# --------------- phase 26: the bf16 flash kernels at head_dim 192 and 256
+# where they are checked: a ragged last tile, fewer rows than a tile, one
+# row past a 128-row block at each width, one key, and bench_attention's
+# shape at each width
+WIDE_BF16_SHAPES = ((2, 4, 200, 192), (1, 2, 17, 256), (2, 3, 129, 192),
+                    (2, 3, 129, 256), (1, 2, 1, 256), (4, 8, 4096, 192),
+                    (4, 8, 4096, 256))
+WIDE_BF16_DIMS = (192, 256)
+# bench_attention's (B, H, T) at each width, and twice its sequence (its
+# flash-only column): both timed, the second also held to the plain
+# versions head by head; the kernels line takes the first
+WIDE_BF16_TIMED = ((4, 8, 4096), (4, 8, 8192))
+
+
+def wide_bf16_phase(torch, card, dev):
+    """Phase 26: the three bf16 flash kernels at head_dim 192 and 256
+    against their plain versions (26a, with phase 14's checks and
+    tolerances), the op's routing through autograd (26b), their times at
+    (4, 8, 4096, D) causal beside their plain versions, the library and
+    their bounds, and at (4, 8, 8192, D) also against the plain versions
+    head by head (26c), and ``bench_attention`` at those widths (26d).
+    Returns each width's kernels' report entries, {D: {name: entry}}: 26c's
+    times at ``WIDE_BF16_TIMED[0]``, the largest errors of 26a and 26c at
+    that width, the launches of 26d's call at it."""
+    from analytics_zoo_torch.benchmarks.attention import bench_attention
+    from analytics_zoo_torch.ops import flash_attention as fa
+    from analytics_zoo_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    names = fa.KERNELS[torch.bfloat16]
+    gen = torch.Generator(device=dev).manual_seed(26)
+
+    def randn(shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+
+    # ---- 26a. each kernel against its plain version; two launches; the
+    # controls must fail on causal rows of more than one key
+    errs = {d: dict.fromkeys(names, 0.0) for d in WIDE_BF16_DIMS}
+    for shape in WIDE_BF16_SHAPES:
+        check_bf16_shape(torch, fa, shape, randn, gen, dev, errs[shape[3]],
+                         lambda causal, t=shape[2]: causal and t > 1)
+        torch.cuda.empty_cache()
+
+    # ---- 26b. the op's routing, forward and backward through autograd
+    f32_names = fa.KERNELS[torch.float32]
+    for dtype, d, fired in ((torch.bfloat16, 192, names),
+                            (torch.bfloat16, 256, names),
+                            (torch.float32, 192, f32_names),
+                            (torch.float32, 256, f32_names),
+                            (torch.bfloat16, 320, ()),
+                            (torch.float16, 192, ())):
+        check_route(torch, fa, randn, dtype, d, fired)
+
+    # ---- 26c. times at bench_attention's shape and at twice its sequence,
+    # at each width; at twice it, the outputs held head by head
+    times = {}
+    for d in WIDE_BF16_DIMS:
+        for bht in WIDE_BF16_TIMED:
+            full = bht == WIDE_BF16_TIMED[0]
+            q, k, v, do = (randn(bht + (d,)) for _ in range(4))
+            o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+            delta = fa.flash_attention_delta(o, do)
+            if not full:
+                for name, err in check_bf16_heads(
+                        torch, fa, q, k, v, do, o, lse, delta,
+                        bf16_bwd_close).items():
+                    errs[d][name] = max(errs[d][name], err)
+            timed = time_bf16_kernels(torch, fa, card, q, k, v, do, lse,
+                                      delta, plain=full)
+            if full:
+                times[d] = timed
+            del q, k, v, do, o, lse, delta
+            torch.cuda.empty_cache()
+
+    # ---- 26d. the entry point: bench_attention at these widths
+    runs_ = 16 * (1 + 5) * 2        # ITERS x (untimed + repeats) x 2 lengths
+    launches = {}
+    for d in WIDE_BF16_DIMS:
+        kernels.reset_launch_counts()
+        result = bench_attention(head_dim=d)
+        counts = kernels.launch_counts()
+        expect_launches(counts, {n: runs_ for n in names},
+                        f"bench_attention(head_dim={d}) (bf16, causal, 4096 "
+                        "and 8192)")
+        if not all(np.isfinite(result[key]) and result[key] > 0 for key in (
+                "value", "flash_ms", "dense_ms", "flash_2x_seq_ms")):
+            fail(f"bench_attention(head_dim={d}) returned {result}")
+        print(f"bench_attention(head_dim={d}): {json.dumps(result)} ({card})")
+        print(f"bench_attention(head_dim={d}) launches: "
+              f"{ {n: counts[n] for n in names} } (1 each an iteration, "
+              f"{runs_} iterations)")
+        launches[d] = counts
+        torch.cuda.empty_cache()
+    print(f"phase 26: {time.perf_counter() - t_phase:.1f} s ({card})")
+    return {d: {n: dict(times[d][n], max_abs_err=errs[d][n],
+                        launches=launches[d][n]) for n in names}
+            for d in WIDE_BF16_DIMS}
+
+
+def wide_bf16_alone() -> None:
+    """Phase 26 by itself (``--wide-bf16``)."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a GPU")
+    from analytics_zoo_torch import init_zoo_context
+    from analytics_zoo_torch.ops import kernels
+    kernels.build_all()
+    card = gpu_line()
+    print(f"gpu: {card}")
+    ctx = init_zoo_context(device="cuda:0")
+    wide_bf16_phase(torch, card, ctx.device)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -9563,7 +9740,12 @@ def main() -> None:
     wide_launches, wide_parts, wide_times = wide_heads_phase(torch, card, dev)
     report_captures("phase 25", mark, card)
 
-    # ------------------------------------------------------ 26. results
+    # ---- 26. the bf16 flash kernels at head_dim 192 and 256 against their
+    # plain versions, routed, timed, and driven by bench_attention
+    # (--wide-bf16)
+    wide_bf16 = wide_bf16_phase(torch, card, dev)
+
+    # ------------------------------------------------------ 27. results
     print(f"launches: GPT-1 serving (4 requests) {gpt_serve}; GPT-1 fit "
           f"(8 steps) {gpt_train}; BERT-base fine-tuning (8 steps) "
           f"{bert_tune}")
@@ -9613,10 +9795,21 @@ def main() -> None:
               f"25's path, {wide_parts[main_part][name]} of them at "
               f"{WIDE_TIMED[0]} non-causal ({main_part}); ms, plain_ms, "
               f"library_ms and bound_ms from 25d at that shape ({card})")
+    # the bf16 flash kernels have an entry for each head_dim that
+    # bench_attention drives them at: phase 14's (head_dim 128: 14d's
+    # launches, 14c's times) under the kernel's name, and one a width of
+    # phase 26 under the name and "_d<head_dim>" (26d's launches, 26c's
+    # times, 26a's and 26c's errors at that width)
+    for d, entries in wide_bf16.items():
+        for name, r in entries.items():
+            report[f"{name}_d{d}"] = r
+            print(f"kernels line {name}_d{d}: {r['launches']} launches in "
+                  f"26d's bench_attention(head_dim={d}); ms, plain_ms, "
+                  f"library_ms and bound_ms from 26c at "
+                  f"{WIDE_BF16_TIMED[0] + (d,)} causal ({card})")
     for name, r in report.items():
         # phase 15a's resumed transformer training runs every float32
-        # kernel but the optimizers'; phase 14's bench_attention run set
-        # the bf16 kernels' launches
+        # kernel but the optimizers'; the bf16 kernels' were set above
         if "launches" not in r:
             r["launches"] = persist_launches[name]
     line = {"kernels": [{"name": n, **{key: r[key] for key in (
@@ -9695,6 +9888,8 @@ if __name__ == "__main__":
         multi_gpu_alone()
     elif sys.argv[1:] == ["--wide-heads"]:
         wide_heads_alone()
+    elif sys.argv[1:] == ["--wide-bf16"]:
+        wide_bf16_alone()
     elif sys.argv[1:2] == [MG_CHILD] and len(sys.argv) == 4:
         multi_gpu_child(sys.argv[2], sys.argv[3])
     elif sys.argv[1:2] == [WARM_CHILD] and len(sys.argv) == 4:

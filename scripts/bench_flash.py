@@ -55,18 +55,24 @@ bf16 entry point (an earlier ``flash_attention_fwd.cu`` held the float32
 and bf16 forward in one file, an earlier ``flash_attention_bwd.cu`` both
 backwards; put that commit's headers beside it, which it finds first),
 prints their registers, spills and SASS mix (``HGMMA`` beside ``HMMA``;
-the current kernels must be ``HGMMA`` alone, the current forward free of
-spills and of ptxas's warnings that it serialized the ``wgmma``s), checks
-each against the plain versions with ``chip_smoke.py``'s tolerances at its
-phase-14 shapes and, for the forwards, at its ragged ``BF16_FWD_SHAPES``
-and on inputs where key 0 leads every row (two launches bit-identical),
-reports whether the current float32 forward and backward are
-bit-identical to each compared source's at the float32 shapes above, and
-times in turns at (4, 8, 4096, 128) and (4, 8, 8192, 128), causal: the
-forward beside bf16 ``scaled_dot_product_attention``'s forward, and dQ,
-dK/dV and the pair beside its backward, each beside ``flash_bf16_bound``.
-With ``--diagnose`` it adds variants of the current bf16 sources
-(unchecked, timed in the same turns): of the backward ``one_part`` (the
+the current kernels must be ``HGMMA`` alone at head_dim 64, 128, 192 and
+256, the current forward free of spills and of ptxas's warnings that it
+serialized the ``wgmma``s), checks each against the plain versions with
+``chip_smoke.py``'s tolerances at its phase-14 and phase-26 shapes and,
+for the forwards, at its ragged ``BF16_FWD_SHAPES`` and on inputs where
+key 0 leads every row (two launches bit-identical), reports whether the
+current bf16 kernels' outputs are bit-identical to each compared source's
+where both take the width (a compared source holds head_dim 64 and 128
+only), and the current float32 forward and backward to each compared
+source's at the float32 shapes above, and times in turns at
+(4, 8, 4096, D) and (4, 8, 8192, D), causal, for D = 128, 192 and 256
+(192 and 256: the current build alone): the forward beside bf16
+``scaled_dot_product_attention``'s forward, and dQ, dK/dV and the pair
+beside its backward, each beside ``flash_bf16_bound``.
+With ``--diagnose`` it adds variants of the current bf16 sources, timed in
+the same turns: of the backward ``nc1`` (one consumer warpgroup at every
+head_dim, the design of 192 and 256, in place of two at 64 and 128; held
+bit-identical to the current build), and, unchecked, ``one_part`` (the
 float32 operand of dQ, dK and dV as one bf16 part in place of three: a
 third of those products' tensor work) and ``fast_exp`` (``__expf``); of
 the forward ``no_pingpong`` (the consumers issue their products without
@@ -119,7 +125,8 @@ BF16_BWD = "flash_attention_bwd_bf16"
 BF16_NAMES = ["flash_attention_dq_bf16", "flash_attention_dkv_bf16"]
 F32_NAMES = ["flash_attention_dq", "flash_attention_dkv"]
 # bench_attention's shape and twice its sequence, causal
-BF16_TIMED = ((4, 8, 4096, 128), (4, 8, 8192, 128))
+BF16_TIMED = tuple((4, 8, t, d) for d in (128, 192, 256)
+                   for t in (4096, 8192))
 # --wide --diagnose: BERT-base's width in heads of 64, 128, 192 and 256
 # (H * D = 768: the work of TRAIN_SHAPE at each)
 WIDE_TIMED = ((8, 12, 512, 64), (8, 6, 512, 128), (8, 4, 512, 192),
@@ -173,6 +180,10 @@ WIDE_VARIANTS = {FWD: {
 }}
 # --diagnose --bf16: variant name -> [(text in the bf16 source, replacement)]
 DIAGNOSE_BF16 = {
+    # one consumer warpgroup (256 threads, two stages, no setmaxnreg) at
+    # head_dim 64 and 128 too, as at 192 and 256
+    "nc1": [("static constexpr int NC = D_ <= 128 ? 2 : 1;",
+             "static constexpr int NC = 1;")],
     "one_part": [("constexpr int PARTS = 3;", "constexpr int PARTS = 1;")],
     "fast_exp": [("expf(", "__expf(")],
 }
@@ -180,7 +191,8 @@ DIAGNOSE_BF16_FWD = {
     "no_pingpong": [("constexpr bool PINGPONG = true;",
                      "constexpr bool PINGPONG = false;")],
     "fast_exp": [("expf(", "__expf(")],
-    "bn64": [("static constexpr int BN = 128;", "static constexpr int BN = 64;")],
+    "bn64": [("static constexpr int BN = D_ <= 128 ? 128 : 64;",
+              "static constexpr int BN = 64;")],
     "grid_by_head": [
         ("const int bh = blockIdx.x;", "const int bh = blockIdx.y;"),
         ("(gridDim.y - 1 - blockIdx.y) * BM", "(gridDim.x - 1 - blockIdx.x) * BM"),
@@ -188,6 +200,8 @@ DIAGNOSE_BF16_FWD = {
          "dim3 grid((t + C::BM - 1) / C::BM, bh);")],
 }
 
+# --diagnose --bf16: the variants held bit-identical to the current build
+BF16_SAME = {"diag_nc1"}
 # --diagnose: variant name -> (text in the current sources, replacement);
 # each must be found in at least one of them
 DIAGNOSE = {
@@ -519,9 +533,9 @@ def bf16_flash(args, torch, kernels, fa, card) -> None:
     from chip_smoke import (BF16_BWD_ATOL_FLOOR, BF16_BWD_ATOL_SHARE,
                             BF16_BWD_RTOL, BF16_FWD_SHAPES, BF16_LSE_ATOL,
                             BF16_O_TIPPED_SHARE, BF16_SHAPES,
-                            flash_bf16_bound, leading_key_inputs,
-                            o_fault2_order, o_tipped, o_unrounded_p, o_used,
-                            sdpa_backend, time_ms)
+                            WIDE_BF16_SHAPES, flash_bf16_bound,
+                            leading_key_inputs, o_fault2_order, o_tipped,
+                            o_unrounded_p, o_used, sdpa_backend, time_ms)
     # kind -> {tag: source}: the bf16 forward and backward, and the float32
     # forward and backward, held bit-identical to the compared ones
     srcs = {"fwd": {"current": kernels.source_path(BF16_FWD)},
@@ -575,7 +589,7 @@ def bf16_flash(args, torch, kernels, fa, card) -> None:
             if tag == "current" and (tensor["HMMA"] or not tensor["HGMMA"]):
                 bad_builds.append(f"{kern}: {tensor}")
         if tag == "current":
-            if len(mix) != len(names[kind]) * 2:      # head_dim 64 and 128
+            if len(mix) != len(names[kind]) * 4:      # head_dim 64 to 256
                 bad_builds.append(f"{kind}: kernels {sorted(mix)}")
             if kind == "fwd":
                 bad_builds += [ln for ln in ptxas if "Potential" in ln or
@@ -644,16 +658,43 @@ def bf16_flash(args, torch, kernels, fa, card) -> None:
         return [torch.randn(shape, generator=gen, device=dev)
                 .to(torch.bfloat16) for _ in range(n)]
 
+    def takes(tag, d):
+        """Compared sources (earlier commits) hold head_dim 64 and 128 only;
+        the current build and its variants every width."""
+        return tag == "current" or tag in diagnostic or d <= 128
+
+    def same_as_current(kind, tag_s, outs, names_):
+        """Each compared source's outputs, and each ``BF16_SAME`` variant's,
+        against the current build's, bit for bit (the head_dim 64/128
+        instances must not move)."""
+        for tag, got in outs.items():
+            if tag == "current":
+                continue
+            same = [torch.equal(a, b_) for a, b_ in zip(outs["current"], got)]
+            if not all(same):
+                failures.append(f"bf16 {kind}:current and {kind}:{tag} "
+                                f"{tag_s}: not bit-identical "
+                                f"{dict(zip(names_, same))}")
+            checks.append(dict(version=f"{kind}:current={kind}:{tag}",
+                               shape=tag_s, bit_identical=dict(zip(names_,
+                                                                  same))))
+            print(f"compare [bf16 {kind}:current] against [bf16 {kind}:{tag}]"
+                  f" {tag_s}: {', '.join(names_)} bit-identical {same}")
+
     checks = []
     fwds = {tag: lib for tag, lib in libs["fwd"].items()
             if tag not in diagnostic}
-    for shape in BF16_SHAPES + BF16_FWD_SHAPES:
+    for shape in BF16_SHAPES + BF16_FWD_SHAPES + WIDE_BF16_SHAPES:
         q, k, v = bf16_inputs(shape, 3)
         for causal in (False, True):
             tag_s = f"{shape} causal={causal}"
             o_ref, lse_ref = fa.flash_attention_ref(q, k, v, causal=causal)
+            outs = {}
             for tag, lib in fwds.items():
+                if not takes(tag, shape[3]):
+                    continue
                 got, again = (run_fwd(lib, q, k, v, causal) for _ in range(2))
+                outs[tag] = got
                 torch.cuda.synchronize()
                 used = o_used(got[0], o_ref)
                 e_o = float((got[0].float() - o_ref.float()).abs().max())
@@ -675,7 +716,8 @@ def bf16_flash(args, torch, kernels, fa, card) -> None:
                       f"{e_o:.3e}, {used:.3f} of its tolerance, LSE "
                       f"{e_l:.3e}; two launches "
                       f"{'bit-identical' if same else 'DIFFER'}")
-            del o_ref, lse_ref
+            same_as_current("fwd", tag_s, outs, ("o", "lse"))
+            del o_ref, lse_ref, outs
         # P's rounding: where key 0 leads every row, each kernel rounds P as
         # the plain version does; at phase 14's shapes both controls fail
         q, k, v = leading_key_inputs(torch, shape, gen, dev)
@@ -684,12 +726,17 @@ def bf16_flash(args, torch, kernels, fa, card) -> None:
             o_ref = fa.flash_attention_ref(q, k, v, causal=causal)[0]
             controls = [o_tipped(fn(torch, q, k, v, causal), o_ref)
                         for fn in (o_fault2_order, o_unrounded_p)]
-            if shape in BF16_SHAPES and any(
+            # phase 14's shapes; phase 26's on causal rows of T > 1
+            must_fail = shape in BF16_SHAPES or (
+                shape in WIDE_BF16_SHAPES and causal and shape[2] > 1)
+            if must_fail and any(
                     c_share <= BF16_O_TIPPED_SHARE and c_used <= 1.0
                     for c_share, c_used in controls):
                 failures.append(f"bf16 fwd {tag_s}: a control passes "
                                 f"({controls})")
             for tag, lib in fwds.items():
+                if not takes(tag, shape[3]):
+                    continue
                 tipped, used = o_tipped(run_fwd(lib, q, k, v, causal)[0],
                                         o_ref)
                 if not (tipped <= BF16_O_TIPPED_SHARE and used <= 1.0):
@@ -703,7 +750,7 @@ def bf16_flash(args, torch, kernels, fa, card) -> None:
                       f"plain version's on {tipped:.4%} of its elements, "
                       f"{used:.3f} of its tolerance; controls {controls}")
         del q, k, v
-    for shape in BF16_SHAPES:
+    for shape in BF16_SHAPES + WIDE_BF16_SHAPES:
         for causal in (False, True):
             if shape[2] >= 4096 and not causal:
                 continue
@@ -714,10 +761,13 @@ def bf16_flash(args, torch, kernels, fa, card) -> None:
                     *fa.flash_attention_dkv_ref(q, k, v, do, lse, delta,
                                                 causal))
             tag_s = f"{shape} causal={causal}"
+            outs = {}
             for tag, lib in libs["bwd"].items():
-                if tag in diagnostic:
+                if ((tag in diagnostic and tag not in BF16_SAME)
+                        or not takes(tag, shape[3])):
                     continue
                 got = run(lib, q, k, v, do, lse, delta, causal)
+                outs[tag] = got
                 again = run(lib, q, k, v, do, lse, delta, causal)
                 torch.cuda.synchronize()
                 errs = [bwd_err(f"bf16 bwd:{tag} {n} {tag_s}", x, w)
@@ -733,7 +783,8 @@ def bf16_flash(args, torch, kernels, fa, card) -> None:
                 print(f"check [bf16 bwd:{tag}] {tag_s}: max abs err dQ "
                       f"{errs[0]:.3e} dK {errs[1]:.3e} dV {errs[2]:.3e}; two "
                       f"launches {'bit-identical' if same else 'DIFFER'}")
-            del q, k, v, do, o, lse, delta, want
+            same_as_current("bwd", tag_s, outs, ("dq", "dk", "dv"))
+            del q, k, v, do, o, lse, delta, want, outs
     for shape, causal in SHAPES:
         q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
                        for _ in range(4))
@@ -774,7 +825,8 @@ def bf16_flash(args, torch, kernels, fa, card) -> None:
         runs = collections.defaultdict(list)
         in_turns(torch, time_ms, {
             tag: (lambda lib=lib: run_fwd(lib, q, k, v, True))
-            for tag, lib in libs["fwd"].items()}, runs)
+            for tag, lib in libs["fwd"].items() if takes(tag, shape[3])},
+            runs)
         lib_fwd = time_ms(torch, lambda: sdpa(q, k, v, is_causal=True))
         bound_fwd = flash_bf16_bound(shape, True, 2, 4, 1)[0]
         result["fwd_times_ms"][key] = {
@@ -796,7 +848,8 @@ def bf16_flash(args, torch, kernels, fa, card) -> None:
             in_turns(torch, time_ms, {
                 tag: (lambda lib=lib, parts=parts: run(
                     lib, q, k, v, do, lse, delta, True, parts))
-                for tag, lib in libs["bwd"].items()}, runs)
+                for tag, lib in libs["bwd"].items() if takes(tag, shape[3])},
+                runs)
             for tag, r in runs.items():
                 times[tag][part] = r
         qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))

@@ -1,6 +1,7 @@
 """PyTorch port, the flash op on bfloat16: its plain versions and its
 autograd on the CPU against the JAX package's Pallas kernels in interpret
-mode, the bf16 forward kernel's order of arithmetic (128-key tiles)
+mode at head_dim 64, 128, 192 and 256, the bf16 forward kernel's order of
+arithmetic (128-key tiles at 64 and 128, 64-key tiles at 192 and 256)
 emulated in PyTorch against both, the float32 plain versions against
 their pre-bf16 formulas bit for bit, the op's routing, dense attention in
 bf16, and the port's ``bench_attention`` at a small size.
@@ -46,7 +47,7 @@ from analytics_zoo_torch.ops.attention import (
 )
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CASES = [(d, causal) for d in (64, 128) for causal in (False, True)]
+CASES = [(d, causal) for d in (64, 128, 192, 256) for causal in (False, True)]
 SHAPE_T = 256
 BLOCK = 64
 
@@ -149,7 +150,7 @@ def _reference(tmp, make_inputs):
     arrays, bf16 in and out, from one child process without XLA's excess
     precision."""
     arrays = {}
-    for d in (64, 128):
+    for d in sorted({d for d, _ in CASES}):
         for name, x in zip("qkvg", make_inputs(d)):
             arrays[f"{name}{d}"] = x
     np.savez(tmp / "in.npz", **arrays)
@@ -269,10 +270,11 @@ def test_bf16_o_checks_reject_the_wrong_orders(leading_reference, d,
         assert not (tipped <= O_TIPPED_SHARE and used <= 1.0), tipped
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
 def test_q_scale_rounds_as_jax_weak_types(d):
     """q * scale in bf16: the scale rounded to bf16, the product rounded
-    once, as JAX multiplies a bf16 array by a Python float."""
+    once, as JAX multiplies a bf16 array by a Python float (192 ** -0.5 is
+    not a power of two and rounds; 256's 1/16 is exact)."""
     x = np.random.RandomState(d).randn(4096).astype(np.float32)
     want = np.asarray((jnp.asarray(x).astype(jnp.bfloat16) * d ** -0.5)
                       .astype(jnp.float32))
@@ -284,11 +286,12 @@ def test_q_scale_rounds_as_jax_weak_types(d):
 
 # ---- the bf16 forward kernel's order of arithmetic, emulated on the CPU
 
-# keys a tile of the bf16 forward kernel (csrc/flash_attention_fwd_bf16.cu)
-KERNEL_TILE = 128
+# keys a tile of the bf16 forward kernel (csrc/flash_attention_fwd_bf16.cu,
+# Cfg::BN), by head_dim
+KERNEL_TILE = {64: 128, 128: 128, 192: 64, 256: 64}
 
 
-def _tiled_forward(q, k, v, causal, block=KERNEL_TILE):
+def _tiled_forward(q, k, v, causal, block=None):
     """The bf16 forward kernel's order in PyTorch: ``q * scale`` rounded to
     bf16, S in float32 from bf16 values (causal cells at -1e30), an online
     softmax over ``block``-key tiles (the running max from -1e30, l the
@@ -298,6 +301,7 @@ def _tiled_forward(q, k, v, causal, block=KERNEL_TILE):
     the tiles past a block's diagonal: here they add p = 0 at corr = 1,
     which changes nothing."""
     b, h, t, d = q.shape
+    block = block or KERNEL_TILE[d]
     qs = tfa._scaled_q(q, d ** -0.5).float()
     kf, vf = k.float(), v.float()
     m = torch.full((b, h, t, 1), -1e30)
@@ -345,9 +349,9 @@ def test_bf16_kernel_order_matches_the_plain_version(d, causal):
 def test_bf16_kernel_order_matches_pallas_interpret(reference,
                                                     leading_reference, d,
                                                     causal):
-    """The kernel's order (128-key tiles) against the Pallas kernel in
-    interpret mode (64-key blocks) within the bounds that hold the plain
-    version to it above."""
+    """The kernel's order (its instance's key tiles) against the Pallas
+    kernel in interpret mode (64-key blocks) within the bounds that hold the
+    plain version to it above."""
     tag = f"{d}{int(causal)}"
     q, k, v, _ = (_bf16(x) for x in _inputs(d))
     _assert_o_close(_tiled_forward(q, k, v, causal)[0].float().numpy(),
@@ -414,10 +418,11 @@ def test_f32_plain_versions_bit_identical_to_before(d, causal):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 def test_takes_kernels(dtype, head_dim, device, mode):
-    """float32 takes the kernels at head_dim 64, 128, 192 and 256, bf16 at
-    64 and 128; float16, and every other width, the plain versions."""
+    """float32 and bf16 take the kernels at head_dim 64, 128, 192 and 256;
+    float16, and every other width, the plain versions."""
     shape = (2, 4, 256, head_dim)
-    widths = {torch.float32: (64, 128, 192, 256), torch.bfloat16: (64, 128)}
+    widths = {torch.float32: (64, 128, 192, 256),
+              torch.bfloat16: (64, 128, 192, 256)}
     want = (mode == "auto" and device == "cuda" and
             head_dim in widths.get(dtype, ()))
     assert tfa.takes_kernels((dtype,) * 3, (shape,) * 3,
@@ -439,12 +444,16 @@ def test_kernel_supports_reads_dtype_and_head_dim():
     assert not tfa.kernel_supports(bf, bf.float(), bf)
     assert not tfa.kernel_supports(bf.half())
     assert not tfa.kernel_supports(torch.zeros(1, 2, 8, 32))
-    # head_dim 192 and 256 on float32 only
+    # head_dim 192 and 256 on float32 and bf16, on no float16; 320 on none
     for d in (192, 256):
         assert tfa.kernel_supports(torch.zeros(1, 2, 8, d))
+        assert tfa.kernel_supports(torch.zeros(1, 2, 8, d,
+                                               dtype=torch.bfloat16))
         assert not tfa.kernel_supports(torch.zeros(1, 2, 8, d,
-                                                   dtype=torch.bfloat16))
-    assert not tfa.kernel_supports(torch.zeros(1, 2, 8, 320))
+                                                   dtype=torch.float16))
+    for dtype in (torch.float32, torch.bfloat16):
+        assert not tfa.kernel_supports(torch.zeros(1, 2, 8, 320,
+                                                   dtype=dtype))
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 32),
@@ -510,6 +519,19 @@ def test_bench_attention_on_the_cpu_returns_the_reference_keys():
     assert out["value"] == pytest.approx(64 / (out["flash_ms"] / 1e3))
     assert attention_flops(4, 8, 4096, 128) == pytest.approx(
         3.5 * 2 * 2 * 4 * 8 * 4096 ** 2 / 2 * 128)
+    assert sum(kernels.launch_counts().values()) == 0
+
+
+@pytest.mark.parametrize("head_dim", [192, 256])
+def test_bench_attention_on_the_cpu_at_wide_heads(head_dim):
+    """``bench_attention(head_dim=192 | 256)``, the entry point that drives
+    the bf16 kernels of those widths on the card, on the CPU at a small
+    size: the plain versions, every time finite and positive."""
+    out = bench_attention(seq_len=32, batch=1, heads=1, head_dim=head_dim,
+                          repeats=1, device="cpu")
+    assert out["head_dim"] == head_dim
+    for key in ("value", "flash_ms", "dense_ms", "flash_2x_seq_ms"):
+        assert np.isfinite(out[key]) and out[key] > 0, key
     assert sum(kernels.launch_counts().values()) == 0
 
 

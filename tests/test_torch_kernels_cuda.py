@@ -67,11 +67,13 @@ def test_flash_kernel_refuses_what_it_does_not_take(dev):
     q = _randn(dev, 1, 2, 64, 32)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention_fwd(q, q, q)
-    for d, dtype in ((320, torch.float32), (192, torch.bfloat16),
-                     (256, torch.bfloat16)):
+    for d, dtype in ((320, torch.float32), (320, torch.bfloat16)):
         q = _randn(dev, 1, 2, 64, d).to(dtype)
         with pytest.raises(ValueError, match="head_dim"):
             fa.flash_attention_fwd(q, q, q)
+    q = _randn(dev, 1, 2, 64, 192).half()
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa.flash_attention_fwd(q, q, q)
     q = _randn(dev, 1, 2, 64, 64).requires_grad_()
     with pytest.raises(RuntimeError, match="forward-only"):
         fa.flash_attention_fwd(q, q, q)
@@ -213,7 +215,10 @@ def _close_bf16_grad(got, want):
 @pytest.mark.parametrize("t,d,causal", [(128, 64, False), (128, 64, True),
                                         (200, 64, True), (100, 128, False),
                                         (257, 128, True), (1, 64, False),
-                                        (512, 128, True)])
+                                        (512, 128, True), (200, 192, False),
+                                        (129, 192, True), (512, 192, True),
+                                        (17, 256, False), (129, 256, True),
+                                        (512, 256, False), (1, 256, True)])
 def test_flash_bf16_kernels_match_plain(dev, t, d, causal):
     q, k, v, do = (_bf16(dev, 2, 3, t, d, seed=s) for s in range(4))
     before = kernels.launch_counts()
@@ -235,7 +240,8 @@ def test_flash_bf16_kernels_match_plain(dev, t, d, causal):
 
 
 @pytest.mark.parametrize("t,d,causal", [(512, 64, False), (200, 64, True),
-                                        (257, 128, True), (1024, 128, False)])
+                                        (257, 128, True), (1024, 128, False),
+                                        (257, 192, True), (1024, 256, False)])
 def test_flash_bf16_forward_rounds_p_as_the_plain_version(dev, t, d, causal):
     """Where key 0 holds every row's largest score, the kernel's running
     max is the row's max from its first tile on: its O is the plain
@@ -292,9 +298,10 @@ def _o_wrong_orders(q, k, v, causal):
 
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("t", [1, 17, 127, 129, 200, 4096])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
 def test_flash_bf16_forward_kernel_at_ragged_lengths(dev, d, t, causal):
-    """The wgmma forward (128 query rows a block, 128-key tiles) against
+    """The wgmma forward (128 query rows a block and 128-key tiles at head_dim
+    64 and 128; 128 rows and 64-key tiles at 192; 64 and 64 at 256) against
     its plain version where T is one key, below one block, one row either
     side of a block, not a multiple of a tile, and long: O within its
     tolerance, LSE, two launches bit-identical.  Where key 0 leads every
@@ -328,7 +335,7 @@ def test_flash_bf16_forward_kernel_at_ragged_lengths(dev, d, t, causal):
 
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("t", [17, 200, 512, 4096])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
 def test_flash_bf16_backward_kernels_match_plain_and_relaunch(dev, d, t,
                                                              causal):
     """The wgmma dQ and dK/dV kernels against their plain versions on the
@@ -355,7 +362,8 @@ def test_flash_bf16_backward_kernels_match_plain_and_relaunch(dev, d, t,
 
 
 @pytest.mark.parametrize("t,d,causal", [(512, 64, False), (200, 64, True),
-                                        (257, 128, True)])
+                                        (257, 128, True), (257, 192, True),
+                                        (200, 256, False), (512, 256, True)])
 def test_flash_bf16_kernels_are_deterministic(dev, t, d, causal):
     q, k, v, do = (_bf16(dev, 2, 3, t, d, seed=s) for s in range(4))
     first = fa.flash_attention_fwd(q, k, v, causal=causal)
@@ -376,8 +384,9 @@ def test_flash_bf16_kernels_are_deterministic(dev, t, d, causal):
     (torch.float32, 128, "f32"), (torch.bfloat16, 32, None),
     (torch.float32, 32, None), (torch.float16, 64, None),
     (torch.float32, 192, "f32"), (torch.float32, 256, "f32"),
-    (torch.bfloat16, 192, None), (torch.bfloat16, 256, None),
-    (torch.float16, 256, None), (torch.float32, 320, None)])
+    (torch.bfloat16, 192, "bf16"), (torch.bfloat16, 256, "bf16"),
+    (torch.float16, 256, None), (torch.float32, 320, None),
+    (torch.bfloat16, 320, None), (torch.float16, 192, None)])
 def test_flash_op_routes_by_dtype_and_head_dim_on_the_card(dev, dtype, d,
                                                             fired):
     """Through the op and autograd: bf16 launches only the bf16 kernels,
