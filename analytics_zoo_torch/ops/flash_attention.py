@@ -5,14 +5,18 @@ versions (port of ``ops/pallas_attention.py``).
 inputs and is differentiable.  ``takes_kernels`` routes it: for CUDA
 tensors under ``ops.fused=auto`` whose q, k and v share one dtype the
 kernels take and one shape with a head_dim the kernels of that dtype take
-(``HEAD_DIMS``: 64, 128, 192 and 256 for float32 and for bfloat16),
-it launches the forward (``csrc/flash_attention_fwd.cu`` for float32,
-``csrc/flash_attention_fwd_bf16.cu`` for bfloat16), which also writes the
-per-row log-sum-exp; the backward recomputes the probabilities from it:
-one kernel for dQ, one for dK/dV, as the reference's ``custom_vjp`` runs
-two Pallas kernels, in ``csrc/flash_attention_bwd.cu`` for float32 and
-``csrc/flash_attention_bwd_bf16.cu`` for bfloat16.  Each kernel has a
-launch count of its own (``KERNELS``).  The float32 kernels take their
+(``HEAD_DIMS``: 64, 128, 192 and 256 for bfloat16; those and every
+multiple of 64 from 320 to 2048 for float32), it launches the forward,
+which also writes the per-row log-sum-exp; the backward recomputes the
+probabilities from it: one kernel for dQ, one for dK/dV, as the
+reference's ``custom_vjp`` runs two Pallas kernels.  ``kernel_names``
+says which kernels take an input: at head_dim 64 to 256
+``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu`` for
+float32, ``csrc/flash_attention_fwd_bf16.cu`` and
+``csrc/flash_attention_bwd_bf16.cu`` for bfloat16 (``KERNELS``); float32
+past 256 ``csrc/flash_attention_wide.cu`` (``WIDE_KERNELS``, head_dim
+taken at run time, each block a share of the output's columns).  Each
+kernel has a launch count of its own.  The float32 kernels take their
 products on the tensor cores in split TF32, on the tile code of
 ``csrc/flash_tile.cuh`` (about float32's accuracy); the bfloat16 kernels
 take bf16 products where both operands are bf16 values and three bf16
@@ -32,16 +36,38 @@ import torch
 
 from analytics_zoo_torch.ops import kernels
 
+# the head_dims of flash_attention_wide.cu, float32 only
+WIDE_HEAD_DIMS = tuple(range(320, 2049, 64))
 # the head_dims each dtype's kernels take
-HEAD_DIMS = {torch.float32: (64, 128, 192, 256),
+HEAD_DIMS = {torch.float32: (64, 128, 192, 256) + WIDE_HEAD_DIMS,
              torch.bfloat16: (64, 128, 192, 256)}
-# the kernels' names by input dtype: (forward, dQ, dK/dV)
+# the kernels' names by input dtype at head_dim 64 to 256: (forward, dQ,
+# dK/dV)
 KERNELS = {
     torch.float32: ("flash_attention_fwd", "flash_attention_dq",
                     "flash_attention_dkv"),
     torch.bfloat16: ("flash_attention_fwd_bf16", "flash_attention_dq_bf16",
                      "flash_attention_dkv_bf16"),
 }
+# the same three at WIDE_HEAD_DIMS
+WIDE_KERNELS = ("flash_attention_fwd_wide", "flash_attention_dq_wide",
+                "flash_attention_dkv_wide")
+
+
+def kernel_names(dtype: torch.dtype, head_dim: int) -> Tuple[str, str, str]:
+    """The kernels (forward, dQ, dK/dV) that take q, k, v of ``dtype`` at
+    ``head_dim``; ``head_dim`` must be in ``HEAD_DIMS[dtype]``."""
+    return WIDE_KERNELS if head_dim in WIDE_HEAD_DIMS else KERNELS[dtype]
+
+
+def _widths(dtype: torch.dtype) -> str:
+    dims = HEAD_DIMS.get(dtype, ())
+    narrow = [d for d in dims if d not in WIDE_HEAD_DIMS]
+    text = ", ".join(map(str, narrow))
+    if len(narrow) < len(dims):
+        text += (f" and {WIDE_HEAD_DIMS[0]} to {WIDE_HEAD_DIMS[-1]} in steps "
+                 f"of 64")
+    return text
 
 
 def _causal_keep(t: int, device) -> torch.Tensor:
@@ -193,8 +219,8 @@ def _check(name: str, **tensors) -> None:
         raise ValueError(f"{name}: inputs must be (B, H, T, D), got "
                          f"{tuple(q.shape)}")
     if q.shape[-1] not in HEAD_DIMS[q.dtype]:
-        raise ValueError(f"{name}: head_dim {q.shape[-1]} not in "
-                         f"{HEAD_DIMS[q.dtype]} for {q.dtype}")
+        raise ValueError(f"{name}: head_dim {q.shape[-1]} is none of the "
+                         f"{q.dtype} kernels' ({_widths(q.dtype)})")
     if torch.is_grad_enabled() and any(x.requires_grad
                                        for x in tensors.values()):
         raise RuntimeError(
@@ -214,9 +240,9 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
         scale = d ** -0.5
     o = torch.empty_like(q)
     lse = torch.empty((b * h, t, 1), dtype=torch.float32, device=q.device)
-    kernels.launch(KERNELS[q.dtype][0], q.device, q.data_ptr(), k.data_ptr(),
-                   v.data_ptr(), o.data_ptr(), lse.data_ptr(), b * h, t, d,
-                   q_scale(scale, q.dtype), int(causal))
+    kernels.launch(kernel_names(q.dtype, d)[0], q.device, q.data_ptr(),
+                   k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                   b * h, t, d, q_scale(scale, q.dtype), int(causal))
     return o, lse
 
 
@@ -249,7 +275,7 @@ def flash_attention_dq(q, k, v, do, lse, delta, causal: bool = False,
     dq = torch.empty_like(args[0])
     scales = ((float(scale),) if q.dtype == torch.float32 else
               (float(scale), q_scale(scale, q.dtype)))
-    kernels.launch(KERNELS[q.dtype][1], q.device,
+    kernels.launch(kernel_names(q.dtype, d)[1], q.device,
                    *(x.data_ptr() for x in args), dq.data_ptr(),
                    b * h, t, d, *scales, int(causal))
     return dq
@@ -265,7 +291,7 @@ def flash_attention_dkv(q, k, v, do, lse, delta, causal: bool = False,
         scale = d ** -0.5
     args = _bwd_args(q, k, v, do, lse, delta)
     dk, dv = torch.empty_like(args[1]), torch.empty_like(args[2])
-    kernels.launch(KERNELS[q.dtype][2], q.device,
+    kernels.launch(kernel_names(q.dtype, d)[2], q.device,
                    *(x.data_ptr() for x in args), dk.data_ptr(),
                    dv.data_ptr(), b * h, t, d, q_scale(scale, q.dtype),
                    int(causal))

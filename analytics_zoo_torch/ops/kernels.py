@@ -78,6 +78,18 @@ SIGNATURES = {
     "flash_attention_dkv_bf16": ("flash_attention_bwd_bf16",
                                  "zoo_flash_attention_dkv_bf16",
                                  [_P] * 8 + [_I, _I, _I, _F, _I, _P]),
+    # the same three on float32 at head_dim 320 to 2048 (multiples of 64),
+    # with the arguments of the float32 ones above; one source, head_dim
+    # taken at run time
+    "flash_attention_fwd_wide": ("flash_attention_wide",
+                                 "zoo_flash_attention_fwd_wide",
+                                 [_P] * 5 + [_I, _I, _I, _F, _I, _P]),
+    "flash_attention_dq_wide": ("flash_attention_wide",
+                                "zoo_flash_attention_dq_wide",
+                                [_P] * 7 + [_I, _I, _I, _F, _I, _P]),
+    "flash_attention_dkv_wide": ("flash_attention_wide",
+                                 "zoo_flash_attention_dkv_wide",
+                                 [_P] * 8 + [_I, _I, _I, _F, _I, _P]),
     # x, bias, out, rows, d, stream
     "bias_gelu": ("bias_gelu", "zoo_bias_gelu", [_P, _P, _P, _I, _I, _P]),
     # x, gamma, beta, out, rows, d, eps, act (0 none, 1 gelu), stream
@@ -98,8 +110,10 @@ SIGNATURES = {
 SOURCES = sorted({src for src, _, _ in SIGNATURES.values()})
 
 # the kernels a forward pass can launch (what InferenceModel.warm builds;
-# no model hands the flash op bf16 q/k/v, so not its bf16 forward)
-FORWARD_KERNELS = ("flash_attention_fwd", "bias_gelu", "layernorm_act")
+# a model's attention is float32 at any head_dim, so both float32
+# forwards; no model hands the flash op bf16 q/k/v, so not its bf16 forward)
+FORWARD_KERNELS = ("flash_attention_fwd", "flash_attention_fwd_wide",
+                   "bias_gelu", "layernorm_act")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
 

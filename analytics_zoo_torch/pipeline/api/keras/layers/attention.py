@@ -6,8 +6,9 @@
 QKV is one fused product and heads live in a reshaped axis.  Attention
 takes the flash kernel for a CUDA tensor with no mask and a head_dim the
 kernels of q's dtype take (``flash_attention.HEAD_DIMS``; q is float32
-under every policy, so 64, 128, 192 or 256); every other case takes the
-dense plain path, as the reference takes dense XLA attention.  ``BERT`` always feeds its
+under every policy, so 64, 128, 192, 256 or a multiple of 64 from 320 to
+2048); every other case takes the dense plain path, as the reference
+takes dense XLA attention.  ``BERT`` always feeds its
 attention mask, so its blocks take the dense path, as the reference's
 do; ``TransformerLayer`` feeds none.
 
@@ -25,8 +26,8 @@ rank; True/False force it):
 
 The reference takes its flash kernel with no mask where ``t % 256 == 0``,
 ``head_dim % 64 == 0`` and ``t * head_dim <= 4096 * 128``, the port's
-kernels at the head_dims above and any length; float32 past 256 and
-float16 take the plain path here.  The reference takes its flash kernel
+kernels at the head_dims above and any length; float16, and head_dims
+past 2048, take the plain path here.  The reference takes its flash kernel
 only on a one-device mesh
 (``pallas_call`` cannot be partitioned by GSPMD) and dense attention on
 a larger one; each port rank attends over its own rows or heads, so it

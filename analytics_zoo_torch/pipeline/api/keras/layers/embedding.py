@@ -23,11 +23,17 @@ from analytics_zoo_torch.pipeline.api.keras.engine import Layer, Params
 
 
 def _take(table: torch.Tensor, x: torch.Tensor):
-    """(ids, the rows of ``table`` at ``x``): the reference casts to
-    int32; ids index in int64 here."""
+    """(ids, the rows of ``table`` at ``x``) as the reference's
+    ``jnp.take`` gives them: ids cast to int32, a negative id wrapped to
+    ``rows + id``, and a NaN row where the id still lies outside the table
+    (its gradient dropped).  ids index in int64 here."""
     ids = x.to(torch.int32).long()
-    return ids, table.index_select(0, ids.reshape(-1)).reshape(
+    rows = table.shape[0]
+    at = torch.where(ids < 0, ids + rows, ids)
+    inside = (at >= 0) & (at < rows)
+    out = table.index_select(0, at.clamp(0, rows - 1).reshape(-1)).reshape(
         *ids.shape, table.shape[-1])
+    return ids, torch.where(inside.unsqueeze(-1), out, float("nan"))
 
 
 class Embedding(Layer):

@@ -96,7 +96,10 @@ class Top5Accuracy(Metric):
 
     def batch_update(self, y_true, y_pred, mask):
         labels = _flat_labels(y_true, y_pred)
-        top5 = torch.topk(y_pred, 5, dim=-1).indices
+        # a stable sort puts the lower index first among equal values, as
+        # jax.lax.top_k does (torch.topk leaves their order unspecified)
+        top5 = torch.sort(y_pred, dim=-1, descending=True,
+                          stable=True).indices[..., :5]
         correct = torch.any(top5 == labels[..., None], dim=-1).float()
         return torch.sum(correct * mask), torch.sum(mask)
 

@@ -28,7 +28,9 @@ multi-GPU: BERT-base trained through ``launch_cli`` on an NCCL world of
 one and on two gloo ranks of the one card under data, FSDP and tensor
 parallelism, and BERT-base's width in heads of 256 and 192: served and
 trained through the float32 flash kernels' wide instances, and the bf16
-flash kernels at head_dim 192 and 256 through ``bench_attention``.
+flash kernels at head_dim 192 and 256 through ``bench_attention``, and
+BERT-base's width in 2 heads of 384 and 1 of 768: served and trained
+through the float32 flash kernels past head_dim 256.
 
     python3 chip_smoke.py
 
@@ -449,9 +451,35 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    whole inputs held against the plain versions on three heads' slices; 26d
    ``bench_attention(head_dim=192)`` and ``(head_dim=256)``, 192 launches
    of each bf16 kernel a call;
-27. a ``kernels`` JSON line (the float32 flash kernels' launches from
+27. the float32 flash kernels past head_dim 256 (``python3 chip_smoke.py
+   --wider-heads`` runs it alone; ``csrc/flash_attention_wide.cu``, one
+   instance of each kernel at every head_dim from 320 to 2048): 27a the
+   ``TextClassifier`` at BERT-base widths with ``n_head=2`` (head_dim
+   384) served (2 requests of 8 x 512, 12 wide forward launches a
+   request) and trained (2 Adam steps of 8 x 512 through ``fit`` on the
+   per-step captured route: 12 wide forward, dQ and dK/dV launches and 1
+   ``fused_adam`` a step), logits against ``ops.fused=torch`` within
+   MODEL_ATOL, one step's gradients against the plain versions under
+   float32 products within GRAD_RTOL_F32; 27b the same with ``n_head=1``
+   (head_dim 768), 1 request and 1 step; 27c one Adam step of GPT-1's
+   ``TransformerLayer`` in 2 heads of 384 (causal) and its gradients; 27d
+   the three kernels against their plain versions at head_dim 320, 384,
+   448, 768, 1024 and 2048 (``WIDER_SHAPES``: ragged last tiles, fewer
+   rows than a tile, one key, T = 512 and 256), causal and not, two
+   launches bit-identical, the float32 tolerances of phase 2; 27e
+   ``flash_attention`` through autograd launching only the wide kernels
+   on float32 at 320 and 2048, only the narrow ones at 256, none at
+   float32 288, bf16 384 or float16 384; 27f each kernel at (8, 2, 512,
+   384) and (8, 1, 512, 768), causal and not, timed in turns with its
+   plain version, float32 ``scaled_dot_product_attention`` and the
+   head_dim-64 instance at (8, 12, 512, 64) (the same work), beside its
+   bound and the library's backend, and at (8, 1, 256, 2048), the
+   reference's t * head_dim limit;
+28. a ``kernels`` JSON line (the float32 flash kernels' launches from
    phase 25 and their times from 25d at (8, 3, 512, 256), non-causal, the
-   instance of most of those launches; the bf16 ones an entry for each
+   instance of most of those launches; the wide ones' launches from
+   27a-c and their times from 27f at (8, 2, 512, 384), non-causal, their
+   errors 27d's; the bf16 ones an entry for each
    head_dim ``bench_attention`` drives them at: under the kernel's name
    head_dim 128 (launches from 14d, times from 14c), under
    ``<name>_d192`` and ``<name>_d256`` those widths (launches from 26d's
@@ -8742,10 +8770,12 @@ WIDE_FLASH = ("flash_attention_fwd", "flash_attention_dq",
               "flash_attention_dkv")
 
 
-def wide_serving(torch, card, model, requests, what):
+def wide_serving(torch, card, model, requests, what,
+                 fwd="flash_attention_fwd", tag="25"):
     """``requests`` (8 x 512 each) through ``InferenceModel.predict``: 12
-    forward and bias-GeLU launches and one LayerNorm-GeLU a request; the
-    first request's logits against ``ops.fused=torch``."""
+    launches of the flash forward ``fwd`` and of bias-GeLU and one
+    LayerNorm-GeLU a request; the first request's logits against
+    ``ops.fused=torch``."""
     from analytics_zoo_torch.ops import kernels
     from analytics_zoo_torch.pipeline.inference import InferenceModel
     im = InferenceModel().load_zoo(model)
@@ -8758,8 +8788,8 @@ def wide_serving(torch, card, model, requests, what):
         lat.append((time.perf_counter() - s0) * 1e3)
     launches = kernels.launch_counts()
     n = len(requests)
-    expect_launches(launches, {"flash_attention_fwd": 12 * n,
-                               "bias_gelu": 12 * n, "layernorm_act": n},
+    expect_launches(launches, {fwd: 12 * n, "bias_gelu": 12 * n,
+                               "layernorm_act": n},
                     f"{what} serving ({n} requests)")
     for out in outs:
         if out.shape != (WIDE_BATCH, 20) or not np.isfinite(out).all():
@@ -8770,7 +8800,7 @@ def wide_serving(torch, card, model, requests, what):
     if kernels.launch_counts() != launches:
         fail(f"{what} under ops.fused=torch launched a kernel")
     diff = float(np.abs(plain - outs[0]).max())
-    print(f"25 {what} served: launches over {n} requests {launches}; logits "
+    print(f"{tag} {what} served: launches over {n} requests {launches}; logits "
           f"vs ops.fused=torch max abs diff {diff:.3e} (tolerance "
           f"{MODEL_ATOL}), |logits| max {float(np.abs(outs[0]).max()):.3e}; "
           f"request latency {[round(v, 3) for v in lat]} ms ({card})")
@@ -8779,7 +8809,7 @@ def wide_serving(torch, card, model, requests, what):
     return launches
 
 
-def wide_fit(torch, card, model, x, y, what, per_step):
+def wide_fit(torch, card, model, x, y, what, per_step, tag="25"):
     """``compile``/``fit`` with Adam for one epoch on the Estimator's
     per-step route (``train.steps_per_dispatch`` 1: each step a replay of
     the program captured on the first batch): ``per_step`` launches a
@@ -8808,19 +8838,20 @@ def wide_fit(torch, card, model, x, y, what, per_step):
     loss = history[0]["loss"]
     if len(history) != 1 or not np.isfinite(loss):
         fail(f"{what} fit history {history}")
-    print(f"25 {what} fit: {steps} steps of {WIDE_BATCH} x 512 in "
+    print(f"{tag} {what} fit: {steps} steps of {WIDE_BATCH} x 512 in "
           f"{fit_s:.3f} s (capture included), loss {loss:.5f}; launches "
           f"{launches} ({card})")
-    report_captures(f"25 {what} fit", mark, card, allow_fallback=False)
+    report_captures(f"{tag} {what} fit", mark, card, allow_fallback=False)
     return launches
 
 
-def wide_grads(torch, dev, model, batch_np, what):
+def wide_grads(torch, dev, model, batch_np, what, flash=WIDE_FLASH,
+               tag="25"):
     """One step's gradients through the kernels against the plain
     versions, float32 products, the same batch, dropout masks and
     max-pool tokens: each leaf within GRAD_RTOL_F32 (relative L2); 12
-    launches of each flash kernel through the kernels, none through the
-    plain versions.  The plain route's ``GlobalMaxPooling1D`` takes the
+    launches of each flash kernel of ``flash`` through the kernels, none
+    through the plain versions.  The plain route's ``GlobalMaxPooling1D`` takes the
     tokens the kernel route's took: where a channel's two largest tokens
     lie within the routes' float32 differences of each other, either is
     its max, and the whole channel's gradient goes to the one taken.  The
@@ -8864,7 +8895,7 @@ def wide_grads(torch, dev, model, batch_np, what):
             counts = kernels.launch_counts()
             if mode == "torch" and any(counts.values()):
                 fail(f"{what}: ops.fused=torch launched kernels {counts}")
-            if mode == "auto" and any(counts[n] != 12 for n in WIDE_FLASH):
+            if mode == "auto" and any(counts[n] != 12 for n in flash):
                 fail(f"{what}: gradient launches {counts}")
     finally:
         if own_call:
@@ -8878,7 +8909,7 @@ def wide_grads(torch, dev, model, batch_np, what):
     pool = (f"; max-pool tokens the plain route would have taken otherwise "
             f"{sum(other)} of {sum(int(t.numel()) for t in tokens)}"
             if tokens else "")
-    print(f"25 {what} gradients, kernels vs plain versions, float32 "
+    print(f"{tag} {what} gradients, kernels vs plain versions, float32 "
           f"products: {len(errs)} leaves, relative L2 max {worst:.3e} median "
           f"{statistics.median(errs):.3e} (tolerance {GRAD_RTOL_F32}); loss "
           f"{grads['auto'][0]:.6f} vs {grads['torch'][0]:.6f}{pool}")
@@ -8886,15 +8917,18 @@ def wide_grads(torch, dev, model, batch_np, what):
         fail(f"{what}: kernel and plain gradients differ: {worst}")
 
 
-def wide_kernel_times(torch, card, dev):
+def wide_kernel_times(torch, card, dev, shapes=WIDE_TIMED,
+                      names=WIDE_FLASH, tag="25d", same_work=True):
     """25d: each head_dim 256 and 192 instance at BERT-base's width,
     causal and not, timed in turns (kernel, plain, library, the head_dim
     64 instance at (8, 12, 512, 64), then in reverse) with its plain
     version, float32 ``scaled_dot_product_attention`` (the forward; the
     backward of dQ, dK and dV together) and the instance of rows 1-3 at
-    the same work, beside its bound.  Returns {(shape, causal): {kernel:
-    {ms, plain_ms, library_ms (the medians of the turns), bound_ms,
-    bound_by}}}."""
+    the same work, beside its bound.  27f takes the kernels ``names`` at
+    its ``shapes`` the same way (without the head_dim 64 instance where
+    ``same_work`` is False).  Returns {(shape, causal): {kernel: {ms,
+    plain_ms, library_ms (the medians of the turns), bound_ms, bound_by,
+    backend}}}."""
     from analytics_zoo_torch.ops import flash_attention as fa
     sdpa = torch.nn.functional.scaled_dot_product_attention
     g = torch.Generator(device=dev).manual_seed(25)
@@ -8903,23 +8937,29 @@ def wide_kernel_times(torch, card, dev):
     def inputs(shape):
         return [torch.randn(shape, generator=g, device=dev) for _ in range(4)]
 
-    base = inputs(FLASH_SHAPES[0])
-    for shape in WIDE_TIMED:
+    base = inputs(FLASH_SHAPES[0]) if same_work else None
+    for shape in shapes:
         b, h, t, d = shape
         wide = inputs(shape)
+        if fa.kernel_names(torch.float32, d) != tuple(names):
+            fail(f"{tag}: {shape} takes {fa.kernel_names(torch.float32, d)}, "
+                 f"not {names}")
         for causal in (False, True):
             fns = {}
-            for tag, (q, k, v, do) in (("kernel", wide), ("d64", base)):
+            for tag_, xs in (("kernel", wide), ("d64", base)):
+                if xs is None:
+                    continue
+                q, k, v, do = xs
                 o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
                 delta = fa.flash_attention_delta(o, do)
-                fns[tag] = (
+                fns[tag_] = (
                     lambda q=q, k=k, v=v: fa.flash_attention_fwd(
                         q, k, v, causal=causal),
                     lambda a=(q, k, v, do, lse, delta): fa.flash_attention_dq(
                         *a, causal),
                     lambda a=(q, k, v, do, lse, delta): fa.flash_attention_dkv(
                         *a, causal))
-                if tag == "kernel":
+                if tag_ == "kernel":
                     plain = (
                         lambda q=q, k=k, v=v: fa.flash_attention_ref(
                             q, k, v, causal=causal),
@@ -8937,14 +8977,15 @@ def wide_kernel_times(torch, card, dev):
             pairs = b * h * t * t / (2 if causal else 1)
             n_el = b * h * t * d
             for i, (name, tensors, rows, flops) in enumerate((
-                    ("flash_attention_fwd", 4, 1, 4),
-                    ("flash_attention_dq", 5, 2, 6),
-                    ("flash_attention_dkv", 6, 2, 8))):
+                    (names[0], 4, 1, 4), (names[1], 5, 2, 6),
+                    (names[2], 6, 2, 8))):
                 turns = {"kernel": fns["kernel"][i], "plain": plain[i],
-                         "library": lib[min(i, 1)], "d64": fns["d64"][i]}
-                runs = {tag: [] for tag in turns}
-                for tag in list(turns) + list(turns)[::-1]:
-                    runs[tag].append(time_ms(torch, turns[tag]))
+                         "library": lib[min(i, 1)]}
+                if same_work:
+                    turns["d64"] = fns["d64"][i]
+                runs = {tag_: [] for tag_ in turns}
+                for tag_ in list(turns) + list(turns)[::-1]:
+                    runs[tag_].append(time_ms(torch, turns[tag_]))
                 bnd, by = flash_bound_ms(
                     (tensors * n_el + rows * b * h * t) * 4,
                     flops * pairs * d)
@@ -8952,15 +8993,15 @@ def wide_kernel_times(torch, card, dev):
                     ms=statistics.median(runs["kernel"]),
                     plain_ms=statistics.median(runs["plain"]),
                     library_ms=statistics.median(runs["library"]),
-                    bound_ms=bnd, bound_by=by)
-                print(f"25d time {name} {shape} f32 causal={causal}: "
+                    bound_ms=bnd, bound_by=by, backend=backend)
+                d64 = (f" head_dim-64 instance at {FLASH_SHAPES[0]} (the same "
+                       f"work) {runs['d64']};" if same_work else "")
+                print(f"{tag} time {name} {shape} f32 causal={causal}: "
                       f"kernel_ms {runs['kernel']} plain_ms {runs['plain']} "
                       f"library_ms {runs['library']} "
                       f"(scaled_dot_product_attention f32, "
                       f"{'forward' if i == 0 else 'backward: dQ, dK, dV together'}"
-                      f"; {backend}) head_dim-64 instance at "
-                      f"{FLASH_SHAPES[0]} (the same work) {runs['d64']}; "
-                      f"bound_ms {bnd:.6f} ({by}, 3xTF32"
+                      f"; {backend}){d64} bound_ms {bnd:.6f} ({by}, 3xTF32"
                       f"{', T^2/2 pairs' if causal else ''}) ({card})")
             del qg, kg, vg, sdpa_out, lib, plain, fns
         del wide
@@ -9151,6 +9192,184 @@ def wide_bf16_alone() -> None:
     print(f"gpu: {card}")
     ctx = init_zoo_context(device="cuda:0")
     wide_bf16_phase(torch, card, ctx.device)
+
+
+# ------------------------- phase 27: wider heads (--wider-heads)
+# BERT-base's width, 768, in 2 heads of 384 and 1 of 768: the float32 flash
+# kernels past head_dim 256 (csrc/flash_attention_wide.cu) on a model's
+# path; H * D stays 768, so each launch does the work of one at
+# (8, 12, 512, 64)
+WIDER_HEADS = (2, 1)                     # head_dim 384, 768
+WIDER_REQUESTS = 2                       # 27a's requests of 8 x 512
+WIDER_ROWS = 16                          # 27a's fit: 2 steps of 8 x 512
+WIDER_FLASH = ("flash_attention_fwd_wide", "flash_attention_dq_wide",
+               "flash_attention_dkv_wide")
+# 27d: the smallest width (5 chunks: 3 + 2 between column blocks), one that
+# is not a power of two, the models' widths and the largest, each on a
+# ragged last tile, fewer rows than a tile, one key, T = 512 or T = 256
+WIDER_SHAPES = ((2, 2, 200, 320), (1, 2, 17, 384), (8, 2, 512, 384),
+                (2, 2, 1, 448), (2, 3, 129, 448), (2, 1, 129, 768),
+                (8, 1, 512, 768), (1, 2, 100, 1024), (2, 2, 256, 1024),
+                (1, 2, 17, 2048), (8, 1, 256, 2048))
+# 27f: BERT-base's width in heads of 384 and 768 (the kernels line takes
+# the first, non-causal), and the reference's t * head_dim limit at 2048
+WIDER_TIMED = ((8, 2, 512, 384), (8, 1, 512, 768))
+WIDER_LIMIT = (8, 1, 256, 2048)
+
+
+def wider_checks(torch, fa, dev):
+    """27d: the three wide kernels against their plain versions at
+    ``WIDER_SHAPES``, causal and not: two launches bit-identical, O within
+    FWD_ATOL + FWD_RTOL, LSE (written by one column block) within
+    FWD_LSE_ATOL, dQ, dK and dV on the kernel's LSE and delta within
+    BWD_ATOL + BWD_RTOL.  Returns each kernel's largest abs error."""
+    gen = torch.Generator(device=dev).manual_seed(27)
+    errs = dict.fromkeys(WIDER_FLASH, 0.0)
+    for shape in WIDER_SHAPES:
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
+                       for _ in range(4))
+        for causal in (False, True):
+            tag = f"{shape} causal={causal}"
+            runs = []
+            for _ in range(2):
+                o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+                delta = fa.flash_attention_delta(o, do)
+                runs.append((o, lse,
+                             fa.flash_attention_dq(q, k, v, do, lse, delta,
+                                                   causal),
+                             *fa.flash_attention_dkv(q, k, v, do, lse,
+                                                     delta, causal)))
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(*runs)):
+                fail(f"27d wide kernels {tag}: two launches differ")
+            o, lse, dq, dk, dv = runs[0]
+            o_ref, lse_ref = fa.flash_attention_ref(q, k, v, causal=causal)
+            err_o = close(f"27d wide forward {tag} O", o, o_ref, FWD_ATOL,
+                          FWD_RTOL)
+            err_l = close(f"27d wide forward {tag} LSE", lse, lse_ref,
+                          FWD_LSE_ATOL)
+            delta = fa.flash_attention_delta(o, do)
+            want = (fa.flash_attention_dq_ref(q, k, v, do, lse, delta,
+                                              causal),
+                    *fa.flash_attention_dkv_ref(q, k, v, do, lse, delta,
+                                                causal))
+            e_q, e_k, e_v = (close(f"27d wide {n} {tag}", got, w, BWD_ATOL,
+                                   BWD_RTOL)
+                             for n, got, w in zip(("dQ", "dK", "dV"),
+                                                  (dq, dk, dv), want))
+            print(f"27d check wide kernels {tag} f32: O max abs err "
+                  f"{err_o:.3e} (|O| max {float(o_ref.abs().max()):.3e}), "
+                  f"LSE {err_l:.3e}; dQ {e_q:.3e}, dK {e_k:.3e}, dV "
+                  f"{e_v:.3e} (|dQ|, |dK|, |dV| max "
+                  f"{[round(float(w.abs().max()), 3) for w in want]}); two "
+                  "launches bit-identical")
+            errs[WIDER_FLASH[0]] = max(errs[WIDER_FLASH[0]], err_o, err_l)
+            errs[WIDER_FLASH[1]] = max(errs[WIDER_FLASH[1]], e_q)
+            errs[WIDER_FLASH[2]] = max(errs[WIDER_FLASH[2]], e_k, e_v)
+            del runs, want, o_ref, lse_ref
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    return errs
+
+
+def wider_heads_phase(torch, card, dev):
+    """Phase 27: BERT-base's width in heads of 384 and 768 on the card.
+    27a the BERT-base ``TextClassifier`` with 2 heads of 384 served (2
+    requests of 8 x 512) and trained (2 Adam steps of 8 x 512 on the
+    per-step captured route), its gradients against the plain versions;
+    27b the same with 1 head of 768 (1 request, 1 step, gradients); 27c
+    one Adam step of GPT-1's ``TransformerLayer`` with 2 heads of 384
+    (causal), its gradients; 27d the kernels against their plain versions
+    (``wider_checks``); 27e the op's routing; 27f the kernels timed.
+    Returns the launches of 27a-c, in all and by part, 27d's errors and
+    27f's times."""
+    from collections import Counter as Counts
+    from analytics_zoo_torch.ops import flash_attention as fa
+    from analytics_zoo_torch.ops import kernels
+    t_phase = time.perf_counter()
+    rs = np.random.RandomState(27)
+    total = Counts()
+    by_part = {}
+    step = {WIDER_FLASH[0]: 12, WIDER_FLASH[1]: 12, WIDER_FLASH[2]: 12,
+            "bias_gelu": 12, "layernorm_act": 1, "fused_adam": 1}
+    for n_head in WIDER_HEADS:
+        what = (f"BERT-base TextClassifier, {n_head} head"
+                f"{'s' if n_head > 1 else ''} of {768 // n_head}")
+        t0 = time.perf_counter()
+        model = bert_base(n_head)
+        model.model.init(torch.Generator().manual_seed(0))
+        print(f"27 {what}: built and placed in "
+              f"{time.perf_counter() - t0:.1f} s")
+        first = n_head == WIDER_HEADS[0]
+        n_req = WIDER_REQUESTS if first else 1
+        rows = WIDER_ROWS if first else WIDE_BATCH
+        requests = [rs.randint(0, 30522, size=(WIDE_BATCH, 512))
+                    .astype(np.int64) for _ in range(n_req)]
+        x = rs.randint(0, 30522, size=(rows, 512)).astype(np.int64)
+        y = rs.randint(0, 20, size=(rows,)).astype(np.int64)
+        part = Counts(wide_serving(torch, card, model, requests, what,
+                                   fwd=WIDER_FLASH[0], tag="27"))
+        part.update(wide_fit(torch, card, model, x, y, what, step, tag="27"))
+        by_part[what] = part
+        total.update(part)
+        wide_grads(torch, dev, model, (x[:WIDE_BATCH], y[:WIDE_BATCH]), what,
+                   flash=WIDER_FLASH, tag="27")
+        del model
+        torch.cuda.empty_cache()
+    what = "GPT-1 TransformerLayer, 2 heads of 384, causal"
+    model = gpt1_model(torch, n_head=2)
+    x, y = gpt1_data(WIDE_BATCH, 27)
+    by_part[what] = Counts(wide_fit(torch, card, model, x, y, what, {
+        WIDER_FLASH[0]: 12, WIDER_FLASH[1]: 12, WIDER_FLASH[2]: 12,
+        "bias_gelu": 12, "fused_adam": 1}, tag="27"))
+    total.update(by_part[what])
+    wide_grads(torch, dev, model, (x, y), what, flash=WIDER_FLASH, tag="27")
+    del model
+    torch.cuda.empty_cache()
+
+    errs = wider_checks(torch, fa, dev)
+
+    # ---- 27e. the op's routing, forward and backward through autograd
+    gen = torch.Generator(device=dev).manual_seed(270)
+
+    def randn(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+
+    for dtype, d, fired in ((torch.float32, 320, WIDER_FLASH),
+                            (torch.float32, 2048, WIDER_FLASH),
+                            (torch.float32, 256, fa.KERNELS[torch.float32]),
+                            (torch.float32, 288, ()),
+                            (torch.bfloat16, 384, ()),
+                            (torch.float16, 384, ())):
+        check_route(torch, fa, randn, dtype, d, fired)
+    torch.cuda.empty_cache()
+
+    # ---- 27f. times at BERT-base's width, and at the reference's limit
+    times = wide_kernel_times(torch, card, dev, WIDER_TIMED, WIDER_FLASH,
+                              "27f")
+    times.update(wide_kernel_times(torch, card, dev, (WIDER_LIMIT,),
+                                   WIDER_FLASH, "27f", same_work=False))
+    launches = {name: total[name] for name in kernels.SIGNATURES}
+    print(f"launches: phase 27's requests and steps {launches}; the wide "
+          f"flash kernels' by model: " + "; ".join(
+              f"{what} {[part[n] for n in WIDER_FLASH]}"
+              for what, part in by_part.items()))
+    print(f"phase 27: {time.perf_counter() - t_phase:.1f} s ({card})")
+    return launches, by_part, errs, times
+
+
+def wider_heads_alone() -> None:
+    """Phase 27 by itself (``--wider-heads``)."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a GPU")
+    from analytics_zoo_torch import init_zoo_context
+    from analytics_zoo_torch.ops import kernels
+    kernels.build_all()
+    card = gpu_line()
+    print(f"gpu: {card}")
+    ctx = init_zoo_context(device="cuda:0")
+    wider_heads_phase(torch, card, ctx.device)
 
 
 def main() -> None:
@@ -9745,7 +9964,15 @@ def main() -> None:
     # (--wide-bf16)
     wide_bf16 = wide_bf16_phase(torch, card, dev)
 
-    # ------------------------------------------------------ 27. results
+    # ---- 27. wider heads: BERT-base's width in 2 heads of 384 and 1 of
+    # 768 served and trained through the float32 flash kernels past
+    # head_dim 256, checked, routed and timed (--wider-heads)
+    mark = len(CAPTURE_LOG)
+    wider_launches, wider_parts, wider_errs, wider_times = wider_heads_phase(
+        torch, card, dev)
+    report_captures("phase 27", mark, card)
+
+    # ------------------------------------------------------ 28. results
     print(f"launches: GPT-1 serving (4 requests) {gpt_serve}; GPT-1 fit "
           f"(8 steps) {gpt_train}; BERT-base fine-tuning (8 steps) "
           f"{bert_tune}")
@@ -9764,7 +9991,7 @@ def main() -> None:
           f"{ONNX_TRAIN_STEPS} steps) {onnx_launches}")
     print(f"launches: phase 23 {fleet_launches}")
     print(f"launches: phase 24a {mg['a_launches']}; phase 25 "
-          f"{wide_launches}")
+          f"{wide_launches}; phase 27 {wider_launches}")
     # the float32 flash kernels' launches are phase 25's requests and steps
     # (this slice's path: head_dim 256 and 192), their times 25d's at
     # WIDE_TIMED[0] non-causal, the instance of most of those launches
@@ -9795,6 +10022,23 @@ def main() -> None:
               f"25's path, {wide_parts[main_part][name]} of them at "
               f"{WIDE_TIMED[0]} non-causal ({main_part}); ms, plain_ms, "
               f"library_ms and bound_ms from 25d at that shape ({card})")
+    # the float32 flash kernels past head_dim 256: their launches are phase
+    # 27's requests and steps (27a-c), their times 27f's at
+    # WIDER_TIMED[0] non-causal (2 heads of 384, most of those launches),
+    # their errors the largest of 27d's
+    wider_part = f"BERT-base TextClassifier, {WIDER_HEADS[0]} heads of " \
+        f"{768 // WIDER_HEADS[0]}"
+    for name, line_ in zip(WIDER_FLASH, (51, 94, 134)):
+        report[name] = dict(
+            route="cuda",
+            source="analytics_zoo_torch/csrc/flash_attention_wide.cu",
+            replaces=f"analytics_zoo_tpu/ops/pallas_attention.py:{line_}",
+            launches=wider_launches[name], max_abs_err=wider_errs[name],
+            **wider_times[(WIDER_TIMED[0], False)][name])
+        print(f"kernels line {name}: {wider_launches[name]} launches on "
+              f"phase 27's path, {wider_parts[wider_part][name]} of them at "
+              f"{WIDER_TIMED[0]} non-causal ({wider_part}); ms, plain_ms, "
+              f"library_ms and bound_ms from 27f at that shape ({card})")
     # the bf16 flash kernels have an entry for each head_dim that
     # bench_attention drives them at: phase 14's (head_dim 128: 14d's
     # launches, 14c's times) under the kernel's name, and one a width of
@@ -9890,6 +10134,8 @@ if __name__ == "__main__":
         wide_heads_alone()
     elif sys.argv[1:] == ["--wide-bf16"]:
         wide_bf16_alone()
+    elif sys.argv[1:] == ["--wider-heads"]:
+        wider_heads_alone()
     elif sys.argv[1:2] == [MG_CHILD] and len(sys.argv) == 4:
         multi_gpu_child(sys.argv[2], sys.argv[3])
     elif sys.argv[1:2] == [WARM_CHILD] and len(sys.argv) == 4:

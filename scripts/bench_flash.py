@@ -3,7 +3,8 @@
 build, inspect, check and time, beside other versions of the same sources.
 
     python3 scripts/bench_flash.py [--compare PATH.cu ...] [--diagnose]
-                                   [--fit | --bf16 | --wide] [--out PATH]
+                                   [--fit | --bf16 | --wide | --wider]
+                                   [--out PATH]
 
 Builds ``analytics_zoo_torch/csrc/flash_attention_fwd.cu`` and
 ``flash_attention_bwd.cu`` and, with ``--compare``, other sources with the
@@ -81,8 +82,8 @@ taking turns), ``fast_exp``, ``bn64`` (64-key tiles in place of 128) and
 head's blocks run together, heaviest first).
 
 With ``--wide``, instead of all that, the float32 kernels at every
-head_dim: it builds the current sources and prints each instance's
-registers, spills and SASS mix.  With ``--diagnose`` it also builds the
+head_dim up to 256: it builds the current sources and prints each
+instance's registers, spills and SASS mix.  With ``--diagnose`` it also builds the
 variants of ``WIDE_VARIANTS`` (other tilings of the head_dim 192 and 256
 instances, the designs they replaced; the split dQ and dK/dV at 64, the
 unsplit ones at 128), holds each variant's outputs to the current build's (bit-identical,
@@ -91,6 +92,22 @@ current build at ``WIDE_TIMED`` (BERT-base's width in heads of 64, 128,
 192 and 256: the same work at each), causal and not.  ``chip_smoke.py``
 holds the current build to the plain versions and times it beside them,
 its bound and the library (phases 2 and 25).
+
+With ``--wider``, instead of all that, the float32 kernels past head_dim
+256 (``flash_attention_wide.cu``: one instance of each kernel takes
+every head_dim from 320 to 2048): it builds the source and prints the
+kernels' registers, spills and SASS mix, holds forward, dQ and dK/dV to
+the plain versions with ``chip_smoke.py``'s tolerances at ``WIDER_CHECKED``
+and ``WIDER_TIMED``, causal and not, and times each kernel at
+``WIDER_TIMED`` (BERT-base's width in heads of 384 and 768, and the
+reference's t * head_dim limit at 2048).  With ``--diagnose`` it also
+builds the variants of ``WIDER_VARIANTS`` (other tilings and unrollings,
+and the scores accumulated in one chain), holds each to the plain
+versions (reporting, not failing, where it misses a tolerance) and to the
+current build (bit-identical or not), and times each in turns with the
+current build.  A ``--compare`` source (an earlier
+``flash_attention_wide.cu``, named by its directory) is built, checked
+and timed the same way.
 
 Needs a CUDA device and ``nvcc``; with ``--out PATH`` also writes the
 results as JSON.  Exits non-zero if a check failed (after timing).
@@ -119,10 +136,39 @@ TRAIN_SHAPE = (8, 12, 512, 64)
 FWD, BWD = "flash_attention_fwd", "flash_attention_bwd"
 KINDS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dq_split_kernel",
          "flash_dkv_kernel", "flash_dkv_split_kernel", "flash_fwd_bf16_kernel",
-         "flash_dq_bf16_kernel", "flash_dkv_bf16_kernel")
+         "flash_dq_bf16_kernel", "flash_dkv_bf16_kernel",
+         "flash_fwd_wide_kernel", "flash_dq_wide_kernel",
+         "flash_dkv_wide_kernel")
 BF16_FWD = "flash_attention_fwd_bf16"
 BF16_BWD = "flash_attention_bwd_bf16"
 BF16_NAMES = ["flash_attention_dq_bf16", "flash_attention_dkv_bf16"]
+WIDE = "flash_attention_wide"
+WIDE_NAMES = ["flash_attention_fwd_wide", "flash_attention_dq_wide",
+              "flash_attention_dkv_wide"]
+# --wider: where the wide kernels are checked (ragged last tiles, fewer
+# rows than a tile, 5 chunks split 3 + 2) and where they are timed
+WIDER_CHECKED = ((2, 2, 200, 320), (1, 2, 17, 384), (2, 1, 129, 768),
+                 (1, 2, 100, 2048))
+WIDER_TIMED = ((8, 2, 512, 384), (8, 1, 512, 768), (8, 1, 256, 2048))
+# --wider --diagnose: variants of flash_attention_wide.cu, each a list of
+# (text in it, replacement)
+_STEP = ("            float step[4] = {0.f, 0.f, 0.f, 0.f};\n"
+         "            mma3(step, ah, al, bh, bl, o, o + 4);\n"
+         "#pragma unroll\n"
+         "            for (int e = 0; e < 4; ++e) x[j][e] += step[e];\n")
+_D0 = "#pragma unroll 2\n    for (int d0 = 0; d0 < CH; d0 += 8) {"
+WIDER_VARIANTS = {
+    # the scores' 8-wide steps all unrolled (the first build: 255
+    # registers and spills), or none
+    "unroll8": [(_D0, _D0.replace("unroll 2", "unroll"))],
+    "unroll1": [(_D0, _D0.replace("unroll 2", "unroll 1"))],
+    # at most 3 chunks (192 columns) of the output a block: 96 accumulator
+    # registers, more column blocks (each recomputing the scores)
+    "nc3": [("constexpr int MAX_NC = 4;", "constexpr int MAX_NC = 3;")],
+    # the scores in one accumulator chain over all of d (the narrow
+    # kernels' order): what the per-step sums cost, and their accuracy
+    "chained": [(_STEP, "            mma3(x[j], ah, al, bh, bl, o, o + 4);\n")],
+}
 F32_NAMES = ["flash_attention_dq", "flash_attention_dkv"]
 # bench_attention's shape and twice its sequence, causal
 BF16_TIMED = tuple((4, 8, t, d) for d in (128, 192, 256)
@@ -292,7 +338,8 @@ def sass_mix(path: str, nvcc: str):
         if m:
             current = None
             for kind in KINDS:
-                if kind + "I" in m.group(1):
+                # a template instance, or (the wide kernels) a function
+                if kind + "I" in m.group(1) or kind + "E" in m.group(1):
                     dim = re.search(r"ILi(\d+)E", m.group(1))
                     current = f"{kind}<{dim.group(1) if dim else '?'}>"
                     mixes[current] = collections.Counter()
@@ -517,6 +564,134 @@ def wide_flash(args, torch, kernels, fa, card) -> None:
     write_out(args, result)
     if failures:
         print("bench_flash: FAILED:\n  " + "\n  ".join(failures))
+        sys.exit(1)
+
+
+def wider_flash(args, torch, kernels, fa, card) -> None:
+    """--wider: the wide kernels' registers, spills and SASS mix, checks
+    against the plain versions and times; with --diagnose the
+    ``WIDER_VARIANTS`` beside them (see the module's docstring)."""
+    from chip_smoke import (BWD_ATOL, BWD_RTOL, FWD_ATOL, FWD_LSE_ATOL,
+                            FWD_RTOL, flash_bound_ms, time_ms)
+    versions = {"current": kernels.source_path(WIDE)}
+    for path in args.compare:
+        versions[os.path.basename(os.path.dirname(path))] = path
+    if args.diagnose:
+        versions.update(variant_sources(kernels.CSRC_DIR, kernels.BUILD_DIR,
+                                        WIDE, WIDER_VARIANTS))
+    started = {tag: start_build(kernels, src, f"wider_{tag}")
+               for tag, src in versions.items()}
+    libs, result = {}, {"card": card, "versions": {}}
+    for tag, st in started.items():
+        lib, path, ptxas = finish_build(kernels, st, versions[tag],
+                                        WIDE_NAMES)
+        libs[tag] = lib
+        mix = sass_mix(path, kernels.nvcc_path())
+        result["versions"][tag] = {"source": versions[tag], "ptxas": ptxas,
+                                   "sass": mix}
+        print(f"[wider {tag}] {versions[tag]}")
+        for ln in ptxas:
+            kind = next((k for k in KINDS if k + "E" in ln), None)
+            print(f"  {kind}" if kind else f"    {ln}")
+        for kern, counts in mix.items():
+            print(f"  sass {kern}: {counts}")
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(26)
+    stream = torch.cuda.current_stream().cuda_stream
+    failures, checks, times = [], [], {}
+
+    def calls(lib, q, k, v, do, lse, delta, outs, causal):
+        """{part: fn} launching ``lib``'s kernels into ``outs`` (o, lse,
+        dq, dk, dv); dQ and dK/dV on the given lse and delta."""
+        b, h, t, d = q.shape
+        scale = float(d ** -0.5)
+        ptrs = [x.data_ptr() for x in (q, k, v, do, lse, delta)]
+        o, lse_o, dq, dk, dv = (x.data_ptr() for x in outs)
+        return {
+            "fwd": lambda: lib.zoo_flash_attention_fwd_wide(
+                *ptrs[:3], o, lse_o, b * h, t, d, scale, int(causal), stream),
+            "dq": lambda: lib.zoo_flash_attention_dq_wide(
+                *ptrs, dq, b * h, t, d, scale, int(causal), stream),
+            "dkv": lambda: lib.zoo_flash_attention_dkv_wide(
+                *ptrs, dk, dv, b * h, t, d, scale, int(causal), stream)}
+
+    for shape in WIDER_CHECKED + WIDER_TIMED:
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
+                       for _ in range(4))
+        for causal in (False, True):
+            key = f"{shape} causal={causal}"
+            o_ref, lse_ref = fa.flash_attention_ref(q, k, v, causal=causal)
+            delta = fa.flash_attention_delta(o_ref, do)
+            want = dict(o=o_ref, lse=lse_ref,
+                        dq=fa.flash_attention_dq_ref(q, k, v, do, lse_ref,
+                                                     delta, causal))
+            want["dk"], want["dv"] = fa.flash_attention_dkv_ref(
+                q, k, v, do, lse_ref, delta, causal)
+            fns, got = {}, {}
+            for tag, lib in libs.items():
+                outs = [torch.zeros_like(x) for x in (q, lse_ref, q, k, v)]
+                fns[tag] = calls(lib, q, k, v, do, lse_ref, delta, outs,
+                                 causal)
+                for part, fn in fns[tag].items():
+                    if fn():
+                        sys.exit(f"bench_flash: {tag} {part} {key}: launch "
+                                 "failed")
+                got[tag] = dict(zip(("o", "lse", "dq", "dk", "dv"), outs))
+            torch.cuda.synchronize()
+            for tag in libs:
+                errs = {}
+                for n, w in want.items():
+                    atol, rtol = ((FWD_LSE_ATOL, 0.0) if n == "lse" else
+                                  (FWD_ATOL, FWD_RTOL) if n == "o" else
+                                  (BWD_ATOL, BWD_RTOL))
+                    err = (got[tag][n] - w).abs()
+                    used = float((err / (atol + rtol * w.abs())).max())
+                    errs[n] = dict(max_abs=float(err.max()), used=used)
+                    if used > 1.0:
+                        (failures if tag == "current" else checks).append(
+                            dict(version=tag, shape=shape, causal=causal,
+                                 output=n, used=used, over_tolerance=True))
+                same = (all(torch.equal(got[tag][n], got["current"][n])
+                            for n in want) if tag != "current" else True)
+                checks.append(dict(version=tag, shape=shape, causal=causal,
+                                   errs=errs, bit_identical_to_current=same))
+                print(f"check [wider {tag}] {key}: " + ", ".join(
+                    f"{n} {e['max_abs']:.3e} ({e['used']:.3f} of its "
+                    f"tolerance)" for n, e in errs.items()) +
+                    ("" if tag == "current" else
+                     f"; {'bit-identical to' if same else 'differs from'} "
+                     "current"))
+            if shape not in WIDER_TIMED:
+                continue
+            b, h, t, d = shape
+            pairs = b * h * t * t / (2 if causal else 1)
+            entry = times[key] = {}
+            for part, tensors, rows, flops in (("fwd", 4, 1, 4),
+                                               ("dq", 5, 2, 6),
+                                               ("dkv", 6, 2, 8)):
+                runs = collections.defaultdict(list)
+                turn = {tag: f[part] for tag, f in fns.items()}
+                if len(turn) > 1:
+                    in_turns(torch, time_ms, turn, runs)
+                else:
+                    runs["current"].append(time_ms(torch, turn["current"]))
+                bnd, by = flash_bound_ms(
+                    (tensors * b * h * t * d + rows * b * h * t) * 4,
+                    flops * pairs * d)
+                entry[part] = dict(bound_ms=bnd, bound_by=by, **{
+                    tag: dict(runs=r, median=statistics.median(r))
+                    for tag, r in runs.items()})
+                print(f"time [wider] {part} {key} f32: " + ", ".join(
+                    f"{tag} {statistics.median(r):.5f}"
+                    for tag, r in runs.items()) +
+                    f" ms; bound {bnd:.6f} ({by}) ({card})")
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    result.update(checks=checks, times_ms=times, failures=failures)
+    write_out(args, result)
+    if failures:
+        print("bench_flash: FAILED:\n  " + "\n  ".join(map(str, failures)))
         sys.exit(1)
 
 
@@ -899,6 +1074,7 @@ def main() -> None:
     ap.add_argument("--fit", action="store_true")
     ap.add_argument("--bf16", action="store_true")
     ap.add_argument("--wide", action="store_true")
+    ap.add_argument("--wider", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
@@ -918,6 +1094,8 @@ def main() -> None:
         return bf16_flash(args, torch, kernels, fa, card)
     if args.wide:
         return wide_flash(args, torch, kernels, fa, card)
+    if args.wider:
+        return wider_flash(args, torch, kernels, fa, card)
     # direction -> {tag: source}
     versions = {FWD: {}, BWD: {}}
     for p in args.compare:

@@ -414,14 +414,16 @@ def test_f32_plain_versions_bit_identical_to_before(d, causal):
 
 @pytest.mark.parametrize("mode", ["auto", "torch", "off"])
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
-@pytest.mark.parametrize("head_dim", [32, 64, 128, 192, 256, 320])
+@pytest.mark.parametrize("head_dim", [32, 64, 128, 192, 256, 288, 320,
+                                      2048, 2112])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 def test_takes_kernels(dtype, head_dim, device, mode):
-    """float32 and bf16 take the kernels at head_dim 64, 128, 192 and 256;
-    float16, and every other width, the plain versions."""
+    """float32 and bf16 take the kernels at head_dim 64, 128, 192 and 256,
+    float32 also at every multiple of 64 from 320 to 2048; float16, and
+    every other width, the plain versions."""
     shape = (2, 4, 256, head_dim)
-    widths = {torch.float32: (64, 128, 192, 256),
+    widths = {torch.float32: (64, 128, 192, 256, *range(320, 2049, 64)),
               torch.bfloat16: (64, 128, 192, 256)}
     want = (mode == "auto" and device == "cuda" and
             head_dim in widths.get(dtype, ()))
@@ -444,14 +446,16 @@ def test_kernel_supports_reads_dtype_and_head_dim():
     assert not tfa.kernel_supports(bf, bf.float(), bf)
     assert not tfa.kernel_supports(bf.half())
     assert not tfa.kernel_supports(torch.zeros(1, 2, 8, 32))
-    # head_dim 192 and 256 on float32 and bf16, on no float16; 320 on none
+    # head_dim 192 and 256 on float32 and bf16, on no float16; 320 on
+    # float32 alone
     for d in (192, 256):
         assert tfa.kernel_supports(torch.zeros(1, 2, 8, d))
         assert tfa.kernel_supports(torch.zeros(1, 2, 8, d,
                                                dtype=torch.bfloat16))
         assert not tfa.kernel_supports(torch.zeros(1, 2, 8, d,
                                                    dtype=torch.float16))
-    for dtype in (torch.float32, torch.bfloat16):
+    assert tfa.kernel_supports(torch.zeros(1, 2, 8, 320))
+    for dtype in (torch.bfloat16, torch.float16):
         assert not tfa.kernel_supports(torch.zeros(1, 2, 8, 320,
                                                    dtype=dtype))
 

@@ -67,7 +67,8 @@ def test_flash_kernel_refuses_what_it_does_not_take(dev):
     q = _randn(dev, 1, 2, 64, 32)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention_fwd(q, q, q)
-    for d, dtype in ((320, torch.float32), (320, torch.bfloat16)):
+    for d, dtype in ((288, torch.float32), (2112, torch.float32),
+                     (320, torch.bfloat16)):
         q = _randn(dev, 1, 2, 64, d).to(dtype)
         with pytest.raises(ValueError, match="head_dim"):
             fa.flash_attention_fwd(q, q, q)
@@ -173,6 +174,52 @@ def test_flash_autograd_at_wide_heads_matches_plain_autograd(dev, causal, d):
     _autograd_matches_plain(dev, causal, d)
     after = kernels.launch_counts()
     assert all(after[n] == before[n] + 1 for n in fa.KERNELS[torch.float32])
+
+
+# float32 past head_dim 256 (csrc/flash_attention_wide.cu: a block owns up
+# to 256 of the output's columns and takes the scores over all of d): one
+# key, fewer rows than a tile, ragged last tiles, a width of 5 chunks split
+# 3 + 2 between column blocks, the models' 384 and 768, and 2048; the
+# tolerances of the narrow float32 kernels
+@pytest.mark.parametrize("t,d,causal", [(1, 320, False), (17, 384, True),
+                                        (100, 448, False), (129, 768, True),
+                                        (256, 1024, False), (512, 384, True),
+                                        (200, 2048, True), (256, 2048, False)])
+def test_flash_wide_kernels_match_plain_and_relaunch(dev, t, d, causal):
+    q, k, v, do = (_randn(dev, 2, 2, t, d, seed=s) for s in range(4))
+    before = kernels.launch_counts()
+    runs = []
+    for _ in range(2):
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        delta = fa.flash_attention_delta(o, do)
+        runs.append((o, lse, fa.flash_attention_dq(q, k, v, do, lse, delta,
+                                                   causal),
+                     *fa.flash_attention_dkv(q, k, v, do, lse, delta,
+                                             causal)))
+    after = kernels.launch_counts()
+    assert all(after[n] == before[n] + 2 for n in fa.WIDE_KERNELS)
+    assert all(after[n] == before[n] for n in fa.KERNELS[torch.float32])
+    o, lse, dq, dk, dv = runs[0]
+    o_ref, lse_ref = fa.flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(o, o_ref, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-5, rtol=0)
+    delta = fa.flash_attention_delta(o, do)
+    want = (fa.flash_attention_dq_ref(q, k, v, do, lse, delta, causal),
+            *fa.flash_attention_dkv_ref(q, k, v, do, lse, delta, causal))
+    for got, w in zip((dq, dk, dv), want):
+        torch.testing.assert_close(got, w, **BWD_TOL)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("d", [384, 768])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_autograd_past_256_matches_plain_autograd(dev, causal, d):
+    before = kernels.launch_counts()
+    _autograd_matches_plain(dev, causal, d)
+    after = kernels.launch_counts()
+    assert all(after[n] == before[n] + 1 for n in fa.WIDE_KERNELS)
+    assert all(after[n] == before[n] for n in fa.KERNELS[torch.float32])
 
 
 # bf16 kernels against their plain versions on the same bf16 inputs.  O:
@@ -385,13 +432,14 @@ def test_flash_bf16_kernels_are_deterministic(dev, t, d, causal):
     (torch.float32, 32, None), (torch.float16, 64, None),
     (torch.float32, 192, "f32"), (torch.float32, 256, "f32"),
     (torch.bfloat16, 192, "bf16"), (torch.bfloat16, 256, "bf16"),
-    (torch.float16, 256, None), (torch.float32, 320, None),
+    (torch.float16, 256, None), (torch.float32, 320, "f32 wide"),
+    (torch.float32, 2048, "f32 wide"), (torch.float32, 288, None),
     (torch.bfloat16, 320, None), (torch.float16, 192, None)])
 def test_flash_op_routes_by_dtype_and_head_dim_on_the_card(dev, dtype, d,
                                                             fired):
     """Through the op and autograd: bf16 launches only the bf16 kernels,
-    float32 only the float32 ones, and what no kernel takes launches none
-    and returns the plain result."""
+    float32 only the float32 ones (past 256 only the wide ones), and what
+    no kernel takes launches none and returns the plain result."""
     leaves = [_randn(dev, 1, 2, 192, d, seed=s).to(dtype).requires_grad_()
               for s in range(3)]
     before = kernels.launch_counts()
@@ -399,7 +447,8 @@ def test_flash_op_routes_by_dtype_and_head_dim_on_the_card(dev, dtype, d,
     grads = torch.autograd.grad(o.float().sum(), leaves)
     after = kernels.launch_counts()
     launched = {n for n in after if after[n] != before[n]}
-    want = set(fa.KERNELS[torch.bfloat16 if fired == "bf16" else
+    want = set(fa.WIDE_KERNELS if fired == "f32 wide" else
+               fa.KERNELS[torch.bfloat16 if fired == "bf16" else
                           torch.float32]) if fired else set()
     assert launched == want
     assert o.dtype == dtype and all(g.dtype == dtype for g in grads)
