@@ -14,8 +14,12 @@ says which kernels take an input: at head_dim 64 to 256
 ``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu`` for
 float32, ``csrc/flash_attention_fwd_bf16.cu`` and
 ``csrc/flash_attention_bwd_bf16.cu`` for bfloat16 (``KERNELS``); float32
-past 256 ``csrc/flash_attention_wide.cu`` (``WIDE_KERNELS``, head_dim
-taken at run time, each block a share of the output's columns).  Each
+past 256 ``csrc/flash_attention_wide.cu`` (the forward) and
+``csrc/flash_attention_wide_bwd.cu`` (dQ and dK/dV) (``WIDE_KERNELS``,
+head_dim taken at run time, each block a share of the output's columns;
+the backward's column blocks of a row tile form one cluster, which takes
+the scores once and sums its blocks' partials in distributed shared
+memory).  Each
 kernel has a launch count of its own.  The float32 kernels take their
 products on the tensor cores in split TF32, on the tile code of
 ``csrc/flash_tile.cuh`` (about float32's accuracy); the bfloat16 kernels
@@ -36,7 +40,8 @@ import torch
 
 from analytics_zoo_torch.ops import kernels
 
-# the head_dims of flash_attention_wide.cu, float32 only
+# the head_dims of flash_attention_wide.cu and flash_attention_wide_bwd.cu,
+# float32 only
 WIDE_HEAD_DIMS = tuple(range(320, 2049, 64))
 # the head_dims each dtype's kernels take
 HEAD_DIMS = {torch.float32: (64, 128, 192, 256) + WIDE_HEAD_DIMS,

@@ -79,15 +79,16 @@ SIGNATURES = {
                                  "zoo_flash_attention_dkv_bf16",
                                  [_P] * 8 + [_I, _I, _I, _F, _I, _P]),
     # the same three on float32 at head_dim 320 to 2048 (multiples of 64),
-    # with the arguments of the float32 ones above; one source, head_dim
-    # taken at run time
+    # with the arguments of the float32 ones above, head_dim taken at run
+    # time; the forward in one source, the backward (clusters of column
+    # blocks) in another
     "flash_attention_fwd_wide": ("flash_attention_wide",
                                  "zoo_flash_attention_fwd_wide",
                                  [_P] * 5 + [_I, _I, _I, _F, _I, _P]),
-    "flash_attention_dq_wide": ("flash_attention_wide",
+    "flash_attention_dq_wide": ("flash_attention_wide_bwd",
                                 "zoo_flash_attention_dq_wide",
                                 [_P] * 7 + [_I, _I, _I, _F, _I, _P]),
-    "flash_attention_dkv_wide": ("flash_attention_wide",
+    "flash_attention_dkv_wide": ("flash_attention_wide_bwd",
                                  "zoo_flash_attention_dkv_wide",
                                  [_P] * 8 + [_I, _I, _I, _F, _I, _P]),
     # x, bias, out, rows, d, stream

@@ -452,8 +452,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    ``bench_attention(head_dim=192)`` and ``(head_dim=256)``, 192 launches
    of each bf16 kernel a call;
 27. the float32 flash kernels past head_dim 256 (``python3 chip_smoke.py
-   --wider-heads`` runs it alone; ``csrc/flash_attention_wide.cu``, one
-   instance of each kernel at every head_dim from 320 to 2048): 27a the
+   --wider-heads`` runs it alone; ``csrc/flash_attention_wide.cu``, the
+   forward, and ``csrc/flash_attention_wide_bwd.cu``, dQ and dK/dV as
+   clusters of 2 to 8 column blocks; one instance of each kernel at every
+   head_dim from 320 to 2048): 27a the
    ``TextClassifier`` at BERT-base widths with ``n_head=2`` (head_dim
    384) served (2 requests of 8 x 512, 12 wide forward launches a
    request) and trained (2 Adam steps of 8 x 512 through ``fit`` on the
@@ -464,9 +466,11 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    (head_dim 768), 1 request and 1 step; 27c one Adam step of GPT-1's
    ``TransformerLayer`` in 2 heads of 384 (causal) and its gradients; 27d
    the three kernels against their plain versions at head_dim 320, 384,
-   448, 768, 1024 and 2048 (``WIDER_SHAPES``: ragged last tiles, fewer
-   rows than a tile, one key, T = 512 and 256), causal and not, two
-   launches bit-identical, the float32 tolerances of phase 2; 27e
+   448, 768, 1024, 1280, 1536, 1792 and 2048 (``WIDER_SHAPES``: every
+   cluster size from 2 to 8, ragged last tiles, fewer rows than a tile,
+   one key, T = 512 and 256), causal and not, two launches bit-identical,
+   the float32 tolerances of phase 2, and each cluster size's
+   ``cudaOccupancyMaxActiveClusters`` for dQ and dK/dV; 27e
    ``flash_attention`` through autograd launching only the wide kernels
    on float32 at 320 and 2048, only the narrow ones at 256, none at
    float32 288, bf16 384 or float16 384; 27f each kernel at (8, 2, 512,
@@ -474,7 +478,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    plain version, float32 ``scaled_dot_product_attention`` and the
    head_dim-64 instance at (8, 12, 512, 64) (the same work), beside its
    bound and the library's backend, and at (8, 1, 256, 2048), the
-   reference's t * head_dim limit;
+   reference's t * head_dim limit; dQ + dK/dV against the library's whole
+   backward as a factor at each;
 28. a ``kernels`` JSON line (the float32 flash kernels' launches from
    phase 25 and their times from 25d at (8, 3, 512, 256), non-causal, the
    instance of most of those launches; the wide ones' launches from
@@ -9206,11 +9211,16 @@ WIDER_FLASH = ("flash_attention_fwd_wide", "flash_attention_dq_wide",
                "flash_attention_dkv_wide")
 # 27d: the smallest width (5 chunks: 3 + 2 between column blocks), one that
 # is not a power of two, the models' widths and the largest, each on a
-# ragged last tile, fewer rows than a tile, one key, T = 512 or T = 256
+# ragged last tile, fewer rows than a tile, one key, T = 512 or T = 256;
+# and the backward's clusters of 5, 6 and 7 column blocks (1280, 1536,
+# 1792) at small T, two on a ragged last tile
 WIDER_SHAPES = ((2, 2, 200, 320), (1, 2, 17, 384), (8, 2, 512, 384),
                 (2, 2, 1, 448), (2, 3, 129, 448), (2, 1, 129, 768),
                 (8, 1, 512, 768), (1, 2, 100, 1024), (2, 2, 256, 1024),
+                (2, 2, 100, 1280), (1, 2, 128, 1536), (2, 1, 77, 1792),
                 (1, 2, 17, 2048), (8, 1, 256, 2048))
+# the backward's cluster sizes, ceil(head_dim / 256) column blocks
+WIDER_CLUSTERS = range(2, 9)
 # 27f: BERT-base's width in heads of 384 and 768 (the kernels line takes
 # the first, non-causal), and the reference's t * head_dim limit at 2048
 WIDER_TIMED = ((8, 2, 512, 384), (8, 1, 512, 768))
@@ -9222,9 +9232,17 @@ def wider_checks(torch, fa, dev):
     ``WIDER_SHAPES``, causal and not: two launches bit-identical, O within
     FWD_ATOL + FWD_RTOL, LSE (written by one column block) within
     FWD_LSE_ATOL, dQ, dK and dV on the kernel's LSE and delta within
-    BWD_ATOL + BWD_RTOL.  Returns each kernel's largest abs error."""
+    BWD_ATOL + BWD_RTOL; then how many clusters of each size of
+    ``WIDER_CLUSTERS`` the card holds at once for dQ and dK/dV.  Returns
+    each kernel's largest abs error."""
+    import ctypes
+    from analytics_zoo_torch.ops import kernels
     gen = torch.Generator(device=dev).manual_seed(27)
     errs = dict.fromkeys(WIDER_FLASH, 0.0)
+    shapes_z = sorted({-(-shape[3] // 256) for shape in WIDER_SHAPES})
+    if shapes_z != list(WIDER_CLUSTERS):
+        fail(f"27d: WIDER_SHAPES take the cluster sizes {shapes_z}, not "
+             f"{list(WIDER_CLUSTERS)}")
     for shape in WIDER_SHAPES:
         q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
                        for _ in range(4))
@@ -9269,6 +9287,24 @@ def wider_checks(torch, fa, dev):
             del runs, want, o_ref, lse_ref
         del q, k, v, do
         torch.cuda.empty_cache()
+    if dev.type != "cuda":
+        print("27d cudaOccupancyMaxActiveClusters: not measured (no card)")
+        return errs
+    lib = kernels._libs[kernels.SIGNATURES[WIDER_FLASH[1]][0]]
+    occupancy = {}
+    for z in WIDER_CLUSTERS:
+        for dkv, name in enumerate(WIDER_FLASH[1:]):
+            n = ctypes.c_int(0)
+            err = lib.zoo_flash_wide_bwd_max_clusters(dkv, z, ctypes.byref(n))
+            if err != 0 or n.value < 1:
+                fail(f"27d {name}: cudaOccupancyMaxActiveClusters for "
+                     f"clusters of {z} gave {n.value} (cudaError {err})")
+            occupancy[name, z] = n.value
+    for name in WIDER_FLASH[1:]:
+        print(f"27d {name} cudaOccupancyMaxActiveClusters by cluster size "
+              f"(blocks): " + ", ".join(
+                  f"{z}: {occupancy[name, z]} ({z * occupancy[name, z]})"
+                  for z in WIDER_CLUSTERS))
     return errs
 
 
@@ -9349,6 +9385,13 @@ def wider_heads_phase(torch, card, dev):
                               "27f")
     times.update(wide_kernel_times(torch, card, dev, (WIDER_LIMIT,),
                                    WIDER_FLASH, "27f", same_work=False))
+    for (shape, causal), r in times.items():
+        dq, dkv = r[WIDER_FLASH[1]], r[WIDER_FLASH[2]]
+        pair = dq["ms"] + dkv["ms"]
+        print(f"27f dQ + dK/dV {shape} f32 causal={causal}: {pair:.5f} ms "
+              f"against the library's backward {dq['library_ms']:.5f} ms "
+              f"({dq['backend']}): {pair / dq['library_ms']:.3f}x; bound "
+              f"{dq['bound_ms'] + dkv['bound_ms']:.6f} ms ({card})")
     launches = {name: total[name] for name in kernels.SIGNATURES}
     print(f"launches: phase 27's requests and steps {launches}; the wide "
           f"flash kernels' by model: " + "; ".join(
@@ -10031,7 +10074,7 @@ def main() -> None:
     for name, line_ in zip(WIDER_FLASH, (51, 94, 134)):
         report[name] = dict(
             route="cuda",
-            source="analytics_zoo_torch/csrc/flash_attention_wide.cu",
+            source=f"analytics_zoo_torch/csrc/{kernels.SIGNATURES[name][0]}.cu",
             replaces=f"analytics_zoo_tpu/ops/pallas_attention.py:{line_}",
             launches=wider_launches[name], max_abs_err=wider_errs[name],
             **wider_times[(WIDER_TIMED[0], False)][name])

@@ -94,20 +94,25 @@ holds the current build to the plain versions and times it beside them,
 its bound and the library (phases 2 and 25).
 
 With ``--wider``, instead of all that, the float32 kernels past head_dim
-256 (``flash_attention_wide.cu``: one instance of each kernel takes
-every head_dim from 320 to 2048): it builds the source and prints the
-kernels' registers, spills and SASS mix, holds forward, dQ and dK/dV to
-the plain versions with ``chip_smoke.py``'s tolerances at ``WIDER_CHECKED``
-and ``WIDER_TIMED``, causal and not, and times each kernel at
-``WIDER_TIMED`` (BERT-base's width in heads of 384 and 768, and the
-reference's t * head_dim limit at 2048).  With ``--diagnose`` it also
-builds the variants of ``WIDER_VARIANTS`` (other tilings and unrollings,
-and the scores accumulated in one chain), holds each to the plain
-versions (reporting, not failing, where it misses a tolerance) and to the
-current build (bit-identical or not), and times each in turns with the
-current build.  A ``--compare`` source (an earlier
-``flash_attention_wide.cu``, named by its directory) is built, checked
-and timed the same way.
+256 (``flash_attention_wide.cu``, the forward, and
+``flash_attention_wide_bwd.cu``, dQ and dK/dV: one instance of each
+kernel takes every head_dim from 320 to 2048): it builds the sources and
+prints the kernels' registers, spills and SASS mix, holds forward, dQ and
+dK/dV to the plain versions with ``chip_smoke.py``'s tolerances at
+``WIDER_CHECKED`` and ``WIDER_TIMED``, causal and not, and times each
+kernel, and dQ + dK/dV, at ``WIDER_TIMED`` (BERT-base's width in heads of
+384 and 768, and the reference's t * head_dim limit at 2048).  With
+``--diagnose`` it also builds the variants of ``WIDER_VARIANTS`` (the
+partial scores in per-step sums in place of one chain, other
+unrollings), holds each to the plain versions (reporting, not failing,
+where it misses a tolerance) and to the current build (bit-identical or
+not, the forward and the backward apart), and times the kernels each
+variant changes in turns with the current build.  A ``--compare`` source
+(an earlier ``flash_attention_wide.cu``, or a copy of either current
+source, named by its directory) takes the parts whose entry points it
+defines, the current sources the rest, and is built, checked and timed
+the same way; for one with a forward it also reports whether that
+forward's SASS is the current forward's, instruction for instruction.
 
 Needs a CUDA device and ``nvcc``; with ``--out PATH`` also writes the
 results as JSON.  Exits non-zero if a check failed (after timing).
@@ -143,32 +148,43 @@ BF16_FWD = "flash_attention_fwd_bf16"
 BF16_BWD = "flash_attention_bwd_bf16"
 BF16_NAMES = ["flash_attention_dq_bf16", "flash_attention_dkv_bf16"]
 WIDE = "flash_attention_wide"
+WIDE_BWD = "flash_attention_wide_bwd"
 WIDE_NAMES = ["flash_attention_fwd_wide", "flash_attention_dq_wide",
               "flash_attention_dkv_wide"]
+# --wider: part -> C entry point
+WIDER_ENTRIES = {"fwd": "zoo_flash_attention_fwd_wide",
+                 "dq": "zoo_flash_attention_dq_wide",
+                 "dkv": "zoo_flash_attention_dkv_wide"}
 # --wider: where the wide kernels are checked (ragged last tiles, fewer
 # rows than a tile, 5 chunks split 3 + 2) and where they are timed
 WIDER_CHECKED = ((2, 2, 200, 320), (1, 2, 17, 384), (2, 1, 129, 768),
                  (1, 2, 100, 2048))
 WIDER_TIMED = ((8, 2, 512, 384), (8, 1, 512, 768), (8, 1, 256, 2048))
-# --wider --diagnose: variants of flash_attention_wide.cu, each a list of
-# (text in it, replacement)
-_STEP = ("            float step[4] = {0.f, 0.f, 0.f, 0.f};\n"
-         "            mma3(step, ah, al, bh, bl, o, o + 4);\n"
-         "#pragma unroll\n"
-         "            for (int e = 0; e < 4; ++e) x[j][e] += step[e];\n")
-_D0 = "#pragma unroll 2\n    for (int d0 = 0; d0 < CH; d0 += 8) {"
-WIDER_VARIANTS = {
-    # the scores' 8-wide steps all unrolled (the first build: 255
-    # registers and spills), or none
-    "unroll8": [(_D0, _D0.replace("unroll 2", "unroll"))],
-    "unroll1": [(_D0, _D0.replace("unroll 2", "unroll 1"))],
-    # at most 3 chunks (192 columns) of the output a block: 96 accumulator
-    # registers, more column blocks (each recomputing the scores)
-    "nc3": [("constexpr int MAX_NC = 4;", "constexpr int MAX_NC = 3;")],
-    # the scores in one accumulator chain over all of d (the narrow
-    # kernels' order): what the per-step sums cost, and their accuracy
-    "chained": [(_STEP, "            mma3(x[j], ah, al, bh, bl, o, o + 4);\n")],
-}
+# --wider --diagnose: variants of the wide backward, by source, each a
+# list of (text in it, replacement)
+WIDER_VARIANTS = {WIDE_BWD: {
+    # each 8-wide step of the partial scores summed from zero, then added
+    # (the forward's order): what the one chain saves, and its accuracy
+    "bwd_steps": [("constexpr bool PARTIAL_STEPS = false;",
+                   "constexpr bool PARTIAL_STEPS = true;")],
+    # other unrollings of the partial scores' 8-wide steps
+    "dq_unroll2": [("constexpr int DQ_UNROLL = 8;", "constexpr int DQ_UNROLL = 2;")],
+    "dkv_unroll8": [("constexpr int DKV_UNROLL = 2;", "constexpr int DKV_UNROLL = 8;")],
+    "bwd_unroll1": [("constexpr int DQ_UNROLL = 8;", "constexpr int DQ_UNROLL = 1;"),
+                    ("constexpr int DKV_UNROLL = 2;", "constexpr int DKV_UNROLL = 1;")],
+    # every cluster sums every position in every rank (each partial read
+    # nz times, one barrier fewer a step), or every one scatters (the
+    # kernels take each by cluster size)
+    "bwd_all_read": [("constexpr int SCATTER_FROM = 4;",
+                      "constexpr int SCATTER_FROM = 9;")],
+    "bwd_scatter": [("constexpr int SCATTER_FROM = 4;",
+                     "constexpr int SCATTER_FROM = 2;")],
+    # no rank reads another's partials (wrong by design): what the
+    # exchange's reads cost beside its barriers
+    "bwd_no_exchange": [
+        ("        cluster_reduce(part, nz, rank);\n", ""),
+        ("    if (live) {\n        if (SCATTER) {", "    if (false) {\n        if (SCATTER) {")],
+}}
 F32_NAMES = ["flash_attention_dq", "flash_attention_dkv"]
 # bench_attention's shape and twice its sequence, causal
 BF16_TIMED = tuple((4, 8, t, d) for d in (128, 192, 256)
@@ -340,7 +356,7 @@ def sass_mix(path: str, nvcc: str):
             for kind in KINDS:
                 # a template instance, or (the wide kernels) a function
                 if kind + "I" in m.group(1) or kind + "E" in m.group(1):
-                    dim = re.search(r"ILi(\d+)E", m.group(1))
+                    dim = re.search(r"IL[ib](\d+)E", m.group(1))
                     current = f"{kind}<{dim.group(1) if dim else '?'}>"
                     mixes[current] = collections.Counter()
             continue
@@ -355,6 +371,30 @@ def sass_mix(path: str, nvcc: str):
                 **{op: n for op, n in c.items()
                    if op.startswith(("HMMA", "HGMMA"))}}
             for k, c in mixes.items()}
+
+
+def sass_text(path: str, nvcc: str, kind: str):
+    """The SASS instructions (without addresses and encodings) of the
+    function ``kind`` in the library at ``path``, from the ``cuobjdump``
+    beside ``nvcc``; None if it cannot be read."""
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    try:
+        res = subprocess.run([tool, "-sass", path], capture_output=True,
+                             text=True)
+    except OSError:
+        return None
+    if res.returncode != 0:
+        return None
+    out, inside = [], False
+    for line in res.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            inside = kind + "E" in m.group(1) or kind + "I" in m.group(1)
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(.*?)\s*;", line)
+        if inside and m:
+            out.append(m.group(1))
+    return out
 
 
 def in_turns(torch, time_ms, fns, runs):
@@ -567,53 +607,98 @@ def wide_flash(args, torch, kernels, fa, card) -> None:
         sys.exit(1)
 
 
+def wider_versions(args, kernels):
+    """--wider: {tag: {part: source}} of the versions to build, for the
+    parts fwd, dq and dkv: the current forward and backward sources; each
+    ``--compare`` source (named by its directory) for the parts whose entry
+    points it defines, the current sources for the rest; with --diagnose,
+    each variant of ``WIDER_VARIANTS`` for the parts of its source."""
+    current = {"fwd": kernels.source_path(WIDE),
+               "dq": kernels.source_path(WIDE_BWD),
+               "dkv": kernels.source_path(WIDE_BWD)}
+    versions = {"current": current}
+    for path in args.compare:
+        parts = {part: path for part, entry in WIDER_ENTRIES.items()
+                 if defines(path, entry)}
+        if not parts:
+            sys.exit(f"bench_flash: {path} defines no wide entry point")
+        versions[os.path.basename(os.path.dirname(path))] = {**current,
+                                                             **parts}
+    if args.diagnose:
+        for source, variants in WIDER_VARIANTS.items():
+            for tag, path in variant_sources(kernels.CSRC_DIR,
+                                             kernels.BUILD_DIR, source,
+                                             variants).items():
+                versions[tag] = {part: path if src == kernels.source_path(
+                    source) else src for part, src in current.items()}
+    return versions
+
+
 def wider_flash(args, torch, kernels, fa, card) -> None:
     """--wider: the wide kernels' registers, spills and SASS mix, checks
     against the plain versions and times; with --diagnose the
     ``WIDER_VARIANTS`` beside them (see the module's docstring)."""
     from chip_smoke import (BWD_ATOL, BWD_RTOL, FWD_ATOL, FWD_LSE_ATOL,
                             FWD_RTOL, flash_bound_ms, time_ms)
-    versions = {"current": kernels.source_path(WIDE)}
-    for path in args.compare:
-        versions[os.path.basename(os.path.dirname(path))] = path
-    if args.diagnose:
-        versions.update(variant_sources(kernels.CSRC_DIR, kernels.BUILD_DIR,
-                                        WIDE, WIDER_VARIANTS))
-    started = {tag: start_build(kernels, src, f"wider_{tag}")
-               for tag, src in versions.items()}
-    libs, result = {}, {"card": card, "versions": {}}
-    for tag, st in started.items():
-        lib, path, ptxas = finish_build(kernels, st, versions[tag],
-                                        WIDE_NAMES)
-        libs[tag] = lib
+    versions = wider_versions(args, kernels)
+    sources = sorted({src for parts in versions.values()
+                      for src in parts.values()})
+    started = {src: start_build(kernels, src, f"wider_{i}")
+               for i, src in enumerate(sources)}
+    built, paths, result = {}, {}, {"card": card, "versions": {}}
+    for src in sources:
+        names = [WIDE_NAMES[i] for i, part in enumerate(WIDER_ENTRIES)
+                 if defines(src, WIDER_ENTRIES[part])]
+        lib, path, ptxas = finish_build(kernels, started[src], src, names)
+        built[src], paths[src] = lib, path
         mix = sass_mix(path, kernels.nvcc_path())
-        result["versions"][tag] = {"source": versions[tag], "ptxas": ptxas,
-                                   "sass": mix}
-        print(f"[wider {tag}] {versions[tag]}")
+        result["versions"][src] = {"ptxas": ptxas, "sass": mix}
+        print(f"[wider] {src}")
         for ln in ptxas:
-            kind = next((k for k in KINDS if k + "E" in ln), None)
-            print(f"  {kind}" if kind else f"    {ln}")
+            kind = next((k for k in KINDS if k + "E" in ln or k + "I" in ln),
+                        None)
+            inst = re.search(r"IL[ib](\d+)E", ln) if kind else None
+            print(f"  {kind}{f'<{inst.group(1)}>' if inst else ''}" if kind
+                  else f"    {ln}")
         for kern, counts in mix.items():
             print(f"  sass {kern}: {counts}")
+    # each version's library for each part
+    libs = {tag: {part: built[src] for part, src in parts.items()}
+            for tag, parts in versions.items()}
+    result["parts"] = versions
+    # is each compared forward the same machine code as the current one?
+    fwd_sass = {src: sass_text(paths[src], kernels.nvcc_path(),
+                               "flash_fwd_wide_kernel")
+                for src in {parts["fwd"] for parts in versions.values()}}
+    current_sass = fwd_sass[versions["current"]["fwd"]]
+    result["forward_sass_identical"] = {}
+    for tag, parts in versions.items():
+        if parts["fwd"] == versions["current"]["fwd"]:
+            continue
+        same = current_sass is not None and fwd_sass[parts["fwd"]] == current_sass
+        result["forward_sass_identical"][tag] = same
+        print(f"[wider {tag}] flash_fwd_wide_kernel SASS "
+              f"({len(current_sass or [])} instructions) "
+              f"{'identical to' if same else 'differs from'} current's")
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(26)
     stream = torch.cuda.current_stream().cuda_stream
     failures, checks, times = [], [], {}
 
-    def calls(lib, q, k, v, do, lse, delta, outs, causal):
-        """{part: fn} launching ``lib``'s kernels into ``outs`` (o, lse,
+    def calls(parts, q, k, v, do, lse, delta, outs, causal):
+        """{part: fn} launching each part's library into ``outs`` (o, lse,
         dq, dk, dv); dQ and dK/dV on the given lse and delta."""
         b, h, t, d = q.shape
         scale = float(d ** -0.5)
         ptrs = [x.data_ptr() for x in (q, k, v, do, lse, delta)]
         o, lse_o, dq, dk, dv = (x.data_ptr() for x in outs)
         return {
-            "fwd": lambda: lib.zoo_flash_attention_fwd_wide(
+            "fwd": lambda: parts["fwd"].zoo_flash_attention_fwd_wide(
                 *ptrs[:3], o, lse_o, b * h, t, d, scale, int(causal), stream),
-            "dq": lambda: lib.zoo_flash_attention_dq_wide(
+            "dq": lambda: parts["dq"].zoo_flash_attention_dq_wide(
                 *ptrs, dq, b * h, t, d, scale, int(causal), stream),
-            "dkv": lambda: lib.zoo_flash_attention_dkv_wide(
+            "dkv": lambda: parts["dkv"].zoo_flash_attention_dkv_wide(
                 *ptrs, dk, dv, b * h, t, d, scale, int(causal), stream)}
 
     for shape in WIDER_CHECKED + WIDER_TIMED:
@@ -629,9 +714,9 @@ def wider_flash(args, torch, kernels, fa, card) -> None:
             want["dk"], want["dv"] = fa.flash_attention_dkv_ref(
                 q, k, v, do, lse_ref, delta, causal)
             fns, got = {}, {}
-            for tag, lib in libs.items():
+            for tag, parts in libs.items():
                 outs = [torch.zeros_like(x) for x in (q, lse_ref, q, k, v)]
-                fns[tag] = calls(lib, q, k, v, do, lse_ref, delta, outs,
+                fns[tag] = calls(parts, q, k, v, do, lse_ref, delta, outs,
                                  causal)
                 for part, fn in fns[tag].items():
                     if fn():
@@ -652,16 +737,19 @@ def wider_flash(args, torch, kernels, fa, card) -> None:
                         (failures if tag == "current" else checks).append(
                             dict(version=tag, shape=shape, causal=causal,
                                  output=n, used=used, over_tolerance=True))
-                same = (all(torch.equal(got[tag][n], got["current"][n])
-                            for n in want) if tag != "current" else True)
+                same = {part: all(torch.equal(got[tag][n], got["current"][n])
+                                  for n in outs_)
+                        for part, outs_ in (("fwd", ("o", "lse")),
+                                            ("bwd", ("dq", "dk", "dv")))}
                 checks.append(dict(version=tag, shape=shape, causal=causal,
                                    errs=errs, bit_identical_to_current=same))
                 print(f"check [wider {tag}] {key}: " + ", ".join(
                     f"{n} {e['max_abs']:.3e} ({e['used']:.3f} of its "
                     f"tolerance)" for n, e in errs.items()) +
                     ("" if tag == "current" else
-                     f"; {'bit-identical to' if same else 'differs from'} "
-                     "current"))
+                     f"; forward {'bit-identical to' if same['fwd'] else 'differs from'}"
+                     f" current, backward {'bit-identical to' if same['bwd'] else 'differs from'}"
+                     " current"))
             if shape not in WIDER_TIMED:
                 continue
             b, h, t, d = shape
@@ -671,7 +759,10 @@ def wider_flash(args, torch, kernels, fa, card) -> None:
                                                ("dq", 5, 2, 6),
                                                ("dkv", 6, 2, 8)):
                 runs = collections.defaultdict(list)
-                turn = {tag: f[part] for tag, f in fns.items()}
+                # the versions whose library for this part is not current's
+                turn = {tag: f[part] for tag, f in fns.items()
+                        if tag == "current" or
+                        versions[tag][part] != versions["current"][part]}
                 if len(turn) > 1:
                     in_turns(torch, time_ms, turn, runs)
                 else:
@@ -686,6 +777,12 @@ def wider_flash(args, torch, kernels, fa, card) -> None:
                     f"{tag} {statistics.median(r):.5f}"
                     for tag, r in runs.items()) +
                     f" ms; bound {bnd:.6f} ({by}) ({card})")
+            pair = {tag: entry["dq"][tag]["median"] + entry["dkv"][tag]["median"]
+                    for tag in fns if tag in entry["dq"] and tag in entry["dkv"]}
+            entry["pair"] = pair
+            print(f"time [wider] dQ + dK/dV {key} f32: " + ", ".join(
+                f"{tag} {ms:.5f}" for tag, ms in pair.items()) +
+                f" ms ({card})")
         del q, k, v, do
         torch.cuda.empty_cache()
     result.update(checks=checks, times_ms=times, failures=failures)

@@ -1,21 +1,27 @@
 """The float32 flash kernels past head_dim 256 (320 to 2048), held on the CPU.
 
-``csrc/flash_attention_wide.cu`` takes float32 q, k, v at every head_dim
-from 320 to 2048 in steps of 64 (the reference routes any multiple of 64
-to its Pallas kernels while ``t * head_dim <= 4096 * 128``).  A block owns
-up to 256 of the output's columns and recomputes the scores over all of
-d.  The kernels cannot run here, so:
+``csrc/flash_attention_wide.cu`` (the forward) and
+``csrc/flash_attention_wide_bwd.cu`` (dQ and dK/dV) take float32 q, k, v
+at every head_dim from 320 to 2048 in steps of 64 (the reference routes
+any multiple of 64 to its Pallas kernels while ``t * head_dim <= 4096 *
+128``).  A block owns up to 256 of the output's columns; a forward block
+takes the scores over all of d, while the backward's column blocks of a
+row tile form one cluster, each takes the partial scores over its own
+columns, and every block adds the cluster's partials in rank order.  The
+kernels cannot run here, so:
 
 - the plain versions (``flash_attention_ref`` and the backward's) against
   the Pallas kernels in interpret mode (``_flash_fwd_impl``; ``jax.vjp``
   through ``flash_attention``), at T = 256, causal and not;
 - the wide kernels' arithmetic emulated in PyTorch: every product in
   split TF32 (``test_torch_flash_split_tf32.py``) summed in 8-wide steps
-  in the kernels' order (d for the scores, keys for P V and dS K, query
-  rows for P^T dO and dS^T q), the forward's online softmax over 32-key
-  tiles, and the output's columns split between column blocks as the
-  kernels split them; held to the same within the tolerances the card
-  holds the kernels to;
+  in the kernels' order (d for the forward's scores, each column block's
+  own columns for the backward's partial scores, keys for P V and dS K,
+  query rows for P^T dO and dS^T q), the forward's online softmax over
+  32-key tiles, the backward's partials added in rank order, and the
+  output's columns split between column blocks as the kernels split
+  them; held to the same within the tolerances the card holds the
+  kernels to;
 - the routing on a CUDA device string;
 - a transformer ``TextClassifier`` whose heads are 384 and 768 wide
   (``token_length=384, n_head=1`` and ``token_length=768, n_head=1``)
@@ -73,6 +79,9 @@ from test_torch_flash_split_tf32 import BWD_TOL, FWD_LSE_TOL, FWD_TOL, tf32
 # and the largest
 WIDER = (320, 384, 768, 2048)
 EMULATED = (384, 2048)
+# the backward's emulation also at a cluster of 5 (1280: 4 + 4 + 4 + 4 + 4
+# chunks) and at the uneven split of 320 (3 + 2)
+EMULATED_BWD = (320, 384, 1280, 2048)
 T = 256
 # the plain versions against the Pallas kernels: one float32 formula in
 # two orders of summation
@@ -216,24 +225,39 @@ def wide_forward(q, k, v, causal):
     return o, (m + torch.log(l_safe)).reshape(b * h, t, 1)
 
 
-def wide_backward(q, k, v, do, causal):
+def cluster_scores(a, b, mul=1.0, fresh_steps=False):
+    """(a * mul) b^T as the wide backward takes it: each column block (a
+    rank of the cluster) takes the partial over its own columns, its 8-wide
+    steps one accumulator chain (``fresh_steps``: each step summed from
+    zero, then added, the kernel's PARTIAL_STEPS), and the partials are
+    added in rank order."""
+    parts = [steps_mm(a[..., cols] * mul, b[..., cols].transpose(-1, -2),
+                      fresh_steps)
+             for cols in column_blocks(a.shape[-1])]
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    return total
+
+
+def wide_backward(q, k, v, do, causal, fresh_steps=False):
     """dq, dk, dv as the wide dQ and dK/dV kernels compute them, on the
-    emulated forward's O and LSE: s in the forward's d-order, p = exp(s -
-    lse) (causal cells at -1e30), dP = dO V^T in d-order, dS = P (dP -
-    delta) (one of each for all column blocks, as in ``wide_forward``);
-    each column block's dq = scale * dS K (keys in order), dv = P^T dO and
-    dk = dS^T (q * scale) (query rows in order)."""
+    emulated forward's O and LSE: s and dP = dO V^T as the cluster's
+    partials added in rank order (``cluster_scores``; every rank holds the
+    same sums), p = exp(s - lse) (causal cells at -1e30), dS = P (dP -
+    delta); each column block's dq = scale * dS K (keys in order), dv =
+    P^T dO and dk = dS^T (q * scale) (query rows in order)."""
     b, h, t, d = q.shape
     scale = d ** -0.5
     o, lse = wide_forward(q, k, v, causal)
     delta = tfa.flash_attention_delta(o, do).reshape(b, h, t, 1)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-    s = _scores(q, k, scale)
+    s = cluster_scores(q, k, scale, fresh_steps)
     if causal:
         keep = torch.ones(t, t, dtype=torch.bool).tril_()
         s = torch.where(keep, s, s.new_tensor(-1e30))
     p = torch.exp(s - lse.reshape(b, h, t, 1))
-    ds = p * (steps_mm(do, v.transpose(-1, -2), fresh_steps=True) - delta)
+    ds = p * (cluster_scores(do, v, fresh_steps=fresh_steps) - delta)
     for cols in column_blocks(d):
         dq[..., cols] = steps_mm(ds, k[..., cols]) * scale
         dv[..., cols] = steps_mm(p.transpose(-1, -2), do[..., cols])
@@ -261,6 +285,24 @@ def test_column_blocks_follow_the_kernels_split():
     assert [c.stop - c.start for c in column_blocks(768)] == [256] * 3
     assert [c.stop - c.start for c in column_blocks(2048)] == [256] * 8
     assert [c.stop - c.start for c in column_blocks(448)] == [192, 256]
+    assert [c.stop - c.start for c in column_blocks(1280)] == [256] * 5
+    assert [c.stop - c.start for c in column_blocks(1536)] == [256] * 6
+    assert [c.stop - c.start for c in column_blocks(1728)] == [192] + \
+        [256] * 6
+    # every width takes a cluster of ceil(d / 256) column blocks, 2 to 8
+    # (8 the portable limit), of whole chunks, at most 4, that cover d in
+    # rank order
+    sizes = set()
+    for d in range(320, 2049, 64):
+        blocks = column_blocks(d)
+        assert len(blocks) == -(-d // 256)
+        assert blocks[0].start == 0 and blocks[-1].stop == d
+        assert all(a.stop == b.start for a, b in zip(blocks, blocks[1:]))
+        widths = [c.stop - c.start for c in blocks]
+        assert all(w % CH == 0 and CH <= w <= MAX_NC * CH for w in widths)
+        assert max(widths) - min(widths) <= CH
+        sizes.add(len(blocks))
+    assert sizes == set(range(2, 9))
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -276,13 +318,27 @@ def test_wide_split_tf32_forward_keeps_the_card_tolerance(d, causal):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", EMULATED)
+@pytest.mark.parametrize("d", EMULATED_BWD)
 def test_wide_split_tf32_backward_keeps_the_card_tolerance(d, causal):
     q, k, v, do = _inputs(d, causal, 4, 3)
     want = _pallas_grads(q, k, v, do, causal)
     with _one_thread():
         got = wide_backward(*(torch.from_numpy(x) for x in (q, k, v, do)),
                             causal)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), w, err_msg=name, **BWD_TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", EMULATED_BWD)
+def test_wide_backward_in_per_step_sums_keeps_the_card_tolerance(d, causal):
+    """The other order the backward's source can be built in (its
+    PARTIAL_STEPS): each 8-wide step of a partial summed from zero."""
+    q, k, v, do = _inputs(d, causal, 4, 3)
+    want = _pallas_grads(q, k, v, do, causal)
+    with _one_thread():
+        got = wide_backward(*(torch.from_numpy(x) for x in (q, k, v, do)),
+                            causal, fresh_steps=True)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(g.numpy(), w, err_msg=name, **BWD_TOL)
 
@@ -313,8 +369,9 @@ def test_kernel_names_keep_the_narrow_widths():
         for d in (64, 128, 192, 256):
             assert tfa.kernel_names(dtype, d) == tfa.KERNELS[dtype]
     assert set(tfa.WIDE_KERNELS) <= set(kernels.SIGNATURES)
-    assert {kernels.SIGNATURES[n][0] for n in tfa.WIDE_KERNELS} == {
-        "flash_attention_wide"}
+    assert [kernels.SIGNATURES[n][0] for n in tfa.WIDE_KERNELS] == [
+        "flash_attention_wide", "flash_attention_wide_bwd",
+        "flash_attention_wide_bwd"]
     assert "flash_attention_fwd_wide" in kernels.FORWARD_KERNELS
     assert tfa.HEAD_DIMS[torch.float32][4:] == tuple(range(320, 2049, 64))
 
