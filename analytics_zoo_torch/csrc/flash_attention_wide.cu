@@ -4,7 +4,7 @@
 // products a tile product, float32 accumulation).  flash_attention_fwd.cu
 // takes head_dim 64 to 256, where one 16-row warp tile of O fits in
 // registers.  The backward at these widths (dQ and dK/dV) is
-// flash_attention_wide_bwd.cu: a cluster design of its own.
+// flash_attention_wide_bwd.cu, a cluster design on the same shared code.
 //
 // Replaces: analytics_zoo_tpu/ops/pallas_attention.py::_flash_kernel at
 //           these widths (launched from _flash_fwd_impl).
@@ -26,44 +26,68 @@
 // 1024 at D = 2048, and one 16-row tile of q, K or V is up to 128 KB of
 // shared memory.  So each block owns at most 256 of the output's columns
 // (MAX_NC chunks of 64; 128 accumulator registers a lane, as
-// flash_attention_fwd.cu's Cfg<256>), the grid's z splits the columns (n =
-// D/64 chunks into ceil(n/4) column blocks as even as whole chunks allow:
-// 320 = 3 + 2 chunks, 768 = 3 x 4, 2048 = 8 x 4), and every column block
-// takes the scores over the whole of d:
-//   scores(): x = (a * mul) b^T for a 64-row tile of a (q: 4 warps of 16
-//   rows) against a 32-row tile of b (K), streaming a and b in 64-column
-//   chunks through a two-stage cp.async ring; a b chunk is split into hi
-//   (in place) and a lo plane as it lands, the a fragments in registers
-//   (after the multiply by mul: q * scale in float32, as the reference
-//   takes it).  The sum over d runs in 8-wide steps in order, each step's
-//   three products from zero, added to the scores in float32
-//   (flash_wide_tile.cuh's dots_chunk says why).
-//   Every column block takes s with the same sequence of mma on the same
-//   operands, so every column block reaches the same m and l, its O
-//   columns agree, and block z = 0 alone writes LSE.
-//   grid (T/64, BH, ceil(n/4)); a block owns 64 query rows and its columns;
-//   for each 32-key tile it takes S (scores), the online softmax in
-//   registers, and O += P V[:, its columns] from P's accumulator registers
-//   (flash_tile.cuh's accumulate; V's columns land plain and are split as
-//   read).
-//   Recomputed work: with z column blocks, S is taken z times where once
-//   would do: (z + 1) / 2 times the minimum (z = 2 at 384, 3 at 768, 8 at
-//   2048: 1.5, 2 and 4.5 times).  The backward takes its scores once per
-//   cluster of column blocks (flash_attention_wide_bwd.cu), so its s is not
-//   this kernel's s bit for bit; both are within float32 rounding of it.
-// Shared memory: the ring 69,632 bytes, V's columns 33,280: 102,912, two
-// blocks an SM.  Registers (ptxas): 246 a thread, no spill.  No output
-// element is written by two blocks and nothing is accumulated with
-// atomics: two launches are bit-identical.  Rows and keys past T are
-// zero-filled by the copies, get probability 0, and are not written;
-// causal blocks stop at the last key tile any of their rows sees, and a
-// warp whose rows see none of a tile's keys skips its products.
+// flash_attention_fwd.cu's Cfg<256>): the grid's z splits them into z =
+// ceil(D/256) column blocks as even as whole chunks allow (320 = 3 + 2
+// chunks, 768 = 3 x 4, 2048 = 8 x 4), and the z column blocks of a row
+// tile form one thread block cluster (cluster dims (1, 1, z); rank r owns
+// the columns C_r; flash_wide_cluster.cuh).  S is needed over the whole of
+// d, so for each 32-key tile:
+//   - rank r takes the partial scores S_r = (q * scale)[:, C_r] K[:,
+//     C_r]^T over its own columns only (partial_scores: a 64-row tile of q,
+//     4 warps of 16 rows, against the key tile, in 64-column chunks through
+//     a two-stage cp.async ring; a K chunk split into hi (in place) and a
+//     lo plane as it lands, the q fragments split in registers after the
+//     multiply by scale, in float32 as the reference takes it).  Its 8-wide
+//     steps are summed as SCORE_STEPS says: each step's three products from
+//     zero, the step's sum then added in float32 (one chain a partial, the
+//     backward's order, is 7-11% faster on the H100 but took LSE to 0.72 of
+//     its tolerance at 2048, causal; flash_wide_tile.cuh's dots_chunk says
+//     why the sum drifts);
+//   - each warp puts its partial into the block's shared memory (in the
+//     ring, free between the tiles' chunks), and after a cluster barrier
+//     the ranks add the z partials in rank order 0 ... z-1 through
+//     distributed shared memory (exchange: every rank adds every position
+//     itself below FWD_SCATTER_FROM ranks; from there each rank adds its
+//     share and gathers the rest from their owners after a second barrier:
+//     on the H100 all-read wins at 2 and 3 ranks, the two tie at 4, the
+//     scatter wins from 5).  Every rank then holds the same S, bit for
+//     bit, so it reaches the same m and l;
+//   - every rank runs the online softmax in registers and adds O += P V[:,
+//     C_r] from P's accumulator registers (flash_tile.cuh's accumulate; V's
+//     columns of the tile land plain beside the ring and are split as
+//     read).  Rank 0 writes LSE; every rank writes its own columns of O.
+// So S is taken once per (query tile, key tile) across the cluster: each
+// block reads only its own columns of q, K and V, and the work is the
+// minimum.  (This kernel's first design, where every column block took S
+// over all of d, did (z + 1) / 2 times it: 1.5, 2 and 4.5 times at 384,
+// 768 and 2048.)  The dQ kernel takes its s by the same partials in one
+// accumulator chain each, so the two are not the same s bit for bit when
+// SCORE_STEPS is true; both are within float32 rounding of it.
+// Cluster barriers: the partials stay in the ring, so a tile's wait on the
+// last exchange's "done reading" comes before its partial scores refill
+// the ring, and the block waits once more before it exits, so no rank
+// leaves while another may still read its shared memory.  Every rank of a
+// cluster runs the same key tiles (the causal bound depends on the row
+// tile, not the columns) and reaches every barrier; a warp whose rows see
+// none of a tile's keys skips its products and its reads, never a barrier.
+// Shared memory: the ring 69,632 bytes (the partial, 8,192, in it between
+// tiles), V's columns 33,280: 102,912, two blocks an SM.  Registers
+// (ptxas): 247 (all-read) and 254 (scatter), no spill.  (A block of 128
+// query rows in 8 warps with q's columns resident, one block an SM, was
+// 7-9% faster at 384 but 8% slower at 768, where its 16-key tiles double
+// the exchanges, and 23% slower at 2048, where clusters of 8 whole SMs
+// leave fewer resident.)  No output element is written
+// by two blocks, nothing is accumulated with atomics, and the partials are
+// added in a fixed order: two launches are bit-identical.  Rows and keys
+// past T are zero-filled by the copies, keys past T get s = -inf and
+// probability 0, rows past T are not written; causal blocks stop at the
+// last key tile any of their rows sees.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "flash_wide_tile.cuh"
+#include "flash_wide_cluster.cuh"
 
 namespace {
 
@@ -71,49 +95,63 @@ using namespace flash_wide;
 
 constexpr int FWD_BYTES = (RING + BN * OS) * (int)sizeof(float);
 static_assert(FWD_BYTES <= 232448 / 2, "two blocks an SM on the H100");
+static_assert(PART <= RING, "the partial stays in the ring between tiles");
+// the 8-wide steps of the partial scores: each step's three products
+// summed from zero, then added (true), or one accumulator chain (false)
+constexpr bool SCORE_STEPS = true;
+// 8-wide steps of a chunk of the partial scores unrolled: one (faster on
+// the H100 than two or eight, and the only one whose scatter instance does
+// not spill)
+constexpr int FWD_UNROLL = 1;
+// a launch takes the exchange's scatter for clusters of FWD_SCATTER_FROM
+// ranks or more
+constexpr int FWD_SCATTER_FROM = 4;
 
-// x = (a[a0 : a0+64] * mul) . b[b0 : b0+32]^T over all of d, this warp's 16
-// rows (ra of the a tile) in m16n8 accumulators.  Collective: every thread
-// of the block calls it (it loads and waits); warps not `live` skip the
-// products.  It waits for every cp.async group this thread committed
-// before it, and leaves the ring free.
-__device__ __forceinline__ void scores(float x[NJ][4], float* ring, const float* a, int a0,
-                                       const float* b, int b0, int t, int d, float mul,
-                                       bool live, int ra, int g, int tg) {
+// x = (a[a0 : a0+64, C] * mul) . b[b0 : b0+32, C]^T over the chunks C =
+// [c0, c0 + nc) of d, this warp's 16 rows (ra of the a tile) in m16n8
+// accumulators.  Collective: every thread of the block calls it (it loads
+// and waits); warps not `live` skip the products.  It waits for every
+// cp.async group this thread committed before it, and leaves the ring
+// free.
+__device__ __forceinline__ void partial_scores(float x[NJ][4], float* ring, const float* a,
+                                               int a0, const float* b, int b0, int t, int d,
+                                               int c0, int nc, float mul, bool live, int ra,
+                                               int g, int tg) {
 #pragma unroll
     for (int j = 0; j < NJ; ++j) x[j][0] = x[j][1] = x[j][2] = x[j][3] = 0.f;
-    const int n = d / CH;
-    load_rows<BM, CS>(ring, a, a0, t, d, 0, CH / 4);
-    load_rows<BN, CS>(ring + A_TILE, b, b0, t, d, 0, CH / 4);
-    cp_async_commit();
-    for (int c = 0; c < n; ++c) {
+    auto load = [&](int c) {
         float* st = ring + (c & 1) * STAGE;
-        if (c + 1 < n) {
-            float* next = ring + ((c + 1) & 1) * STAGE;
-            load_rows<BM, CS>(next, a, a0, t, d, (c + 1) * CH, CH / 4);
-            load_rows<BN, CS>(next + A_TILE, b, b0, t, d, (c + 1) * CH, CH / 4);
-            cp_async_commit();
+        load_rows<BM, CS>(st, a, a0, t, d, (c0 + c) * CH, CH / 4);
+        load_rows<BN, CS>(st + A_TILE, b, b0, t, d, (c0 + c) * CH, CH / 4);
+        cp_async_commit();
+    };
+    load(0);
+    for (int c = 0; c < nc; ++c) {
+        float* st = ring + (c & 1) * STAGE;
+        if (c + 1 < nc) {
+            load(c + 1);
             cp_async_wait<1>();
         } else {
             cp_async_wait<0>();
         }
         split_b(st + A_TILE, st + A_TILE + B_TILE);
         __syncthreads();
-        // two steps unrolled: all eight left the kernel at 255 registers with
-        // spills (measured with ptxas)
-        if (live) dots_chunk<2, true>(x, st, ra, st + A_TILE, st + A_TILE + B_TILE, mul, g, tg);
+        if (live)
+            dots_chunk<FWD_UNROLL, SCORE_STEPS>(x, st, ra, st + A_TILE, st + A_TILE + B_TILE, mul,
+                                                g, tg);
         __syncthreads();   // every warp is done with this stage before it is refilled
     }
 }
 
 // ------------------------------------------------------------- forward
 
+template <bool SCATTER>
 __global__ void __launch_bounds__(NTHREADS, 2)
 flash_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ o,
                       float* __restrict__ lse, int t, int d, float scale, int causal) {
     extern __shared__ float4 smem4[];
-    float* ring = reinterpret_cast<float*>(smem4);
+    float* ring = reinterpret_cast<float*>(smem4); // also the partial, between tiles
     float* vt = ring + RING;                       // V's columns of a key tile, plain
 
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -123,6 +161,7 @@ flash_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int q0 = blockIdx.x * BM;
     const int row0 = q0 + r0;                      // this warp's first row
     const size_t base = (size_t)bh * t * d;
+    const int nz = gridDim.z;
     int c0, nc;
     my_chunks(d, c0, nc);
 
@@ -143,8 +182,12 @@ flash_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
         cp_async_commit();
         // causal: a warp whose rows all lie above this tile's keys skips it
         const bool live = row0 < t && !(causal && k0 > row0 + 15);
+        // every rank is done reading the partials the last tile left in the ring
+        if (kt > 0) cluster_wait();
         float p[NJ][4];
-        scores(p, ring, q + base, q0, k + base, k0, t, d, scale, live, r0, g, tg);
+        partial_scores(p, ring, q + base, q0, k + base, k0, t, d, c0, nc, scale, live, r0, g,
+                       tg);
+        exchange<1, SCATTER>(p, nullptr, ring, nz, live);
         if (live) {
             // keys past T get s = -inf: no part in the max, p = exp(-inf) = 0
             // (m is finite from its start at -1e30)
@@ -195,6 +238,7 @@ flash_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
         }
         __syncthreads();   // every warp is done with V's tile before it is refilled
     }
+    cluster_wait();        // no rank reads this block's shared memory any more
 
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -216,13 +260,6 @@ flash_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 }
 
-// ------------------------------------------------------------- launches
-
-template <class K>
-cudaError_t smem(K kernel, int bytes) {
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
 }  // namespace
 
 extern "C" int zoo_flash_attention_fwd_wide(const float* q, const float* k,
@@ -231,11 +268,19 @@ extern "C" int zoo_flash_attention_fwd_wide(const float* q, const float* k,
                                             int causal, void* stream) {
     if (!takes(d)) return (int)cudaErrorInvalidValue;
     if (bh <= 0 || t <= 0) return (int)cudaSuccess;
-    cudaError_t err = smem(flash_fwd_wide_kernel, FWD_BYTES);
-    if (err != cudaSuccess) return (int)err;
-    flash_fwd_wide_kernel<<<grid(t, BM, bh, d), NTHREADS, FWD_BYTES,
-                            reinterpret_cast<cudaStream_t>(stream)>>>(
-        q, k, v, o, lse, t, d, scale, causal);
-    return (int)cudaGetLastError();
+    const dim3 g = grid(t, BM, bh, d);
+    return (int)launch((int)g.z >= FWD_SCATTER_FROM ? flash_fwd_wide_kernel<true>
+                                                    : flash_fwd_wide_kernel<false>,
+                       g, FWD_BYTES, stream, q, k, v, o, lse, t, d, scale, causal);
 }
 
+// How many clusters of the forward's blocks at head_dim d (ceil(d / 256)
+// blocks a cluster, the instance a launch at d takes) the card can hold at
+// once (cudaOccupancyMaxActiveClusters), into *clusters.
+extern "C" int zoo_flash_wide_fwd_max_clusters(int d, int* clusters) {
+    if (!takes(d)) return (int)cudaErrorInvalidValue;
+    const int z = (int)grid(1, 1, 1, d).z;
+    return (int)max_clusters(z >= FWD_SCATTER_FROM ? flash_fwd_wide_kernel<true>
+                                                   : flash_fwd_wide_kernel<false>,
+                             FWD_BYTES, z, clusters);
+}

@@ -57,9 +57,10 @@
 //     the work is the minimum (the first design of these kernels, where
 //     every column block took the scores over all of d, did (2z + 1) / 3
 //     times dQ's minimum and (z + 1) / 2 times dK/dV's).
-//   The backward's s is not the forward's bit for bit (the forward sums
-//   over all of d in its own order): both are within float32 rounding of
-//   the exact s, which the tolerances against the plain versions absorb.
+//   The backward's s is not the forward's bit for bit (the forward takes
+//   its partials in per-step sums, for LSE's tighter tolerance): both are
+//   within float32 rounding of the exact s, which the tolerances against
+//   the plain versions absorb.
 //   dQ: grid (T/64, BH, z); a block owns 64 query rows and its columns;
 //     for each 32-key tile S and dP (partials, then the cluster's sums),
 //     P = exp(S - lse) and dS in registers, dQ += dS K[:, its columns]
@@ -77,10 +78,10 @@
 //     the partials and for the products: the ring, P and dS with their lo
 //     parts and the partials leave no room to keep them at two blocks an
 //     SM.
-// Cluster barriers (barrier.cluster.arrive.release / wait.acquire).  A step
-// puts the partials, then arrive + wait (every rank's are in place), reads
-// (after a scatter's second arrive + wait), then arrives as done reading.
-// dQ keeps its partials in the ring, so its wait on that last phase comes
+// The cluster's barriers, the exchange and the cluster launch are
+// flash_wide_cluster.cuh's, which the forward shares.  A step puts the
+// partials, then arrive + wait (every rank's are in place), reads (after a
+// scatter's second arrive + wait), then arrives as done reading.  dQ keeps its partials in the ring, so its wait on that last phase comes
 // before the next tile's partials and overlaps the products, and it waits
 // once more before it exits, so no rank leaves while another may still read
 // its shared memory; dK/dV waits right away, since P's and dS's lo parts go
@@ -97,22 +98,17 @@
 // order: two launches are bit-identical.  Rows and keys past T are
 // zero-filled by the copies, get probability 0, and are not written.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "flash_wide_tile.cuh"
+#include "flash_wide_cluster.cuh"
 
 namespace {
 
-namespace cg = cooperative_groups;
 using namespace flash_wide;
 
-constexpr int NWARPS = NTHREADS / 32;
-constexpr int MAX_Z = 8;                // ranks of a cluster: 2048 / (MAX_NC * CH)
 constexpr int PS = BN + 4;              // padded row stride of a P or dS tile
-constexpr int PART = NWARPS * NJ * 32 * 4;  // one partial (S or dP) of a block, floats
 constexpr int DQ_BYTES = (RING + BN * OS) * (int)sizeof(float);
 constexpr int DKV_BYTES = (RING + 4 * BM * PS) * (int)sizeof(float);
 // the partial scores take their 64-column chunks as one accumulator chain
@@ -122,6 +118,10 @@ constexpr bool PARTIAL_STEPS = false;
 // two in dK/dV (the fastest of 1, 2 and 8 for each on the H100; none spills)
 constexpr int DQ_UNROLL = 8;
 constexpr int DKV_UNROLL = 2;
+// a launch takes the exchange's scatter (flash_wide_cluster.cuh) for
+// clusters of SCATTER_FROM ranks or more: on the H100 the second barrier
+// costs more than the reads it saves at 2 and 3 ranks, and less at 8
+constexpr int SCATTER_FROM = 4;
 static_assert(2 * BM * CS <= STAGE, "a stage holds a chunk of q and of dO");
 static_assert(2 * PART <= RING, "dQ keeps the partials in the ring");
 static_assert(2 * PART <= 2 * BM * PS, "dK/dV keeps them where P's and dS's lo parts go");
@@ -174,156 +174,6 @@ __device__ __forceinline__ void partial_pair(float p[NJ][4], float ds[NJ][4], fl
         }
         __syncthreads();   // every warp is done with this stage before it is refilled
     }
-}
-
-// ------------------------------------------------- the cluster's partials
-
-// The two phases of the cluster barrier: arrive (release: this thread's
-// shared-memory writes are visible to the cluster once all have arrived)
-// and wait (acquire).  Every thread of every block of the cluster calls
-// them, in turn.
-__device__ __forceinline__ void cluster_arrive() {
-    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// Put this warp's partial x into the block's partial buffer, each lane's
-// four values of a tile as one float4 (lanes side by side: no bank
-// conflict).
-__device__ __forceinline__ void put_partial(float* part, const float x[NJ][4]) {
-    float4* mine = reinterpret_cast<float4*>(part) + (threadIdx.x >> 5) * NJ * 32 +
-                   (threadIdx.x & 31);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) mine[j * 32] = make_float4(x[j][0], x[j][1], x[j][2], x[j][3]);
-}
-
-// Rank r's copy of this block's shared-memory address p: p itself for
-// this block's own rank (a local read), else through distributed shared
-// memory.
-template <class T>
-__device__ __forceinline__ T* at_rank(T* p, int r, int rank) {
-    return r == rank ? p : cg::this_cluster().map_shared_rank(p, r);
-}
-
-// x = the sum of the partials of the cluster's nz ranks at this lane's
-// positions, added in rank order (rank 0's first): the same sum, bit for
-// bit, in every rank.  Each rank's four float4 are loaded before the adds
-// that take them.
-__device__ __forceinline__ void cluster_sum(float x[NJ][4], const float* part, int nz,
-                                            int rank) {
-    const float4* mine = reinterpret_cast<const float4*>(part) + (threadIdx.x >> 5) * NJ * 32 +
-                         (threadIdx.x & 31);
-#pragma unroll
-    for (int r = 0; r < MAX_Z; ++r) {
-        if (r >= nz) break;
-        const float4* theirs = at_rank(mine, r, rank);
-        float4 y[NJ];
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) y[j] = theirs[j * 32];
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-            if (r == 0) {
-                x[j][0] = y[j].x; x[j][1] = y[j].y; x[j][2] = y[j].z; x[j][3] = y[j].w;
-            } else {
-                x[j][0] += y[j].x; x[j][1] += y[j].y; x[j][2] += y[j].z; x[j][3] += y[j].w;
-            }
-        }
-    }
-}
-
-// The float4 of a block's partial buffer (S's, then dP's) that rank r of
-// nz sums: [ceil(r N / nz), ceil((r + 1) N / nz)), N = PARTS4; the owner
-// of float4 i is i * nz / N.
-constexpr int PARTS4 = 2 * PART / 4;
-
-__device__ __forceinline__ void add4(float4& s, const float4& y) {
-    s.x += y.x; s.y += y.y; s.z += y.z; s.w += y.w;
-}
-
-// Reduce: for each float4 of the buffer this rank owns, the nz ranks'
-// partials added in rank order (rank 0's first), written over its own
-// partial there (no other rank reads those); four ranks' loads in flight
-// at a time.  Collective over the block.
-__device__ __forceinline__ void cluster_reduce(float* part, int nz, int rank) {
-    float4* mine = reinterpret_cast<float4*>(part);
-    const int lo = (rank * PARTS4 + nz - 1) / nz, hi = ((rank + 1) * PARTS4 + nz - 1) / nz;
-    for (int i = lo + threadIdx.x; i < hi; i += NTHREADS) {
-        float4 sum;
-#pragma unroll
-        for (int r0 = 0; r0 < MAX_Z; r0 += 4) {
-            if (r0 >= nz) break;
-            float4 y[4];
-#pragma unroll
-            for (int r = 0; r < 4; ++r)
-                if (r0 + r < nz) y[r] = at_rank(mine, r0 + r, rank)[i];
-#pragma unroll
-            for (int r = 0; r < 4; ++r) {
-                if (r0 + r >= nz) break;
-                if (r0 + r == 0) sum = y[0];
-                else add4(sum, y[r]);
-            }
-        }
-        mine[i] = sum;
-    }
-}
-
-// Gather: x = the sums at this lane's positions of one partial (S's: at =
-// 0, dP's: at = PART / 4), each from the rank that owns it.
-__device__ __forceinline__ void cluster_gather(float x[NJ][4], float* part, int at, int nz,
-                                               int rank) {
-    float4* mine = reinterpret_cast<float4*>(part);
-    const int i0 = at + (threadIdx.x >> 5) * NJ * 32 + (threadIdx.x & 31);
-    float4 y[NJ];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-        const int i = i0 + j * 32;
-        y[j] = at_rank(mine, i * nz / PARTS4, rank)[i];
-    }
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-        x[j][0] = y[j].x; x[j][1] = y[j].y; x[j][2] = y[j].z; x[j][3] = y[j].w;
-    }
-}
-
-// One step's exchange: put this warp's partials of S and dP, and once every
-// rank's are in place take their sums, in rank order, into p and ds (live
-// warps); then arrive as done reading.  The caller waits on that arrival
-// before it writes `part` again.  SCATTER: each rank sums its share of the
-// buffer and, after a second barrier, gathers the sums (each partial read
-// once, each sum nz times: 2 (nz - 1) / nz of the buffer over distributed
-// shared memory); else every rank sums every position itself (each
-// partial read nz times: nz - 1 buffers), one barrier fewer.  Each kernel
-// has an instance of each, and a launch takes SCATTER for clusters of
-// SCATTER_FROM ranks or more (on the H100 the second barrier costs more
-// than the reads it saves at 2 and 3 ranks, and less at 8).
-constexpr int SCATTER_FROM = 4;
-
-template <bool SCATTER>
-__device__ __forceinline__ void exchange(float p[NJ][4], float ds[NJ][4], float* part, int nz,
-                                         bool live) {
-    const int rank = (int)cg::this_cluster().block_rank();
-    put_partial(part, p);
-    put_partial(part + PART, ds);
-    cluster_arrive();
-    cluster_wait();
-    if (SCATTER) {
-        cluster_reduce(part, nz, rank);
-        cluster_arrive();
-        cluster_wait();
-    }
-    if (live) {
-        if (SCATTER) {
-            cluster_gather(p, part, 0, nz, rank);
-            cluster_gather(ds, part, PART / 4, nz, rank);
-        } else {
-            cluster_sum(p, part, nz, rank);
-            cluster_sum(ds, part + PART, nz, rank);
-        }
-    }
-    cluster_arrive();
 }
 
 // ------------------------------------------------------------- helpers
@@ -399,7 +249,7 @@ flash_dq_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
             lse_r[h] = row < t ? lse[(size_t)bh * t + row] : 0.f;
             delta_r[h] = row < t ? delta[(size_t)bh * t + row] : 0.f;
         }
-        exchange<SCATTER>(p, ds, ring, nz, live);
+        exchange<2, SCATTER>(p, ds, ring, nz, live);
         if (live) {
 #pragma unroll
             for (int j = 0; j < NJ; ++j)
@@ -550,7 +400,7 @@ flash_dkv_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
             lse_r[h] = row < t ? lse_bh[row] : 0.f;
             delta_r[h] = row < t ? delta_bh[row] : 0.f;
         }
-        exchange<SCATTER>(p, ds, part, nz, live);
+        exchange<2, SCATTER>(p, ds, part, nz, live);
         cluster_wait();    // every rank is done reading the partials: their room is free
         // P and dS of this warp's rows into shared memory, split (0 where no
         // key is seen)
@@ -605,48 +455,6 @@ flash_dkv_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // ------------------------------------------------------------- launches
 
-// a launch of `grid` with the z column blocks of each row tile as one
-// cluster
-cudaLaunchConfig_t cluster_config(dim3 grid, int bytes, cudaStream_t stream,
-                                  cudaLaunchAttribute* attr) {
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = grid;
-    cfg.blockDim = dim3(NTHREADS, 1, 1);
-    cfg.dynamicSmemBytes = bytes;
-    cfg.stream = stream;
-    attr->id = cudaLaunchAttributeClusterDimension;
-    attr->val.clusterDim.x = 1;
-    attr->val.clusterDim.y = 1;
-    attr->val.clusterDim.z = grid.z;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    return cfg;
-}
-
-template <class... KArgs, class... Args>
-cudaError_t launch(void (*kernel)(KArgs...), dim3 grid, int bytes, void* stream,
-                   Args... args) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           bytes);
-    if (err != cudaSuccess) return err;
-    cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg =
-        cluster_config(grid, bytes, reinterpret_cast<cudaStream_t>(stream), &attr);
-    err = cudaLaunchKernelEx(&cfg, kernel, args...);
-    if (err != cudaSuccess) return err;
-    return cudaGetLastError();
-}
-
-template <class K>
-cudaError_t max_clusters(K kernel, int bytes, int z, int* clusters) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           bytes);
-    if (err != cudaSuccess) return err;
-    cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg = cluster_config(dim3(1, 1, z), bytes, nullptr, &attr);
-    return cudaOccupancyMaxActiveClusters(clusters, (const void*)kernel, &cfg);
-}
-
 }  // namespace
 
 extern "C" int zoo_flash_attention_dq_wide(const float* q, const float* k,
@@ -677,11 +485,13 @@ extern "C" int zoo_flash_attention_dkv_wide(const float* q, const float* k,
                        causal);
 }
 
-// How many clusters of z blocks of the dQ (dkv = 0) or dK/dV (dkv = 1)
-// kernel, the instance a launch with clusters of z takes, the card can hold
-// at once (cudaOccupancyMaxActiveClusters), into *clusters.
-extern "C" int zoo_flash_wide_bwd_max_clusters(int dkv, int z, int* clusters) {
-    if (z < 1 || z > MAX_Z) return (int)cudaErrorInvalidValue;
+// How many clusters of the dQ (dkv = 0) or dK/dV (dkv = 1) kernel's blocks
+// at head_dim d (ceil(d / 256) blocks a cluster, the instance a launch at
+// d takes) the card can hold at once (cudaOccupancyMaxActiveClusters),
+// into *clusters.
+extern "C" int zoo_flash_wide_bwd_max_clusters(int dkv, int d, int* clusters) {
+    if (!takes(d)) return (int)cudaErrorInvalidValue;
+    const int z = (int)grid(1, 1, 1, d).z;
     if (dkv)
         return (int)max_clusters(z >= SCATTER_FROM ? flash_dkv_wide_kernel<true>
                                                    : flash_dkv_wide_kernel<false>,

@@ -1,9 +1,9 @@
 // Tile code shared by the float32 flash-attention kernels past head_dim
 // 256, on flash_tile.cuh's split TF32: flash_attention_wide.cu (the
-// forward) and flash_attention_wide_bwd.cu (dQ and dK/dV).  A block owns
-// at most MAX_NC chunks of 64 of the output's columns; the grid's z splits
-// the columns into column blocks as even as whole chunks allow (my_chunks,
-// grid).  Query tiles are 64 rows (4 warps of 16), key tiles 32 rows, and
+// forward) and flash_attention_wide_bwd.cu (dQ and dK/dV); their cluster
+// code is flash_wide_cluster.cuh.  A block owns at most MAX_NC chunks of
+// 64 of the output's columns; the grid's z splits the columns into column
+// blocks as even as whole chunks allow (my_chunks, grid).  Query tiles are 64 rows (4 warps of 16), key tiles 32 rows, and
 // the scores are taken in 64-column chunks of d through a two-stage
 // cp.async ring: a K or V chunk is split into hi (in place) and a lo plane
 // as it lands (split_b), the q or dO fragments in registers (dots_chunk).
@@ -84,8 +84,10 @@ __device__ __forceinline__ void split_b(float* hi, float* lo) {
 // missed its 1e-5 on the H100 by 1.1-1.3 times at D = 768 and 2.1-3.5 times
 // at 2048, O its tolerance by up to 2.8 times, where a step's own sum
 // drifts by ulps of itself and the adds round to nearest (LSE at most 0.36
-// of its tolerance, O 0.51).  The backward's partials chain at most 256
-// columns, as the narrow kernels do.
+// of its tolerance, O 0.51).  Chained over a rank's at most 256 columns
+// and added over the cluster, LSE still reached 0.72 of its tolerance at
+// 2048: the forward's partials take per-step sums, the backward's (1e-4)
+// one chain, as the narrow kernels do.
 template <int UNROLL, bool STEPS>
 __device__ __forceinline__ void dots_chunk(float x[NJ][4], const float* a, int ra,
                                            const float* bh, const float* bl, float mul,

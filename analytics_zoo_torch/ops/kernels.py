@@ -107,6 +107,19 @@ SIGNATURES = {
                   [_P, _I] + [_P] * 3 + [_F] * 6 + [_I, _P]),
 }
 
+# the wide kernels' occupancy queries, which launch nothing and count
+# nothing: kernel -> (C entry point, its leading int arguments); each
+# entry point then takes head_dim and an int pointer, and writes how many
+# clusters of that kernel's blocks at that head_dim (ceil(head_dim / 256)
+# blocks a cluster, the instance a launch at head_dim takes) the card
+# holds at once (cudaOccupancyMaxActiveClusters)
+CLUSTER_QUERIES = {
+    "flash_attention_fwd_wide": ("zoo_flash_wide_fwd_max_clusters", ()),
+    # dkv = 0: dQ, 1: dK/dV
+    "flash_attention_dq_wide": ("zoo_flash_wide_bwd_max_clusters", (0,)),
+    "flash_attention_dkv_wide": ("zoo_flash_wide_bwd_max_clusters", (1,)),
+}
+
 # every source, each built by one nvcc call
 SOURCES = sorted({src for src, _, _ in SIGNATURES.values()})
 
@@ -347,6 +360,24 @@ def entry(name: str):
     if source not in _libs:
         build_all([name])
     return getattr(_libs[source], entry_point)
+
+
+def max_active_clusters(name: str, head_dim: int) -> int:
+    """How many clusters of kernel ``name``'s blocks (a key of
+    ``CLUSTER_QUERIES``) at ``head_dim`` the current CUDA device holds at
+    once; raises if the query fails."""
+    entry_point, lead = CLUSTER_QUERIES[name]
+    entry(name)                         # builds and loads the source
+    fn = getattr(_libs[SIGNATURES[name][0]], entry_point)
+    fn.argtypes = [_I] * (len(lead) + 1) + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    n = ctypes.c_int(0)
+    err = fn(*lead, head_dim, ctypes.byref(n))
+    if err != 0 or n.value < 1:
+        raise RuntimeError(
+            f"{entry_point}: cudaOccupancyMaxActiveClusters for {name} at "
+            f"head_dim {head_dim} gave {n.value} (cudaError {err})")
+    return n.value
 
 
 def launch(name: str, device, *args) -> None:

@@ -77,7 +77,11 @@ class Square(_Elementwise):
 
 
 class Power(_Elementwise):
-    """y = (shift + scale * x) ** power."""
+    """y = (shift + scale * x) ** power, with IEEE ``pow``'s values, as
+    ``jnp.power`` gives them: the exponent is a 0-dim tensor in the input's
+    dtype on the input's device, because ``torch.pow`` with a Python
+    exponent (or, on a CUDA input, a CPU one) of 0.5 or -0.5 takes ``sqrt``
+    or ``rsqrt``, which give NaN at -inf and keep the sign of -0.0."""
 
     def __init__(self, power: float, scale: float = 1.0,
                  shift: float = 0.0, **kwargs):
@@ -87,7 +91,8 @@ class Power(_Elementwise):
         self.shift = float(shift)
 
     def call(self, params, x, training=False, rng=None):
-        return torch.pow(self.shift + self.scale * x, self.power)
+        base = self.shift + self.scale * x
+        return torch.pow(base, base.new_full((), self.power))
 
 
 class Negative(_Elementwise):

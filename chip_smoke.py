@@ -468,9 +468,13 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    the three kernels against their plain versions at head_dim 320, 384,
    448, 768, 1024, 1280, 1536, 1792 and 2048 (``WIDER_SHAPES``: every
    cluster size from 2 to 8, ragged last tiles, fewer rows than a tile,
-   one key, T = 512 and 256), causal and not, two launches bit-identical,
-   the float32 tolerances of phase 2, and each cluster size's
-   ``cudaOccupancyMaxActiveClusters`` for dQ and dK/dV; 27e
+   one key, T = 512 and 256, and (4, 1, 1024, 2048), whose forward's 64
+   clusters of 8 take more than one wave), causal and not, two launches
+   bit-identical, the float32 tolerances of phase 2 (the forward's largest
+   O and LSE errors printed as a share of their tolerance at each width),
+   each cluster size's ``cudaOccupancyMaxActiveClusters`` for the forward,
+   dQ and dK/dV, and the waves of clusters of each kernel at 27f's
+   shapes; 27e
    ``flash_attention`` through autograd launching only the wide kernels
    on float32 at 320 and 2048, only the narrow ones at 256, none at
    float32 288, bf16 384 or float16 384; 27f each kernel at (8, 2, 512,
@@ -479,7 +483,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    head_dim-64 instance at (8, 12, 512, 64) (the same work), beside its
    bound and the library's backend, and at (8, 1, 256, 2048), the
    reference's t * head_dim limit; dQ + dK/dV against the library's whole
-   backward as a factor at each;
+   backward as a factor at each, and the forward against the library's
+   forward;
 28. a ``kernels`` JSON line (the float32 flash kernels' launches from
    phase 25 and their times from 25d at (8, 3, 512, 256), non-causal, the
    instance of most of those launches; the wide ones' launches from
@@ -4397,7 +4402,49 @@ def layer_sweep(torch, dev):
     print(f"17b random layers in training on the card: GaussianNoise, "
           f"GaussianDropout, RReLU, GaussianSampler (mean, std) {r}; "
           f"SpatialDropout3D keep rate {rate:.4f} (0.7), one draw a channel")
+    power_edges(torch, dev)
     return n_checked, worst
+
+
+# 17b: Power's edge inputs, and its exponents (power, scale, shift); the
+# last maps the input 0.0 onto -0.0
+POWER_EDGES = (-np.inf, -4.0, -0.0, 0.0, 1e-6, 4.0, np.inf, np.nan)
+POWER_CASES = tuple((p, 1.0, 0.0) for p in (0.5, -0.5, 1.5, 2.0, 3.0, 1 / 3,
+                                            -1.0, 0.0)) + ((-0.5, -2.0, -0.0),)
+
+
+def power_edges(torch, dev):
+    """17b: ``Power`` at -inf, -4, -0.0, 0.0, 1e-6, 4, inf and NaN on the
+    card against the CPU: IEEE ``pow``'s values (the reference's
+    ``jnp.power``), the same NaNs and the same sign on every zero and
+    infinity; the finite non-zero results within 2 ulps (CUDA's powf is
+    not correctly rounded)."""
+    from analytics_zoo_torch.pipeline.api.keras import layers as L
+    x = torch.tensor(POWER_EDGES, dtype=torch.float32)
+    shown = []
+    for power, scale, shift in POWER_CASES:
+        layer = L.Power(power, scale=scale, shift=shift)
+        want = layer.call({}, x)
+        got = layer.call({}, x.to(dev)).cpu()
+        what = f"phase 17b Power({power:.4g}, scale={scale}, shift={shift})"
+        if not torch.equal(torch.isnan(got), torch.isnan(want)):
+            fail(f"{what}: NaNs on the card {got.tolist()}, CPU "
+                 f"{want.tolist()}")
+        edge = (want == 0) | torch.isinf(want)
+        if not (torch.equal(got[edge], want[edge]) and torch.equal(
+                torch.signbit(got[edge]), torch.signbit(want[edge]))):
+            fail(f"{what}: zeros or infinities on the card {got.tolist()}, "
+                 f"CPU {want.tolist()}")
+        rest = ~edge & ~torch.isnan(want)
+        ulps = (got[rest] - want[rest]).abs() / torch.finfo(
+            torch.float32).eps / want[rest].abs()
+        if rest.any() and float(ulps.max()) > 2.0:
+            fail(f"{what}: {float(ulps.max()):.2f} ulps from the CPU's")
+        if scale == 1.0 and power in (0.5, -0.5):
+            shown.append(f"Power({power:g}) {got.tolist()}")
+    print(f"17b Power at {list(POWER_EDGES)} on the card, "
+          f"{len(POWER_CASES)} exponents against the CPU: IEEE pow's zeros, "
+          f"infinities and NaNs with their signs: " + "; ".join(shown))
 
 
 def regularizer_check(torch, dev):
@@ -9212,14 +9259,18 @@ WIDER_FLASH = ("flash_attention_fwd_wide", "flash_attention_dq_wide",
 # 27d: the smallest width (5 chunks: 3 + 2 between column blocks), one that
 # is not a power of two, the models' widths and the largest, each on a
 # ragged last tile, fewer rows than a tile, one key, T = 512 or T = 256;
-# and the backward's clusters of 5, 6 and 7 column blocks (1280, 1536,
-# 1792) at small T, two on a ragged last tile
+# and the clusters of 5, 6 and 7 column blocks (1280, 1536, 1792) at small
+# T, two on a ragged last tile; and (4, 1, 1024, 2048): the forward's 64
+# clusters of 8, more than the card holds at once (WIDER_WAVES)
 WIDER_SHAPES = ((2, 2, 200, 320), (1, 2, 17, 384), (8, 2, 512, 384),
                 (2, 2, 1, 448), (2, 3, 129, 448), (2, 1, 129, 768),
                 (8, 1, 512, 768), (1, 2, 100, 1024), (2, 2, 256, 1024),
                 (2, 2, 100, 1280), (1, 2, 128, 1536), (2, 1, 77, 1792),
-                (1, 2, 17, 2048), (8, 1, 256, 2048))
-# the backward's cluster sizes, ceil(head_dim / 256) column blocks
+                (1, 2, 17, 2048), (8, 1, 256, 2048), (4, 1, 1024, 2048))
+WIDER_WAVES = (4, 1, 1024, 2048)
+# the rows of a cluster's tile: the forward's query rows, dQ's, dK/dV's keys
+WIDER_ROW_TILES = dict(zip(WIDER_FLASH, (64, 64, 32)))
+# the cluster sizes, ceil(head_dim / 256) column blocks
 WIDER_CLUSTERS = range(2, 9)
 # 27f: BERT-base's width in heads of 384 and 768 (the kernels line takes
 # the first, non-causal), and the reference's t * head_dim limit at 2048
@@ -9232,13 +9283,15 @@ def wider_checks(torch, fa, dev):
     ``WIDER_SHAPES``, causal and not: two launches bit-identical, O within
     FWD_ATOL + FWD_RTOL, LSE (written by one column block) within
     FWD_LSE_ATOL, dQ, dK and dV on the kernel's LSE and delta within
-    BWD_ATOL + BWD_RTOL; then how many clusters of each size of
-    ``WIDER_CLUSTERS`` the card holds at once for dQ and dK/dV.  Returns
-    each kernel's largest abs error."""
-    import ctypes
+    BWD_ATOL + BWD_RTOL; the forward's largest O and LSE errors as a share
+    of their tolerance at each width; then how many clusters of each size
+    of ``WIDER_CLUSTERS`` the card holds at once for the forward, dQ and
+    dK/dV, that ``WIDER_WAVES``'s forward took more than one wave, and the
+    waves at 27f's shapes.  Returns each kernel's largest abs error."""
     from analytics_zoo_torch.ops import kernels
     gen = torch.Generator(device=dev).manual_seed(27)
     errs = dict.fromkeys(WIDER_FLASH, 0.0)
+    share = {}                            # width -> [O's, LSE's]
     shapes_z = sorted({-(-shape[3] // 256) for shape in WIDER_SHAPES})
     if shapes_z != list(WIDER_CLUSTERS):
         fail(f"27d: WIDER_SHAPES take the cluster sizes {shapes_z}, not "
@@ -9266,6 +9319,10 @@ def wider_checks(torch, fa, dev):
                           FWD_RTOL)
             err_l = close(f"27d wide forward {tag} LSE", lse, lse_ref,
                           FWD_LSE_ATOL)
+            used = share.setdefault(shape[3], [0.0, 0.0])
+            used[0] = max(used[0], float(((o - o_ref).abs() / (
+                FWD_ATOL + FWD_RTOL * o_ref.abs())).max()))
+            used[1] = max(used[1], err_l / FWD_LSE_ATOL)
             delta = fa.flash_attention_delta(o, do)
             want = (fa.flash_attention_dq_ref(q, k, v, do, lse, delta,
                                               causal),
@@ -9287,24 +9344,40 @@ def wider_checks(torch, fa, dev):
             del runs, want, o_ref, lse_ref
         del q, k, v, do
         torch.cuda.empty_cache()
+    print("27d wide forward's largest errors as a share of their tolerance, "
+          "causal and not (O: atol + rtol |O|; LSE: atol), by head_dim: " +
+          ", ".join(f"{d}: O {o_:.3f}, LSE {l_:.3f}"
+                    for d, (o_, l_) in sorted(share.items())))
     if dev.type != "cuda":
         print("27d cudaOccupancyMaxActiveClusters: not measured (no card)")
         return errs
-    lib = kernels._libs[kernels.SIGNATURES[WIDER_FLASH[1]][0]]
-    occupancy = {}
-    for z in WIDER_CLUSTERS:
-        for dkv, name in enumerate(WIDER_FLASH[1:]):
-            n = ctypes.c_int(0)
-            err = lib.zoo_flash_wide_bwd_max_clusters(dkv, z, ctypes.byref(n))
-            if err != 0 or n.value < 1:
-                fail(f"27d {name}: cudaOccupancyMaxActiveClusters for "
-                     f"clusters of {z} gave {n.value} (cudaError {err})")
-            occupancy[name, z] = n.value
-    for name in WIDER_FLASH[1:]:
-        print(f"27d {name} cudaOccupancyMaxActiveClusters by cluster size "
-              f"(blocks): " + ", ".join(
-                  f"{z}: {occupancy[name, z]} ({z * occupancy[name, z]})"
-                  for z in WIDER_CLUSTERS))
+    widths = sorted({shape[3] for shape in WIDER_SHAPES})
+    occupancy = {(name, d): kernels.max_active_clusters(name, d)
+                 for name in WIDER_FLASH for d in widths}
+    for name in WIDER_FLASH:
+        print(f"27d {name} cudaOccupancyMaxActiveClusters by head_dim "
+              f"(cluster size): " + ", ".join(
+                  f"{d} ({-(-d // 256)}): {occupancy[name, d]}"
+                  for d in widths))
+
+    def waves(name, shape):
+        """(clusters, waves) of kernel ``name``'s launch at ``shape``."""
+        b, h, t, d = shape
+        n = -(-t // WIDER_ROW_TILES[name]) * b * h
+        return n, -(-n // occupancy[name, d])
+
+    n, w = waves(WIDER_FLASH[0], WIDER_WAVES)
+    if w < 2:
+        fail(f"27d: the forward at {WIDER_WAVES} launched {n} clusters of 8 "
+             f"in one wave: no second wave was checked")
+    print(f"27d wide forward at {WIDER_WAVES}: {n} clusters of 8 in {w} "
+          f"waves, checked above")
+    for shape in WIDER_TIMED + (WIDER_LIMIT,):
+        print(f"27d waves at {shape}: " + ", ".join(
+            f"{name} {waves(name, shape)[0]} clusters of "
+            f"{-(-shape[3] // 256)}, {waves(name, shape)[1]} wave"
+            f"{'s' if waves(name, shape)[1] > 1 else ''}"
+            for name in WIDER_FLASH))
     return errs
 
 
@@ -9386,6 +9459,11 @@ def wider_heads_phase(torch, card, dev):
     times.update(wide_kernel_times(torch, card, dev, (WIDER_LIMIT,),
                                    WIDER_FLASH, "27f", same_work=False))
     for (shape, causal), r in times.items():
+        fwd = r[WIDER_FLASH[0]]
+        print(f"27f forward {shape} f32 causal={causal}: {fwd['ms']:.5f} ms "
+              f"against the library's forward {fwd['library_ms']:.5f} ms "
+              f"({fwd['backend']}): {fwd['ms'] / fwd['library_ms']:.3f}x; "
+              f"bound {fwd['bound_ms']:.6f} ms ({card})")
         dq, dkv = r[WIDER_FLASH[1]], r[WIDER_FLASH[2]]
         pair = dq["ms"] + dkv["ms"]
         print(f"27f dQ + dK/dV {shape} f32 causal={causal}: {pair:.5f} ms "

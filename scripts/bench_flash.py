@@ -4,7 +4,7 @@ build, inspect, check and time, beside other versions of the same sources.
 
     python3 scripts/bench_flash.py [--compare PATH.cu ...] [--diagnose]
                                    [--fit | --bf16 | --wide | --wider]
-                                   [--out PATH]
+                                   [--variants NAME,...] [--out PATH]
 
 Builds ``analytics_zoo_torch/csrc/flash_attention_fwd.cu`` and
 ``flash_attention_bwd.cu`` and, with ``--compare``, other sources with the
@@ -101,18 +101,23 @@ prints the kernels' registers, spills and SASS mix, holds forward, dQ and
 dK/dV to the plain versions with ``chip_smoke.py``'s tolerances at
 ``WIDER_CHECKED`` and ``WIDER_TIMED``, causal and not, and times each
 kernel, and dQ + dK/dV, at ``WIDER_TIMED`` (BERT-base's width in heads of
-384 and 768, and the reference's t * head_dim limit at 2048).  With
+384 and 768, and the reference's t * head_dim limit at 2048; with
+``--diagnose`` also at ``WIDER_RANKS``, the cluster sizes 4 to 7).  With
 ``--diagnose`` it also builds the variants of ``WIDER_VARIANTS`` (the
-partial scores in per-step sums in place of one chain, other
-unrollings), holds each to the plain versions (reporting, not failing,
-where it misses a tolerance) and to the current build (bit-identical or
-not, the forward and the backward apart), and times the kernels each
-variant changes in turns with the current build.  A ``--compare`` source
-(an earlier ``flash_attention_wide.cu``, or a copy of either current
-source, named by its directory) takes the parts whose entry points it
-defines, the current sources the rest, and is built, checked and timed
-the same way; for one with a forward it also reports whether that
-forward's SASS is the current forward's, instruction for instruction.
+partial scores in the other order of summation, other unrollings, the
+exchange's scatter at every cluster size or at none, and, wrong by
+design, no exchange at all), holds each to the plain versions
+(reporting, not failing, where it misses a tolerance) and to the current
+build (bit-identical or not, the forward and the backward apart), and
+times the kernels each variant changes in turns with the current build
+(``--variants`` names a subset).  A ``--compare`` source (an earlier
+``flash_attention_wide.cu`` or ``flash_attention_wide_bwd.cu``, named by
+its directory; put that commit's headers beside it, which it finds
+first) takes the parts whose entry points it defines, the current
+sources the rest, and is built, checked and timed the same way; for each
+part it defines it also reports whether that kernel's SASS is the
+current one's, instruction for instruction, and whether its outputs are
+the current ones' bit for bit at every checked shape.
 
 Needs a CUDA device and ``nvcc``; with ``--out PATH`` also writes the
 results as JSON.  Exits non-zero if a check failed (after timing).
@@ -160,9 +165,38 @@ WIDER_ENTRIES = {"fwd": "zoo_flash_attention_fwd_wide",
 WIDER_CHECKED = ((2, 2, 200, 320), (1, 2, 17, 384), (2, 1, 129, 768),
                  (1, 2, 100, 2048))
 WIDER_TIMED = ((8, 2, 512, 384), (8, 1, 512, 768), (8, 1, 256, 2048))
-# --wider --diagnose: variants of the wide backward, by source, each a
-# list of (text in it, replacement)
-WIDER_VARIANTS = {WIDE_BWD: {
+# --wider --diagnose: also timed, the cluster sizes 4 to 7 (32 clusters
+# each, one wave), where each kernel's SCATTER_FROM is placed
+WIDER_RANKS = ((8, 1, 256, 1024), (8, 1, 256, 1280), (8, 1, 256, 1536),
+               (8, 1, 256, 1792))
+# --wider --diagnose: variants of the wide kernels, by the source whose
+# parts they build, each a list of edits: (text in that source,
+# replacement), or (header, text in it, replacement) for a header of
+# csrc/ (the variant's own copy, which only that source is built with)
+WIDE_CLUSTER = "flash_wide_cluster.cuh"
+_NO_EXCHANGE = [
+    (WIDE_CLUSTER, "        cluster_reduce<NP>(part, nz, rank);\n", ""),
+    (WIDE_CLUSTER, "    if (live) {\n        if (SCATTER) {",
+     "    if (false) {\n        if (SCATTER) {")]
+WIDER_VARIANTS = {WIDE: {
+    # each partial's 8-wide steps one accumulator chain, as the backward
+    # takes its partials: what the per-step sums cost, and the chain's
+    # accuracy on the card
+    "fwd_chain": [("constexpr bool SCORE_STEPS = true;",
+                   "constexpr bool SCORE_STEPS = false;")],
+    # other unrollings of the partial scores' 8-wide steps
+    "fwd_unroll2": [("constexpr int FWD_UNROLL = 1;", "constexpr int FWD_UNROLL = 2;")],
+    "fwd_unroll8": [("constexpr int FWD_UNROLL = 1;", "constexpr int FWD_UNROLL = 8;")],
+    # every cluster sums every position in every rank, or every one
+    # scatters (the kernel takes each by cluster size)
+    "fwd_all_read": [("constexpr int FWD_SCATTER_FROM = 4;",
+                      "constexpr int FWD_SCATTER_FROM = 9;")],
+    "fwd_scatter": [("constexpr int FWD_SCATTER_FROM = 4;",
+                     "constexpr int FWD_SCATTER_FROM = 2;")],
+    # no rank reads another's partial (wrong by design): what the
+    # exchange's reads cost beside its barriers
+    "fwd_no_exchange": _NO_EXCHANGE,
+}, WIDE_BWD: {
     # each 8-wide step of the partial scores summed from zero, then added
     # (the forward's order): what the one chain saves, and its accuracy
     "bwd_steps": [("constexpr bool PARTIAL_STEPS = false;",
@@ -181,9 +215,7 @@ WIDER_VARIANTS = {WIDE_BWD: {
                      "constexpr int SCATTER_FROM = 2;")],
     # no rank reads another's partials (wrong by design): what the
     # exchange's reads cost beside its barriers
-    "bwd_no_exchange": [
-        ("        cluster_reduce(part, nz, rank);\n", ""),
-        ("    if (live) {\n        if (SCATTER) {", "    if (false) {\n        if (SCATTER) {")],
+    "bwd_no_exchange": _NO_EXCHANGE,
 }}
 F32_NAMES = ["flash_attention_dq", "flash_attention_dkv"]
 # bench_attention's shape and twice its sequence, causal
@@ -460,29 +492,32 @@ def defines(path: str, entry: str) -> bool:
 
 
 def variant_sources(csrc: str, out_dir: str, source: str, variants):
-    """Write the --diagnose variants (``variants``: {name: [(old, new)]})
-    of the current ``source`` (each beside its own copy of the headers);
-    returns {tag: path}."""
-    with open(os.path.join(csrc, source + ".cu")) as f:
-        text = f.read()
+    """Write the --diagnose variants (``variants``: {name: [edit]}, each
+    edit (old, new) in ``source``'s text or (header, old, new) in a
+    header's) of the current ``source``, each beside its own copy of the
+    headers; returns {tag: path}."""
+    files = [source + ".cu"] + sorted(
+        os.path.basename(h) for h in glob.glob(os.path.join(csrc, "*.cuh")))
+    texts = {}
+    for n in files:
+        with open(os.path.join(csrc, n)) as f:
+            texts[n] = f.read()
     out = {}
     for name, edits in variants.items():
-        variant = text
-        for old, new in edits:
-            if old not in variant:
-                sys.exit(f"bench_flash: --diagnose: {name}: {source}.cu no "
+        variant = dict(texts)
+        for edit in edits:
+            where, old, new = edit if len(edit) == 3 else (source + ".cu",
+                                                           *edit)
+            if old not in variant[where]:
+                sys.exit(f"bench_flash: --diagnose: {name}: {where} no "
                          f"longer holds {old!r}")
-            variant = variant.replace(old, new)
+            variant[where] = variant[where].replace(old, new)
         d = os.path.join(out_dir, f"diag_{source}_{name}")
         os.makedirs(d, exist_ok=True)
-        for h in glob.glob(os.path.join(csrc, "*.cuh")):
-            with open(h) as f_in, open(os.path.join(d, os.path.basename(h)),
-                                       "w") as f_out:
-                f_out.write(f_in.read())
-        path = os.path.join(d, source + ".cu")
-        with open(path, "w") as f:
-            f.write(variant)
-        out[f"diag_{name}"] = path
+        for n, text in variant.items():
+            with open(os.path.join(d, n), "w") as f:
+                f.write(text)
+        out[f"diag_{name}"] = os.path.join(d, source + ".cu")
     return out
 
 
@@ -625,7 +660,14 @@ def wider_versions(args, kernels):
         versions[os.path.basename(os.path.dirname(path))] = {**current,
                                                              **parts}
     if args.diagnose:
+        chosen = args.variants.split(",") if args.variants else None
+        unknown = set(chosen or ()) - {n for v in WIDER_VARIANTS.values()
+                                       for n in v}
+        if unknown:
+            sys.exit(f"bench_flash: --variants: no variant {sorted(unknown)}")
         for source, variants in WIDER_VARIANTS.items():
+            variants = {n: e for n, e in variants.items()
+                        if chosen is None or n in chosen}
             for tag, path in variant_sources(kernels.CSRC_DIR,
                                              kernels.BUILD_DIR, source,
                                              variants).items():
@@ -666,20 +708,22 @@ def wider_flash(args, torch, kernels, fa, card) -> None:
     libs = {tag: {part: built[src] for part, src in parts.items()}
             for tag, parts in versions.items()}
     result["parts"] = versions
-    # is each compared forward the same machine code as the current one?
-    fwd_sass = {src: sass_text(paths[src], kernels.nvcc_path(),
-                               "flash_fwd_wide_kernel")
-                for src in {parts["fwd"] for parts in versions.values()}}
-    current_sass = fwd_sass[versions["current"]["fwd"]]
-    result["forward_sass_identical"] = {}
-    for tag, parts in versions.items():
-        if parts["fwd"] == versions["current"]["fwd"]:
-            continue
-        same = current_sass is not None and fwd_sass[parts["fwd"]] == current_sass
-        result["forward_sass_identical"][tag] = same
-        print(f"[wider {tag}] flash_fwd_wide_kernel SASS "
-              f"({len(current_sass or [])} instructions) "
-              f"{'identical to' if same else 'differs from'} current's")
+    # is each compared part the same machine code as the current one?
+    result["sass_identical"] = {}
+    for part, kind in (("fwd", "flash_fwd_wide_kernel"),
+                       ("dq", "flash_dq_wide_kernel"),
+                       ("dkv", "flash_dkv_wide_kernel")):
+        sass = {src: sass_text(paths[src], kernels.nvcc_path(), kind)
+                for src in {parts[part] for parts in versions.values()}}
+        current_sass = sass[versions["current"][part]]
+        for tag, parts in versions.items():
+            if parts[part] == versions["current"][part]:
+                continue
+            same = current_sass is not None and sass[parts[part]] == current_sass
+            result["sass_identical"].setdefault(tag, {})[kind] = same
+            print(f"[wider {tag}] {kind} SASS "
+                  f"({len(current_sass or [])} instructions) "
+                  f"{'identical to' if same else 'differs from'} current's")
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(26)
@@ -701,7 +745,8 @@ def wider_flash(args, torch, kernels, fa, card) -> None:
             "dkv": lambda: parts["dkv"].zoo_flash_attention_dkv_wide(
                 *ptrs, dk, dv, b * h, t, d, scale, int(causal), stream)}
 
-    for shape in WIDER_CHECKED + WIDER_TIMED:
+    timed = WIDER_TIMED + (WIDER_RANKS if args.diagnose else ())
+    for shape in WIDER_CHECKED + timed:
         q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
                        for _ in range(4))
         for causal in (False, True):
@@ -750,7 +795,7 @@ def wider_flash(args, torch, kernels, fa, card) -> None:
                      f"; forward {'bit-identical to' if same['fwd'] else 'differs from'}"
                      f" current, backward {'bit-identical to' if same['bwd'] else 'differs from'}"
                      " current"))
-            if shape not in WIDER_TIMED:
+            if shape not in timed:
                 continue
             b, h, t, d = shape
             pairs = b * h * t * t / (2 if causal else 1)
@@ -785,6 +830,20 @@ def wider_flash(args, torch, kernels, fa, card) -> None:
                 f" ms ({card})")
         del q, k, v, do
         torch.cuda.empty_cache()
+    # each compared version's forward and backward against the current
+    # ones' outputs, over every checked shape
+    for tag in libs:
+        if tag == "current":
+            continue
+        mine = [c["bit_identical_to_current"] for c in checks
+                if c["version"] == tag and "bit_identical_to_current" in c]
+        for what, key in (("forward", "fwd"), ("backward (dQ, dK, dV)", "bwd")):
+            same = all(c[key] for c in mine)
+            result.setdefault("bit_identical_everywhere", {}).setdefault(
+                tag, {})[key] = same
+            print(f"[wider {tag}] {what} {'bit-identical to' if same else 'differs from'}"
+                  f" current's at every checked shape, causal and not "
+                  f"({len(mine)} checks)")
     result.update(checks=checks, times_ms=times, failures=failures)
     write_out(args, result)
     if failures:
@@ -1172,6 +1231,9 @@ def main() -> None:
     ap.add_argument("--bf16", action="store_true")
     ap.add_argument("--wide", action="store_true")
     ap.add_argument("--wider", action="store_true")
+    # --wider --diagnose: only these variants of WIDER_VARIANTS (comma
+    # separated names; default all)
+    ap.add_argument("--variants", default=None)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 

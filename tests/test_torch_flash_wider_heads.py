@@ -4,24 +4,23 @@
 ``csrc/flash_attention_wide_bwd.cu`` (dQ and dK/dV) take float32 q, k, v
 at every head_dim from 320 to 2048 in steps of 64 (the reference routes
 any multiple of 64 to its Pallas kernels while ``t * head_dim <= 4096 *
-128``).  A block owns up to 256 of the output's columns; a forward block
-takes the scores over all of d, while the backward's column blocks of a
-row tile form one cluster, each takes the partial scores over its own
-columns, and every block adds the cluster's partials in rank order.  The
-kernels cannot run here, so:
+128``).  A block owns up to 256 of the output's columns, and the column
+blocks of a row tile form one cluster: in the forward and the backward
+alike each takes the partial scores over its own columns, and every
+block adds the cluster's partials in rank order.  The kernels cannot run
+here, so:
 
 - the plain versions (``flash_attention_ref`` and the backward's) against
   the Pallas kernels in interpret mode (``_flash_fwd_impl``; ``jax.vjp``
   through ``flash_attention``), at T = 256, causal and not;
 - the wide kernels' arithmetic emulated in PyTorch: every product in
   split TF32 (``test_torch_flash_split_tf32.py``) summed in 8-wide steps
-  in the kernels' order (d for the forward's scores, each column block's
-  own columns for the backward's partial scores, keys for P V and dS K,
-  query rows for P^T dO and dS^T q), the forward's online softmax over
-  32-key tiles, the backward's partials added in rank order, and the
-  output's columns split between column blocks as the kernels split
-  them; held to the same within the tolerances the card holds the
-  kernels to;
+  in the kernels' order (each column block's own columns for the partial
+  scores, keys for P V and dS K, query rows for P^T dO and dS^T q), the
+  partials added in rank order, the forward's online softmax over 32-key
+  tiles, and the output's columns split between column blocks as the
+  kernels split them; held to the same within the tolerances the card
+  holds the kernels to;
 - the routing on a CUDA device string;
 - a transformer ``TextClassifier`` whose heads are 384 and 768 wide
   (``token_length=384, n_head=1`` and ``token_length=768, n_head=1``)
@@ -78,10 +77,9 @@ from test_torch_flash_split_tf32 import BWD_TOL, FWD_LSE_TOL, FWD_TOL, tf32
 # the smallest width, one that is not a power of two, the models' widths
 # and the largest
 WIDER = (320, 384, 768, 2048)
-EMULATED = (384, 2048)
-# the backward's emulation also at a cluster of 5 (1280: 4 + 4 + 4 + 4 + 4
-# chunks) and at the uneven split of 320 (3 + 2)
-EMULATED_BWD = (320, 384, 1280, 2048)
+# the emulations: the uneven split of 320 (3 + 2 chunks), 384, a cluster
+# of 5 (1280: 4 + 4 + 4 + 4 + 4 chunks) and the largest
+EMULATED = (320, 384, 1280, 2048)
 T = 256
 # the plain versions against the Pallas kernels: one float32 formula in
 # two orders of summation
@@ -186,25 +184,22 @@ def column_blocks(d):
             for z in range(nz)]
 
 
-def _scores(q, k, scale):
-    """s = (q * scale) k^T in the kernels' d-order."""
-    return steps_mm(q * scale, k.transpose(-1, -2), fresh_steps=True)
-
-
-def wide_forward(q, k, v, causal):
-    """(O, LSE) as the wide forward kernel computes them: s, then for each
-    column block the online softmax over 32-key tiles (keys past T at
-    -inf, causal cells at -1e30; m from -1e30, O rescaled by exp(m_old -
-    m_new) each tile), and O's columns of the block from P V of its
-    columns, O = acc / max(l, 1e-30).  Each column block of the kernel
-    takes s again with the same instructions on the same operands, so
-    one s stands for all of them here (the card holds the blocks' O
-    columns to each other through the plain versions, phase 27d)."""
+def wide_forward(q, k, v, causal, fresh_steps=True):
+    """(O, LSE) as the wide forward kernel computes them: s as the
+    cluster's partials, each rank's over its own columns, added in rank
+    order (``cluster_scores``: its 8-wide steps summed from zero, then
+    added, the kernel's SCORE_STEPS; ``fresh_steps=False``, one chain a
+    partial); then for each column block the online softmax over 32-key
+    tiles (keys past T at -inf, causal cells at -1e30; m from -1e30, O
+    rescaled by exp(m_old - m_new) each tile), and O's columns of the
+    block from P V of its columns, O = acc / max(l, 1e-30).  Every rank of
+    the cluster holds the same sum, bit for bit, so one s stands for all
+    of them here."""
     b, h, t, d = q.shape
     scale = d ** -0.5
     rows = torch.arange(t)[:, None]
     o = torch.empty_like(q)
-    s = _scores(q, k, scale)
+    s = cluster_scores(q, k, scale, fresh_steps)
     for cols in column_blocks(d):
         m = torch.full((b, h, t, 1), -1e30)
         l = torch.zeros((b, h, t, 1))
@@ -318,7 +313,23 @@ def test_wide_split_tf32_forward_keeps_the_card_tolerance(d, causal):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", EMULATED_BWD)
+@pytest.mark.parametrize("d", EMULATED)
+def test_wide_forward_in_one_chain_keeps_the_card_tolerance(d, causal):
+    """The other order the forward's source can be built in (SCORE_STEPS
+    false): each partial's 8-wide steps one accumulator chain, as the
+    backward takes its partials.  Round to nearest here, where the tensor
+    core truncates its running sum: the card decides between the two."""
+    q, k, v = _inputs(d, causal, 3, 2)
+    jo, jl = _pallas_forward(q, k, v, causal)
+    with _one_thread():
+        o, lse = wide_forward(*(torch.from_numpy(x) for x in (q, k, v)),
+                              causal, fresh_steps=False)
+    np.testing.assert_allclose(o.numpy(), jo, err_msg="O", **FWD_TOL)
+    np.testing.assert_allclose(lse.numpy(), jl, err_msg="LSE", **FWD_LSE_TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", EMULATED)
 def test_wide_split_tf32_backward_keeps_the_card_tolerance(d, causal):
     q, k, v, do = _inputs(d, causal, 4, 3)
     want = _pallas_grads(q, k, v, do, causal)
@@ -330,7 +341,7 @@ def test_wide_split_tf32_backward_keeps_the_card_tolerance(d, causal):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", EMULATED_BWD)
+@pytest.mark.parametrize("d", EMULATED)
 def test_wide_backward_in_per_step_sums_keeps_the_card_tolerance(d, causal):
     """The other order the backward's source can be built in (its
     PARTIAL_STEPS): each 8-wide step of a partial summed from zero."""

@@ -435,6 +435,34 @@ def test_layer_matches_reference(case):
                                    err_msg="input")
 
 
+# --------------------------------------------------- Power's edge values
+POWER_EDGES = np.array([[-np.inf, -4.0, -0.0, 0.0, 1e-6, 4.0, np.inf,
+                         np.nan]], np.float32)
+
+
+@pytest.mark.parametrize("power,scale,shift", [
+    *((p, 1.0, 0.0) for p in (0.5, -0.5, 1.5, 2.0, 3.0, 1 / 3, -1.0, 0.0)),
+    # -0.0 + (-2 * 0.0) is -0.0: the input 0.0 reaches the power as -0.0
+    (-0.5, -2.0, -0.0)])
+def test_power_edge_values_match_reference(power, scale, shift):
+    """IEEE ``pow``'s values at -inf, -4, -0.0, 0.0, 1e-6, 4, inf and NaN,
+    as ``jnp.power`` gives them: equal values (NaN equal to NaN) and the
+    same sign on every zero and infinity."""
+    case = Case("Power-edges",
+                lambda L: L.Power(power, scale=scale, shift=shift),
+                POWER_EDGES)
+    jm, tm = _build_pair(case)
+    want = _np(_run_jax(jm, jm.get_variables()["params"],
+                        jnp.asarray(POWER_EDGES), case))
+    got = _np(_run_port(tm, tm.get_variables()["params"],
+                        torch.from_numpy(POWER_EDGES), case))
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    edge = (want == 0) | np.isinf(want)
+    np.testing.assert_array_equal(np.signbit(got[edge]),
+                                  np.signbit(want[edge]))
+
+
 # ------------------------------------------- the random layers, training
 N_DRAW = 200_000
 

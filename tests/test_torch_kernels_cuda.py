@@ -176,21 +176,31 @@ def test_flash_autograd_at_wide_heads_matches_plain_autograd(dev, causal, d):
     assert all(after[n] == before[n] + 1 for n in fa.KERNELS[torch.float32])
 
 
-# float32 past head_dim 256 (csrc/flash_attention_wide.cu, the forward: a
-# block owns up to 256 of the output's columns and takes the scores over
-# all of d; csrc/flash_attention_wide_bwd.cu, dQ and dK/dV: the column
-# blocks of a row tile form a cluster of 2 to 8 that takes the scores once):
-# one key, fewer rows than a tile, ragged last tiles, a width of 5 chunks
-# split 3 + 2 between column blocks, the models' 384 and 768, 2048, and
-# the cluster sizes 5, 6 and 7 (1280, 1536, 1792); the tolerances of the
-# narrow float32 kernels
+# float32 past head_dim 256 (csrc/flash_attention_wide.cu, the forward,
+# and csrc/flash_attention_wide_bwd.cu, dQ and dK/dV): a block owns up to
+# 256 of the output's columns, and the column blocks of a row tile form a
+# cluster of 2 to 8 that takes the scores once, each block the partial
+# scores over its own columns, the partials added in rank order through
+# distributed shared memory (the forward one partial a key tile, S; the
+# backward two, S and dP): one key, fewer rows than a tile, ragged last
+# tiles, a width of 5 chunks split 3 + 2 between column blocks, the
+# models' 384 and 768, 2048, the cluster sizes 5, 6 and 7 (1280, 1536,
+# 1792), and at T = 1024 and 2048 more clusters of 8 than the card holds at
+# once (a second wave); the tolerances of the narrow float32 kernels
+WIDE_WAVES = (1024, 2048)
+
+
 @pytest.mark.parametrize("t,d,causal", [(1, 320, False), (17, 384, True),
                                         (100, 448, False), (129, 768, True),
                                         (256, 1024, False), (512, 384, True),
                                         (200, 2048, True), (256, 2048, False),
                                         (100, 1280, False), (128, 1536, True),
-                                        (77, 1792, True)])
+                                        (77, 1792, True), (*WIDE_WAVES, False)])
 def test_flash_wide_kernels_match_plain_and_relaunch(dev, t, d, causal):
+    if (t, d) == WIDE_WAVES:
+        # the forward's 16 row tiles of 64 in each of 2 x 2 slices: 64
+        # clusters of 8
+        assert 64 > kernels.max_active_clusters("flash_attention_fwd_wide", d)
     q, k, v, do = (_randn(dev, 2, 2, t, d, seed=s) for s in range(4))
     before = kernels.launch_counts()
     runs = []
