@@ -83,24 +83,35 @@
 //   of K, V), dK/dV 179 KB (K, V of 64 rows; three stages of q, dO, lse,
 //   delta and P^T), alignment included.
 //
-// Head_dim 192 and 256 (Cfg::NC = 1).  A consumer's 64 x D float32
-// accumulator is 96 or 128 registers a thread; with S and dP (32 each) or
-// dS's parts (48) beside it, no role fits the 168 registers of a 384-thread
-// block.  So a block is the loader warpgroup and ONE consumer warpgroup
-// (256 threads: ptxas may give a thread 255 registers, and setmaxnreg is
-// not used), with two stages:
-//   - dQ: 64 query rows a block (q, dO 48/64 KB; stages of K, V 96/128 KB:
-//     145/193 KB at D = 192/256).
-//   - dK/dV: the grid has two blocks a 64-key block kb: y = 2 kb, the dV
-//     block, takes S^T, P^T and dV as consumer 1 above does (its loader
-//     loads K, not V); y = 2 kb + 1, the dK block, takes S^T and dP^T,
-//     forms P^T itself (the same instructions on the same operands: the
-//     same P^T) and dS^T, then dK.  No P^T crosses warpgroups, and S^T is
-//     taken twice: 9 passes for the pair where the split above takes 8.
-//     (K, V 48/64 KB; stages of q, dO, lse, delta 97/129 KB: 146/194 KB.)
-//   - dQ = dS K, dV = P^T dO and dK = dS^T qs take their D columns as a
-//     128- and a 64- or 128-column wgmma on the same A registers
-//     (wgmma_rs).
+// Head_dim 192 and 256.  A consumer's 64 x D float32 accumulator is 96 or
+// 128 registers a thread; with S or dP (32) and dS's parts (48) beside it
+// no role fits the 168 registers ptxas gives a thread of a 288- or
+// 384-thread block (three warps share a register file).  A block of 256
+// threads may take 255.
+//   - dK/dV (flash_dkv_bf16_pair_kernel): two consumer warpgroups and no
+//     loader warpgroup, one block a 64-key block, as at 128: consumer 0
+//     takes S^T, P^T (into shared memory, `pready`; two buffers, released
+//     on `pfree`) and dV += P^T dO; consumer 1 takes dP^T, dS^T and
+//     dK += dS^T qs, and its thread 0 issues every TMA load after its own
+//     products.  8 passes a key block, q and dO streamed once.  q *
+//     scale: where the rounded scale is a power of two (head_dim 256's
+//     1/16), bf16(q * scale) = q * scale, so both consumers read q as it
+//     lands and S^T and dK take the scale (S^T before exp, dK at the
+//     store), exactly; otherwise (192) consumer 1 rounds the next q tile
+//     while its dP^T is on the tensor core and releases it on `full`.
+//     Each consumer reads its tile's lse or delta from global memory.
+//     Shared memory 230,512 / 230,488 bytes at 192 / 256: K, V; three /
+//     two stages of q and dO; two P^T buffers of 16 KB.  It keeps every
+//     sum of the design it replaced (two one-consumer blocks a key block):
+//     dK and dV are bit-identical to it (q past bf16's normal range aside,
+//     where the exact scale skips a rounding of q * scale the reference
+//     takes).
+//   - dQ (Cfg::NC = 1): the loader warpgroup and one consumer warpgroup,
+//     256 threads, two stages, 64 query rows a block.  Two consumers a
+//     64-row tile, each with half of dQ's columns and P and dP - delta
+//     swapped between them, were slower (PERF.md).
+//   dQ, dV and dK take their D columns as a 128- and a 64- or 128-column
+//   wgmma on the same A registers (wgmma_rs).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -121,7 +132,7 @@ constexpr int PARTS = 3;  // bf16 parts of a float32 operand (smallest first)
 template <int D_, bool DQ>
 struct Cfg {
     static constexpr int D = D_;
-    static constexpr int NC = D_ <= 128 ? 2 : 1;   // consumer warpgroups (see above)
+    static constexpr int NC = DQ && D_ > 128 ? 1 : 2;   // consumer warpgroups (see above)
     static constexpr int BM = DQ ? 64 * NC : 64;   // rows a block owns: dQ 128 (64), dK/dV 64
     static constexpr int BN = 64;                  // rows of a streamed tile
     static constexpr int STAGES = NC == 2 ? 3 : 2;
@@ -132,7 +143,7 @@ struct Cfg {
     static constexpr int RING = 2 * OWN;           // stage s: two tiles at RING + 2s TILE
     static constexpr int ROWS = RING + STAGES * 2 * TILE;   // dK/dV, stage s: lse, delta
     static constexpr int PBUF = ROWS + STAGES * 2 * BN * 4; // dK/dV, stage s: P^T, 64 x 64
-    static constexpr int BARS = PBUF + (!DQ && NC == 2 ? STAGES * BN * BN * 4 : 0);
+    static constexpr int BARS = PBUF + (DQ ? 0 : STAGES * BN * BN * 4);
     static constexpr int SMEM = BARS + 5 * STAGES * 8 + 8 + 1024;  // + alignment slack
     // setmaxnreg: the loader's and each consumer's registers a thread (dQ,
     // dK/dV); the block's pool, 384 x 168 (__launch_bounds__(384, 1)),
@@ -372,9 +383,8 @@ flash_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
 // P^T = exp(S^T - lse) in place on S^T's accumulator x: x[j][e] is key
 // krow + 8 (e >> 1) against query q0 + 8j + 2tg + (e & 1) (ls: the tile's
 // lse by query); causal cells (key > query) at -1e30, queries past t 0.
-// With STORE each 8-query block also goes to pb, thread by thread, for the
-// consumer that forms dS^T.
-template <bool STORE>
+// Each 8-query block also goes to pb, thread by thread, for the consumer
+// that forms dS^T.
 __device__ __forceinline__ void p_transposed(float (&x)[8][4], const float* ls, float4* pb,
                                              int krow, int q0, int t, bool edge, int causal,
                                              int tg, int tid) {
@@ -392,7 +402,7 @@ __device__ __forceinline__ void p_transposed(float (&x)[8][4], const float* ls, 
             if (edge && qr >= t) p = 0.f;
             x[j][e] = p;
         }
-        if constexpr (STORE) pb[j * 128 + tid] = make_float4(x[j][0], x[j][1], x[j][2], x[j][3]);
+        pb[j * 128 + tid] = make_float4(x[j][0], x[j][1], x[j][2], x[j][3]);
     }
 }
 
@@ -418,8 +428,7 @@ flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
     uint64_t* pready = empty + ST;                 // a stage's P^T is in pbuf
 
     const int bh = blockIdx.x;
-    // one consumer (C::NC == 1): two blocks a key block, y = 2 kb + kind
-    const int k0 = (C::NC == 2 ? blockIdx.y : blockIdx.y >> 1) * BM;   // causal: the most q tiles first
+    const int k0 = blockIdx.y * BM;                // causal: the most q tiles first
     const int n_q = (t + BN - 1) / BN;
     // causal: q tiles above k0 see none of these keys; every later tile
     // sees some (BM = BN), so no tile of the walk is skipped
@@ -431,7 +440,7 @@ flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
         for (int s = 0; s < ST; ++s) {
             bar_init(raw + s, 1);
             bar_init(full + s, 128);
-            bar_init(empty + s, 128 * C::NC);
+            bar_init(empty + s, 256);
             bar_init(pready + s, 128);
         }
         bar_init_fence();
@@ -442,14 +451,12 @@ flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
     // whole warpgroups, and the three roles never meet again)
     const int role = __shfl_sync(0xffffffff, threadIdx.x / 128, 0);
     if (role == 0) {                               // the loader
-        if constexpr (C::NC == 2) setmaxnreg_dec<C::DKV_LOADER>();
+        setmaxnreg_dec<C::DKV_LOADER>();
         const int tid = threadIdx.x;
-        // one consumer: the dV block (y even) never reads V
-        const bool with_v = C::NC == 2 || (blockIdx.y & 1);
         if (tid == 0) {
-            bar_arrive_tx(own, (with_v ? 2 : 1) * C::OWN);
+            bar_arrive_tx(own, 2 * C::OWN);
             load_tile<BM, D>(ks, &tk, k0, bh, own);
-            if (with_v) load_tile<BM, D>(vs, &tv, k0, bh, own);
+            load_tile<BM, D>(vs, &tv, k0, bh, own);
         }
         for (int i = 0; i < n; ++i) {
             const int s = i % ST, q0 = (qt0 + i) * BN;
@@ -471,11 +478,9 @@ flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
         }
     } else {
         // role 1: S^T, P^T and dV; role 2: dP^T, dS^T and dK, with P^T
-        // from role 1 through shared memory (one consumer: the block's
-        // kind picks the role, and role 2 takes S^T and P^T itself).  Each
-        // holds one 64 x D accumulator for the block's 64 keys.
-        if constexpr (C::NC == 2) setmaxnreg_inc<C::DKV_CONSUMER>();
-        const int kind = C::NC == 2 ? role : 1 + (blockIdx.y & 1);
+        // from role 1 through shared memory.  Each holds one 64 x D
+        // accumulator for the block's 64 keys.
+        setmaxnreg_inc<C::DKV_CONSUMER>();
         const int tid = threadIdx.x % 128;
         const int lane = tid % 32, g = lane / 4, tg = lane % 4;
         const int krow = k0 + 16 * (tid / 32) + g;   // this thread's key rows: krow, krow + 8
@@ -485,7 +490,7 @@ flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
         zero(acc);
         float x[8][4];
         uint32_t a[4][PARTS][4];
-        if (kind == 1) {
+        if (role == 1) {
             for (int i = 0; i < n; ++i) {
                 const int s = i % ST, q0 = (qt0 + i) * BN;
                 const uint8_t* qst = smem + C::RING + s * 2 * C::TILE;
@@ -501,8 +506,8 @@ flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
                 wg_commit();
                 wg_wait<0>();
                 keep(x);
-                p_transposed<C::NC == 2>(x, ls, pb, krow, q0, t, edge, causal, tg, tid);
-                if constexpr (C::NC == 2) bar_arrive(pready + s);
+                p_transposed(x, ls, pb, krow, q0, t, edge, causal, tg, tid);
+                bar_arrive(pready + s);
                 a_parts(a, x);                     // P^T
                 wg_fence();
                 product3<C>(acc, a, qst + C::TILE);   // dV += P^T dO
@@ -519,51 +524,23 @@ flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
                 const float* dl = rows + s * 2 * BN + BN;
                 const float4* pb = pbuf + s * (BN * BN / 4);
                 bar_wait(full + s, (i / ST) & 1);
-                if constexpr (C::NC == 2) {
-                    wg_fence();
+                wg_fence();
 #pragma unroll
-                    for (int kk = 0; kk < D / 16; ++kk)
-                        wgmma_ss64(x, desc_k<BM>(vs, 0, kk), desc_k<BN>(qst + C::TILE, 0, kk),
-                                   kk > 0);
-                    wg_commit();
-                    wg_wait<0>();
-                    keep(x);
-                    bar_wait(pready + s, (i / ST) & 1);
+                for (int kk = 0; kk < D / 16; ++kk)
+                    wgmma_ss64(x, desc_k<BM>(vs, 0, kk), desc_k<BN>(qst + C::TILE, 0, kk),
+                               kk > 0);
+                wg_commit();
+                wg_wait<0>();
+                keep(x);
+                bar_wait(pready + s, (i / ST) & 1);
 #pragma unroll
-                    for (int j = 0; j < 8; ++j) {
-                        const float2 d2 = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * tg);
-                        const float4 p = pb[j * 128 + tid];
-                        x[j][0] = p.x * (x[j][0] - d2.x);
-                        x[j][1] = p.y * (x[j][1] - d2.y);
-                        x[j][2] = p.z * (x[j][2] - d2.x);
-                        x[j][3] = p.w * (x[j][3] - d2.y);
-                    }
-                } else {
-                    const int q0 = (qt0 + i) * BN;
-                    const bool edge = (causal && k0 + BM - 1 > q0) || q0 + BN > t;
-                    float sp[8][4];                // S^T, then P^T
-                    wg_fence();
-#pragma unroll
-                    for (int kk = 0; kk < D / 16; ++kk)
-                        wgmma_ss64(sp, desc_k<BM>(ks, 0, kk), desc_k<BN>(qst, 0, kk), kk > 0);
-#pragma unroll
-                    for (int kk = 0; kk < D / 16; ++kk)
-                        wgmma_ss64(x, desc_k<BM>(vs, 0, kk), desc_k<BN>(qst + C::TILE, 0, kk),
-                                   kk > 0);
-                    wg_commit();
-                    wg_wait<0>();
-                    keep(sp);
-                    keep(x);
-                    p_transposed<false>(sp, rows + s * 2 * BN, nullptr, krow, q0, t, edge,
-                                        causal, tg, tid);
-#pragma unroll
-                    for (int j = 0; j < 8; ++j) {
-                        const float2 d2 = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * tg);
-                        x[j][0] = sp[j][0] * (x[j][0] - d2.x);
-                        x[j][1] = sp[j][1] * (x[j][1] - d2.y);
-                        x[j][2] = sp[j][2] * (x[j][2] - d2.x);
-                        x[j][3] = sp[j][3] * (x[j][3] - d2.y);
-                    }
+                for (int j = 0; j < 8; ++j) {
+                    const float2 d2 = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * tg);
+                    const float4 p = pb[j * 128 + tid];
+                    x[j][0] = p.x * (x[j][0] - d2.x);
+                    x[j][1] = p.y * (x[j][1] - d2.y);
+                    x[j][2] = p.z * (x[j][2] - d2.x);
+                    x[j][3] = p.w * (x[j][3] - d2.y);
                 }
                 a_parts(a, x);                     // dS^T
                 wg_fence();
@@ -575,8 +552,234 @@ flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
                 bar_arrive(empty + s);
             }
         }
-        store_rows<D>((kind == 1 ? dv : dk) + (size_t)bh * t * D, acc, krow, t, 1.f, tg);
+        store_rows<D>((role == 1 ? dv : dk) + (size_t)bh * t * D, acc, krow, t, 1.f, tg);
     }
+}
+
+// ------------------------------------- head_dim 192 and 256: two consumers
+
+// A block of two consumer warpgroups and no loader warpgroup: 256 threads,
+// two warps a register file, so ptxas may give a thread 255 registers.
+// Thread 0 of consumer 1 issues every TMA load.
+constexpr int PAIR_THREADS = 256;
+
+// q * scale takes no rounding where the scale (already bf16) is a power of
+// two: bf16(q * scale) = q * scale (q past bf16's normal range aside), and
+// a product with q * scale is the product with q times the scale, exactly.
+__device__ __forceinline__ bool power_of_two(float x) {
+    const uint32_t e = (__float_as_uint(x) >> 23) & 0xFF;
+    return (__float_as_uint(x) & 0x7FFFFF) == 0 && e != 0 && e != 0xFF;
+}
+
+template <int D_>
+struct DkvPair {
+    static constexpr int D = D_;
+    static constexpr int BM = 64, BN = 64;         // keys of a block, queries of a tile
+    static constexpr int NK = BN / 16;
+    static constexpr int ST = D_ == 256 ? 2 : 3;   // stages of q and dO
+    static constexpr int NPB = 2;                  // P^T buffers
+    static constexpr int OWN = BM * D * 2;         // K, V of the block
+    static constexpr int TILE = BN * D * 2;        // a q or dO tile
+    static constexpr int RING = 2 * OWN;           // stage s: q at RING + 2s TILE, dO after it
+    static constexpr int PBUF = RING + ST * 2 * TILE;   // P^T, 64 x 64 float32 a buffer
+    static constexpr int BARS = PBUF + NPB * BM * BN * 4;
+    static constexpr int SMEM = BARS + (1 + 3 * ST + 2 * NPB) * 8 + 1024;
+};
+
+// s (64 x 64) = A . B^T over D values, both K-major in shared memory: rows
+// of a 64-row tile a against a 64-row tile b
+template <int D>
+__device__ __forceinline__ void product_ss(float (&s)[8][4], const uint8_t* a, const uint8_t* b) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss64(s, desc_k<64>(a, 0, kk), desc_k<64>(b, 0, kk), kk > 0);
+}
+
+// P^T = exp(S^T * smul - lse) in place on S^T's accumulator x: x[j][e] is
+// key krow + 8 (e >> 1) against query q0 + 8j + 2tg + (e & 1), ls[j][e]
+// that query's lse; causal cells (key > query) at -1e30, queries past t 0.
+// Each 8-query block also goes to pb, thread by thread.
+__device__ __forceinline__ void p_transposed_pair(float (&x)[8][4], const float (&ls)[8][2],
+                                                  float4* pb, int krow, int q0, int t, bool edge,
+                                                  int causal, float smul, int tg, int tid) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int kr = krow + 8 * (e >> 1);
+            const int qr = q0 + 8 * j + 2 * tg + (e & 1);
+            float sv = x[j][e] * smul;
+            if (edge && causal && kr > qr) sv = -1e30f;
+            float p = expf(sv - ls[j][e & 1]);
+            if (edge && qr >= t) p = 0.f;
+            x[j][e] = p;
+        }
+        pb[j * 128 + tid] = make_float4(x[j][0], x[j][1], x[j][2], x[j][3]);
+    }
+}
+
+// rows[bh * t + q] for this thread's query columns q0 + 8j + 2tg (+1) of a
+// tile; 0 past t
+__device__ __forceinline__ void tile_rows(float (&r)[8][2], const float* rows, int bh, int t,
+                                          int q0, int tg) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            const int q = q0 + 8 * j + 2 * tg + e;
+            r[j][e] = q < t ? rows[(size_t)bh * t + q] : 0.f;
+        }
+}
+
+template <int D>
+__global__ void __launch_bounds__(PAIR_THREADS, 1)
+flash_dkv_bf16_pair_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv, int t, float qscale,
+                           int causal) {
+    using C = DkvPair<D>;
+    constexpr int BM = C::BM, BN = C::BN, ST = C::ST, NPB = C::NPB;
+    extern __shared__ uint8_t smem_raw[];
+    uint8_t* smem = align1024(smem_raw);
+    uint8_t* ks = smem;
+    uint8_t* vs = smem + C::OWN;
+    float4* pbuf = reinterpret_cast<float4*>(smem + C::PBUF);
+    uint64_t* own = reinterpret_cast<uint64_t*>(smem + C::BARS);
+    uint64_t* raw = own + 1;                       // a stage's TMA landed
+    uint64_t* full = raw + ST;                     // ... and its q is scaled (not exact)
+    uint64_t* empty = full + ST;
+    uint64_t* pready = empty + ST;                 // P^T buffer b written
+    uint64_t* pfree = pready + NPB;                // ... and read
+
+    const int bh = blockIdx.x;
+    const int k0 = blockIdx.y * BM;                // causal: the most q tiles first
+    const int n_q = (t + BN - 1) / BN;
+    const int qt0 = causal ? k0 / BN : 0;          // see flash_dkv_bf16_kernel
+    const int n = n_q - qt0;
+    // an exact scale: q is read as it lands, and S^T and dK take the scale
+    const bool exact = power_of_two(qscale);
+    const float smul = exact ? qscale : 1.f;
+
+    if (threadIdx.x == 0) {
+        bar_init(own, 1);
+        for (int s = 0; s < ST; ++s) {
+            bar_init(raw + s, 1);
+            bar_init(full + s, 128);
+            bar_init(empty + s, PAIR_THREADS);
+        }
+        for (int b = 0; b < NPB; ++b) {
+            bar_init(pready + b, 128);
+            bar_init(pfree + b, 128);
+        }
+        bar_init_fence();
+    }
+    __syncthreads();
+
+    const int wg = __shfl_sync(0xffffffff, threadIdx.x / 128, 0);
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32, g = lane / 4, tg = lane % 4;
+    const int krow = k0 + 16 * (tid / 32) + g;     // this thread's key rows: krow, krow + 8
+    const bool loader = wg == 1 && tid == 0;
+    auto load = [&](int i) {
+        const int s = i % ST, q0 = (qt0 + i) * BN;
+        uint8_t* st = smem + C::RING + s * 2 * C::TILE;
+        bar_arrive_tx(raw + s, 2 * C::TILE);
+        load_tile<BN, D>(st, &tq, q0, bh, raw + s);
+        load_tile<BN, D>(st + C::TILE, &tdo, q0, bh, raw + s);
+    };
+    if (loader) {
+        bar_arrive_tx(own, 2 * C::OWN);
+        load_tile<BM, D>(ks, &tk, k0, bh, own);
+        load_tile<BM, D>(vs, &tv, k0, bh, own);
+        for (int i = 0; i < min(n, ST); ++i) load(i);
+    }
+
+    bar_wait(own, 0);
+    float acc[D / 8][4];                           // dV (consumer 0), dK (consumer 1)
+    zero(acc);
+    float x[8][4];
+    uint32_t a[4][PARTS][4];
+    if (wg == 0) {                                 // S^T, P^T and dV
+        for (int i = 0; i < n; ++i) {
+            const int s = i % ST, q0 = (qt0 + i) * BN;
+            const uint8_t* qst = smem + C::RING + s * 2 * C::TILE;
+            // the causal diagonal tile, or the ragged last one
+            const bool edge = (causal && k0 + BM - 1 > q0) || q0 + BN > t;
+            float ls[8][2];
+            tile_rows(ls, lse, bh, t, q0, tg);
+            bar_wait((exact ? raw : full) + s, (i / ST) & 1);
+            wg_fence();
+            product_ss<D>(x, ks, qst);
+            wg_commit();
+            wg_wait<0>();
+            keep(x);
+            if (i >= NPB) bar_wait(pfree + i % NPB, ((i / NPB) + 1) & 1);
+            p_transposed_pair(x, ls, pbuf + (i % NPB) * (BN * BN / 4), krow, q0, t, edge, causal,
+                              smul, tg, tid);
+            bar_arrive(pready + i % NPB);
+            a_parts(a, x);                         // P^T
+            wg_fence();
+            product3<C>(acc, a, qst + C::TILE);    // dV += P^T dO
+            wg_commit();
+            wg_wait<0>();
+            keep(acc);
+            keep(a);
+            bar_arrive(empty + s);
+        }
+    } else {                                       // dP^T, dS^T and dK; thread 0 loads
+        // not exact: this warpgroup rounds each q tile to bf16(q * scale),
+        // tile i + 1 while tile i's dP^T is on the tensor core
+        auto scale_q = [&](int i) {
+            const int s = i % ST;
+            bar_wait(raw + s, (i / ST) & 1);
+            scale_tile<C>(smem + C::RING + s * 2 * C::TILE, qscale, tid);
+            fence_proxy_async();
+            bar_arrive(full + s);
+        };
+        if (!exact) scale_q(0);
+        for (int i = 0; i < n; ++i) {
+            const int s = i % ST, q0 = (qt0 + i) * BN;
+            const uint8_t* qst = smem + C::RING + s * 2 * C::TILE;
+            const float4* pb = pbuf + (i % NPB) * (BN * BN / 4);
+            float dl[8][2];
+            tile_rows(dl, delta, bh, t, q0, tg);
+            bar_wait(raw + s, (i / ST) & 1);
+            wg_fence();
+            product_ss<D>(x, vs, qst + C::TILE);
+            wg_commit();
+            if (!exact && i + 1 < n) scale_q(i + 1);
+            wg_wait<0>();
+            keep(x);
+            bar_wait(pready + i % NPB, (i / NPB) & 1);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {            // dS^T = P^T (dP^T - delta)
+                const float4 p = pb[j * 128 + tid];
+                x[j][0] = p.x * (x[j][0] - dl[j][0]);
+                x[j][1] = p.y * (x[j][1] - dl[j][1]);
+                x[j][2] = p.z * (x[j][2] - dl[j][0]);
+                x[j][3] = p.w * (x[j][3] - dl[j][1]);
+            }
+            bar_arrive(pfree + i % NPB);
+            a_parts(a, x);                         // dS^T
+            if (!exact) bar_wait(full + s, (i / ST) & 1);   // every thread's scaling of q
+            wg_fence();
+            product3<C>(acc, a, qst);              // dK += dS^T q (q * scale where not exact)
+            wg_commit();
+            wg_wait<0>();
+            keep(acc);
+            keep(a);
+            bar_arrive(empty + s);
+            if (loader && i + ST < n) {
+                bar_wait(empty + s, (i / ST) & 1);
+                load(i + ST);
+            }
+        }
+    }
+    store_rows<D>((wg == 0 ? dv : dk) + (size_t)bh * t * D, acc, krow, t, wg == 0 ? 1.f : smul,
+                  tg);
 }
 
 // the tensor maps of q, k, v and dO (wgmma_tile.cuh's make_map); false
@@ -612,25 +815,69 @@ template <int D>
 cudaError_t launch_dkv(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
                        const float* lse, const float* delta, bf16* dk, bf16* dv, int bh, int t,
                        float qscale, int causal, cudaStream_t stream) {
-    using C = DkvCfg<D>;
     CUtensorMap m[4];
     if (!make_maps(m, q, k, v, dout, bh, t, D)) return cudaErrorInvalidValue;
-    if constexpr (C::NC == 2) {
+    if constexpr (D > 128) {
+        using P = DkvPair<D>;
+        cudaError_t err = cudaFuncSetAttribute(
+            flash_dkv_bf16_pair_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
+        if (err != cudaSuccess) return err;
+        dim3 grid(bh, (t + P::BM - 1) / P::BM);
+        flash_dkv_bf16_pair_kernel<D><<<grid, PAIR_THREADS, P::SMEM, stream>>>(
+            m[0], m[1], m[2], m[3], lse, delta, dk, dv, t, qscale, causal);
+        return cudaGetLastError();
+    } else {
+        using C = DkvCfg<D>;
         static const cudaError_t pool =
             check_pool(flash_dkv_bf16_kernel<D>, C::DKV_LOADER, C::DKV_CONSUMER);
         if (pool != cudaSuccess) return pool;
+        cudaError_t err = cudaFuncSetAttribute(
+            flash_dkv_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+        if (err != cudaSuccess) return err;
+        dim3 grid(bh, (t + C::BM - 1) / C::BM);
+        flash_dkv_bf16_kernel<D><<<grid, C::NTHREADS, C::SMEM, stream>>>(
+            m[0], m[1], m[2], m[3], lse, delta, dk, dv, t, qscale, causal);
+        return cudaGetLastError();
     }
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_dkv_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-    if (err != cudaSuccess) return err;
-    // one consumer: a dV block and a dK block for each 64 keys
-    dim3 grid(bh, ((t + C::BM - 1) / C::BM) * (C::NC == 2 ? 1 : 2));
-    flash_dkv_bf16_kernel<D><<<grid, C::NTHREADS, C::SMEM, stream>>>(
-        m[0], m[1], m[2], m[3], lse, delta, dk, dv, t, qscale, causal);
-    return cudaGetLastError();
+}
+
+// what the compiler gave a kernel: registers a thread, local memory a
+// thread (spills), dynamic shared memory and threads a block
+template <class Kernel>
+int attributes(Kernel kernel, int smem, int threads, int* out) {
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return (int)err;
+    out[0] = attr.numRegs;
+    out[1] = (int)attr.localSizeBytes;
+    out[2] = smem;
+    out[3] = threads;
+    return 0;
+}
+
+template <int D>
+int attributes_of(int dkv, int* out) {
+    if (!dkv) return attributes(flash_dq_bf16_kernel<D>, DqCfg<D>::SMEM, DqCfg<D>::NTHREADS, out);
+    if constexpr (D > 128)
+        return attributes(flash_dkv_bf16_pair_kernel<D>, DkvPair<D>::SMEM, PAIR_THREADS, out);
+    else
+        return attributes(flash_dkv_bf16_kernel<D>, DkvCfg<D>::SMEM, DkvCfg<D>::NTHREADS, out);
 }
 
 }  // namespace
+
+// The instance that a launch at head_dim d takes (dkv = 0: dQ, 1: dK/dV):
+// out[0..3] = registers a thread, local bytes a thread, dynamic shared
+// bytes, threads a block.  Launches nothing.
+extern "C" int zoo_flash_bwd_bf16_attributes(int dkv, int d, int* out) {
+    switch (d) {
+        case 64: return attributes_of<64>(dkv, out);
+        case 128: return attributes_of<128>(dkv, out);
+        case 192: return attributes_of<192>(dkv, out);
+        case 256: return attributes_of<256>(dkv, out);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
 
 extern "C" int zoo_flash_attention_dq_bf16(const __nv_bfloat16* q,
                                            const __nv_bfloat16* k,

@@ -120,6 +120,17 @@ CLUSTER_QUERIES = {
     "flash_attention_dkv_wide": ("zoo_flash_wide_bwd_max_clusters", (1,)),
 }
 
+# what the compiler gave the bf16 backward kernels, queries that launch
+# nothing and count nothing: kernel -> (C entry point, its leading int
+# arguments); the entry point then takes head_dim and an int[4] it fills
+# with the registers a thread, the local (spilled) bytes a thread, the
+# dynamic shared bytes and the threads a block of the instance a launch at
+# that head_dim takes (cudaFuncGetAttributes)
+ATTRIBUTE_QUERIES = {
+    "flash_attention_dq_bf16": ("zoo_flash_bwd_bf16_attributes", (0,)),
+    "flash_attention_dkv_bf16": ("zoo_flash_bwd_bf16_attributes", (1,)),
+}
+
 # every source, each built by one nvcc call
 SOURCES = sorted({src for src, _, _ in SIGNATURES.values()})
 
@@ -378,6 +389,24 @@ def max_active_clusters(name: str, head_dim: int) -> int:
             f"{entry_point}: cudaOccupancyMaxActiveClusters for {name} at "
             f"head_dim {head_dim} gave {n.value} (cudaError {err})")
     return n.value
+
+
+def kernel_attributes(name: str, head_dim: int) -> Dict[str, int]:
+    """Registers a thread, local bytes a thread, dynamic shared bytes and
+    threads a block of kernel ``name`` (a key of ``ATTRIBUTE_QUERIES``) at
+    ``head_dim``; raises if the query fails."""
+    entry_point, lead = ATTRIBUTE_QUERIES[name]
+    entry(name)                         # builds and loads the source
+    fn = getattr(_libs[SIGNATURES[name][0]], entry_point)
+    fn.argtypes = [_I] * (len(lead) + 1) + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    err = fn(*lead, head_dim, out)
+    if err != 0:
+        raise RuntimeError(f"{entry_point}: cudaFuncGetAttributes for {name} "
+                           f"at head_dim {head_dim} failed: cudaError {err}")
+    return dict(zip(("registers", "local_bytes", "shared_bytes", "threads"),
+                    out))
 
 
 def launch(name: str, device, *args) -> None:

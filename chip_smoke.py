@@ -2803,15 +2803,27 @@ def bf16_bwd_close(name, got, want) -> float:
     return close(name, got.float(), want.float(), atol, BF16_BWD_RTOL)
 
 
+def bf16_bwd_used(got, want) -> float:
+    """The largest share of its ``BF16_BWD_*`` tolerance an element of a
+    bf16 kernel's gradient uses (at most 1 where ``bf16_bwd_close``
+    passes)."""
+    got, want = got.float(), want.float()
+    atol = (BF16_BWD_ATOL_SHARE * float(want.abs().max()) +
+            BF16_BWD_ATOL_FLOOR)
+    return float(((got - want).abs() / (atol + BF16_BWD_RTOL * want.abs()))
+                 .max())
+
+
 def check_bf16_shape(torch, fa, shape, randn, gen, dev, errs,
-                     controls_must_fail):
+                     controls_must_fail, shares=None):
     """The three bf16 kernels against their plain versions at ``shape``,
     causal and not, two launches of each bit-identical; then, on inputs
     where key 0 leads every row, the forward's O equal to the plain
     version's but on a few elements, and both controls (S rounded to bf16
     first, an unrounded P) failing that check where
     ``controls_must_fail(causal)``.  Raises each kernel's entry of ``errs``
-    to its largest abs error."""
+    to its largest abs error, and each gradient's of ``shares`` (where
+    given, keyed dQ, dK, dV) to the largest share of its tolerance."""
     names = fa.KERNELS[torch.bfloat16]
     q, k, v, do = (randn(shape) for _ in range(4))
     for causal in (False, True):
@@ -2843,6 +2855,9 @@ def check_bf16_shape(torch, fa, shape, randn, gen, dev, errs,
         torch.cuda.synchronize()
         e_q, e_k, e_v = (bf16_bwd_close(f"bf16 {n} {tag}", g, w)
                          for n, g, w in zip(("dQ", "dK", "dV"), got, want))
+        if shares is not None:
+            for n, g, w in zip(("dQ", "dK", "dV"), got, want):
+                shares[n] = max(shares.get(n, 0.0), bf16_bwd_used(g, w))
         print(f"check bf16 flash {tag}: O max abs err {err_o:.3e}, "
               f"{used_o:.3f} of its bound (|O| max "
               f"{float(o.float().abs().max()):.3e}; rtol {BF16_O_RTOL}, "
@@ -9135,11 +9150,17 @@ def wide_heads_alone() -> None:
 
 # --------------- phase 26: the bf16 flash kernels at head_dim 192 and 256
 # where they are checked: a ragged last tile, fewer rows than a tile, one
-# row past a 128-row block at each width, one key, and bench_attention's
-# shape at each width
+# row past a 128-row block at each width, one key, a ragged T of more
+# tiles than the backward's rings have stages at each width, and
+# bench_attention's shape at each width
 WIDE_BF16_SHAPES = ((2, 4, 200, 192), (1, 2, 17, 256), (2, 3, 129, 192),
-                    (2, 3, 129, 256), (1, 2, 1, 256), (4, 8, 4096, 192),
-                    (4, 8, 4096, 256))
+                    (2, 3, 129, 256), (1, 2, 1, 256), (1, 2, 1000, 192),
+                    (1, 2, 1000, 256), (4, 8, 4096, 192), (4, 8, 4096, 256))
+# the backward at a scale other than head_dim ** -0.5: at 256 one whose
+# bf16 rounding is not a power of two (dK/dV rounds each q tile to
+# bf16(q * scale)), at 192 one that is (dK/dV reads q as it lands and
+# scales S^T and dK)
+WIDE_BF16_SCALES = (((2, 3, 129, 256), 0.1), ((2, 3, 129, 192), 0.125))
 WIDE_BF16_DIMS = (192, 256)
 # bench_attention's (B, H, T) at each width, and twice its sequence (its
 # flash-only column): both timed, the second also held to the plain
@@ -9171,10 +9192,50 @@ def wide_bf16_phase(torch, card, dev):
     # ---- 26a. each kernel against its plain version; two launches; the
     # controls must fail on causal rows of more than one key
     errs = {d: dict.fromkeys(names, 0.0) for d in WIDE_BF16_DIMS}
+    shares = {d: {} for d in WIDE_BF16_DIMS}
     for shape in WIDE_BF16_SHAPES:
         check_bf16_shape(torch, fa, shape, randn, gen, dev, errs[shape[3]],
-                         lambda causal, t=shape[2]: causal and t > 1)
+                         lambda causal, t=shape[2]: causal and t > 1,
+                         shares[shape[3]])
         torch.cuda.empty_cache()
+    for shape, scale in WIDE_BF16_SCALES:
+        q, k, v, do = (randn(shape) for _ in range(4))
+        for causal in (False, True):
+            tag = f"{shape} causal={causal} scale={scale}"
+            o, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                            scale=scale)
+            delta = fa.flash_attention_delta(o, do)
+            got = (fa.flash_attention_dq(q, k, v, do, lse, delta, causal,
+                                         scale),
+                   *fa.flash_attention_dkv(q, k, v, do, lse, delta, causal,
+                                           scale))
+            want = (fa.flash_attention_dq_ref(q, k, v, do, lse, delta,
+                                              causal, scale),
+                    *fa.flash_attention_dkv_ref(q, k, v, do, lse, delta,
+                                                causal, scale))
+            torch.cuda.synchronize()
+            e_q, e_k, e_v = (bf16_bwd_close(f"bf16 {n} {tag}", g, w)
+                             for n, g, w in zip(("dQ", "dK", "dV"), got,
+                                                want))
+            used = {n: bf16_bwd_used(g, w)
+                    for n, g, w in zip(("dQ", "dK", "dV"), got, want)}
+            for n, u in used.items():
+                shares[shape[3]][n] = max(shares[shape[3]][n], u)
+            errs[shape[3]][names[1]] = max(errs[shape[3]][names[1]], e_q)
+            errs[shape[3]][names[2]] = max(errs[shape[3]][names[2]], e_k,
+                                           e_v)
+            print(f"check bf16 backward {tag}: dQ {e_q:.3e}, dK {e_k:.3e}, "
+                  f"dV {e_v:.3e}; shares of their tolerances "
+                  + ", ".join(f"{n} {u:.3f}" for n, u in used.items()))
+        del q, k, v, do, o, lse, delta, got, want
+    for d in WIDE_BF16_DIMS:
+        print(f"26a head_dim {d}: the largest error of each gradient as a "
+              f"share of its tolerance (rtol {BF16_BWD_RTOL}, atol "
+              f"{BF16_BWD_ATOL_SHARE} x max + {BF16_BWD_ATOL_FLOOR}): "
+              + ", ".join(f"{n} {u:.3f}" for n, u in shares[d].items()))
+        for name in names[1:]:
+            print(f"26a {name} at head_dim {d}: "
+                  f"{kernels.kernel_attributes(name, d)} ({card})")
 
     # ---- 26b. the op's routing, forward and backward through autograd
     f32_names = fa.KERNELS[torch.float32]
@@ -9202,6 +9263,13 @@ def wide_bf16_phase(torch, card, dev):
                     errs[d][name] = max(errs[d][name], err)
             timed = time_bf16_kernels(torch, fa, card, q, k, v, do, lse,
                                       delta, plain=full)
+            pair = timed[names[1]]["ms"] + timed[names[2]]["ms"]
+            print(f"26c {bht + (d,)} causal: dQ + dK/dV {pair:.5f} ms, "
+                  f"{pair / timed[names[1]]['library_ms']:.3f}x the "
+                  f"library's backward "
+                  f"({timed[names[1]]['library_ms']:.5f} ms), "
+                  f"{(timed[names[1]]['bound_ms'] + timed[names[2]]['bound_ms']) / pair:.3f}"
+                  f" of the pair's bound ({card})")
             if full:
                 times[d] = timed
             del q, k, v, do, o, lse, delta

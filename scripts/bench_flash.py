@@ -57,23 +57,28 @@ and bf16 forward in one file, an earlier ``flash_attention_bwd.cu`` both
 backwards; put that commit's headers beside it, which it finds first),
 prints their registers, spills and SASS mix (``HGMMA`` beside ``HMMA``;
 the current kernels must be ``HGMMA`` alone at head_dim 64, 128, 192 and
-256, the current forward free of spills and of ptxas's warnings that it
-serialized the ``wgmma``s), checks each against the plain versions with
+256, free of spills and of ptxas's warnings that it serialized the
+``wgmma``s), checks each against the plain versions with
 ``chip_smoke.py``'s tolerances at its phase-14 and phase-26 shapes and,
 for the forwards, at its ragged ``BF16_FWD_SHAPES`` and on inputs where
 key 0 leads every row (two launches bit-identical), reports whether the
 current bf16 kernels' outputs are bit-identical to each compared source's
-where both take the width (a compared source holds head_dim 64 and 128
-only), and the current float32 forward and backward to each compared
-source's at the float32 shapes above, and times in turns at
-(4, 8, 4096, D) and (4, 8, 8192, D), causal, for D = 128, 192 and 256
-(192 and 256: the current build alone): the forward beside bf16
-``scaled_dot_product_attention``'s forward, and dQ, dK/dV and the pair
-beside its backward, each beside ``flash_bf16_bound``.
+where both take the width (a compared source takes the head_dims its entry
+points have cases for; earlier sources 64 and 128 only), and the current
+float32 forward and backward to each compared source's at the float32
+shapes above, and times in turns at (4, 8, 4096, D) and (4, 8, 8192, D),
+causal, for D = 128, 192 and 256 (each compared source at the widths it
+takes): the forward beside bf16 ``scaled_dot_product_attention``'s
+forward, and dQ, dK/dV and the pair beside its backward, each beside
+``flash_bf16_bound``.
 With ``--diagnose`` it adds variants of the current bf16 sources, timed in
-the same turns: of the backward ``nc1`` (one consumer warpgroup at every
-head_dim, the design of 192 and 256, in place of two at 64 and 128; held
-bit-identical to the current build), and, unchecked, ``one_part`` (the
+the same turns: of the backward, held bit-identical to the current build,
+``nc1`` (dQ with one consumer warpgroup at every head_dim, the design of
+192 and 256, in place of two at 64 and 128), ``dkv_one_pbuf`` (dK/dV at
+192 and 256 with one P^T buffer in place of two), ``dkv_st2`` (two q/dO
+stages at 192 in place of three) and ``scale_q`` (dK/dV at 256 rounding
+each q tile to bf16(q * scale) as at 192, in place of reading q as it
+lands and scaling S^T and dK), and, unchecked, ``one_part`` (the
 float32 operand of dQ, dK and dV as one bf16 part in place of three: a
 third of those products' tensor work) and ``fast_exp`` (``__expf``); of
 the forward ``no_pingpong`` (the consumers issue their products without
@@ -147,6 +152,7 @@ FWD, BWD = "flash_attention_fwd", "flash_attention_bwd"
 KINDS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dq_split_kernel",
          "flash_dkv_kernel", "flash_dkv_split_kernel", "flash_fwd_bf16_kernel",
          "flash_dq_bf16_kernel", "flash_dkv_bf16_kernel",
+         "flash_dkv_bf16_pair_kernel",
          "flash_fwd_wide_kernel", "flash_dq_wide_kernel",
          "flash_dkv_wide_kernel")
 BF16_FWD = "flash_attention_fwd_bf16"
@@ -274,10 +280,18 @@ WIDE_VARIANTS = {FWD: {
 }}
 # --diagnose --bf16: variant name -> [(text in the bf16 source, replacement)]
 DIAGNOSE_BF16 = {
-    # one consumer warpgroup (256 threads, two stages, no setmaxnreg) at
-    # head_dim 64 and 128 too, as at 192 and 256
-    "nc1": [("static constexpr int NC = D_ <= 128 ? 2 : 1;",
-             "static constexpr int NC = 1;")],
+    # dQ: one consumer warpgroup (256 threads, two stages, no setmaxnreg)
+    # at head_dim 64 and 128 too, as at 192 and 256
+    "nc1": [("static constexpr int NC = DQ && D_ > 128 ? 1 : 2;",
+             "static constexpr int NC = DQ ? 1 : 2;")],
+    # dK/dV at 192 and 256: one P^T buffer; two q/dO stages at 192
+    "dkv_one_pbuf": [("static constexpr int NPB = 2;", "static constexpr int NPB = 1;")],
+    "dkv_st2": [("static constexpr int ST = D_ == 256 ? 2 : 3;",
+                 "static constexpr int ST = 2;")],
+    # dK/dV at 256 rounds each q tile to bf16(q * scale) as at 192, where
+    # the exact scale lets it read q as it lands
+    "scale_q": [("return (__float_as_uint(x) & 0x7FFFFF) == 0 && e != 0 && e != 0xFF;",
+                 "return false;")],
     "one_part": [("constexpr int PARTS = 3;", "constexpr int PARTS = 1;")],
     "fast_exp": [("expf(", "__expf(")],
 }
@@ -295,7 +309,7 @@ DIAGNOSE_BF16_FWD = {
 }
 
 # --diagnose --bf16: the variants held bit-identical to the current build
-BF16_SAME = {"diag_nc1"}
+BF16_SAME = {"diag_nc1", "diag_dkv_one_pbuf", "diag_dkv_st2", "diag_scale_q"}
 # --diagnose: variant name -> (text in the current sources, replacement);
 # each must be found in at least one of them
 DIAGNOSE = {
@@ -922,12 +936,11 @@ def bf16_flash(args, torch, kernels, fa, card) -> None:
         if tag == "current":
             if len(mix) != len(names[kind]) * 4:      # head_dim 64 to 256
                 bad_builds.append(f"{kind}: kernels {sorted(mix)}")
-            if kind == "fwd":
-                bad_builds += [ln for ln in ptxas if "Potential" in ln or
-                               re.search(r"[1-9]\d* bytes spill", ln)]
+            bad_builds += [ln for ln in ptxas if "Potential" in ln or
+                           re.search(r"[1-9]\d* bytes spill", ln)]
     if bad_builds:
-        sys.exit("bench_flash: a current bf16 kernel is not wgmma alone, or "
-                 f"the forward spills or serializes: {bad_builds}")
+        sys.exit("bench_flash: a current bf16 kernel is not wgmma alone, "
+                 f"spills or serializes: {bad_builds}")
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(12)
@@ -989,10 +1002,20 @@ def bf16_flash(args, torch, kernels, fa, card) -> None:
         return [torch.randn(shape, generator=gen, device=dev)
                 .to(torch.bfloat16) for _ in range(n)]
 
+    # the head_dims each compared source builds (its entry points' cases;
+    # sources before the 192 and 256 instances hold 64 and 128)
+    widths = {}
+    for versions in srcs.values():
+        for tag, src in versions.items():
+            with open(src) as f:
+                text = f.read()
+            widths[tag] = {d for d in (64, 128, 192, 256)
+                           if f"case {d}:" in text}
+
     def takes(tag, d):
-        """Compared sources (earlier commits) hold head_dim 64 and 128 only;
-        the current build and its variants every width."""
-        return tag == "current" or tag in diagnostic or d <= 128
+        """The current build and its variants take every width, a compared
+        source the widths it builds."""
+        return tag == "current" or tag in diagnostic or d in widths[tag]
 
     def same_as_current(kind, tag_s, outs, names_):
         """Each compared source's outputs, and each ``BF16_SAME`` variant's,

@@ -20,6 +20,7 @@ written round ``q * scale`` to bf16 in all three, and so does the port.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -360,6 +361,144 @@ def test_bf16_kernel_order_matches_pallas_interpret(reference,
     tipped, used = _o_tipped(_tiled_forward(q, k, v, causal)[0].float().numpy(),
                              leading_reference[f"o{tag}"])
     assert tipped <= O_TIPPED_SHARE and used <= 1.0, (tipped, used)
+
+
+# ---- the bf16 backward kernels' order at head_dim 192 and 256, emulated
+
+WIDE_BWD_CASES = [(d, causal) for d in (192, 256) for causal in (False, True)]
+
+
+def _bf16_parts(x):
+    """x (float32) as three bf16 parts, the largest first, as
+    ``flash_tile.cuh::bf16_parts`` splits it: each part the nearest bf16
+    of what the parts before it leave (the subtraction is exact)."""
+    parts, rest = [], x.float()
+    for _ in range(3):
+        part = rest.to(torch.bfloat16).float()
+        parts.append(part)
+        rest = rest - part
+    return parts
+
+
+def _product3(w, x):
+    """w . x with w (float32) as its three bf16 parts, the smallest part's
+    product added first."""
+    acc = torch.zeros(w.shape[:-1] + x.shape[-1:])
+    for part in reversed(_bf16_parts(w)):
+        acc = acc + torch.matmul(part, x)
+    return acc
+
+
+def _tiled_backward(q, k, v, do, lse, delta, causal, block=BLOCK):
+    """The bf16 dQ and dK/dV kernels' order at head_dim 192 and 256 in
+    PyTorch.  ``q * scale`` rounded as the kernels take it (where the
+    rounded scale is a power of two, as at 256, q is read unscaled and the
+    scale multiplies S and dK instead: the same values).  Per 64-key tile
+    of a query block (dQ) and per 64-query tile of a key block (dK/dV):
+    S (S^T) and dP (dP^T) in float32 from bf16 values, P = exp(S - lse)
+    with causal cells at -1e30, dS = P (dP - delta), and dQ = dS K in two
+    column slices ([0, 128) and the rest, the kernel's two wgmmas on the
+    same operands), dV = P^T dO and dK = dS^T qs, each from the float32
+    operand's three bf16 parts, summed tile by tile.  Returns (dq, dk, dv)
+    in q's dtype."""
+    b, h, t, d = q.shape
+    scale = d ** -0.5
+    qscale = tfa.q_scale(scale, q.dtype)
+    exact = math.frexp(qscale)[0] == 0.5
+    qs = q.float() if exact else tfa._scaled_q(q, scale).float()
+    smul = qscale if exact else 1.0
+    kf, vf, dof = k.float(), v.float(), do.float()
+    lse4, delta4 = lse.reshape(b, h, t, 1), delta.reshape(b, h, t, 1)
+    pos = torch.arange(t)
+
+    def p_and_ds(q0, q1, k0, k1):
+        """P and dS of queries [q0, q1) against keys [k0, k1)."""
+        s = torch.matmul(qs[:, :, q0:q1], kf[:, :, k0:k1].transpose(-1, -2))
+        s = s * smul
+        if causal:
+            keep = pos[k0:k1].reshape(1, -1) <= pos[q0:q1].reshape(-1, 1)
+            s = torch.where(keep, s, s.new_tensor(-1e30))
+        p = torch.exp(s - lse4[:, :, q0:q1])
+        dp = torch.matmul(dof[:, :, q0:q1], vf[:, :, k0:k1].transpose(-1, -2))
+        return p, p * (dp - delta4[:, :, q0:q1])
+
+    slices = ((0, 128), (128, d))
+    dq, dk, dv = (torch.zeros(b, h, t, d) for _ in range(3))
+    for q0 in range(0, t, block):
+        q1 = min(q0 + block, t)
+        for k0 in range(0, q1 if causal else t, block):
+            k1 = min(k0 + block, t)
+            _, ds = p_and_ds(q0, q1, k0, k1)
+            for c0, c1 in slices:
+                dq[:, :, q0:q1, c0:c1] += _product3(ds, kf[:, :, k0:k1, c0:c1])
+    for k0 in range(0, t, block):
+        k1 = min(k0 + block, t)
+        for q0 in range(k0 if causal else 0, t, block):
+            q1 = min(q0 + block, t)
+            p, ds = p_and_ds(q0, q1, k0, k1)
+            dv[:, :, k0:k1] += _product3(p.transpose(-1, -2), dof[:, :, q0:q1])
+            dk[:, :, k0:k1] += _product3(ds.transpose(-1, -2), qs[:, :, q0:q1])
+    return ((dq * scale).to(q.dtype), (dk * smul).to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _bwd_inputs(d, t, causal, seed):
+    """bf16 q, k, v, dO of (1, 2, t, d), and the plain forward's LSE and
+    delta."""
+    rs = np.random.RandomState(seed)
+    q, k, v, do = (_bf16(x) for x in _as_bf16_values(
+        [rs.randn(1, 2, t, d) for _ in range(4)]))
+    o, lse = tfa.flash_attention_ref(q, k, v, causal=causal)
+    return q, k, v, do, lse, tfa.flash_attention_delta(o, do)
+
+
+@pytest.mark.parametrize("t", [SHAPE_T, 200, 129])
+@pytest.mark.parametrize("d,causal", WIDE_BWD_CASES)
+def test_bf16_backward_order_matches_the_plain_version(d, causal, t):
+    """The backward kernels' order at 192 and 256 against the plain
+    versions within the bounds that hold the kernels to them on the card
+    (chip_smoke.py's BF16_BWD_*), at a whole number of tiles and at ragged
+    T."""
+    from chip_smoke import (BF16_BWD_ATOL_FLOOR, BF16_BWD_ATOL_SHARE,
+                            BF16_BWD_RTOL)
+    q, k, v, do, lse, delta = _bwd_inputs(d, t, causal, seed=5)
+    got = _tiled_backward(q, k, v, do, lse, delta, causal)
+    want = (tfa.flash_attention_dq_ref(q, k, v, do, lse, delta, causal),
+            *tfa.flash_attention_dkv_ref(q, k, v, do, lse, delta, causal))
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16
+        g, w = g.float(), w.float()
+        atol = BF16_BWD_ATOL_SHARE * float(w.abs().max()) + BF16_BWD_ATOL_FLOOR
+        excess = float(((g - w).abs() - BF16_BWD_RTOL * w.abs()).max())
+        assert excess <= atol, (name, excess, atol)
+
+
+@pytest.mark.parametrize("d,causal", WIDE_BWD_CASES)
+def test_bf16_backward_order_matches_pallas_interpret(reference, d, causal):
+    """The backward kernels' order at 192 and 256 against jax.vjp through
+    the Pallas kernels, from the reference's own O, within the bound that
+    holds the plain version to them."""
+    q, k, v, do = (_bf16(x) for x in _inputs(d))
+    tag = f"{d}{int(causal)}"
+    _, lse = tfa.flash_attention_ref(q, k, v, causal=causal)
+    delta = tfa.flash_attention_delta(_bf16(reference[f"o{tag}"]), do)
+    got = _tiled_backward(q, k, v, do, lse, delta, causal)
+    for name, g in zip(("dq", "dk", "dv"), got):
+        err = _rel_l2(g.float().numpy(), reference[f"{name}{tag}"])
+        assert err <= GRAD_RL2, (name, err)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bf16_parts_rebuild_each_value(seed):
+    """Three bf16 parts rebuild each float32 value to within 2^-24 of its
+    magnitude, across signs and magnitudes from 1e-20 to 1e20."""
+    rs = np.random.RandomState(seed)
+    x = (rs.randn(4096) * 10.0 ** rs.uniform(-20, 20, 4096)).astype(np.float32)
+    parts = _bf16_parts(torch.from_numpy(x))
+    assert all(p.to(torch.bfloat16).float().equal(p) for p in parts)
+    rebuilt = (parts[0].double() + parts[1].double() + parts[2].double()).numpy()
+    assert np.all(np.abs(rebuilt - x.astype(np.float64))
+                  <= 2.0 ** -24 * np.abs(x.astype(np.float64)))
 
 
 # ---- float32: bit-identical to the formulas before the bf16 repair

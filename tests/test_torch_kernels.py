@@ -329,6 +329,21 @@ def test_signature_matches_the_c_entry_point(name):
         assert argtype is want, (entry_point, decl, argtype)
 
 
+@pytest.mark.parametrize("name", sorted(kernels.ATTRIBUTE_QUERIES))
+def test_attribute_query_matches_the_c_entry_point(name):
+    """The bf16 backward's attribute query is defined in the kernel's own
+    source with its leading ints, head_dim and an int pointer, as
+    ``kernel_attributes`` passes them."""
+    entry_point, lead = kernels.ATTRIBUTE_QUERIES[name]
+    source = kernels.SIGNATURES[name][0]
+    with open(kernels.source_path(source)) as f:
+        params = _c_parameters(f.read(), entry_point)
+    assert params is not None, f"{entry_point} is not defined in {source}.cu"
+    assert len(params) == len(lead) + 2, params
+    assert all(re.match(r"int\s+\w+$", p) for p in params[:-1]), params
+    assert re.match(r"int\s*\*\s*\w+$", params[-1]), params
+
+
 @pytest.mark.parametrize("name", sorted(kernels.CLUSTER_QUERIES))
 def test_cluster_query_matches_the_c_entry_point(name):
     """Each wide kernel's occupancy query is defined in the kernel's own

@@ -423,6 +423,35 @@ def test_flash_bf16_backward_kernels_match_plain_and_relaunch(dev, d, t,
         assert torch.equal(got, again)
 
 
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d,scale", [(256, 0.1), (192, 0.125), (128, 0.1)])
+def test_flash_bf16_backward_kernels_at_another_scale(dev, d, scale, causal):
+    """dQ and dK/dV at a scale other than head_dim ** -0.5: at 256 one whose
+    bf16 rounding is not a power of two (dK/dV then rounds each q tile to
+    bf16(q * scale)), at 192 one that is (it then reads q as it lands)."""
+    q, k, v, do = (_bf16(dev, 2, 3, 200, d, seed=s) for s in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+    delta = fa.flash_attention_delta(o, do)
+    got = (fa.flash_attention_dq(q, k, v, do, lse, delta, causal, scale),
+           *fa.flash_attention_dkv(q, k, v, do, lse, delta, causal, scale))
+    want = (fa.flash_attention_dq_ref(q, k, v, do, lse, delta, causal, scale),
+            *fa.flash_attention_dkv_ref(q, k, v, do, lse, delta, causal,
+                                        scale))
+    for g, w in zip(got, want):
+        _close_bf16_grad(g, w)
+
+
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
+def test_flash_bf16_backward_attributes(dev, d):
+    """What the compiler gave each bf16 backward instance: no local memory
+    (no spill), and the block and shared memory the launch asks for."""
+    for name in fa.KERNELS[torch.bfloat16][1:]:
+        attrs = kernels.kernel_attributes(name, d)
+        assert attrs["local_bytes"] == 0, (name, d, attrs)
+        assert attrs["threads"] in (256, 384), (name, d, attrs)
+        assert 0 < attrs["shared_bytes"] <= 232448, (name, d, attrs)
+
+
 @pytest.mark.parametrize("t,d,causal", [(512, 64, False), (200, 64, True),
                                         (257, 128, True), (257, 192, True),
                                         (200, 256, False), (512, 256, True)])
